@@ -1,0 +1,161 @@
+"""The port's serving workload: ledger protocol, env contract, isolation.
+
+* ``run_serving`` on ``tiny`` (``device="cpu"``) lands the ledger row
+  COMPLETED with heartbeats and returns the JAX package's summary keys;
+* ``python -m tpu_nexus_torch.workload`` runs in a subprocess with ``jax``
+  and ``tpu_nexus`` blocked from import, against a sqlite ledger;
+* ``NEXUS_DEVICE`` defaults to ``cuda`` and raises without a card — the
+  workload never carries on on the CPU unasked;
+* no file of the port (nor ``chip_smoke.py``) imports ``jax`` or
+  ``tpu_nexus``.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tpu_nexus.checkpoint.store import InMemoryCheckpointStore as JaxInMemoryStore
+from tpu_nexus.parallel.distributed import ProcessContext as JaxProcessContext
+from tpu_nexus.workload.serve import ServeConfig as JaxServeConfig
+from tpu_nexus.workload.serve import run_serving as jax_run_serving
+from tpu_nexus_torch.checkpoint.models import LifecycleStage
+from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore, SqliteCheckpointStore
+from tpu_nexus_torch.parallel.distributed import ProcessContext
+from tpu_nexus_torch.workload import __main__ as entry
+from tpu_nexus_torch.workload.serve import ENGINE_ONLY_ENV, ServeConfig, run_serving
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parent.parent
+SMALL = dict(batch_size=2, prompt_len=8, gen_tokens=4, rounds=3, heartbeat_every=1)
+
+
+def test_run_serving_lands_completed_with_the_reference_summary():
+    store = InMemoryCheckpointStore()
+    ctx = ProcessContext(run_id="r1", algorithm="serve", process_id=0, num_processes=1, coordinator=None)
+    summary = run_serving(ServeConfig(device="cpu", **SMALL), store=store, ctx=ctx)
+    row = store.read_checkpoint("serve", "r1")
+    assert row.lifecycle_stage == LifecycleStage.COMPLETED
+    assert row.per_chip_steps == {"host0/chip0": 3}
+    assert summary["last_tokens_shape"] == (2, 4)
+    assert summary["rounds"] == 3 and summary["decoded_tokens_per_second"] > 0
+    jstore = JaxInMemoryStore()
+    jctx = JaxProcessContext(run_id="r1", algorithm="serve", process_id=0, num_processes=1, coordinator=None)
+    ref = jax_run_serving(JaxServeConfig(**dict(SMALL, rounds=1)), store=jstore, ctx=jctx)
+    assert set(ref) <= set(summary)
+
+
+def _serve_env(tmp_path, **extra):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("NEXUS")}
+    env.update(
+        NEXUS_MODE="serve", NEXUS_DEVICE="cpu", NEXUS__CQL_STORE_TYPE="sqlite",
+        NEXUS__SQLITE_STORE_PATH=str(tmp_path / "ledger.db"), NEXUS_RUN_ID="sub",
+        NEXUS_ALGORITHM="serve", NEXUS_BATCH="2", NEXUS_PROMPT_LEN="8",
+        NEXUS_GEN_TOKENS="4", NEXUS_STEPS="2", PYTHONPATH=str(ROOT),
+    )
+    env.update(extra)
+    return env
+
+
+_BLOCKED_ENTRY = (
+    "import runpy, sys; sys.modules['jax'] = None; sys.modules['tpu_nexus'] = None; "
+    "sys.argv = ['tpu_nexus_torch.workload']; "
+    "runpy.run_module('tpu_nexus_torch.workload', run_name='__main__', alter_sys=True)"
+)
+
+
+def test_entrypoint_serves_with_jax_and_the_reference_blocked(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_ENTRY], env=_serve_env(tmp_path), cwd=tmp_path,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    store = SqliteCheckpointStore(str(tmp_path / "ledger.db"))
+    try:
+        row = store.read_checkpoint("serve", "sub")
+    finally:
+        store.close()
+    assert row.lifecycle_stage == LifecycleStage.COMPLETED
+    assert row.per_chip_steps == {"host0/chip0": 2}
+
+
+@pytest.mark.parametrize("mode", ["train", "serve-engine", "bogus"])
+def test_entrypoint_refuses_unported_modes(tmp_path, monkeypatch, mode):
+    for k, v in _serve_env(tmp_path, NEXUS_MODE=mode).items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit) as exc:
+        entry.main()
+    assert exc.value.code not in (0, None)
+    if mode != "bogus":
+        assert "ROADMAP.md" in str(exc.value.code)
+
+
+def test_default_device_is_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    cfg = ServeConfig.from_env({"NEXUS_MODEL_PRESET": "tiny"})
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="NEXUS_DEVICE"):
+        run_serving(dataclasses.replace(cfg, **SMALL), store=InMemoryCheckpointStore())
+
+
+@pytest.mark.parametrize(
+    "key,value,item",
+    [
+        ("NEXUS_CHECKPOINT_DIR", "/ckpt", "tensor checkpoints"),
+        ("NEXUS_QUANTIZE", "int8", "weight quantization"),
+        ("NEXUS_QUANT_GROUP", "32", "weight quantization"),
+        ("NEXUS_QUANTIZE_KV", "int8", "serve-engine"),
+        ("NEXUS_FAULT_MODE", "step-ici", "serve-engine"),
+        ("NEXUS_PAGE_SIZE", "16", "serve-engine"),
+        ("NEXUS_SPEC_K", "2", "serve-engine"),
+        ("NEXUS_OVERLAP", "1", "serve-engine"),
+        ("NEXUS_SERVE_MESH", "tp=2", "serve-engine"),
+    ],
+)
+def test_unported_knobs_raise_at_parse(key, value, item):
+    with pytest.raises(NotImplementedError, match=item):
+        ServeConfig.from_env({key: value})
+
+
+def test_engine_knobs_at_their_defaults_parse():
+    env = {k: str(int(d) if isinstance(d, bool) else d) for k, (_, d) in ENGINE_ONLY_ENV.items()}
+    env["NEXUS_OVERLAP"] = "0"
+    cfg = ServeConfig.from_env(dict(env, NEXUS_DECODE_KERNEL="plain", NEXUS_DEVICE="cpu"))
+    assert cfg.decode_kernel == "plain" and cfg.device == "cpu"
+    with pytest.raises(ValueError, match="decode_kernel"):
+        ServeConfig.from_env({"NEXUS_DECODE_KERNEL": "pallas"})
+
+
+def test_store_from_env():
+    assert isinstance(entry.store_from_env({}), InMemoryCheckpointStore)
+    for kind in ("scylla", "astra"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            entry.store_from_env({"NEXUS__CQL_STORE_TYPE": kind})
+    with pytest.raises(ValueError):
+        entry.store_from_env({"NEXUS__CQL_STORE_TYPE": "redis"})
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_the_port_imports_neither_jax_nor_the_reference():
+    files = sorted((ROOT / "tpu_nexus_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [
+        (str(f.relative_to(ROOT)), mod)
+        for f in files
+        for mod in _imports(f)
+        if mod.split(".")[0] in ("jax", "jaxlib", "tpu_nexus")
+    ]
+    assert bad == []

@@ -1,0 +1,73 @@
+"""Carry Llama weights between the JAX package's tree and the port, bit-exact.
+
+The JAX package's parameter tree (``tpu_nexus/models/llama.py::
+llama_init``) arrives here as nested dicts of numpy arrays with the same
+keys and layouts — stacked ``[L, ...]`` per-layer leaves included — so the
+conversion is a leaf-for-leaf copy.  bf16 leaves come out of jax as
+``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` rejects: they
+travel as an int16 view of the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from tpu_nexus_torch.models.llama import LlamaConfig, LlamaParams, _layer_shapes
+
+
+def _to_torch(a: Any, device: Any) -> torch.Tensor:
+    # a private, writable, C-ordered copy: jax hands out read-only buffers
+    a = np.array(a, order="C", copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16 dtype (no JAX involved)
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig, device: Any = "cuda") -> LlamaParams:
+    """The JAX package's Llama tree (numpy leaves) as the port's module
+    state on ``device``; shapes are checked against ``cfg``."""
+    shapes = _layer_shapes(cfg)
+    missing = set(shapes) ^ set(tree["layers"])
+    if missing:
+        raise ValueError(f"layer keys differ from the config's: {sorted(missing)}")
+    out = {
+        "embed": {"tokens": _to_torch(tree["embed"]["tokens"], device)},
+        "layers": {k: _to_torch(tree["layers"][k], device) for k in shapes},
+        "out_norm": _to_torch(tree["out_norm"], device),
+    }
+    if "lm_head" in tree:
+        out["lm_head"] = _to_torch(tree["lm_head"], device)
+    if cfg.tied_embeddings == ("lm_head" in out):
+        raise ValueError(
+            f"tied_embeddings={cfg.tied_embeddings} but the tree "
+            f"{'has' if 'lm_head' in out else 'lacks'} an lm_head"
+        )
+    for k, shape in shapes.items():
+        if tuple(out["layers"][k].shape) != shape:
+            raise ValueError(f"layers/{k}: shape {tuple(out['layers'][k].shape)} != {shape}")
+    return LlamaParams(out)
+
+
+def params_to_numpy(params: LlamaParams) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: nested dicts of numpy
+    arrays in the JAX package's keys and layouts."""
+    tree: Dict[str, Any] = {
+        "embed": {"tokens": _to_numpy(params["embed"]["tokens"])},
+        "layers": {k: _to_numpy(v) for k, v in params["layers"].items()},
+        "out_norm": _to_numpy(params["out_norm"]),
+    }
+    if "lm_head" in params:
+        tree["lm_head"] = _to_numpy(params["lm_head"])
+    return tree

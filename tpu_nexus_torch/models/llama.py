@@ -1,0 +1,289 @@
+"""Llama-3 family in PyTorch: the port of ``tpu_nexus/models/llama.py``.
+
+* :class:`LlamaParams` is an ``nn.Module`` that holds the parameters in
+  the JAX package's layout — per-layer weights stacked on a leading
+  ``[n_layers, ...]`` axis, e.g. ``wq [L, E, Hq, D]`` — and reads like the
+  JAX parameter tree (``params["layers"]["wq"]``), so the blocks below and
+  the converter (``models/convert.py``) share one set of key paths.
+* The blocks are plain functions on tensors.  Weights are cast to the
+  compute dtype at the use site (``weight_einsum``), as in the reference.
+* Random init draws from an explicit ``torch.Generator``; it gives other
+  numbers than ``jax.random`` for the same seed, so tests carry weights
+  across with ``models/convert.py``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from tpu_nexus_torch.ops.attention import attention
+from tpu_nexus_torch.ops.quant_matmul import weight_einsum
+from tpu_nexus_torch.ops.rmsnorm import rms_norm
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    head_dim: int = 128
+    intermediate: int = 14336
+    rope_theta: float = 500_000.0
+    norm_eps: float = 1e-5
+    max_seq_len: int = 8192
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    #: training-side knobs, kept so the presets read like the reference's;
+    #: the serving path does not use them
+    remat: bool = True
+    remat_policy: str = "dots"
+    tied_embeddings: bool = False
+    scan_unroll: int = 1
+
+    # -- presets (tpu_nexus/models/llama.py:68-130) -------------------------
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def llama3_70b() -> "LlamaConfig":
+        return LlamaConfig(
+            hidden=8192, n_layers=80, n_heads=64, n_kv_heads=8, intermediate=28672
+        )
+
+    @staticmethod
+    def llama3_1b() -> "LlamaConfig":
+        # Llama-3.2-1B shape
+        return LlamaConfig(
+            hidden=2048, n_layers=16, n_heads=32, n_kv_heads=8, head_dim=64,
+            intermediate=8192, tied_embeddings=True,
+        )
+
+    @staticmethod
+    def nexus_1b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=32768, hidden=2048, n_layers=14, n_heads=16, n_kv_heads=8,
+            head_dim=128, intermediate=8192, tied_embeddings=True,
+            param_dtype=torch.bfloat16, max_seq_len=4096, remat_policy="attn_out",
+            scan_unroll=2,
+        )
+
+    @staticmethod
+    def nexus_1b_long() -> "LlamaConfig":
+        return dataclasses.replace(LlamaConfig.nexus_1b(), max_seq_len=32768)
+
+    @staticmethod
+    def tiny(vocab_size: int = 256) -> "LlamaConfig":
+        """Test/dry-run config: shapes small but structure identical."""
+        return LlamaConfig(
+            vocab_size=vocab_size, hidden=64, n_layers=2, n_heads=4, n_kv_heads=2,
+            head_dim=16, intermediate=128, max_seq_len=256, remat=False,
+        )
+
+    @staticmethod
+    def tiny_tp(vocab_size: int = 256) -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=vocab_size, hidden=64, n_layers=2, n_heads=4, n_kv_heads=4,
+            head_dim=16, intermediate=128, max_seq_len=256, remat=False,
+        )
+
+
+def _layer_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
+    """Shape of every stacked per-layer leaf, in the JAX tree's order."""
+    e, f, hq, hkv, d, l = (
+        cfg.hidden, cfg.intermediate, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers,
+    )
+    return {
+        "attn_norm": (l, e),
+        "wq": (l, e, hq, d),
+        "wk": (l, e, hkv, d),
+        "wv": (l, e, hkv, d),
+        "wo": (l, hq, d, e),
+        "mlp_norm": (l, e),
+        "w_gate": (l, e, f),
+        "w_up": (l, e, f),
+        "w_down": (l, f, e),
+    }
+
+
+class LlamaParams(nn.Module):
+    """The parameter tree of one Llama model, in the reference's layout.
+
+    ``params["embed"]["tokens"]``, ``params["layers"][name]`` (stacked
+    ``[L, ...]``), ``params["out_norm"]`` and, untied,
+    ``params["lm_head"]`` read like the JAX tree.  Parameters do not
+    require grad: this slice of the port serves."""
+
+    def __init__(self, tree: Dict[str, Any]) -> None:
+        super().__init__()
+
+        def p(t):
+            return nn.Parameter(t, requires_grad=False)
+
+        self.embed = nn.ParameterDict({"tokens": p(tree["embed"]["tokens"])})
+        self.layers = nn.ParameterDict({k: p(v) for k, v in tree["layers"].items()})
+        self.out_norm = p(tree["out_norm"])
+        self.lm_head = p(tree["lm_head"]) if "lm_head" in tree else None
+
+    def __getitem__(self, key: str):
+        if key not in self.keys():
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.keys()
+
+    def keys(self):
+        return ["embed", "layers", "out_norm"] + (["lm_head"] if self.lm_head is not None else [])
+
+
+def llama_init(
+    generator: torch.Generator, cfg: LlamaConfig, device: Any = "cuda"
+) -> LlamaParams:
+    """Random init (plain normal with fan-in scaling, as the reference),
+    drawn on ``device`` from ``generator`` (which must live on the same
+    device type)."""
+    pd = cfg.param_dtype
+    e = cfg.hidden
+
+    def normal(shape, fan_in):
+        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (x.mul_(fan_in**-0.5)).to(pd)
+
+    shapes = _layer_shapes(cfg)
+    layers = {}
+    for name, shape in shapes.items():
+        if name.endswith("norm"):
+            layers[name] = torch.ones(shape, dtype=pd, device=device)
+        else:
+            fan_in = {"wo": cfg.n_heads * cfg.head_dim, "w_down": cfg.intermediate}.get(name, e)
+            layers[name] = normal(shape, fan_in)
+    tree: Dict[str, Any] = {
+        "embed": {"tokens": normal((cfg.vocab_size, e), e)},
+        "layers": layers,
+        "out_norm": torch.ones((e,), dtype=pd, device=device),
+    }
+    if not cfg.tied_embeddings:
+        tree["lm_head"] = normal((e, cfg.vocab_size), e)
+    return LlamaParams(tree)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """cos/sin tables [B, S, 1, D/2], computed once per forward."""
+    freqs = theta ** (
+        -torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    )
+    angles = positions[..., None].float() * freqs  # [B, S, D/2]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Apply rotary embedding, x [B, S, H, D]."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def layer_params(params, li: int) -> Dict[str, torch.Tensor]:
+    """Layer ``li``'s slice of the stacked per-layer leaves (views)."""
+    return {name: w[li] for name, w in params["layers"].items()}
+
+
+def attention_block(x, layer, cfg, cos, sin, attn_impl: str = "auto", *, collect_kv: bool = False):
+    """Pre-norm GQA attention sub-block (norm → qkv → RoPE → attention →
+    output projection → residual).  ``attn_impl`` picks the attention
+    (ops/attention.py).  ``collect_kv=True`` also returns the post-RoPE K/V
+    (the prefill path of KV-cache decoding)."""
+    ct = cfg.dtype
+    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    q = weight_einsum("bse,ehd->bshd", h, layer["wq"], ct)
+    k = weight_einsum("bse,ehd->bshd", h, layer["wk"], ct)
+    v = weight_einsum("bse,ehd->bshd", h, layer["wv"], ct)
+    q = _rope(q, cos, sin)
+    k = _rope(k, cos, sin)
+    o = attention(q, k, v, causal=True, impl=attn_impl)
+    x = x + weight_einsum("bshd,hde->bse", o, layer["wo"], ct)
+    if collect_kv:
+        return x, (k, v)
+    return x
+
+
+def mlp_block(x: torch.Tensor, layer: Dict[str, Any], cfg: LlamaConfig) -> torch.Tensor:
+    """Pre-norm SwiGLU MLP sub-block with residual."""
+    ct = cfg.dtype
+    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    gate = weight_einsum("bse,ef->bsf", h, layer["w_gate"], ct)
+    up = weight_einsum("bse,ef->bsf", h, layer["w_up"], ct)
+    return x + weight_einsum("bsf,fe->bse", torch.nn.functional.silu(gate) * up, layer["w_down"], ct)
+
+
+def llama_head(params, cfg: LlamaConfig) -> torch.Tensor:
+    """The output projection ``[E, vocab]`` (tied or untied)."""
+    if cfg.tied_embeddings:
+        return params["embed"]["tokens"].to(cfg.dtype).T
+    return params["lm_head"].to(cfg.dtype)
+
+
+def llama_hidden(
+    params,
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    *,
+    attn_impl: str = "auto",
+    return_kv: bool = False,
+):
+    """Final-norm hidden states ``[B, S, E]``.  ``return_kv=True`` →
+    ``(hidden, (k, v))`` with K/V stacked per layer ``[L, B, S, Hkv, D]``."""
+    if tokens.shape[1] > cfg.max_seq_len:
+        raise ValueError(
+            f"sequence length {tokens.shape[1]} exceeds the config's "
+            f"max_seq_len {cfg.max_seq_len}"
+        )
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :].expand(tokens.shape)
+    # gather, then cast: the same values as the reference's cast-then-gather
+    # without materializing a compute-dtype copy of the whole table
+    x = params["embed"]["tokens"][tokens].to(cfg.dtype)  # [B, S, E]
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    ks, vs = [], []
+    for li in range(params["layers"]["wq"].shape[0]):
+        layer = layer_params(params, li)
+        x, (k, v) = attention_block(x, layer, cfg, cos, sin, attn_impl, collect_kv=True)
+        x = mlp_block(x, layer, cfg)
+        if return_kv:
+            ks.append(k)
+            vs.append(v)
+    hidden = rms_norm(x, params["out_norm"], cfg.norm_eps)
+    if return_kv:
+        return hidden, (torch.stack(ks), torch.stack(vs))
+    return hidden
+
+
+def llama_forward(
+    params,
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    *,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """Logits ``[B, S, vocab]`` for token ids ``[B, S]``."""
+    x = llama_hidden(params, tokens, cfg, attn_impl=attn_impl)
+    return torch.einsum("bse,ev->bsv", x, llama_head(params, cfg))
+
+
+def param_count(cfg: LlamaConfig) -> int:
+    e, f, hq, hkv, d, l, v = (
+        cfg.hidden, cfg.intermediate, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        cfg.n_layers, cfg.vocab_size,
+    )
+    per_layer = 2 * e + e * hq * d + 2 * e * hkv * d + hq * d * e + 3 * e * f
+    total = v * e + l * per_layer + e
+    if not cfg.tied_embeddings:
+        total += e * v
+    return total

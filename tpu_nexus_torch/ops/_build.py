@@ -1,0 +1,118 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled at first use, in one ``nvcc`` call,
+into a shared library with a plain C interface under ``build/`` at the
+repository root, keyed by a hash of the sources and the flags (a changed
+source builds a new library; an unchanged one is reused).  The library is
+loaded with :mod:`ctypes`: every pointer and the stream travel as
+``c_void_p``, and every entry point returns ``cudaGetLastError()`` so a
+refused launch raises here instead of vanishing.
+
+Nothing here runs at import: the CPU tests import every module of the
+package, and this machine may have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+#: C signatures of the library's entry points (all return an int status)
+SIGNATURES = {
+    "nexus_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "nexus_decode_attention": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ],
+}
+
+_lock = threading.Lock()
+_library: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
+            "kernels are built on the machine with the card"
+        )
+    return found
+
+
+def sources() -> list:
+    found = sorted(CSRC.glob("*.cu"))
+    if not found:
+        raise RuntimeError(f"no CUDA sources under {CSRC}: run from a checkout of the repository")
+    return found
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libnexus_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library for exactly these sources
+    exists; returns its path.  Raises with the compiler's output on
+    failure."""
+    target = library_path()
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, target)
+    return target
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _library
+    with _lock:
+        if _library is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.nexus_error_string.argtypes = [ctypes.c_int]
+            lib.nexus_error_string.restype = ctypes.c_char_p
+            _library = lib
+        return _library
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if status != 0:
+        msg = library().nexus_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current stream on ``device``, as the int ctypes passes."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

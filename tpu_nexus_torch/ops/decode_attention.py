@@ -1,0 +1,175 @@
+"""Decode attention: the split-KV CUDA kernel's wrapper and its plain version.
+
+Replaces ``tpu_nexus/ops/decode_attention.py::_decode_kernel`` (launched by
+``decode_attention``) in its contiguous-cache, model-dtype mode: every
+decode step runs it once per layer.  The kernel lives in
+``csrc/decode_attention.cu``; its source note says what bounds it on the
+H100 (device-memory bandwidth) and how the design answers that.
+
+Contract (the same as the JAX package's ``decode_attention`` and XLA
+fallback): ``q`` [B, q_len<=8, Hq, D]; ``k``/``v`` [B, max_len, Hkv, D];
+``kv_len`` counts the live slots, the queries occupy slots ``[kv_len -
+q_len, kv_len)``.  Slot ``s`` is live for batch row ``b`` and query row
+``j`` iff ``s < lens[b] or (width <= s <= kv_len - q_len + j)``, where
+``lens``/``width`` come from a ragged right-padded batch
+(``prompt_lengths``/``prompt_width``; 0 and 0 otherwise).
+
+* :func:`decode_attention_plain` — the masked einsum of
+  ``models/generate.py::cached_attention``'s XLA path: softmax, weights
+  rounded to q's dtype, f32 accumulation.
+* :func:`decode_attention` — the wrapper: a CPU tensor takes the plain
+  version, a CUDA tensor launches the kernel (partial pass + combine) or
+  raises.
+
+The int8-KV, paged (block-table) and per-row ``q_starts`` modes of the TPU
+kernel are not ported yet and raise (ROADMAP.md, serve-engine slice).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from tpu_nexus_torch.ops import _build
+
+_LOG2E = 1.4426950408889634
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_DECODE_Q_LEN = 8
+#: q_len * GQA group rows one CTA holds
+MAX_ROWS = 64
+#: KV slots per shared-memory tile in the kernel; splits are multiples of it
+TILE = 32
+#: CTAs the split count aims for (two waves of the H100's 132 SMs)
+TARGET_CTAS = 264
+
+
+def _unported(**modes) -> None:
+    given = [name for name, val in modes.items() if val is not None]
+    if given:
+        raise NotImplementedError(
+            f"decode attention modes {given} are not ported yet (ROADMAP.md: "
+            "serve-engine slice, kernel #4's int8-KV, paged and q_starts modes)"
+        )
+
+
+def decode_supported(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Inputs the CUDA kernel takes."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    return (
+        q.is_cuda
+        and k.device == q.device
+        and d in (64, 128)
+        and q.dtype in _DTYPES
+        and k.dtype == q.dtype
+        and 1 <= sq <= MAX_DECODE_Q_LEN
+        and hq % hkv == 0
+        and sq * (hq // hkv) <= MAX_ROWS
+    )
+
+
+def _lens_width(b, prompt_lengths, prompt_width, device):
+    if prompt_lengths is None:
+        return None, 0
+    if prompt_width is None:
+        raise ValueError("ragged decode needs prompt_width")
+    return prompt_lengths.to(device=device, dtype=torch.int32), int(prompt_width)
+
+
+def decode_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int,
+    prompt_lengths: Optional[torch.Tensor] = None, prompt_width: Optional[int] = None,
+    *, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (see module docstring)."""
+    b, sq, hq, d = q.shape
+    max_len, hkv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not divisible by kv heads {hkv}")
+    if scale is None:
+        scale = d**-0.5
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.to(q.dtype).float()) * scale
+    k_pos = torch.arange(max_len, device=q.device)
+    lens, width = _lens_width(b, prompt_lengths, prompt_width, q.device)
+    if lens is None:
+        mask = (k_pos < kv_len)[None, None, None, None, :]
+    else:
+        mask = (
+            (k_pos[None, :] < lens[:, None]) | ((k_pos[None, :] >= width) & (k_pos[None, :] < kv_len))
+        )[:, None, None, None, :]
+    if sq > 1:
+        row_last = kv_len - sq + torch.arange(sq, device=q.device)
+        mask = mask & (k_pos[None, :] <= row_last[:, None])[None, None, None, :, :]
+    scores = torch.where(mask, scores, torch.full((), -1e30, device=q.device))
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w.float(), v.to(q.dtype).float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def split_plan(b: int, hkv: int, live: int):
+    """(split_len, n_splits) over the live prefix: enough splits that
+    ``b·hkv·n_splits`` reaches :data:`TARGET_CTAS`, each a whole number of
+    kernel tiles."""
+    n_tiles = -(-live // TILE)
+    want = max(1, -(-TARGET_CTAS // (b * hkv)))
+    tiles_per_split = max(1, -(-n_tiles // want))
+    split_len = tiles_per_split * TILE
+    return split_len, -(-live // split_len)
+
+
+def decode_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int,
+    prompt_lengths: Optional[torch.Tensor] = None, prompt_width: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
+    *, block_tables: Optional[torch.Tensor] = None, q_starts: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused decode attention of a short query block against the cache.
+    CPU tensors take :func:`decode_attention_plain`; CUDA tensors launch
+    the kernel (counted in ``decode_attention.launches``) or raise.
+    ``kv_len`` is a host int: it sizes the kernel's grid."""
+    _unported(k_scale=k_scale, v_scale=v_scale, block_tables=block_tables, q_starts=q_starts)
+    kv_len = int(kv_len)
+    if q.device.type == "cpu":
+        return decode_attention_plain(
+            q, k, v, kv_len, prompt_lengths, prompt_width, scale=scale
+        )
+    b, sq, hq, d = q.shape
+    max_len, hkv = k.shape[1], k.shape[2]
+    if not decode_supported(q, k) or v.shape != k.shape or v.dtype != k.dtype or v.device != k.device:
+        raise ValueError(
+            f"decode_attention kernel unsupported inputs: q {tuple(q.shape)} "
+            f"{q.dtype} on {q.device}, k {tuple(k.shape)} {k.dtype}, v "
+            f"{tuple(v.shape)} (needs CUDA tensors, head_dim 64|128, bf16|f32, "
+            f"q_len 1-{MAX_DECODE_Q_LEN}, q_len*group <= {MAX_ROWS})"
+        )
+    if not 1 <= kv_len <= max_len or kv_len < sq:
+        raise ValueError(f"kv_len {kv_len} outside [{sq}, {max_len}]")
+    if scale is None:
+        scale = d**-0.5
+    lens, width = _lens_width(b, prompt_lengths, prompt_width, q.device)
+    if lens is not None:
+        lens = lens.contiguous()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    rows = sq * (hq // hkv)
+    split_len, n_splits = split_plan(b, hkv, kv_len)
+    part_acc = torch.empty((b, hkv, n_splits, rows, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, hkv, n_splits, rows, 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):  # the runtime launches on its current device
+        status = lib.nexus_decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr() if lens is not None else None,
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            b, sq, hq, hkv, d, max_len, width, kv_len - 1, split_len, n_splits,
+            _DTYPES[q.dtype], float(scale * _LOG2E), _build.stream_ptr(q.device),
+        )
+    _build.check(status, "nexus_decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -1,0 +1,75 @@
+"""Workload container entrypoint: ``python -m tpu_nexus_torch.workload``.
+
+Reads the launcher's NEXUS_* env contract, opens the ledger store, and runs
+the workload.  ``NEXUS_MODE=serve`` runs the lockstep serving loop on
+``NEXUS_DEVICE`` (default ``cuda``; a CUDA request without a card fails).
+``train`` and ``serve-engine`` exit non-zero until their slices land.
+
+The ledger store comes from the same keys the supervisor's app config
+reads: ``NEXUS__CQL_STORE_TYPE`` = ``memory`` (the default here) or
+``sqlite`` (with ``NEXUS__SQLITE_STORE_PATH``); ``scylla`` and ``astra``
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+from typing import Dict, Optional
+
+from tpu_nexus_torch.checkpoint.store import (
+    CheckpointStore,
+    InMemoryCheckpointStore,
+    SqliteCheckpointStore,
+)
+
+#: modes of the JAX package's entrypoint that this slice does not port,
+#: and the ROADMAP.md item that brings each
+NOT_PORTED_MODES = {
+    "train": "the training step",
+    "serve-engine": "serve-engine slice",
+}
+
+
+def store_from_env(env: Optional[Dict[str, str]] = None) -> CheckpointStore:
+    e = os.environ if env is None else env
+    kind = e.get("NEXUS__CQL_STORE_TYPE", "memory")
+    if kind == "memory":
+        return InMemoryCheckpointStore()
+    if kind == "sqlite":
+        return SqliteCheckpointStore(
+            e.get("NEXUS__SQLITE_STORE_PATH", "/var/lib/tpu-nexus/ledger.db")
+        )
+    if kind in ("scylla", "astra"):
+        raise NotImplementedError(
+            f"NEXUS__CQL_STORE_TYPE={kind!r}: the CQL ledger backends are not "
+            "ported yet (ROADMAP.md: launcher and supervisor copies)"
+        )
+    raise ValueError(f"unknown NEXUS__CQL_STORE_TYPE {kind!r}; use memory or sqlite")
+
+
+def main() -> int:
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    mode = os.environ.get("NEXUS_MODE", "train")
+    if mode in NOT_PORTED_MODES:
+        raise SystemExit(
+            f"NEXUS_MODE={mode!r} is not ported to tpu_nexus_torch yet "
+            f"(ROADMAP.md: {NOT_PORTED_MODES[mode]}); use NEXUS_MODE=serve"
+        )
+    if mode != "serve":
+        raise SystemExit(f"unknown NEXUS_MODE {mode!r}; use 'serve'")
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serving
+
+    cfg = ServeConfig.from_env()
+    store = store_from_env()
+    try:
+        result = run_serving(cfg, store=store)
+    finally:
+        store.close()
+    logging.getLogger(__name__).info("workload done: %s", result)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
