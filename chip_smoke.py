@@ -8,25 +8,43 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-1. device  — the card's name, count and power limit; TF32 is switched off
-   for matmuls and cuDNN so f32 comparisons mean f32.
-2. build   — compile the CUDA kernels from ``tpu_nexus_torch/csrc``.
-3. parity  — each kernel against its plain PyTorch version at the serving
-   path's shapes (Llama-3-8B heads: Hq 32, Hkv 8, D 128), bf16 and f32.
-4. times   — per-launch time (CUDA events), the bound, the plain version's
-   time and the ``library_ms`` yardstick (``scaled_dot_product_attention``,
-   timed here only; the port never calls it).
-5. e2e     — Llama-3-8B widths at 2 layers in f32: greedy ``generate``
+1. device       — the card's name, count and power limit; TF32 is switched
+   off for matmuls and cuDNN so f32 comparisons mean f32.
+2. build        — compile the CUDA kernels from ``tpu_nexus_torch/csrc``
+   (one ``nvcc`` per source, all started together).
+3. parity       — the forward and decode kernels against their plain
+   PyTorch versions at the training and serving paths' shapes, bf16 and
+   f32.
+4. train_parity — the backward kernels (dQ, dK/dV) against the plain
+   backward: nexus_1b's B8 S2048 Hq16 Hkv8 D128, Llama-3-8B heads at S512,
+   S200 (unaligned), D64 and non-causal, bf16 and f32; and a backward run
+   twice is bit-identical.
+5. times        — per-launch time (CUDA events) at the main paths' shapes
+   (the kernels line reports the flash forward and backward at nexus_1b's
+   training shape, decode at the serve step's), the bound, the plain
+   version's time and the ``library_ms`` yardstick
+   (``scaled_dot_product_attention`` and its backward, timed here only;
+   the port never calls them).
+6. e2e          — Llama-3-8B widths at 2 layers in f32: greedy ``generate``
    with the kernels is token-identical to ``generate`` with the plain
    versions.
-6. serve   — ``run_serving`` on ``llama3_8b`` at full width and depth with
-   bf16 params (batch 8, prompt 128, 32 new tokens, 3 rounds) into an
+7. train_e2e    — nexus_1b widths at 2 layers in f32: 3 training steps
+   through the kernels agree with 3 steps through dense attention.
+8. serve        — ``run_serving`` on ``llama3_8b`` at full width and depth
+   with bf16 params (batch 8, prompt 128, 32 new tokens, 3 rounds) into an
    in-memory ledger; the launch counters, zeroed just before, show the
-   path went through both kernels.
+   path went through the forward and decode kernels.
+9. train        — ``run_workload`` on ``nexus_1b`` at full width and depth
+   (bf16, adamw, remat attn_out, batch 8, seq 2048, 20 steps) into an
+   in-memory ledger: COMPLETED, tokens/s, MFU against the 989 TFLOP/s bf16
+   peak, peak memory, and 14 launches per step of each of the flash
+   forward, dQ and dK/dV kernels.
 
 Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
-share (``python3 chip_smoke.py --phases build,profile``).
+share (``python3 chip_smoke.py --phases build,profile``); ``train_profile``
+— the same for two warm steps of the train phase's shape
+(``--phases build,train_profile``).
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -45,9 +63,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "parity", "times", "e2e", "serve")
+PHASES = ("device", "build", "parity", "train_parity", "times", "e2e", "train_e2e", "serve", "train")
 #: phases run only when named in --phases
-OPT_IN = ("profile",)
+OPT_IN = ("profile", "train_profile")
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, f32 CUDA
 # core rate, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -100,10 +118,16 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def row_rel_err(out, ref) -> float:
-    """Worst relative L2 error over the last (head_dim) axis."""
+def row_rel_err(out, ref, floor_frac: float = 0.0) -> float:
+    """Worst relative L2 error over the last (head_dim) axis.  With
+    ``floor_frac`` each row's norm is floored at that fraction of the
+    largest row norm: a gradient row that cancels to ~0 in exact arithmetic
+    (dQ of the first causal query, where dP equals dsum) has no scale of
+    its own, and the max-abs limit judges it."""
     diff = (out.float() - ref.float()).norm(dim=-1)
-    return float((diff / ref.float().norm(dim=-1).clamp_min(1e-30)).max())
+    norms = ref.float().norm(dim=-1)
+    floor = max(floor_frac * float(norms.max()), 1e-30)
+    return float((diff / norms.clamp_min(floor)).max())
 
 
 # -- kernels: inputs, parity and bounds ---------------------------------------
@@ -159,7 +183,9 @@ def phase_parity(results):
 
     worst = {"flash_attention": 0.0, "decode_attention": 0.0}
     flash_cases = [  # (B, S, Hq, Hkv, D, dtype, causal)
-        (8, 128, 32, 8, 128, torch.bfloat16, True),
+        (8, 2048, 16, 8, 128, torch.bfloat16, True),  # the train phase's shape (GQA group 2)
+        (8, 2048, 16, 8, 128, torch.float32, True),
+        (8, 128, 32, 8, 128, torch.bfloat16, True),  # the serve phase's prefill
         (1, 2048, 32, 8, 128, torch.bfloat16, True),
         (1, 200, 32, 8, 128, torch.bfloat16, True),
         (2, 256, 32, 8, 64, torch.bfloat16, True),
@@ -184,9 +210,11 @@ def phase_parity(results):
              causal=causal, max_abs_err_out=e_out, max_abs_err_lse=e_lse, max_row_rel_err=e_row,
              tol_out=tol_out, tol_lse=tol_lse, tol_row_rel=tol_row, ok=ok)
         if not ok:
-            raise AssertionError(f"flash_attention kernel disagrees with its plain version: {b, s, d, dtype}")
-        if dtype == torch.bfloat16 and d == 128 and causal and s == 128:
-            worst["flash_attention"] = max(worst["flash_attention"], e_out)
+            raise AssertionError(f"flash_attention kernel disagrees with its plain version: {flash_cases[i]}")
+        if dtype == torch.bfloat16 and (b, s, hq) == (8, 2048, 16):
+            worst["flash_attention"] = e_out
+        del q, k, v, out, lse, ref_out, ref_lse
+        torch.cuda.empty_cache()
 
     decode_cases = []  # (B, q_len, max_len, kv_len, ragged, dtype)
     for max_len, kv_lens in ((160, (4, 100, 160)), (4096, (129, 2000, 4096))):
@@ -217,7 +245,74 @@ def phase_parity(results):
             raise AssertionError(f"decode_attention kernel disagrees with its plain version: {decode_cases[i]}")
         if dtype == torch.bfloat16 and max_len == 160 and sq == 1:
             worst["decode_attention"] = max(worst["decode_attention"], err)
-    results["max_abs_err"] = worst
+    results.setdefault("max_abs_err", {}).update(worst)
+
+
+#: bf16 backward limits: max-abs relative to the reference's largest
+#: magnitude (gradients have no fixed scale), and the worst row's relative L2
+BWD_BF16_MAXABS_REL = 2e-2
+BWD_F32_MAXABS = 1e-5
+#: row norms below this fraction of the largest are floored to it in the
+#: row-relative check (see row_rel_err)
+BWD_ROW_FLOOR = 1e-3
+
+
+def bwd_inputs(b, s, hq, hkv, d, dtype, causal, seed):
+    """q, k, v, dout and the forward kernel's (out, lse) on them."""
+    import torch
+
+    from tpu_nexus_torch.ops.flash_attention import flash_attention
+
+    q, k, v = flash_inputs(b, s, hq, hkv, d, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dout = torch.randn((b, s, hq, d), generator=g, device="cuda").to(dtype)
+    out, lse = flash_attention(q, k, v, causal=causal)
+    return q, k, v, out, lse, dout
+
+
+def phase_train_parity(results):
+    """Kernels #2 (dQ) and #3 (dK/dV) against the plain backward, and the
+    backward run twice is bit-identical."""
+    import torch
+
+    from tpu_nexus_torch.ops.flash_attention import flash_attention_bwd, flash_attention_bwd_plain
+
+    worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
+    cases = []  # (B, S, Hq, Hkv, D, causal)
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += [(8, 2048, 16, 8, 128, True, dtype), (2, 512, 32, 8, 128, True, dtype),
+                  (2, 200, 16, 8, 128, True, dtype), (2, 256, 16, 8, 64, True, dtype),
+                  (2, 384, 16, 8, 128, False, dtype)]
+    for i, (b, s, hq, hkv, d, causal, dtype) in enumerate(cases):
+        q, k, v, out, lse, dout = bwd_inputs(b, s, hq, hkv, d, dtype, causal, seed=200 + i)
+        got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        torch.cuda.synchronize()
+        deterministic = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        ref = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal)
+        row = {}
+        ok = deterministic
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            e_abs, ref_max = max_err(a, r), float(r.float().abs().max())
+            e_row = row_rel_err(a, r, BWD_ROW_FLOOR)
+            finite = bool(torch.isfinite(a).all())
+            if dtype == torch.bfloat16:
+                good = e_abs <= BWD_BF16_MAXABS_REL * ref_max and e_row <= ROW_REL_TOL
+            else:
+                good = e_abs <= BWD_F32_MAXABS
+            ok = ok and good and finite
+            row[name] = {"max_abs_err": e_abs, "ref_max_abs": ref_max, "max_row_rel_err": e_row}
+        emit("train_parity", shape=[b, s, hq, hkv, d], dtype=str(dtype), causal=causal,
+             deterministic=deterministic, tol_bf16_max_abs_rel=BWD_BF16_MAXABS_REL,
+             tol_bf16_row_rel=ROW_REL_TOL, row_norm_floor=BWD_ROW_FLOOR, tol_f32_max_abs=BWD_F32_MAXABS, ok=ok, **row)
+        if not ok:
+            raise AssertionError(f"flash backward kernels disagree with the plain version: {cases[i]}")
+        if dtype == torch.bfloat16 and (b, s, hq) == (8, 2048, 16):
+            worst["flash_attention_bwd_dq"] = row["dq"]["max_abs_err"]
+            worst["flash_attention_bwd_dkv"] = max(row["dk"]["max_abs_err"], row["dv"]["max_abs_err"])
+        del q, k, v, out, lse, dout, got, again, ref
+        torch.cuda.empty_cache()
+    results.setdefault("max_abs_err", {}).update(worst)
 
 
 def phase_times(results):
@@ -228,32 +323,32 @@ def phase_times(results):
     from tpu_nexus_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     times = {}
-    # prefill: the serve phase's shape, one input set per layer-sized copy
-    b, s, hq, hkv, d, dt = 8, 128, 32, 8, 128, torch.bfloat16
-    sets = [flash_inputs(b, s, hq, hkv, d, dt, seed=900 + i) for i in range(8)]
-    kern = [lambda x=x: flash_attention(*x, causal=True) for x in sets]
-    plain = [lambda x=x: flash_attention_plain(*x, causal=True) for x in sets]
-    lib_sets = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)) for q, k, v in sets]
-    lib = [lambda x=x: F.scaled_dot_product_attention(*x, is_causal=True, enable_gqa=True) for x in lib_sets]
-    bound, by = flash_bound(b, s, hq, hkv, d, dt)
-    times["flash_attention"] = dict(
-        shape=[b, s, hq, hkv, d], dtype="bfloat16", ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-        library_ms=cuda_ms(lib), bound_ms=bound, bound_by=by,
-    )
-    emit("times", kernel="flash_attention", **times["flash_attention"])
-    # a long prompt, where the tensor cores have work to do
-    b2, s2 = 1, 2048
-    x = flash_inputs(b2, s2, hq, hkv, d, dt, seed=950)
-    xl = tuple(t.transpose(1, 2) for t in x)
-    bound2, by2 = flash_bound(b2, s2, hq, hkv, d, dt)
-    emit("times", kernel="flash_attention", shape=[b2, s2, hq, hkv, d], dtype="bfloat16",
-         ms=cuda_ms([lambda: flash_attention(*x, causal=True)], iters=20),
-         plain_ms=cuda_ms([lambda: flash_attention_plain(*x, causal=True)], iters=10),
-         library_ms=cuda_ms([lambda: F.scaled_dot_product_attention(*xl, is_causal=True, enable_gqa=True)], iters=20),
-         bound_ms=bound2, bound_by=by2)
+    dt = torch.bfloat16
+    # prefill, bf16 causal: the train phase's shape (the kernels line's row),
+    # the serve phase's prefill and a long Llama-3-8B prompt; one input set
+    # per layer-sized copy, so inputs come from HBM as a per-layer caller finds them
+    for b, s, hq, hkv, d, n_sets, iters, key in ((8, 2048, 16, 8, 128, 2, 20, "flash_attention"),
+                                                 (8, 128, 32, 8, 128, 8, 40, None),
+                                                 (1, 2048, 32, 8, 128, 1, 20, None)):
+        sets = [flash_inputs(b, s, hq, hkv, d, dt, seed=900 + i) for i in range(n_sets)]
+        kern = [lambda x=x: flash_attention(*x, causal=True) for x in sets]
+        plain = [lambda x=x: flash_attention_plain(*x, causal=True) for x in sets]
+        lib_sets = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)) for q, k, v in sets]
+        lib = [lambda x=x: F.scaled_dot_product_attention(*x, is_causal=True, enable_gqa=True)
+               for x in lib_sets]
+        bound, by = flash_bound(b, s, hq, hkv, d, dt)
+        row = dict(shape=[b, s, hq, hkv, d], dtype="bfloat16", ms=cuda_ms(kern, iters=iters),
+                   plain_ms=cuda_ms(plain, iters=max(iters // 4, 4)), library_ms=cuda_ms(lib, iters=iters),
+                   bound_ms=bound, bound_by=by)
+        if key:
+            times[key] = row
+        emit("times", kernel="flash_attention", **row)
+        del sets, lib_sets, kern, plain, lib
+        torch.cuda.empty_cache()
 
     # decode: the serve phase's step (B 8, q_len 1, cache 160 = 128 + 32) at
     # its mean live length, cycling 32 per-layer caches so K/V come from HBM
+    hq, hkv, d = 32, 8, 128
     for b, max_len, kv_len, n_layers, key in ((8, 160, 144, 32, "decode_attention"), (8, 4096, 4096, 4, None)):
         layers = [decode_inputs(b, 1, max_len, hq, hkv, d, dt, seed=1000 + i) for i in range(n_layers)]
         kern = [lambda x=x: decode_attention(*x, kv_len) for x in layers]
@@ -273,7 +368,79 @@ def phase_times(results):
             times[key] = row
         emit("times", kernel="decode_attention", **row)
         del layers, lib_sets
+    bwd_times(times)
     results["times"] = times
+
+
+def bwd_bound(b, s, hq, hkv, d, dtype, n_matmuls, outputs, causal=True):
+    """Least time for the backward or a kernel's share of it: ``n_matmuls``
+    products of S·S·D per head (halved by causality) at the tensor-core peak, or its bytes
+    (q, k, v, dO and the lse/dsum rows read once, ``outputs`` written once)
+    at the HBM rate, whichever is larger."""
+    import torch
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    flops = n_matmuls * 2 * b * hq * s * s * d / (2 if causal else 1)
+    out_elems = {"dq": b * s * hq * d, "dkv": 2 * b * s * hkv * d,
+                 "all": b * s * hq * d + 2 * b * s * hkv * d}[outputs]
+    nbytes = (2 * b * s * hq * d + 2 * b * s * hkv * d + out_elems) * itemsize + 2 * b * hq * s * 4
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bwd_times(times):
+    """Kernels #2 (dQ) and #3 (dK/dV) at the nexus_1b training shape (B8
+    S2048 Hq16 Hkv8 D128 causal, bf16): ms per launch, the plain backward's
+    ms (dQ, dK and dV together) and, as a yardstick only, the backward of
+    ``scaled_dot_product_attention`` on the same inputs (all three grads)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_nexus_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        flash_dsum,
+    )
+
+    b, s, hq, hkv, d, dt = 8, 2048, 16, 8, 128, torch.bfloat16
+    sets = [bwd_inputs(b, s, hq, hkv, d, dt, True, seed=1200 + i) for i in range(2)]
+    dsums = [flash_dsum(x[3], x[5]) for x in sets]
+    dq_fns = [lambda x=x, ds=ds: flash_attention_bwd_dq(x[0], x[1], x[2], x[5], x[4], ds)
+              for x, ds in zip(sets, dsums)]
+    dkv_fns = [lambda x=x, ds=ds: flash_attention_bwd_dkv(x[0], x[1], x[2], x[5], x[4], ds)
+               for x, ds in zip(sets, dsums)]
+    plain = [lambda x=sets[0]: flash_attention_bwd_plain(*x)]
+    lib = []
+    for q, k, v, _, _, dout in sets:
+        ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+        g = dout.transpose(1, 2)
+        lib.append(lambda out=out, g=g, leaves=(ql, kl, vl): torch.autograd.grad(
+            out, leaves, g, retain_graph=True))
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    lib_ms = cuda_ms(lib, iters=20)
+    # the function's 5 products split between the kernels: dQ = dS·K and one
+    # of the two both kernels need (S = q̃·Kᵀ, dP = dO·Vᵀ); dV, dK and the
+    # other.  The split design recomputes both shared products in each
+    # kernel (3 and 4 products), which the bound does not count.
+    for key, fns, n_matmuls, outputs in (
+        ("flash_attention_bwd_dq", dq_fns, 2, "dq"), ("flash_attention_bwd_dkv", dkv_fns, 3, "dkv"),
+    ):
+        bound, by = bwd_bound(b, s, hq, hkv, d, dt, n_matmuls, outputs)
+        times[key] = dict(shape=[b, s, hq, hkv, d], dtype="bfloat16", ms=cuda_ms(fns, iters=20),
+                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                          bound_matmuls=f"{n_matmuls} of the function's 5")
+        emit("times", kernel=key, plain_ms_is="plain backward, dQ+dK+dV",
+             library_ms_is="scaled_dot_product_attention backward, dQ+dK+dV", **times[key])
+    whole, whole_by = bwd_bound(b, s, hq, hkv, d, dt, 5, "all")
+    times["flash_attention_bwd"] = dict(
+        shape=[b, s, hq, hkv, d], dtype="bfloat16",
+        ms=times["flash_attention_bwd_dq"]["ms"] + times["flash_attention_bwd_dkv"]["ms"],
+        bound_ms=whole, bound_by=whole_by, library_ms=lib_ms, plain_ms=plain_ms)
+    emit("times", kernel="flash_attention_bwd (dQ + dK/dV)", **times["flash_attention_bwd"])
+    del sets, dsums, lib
 
 
 def phase_e2e(results):
@@ -303,6 +470,134 @@ def phase_e2e(results):
     if not same or launched[0] != cfg.n_layers or launched[1] != cfg.n_layers * 31:
         raise AssertionError("kernel path is not token-identical to the plain path (or skipped a kernel)")
     del params
+
+
+def _bwd_counters():
+    from tpu_nexus_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    return flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv
+
+
+def phase_train_e2e(results):
+    """nexus_1b widths at 2 layers in f32: 3 train steps through the
+    kernels against 3 steps through dense attention under autograd
+    (``attn_impl="plain"``) on the card, same init and batches.  Loss and
+    grad norm agree within 1e-4 and 1e-3 relative: the f32 kernels differ
+    from dense attention only in summation order (~1e-6 relative), which
+    Adam can amplify on near-zero gradient elements over the steps."""
+    import torch
+
+    from tpu_nexus_torch.models.llama import LlamaConfig, llama_head, llama_hidden
+    from tpu_nexus_torch.models.registry import LlamaAdapter
+    from tpu_nexus_torch.workload.data import synthetic_tokens
+    from tpu_nexus_torch.workload.train import (
+        TrainConfig,
+        chunked_next_token_loss,
+        init_train_state,
+        make_train_step,
+    )
+
+    class DenseAttentionAdapter(LlamaAdapter):
+        """LlamaAdapter whose loss runs the model on dense attention."""
+
+        def make_loss(self, train_cfg):
+            def loss_fn(params, tokens):
+                hidden = llama_hidden(params, tokens, self.config, attn_impl="plain")
+                return chunked_next_token_loss(hidden, llama_head(params, self.config), tokens,
+                                               train_cfg.z_loss, chunk=train_cfg.ce_chunk)
+
+            return loss_fn
+
+    cfg = dataclasses.replace(LlamaConfig.nexus_1b(), n_layers=2, dtype=torch.float32,
+                              param_dtype=torch.float32)
+    runs = {}
+    counters = _bwd_counters()
+    tcfg = TrainConfig(warmup_steps=1, total_steps=3)
+    for impl, model in (("auto", LlamaAdapter(config=cfg)), ("plain", DenseAttentionAdapter(config=cfg))):
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0), model, tcfg, device="cuda")
+        step_fn = make_train_step(model, tcfg)
+        data = synthetic_tokens(2, 512, cfg.vocab_size, seed=3)
+        before = [c.launches for c in counters]
+        rows = []
+        for _ in range(3):
+            state, m = step_fn(state, torch.as_tensor(next(data), device="cuda").long())
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[impl] = (rows, [c.launches - b for c, b in zip(counters, before)])
+        del state
+    (got, launched), (ref, plain_launched) = runs["auto"], runs["plain"]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, ref))
+    gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, ref))
+    emit("train_e2e", config="nexus_1b widths, 2 layers, f32; batch 2, seq 512, 3 adamw steps",
+         kernels=got, plain=ref, max_loss_rel_err=loss_rel, max_grad_norm_rel_err=gn_rel,
+         tol_loss_rel=1e-4, tol_grad_norm_rel=1e-3, launches_fwd_dq_dkv=launched,
+         plain_launches=plain_launched)
+    if loss_rel > 1e-4 or gn_rel > 1e-3:
+        raise AssertionError("kernel training steps disagree with the plain path")
+    if launched != [cfg.n_layers * 3] * 3 or plain_launched != [0, 0, 0]:
+        raise AssertionError(f"launches {launched} (plain {plain_launched}) != {cfg.n_layers} x 3 each")
+    torch.cuda.empty_cache()
+
+
+def phase_train(results):
+    """``run_workload`` on nexus_1b at full width and depth: bf16 params,
+    adamw, remat attn_out, batch 8, seq 2048, 20 steps, in-memory ledger.
+    The counters, zeroed just before, must show 14 launches per step of
+    each of the flash forward, dQ and dK/dV kernels: the remat keeps the
+    forward's outputs, so the backward never re-runs it."""
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.core.telemetry import NullMetrics
+    from tpu_nexus_torch.models.llama import LlamaConfig, param_count
+    from tpu_nexus_torch.models.registry import LlamaAdapter
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.workload.goodput import model_flops_per_token
+    from tpu_nexus_torch.workload.harness import WorkloadConfig, run_workload
+    from tpu_nexus_torch.workload.train import TrainConfig
+
+    torch.cuda.empty_cache()
+    model = LlamaConfig.nexus_1b()
+    steps, batch, seq = 20, 8, 2048
+    cfg = WorkloadConfig(model=LlamaAdapter(config=model),
+                         train=TrainConfig(warmup_steps=10, total_steps=steps, optimizer="adamw"),
+                         batch_size=batch, seq_len=seq, steps=steps, heartbeat_every=5, device="cuda")
+    store = InMemoryCheckpointStore()
+    ctx = ProcessContext(run_id="chip-smoke-train", algorithm="train", process_id=0, num_processes=1,
+                         coordinator=None)
+    counters = _bwd_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    summary = run_workload(cfg, store=store, ctx=ctx, telemetry=NullMetrics())
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    row = store.read_checkpoint("train", "chip-smoke-train")
+    stage = row.lifecycle_stage if row else None
+    flops_per_token = model_flops_per_token(model, seq)
+    # steady state: the goodput meter books the first step (allocator and
+    # library warm-up) under init_compile; steps 2..N are data + step time
+    buckets = summary["goodput"]["buckets_s"]
+    steady_tps = (steps - 1) * batch * seq / (buckets["data_draw"] + buckets["step_dispatch"])
+    emit("train", config="nexus_1b full width and depth, bf16 params, adamw, remat attn_out",
+         batch=batch, seq=seq, steps=steps, params=param_count(model), stage=stage,
+         per_chip_steps=row.per_chip_steps if row else None, wall_s=wall,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+         model_flops_per_token=flops_per_token, peak_flops=PEAK_BF16_FLOPS,
+         steady_tokens_per_second=steady_tps,
+         steady_mfu=steady_tps * flops_per_token / PEAK_BF16_FLOPS, **summary)
+    if stage != LifecycleStage.COMPLETED:
+        raise AssertionError(f"ledger row is {stage}, not COMPLETED")
+    want = model.n_layers * steps
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"launches {launches} != {model.n_layers} x {steps} each")
+    results.setdefault("launches", {})["train"] = launches
+    results["train"] = summary
 
 
 def phase_serve(results):
@@ -340,7 +635,7 @@ def phase_serve(results):
         raise AssertionError(f"flash launches {launches['flash_attention']} != {n_layers} x prefill calls")
     if launches["decode_attention"] < n_layers * summary["decode_steps"]:
         raise AssertionError(f"decode launches {launches['decode_attention']} < {n_layers} x decode steps")
-    results["launches"] = launches
+    results.setdefault("launches", {})["serve"] = launches
 
 
 def phase_profile(results):
@@ -369,26 +664,17 @@ def phase_profile(results):
         generate(params, batch, cfg, max_new_tokens=32)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, top = {}, []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        if not dev_us or "cuda" not in str(getattr(evt, "device_type", "")).lower():
-            continue
-        name = evt.key
-        low = name.lower()
+
+    def group_of(low):
         if "flash_fwd" in low:
-            group = "flash_attention kernel"
-        elif "decode_partial" in low or "decode_combine" in low:
-            group = "decode_attention kernel"
-        elif any(s in low for s in ("nvjet", "gemm", "xmma", "cutlass", "cublas", "sm90")):
-            group = "matmul (cuBLAS)"
-        else:
-            group = "other (elementwise, copies, reductions)"
-        groups[group] = groups.get(group, 0.0) + dev_us / 1e3
-        top.append((dev_us / 1e3, evt.count, name[:90]))
-    top.sort(reverse=True)
+            return "flash_attention kernel"
+        if "decode_partial" in low or "decode_combine" in low:
+            return "decode_attention kernel"
+        if any(s in low for s in ("nvjet", "gemm", "xmma", "cutlass", "cublas", "sm90")):
+            return "matmul (cuBLAS)"
+        return "other (elementwise, copies, reductions)"
+
+    groups, top = _group_device_time(prof, group_of)
     device_ms = sum(groups.values())
     emit("profile", config="llama3_8b full depth, bf16 params; one generate round: batch 8, prompt 128, "
          "32 new tokens", wall_ms=wall_ms, unprofiled_wall_ms=plain_wall_ms, device_ms=device_ms,
@@ -396,6 +682,79 @@ def phase_profile(results):
          busy_share_of_unprofiled_round=device_ms / plain_wall_ms,
          groups_ms=groups, top=[{"ms": t, "calls": c, "name": n} for t, c, n in top[:12]])
     del params
+
+
+def _group_device_time(prof, groups_of):
+    """Device ms by group and the top kernels of a profiler run."""
+    groups, top = {}, []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if not dev_us or "cuda" not in str(getattr(evt, "device_type", "")).lower():
+            continue
+        group = groups_of(evt.key.lower())
+        groups[group] = groups.get(group, 0.0) + dev_us / 1e3
+        top.append((dev_us / 1e3, evt.count, evt.key[:90]))
+    top.sort(reverse=True)
+    return groups, top
+
+
+def phase_train_profile(results):
+    """Opt-in (``--phases build,train_profile``): two warm training steps of
+    the train phase's shape (nexus_1b, bf16, adamw, attn_out, batch 8, seq
+    2048) under ``torch.profiler``; device time by kernel group, the top
+    kernels, and the device's busy share of the profiled window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_nexus_torch.models.llama import LlamaConfig
+    from tpu_nexus_torch.models.registry import host_to_device
+    from tpu_nexus_torch.workload.data import synthetic_tokens
+    from tpu_nexus_torch.workload.health import HealthConfig
+    from tpu_nexus_torch.workload.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = LlamaConfig.nexus_1b()
+    tcfg = TrainConfig(warmup_steps=10, total_steps=20)
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg, tcfg, device="cuda")
+    step_fn = make_train_step(cfg, tcfg, health=HealthConfig())
+    data = synthetic_tokens(8, 2048, cfg.vocab_size, seed=0)
+    batches = [host_to_device(next(data), "cuda", torch.long) for _ in range(6)]
+    for batch in batches[:2]:
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches[2:4]:
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches[4:]:
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+
+    def group_of(low):
+        if "flash_bwd_dq" in low:
+            return "flash backward dQ kernel"
+        if "flash_bwd_dkv" in low:
+            return "flash backward dK/dV kernel"
+        if "flash_fwd" in low:
+            return "flash forward kernel"
+        if any(k in low for k in ("nvjet", "gemm", "xmma", "cutlass", "cublas", "sm90")):
+            return "matmul (cuBLAS)"
+        return "other (elementwise, reductions, copies)"
+
+    groups, top = _group_device_time(prof, group_of)
+    groups = {k: v / 2 for k, v in groups.items()}
+    device_ms = sum(groups.values())
+    emit("train_profile", config="nexus_1b full depth, bf16, adamw, attn_out; batch 8, seq 2048; "
+         "ms per step, mean of 2 profiled steps", wall_ms=wall_ms, unprofiled_wall_ms=plain_wall_ms,
+         device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+         busy_share_of_unprofiled_step=device_ms / plain_wall_ms, groups_ms=groups,
+         top=[{"ms_per_step": t / 2, "calls": c // 2, "name": n} for t, c, n in top[:20]])
+    del state, batches
 
 
 def main(argv=None) -> int:
@@ -439,8 +798,9 @@ def main(argv=None) -> int:
         emit("build", seconds=time.perf_counter() - t0, library=str(_build.library_path().name),
              sources=[str(p.relative_to(ROOT)) for p in _build.sources()])
     runners = {
-        "parity": phase_parity, "times": phase_times, "e2e": phase_e2e, "serve": phase_serve,
-        "profile": phase_profile,
+        "parity": phase_parity, "train_parity": phase_train_parity, "times": phase_times,
+        "e2e": phase_e2e, "train_e2e": phase_train_e2e, "serve": phase_serve, "train": phase_train,
+        "profile": phase_profile, "train_profile": phase_train_profile,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:
@@ -449,19 +809,34 @@ def main(argv=None) -> int:
             emit(name + "_done", seconds=time.perf_counter() - t0)
 
     if set(PHASES) <= set(phases):
+        # (source, TPU kernel it replaces, the main path whose run counts it)
         meta = {
-            "flash_attention": ("tpu_nexus_torch/csrc/flash_attention.cu", "tpu_nexus/ops/flash_attention.py:127"),
-            "decode_attention": ("tpu_nexus_torch/csrc/decode_attention.cu", "tpu_nexus/ops/decode_attention.py:125"),
+            "flash_attention": ("tpu_nexus_torch/csrc/flash_attention.cu",
+                                "tpu_nexus/ops/flash_attention.py:127", "train"),
+            "flash_attention_bwd_dq": ("tpu_nexus_torch/csrc/flash_attention_bwd.cu",
+                                       "tpu_nexus/ops/flash_attention.py:242", "train"),
+            "flash_attention_bwd_dkv": ("tpu_nexus_torch/csrc/flash_attention_bwd.cu",
+                                        "tpu_nexus/ops/flash_attention.py:297", "train"),
+            "decode_attention": ("tpu_nexus_torch/csrc/decode_attention.cu",
+                                 "tpu_nexus/ops/decode_attention.py:125", "serve"),
         }
         kernels = []
-        for name, (source, replaces) in meta.items():
+        whole_bwd = results["times"]["flash_attention_bwd"]
+        for name, (source, replaces, path) in meta.items():
             t = results["times"][name]
-            kernels.append({
+            entry = {
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": results["launches"][name], "max_abs_err": results["max_abs_err"][name],
+                "launches": results["launches"][path][name],
+                "launches_by_path": {p: n[name] for p, n in results["launches"].items() if name in n},
+                "max_abs_err": results["max_abs_err"][name],
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            })
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+            }
+            if name.startswith("flash_attention_bwd"):
+                # plain_ms and library_ms are of the whole backward; so is this pair
+                entry.update(bound_matmuls=t["bound_matmuls"], backward_ms=whole_bwd["ms"],
+                             backward_bound_ms=whole_bwd["bound_ms"])
+            kernels.append(entry)
         print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

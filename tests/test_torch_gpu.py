@@ -2,9 +2,13 @@
 
 Each kernel against its plain PyTorch version on the same seeded inputs,
 at small shapes that still cover the kernels' cases (GQA, ragged tails,
-D 64 and 128, ragged decode lens/width, q_len > 1).  Tolerances: bf16 out
-2e-2 and lse 1e-3 (max-abs) and 1e-2 on the worst row's relative L2 error,
-f32 1e-5 (max-abs).  Inputs the kernels do not take raise on the card:
+D 64 and 128, ragged decode lens/width, q_len > 1), and the backward
+kernels at the shapes of ``chip_smoke.py``'s train_parity phase.
+Tolerances: bf16 out 2e-2 and lse 1e-3 (max-abs) and 1e-2 on the worst
+row's relative L2 error, f32 1e-5 (max-abs); bf16 gradients 2e-2 of the
+reference's largest magnitude (max-abs) and 1e-2 on the worst row's
+relative L2 error, row norms floored at 1e-3 of the largest (a dQ row
+that cancels to ~0 has no scale of its own).  Inputs the kernels do not take raise on the card:
 nothing there gives way to the plain versions.  This file imports no JAX, so it
 also runs where only the port is installed (``--noconftest`` skips the
 repository conftest, which sets up JAX):
@@ -22,7 +26,16 @@ from tpu_nexus_torch.models.generate import cached_attention, generate
 from tpu_nexus_torch.models.llama import LlamaConfig, llama_init
 from tpu_nexus_torch.ops.attention import attention
 from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
-from tpu_nexus_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from tpu_nexus_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
+    flash_attention_differentiable,
+    flash_attention_plain,
+)
+from tpu_nexus_torch.workload.train import TrainConfig, init_train_state, make_train_step
 
 torch.set_num_threads(1)
 TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-5, 1e-5)}
@@ -52,6 +65,18 @@ def _check(out, ref, dtype):
         assert float(rel.max()) <= ROW_REL_TOL
 
 
+def _check_grad(got, ref, dtype):
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    if dtype == torch.float32:
+        assert err <= 1e-5
+        return
+    assert err <= 2e-2 * float(ref.abs().max())
+    norms = ref.norm(dim=-1)
+    rel = (got - ref).norm(dim=-1) / norms.clamp_min(1e-3 * float(norms.max()))
+    assert float(rel.max()) <= ROW_REL_TOL
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s,d,causal", [(128, 128, True), (200, 128, True), (256, 64, False)])
@@ -64,6 +89,21 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, s, d, causal):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    _check(out, ref_out, dtype)
+    assert float((lse - ref_lse).abs().max()) <= TOL[dtype][1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_matches_plain_at_the_training_shape(cuda_device, dtype):
+    """nexus_1b's attention in the train step: B8 S2048 Hq16 Hkv8 D128
+    causal, GQA group 2."""
+    q = _randn((8, 2048, 16, 128), 7, cuda_device, dtype)
+    k = _randn((8, 2048, 8, 128), 8, cuda_device, dtype)
+    v = _randn((8, 2048, 8, 128), 9, cuda_device, dtype)
+    out, lse = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal=True)
     _check(out, ref_out, dtype)
     assert float((lse - ref_lse).abs().max()) <= TOL[dtype][1]
 
@@ -130,3 +170,70 @@ def test_inputs_the_kernels_do_not_take_raise_on_the_card(cuda_device, d, dtype)
     with pytest.raises(ValueError, match="kernel unsupported"):
         generate(params, prompt, cfg, max_new_tokens=2)
     assert (flash_attention.launches, decode_attention.launches) == (f0, d0)
+
+
+def _bwd_case(device, dtype, b, s, hq, hkv, d, causal, seed):
+    q = _randn((b, s, hq, d), seed, device, dtype)
+    k = _randn((b, s, hkv, d), seed + 1, device, dtype)
+    v = _randn((b, s, hkv, d), seed + 2, device, dtype)
+    dout = _randn((b, s, hq, d), seed + 3, device, dtype)
+    out, lse = flash_attention(q, k, v, causal=causal)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal", [
+    (8, 2048, 16, 8, 128, True), (2, 512, 32, 8, 128, True), (2, 200, 16, 8, 128, True),
+    (2, 256, 16, 8, 64, True), (2, 384, 16, 8, 128, False),
+])
+def test_backward_kernels_match_plain(cuda_device, dtype, b, s, hq, hkv, d, causal):
+    case = _bwd_case(cuda_device, dtype, b, s, hq, hkv, d, causal, seed=s + d + causal)
+    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    got = flash_attention_bwd(*case, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    for a, r in zip(got, flash_attention_bwd_plain(*case, causal=causal)):
+        _check_grad(a, r, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_backward_is_bit_identical_run_to_run(cuda_device, dtype):
+    case = _bwd_case(cuda_device, dtype, 4, 1024, 16, 8, 128, True, seed=21)
+    first = flash_attention_bwd(*case)
+    second = flash_attention_bwd(*case)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_attention_differentiates_through_the_kernels(cuda_device):
+    """``ops.attention.attention`` on the card: one forward launch and one
+    launch of each backward kernel, gradients equal to the kernels'
+    backward on the same inputs."""
+    q, k, v, _, _, dout = _bwd_case(cuda_device, torch.bfloat16, 2, 256, 16, 8, 128, True, seed=31)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = (flash_attention.launches, flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    out = attention(*leaves)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    out2, lse = flash_attention(q, k, v)
+    for leaf, ref in zip(leaves, flash_attention_bwd(q, k, v, out2, lse, dout)):
+        assert torch.equal(leaf.grad, ref)
+
+
+@pytest.mark.gpu
+def test_tiny_training_raises_on_the_card(cuda_device):
+    """head_dim 16 (the default ``tiny`` preset) raises in the kernel
+    wrapper on the card: training never falls back to dense attention."""
+    cfg = LlamaConfig.tiny()
+    tcfg = TrainConfig()
+    state = init_train_state(torch.Generator(device=cuda_device).manual_seed(0), cfg, tcfg, device=cuda_device)
+    tokens = torch.zeros((2, 16), dtype=torch.long, device=cuda_device)
+    with pytest.raises(ValueError, match="flash_attention kernel unsupported"):
+        make_train_step(cfg, tcfg)(state, tokens)
+    with pytest.raises(ValueError, match="flash_attention kernel unsupported"):
+        flash_attention_differentiable(*(torch.zeros((1, 8, 2, 16), device=cuda_device),) * 3)
+

@@ -60,13 +60,13 @@ def test_forward_and_hidden_kv_match(configs):
     tok = tokens(2, 40, jcfg.vocab_size)
     ref = jax_llama.llama_forward(jparams, jnp.asarray(tok), jcfg)
     out = port_llama.llama_forward(pparams, torch.from_numpy(tok), pcfg)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL, rtol=0)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=TOL, rtol=0)
 
     jh, (jk, jv) = jax_llama.llama_hidden(jparams, jnp.asarray(tok), jcfg, return_kv=True)
     ph, (pk, pv) = port_llama.llama_hidden(pparams, torch.from_numpy(tok), pcfg, return_kv=True)
     assert pk.shape == (pcfg.n_layers, 2, 40, pcfg.n_kv_heads, pcfg.head_dim)
     for a, b in ((ph, jh), (pk, jk), (pv, jv)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL, rtol=0)
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=TOL, rtol=0)
 
 
 def _presets(cls):
@@ -131,15 +131,15 @@ def test_init_is_seeded_and_shaped_like_the_reference():
     ptree = params_to_numpy(a)
     assert jax.tree.map(np.shape, ptree) == jax.tree.map(np.shape, jtree)
     assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
-    assert not any(p.requires_grad for p in a.parameters())
+    assert all(p.requires_grad for p in a.parameters())  # trainable
     assert sum(p.numel() for p in a.parameters()) == port_llama.param_count(pcfg)
 
 
 def test_registry_resolves_llama_and_names_the_unported():
     assert isinstance(get_adapter("llama3_8b"), LlamaAdapter)
     assert get_adapter("tiny").config == port_llama.LlamaConfig.tiny()
-    for preset, item in (("mnist", "training"), ("moe_tiny", "MoE"), ("nexus_moe", "MoE"),
-                         ("mixtral_8x7b", "MoE")):
+    assert get_adapter("mnist").name == "mnist"
+    for preset, item in (("moe_tiny", "MoE"), ("nexus_moe", "MoE"), ("mixtral_8x7b", "MoE")):
         with pytest.raises(KeyError, match=item):
             get_adapter(preset)
     with pytest.raises(KeyError, match="unknown"):

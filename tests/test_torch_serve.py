@@ -84,7 +84,27 @@ def test_entrypoint_serves_with_jax_and_the_reference_blocked(tmp_path):
     assert row.per_chip_steps == {"host0/chip0": 2}
 
 
-@pytest.mark.parametrize("mode", ["train", "serve-engine", "bogus"])
+def test_entrypoint_trains_on_the_cpu(tmp_path):
+    """``NEXUS_MODE=train`` (the entrypoint's default mode) runs the
+    training loop on the CPU, with jax and the reference blocked, and
+    lands COMPLETED in the sqlite ledger."""
+    env = _serve_env(tmp_path, NEXUS_MODE="train", NEXUS_SEQ_LEN="16", NEXUS_STEPS="3",
+                     NEXUS_HEARTBEAT_EVERY="1", NEXUS_ALGORITHM="train")
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_ENTRY], env=env, cwd=tmp_path,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    store = SqliteCheckpointStore(str(tmp_path / "ledger.db"))
+    try:
+        row = store.read_checkpoint("train", "sub")
+    finally:
+        store.close()
+    assert row.lifecycle_stage == LifecycleStage.COMPLETED
+    assert row.per_chip_steps == {"host0/chip0": 3}
+
+
+@pytest.mark.parametrize("mode", ["serve-engine", "bogus"])
 def test_entrypoint_refuses_unported_modes(tmp_path, monkeypatch, mode):
     for k, v in _serve_env(tmp_path, NEXUS_MODE=mode).items():
         monkeypatch.setenv(k, v)

@@ -1,8 +1,15 @@
-"""Model zoo of the port: the Llama family (MoE and mnist are later slices)."""
+"""Model zoo of the port: the Llama family and the mnist demo (MoE is a later slice)."""
 
 from tpu_nexus_torch.models.generate import decode_step, generate, prefill
 from tpu_nexus_torch.models.llama import LlamaConfig, LlamaParams, llama_forward, llama_init
-from tpu_nexus_torch.models.registry import LlamaAdapter, ModelAdapter, adapter_for, get_adapter
+from tpu_nexus_torch.models.mnist import MnistConfig
+from tpu_nexus_torch.models.registry import (
+    LlamaAdapter,
+    MnistAdapter,
+    ModelAdapter,
+    adapter_for,
+    get_adapter,
+)
 
 __all__ = [
     "LlamaConfig",
@@ -14,6 +21,8 @@ __all__ = [
     "llama_init",
     "ModelAdapter",
     "LlamaAdapter",
+    "MnistAdapter",
+    "MnistConfig",
     "adapter_for",
     "get_adapter",
 ]

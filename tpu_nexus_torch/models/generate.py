@@ -91,6 +91,7 @@ def cached_attention(
     return decode_attention_plain(q, k, v, kv_len, prompt_lengths, prompt_width)
 
 
+@torch.no_grad()  # decoding never differentiates: no graph over the trainable params
 def prefill(
     params,
     tokens: torch.Tensor,
@@ -129,6 +130,7 @@ def prefill(
     return cache, logits
 
 
+@torch.no_grad()
 def decode_step(
     params,
     cache: Cache,

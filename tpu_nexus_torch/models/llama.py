@@ -39,11 +39,21 @@ class LlamaConfig:
     max_seq_len: int = 8192
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    #: training-side knobs, kept so the presets read like the reference's;
-    #: the serving path does not use them
+    #: activation checkpointing of each layer while gradients are taken
+    #: (:func:`remat_layer`); the serving path runs without grad and
+    #: ignores it
     remat: bool = True
+    #: what a checkpointed layer keeps for the backward pass:
+    #:  "dots"     — everything autograd saves (no recompute);
+    #:  "attn_out" — the layer input plus the flash forward's out and lse,
+    #:               so the backward recomputes the layer without
+    #:               re-launching the flash forward kernel;
+    #:  "qkv"      — "attn_out" plus the post-RoPE q/k/v;
+    #:  "nothing"  — the layer input only (the flash forward re-runs).
     remat_policy: str = "dots"
     tied_embeddings: bool = False
+    #: the reference's layer-scan unroll factor; eager PyTorch runs the
+    #: layers as a Python loop, so it is kept for the presets and ignored
     scan_unroll: int = 1
 
     # -- presets (tpu_nexus/models/llama.py:68-130) -------------------------
@@ -118,14 +128,14 @@ class LlamaParams(nn.Module):
 
     ``params["embed"]["tokens"]``, ``params["layers"][name]`` (stacked
     ``[L, ...]``), ``params["out_norm"]`` and, untied,
-    ``params["lm_head"]`` read like the JAX tree.  Parameters do not
-    require grad: this slice of the port serves."""
+    ``params["lm_head"]`` read like the JAX tree.  Parameters are
+    trainable; serving runs them under ``torch.inference_mode()``."""
 
     def __init__(self, tree: Dict[str, Any]) -> None:
         super().__init__()
 
         def p(t):
-            return nn.Parameter(t, requires_grad=False)
+            return nn.Parameter(t)
 
         self.embed = nn.ParameterDict({"tokens": p(tree["embed"]["tokens"])})
         self.layers = nn.ParameterDict({k: p(v) for k, v in tree["layers"].items()})
@@ -196,20 +206,29 @@ def layer_params(params, li: int) -> Dict[str, torch.Tensor]:
     return {name: w[li] for name, w in params["layers"].items()}
 
 
-def attention_block(x, layer, cfg, cos, sin, attn_impl: str = "auto", *, collect_kv: bool = False):
-    """Pre-norm GQA attention sub-block (norm → qkv → RoPE → attention →
-    output projection → residual).  ``attn_impl`` picks the attention
-    (ops/attention.py).  ``collect_kv=True`` also returns the post-RoPE K/V
-    (the prefill path of KV-cache decoding)."""
+def qkv_block(x, layer, cfg, cos, sin):
+    """Norm → q/k/v projections → RoPE: the attention's inputs."""
     ct = cfg.dtype
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
     q = weight_einsum("bse,ehd->bshd", h, layer["wq"], ct)
     k = weight_einsum("bse,ehd->bshd", h, layer["wk"], ct)
     v = weight_einsum("bse,ehd->bshd", h, layer["wv"], ct)
-    q = _rope(q, cos, sin)
-    k = _rope(k, cos, sin)
+    return _rope(q, cos, sin), _rope(k, cos, sin), v
+
+
+def attend_block(x, q, k, v, layer, cfg, attn_impl: str = "auto"):
+    """Attention → output projection → residual."""
     o = attention(q, k, v, causal=True, impl=attn_impl)
-    x = x + weight_einsum("bshd,hde->bse", o, layer["wo"], ct)
+    return x + weight_einsum("bshd,hde->bse", o, layer["wo"], cfg.dtype)
+
+
+def attention_block(x, layer, cfg, cos, sin, attn_impl: str = "auto", *, collect_kv: bool = False):
+    """Pre-norm GQA attention sub-block (norm → qkv → RoPE → attention →
+    output projection → residual).  ``attn_impl`` picks the attention
+    (ops/attention.py).  ``collect_kv=True`` also returns the post-RoPE K/V
+    (the prefill path of KV-cache decoding)."""
+    q, k, v = qkv_block(x, layer, cfg, cos, sin)
+    x = attend_block(x, q, k, v, layer, cfg, attn_impl)
     if collect_kv:
         return x, (k, v)
     return x
@@ -231,6 +250,60 @@ def llama_head(params, cfg: LlamaConfig) -> torch.Tensor:
     return params["lm_head"].to(cfg.dtype)
 
 
+REMAT_POLICIES = ("dots", "attn_out", "qkv", "nothing")
+
+
+def _layer(x, layer, cfg, cos, sin, attn_impl):
+    return mlp_block(attention_block(x, layer, cfg, cos, sin, attn_impl), layer, cfg)
+
+
+def _after_qkv(x, q, k, v, layer, cfg, attn_impl):
+    return mlp_block(attend_block(x, q, k, v, layer, cfg, attn_impl), layer, cfg)
+
+
+def _keep_flash_outputs():
+    """Selective-checkpoint contexts that keep the flash forward op's
+    outputs (out, lse) and recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    import tpu_nexus_torch.ops.flash_attention  # noqa: F401 - registers nexus::flash_fwd
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is torch.ops.nexus.flash_fwd.default:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def remat_layer(x, layer, cfg: LlamaConfig, cos, sin, attn_impl: str = "auto"):
+    """One decoder layer under ``cfg.remat_policy`` (the reference's
+    ``jax.checkpoint`` around the layer scan body).  Checkpointing applies
+    only while gradients are taken; see :attr:`LlamaConfig.remat_policy`.
+    Unlike XLA, eager recompute cannot drop work whose outputs are saved:
+    under "qkv" the backward still re-runs norm and projections for their
+    own gradients, and only the attention inputs are kept."""
+    policy = cfg.remat_policy
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; use {', '.join(REMAT_POLICIES)}")
+    if not (cfg.remat and torch.is_grad_enabled()) or policy == "dots":
+        return _layer(x, layer, cfg, cos, sin, attn_impl)
+    from torch.utils.checkpoint import checkpoint
+
+    if policy == "nothing":
+        return checkpoint(_layer, x, layer, cfg, cos, sin, attn_impl, use_reentrant=False)
+    if policy == "attn_out":
+        return checkpoint(
+            _layer, x, layer, cfg, cos, sin, attn_impl, use_reentrant=False,
+            context_fn=_keep_flash_outputs,
+        )
+    q, k, v = checkpoint(qkv_block, x, layer, cfg, cos, sin, use_reentrant=False)
+    return checkpoint(
+        _after_qkv, x, q, k, v, layer, cfg, attn_impl, use_reentrant=False,
+        context_fn=_keep_flash_outputs,
+    )
+
+
 def llama_hidden(
     params,
     tokens: torch.Tensor,
@@ -240,7 +313,8 @@ def llama_hidden(
     return_kv: bool = False,
 ):
     """Final-norm hidden states ``[B, S, E]``.  ``return_kv=True`` →
-    ``(hidden, (k, v))`` with K/V stacked per layer ``[L, B, S, Hkv, D]``."""
+    ``(hidden, (k, v))`` with K/V stacked per layer ``[L, B, S, Hkv, D]``
+    (no activation checkpointing then: it is the no-grad prefill path)."""
     if tokens.shape[1] > cfg.max_seq_len:
         raise ValueError(
             f"sequence length {tokens.shape[1]} exceeds the config's "
@@ -254,11 +328,13 @@ def llama_hidden(
     ks, vs = [], []
     for li in range(params["layers"]["wq"].shape[0]):
         layer = layer_params(params, li)
+        if not return_kv:
+            x = remat_layer(x, layer, cfg, cos, sin, attn_impl)
+            continue
         x, (k, v) = attention_block(x, layer, cfg, cos, sin, attn_impl, collect_kv=True)
         x = mlp_block(x, layer, cfg)
-        if return_kv:
-            ks.append(k)
-            vs.append(v)
+        ks.append(k)
+        vs.append(v)
     hidden = rms_norm(x, params["out_norm"], cfg.norm_eps)
     if return_kv:
         return hidden, (torch.stack(ks), torch.stack(vs))

@@ -1,38 +1,79 @@
-"""Model registry: the port of ``tpu_nexus/models/registry.py`` for the
-Llama family.
+"""Model registry: the port of ``tpu_nexus/models/registry.py``.
 
-``NEXUS_MODEL_PRESET`` names a :class:`LlamaConfig` preset; the adapter
-gives the serving loop its init and its synthetic prompt stream.  The MoE
-and mnist presets raise ``KeyError`` until their slices land.
+``NEXUS_MODEL_PRESET`` names a :class:`LlamaConfig` preset or ``mnist``;
+the adapter gives the serving and training loops their init, loss, batch
+layout and synthetic data.  The MoE presets raise ``KeyError`` until their
+slice lands.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Iterator
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tpu_nexus_torch.models.llama import LlamaConfig, LlamaParams, llama_init
+from tpu_nexus_torch.models.llama import LlamaConfig, LlamaParams, llama_head, llama_hidden, llama_init
+from tpu_nexus_torch.models.mnist import MnistConfig, MnistParams, mnist_forward, mnist_init
 
 #: MoeConfig presets of the JAX package (addressable bare or "moe_"-prefixed)
 MOE_PRESETS = ("tiny", "nexus_moe", "mixtral_8x7b")
 
+LossFn = Callable[[Any, Any], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+def _single_device_only(train_cfg: Any) -> None:
+    """The slice trains on one device: knobs of sequence or pipeline
+    parallelism raise, naming the ROADMAP.md item that brings them."""
+    if getattr(train_cfg, "sp_attn", "ring") != "ring" or getattr(train_cfg, "pp_microbatches", 0):
+        raise NotImplementedError(
+            "sequence/pipeline parallelism (sp_attn, pp_microbatches) is not ported "
+            "yet (ROADMAP.md: A6 multi-GPU)"
+        )
+
+
+def host_to_device(array: Any, device: Any, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A host (numpy) batch leaf on ``device``.  On the card the copy goes
+    through pinned memory and does not wait: a pageable copy would block
+    the host until the device had finished every step queued before it."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if dtype is not None:
+        t = t.to(dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
 
 class ModelAdapter:
-    """Contract the serving loop consumes."""
+    """Contract the serving and training loops consume.  A batch is a
+    tensor or a dict of tensors; every method below agrees on it."""
 
     name: str = ""
     config: Any = None
 
     def init(self, generator: torch.Generator, device: Any = "cuda") -> Any:
+        """Model parameters (an ``nn.Module``) on ``device``."""
+        raise NotImplementedError
+
+    def batch_axes(self) -> Any:
+        """Logical axes of one batch (the reference's sharding contract)."""
+        raise NotImplementedError
+
+    def make_loss(self, train_cfg: Any) -> LossFn:
+        """(params, batch) -> (scalar loss, metrics dict)."""
         raise NotImplementedError
 
     def data(self, batch: int, seq_len: int, seed: int) -> Iterator[Any]:
+        """Infinite iterator of host (numpy) batches."""
+        raise NotImplementedError
+
+    def to_device(self, batch: Any, device: Any) -> Any:
+        """A host batch as the loss's input tensors on ``device``."""
         raise NotImplementedError
 
     def items_in(self, batch: Any) -> int:
+        """Throughput denominator: tokens (LM) or examples (classifier)."""
         raise NotImplementedError
 
 
@@ -46,13 +87,78 @@ class LlamaAdapter(ModelAdapter):
     def init(self, generator: torch.Generator, device: Any = "cuda") -> LlamaParams:
         return llama_init(generator, self.config, device=device)
 
+    def batch_axes(self):
+        return ("batch", "seq")
+
+    def make_loss(self, train_cfg):
+        from tpu_nexus_torch.workload.train import chunked_next_token_loss
+
+        _single_device_only(train_cfg)
+        cfg = self.config
+        z_loss = getattr(train_cfg, "z_loss", 0.0)
+        ce_chunk = getattr(train_cfg, "ce_chunk", 256)
+
+        def loss_fn(params, tokens):
+            hidden = llama_hidden(params, tokens, cfg)
+            return chunked_next_token_loss(hidden, llama_head(params, cfg), tokens, z_loss, chunk=ce_chunk)
+
+        return loss_fn
+
     def data(self, batch, seq_len, seed):
         from tpu_nexus_torch.workload.data import synthetic_tokens
 
         return synthetic_tokens(batch, seq_len, self.config.vocab_size, seed=seed)
 
+    def to_device(self, batch, device):
+        return host_to_device(batch, device, torch.long)
+
     def items_in(self, batch):
         return int(np.prod(batch.shape))
+
+
+@dataclass(frozen=True)
+class MnistAdapter(ModelAdapter):
+    """Small demo classifier.  Batches are ``{"x": [B, 784] f32, "y": [B]
+    i32}`` dicts."""
+
+    config: MnistConfig = field(default_factory=MnistConfig)
+    name: str = "mnist"
+
+    def init(self, generator: torch.Generator, device: Any = "cuda") -> MnistParams:
+        return mnist_init(generator, self.config, device=device)
+
+    def batch_axes(self):
+        return {"x": ("batch", None), "y": ("batch",)}
+
+    def make_loss(self, train_cfg):
+        _single_device_only(train_cfg)
+        cfg = self.config
+
+        def loss_fn(params, batch):
+            logits = mnist_forward(params, batch["x"], cfg).float()
+            labels = batch["y"]
+            logz = torch.logsumexp(logits, dim=-1)
+            true_logit = torch.gather(logits, -1, labels[:, None])[:, 0]
+            loss = (logz - true_logit).mean()
+            accuracy = (logits.argmax(dim=-1) == labels).float().mean()
+            return loss, {"ce_loss": loss, "accuracy": accuracy}
+
+        return loss_fn
+
+    def data(self, batch, seq_len, seed):
+        from tpu_nexus_torch.workload.data import synthetic_mnist
+
+        def gen():
+            for images, labels in synthetic_mnist(batch, seed=seed):
+                yield {"x": images, "y": labels}
+
+        return gen()
+
+    def to_device(self, batch, device):
+        return {"x": host_to_device(batch["x"], device), "y": host_to_device(batch["y"], device, torch.long)}
+
+    def items_in(self, batch):
+        return int(np.shape(batch["y"])[0])
 
 
 def adapter_for(model_config: Any) -> ModelAdapter:
@@ -61,17 +167,20 @@ def adapter_for(model_config: Any) -> ModelAdapter:
         return model_config
     if isinstance(model_config, LlamaConfig):
         return LlamaAdapter(config=model_config)
+    if isinstance(model_config, MnistConfig):
+        return MnistAdapter(config=model_config)
     raise TypeError(f"no adapter for model config {type(model_config).__name__}")
 
 
 def get_adapter(preset: str) -> ModelAdapter:
-    """Resolve a preset name (``NEXUS_MODEL_PRESET``)."""
+    """Resolve a preset name (``NEXUS_MODEL_PRESET``): ``mnist`` or any
+    LlamaConfig preset."""
+    if preset == "mnist":
+        return MnistAdapter()
     factory = vars(LlamaConfig).get(preset)
     if isinstance(factory, staticmethod):
         return LlamaAdapter(config=getattr(LlamaConfig, preset)())
-    if preset == "mnist":
-        raise KeyError("model preset 'mnist' is not ported yet (ROADMAP.md: the training step)")
     if preset.removeprefix("moe_") in MOE_PRESETS:
         raise KeyError(f"model preset {preset!r} is not ported yet (ROADMAP.md: MoE)")
-    known = [n for n in vars(LlamaConfig) if isinstance(vars(LlamaConfig)[n], staticmethod)]
+    known = ["mnist"] + [n for n in vars(LlamaConfig) if isinstance(vars(LlamaConfig)[n], staticmethod)]
     raise KeyError(f"unknown model preset {preset!r}; known: {sorted(known)}")

@@ -1,8 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled at first use, in one ``nvcc`` call,
-into a shared library with a plain C interface under ``build/`` at the
-repository root, keyed by a hash of the sources and the flags (a changed
+Every ``csrc/*.cu`` source is compiled at first use, one ``nvcc`` process
+per source started together, and linked into a shared library with a
+plain C interface under ``build/`` at the repository root, keyed by a hash of the sources and the flags (a changed
 source builds a new library; an unchanged one is reused).  The library is
 loaded with :mod:`ctypes`: every pointer and the stream travel as
 ``c_void_p``, and every entry point returns ``cudaGetLastError()`` so a
@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _P = ctypes.c_void_p
@@ -36,6 +36,8 @@ _F = ctypes.c_float
 #: C signatures of the library's entry points (all return an int status)
 SIGNATURES = {
     "nexus_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "nexus_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "nexus_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "nexus_decode_attention": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
@@ -70,20 +72,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libnexus_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+
+
 def build() -> Path:
     """Compile the sources unless a library for exactly these sources
-    exists; returns its path.  Raises with the compiler's output on
-    failure."""
+    exists; returns its path.  Each source compiles in its own ``nvcc``
+    process, all started together (the build's time is that of the
+    slowest source, not the sum), then one link makes the library.
+    Raises with the compiler's output on failure, after every process
+    has ended."""
     target = library_path()
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{target.stem}.{os.getpid()}"
+        objects, procs = [], []
+        for src in sources():
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )))
+            objects.append(obj)
+        failures = []
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        if failures:
+            raise RuntimeError("\n".join(failures))
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
+        _run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objects)])
+        for obj in objects:
+            obj.unlink()
         os.replace(tmp, target)
     return target
 

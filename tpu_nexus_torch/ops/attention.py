@@ -1,6 +1,10 @@
-"""Attention dispatch: the flash kernel on the card, dense attention on the CPU.
+"""Attention dispatch: the flash kernels on the card, dense attention on the CPU.
 
-Counterpart of ``tpu_nexus/ops/attention.py``.  Layout throughout:
+Counterpart of ``tpu_nexus/ops/attention.py``.  On the card attention is
+differentiable through the flash forward kernel and the two backward
+kernels (``ops/flash_attention.py::FlashAttention``); on the CPU autograd
+runs through :func:`dense_attention`, as the reference's CPU path runs
+through XLA's dense attention.  Layout throughout:
 ``[batch, seq, heads, head_dim]``; GQA is first-class (``k``/``v`` may
 have fewer heads than ``q`` as long as the count divides evenly).
 """
@@ -48,14 +52,14 @@ def attention(
     scale: Optional[float] = None, impl: str = "auto",
 ) -> torch.Tensor:
     """Main entry point.  ``impl``: ``"auto"`` runs :func:`dense_attention`
-    on a CPU tensor and the flash kernel's wrapper on any other, which
-    launches the kernel or raises on inputs it does not take (head_dim not
-    64|128, a dtype other than bf16|f32, ...); ``"plain"`` forces
-    :func:`dense_attention`."""
+    on a CPU tensor and :class:`FlashAttention` on any other, whose kernel
+    wrappers launch the kernels or raise on inputs they do not take
+    (head_dim not 64|128, a dtype other than bf16|f32, ...); ``"plain"``
+    forces :func:`dense_attention`."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; use auto|plain")
     if impl == "plain" or q.device.type == "cpu":
         return dense_attention(q, k, v, causal=causal, scale=scale)
-    from tpu_nexus_torch.ops.flash_attention import flash_attention
+    from tpu_nexus_torch.ops.flash_attention import flash_attention_differentiable
 
-    return flash_attention(q, k, v, causal=causal, scale=scale)[0]
+    return flash_attention_differentiable(q, k, v, causal=causal, scale=scale)

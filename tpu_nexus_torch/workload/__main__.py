@@ -1,9 +1,10 @@
 """Workload container entrypoint: ``python -m tpu_nexus_torch.workload``.
 
 Reads the launcher's NEXUS_* env contract, opens the ledger store, and runs
-the workload.  ``NEXUS_MODE=serve`` runs the lockstep serving loop on
-``NEXUS_DEVICE`` (default ``cuda``; a CUDA request without a card fails).
-``train`` and ``serve-engine`` exit non-zero until their slices land.
+the workload on ``NEXUS_DEVICE`` (default ``cuda``; a CUDA request without
+a card fails): ``NEXUS_MODE=train`` (the default, as in the reference)
+runs the training loop, ``serve`` the lockstep serving loop.
+``serve-engine`` exits non-zero until its slice lands.
 
 The ledger store comes from the same keys the supervisor's app config
 reads: ``NEXUS__CQL_STORE_TYPE`` = ``memory`` (the default here) or
@@ -27,8 +28,7 @@ from tpu_nexus_torch.checkpoint.store import (
 #: modes of the JAX package's entrypoint that this slice does not port,
 #: and the ROADMAP.md item that brings each
 NOT_PORTED_MODES = {
-    "train": "the training step",
-    "serve-engine": "serve-engine slice",
+    "serve-engine": "A1 serve-engine slice",
 }
 
 
@@ -55,16 +55,21 @@ def main() -> int:
     if mode in NOT_PORTED_MODES:
         raise SystemExit(
             f"NEXUS_MODE={mode!r} is not ported to tpu_nexus_torch yet "
-            f"(ROADMAP.md: {NOT_PORTED_MODES[mode]}); use NEXUS_MODE=serve"
+            f"(ROADMAP.md: {NOT_PORTED_MODES[mode]}); use NEXUS_MODE=train or serve"
         )
-    if mode != "serve":
-        raise SystemExit(f"unknown NEXUS_MODE {mode!r}; use 'serve'")
-    from tpu_nexus_torch.workload.serve import ServeConfig, run_serving
+    if mode == "train":
+        from tpu_nexus_torch.workload.harness import WorkloadConfig, run_workload
 
-    cfg = ServeConfig.from_env()
+        cfg, run = WorkloadConfig.from_env(), run_workload
+    elif mode == "serve":
+        from tpu_nexus_torch.workload.serve import ServeConfig, run_serving
+
+        cfg, run = ServeConfig.from_env(), run_serving
+    else:
+        raise SystemExit(f"unknown NEXUS_MODE {mode!r}; use 'train' or 'serve'")
     store = store_from_env()
     try:
-        result = run_serving(cfg, store=store)
+        result = run(cfg, store=store)
     finally:
         store.close()
     logging.getLogger(__name__).info("workload done: %s", result)

@@ -27,7 +27,8 @@ from tpu_nexus_torch.models.generate import DECODE_IMPLS, generate
 from tpu_nexus_torch.models.llama import LlamaConfig
 from tpu_nexus_torch.models.registry import LlamaAdapter, adapter_for, get_adapter
 from tpu_nexus_torch.parallel.distributed import ProcessContext, initialize_distributed
-from tpu_nexus_torch.workload.harness import LedgerReporter
+from tpu_nexus_torch.workload.harness import LedgerReporter, resolve_device
+from tpu_nexus_torch.workload.harness import sync as _sync
 
 logger = logging.getLogger(__name__)
 
@@ -67,24 +68,6 @@ ENGINE_ONLY_ENV = {
     "NEXUS_SCALE_DOWN_N": (int, 12),
     "NEXUS_SCALE_COOLDOWN_S": (float, 60.0),
 }
-
-
-def resolve_device(name: str) -> torch.device:
-    """``NEXUS_DEVICE`` → a torch device; ``cuda`` without a card raises."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {name!r} requested (NEXUS_DEVICE) but torch sees no CUDA "
-            "device; set NEXUS_DEVICE=cpu to run on the CPU"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {name!r}; use cuda[:N] or cpu")
-    return device
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 @dataclass(frozen=True)
