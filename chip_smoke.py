@@ -14,7 +14,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (one ``nvcc`` per source, all started together).
 3. parity       — the forward and decode kernels against their plain
    PyTorch versions at the training and serving paths' shapes, bf16 and
-   f32.
+   f32; the int8 and int4 dequant-matmul kernels at the Llama-3-8B decode
+   step's (K, N) with M = 8, at M = 1 and 256 and at unaligned shapes,
+   int4 at groups 64 and 128 (and 2 and K), each run twice bit-identical;
+   the decode kernel's int8-KV mode at the serve shape, kv_len 4096, q_len
+   4 and ragged.
 4. train_parity — the backward kernels (dQ, dK/dV) against the plain
    backward: nexus_1b's B8 S2048 Hq16 Hkv8 D128, Llama-3-8B heads at S512,
    S200 (unaligned), D64 and non-causal, bf16 and f32; and a backward run
@@ -24,17 +28,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    training shape, decode at the serve step's), the bound, the plain
    version's time and the ``library_ms`` yardstick
    (``scaled_dot_product_attention`` and its backward, timed here only;
-   the port never calls them).
+   the port never calls them).  For the dequant-matmul kernels the shape is
+   the step's largest launch (K4096 x N14336, M8) and the yardstick is
+   ``torch.matmul`` with the pre-dequantized bf16 weight; for int8-KV
+   decode, ``scaled_dot_product_attention`` on a dequantized cache.
 6. e2e          — Llama-3-8B widths at 2 layers in f32: greedy ``generate``
    with the kernels is token-identical to ``generate`` with the plain
-   versions.
+   versions — with plain weights, with int8 weights + an int8 KV cache,
+   and with int4 weights.
 7. train_e2e    — nexus_1b widths at 2 layers in f32: 3 training steps
    through the kernels agree with 3 steps through dense attention.
 8. serve        — ``run_serving`` on ``llama3_8b`` at full width and depth
    with bf16 params (batch 8, prompt 128, 32 new tokens, 3 rounds) into an
    in-memory ledger; the launch counters, zeroed just before, show the
    path went through the forward and decode kernels.
-9. train        — ``run_workload`` on ``nexus_1b`` at full width and depth
+9. serve_quant  — ``run_serving`` on ``llama3_8b`` at full width and depth
+   (bf16 params, batch 8, prompt 128, 32 new tokens, 3 rounds), once with
+   ``quantize="int8", quantize_kv="int8"`` and once with
+   ``quantize="int4"``: COMPLETED, exactly 7 x layers x decode-steps
+   dequant-matmul launches each, decoded tokens/s, weight bytes, peak
+   memory.
+10. train       — ``run_workload`` on ``nexus_1b`` at full width and depth
    (bf16, adamw, remat attn_out, batch 8, seq 2048, 20 steps) into an
    in-memory ledger: COMPLETED, tokens/s, MFU against the 989 TFLOP/s bf16
    peak, peak memory, and 14 launches per step of each of the flash
@@ -44,7 +58,8 @@ Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
 share (``python3 chip_smoke.py --phases build,profile``); ``train_profile``
 — the same for two warm steps of the train phase's shape
-(``--phases build,train_profile``).
+(``--phases build,train_profile``); ``profile_int8`` and ``profile_int4`` —
+``profile`` with the serve_quant phase's two configurations.
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -57,15 +72,18 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "parity", "train_parity", "times", "e2e", "train_e2e", "serve", "train")
+PHASES = ("device", "build", "parity", "train_parity", "times", "e2e", "train_e2e", "serve", "serve_quant",
+          "train")
 #: phases run only when named in --phases
-OPT_IN = ("profile", "train_profile")
+OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile")
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, f32 CUDA
 # core rate, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -96,22 +114,71 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fns, iters: int = 40, warmup: int = 4) -> float:
-    """Mean ms per call over ``iters`` calls, cycling through ``fns`` (one
-    closure per input copy, so a working set larger than L2 stays cold the
-    way a per-layer caller finds it)."""
+def spin_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per millisecond on this card, measured
+    once with CUDA events (the spin counts clock cycles, and the clock is
+    the card's own)."""
+    import torch
+
+    if spin_cycles_per_ms.value is None:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        spin_cycles_per_ms.value = 20_000_000 / start.elapsed_time(end)
+    return spin_cycles_per_ms.value
+
+
+spin_cycles_per_ms.value = None
+
+
+def timed(fns, iters: int = 40, warmup: int = 4):
+    """``(ms, enqueue_ms)`` per call over ``iters`` calls, cycling through
+    ``fns`` (one closure per input copy, so a working set larger than L2
+    stays cold the way a per-layer caller finds it).  ``ms`` is time on the
+    card: a spin kernel holds the stream while the host enqueues all the
+    timed calls, so a wrapper whose host side takes longer than its kernel
+    (allocations, the ctypes call) is not timed by its host side.
+    ``enqueue_ms`` is that host side, per call.  The reading is kept only if
+    the spin was still running when the last call had been enqueued;
+    otherwise the spin is lengthened and the run repeated, and a reading
+    that cannot be taken that way raises."""
     import torch
 
     for i in range(warmup):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    fns[0]()
+    spin_ms = 2.0 * (time.perf_counter() - t0) * 1e3 * iters + 1.0
+    for _ in range(4):
+        torch.cuda.synchronize()
+        gate, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+        gate.record()
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fns[i % len(fns)]()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        held = not gate.query()  # the spin outlasted the enqueueing
+        end.record()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / iters, enqueue_ms / iters
+        spin_ms = 2.0 * enqueue_ms + 1.0
+    raise RuntimeError(
+        f"enqueueing {iters} calls ({enqueue_ms:.1f} ms) outlasted the spin four times: "
+        "the reading would be the host's time, not the card's"
+    )
+
+
+def cuda_ms(fns, iters: int = 40, warmup: int = 4) -> float:
+    """Mean ms on the card per call (see :func:`timed`)."""
+    return timed(fns, iters, warmup)[0]
 
 
 def max_err(a, b) -> float:
@@ -246,6 +313,128 @@ def phase_parity(results):
         if dtype == torch.bfloat16 and max_len == 160 and sq == 1:
             worst["decode_attention"] = max(worst["decode_attention"], err)
     results.setdefault("max_abs_err", {}).update(worst)
+    quant_matmul_parity(results)
+    decode_int8kv_parity(results)
+
+
+#: limits of the dequant-matmul and int8-KV cases: f32 max-abs relative to
+#: the reference's largest magnitude (the sums differ in order only), bf16
+#: the worst row's relative L2 (one rounding of the output apart)
+QUANT_F32_MAXABS_REL = 1e-4
+#: the llama3_8b decode step's distinct weight shapes (K, N): wq/wo, wk/wv,
+#: w_gate/w_up, w_down
+LLAMA8B_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+
+
+def quant_weight(k, n, mode, group, seed):
+    """A random [K, N] weight quantized on the card: QTensor or QTensor4."""
+    import torch
+
+    from tpu_nexus_torch.models.quant import quantize_tensor, quantize_tensor_int4
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((k, n), generator=g, device="cuda") * k**-0.5
+    return quantize_tensor(w, (-2,)) if mode == "int8" else quantize_tensor_int4(w, (-2,), group, name="w")
+
+
+def quant_bound(m, k, n, w, dtype):
+    """Least time: the packed weight, its scales, x and y moved once at the
+    HBM rate, or 2MKN operations at the peak of x's type."""
+    import torch
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = w.q.numel() + w.s.numel() * 4 + (m * k + m * n) * itemsize
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = 2 * m * k * n / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def quant_matmul_parity(results):
+    """Kernels #5 (int8) and #6 (int4) against ``quant_matmul_plain``."""
+    import torch
+
+    from tpu_nexus_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+
+    cases = [(8, k, n, (64, 128)) for k, n in LLAMA8B_KN]  # (M, K, N, int4 groups)
+    cases += [(1, 4096, 4096, (64,)), (256, 4096, 4096, (64,)), (5, 448, 200, (64, 2)), (3, 640, 71, (128, 640))]
+    worst = {"quant_matmul_int8": 0.0, "quant_matmul_int4": 0.0}
+    seed = 2000
+    for m, k, n, groups in cases:
+        for mode, group in [("int8", 0)] + [("int4", g) for g in groups]:
+            w = quant_weight(k, n, mode, group, seed)
+            for dtype in (torch.bfloat16, torch.float32):
+                seed += 1
+                x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(seed),
+                                device="cuda").to(dtype)
+                out, again = quant_matmul(x, w), quant_matmul(x, w)
+                torch.cuda.synchronize()
+                ref = quant_matmul_plain(x, w)
+                same = bool(torch.equal(out, again))
+                err, ref_max, e_row = max_err(out, ref), float(ref.float().abs().max()), row_rel_err(out, ref)
+                ok = same and bool(torch.isfinite(out).all()) and (
+                    e_row <= ROW_REL_TOL if dtype == torch.bfloat16 else err <= QUANT_F32_MAXABS_REL * ref_max)
+                emit("parity", kernel=f"quant_matmul_{mode}", m=m, k=k, n=n, group=group or None,
+                     dtype=str(dtype), max_abs_err=err, ref_max_abs=ref_max, max_row_rel_err=e_row,
+                     bit_identical_twice=same, tol_f32_max_abs_rel=QUANT_F32_MAXABS_REL,
+                     tol_bf16_row_rel=ROW_REL_TOL, ok=ok)
+                if not ok:
+                    raise AssertionError(f"quant_matmul {mode} kernel disagrees with its plain version: "
+                                         f"M{m} K{k} N{n} group {group} {dtype}")
+                if dtype == torch.bfloat16 and (m, k, n) == (8, 4096, 14336) and group in (0, 64):
+                    worst[f"quant_matmul_{mode}"] = err
+            del w
+    torch.cuda.empty_cache()
+    results.setdefault("max_abs_err", {}).update(worst)
+
+
+def int8_cache(k, v):
+    """(k8, v8, k_scale, v_scale): a cache quantized the way decode writes it."""
+    from tpu_nexus_torch.models.generate import _quantize_kv
+
+    (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
+    return k8, v8, ks, vs
+
+
+def decode_int8kv_parity(results):
+    """Kernel #4's int8-KV mode against ``decode_attention_plain`` with scales."""
+    import torch
+
+    from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
+
+    cases = []  # (B, q_len, max_len, kv_len, ragged, dtype)
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += [(8, 1, 160, 144, False, dtype), (8, 1, 4096, 4096, False, dtype), (8, 4, 160, 144, False, dtype),
+                  (8, 4, 4096, 3000, False, dtype), (8, 1, 160, 150, True, dtype), (8, 4, 4096, 4000, True, dtype)]
+    worst = 0.0
+    for i, (b, sq, max_len, kv_len, ragged, dtype) in enumerate(cases):
+        q, k, v = decode_inputs(b, sq, max_len, 32, 8, 128, dtype, seed=3000 + i)
+        k8, v8, ks, vs = int8_cache(k, v)
+        lens = width = None
+        if ragged:
+            width = max_len // 2
+            g = torch.Generator(device="cuda").manual_seed(3500 + i)
+            lens = torch.randint(1, width + 1, (b,), generator=g, device="cuda", dtype=torch.int32)
+        before = decode_attention.launches_int8kv
+        out = decode_attention(q, k8, v8, kv_len, lens, width, ks, vs)
+        again = decode_attention(q, k8, v8, kv_len, lens, width, ks, vs)
+        torch.cuda.synchronize()
+        ref = decode_attention_plain(q, k8, v8, kv_len, lens, width, ks, vs)
+        same = bool(torch.equal(out, again)) and decode_attention.launches_int8kv == before + 2
+        err, ref_max, e_row = max_err(out, ref), float(ref.float().abs().max()), row_rel_err(out, ref)
+        if dtype == torch.bfloat16:
+            ok = err <= TOL["bfloat16"][0] and e_row <= ROW_REL_TOL
+        else:
+            ok = err <= QUANT_F32_MAXABS_REL * ref_max
+        ok = ok and same and bool(torch.isfinite(out).all())
+        emit("parity", kernel="decode_attention_int8kv", b=b, q_len=sq, max_len=max_len, kv_len=kv_len,
+             ragged=ragged, dtype=str(dtype), max_abs_err=err, ref_max_abs=ref_max, max_row_rel_err=e_row,
+             bit_identical_twice=same, tol_bf16_max_abs=TOL["bfloat16"][0], tol_bf16_row_rel=ROW_REL_TOL,
+             tol_f32_max_abs_rel=QUANT_F32_MAXABS_REL, ok=ok)
+        if not ok:
+            raise AssertionError(f"int8-KV decode kernel disagrees with its plain version: {cases[i]}")
+        if dtype == torch.bfloat16 and (sq, max_len) == (1, 160) and not ragged:
+            worst = err
+    results.setdefault("max_abs_err", {})["decode_attention_int8kv"] = worst
 
 
 #: bf16 backward limits: max-abs relative to the reference's largest
@@ -337,7 +526,8 @@ def phase_times(results):
         lib = [lambda x=x: F.scaled_dot_product_attention(*x, is_causal=True, enable_gqa=True)
                for x in lib_sets]
         bound, by = flash_bound(b, s, hq, hkv, d, dt)
-        row = dict(shape=[b, s, hq, hkv, d], dtype="bfloat16", ms=cuda_ms(kern, iters=iters),
+        ms, enqueue_ms = timed(kern, iters=iters)
+        row = dict(shape=[b, s, hq, hkv, d], dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
                    plain_ms=cuda_ms(plain, iters=max(iters // 4, 4)), library_ms=cuda_ms(lib, iters=iters),
                    bound_ms=bound, bound_by=by)
         if key:
@@ -359,8 +549,9 @@ def phase_times(results):
         ]
         lib = [lambda x=x: F.scaled_dot_product_attention(*x, enable_gqa=True) for x in lib_sets]
         bound, by = decode_bound(b, 1, kv_len, hq, hkv, d, dt)
+        ms, enqueue_ms = timed(kern, iters=64)
         row = dict(
-            shape=[b, 1, max_len, kv_len, hq, hkv, d], dtype="bfloat16", ms=cuda_ms(kern, iters=64),
+            shape=[b, 1, max_len, kv_len, hq, hkv, d], dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
             plain_ms=cuda_ms(plain, iters=32), library_ms=cuda_ms(lib, iters=64),
             bound_ms=bound, bound_by=by,
         )
@@ -369,7 +560,67 @@ def phase_times(results):
         emit("times", kernel="decode_attention", **row)
         del layers, lib_sets
     bwd_times(times)
+    quant_times(times)
     results["times"] = times
+
+
+def quant_times(times):
+    """Kernels #5 and #6 at the decode step's largest launch (K4096 x N14336,
+    M8, bf16; int4 at group 64), cycling four weight copies so the packed
+    bytes come from HBM; and kernel #4's int8-KV mode at the two decode
+    shapes.  ``library_ms``: ``torch.matmul`` with the pre-dequantized bf16
+    weight, ``scaled_dot_product_attention`` on a dequantized cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from tpu_nexus_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+
+    dt = torch.bfloat16
+    m, k, n = 8, 4096, 14336
+    x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(4000), device="cuda").to(dt)
+    for mode, group in (("int8", 0), ("int4", 64)):
+        weights = [quant_weight(k, n, mode, group, 4001 + i) for i in range(4)]
+        dense = [w.to(dt) for w in weights]
+        bound, by = quant_bound(m, k, n, weights[0], dt)
+        ms, enqueue_ms = timed([lambda w=w: quant_matmul(x, w) for w in weights], iters=64)
+        row = dict(
+            shape=[m, k, n], group=group or None, dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
+            plain_ms=cuda_ms([lambda w=w: quant_matmul_plain(x, w) for w in weights], iters=8, warmup=2),
+            library_ms=cuda_ms([lambda w=w: torch.matmul(x, w) for w in dense], iters=64),
+            bound_ms=bound, bound_by=by,
+        )
+        times[f"quant_matmul_{mode}"] = row
+        emit("times", kernel=f"quant_matmul_{mode}", library_ms_is="torch.matmul, pre-dequantized bf16 weight", **row)
+        del weights, dense
+        torch.cuda.empty_cache()
+
+    hq, hkv, d = 32, 8, 128
+    for b, max_len, kv_len, n_layers, key in ((8, 160, 144, 32, "decode_attention_int8kv"), (8, 4096, 4096, 4, None)):
+        layers = []
+        for i in range(n_layers):
+            q, kk, vv = decode_inputs(b, 1, max_len, hq, hkv, d, dt, seed=4100 + i)
+            layers.append((q, *int8_cache(kk, vv)))
+        kern = [lambda a=a: decode_attention(a[0], a[1], a[2], kv_len, None, None, a[3], a[4]) for a in layers]
+        plain = [lambda a=a: decode_attention_plain(a[0], a[1], a[2], kv_len, None, None, a[3], a[4])
+                 for a in layers]
+        lib_sets = [(q.transpose(1, 2), (k8[:, :kv_len].to(dt) * ks[:, :kv_len].to(dt)).transpose(1, 2),
+                     (v8[:, :kv_len].to(dt) * vs[:, :kv_len].to(dt)).transpose(1, 2))
+                    for q, k8, v8, ks, vs in layers]
+        lib = [lambda a=a: F.scaled_dot_product_attention(*a, enable_gqa=True) for a in lib_sets]
+        nbytes = 2 * b * kv_len * hkv * (d + 4) + 2 * b * hq * d * 2  # int8 K/V + f32 scales, q and out
+        flops = 4 * b * hq * kv_len * d
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        ms, enqueue_ms = timed(kern, iters=64)
+        row = dict(shape=[b, 1, max_len, kv_len, hq, hkv, d], dtype="bfloat16 q, int8 cache",
+                   ms=ms, enqueue_ms=enqueue_ms, plain_ms=cuda_ms(plain, iters=32), library_ms=cuda_ms(lib, iters=64),
+                   bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes")
+        if key:
+            times[key] = row
+        emit("times", kernel="decode_attention_int8kv",
+             library_ms_is="scaled_dot_product_attention, dequantized bf16 cache", **row)
+        del layers, lib_sets
+    torch.cuda.empty_cache()
 
 
 def bwd_bound(b, s, hq, hkv, d, dtype, n_matmuls, outputs, causal=True):
@@ -429,7 +680,8 @@ def bwd_times(times):
         ("flash_attention_bwd_dq", dq_fns, 2, "dq"), ("flash_attention_bwd_dkv", dkv_fns, 3, "dkv"),
     ):
         bound, by = bwd_bound(b, s, hq, hkv, d, dt, n_matmuls, outputs)
-        times[key] = dict(shape=[b, s, hq, hkv, d], dtype="bfloat16", ms=cuda_ms(fns, iters=20),
+        ms, enqueue_ms = timed(fns, iters=20)
+        times[key] = dict(shape=[b, s, hq, hkv, d], dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
                           bound_matmuls=f"{n_matmuls} of the function's 5")
         emit("times", kernel=key, plain_ms_is="plain backward, dQ+dK+dV",
@@ -469,7 +721,34 @@ def phase_e2e(results):
          decode_launches=launched[1])
     if not same or launched[0] != cfg.n_layers or launched[1] != cfg.n_layers * 31:
         raise AssertionError("kernel path is not token-identical to the plain path (or skipped a kernel)")
+
+    # quantized trees: the dequant-matmul kernels (and the int8-KV decode
+    # mode) against the dequantize-then-einsum path and the plain attention
+    from tpu_nexus_torch.models.quant import quantize_params
+    from tpu_nexus_torch.ops.quant_matmul import quant_matmul
+
+    for mode, kv_quant, counter in (("int8", "int8", "launches_int8"), ("int4", "", "launches_int4")):
+        qparams = quantize_params(params, mode=mode)
+        before = (getattr(quant_matmul, counter), decode_attention.launches_int8kv)
+        with_kernels = generate(qparams, prompt, cfg, max_new_tokens=32, kv_quant=kv_quant)
+        launched = (getattr(quant_matmul, counter) - before[0], decode_attention.launches_int8kv - before[1])
+        os.environ["NEXUS_QUANT_KERNEL"] = "plain"
+        try:
+            plain = generate(qparams, prompt, cfg, max_new_tokens=32, kv_quant=kv_quant, attn_impl="plain",
+                             decode_kernel="plain")
+        finally:
+            del os.environ["NEXUS_QUANT_KERNEL"]
+        torch.cuda.synchronize()
+        same = bool(torch.equal(with_kernels, plain))
+        emit("e2e", config=f"llama3_8b widths, 2 layers, f32, {mode} weights, kv_quant={kv_quant!r}", batch=4,
+             prompt=128, new_tokens=32, token_identical=same, mismatched_tokens=int((with_kernels != plain).sum()),
+             quant_matmul_launches=launched[0], int8kv_decode_launches=launched[1])
+        want_kv = cfg.n_layers * 31 if kv_quant else 0
+        if not same or launched != (7 * cfg.n_layers * 31, want_kv):
+            raise AssertionError(f"{mode} kernel path is not token-identical to the plain path (or skipped a kernel)")
+        del qparams
     del params
+    torch.cuda.empty_cache()
 
 
 def _bwd_counters():
@@ -638,30 +917,109 @@ def phase_serve(results):
     results.setdefault("launches", {})["serve"] = launches
 
 
-def phase_profile(results):
+def phase_serve_quant(results):
+    """``run_serving`` on llama3_8b at full width and depth with quantized
+    weights: int8 weights + int8 KV cache, then int4 weights (group 64).
+    The counters, zeroed just before each run, must show exactly 7
+    dequant-matmul launches per layer per decode step (wq, wk, wv, wo,
+    w_gate, w_up, w_down; prefill's M = 1024 rows take the dense matmul)."""
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.models.llama import LlamaConfig
+    from tpu_nexus_torch.ops.decode_attention import decode_attention
+    from tpu_nexus_torch.ops.flash_attention import flash_attention
+    from tpu_nexus_torch.ops.quant_matmul import quant_matmul
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serving
+
+    class WeightBytes(logging.Handler):
+        """Reads the quantized tree's footprint from the line the workload logs."""
+
+        def emit(self, record):
+            if "weight bytes" in str(record.msg):
+                self.value = record.args[1]
+
+    serve_log = logging.getLogger("tpu_nexus_torch.workload.serve")
+    model = dataclasses.replace(LlamaConfig.llama3_8b(), param_dtype=torch.bfloat16)
+    n_layers = model.n_layers
+    for name, quantize, quantize_kv in (("serve_int8", "int8", "int8"), ("serve_int4", "int4", "")):
+        torch.cuda.empty_cache()
+        cfg = ServeConfig(model=model, batch_size=8, prompt_len=128, gen_tokens=32, rounds=3, device="cuda",
+                          quantize=quantize, quantize_kv=quantize_kv)
+        store = InMemoryCheckpointStore()
+        ctx = ProcessContext(run_id=name, algorithm="serve", process_id=0, num_processes=1, coordinator=None)
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = decode_attention.launches = decode_attention.launches_int8kv = 0
+        quant_matmul.launches_int8 = quant_matmul.launches_int4 = 0
+        weight_bytes = WeightBytes(level=logging.INFO)
+        serve_log.addHandler(weight_bytes)
+        level = serve_log.level
+        serve_log.setLevel(logging.INFO)
+        t0 = time.perf_counter()
+        try:
+            summary = run_serving(cfg, store=store, ctx=ctx)
+        finally:
+            serve_log.removeHandler(weight_bytes)
+            serve_log.setLevel(level)
+        wall = time.perf_counter() - t0
+        launches = {
+            "flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches,
+            "decode_attention_int8kv": decode_attention.launches_int8kv,
+            "quant_matmul_int8": quant_matmul.launches_int8, "quant_matmul_int4": quant_matmul.launches_int4,
+        }
+        row = store.read_checkpoint("serve", name)
+        stage = row.lifecycle_stage if row else None
+        emit("serve_quant", config=f"llama3_8b full width and depth ({n_layers} layers), bf16 params, "
+             f"quantize={quantize!r} quantize_kv={quantize_kv!r}", stage=stage,
+             per_chip_steps=row.per_chip_steps if row else None, wall_s=wall,
+             max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+             weight_bytes=weight_bytes.value, **summary)
+        if stage != LifecycleStage.COMPLETED:
+            raise AssertionError(f"{name}: ledger row is {stage}, not COMPLETED")
+        want = {
+            "flash_attention": n_layers * summary["prefill_calls"],
+            "decode_attention_int8kv": n_layers * summary["decode_steps"] if quantize_kv else 0,
+            "quant_matmul_int8": 7 * n_layers * summary["decode_steps"] if quantize == "int8" else 0,
+            "quant_matmul_int4": 7 * n_layers * summary["decode_steps"] if quantize == "int4" else 0,
+        }
+        wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+        if wrong or launches["decode_attention"] < n_layers * summary["decode_steps"]:
+            raise AssertionError(f"{name}: launches (got, want) {wrong or launches}")
+        results.setdefault("launches", {})[name] = launches
+
+
+def phase_profile(results, quantize="", kv_quant=""):
     """Opt-in (``--phases build,profile``): one warm ``generate`` round of
     the serve phase's shape under ``torch.profiler``; device time by
-    kernel group and the device's busy share of the window."""
+    kernel group and the device's busy share of the window.
+    ``profile_int8`` and ``profile_int4`` do the same with the serve_quant
+    phase's two configurations (int8 weights + int8 KV; int4 weights)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_nexus_torch.models.generate import generate
     from tpu_nexus_torch.models.llama import LlamaConfig, llama_init
+    from tpu_nexus_torch.models.quant import quantize_params
     from tpu_nexus_torch.workload.data import synthetic_tokens
 
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), param_dtype=torch.bfloat16)
     params = llama_init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    if quantize:
+        params = quantize_params(params, mode=quantize)
+        torch.cuda.empty_cache()
     prompts = synthetic_tokens(8, 128, cfg.vocab_size, seed=101)
-    generate(params, torch.as_tensor(next(prompts), device="cuda"), cfg, max_new_tokens=32)
+    generate(params, torch.as_tensor(next(prompts), device="cuda"), cfg, max_new_tokens=32, kv_quant=kv_quant)
     batch = torch.as_tensor(next(prompts), device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    generate(params, batch, cfg, max_new_tokens=32)
+    generate(params, batch, cfg, max_new_tokens=32, kv_quant=kv_quant)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3  # the same round, no profiler
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate(params, batch, cfg, max_new_tokens=32)
+        generate(params, batch, cfg, max_new_tokens=32, kv_quant=kv_quant)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -670,14 +1028,16 @@ def phase_profile(results):
             return "flash_attention kernel"
         if "decode_partial" in low or "decode_combine" in low:
             return "decode_attention kernel"
+        if "quant_matmul" in low:
+            return "quant_matmul kernels (partial + finalize)"
         if any(s in low for s in ("nvjet", "gemm", "xmma", "cutlass", "cublas", "sm90")):
             return "matmul (cuBLAS)"
         return "other (elementwise, copies, reductions)"
 
     groups, top = _group_device_time(prof, group_of)
     device_ms = sum(groups.values())
-    emit("profile", config="llama3_8b full depth, bf16 params; one generate round: batch 8, prompt 128, "
-         "32 new tokens", wall_ms=wall_ms, unprofiled_wall_ms=plain_wall_ms, device_ms=device_ms,
+    emit("profile", config=f"llama3_8b full depth, bf16 params, quantize={quantize!r} kv_quant={kv_quant!r}; "
+         "one generate round: batch 8, prompt 128, 32 new tokens", wall_ms=wall_ms, unprofiled_wall_ms=plain_wall_ms, device_ms=device_ms,
          device_busy_share=device_ms / wall_ms, idle_share=1 - device_ms / wall_ms,
          busy_share_of_unprofiled_round=device_ms / plain_wall_ms,
          groups_ms=groups, top=[{"ms": t, "calls": c, "name": n} for t, c, n in top[:12]])
@@ -799,8 +1159,11 @@ def main(argv=None) -> int:
              sources=[str(p.relative_to(ROOT)) for p in _build.sources()])
     runners = {
         "parity": phase_parity, "train_parity": phase_train_parity, "times": phase_times,
-        "e2e": phase_e2e, "train_e2e": phase_train_e2e, "serve": phase_serve, "train": phase_train,
+        "e2e": phase_e2e, "train_e2e": phase_train_e2e, "serve": phase_serve, "serve_quant": phase_serve_quant,
+        "train": phase_train,
         "profile": phase_profile, "train_profile": phase_train_profile,
+        "profile_int8": lambda r: phase_profile(r, "int8", "int8"),
+        "profile_int4": lambda r: phase_profile(r, "int4", ""),
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:
@@ -819,6 +1182,12 @@ def main(argv=None) -> int:
                                         "tpu_nexus/ops/flash_attention.py:297", "train"),
             "decode_attention": ("tpu_nexus_torch/csrc/decode_attention.cu",
                                  "tpu_nexus/ops/decode_attention.py:125", "serve"),
+            "decode_attention_int8kv": ("tpu_nexus_torch/csrc/decode_attention.cu",
+                                        "tpu_nexus/ops/decode_attention.py:125", "serve_int8"),
+            "quant_matmul_int8": ("tpu_nexus_torch/csrc/quant_matmul.cu",
+                                  "tpu_nexus/ops/quant_matmul.py:131", "serve_int8"),
+            "quant_matmul_int4": ("tpu_nexus_torch/csrc/quant_matmul.cu",
+                                  "tpu_nexus/ops/quant_matmul.py:154", "serve_int4"),
         }
         kernels = []
         whole_bwd = results["times"]["flash_attention_bwd"]
@@ -829,7 +1198,7 @@ def main(argv=None) -> int:
                 "launches": results["launches"][path][name],
                 "launches_by_path": {p: n[name] for p, n in results["launches"].items() if name in n},
                 "max_abs_err": results["max_abs_err"][name],
-                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "ms": t["ms"], "enqueue_ms": t["enqueue_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             }
             if name.startswith("flash_attention_bwd"):

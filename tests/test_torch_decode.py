@@ -101,7 +101,6 @@ def test_cpu_wrapper_launches_nothing_and_unported_modes_raise():
     with pytest.raises(ValueError, match="unknown decode impl"):
         cached_attention(q, k, v, 10, impl="kernel")
     for kw in (
-        dict(k_scale=torch.ones(2, 20, 2, 1), v_scale=torch.ones(2, 20, 2, 1)),
         dict(block_tables=torch.zeros(2, 5, dtype=torch.int32)),
         dict(q_starts=torch.zeros(2, dtype=torch.int32)),
     ):

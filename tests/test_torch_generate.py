@@ -5,6 +5,12 @@ Same weights (carried with ``models/convert.py``), same numpy prompts.
 per-slot vector-``pos`` modes match to 1e-5 (f32, max-abs); greedy
 ``generate`` is token-identical; sampled tokens with ``top_k`` fall inside
 the top-k set of the JAX model's logits.
+
+Quantized serving: the JAX tree is quantized by the JAX package and
+carried across by ``params_from_numpy``.  ``prefill``'s int8 cache has
+equal ``k``/``v`` and scales within 1e-6 relative; decode-step logits match
+to 1e-4; greedy ``generate`` is token-identical for int8, int4 and int8 +
+int8-KV, uniform and ragged; ``teacher_forced_decode_ce`` matches to 1e-4.
 """
 
 import importlib
@@ -16,7 +22,10 @@ import pytest
 import torch
 
 from tpu_nexus.models import llama as jax_llama
+from tpu_nexus.models import quant as jax_quant
+from tpu_nexus_torch.models.convert import params_from_numpy
 from test_torch_llama import carried, d128_configs, tiny_configs, tokens
+from test_torch_quant import numpy_tree
 
 # the packages' __init__ re-export a function named `generate`, which
 # shadows the module of the same name on attribute import
@@ -146,8 +155,129 @@ def test_sample_logits_greedy_and_validation():
         port_gen.generate(pparams, prompt, pcfg, max_new_tokens=2, top_k=2)
     with pytest.raises(ValueError, match="Generator"):
         port_gen.generate(pparams, prompt, pcfg, max_new_tokens=2, temperature=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_gen.generate(pparams, prompt, pcfg, max_new_tokens=2, kv_quant="int8")
+    with pytest.raises(ValueError, match="unknown kv_quant mode 'int4'"):
+        port_gen.generate(pparams, prompt, pcfg, max_new_tokens=2, kv_quant="int4")
     for fn in (port_gen.decode_scan, port_gen.extend_step, port_gen.verify_step):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fn()
+
+
+# -- quantized weights and the int8 KV cache -------------------------------------
+
+
+def _carried_quantized(jcfg, pcfg, mode, group=16, seed=0):
+    """(JAX quantized tree, the same tree in the port)."""
+    jparams = jax_llama.llama_init(jax.random.PRNGKey(seed), jcfg)
+    if mode:
+        jparams = jax_quant.quantize_params(jparams, mode=mode, group=group)
+    return jparams, params_from_numpy(numpy_tree(jparams), pcfg, device="cpu")
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_prefill_int8_cache_matches(ragged):
+    jcfg, pcfg = tiny_configs()
+    jparams, pparams = carried(jcfg, pcfg)
+    tok = tokens(3, 12, jcfg.vocab_size, seed=1)
+    lens = _lens(3, 12) if ragged else None
+    jcache, jlogits = jax_gen.prefill(
+        jparams, jnp.asarray(tok), jcfg, 20, None if lens is None else jnp.asarray(lens), kv_quant="int8"
+    )
+    pcache, plogits = port_gen.prefill(
+        pparams, torch.from_numpy(tok), pcfg, 20, None if lens is None else torch.from_numpy(lens),
+        kv_quant="int8",
+    )
+    _close(plogits, jlogits)
+    assert set(pcache) == set(jcache) == {"k", "v", "k_s", "v_s"}
+    for name in ("k", "v"):
+        assert pcache[name].dtype == torch.int8 and pcache[name].shape == jcache[name].shape
+        # the K/V behind the cache agree to 1e-5, so a value that sits on a
+        # rounding boundary may land one int8 step apart
+        diff = np.abs(pcache[name].numpy().astype(np.int32) - np.asarray(jcache[name]).astype(np.int32))
+        assert diff.max() <= 1 and (diff != 0).mean() < 1e-3
+    for name in ("k_s", "v_s"):
+        assert pcache[name].dtype == torch.float32 and pcache[name].shape == jcache[name].shape
+        np.testing.assert_allclose(pcache[name].numpy(), np.asarray(jcache[name]), rtol=1e-6, atol=0)
+        assert not pcache[name][:, :, 12:].any()  # zero-padded past the prompt
+
+
+@pytest.mark.parametrize("mode", ["scalar", "ragged", "per_slot"])
+@pytest.mark.parametrize("weights,kv", [("int8", ""), ("int4", ""), ("int8", "int8"), ("", "int8")])
+def test_quantized_decode_step_matches(weights, kv, mode):
+    jcfg, pcfg = tiny_configs()
+    jparams, pparams = _carried_quantized(jcfg, pcfg, weights)
+    b, s, max_len = 3, 10, 24
+    rng = np.random.default_rng(11)
+    tok = rng.integers(0, jcfg.vocab_size, size=b).astype(np.int32)
+    prompt = tokens(b, s, jcfg.vocab_size, seed=2)
+    lens = _lens(b, s, seed=3) if mode == "ragged" else None
+    jcache, _ = jax_gen.prefill(
+        jparams, jnp.asarray(prompt), jcfg, max_len, None if lens is None else jnp.asarray(lens), kv_quant=kv
+    )
+    # both sides decode from the SAME cache: the reference's, carried across
+    pcache = {name: torch.from_numpy(np.array(x)) for name, x in jcache.items()}
+    if mode == "per_slot":
+        pos_np = np.array([3, 9, 10], dtype=np.int32)
+        jargs, pargs = dict(pos=jnp.asarray(pos_np)), dict(pos=torch.from_numpy(pos_np))
+    else:
+        jargs, pargs = dict(pos=jnp.asarray(s, jnp.int32)), dict(pos=s)
+        if lens is not None:
+            jargs.update(prompt_lengths=jnp.asarray(lens), prompt_width=s)
+            pargs.update(prompt_lengths=torch.from_numpy(lens), prompt_width=s)
+    jlogits, jcache = jax_gen.decode_step(
+        jparams, jcache, jnp.asarray(tok), cfg=jcfg, decode_kernel="xla", **jargs
+    )
+    plogits, pcache = port_gen.decode_step(
+        pparams, pcache, torch.from_numpy(tok), cfg=pcfg, decode_kernel="plain", **pargs
+    )
+    np.testing.assert_allclose(plogits.numpy(), np.asarray(jlogits), atol=1e-4, rtol=0)
+    if kv:
+        for name in ("k_s", "v_s"):
+            np.testing.assert_allclose(pcache[name].numpy(), np.asarray(jcache[name]), rtol=1e-6, atol=0)
+        for name in ("k", "v"):
+            # as in the prefill test: at most one step, on a rounding boundary only
+            diff = np.abs(pcache[name].numpy().astype(np.int32) - np.asarray(jcache[name]).astype(np.int32))
+            assert diff.max() <= 1 and (diff != 0).mean() < 1e-3
+    else:
+        _close(pcache["k"], jcache["k"])
+        _close(pcache["v"], jcache["v"])
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("weights,kv", [("int8", ""), ("int4", ""), ("int8", "int8"), ("int4", "int8"), ("", "int8")])
+def test_quantized_greedy_generate_is_token_identical(weights, kv, ragged):
+    jcfg, pcfg = tiny_configs()
+    jparams, pparams = _carried_quantized(jcfg, pcfg, weights, seed=4)
+    prompt = tokens(3, 16, jcfg.vocab_size, seed=5)
+    lens = _lens(3, 16, seed=6) if ragged else None
+    ref = jax_gen.generate(
+        jparams, jnp.asarray(prompt), jcfg, max_new_tokens=12, kv_quant=kv,
+        prompt_lengths=None if lens is None else jnp.asarray(lens),
+    )
+    out = port_gen.generate(
+        pparams, torch.from_numpy(prompt), pcfg, max_new_tokens=12, kv_quant=kv,
+        prompt_lengths=None if lens is None else torch.from_numpy(lens),
+    )
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("weights,kv", [("", ""), ("int8", ""), ("int4", ""), ("int8", "int8")])
+def test_teacher_forced_decode_ce_matches(weights, kv):
+    jcfg, pcfg = tiny_configs()
+    jparams, pparams = _carried_quantized(jcfg, pcfg, weights, seed=7)
+    tok = tokens(2, 12, jcfg.vocab_size, seed=8)
+    ref = float(jax_gen.teacher_forced_decode_ce(jparams, jnp.asarray(tok), jcfg, kv_quant=kv, decode_kernel="xla"))
+    out = float(port_gen.teacher_forced_decode_ce(pparams, torch.from_numpy(tok), pcfg, kv_quant=kv))
+    assert abs(out - ref) <= 1e-4
+    assert out > 0
+
+
+def test_quantized_forward_matches():
+    jcfg, pcfg = tiny_configs()
+    for mode in ("int8", "int4"):
+        jparams, pparams = _carried_quantized(jcfg, pcfg, mode, seed=9)
+        tok = tokens(2, 20, jcfg.vocab_size, seed=10)
+        ref = jax_llama.llama_forward(jparams, jnp.asarray(tok), jcfg)
+        from tpu_nexus_torch.models.llama import llama_forward
+
+        out = llama_forward(pparams, torch.from_numpy(tok), pcfg)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=0)

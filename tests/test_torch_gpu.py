@@ -3,7 +3,10 @@
 Each kernel against its plain PyTorch version on the same seeded inputs,
 at small shapes that still cover the kernels' cases (GQA, ragged tails,
 D 64 and 128, ragged decode lens/width, q_len > 1), and the backward
-kernels at the shapes of ``chip_smoke.py``'s train_parity phase.
+kernels at the shapes of ``chip_smoke.py``'s train_parity phase; the int8
+and int4 dequant-matmul kernels (f32 1e-4 of the reference's largest
+magnitude, bf16 1e-2 on the worst row) and the decode kernel's int8-KV
+mode, each bit-identical run to run.
 Tolerances: bf16 out 2e-2 and lse 1e-3 (max-abs) and 1e-2 on the worst
 row's relative L2 error, f32 1e-5 (max-abs); bf16 gradients 2e-2 of the
 reference's largest magnitude (max-abs) and 1e-2 on the worst row's
@@ -22,8 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_nexus_torch.models.generate import cached_attention, generate
+from tpu_nexus_torch.models.generate import _quantize_kv, cached_attention, generate
 from tpu_nexus_torch.models.llama import LlamaConfig, llama_init
+from tpu_nexus_torch.models.quant import quantize_params, quantize_tensor, quantize_tensor_int4
 from tpu_nexus_torch.ops.attention import attention
 from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from tpu_nexus_torch.ops.flash_attention import (
@@ -35,6 +39,7 @@ from tpu_nexus_torch.ops.flash_attention import (
     flash_attention_differentiable,
     flash_attention_plain,
 )
+from tpu_nexus_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain, weight_einsum
 from tpu_nexus_torch.workload.train import TrainConfig, init_train_state, make_train_step
 
 torch.set_num_threads(1)
@@ -236,4 +241,116 @@ def test_tiny_training_raises_on_the_card(cuda_device):
         make_train_step(cfg, tcfg)(state, tokens)
     with pytest.raises(ValueError, match="flash_attention kernel unsupported"):
         flash_attention_differentiable(*(torch.zeros((1, 8, 2, 16), device=cuda_device),) * 3)
+
+
+def _quantized(device, k, n, mode, group, seed):
+    w = _randn((k, n), seed, device, torch.float32) * k**-0.5
+    return quantize_tensor(w, (-2,)) if mode == "int8" else quantize_tensor_int4(w, (-2,), group, name="w")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode,group", [("int8", 0), ("int4", 64), ("int4", 128), ("int4", 2)])
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (1, 1024, 4096), (256, 512, 384), (5, 640, 200), (3, 384, 71)])
+def test_quant_matmul_kernels_match_plain(cuda_device, dtype, mode, group, m, k, n):
+    w = _quantized(cuda_device, k, n, mode, group, seed=k + n)
+    x = _randn((m, k), 11, cuda_device, dtype)
+    counter = "launches_int8" if mode == "int8" else "launches_int4"
+    before = getattr(quant_matmul, counter)
+    out, again = quant_matmul(x, w), quant_matmul(x, w)
+    torch.cuda.synchronize()
+    assert getattr(quant_matmul, counter) == before + 2
+    assert torch.equal(out, again)
+    ref = quant_matmul_plain(x, w)
+    if dtype == torch.float32:
+        assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    else:
+        rel = (out.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-30)
+        assert float(rel.max()) <= ROW_REL_TOL
+
+
+@pytest.mark.gpu
+def test_weight_einsum_dispatch_on_the_card(cuda_device):
+    """Decode-sized M launches the kernel; M over the cap, a stacked weight
+    and ``impl="plain"`` take dequantize-then-einsum; an activation dtype
+    the kernel does not take, or a weight left on the host, raises."""
+    w = _randn((2, 256, 4, 64), 3, cuda_device, torch.float32)
+    stacked = quantize_tensor(w, (-3,))
+    layer = stacked[1]
+    before = quant_matmul.launches_int8
+    x = _randn((8, 1, 256), 4, cuda_device, torch.bfloat16)
+    out = weight_einsum("bse,ehd->bshd", x, layer, torch.bfloat16)
+    assert quant_matmul.launches_int8 == before + 1 and out.shape == (8, 1, 4, 64)
+    assert torch.equal(out, quant_matmul(x.reshape(8, 256), layer).reshape(8, 1, 4, 64))
+    # dequantize-then-einsum rounds q*s to bf16 first: close, not equal
+    ref = weight_einsum("bse,ehd->bshd", x, layer, torch.bfloat16, impl="plain")
+    assert quant_matmul.launches_int8 == before + 2
+    assert float((out.float() - ref.float()).abs().max()) <= 2e-2 * float(ref.float().abs().max())
+    big = _randn((8, 40, 256), 5, cuda_device, torch.bfloat16)  # M = 320 > 256
+    assert weight_einsum("bse,ehd->bshd", big, layer, torch.bfloat16).shape == (8, 40, 4, 64)
+    assert weight_einsum("lbe,lehd->lbhd", big[:2], stacked, torch.bfloat16).shape == (2, 40, 4, 64)
+    assert quant_matmul.launches_int8 == before + 2
+    with pytest.raises(ValueError, match="the kernel takes bfloat16 or float32"):
+        quant_matmul(x.reshape(8, 256).half(), layer)
+    # ... and through the call site too: no quiet dequantize-then-einsum on the card
+    with pytest.raises(ValueError, match="the kernel takes bfloat16 or float32"):
+        weight_einsum("bse,ehd->bshd", x, layer, torch.float16)
+    with pytest.raises(ValueError, match="needs both on one CUDA device"):
+        weight_einsum("bse,ehd->bshd", x, quantize_tensor(w[1].cpu(), (-3,)), torch.bfloat16)
+    assert quant_matmul.launches_int8 == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,max_len,kv_len,ragged", [(1, 160, 144, False), (4, 300, 290, True),
+                                                     (1, 4096, 3000, False), (8, 64, 64, False)])
+def test_int8kv_decode_kernel_matches_plain(cuda_device, dtype, sq, max_len, kv_len, ragged):
+    q = _randn((4, sq, 32, 128), 4, cuda_device, dtype)
+    (k8, ks), (v8, vs) = (_quantize_kv(_randn((4, max_len, 8, 128), seed, cuda_device, dtype)) for seed in (5, 6))
+    lens = width = None
+    if ragged:
+        width = max_len // 2
+        lens = torch.tensor([width, 1, width // 2, width - 3], dtype=torch.int32, device=cuda_device)
+    before = (decode_attention.launches, decode_attention.launches_int8kv)
+    out = decode_attention(q, k8, v8, kv_len, lens, width, ks, vs)
+    again = decode_attention(q, k8, v8, kv_len, lens, width, ks, vs)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches, decode_attention.launches_int8kv) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(out, again)
+    ref = decode_attention_plain(q, k8, v8, kv_len, lens, width, ks, vs)
+    if dtype == torch.float32:
+        assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    else:
+        _check(out, ref, dtype)
+    with pytest.raises(ValueError, match="decode_attention kernel unsupported"):
+        decode_attention(q, k8.float(), v8.float(), kv_len, lens, width, ks, vs)  # scales need an int8 cache
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,kv_quant", [("int8", "int8"), ("int4", ""), ("int4", "int8")])
+def test_quantized_kernel_generate_is_token_identical_to_plain_in_f32(cuda_device, monkeypatch, mode, kv_quant):
+    cfg = LlamaConfig(
+        vocab_size=512, hidden=256, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=128,
+        intermediate=512, max_seq_len=256, dtype=torch.float32, param_dtype=torch.float32,
+    )
+    params = quantize_params(
+        llama_init(torch.Generator(device=cuda_device).manual_seed(0), cfg, device=cuda_device), mode=mode
+    )
+    prompt = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 512, size=(3, 40)).astype(np.int32)
+    ).to(cuda_device)
+    lens = torch.tensor([40, 23, 31], dtype=torch.int32, device=cuda_device)
+    counter = "launches_int8" if mode == "int8" else "launches_int4"
+    for prompt_lengths in (None, lens):
+        monkeypatch.delenv("NEXUS_QUANT_KERNEL", raising=False)
+        m0, d0 = getattr(quant_matmul, counter), decode_attention.launches_int8kv
+        out = generate(params, prompt, cfg, max_new_tokens=16, prompt_lengths=prompt_lengths, kv_quant=kv_quant)
+        # the prefill's M = 3 x 40 rows is under the cap, so it launches too: 1 + 15 passes
+        assert getattr(quant_matmul, counter) - m0 == 7 * 2 * 16
+        assert decode_attention.launches_int8kv - d0 == (2 * 15 if kv_quant else 0)
+        monkeypatch.setenv("NEXUS_QUANT_KERNEL", "plain")
+        ref = generate(params, prompt, cfg, max_new_tokens=16, prompt_lengths=prompt_lengths, kv_quant=kv_quant,
+                       attn_impl="plain", decode_kernel="plain")
+        assert getattr(quant_matmul, counter) - m0 == 7 * 2 * 16
+        assert torch.equal(out, ref)
 

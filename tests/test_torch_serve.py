@@ -4,6 +4,9 @@
   COMPLETED with heartbeats and returns the JAX package's summary keys;
 * ``python -m tpu_nexus_torch.workload`` runs in a subprocess with ``jax``
   and ``tpu_nexus`` blocked from import, against a sqlite ledger;
+* ``NEXUS_QUANTIZE``/``NEXUS_QUANT_GROUP``/``NEXUS_QUANTIZE_KV`` parse and
+  validate as in the reference (same wording), and a quantized run lands
+  COMPLETED in a sqlite ledger;
 * ``NEXUS_DEVICE`` defaults to ``cuda`` and raises without a card — the
   workload never carries on on the CPU unasked;
 * no file of the port (nor ``chip_smoke.py``) imports ``jax`` or
@@ -26,6 +29,8 @@ from tpu_nexus.workload.serve import ServeConfig as JaxServeConfig
 from tpu_nexus.workload.serve import run_serving as jax_run_serving
 from tpu_nexus_torch.checkpoint.models import LifecycleStage
 from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore, SqliteCheckpointStore
+from tpu_nexus_torch.models.quant import quantized_bytes
+from tpu_nexus_torch.models.registry import get_adapter
 from tpu_nexus_torch.parallel.distributed import ProcessContext
 from tpu_nexus_torch.workload import __main__ as entry
 from tpu_nexus_torch.workload.serve import ENGINE_ONLY_ENV, ServeConfig, run_serving
@@ -128,9 +133,6 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     "key,value,item",
     [
         ("NEXUS_CHECKPOINT_DIR", "/ckpt", "tensor checkpoints"),
-        ("NEXUS_QUANTIZE", "int8", "weight quantization"),
-        ("NEXUS_QUANT_GROUP", "32", "weight quantization"),
-        ("NEXUS_QUANTIZE_KV", "int8", "serve-engine"),
         ("NEXUS_FAULT_MODE", "step-ici", "serve-engine"),
         ("NEXUS_PAGE_SIZE", "16", "serve-engine"),
         ("NEXUS_SPEC_K", "2", "serve-engine"),
@@ -141,6 +143,93 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 def test_unported_knobs_raise_at_parse(key, value, item):
     with pytest.raises(NotImplementedError, match=item):
         ServeConfig.from_env({key: value})
+
+
+@pytest.mark.parametrize(
+    "env,want",
+    [
+        ({"NEXUS_QUANTIZE": "int8"}, ("int8", 0, "")),
+        ({"NEXUS_QUANTIZE": "int4", "NEXUS_QUANT_GROUP": "32"}, ("int4", 32, "")),
+        ({"NEXUS_QUANTIZE_KV": "int8"}, ("", 0, "int8")),
+        ({"NEXUS_QUANTIZE": "int4", "NEXUS_QUANT_GROUP": "", "NEXUS_QUANTIZE_KV": "int8"}, ("int4", 0, "int8")),
+    ],
+)
+def test_quantize_knobs_parse(env, want):
+    cfg = ServeConfig.from_env(dict(env, NEXUS_MODEL_PRESET="tiny"))
+    assert (cfg.quantize, cfg.quant_group, cfg.quantize_kv) == want
+    ref = JaxServeConfig.from_env(dict(env, NEXUS_MODEL_PRESET="tiny"))
+    assert (ref.quantize, ref.quant_group, ref.quantize_kv) == want
+
+
+#: what tests/test_quant_serving.py::TestServeConfigQuant pins, wording included
+_BAD_QUANT = [
+    (dict(quantize="fp4"), "unknown quantize mode 'fp4'"),
+    (dict(quantize="int4", quant_group=-8), "NEXUS_QUANT_GROUP.*got -8"),
+    (dict(quantize="int8", quant_group=64), "NEXUS_QUANT_GROUP=64.*quantize='int4'.*'int8'"),
+    (dict(quant_group=64), "NEXUS_QUANT_GROUP=64"),
+    (dict(quantize="int4", quant_group=9), "must be even.*got 9"),
+    (dict(quantize="int4", quant_group=48), "NEXUS_QUANT_GROUP=48.*64 hidden"),
+    (dict(quantize="int4", quant_group=128), "NEXUS_QUANT_GROUP=128.*64 hidden"),
+    (dict(quantize_kv="fp8"), "unknown quantize_kv mode 'fp8'"),
+]
+
+
+@pytest.mark.parametrize("kwargs,match", _BAD_QUANT)
+def test_bad_quantize_values_raise_with_the_reference_wording(kwargs, match):
+    with pytest.raises(ValueError, match=match) as port_exc:
+        ServeConfig(**kwargs)
+    with pytest.raises(ValueError, match=match) as ref_exc:
+        JaxServeConfig(**kwargs)
+    assert str(port_exc.value) == str(ref_exc.value)
+
+
+def test_bad_quantize_env_values_raise_value_errors_at_parse():
+    for env in ({"NEXUS_QUANTIZE": "fp4"}, {"NEXUS_QUANT_GROUP": "32"}, {"NEXUS_QUANTIZE_KV": "int4"},
+                {"NEXUS_QUANTIZE": "int4", "NEXUS_QUANT_GROUP": "6"}):
+        with pytest.raises(ValueError):
+            ServeConfig.from_env(dict(env, NEXUS_MODEL_PRESET="tiny"))
+    assert ServeConfig(quantize="int4", quant_group=16).quant_group == 16
+    # the group must divide the contraction widths of the model that is served
+    with pytest.raises(ValueError, match="14336 intermediate"):
+        ServeConfig.from_env({"NEXUS_MODEL_PRESET": "llama3_8b", "NEXUS_QUANTIZE": "int4",
+                              "NEXUS_QUANT_GROUP": "4096"})
+
+
+@pytest.mark.parametrize(
+    "quant", [dict(quantize="int8", quantize_kv="int8"), dict(quantize="int4"), dict(quantize="int4", quant_group=16)],
+    ids=["int8+int8kv", "int4", "int4-g16"],
+)
+def test_run_serving_quantized_lands_completed_in_a_sqlite_ledger(tmp_path, caplog, quant):
+    caplog.set_level("INFO", logger="tpu_nexus_torch.workload.serve")
+    store = SqliteCheckpointStore(str(tmp_path / "ledger.db"))
+    ctx = ProcessContext(run_id="q1", algorithm="serve", process_id=0, num_processes=1, coordinator=None)
+    try:
+        summary = run_serving(ServeConfig(device="cpu", **SMALL, **quant), store=store, ctx=ctx)
+        row = store.read_checkpoint("serve", "q1")
+    finally:
+        store.close()
+    assert row.lifecycle_stage == LifecycleStage.COMPLETED
+    assert row.per_chip_steps == {"host0/chip0": 3}
+    assert summary["last_tokens_shape"] == (2, 4)
+    # the quantized tree's footprint is logged, and is smaller than the f32 tree's
+    (logged,) = [r.args for r in caplog.records if "weight-only quantization" in r.msg]
+    dense = get_adapter("tiny").init(torch.Generator().manual_seed(0), torch.device("cpu"))
+    assert logged[0] == quant["quantize"] and 0 < logged[1] < quantized_bytes(dense)
+
+
+def test_entrypoint_serves_quantized_with_jax_and_the_reference_blocked(tmp_path):
+    env = _serve_env(tmp_path, NEXUS_QUANTIZE="int4", NEXUS_QUANT_GROUP="16", NEXUS_QUANTIZE_KV="int8")
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_ENTRY], env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "serving with int4 weight-only quantization" in proc.stderr
+    store = SqliteCheckpointStore(str(tmp_path / "ledger.db"))
+    try:
+        row = store.read_checkpoint("serve", "sub")
+    finally:
+        store.close()
+    assert row.lifecycle_stage == LifecycleStage.COMPLETED
 
 
 def test_engine_knobs_at_their_defaults_parse():

@@ -3,13 +3,22 @@
 // tpu_nexus_torch/ops/_build.py).
 //
 // Replaces: tpu_nexus/ops/decode_attention.py::_decode_kernel (launched by
-// decode_attention), in its contiguous-cache, model-dtype mode.  Same
-// function: a short query block q [B,q_len<=8,Hq,D] against the cache
-// k/v [B,max_len,Hkv,D]; slot s is live for batch row b and query row j iff
+// decode_attention), in its contiguous-cache modes: the cache in the model
+// dtype, or int8 with per-slot scales.  Same function: a short query block
+// q [B,q_len<=8,Hq,D] against the cache k/v [B,max_len,Hkv,D]; slot s is
+// live for batch row b and query row j iff
 //     s < lens[b]  OR  (width <= s <= last_pos - (q_len-1) + j)
 // (lens = 0, width = 0 without a ragged batch); scores are scaled into the
 // exp2 domain in f32, p is rounded to q's dtype before the P.V product,
 // and the softmax carry is f32.
+// int8-KV mode (template flag kQuant): k/v are int8 and k_scale/v_scale
+// [B,max_len,Hkv,1] f32 are read in that stored layout.  The dequantization
+// is deferred past the dots, which is exact because a slot's scale is
+// constant along head_dim: k_scale[b,s,h] multiplies the f32 score before
+// the scale*log2(e) multiply, v_scale[b,s,h] multiplies p before p is
+// rounded to q's dtype (the softmax sum l takes the unscaled p), and dead
+// slots stay 0.  The int8 bytes are what crosses device memory: a 16-byte
+// load holds 16 elements.
 //
 // What bounds it on this card: every K/V byte of the live prefix is read
 // once for ~4 FLOP per byte (q_len*G rows share it), far below the H100's
@@ -32,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -42,6 +53,10 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 __device__ __forceinline__ float2 load2(const float* p) { return make_float2(p[0], p[1]); }
+__device__ __forceinline__ float2 load2(const int8_t* p) {
+  const char2 v = *reinterpret_cast<const char2*>(p);
+  return make_float2(static_cast<float>(v.x), static_cast<float>(v.y));
+}
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
@@ -64,23 +79,29 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // Shared-memory K/V rows are padded by 4 bytes so that lane c reading row c
 // hits bank (c + d) % 32: conflict-free dot products across lanes.
-template <typename T, int D>
+// KV is the cache's element type: T, or int8_t in int8-KV mode.
+template <typename KV, int D>
 struct Layout {
-  static constexpr int kRowElems = D + 4 / (int)sizeof(T);
+  static constexpr int kRowElems = D + 4 / (int)sizeof(KV);
   static constexpr size_t bytes(int rows) {
-    return (size_t)rows * D * sizeof(float)            // q rows (f32)
-           + 2 * (size_t)kTile * kRowElems * sizeof(T)  // K, V tiles
-           + (size_t)rows * kTile * sizeof(float)       // p
-           + 3 * (size_t)rows * sizeof(float);          // m, l, alpha
+    return (size_t)rows * D * sizeof(float)             // q rows (f32)
+           + 2 * (size_t)kTile * kRowElems * sizeof(KV)  // K, V tiles
+           + (size_t)rows * kTile * sizeof(float)        // p
+           + 3 * (size_t)rows * sizeof(float)            // m, l, alpha
+           + 2 * (size_t)kTile * sizeof(float);          // k, v scales (int8-KV mode)
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kQuant>
 __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const int* __restrict__ lens,
+    const T* __restrict__ q, const void* __restrict__ k_raw, const void* __restrict__ v_raw,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, const int* __restrict__ lens,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int sq, int Hq, int Hkv, int max_len, int width,
     int last_pos, int split_len, float qk_scale) {
-  using L = Layout<T, D>;
+  using KV = typename std::conditional<kQuant, int8_t, T>::type;
+  using L = Layout<KV, D>;
+  const KV* __restrict__ k = static_cast<const KV*>(k_raw);
+  const KV* __restrict__ v = static_cast<const KV*>(v_raw);
   constexpr int kRow = L::kRowElems;
   constexpr int kPairs = D / 2;             // output column pairs
   constexpr int kRowGroups = kThreads / kPairs;
@@ -93,12 +114,14 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);  // [R][D]
-  T* k_s = reinterpret_cast<T*>(q_s + R * D);       // [kTile][kRow]
-  T* v_s = k_s + kTile * kRow;                      // [kTile][kRow]
+  KV* k_s = reinterpret_cast<KV*>(q_s + R * D);     // [kTile][kRow]
+  KV* v_s = k_s + kTile * kRow;                     // [kTile][kRow]
   float* p_s = reinterpret_cast<float*>(v_s + kTile * kRow);  // [R][kTile]
   float* m_s = p_s + R * kTile;
   float* l_s = m_s + R;
   float* a_s = l_s + R;
+  float* ks_s = a_s + R;       // [kTile] this tile's k scales (int8-KV mode)
+  float* vs_s = ks_s + kTile;  // [kTile]
 
   // query rows r = j*G + gi <- q[b, j, kvh*G + gi, :]
   for (int i = threadIdx.x; i < R * D; i += kThreads) {
@@ -120,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) acc[i][0] = acc[i][1] = 0.f;
 
-  constexpr int kChunk = 16 / (int)sizeof(T);  // elements per 16-byte load
+  constexpr int kChunk = 16 / (int)sizeof(KV);  // elements per 16-byte load
   constexpr int kChunksPerRow = D / kChunk;
   for (int ts = s_begin; ts < s_end; ts += kTile) {
     __syncthreads();  // previous tile's K/V/p fully consumed (and q_s/m_s ready)
@@ -138,13 +161,19 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
       dk[0] = kv.x; dk[1] = kv.y; dk[2] = kv.z; dk[3] = kv.w;
       dv[0] = vv.x; dv[1] = vv.y; dv[2] = vv.z; dv[3] = vv.w;
     }
+    if (kQuant && threadIdx.x < kTile) {
+      const int s = ts + threadIdx.x;
+      const size_t off = (size_t)(b * max_len + s) * Hkv + kvh;
+      ks_s[threadIdx.x] = s < s_end ? k_scale[off] : 0.f;
+      vs_s[threadIdx.x] = s < s_end ? v_scale[off] : 0.f;
+    }
     __syncthreads();
 
     // scores + online softmax: warp w owns rows w, w+4, ...; lane = slot
     const int s = ts + lane;
     for (int r = warp; r < R; r += kThreads / 32) {
       const float* qr = q_s + r * D;
-      const T* kr = k_s + lane * kRow;
+      const KV* kr = k_s + lane * kRow;
       float dot = 0.f;
 #pragma unroll 8
       for (int d = 0; d < D; d += 2) {
@@ -154,13 +183,15 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
       }
       const int j = r / G;
       const bool live = s < s_end && (s < lens_b || (s >= width && s <= row_start + j));
+      if (kQuant) dot *= ks_s[lane];  // deferred dequant of K: exact, the scale is constant along D
       const float sc = live ? dot * qk_scale : -INFINITY;
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, warp_max(sc));
       const float alpha = (m_old == -INFINITY) ? 0.f : exp2f(m_old - m_new);
       const float p = live ? exp2f(sc - m_new) : 0.f;
       const float psum = warp_sum(p);
-      p_s[r * kTile + lane] = round_to(p, q);  // p in q's dtype for P.V
+      // p in q's dtype for P.V; int8-KV folds the slot's v scale in first (dead slots stay 0)
+      p_s[r * kTile + lane] = round_to(kQuant ? p * vs_s[lane] : p, q);
       if (lane == 0) {
         m_s[r] = m_new;
         l_s[r] = l_s[r] * alpha + psum;
@@ -232,33 +263,42 @@ __global__ void __launch_bounds__(kThreads) decode_combine_kernel(
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_partial(const void* q, const void* k, const void* v, const int* lens, float* part_acc,
-                           float* part_ml, int B, int sq, int Hq, int Hkv, int max_len, int width, int last_pos,
-                           int split_len, int n_splits, float qk_scale, cudaStream_t st) {
-  const int R = sq * (Hq / Hkv);
-  const size_t smem = Layout<T, D>::bytes(R);
-  cudaError_t err =
-      cudaFuncSetAttribute(decode_partial_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+struct Args {
+  const void *q, *k, *v;
+  const float *k_scale, *v_scale;  // both null: the cache is in q's dtype; both set: int8-KV
+  const int* lens;
+  void* out;
+  float *part_acc, *part_ml;
+  int B, sq, Hq, Hkv, D, max_len, width, last_pos, split_len, n_splits;
+  float qk_scale;
+  cudaStream_t st;
+};
+
+template <typename T, int D, bool kQuant>
+cudaError_t launch_partial(const Args& a) {
+  using KV = typename std::conditional<kQuant, int8_t, T>::type;
+  const int R = a.sq * (a.Hq / a.Hkv);
+  const size_t smem = Layout<KV, D>::bytes(R);
+  cudaError_t err = cudaFuncSetAttribute(decode_partial_kernel<T, D, kQuant>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  decode_partial_kernel<T, D><<<dim3(n_splits, Hkv, B), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lens, part_acc, part_ml, sq,
-      Hq, Hkv, max_len, width, last_pos, split_len, qk_scale);
+  decode_partial_kernel<T, D, kQuant><<<dim3(a.n_splits, a.Hkv, a.B), kThreads, smem, a.st>>>(
+      static_cast<const T*>(a.q), a.k, a.v, a.k_scale, a.v_scale, a.lens, a.part_acc, a.part_ml, a.sq, a.Hq, a.Hkv,
+      a.max_len, a.width, a.last_pos, a.split_len, a.qk_scale);
   return cudaGetLastError();
 }
 
+template <typename T, bool kQuant>
+cudaError_t launch_partial_d(const Args& a) {
+  return a.D == 128 ? launch_partial<T, 128, kQuant>(a) : launch_partial<T, 64, kQuant>(a);
+}
+
 template <typename T>
-cudaError_t launch_all(const void* q, const void* k, const void* v, const int* lens, void* out, float* part_acc,
-                       float* part_ml, int B, int sq, int Hq, int Hkv, int D, int max_len, int width, int last_pos,
-                       int split_len, int n_splits, float qk_scale, cudaStream_t st) {
-  cudaError_t err = (D == 128)
-                        ? launch_partial<T, 128>(q, k, v, lens, part_acc, part_ml, B, sq, Hq, Hkv, max_len, width,
-                                                 last_pos, split_len, n_splits, qk_scale, st)
-                        : launch_partial<T, 64>(q, k, v, lens, part_acc, part_ml, B, sq, Hq, Hkv, max_len, width,
-                                                last_pos, split_len, n_splits, qk_scale, st);
+cudaError_t launch_all(const Args& a) {
+  const cudaError_t err = a.k_scale ? launch_partial_d<T, true>(a) : launch_partial_d<T, false>(a);
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<dim3(Hkv, B), kThreads, 0, st>>>(part_acc, part_ml, static_cast<T*>(out), sq, Hq,
-                                                              Hkv, D, n_splits);
+  decode_combine_kernel<T><<<dim3(a.Hkv, a.B), kThreads, 0, a.st>>>(a.part_acc, a.part_ml, static_cast<T*>(a.out),
+                                                                    a.sq, a.Hq, a.Hkv, a.D, a.n_splits);
   return cudaGetLastError();
 }
 
@@ -266,30 +306,35 @@ cudaError_t launch_all(const void* q, const void* k, const void* v, const int* l
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  q [B,sq,Hq,D], k/v [B,max_len,Hkv,D]
-// and out [B,sq,Hq,D], all contiguous; lens [B] int32 or null; part_acc
+// dtype: 0 = float32, 1 = bfloat16 (q and out).  q [B,sq,Hq,D], k/v
+// [B,max_len,Hkv,D] and out [B,sq,Hq,D], all contiguous; lens [B] int32 or
+// null.  k_scale/v_scale both null: k/v are in q's dtype; both set: k/v are
+// int8 and the scales are [B,max_len,Hkv,1] f32 (int8-KV mode).  part_acc
 // [B,Hkv,n_splits,sq*G,D] and part_ml [B,Hkv,n_splits,sq*G,2] f32
 // workspace.  Split i covers slots [i*split_len, (i+1)*split_len);
 // split_len must be a multiple of 32.  qk_scale = softmax scale * log2(e).
 // Returns the launches' cudaGetLastError().
-int nexus_decode_attention(const void* q, const void* k, const void* v, const void* lens, void* out,
-                           void* part_acc, void* part_ml, int B, int sq, int Hq, int Hkv, int D, int max_len,
-                           int width, int last_pos, int split_len, int n_splits, int dtype, float qk_scale,
-                           void* stream) {
+int nexus_decode_attention(const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+                           const void* lens, void* out, void* part_acc, void* part_ml, int B, int sq, int Hq,
+                           int Hkv, int D, int max_len, int width, int last_pos, int split_len, int n_splits,
+                           int dtype, float qk_scale, void* stream) {
   if (B <= 0 || sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || sq * (Hq / Hkv) > kMaxRows || (D != 64 && D != 128) ||
       (dtype != 0 && dtype != 1) || split_len <= 0 || split_len % kTile != 0 || n_splits <= 0 || last_pos < 0 ||
-      last_pos >= max_len)
+      last_pos >= max_len || (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int* lens_i = static_cast<const int*>(lens);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_ml);
-  const cudaError_t err =
-      dtype == 1 ? launch_all<__nv_bfloat16>(q, k, v, lens_i, out, pa, pm, B, sq, Hq, Hkv, D, max_len, width,
-                                             last_pos, split_len, n_splits, qk_scale, st)
-                 : launch_all<float>(q, k, v, lens_i, out, pa, pm, B, sq, Hq, Hkv, D, max_len, width, last_pos,
-                                     split_len, n_splits, qk_scale, st);
-  return (int)err;
+  Args a;
+  a.q = q; a.k = k; a.v = v;
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.lens = static_cast<const int*>(lens);
+  a.out = out;
+  a.part_acc = static_cast<float*>(part_acc);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.B = B; a.sq = sq; a.Hq = Hq; a.Hkv = Hkv; a.D = D; a.max_len = max_len; a.width = width;
+  a.last_pos = last_pos; a.split_len = split_len; a.n_splits = n_splits;
+  a.qk_scale = qk_scale;
+  a.st = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(dtype == 1 ? launch_all<__nv_bfloat16>(a) : launch_all<float>(a));
 }
 
 }  // extern "C"

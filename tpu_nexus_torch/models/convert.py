@@ -6,16 +6,22 @@ keys and layouts — stacked ``[L, ...]`` per-layer leaves included — so the
 conversion is a leaf-for-leaf copy.  bf16 leaves come out of jax as
 ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` rejects: they
 travel as an int16 view of the same bits.
+
+A quantized tree (``models/quant.py``) crosses as well: a ``QTensor`` leaf
+is the dict ``{"q": int8, "s": f32}``, a ``QTensor4`` leaf that plus its
+``contract_shape``, ``out_shape`` and ``group``; a tree with such a leaf
+becomes a frozen ``QuantizedParams``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
 
 from tpu_nexus_torch.models.llama import LlamaConfig, LlamaParams, _layer_shapes
+from tpu_nexus_torch.models.quant import QTensor, QTensor4, QuantizedParams
 
 
 def _to_torch(a: Any, device: Any) -> torch.Tensor:
@@ -35,16 +41,40 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig, device: Any = "cuda") -> LlamaParams:
+def _leaf_to_torch(leaf: Any, device: Any):
+    if not isinstance(leaf, dict):
+        return _to_torch(leaf, device)
+    q, s = _to_torch(leaf["q"], device), _to_torch(leaf["s"], device)
+    if "group" in leaf:
+        return QTensor4(q, s, leaf["contract_shape"], leaf["out_shape"], leaf["group"])
+    return QTensor(q, s)
+
+
+def _leaf_to_numpy(leaf: Any):
+    if isinstance(leaf, QTensor4):
+        return {
+            "q": _to_numpy(leaf.q), "s": _to_numpy(leaf.s), "contract_shape": leaf.contract_shape,
+            "out_shape": leaf.out_shape, "group": leaf.group,
+        }
+    if isinstance(leaf, QTensor):
+        return {"q": _to_numpy(leaf.q), "s": _to_numpy(leaf.s)}
+    return _to_numpy(leaf)
+
+
+def params_from_numpy(
+    tree: Dict[str, Any], cfg: LlamaConfig, device: Any = "cuda"
+) -> Union[LlamaParams, QuantizedParams]:
     """The JAX package's Llama tree (numpy leaves) as the port's module
-    state on ``device``; shapes are checked against ``cfg``."""
+    state on ``device``; shapes are checked against ``cfg``.  A tree with
+    quantized leaves (see the module docstring) comes back as a
+    ``QuantizedParams``."""
     shapes = _layer_shapes(cfg)
     missing = set(shapes) ^ set(tree["layers"])
     if missing:
         raise ValueError(f"layer keys differ from the config's: {sorted(missing)}")
     out = {
         "embed": {"tokens": _to_torch(tree["embed"]["tokens"], device)},
-        "layers": {k: _to_torch(tree["layers"][k], device) for k in shapes},
+        "layers": {k: _leaf_to_torch(tree["layers"][k], device) for k in shapes},
         "out_norm": _to_torch(tree["out_norm"], device),
     }
     if "lm_head" in tree:
@@ -57,15 +87,17 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig, device: Any = "cud
     for k, shape in shapes.items():
         if tuple(out["layers"][k].shape) != shape:
             raise ValueError(f"layers/{k}: shape {tuple(out['layers'][k].shape)} != {shape}")
+    if any(isinstance(w, (QTensor, QTensor4)) for w in out["layers"].values()):
+        return QuantizedParams(out)
     return LlamaParams(out)
 
 
-def params_to_numpy(params: LlamaParams) -> Dict[str, Any]:
+def params_to_numpy(params: Union[LlamaParams, QuantizedParams]) -> Dict[str, Any]:
     """The inverse of :func:`params_from_numpy`: nested dicts of numpy
     arrays in the JAX package's keys and layouts."""
     tree: Dict[str, Any] = {
         "embed": {"tokens": _to_numpy(params["embed"]["tokens"])},
-        "layers": {k: _to_numpy(v) for k, v in params["layers"].items()},
+        "layers": {k: _leaf_to_numpy(v) for k, v in params["layers"].items()},
         "out_norm": _to_numpy(params["out_norm"]),
     }
     if "lm_head" in params:

@@ -13,10 +13,16 @@
   to a common width and pass ``prompt_lengths`` (per-row RoPE positions,
   pad slots masked).  ``pos`` may also be a ``[B]`` tensor: per-slot
   cursors, the continuous-batching step.
+* **Int8 KV cache** (``kv_quant="int8"``): K/V rows are quantized at
+  write (int8 values + one f32 scale per slot and KV head, the recipe of
+  the int8 weights) and read every later step as int8; the mode travels
+  with the cache (``"k_s" in cache``).
+* Quantized weight trees (``models/quant.py``) run through the same code:
+  every weight product goes through ``weight_einsum``.
 
 Left out of this slice, each raising where it would be asked for
 (ROADMAP.md): ``decode_scan``, ``extend_step``, ``verify_step``, the paged
-cache (``block_tables``), the int8 KV cache and the MoE family.
+cache (``block_tables``) and the MoE family.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from tpu_nexus_torch.models.llama import (
     mlp_block,
     rope_tables,
 )
+from tpu_nexus_torch.models.quant import quantize_tensor
 from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from tpu_nexus_torch.ops.quant_matmul import weight_einsum
 from tpu_nexus_torch.ops.rmsnorm import rms_norm
@@ -41,7 +48,8 @@ from tpu_nexus_torch.ops.rmsnorm import rms_norm
 _NEG_INF = -1e30
 DECODE_IMPLS = ("auto", "plain")
 
-#: {"k": [L, B, max_len, Hkv, D], "v": same}
+#: {"k": [L, B, max_len, Hkv, D], "v": same}; int8 KV mode adds per-slot
+#: scales {"k_s": [L, B, max_len, Hkv, 1] f32, "v_s": same}
 Cache = Dict[str, torch.Tensor]
 
 
@@ -52,6 +60,14 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def _check_config(cfg: Any) -> None:
     if not isinstance(cfg, LlamaConfig):
         raise _not_ported(f"decoding {type(cfg).__name__}", "MoE slice")
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-slot int8: amax over the head_dim of each (layer,
+    batch, position, kv-head) cell / 127 — through the int8 weight recipe
+    itself, so the two quantizations cannot drift."""
+    t = quantize_tensor(x, (-1,))
+    return t.q, t.s
 
 
 def cached_attention(
@@ -71,7 +87,9 @@ def cached_attention(
     ``kv_len`` (host int) — the queries occupy cache slots ``[kv_len -
     q_len, kv_len)``; at q_len > 1 query row ``j`` sees slots ``<= kv_len
     - q_len + j``.  Ragged right-padded batches pass ``prompt_lengths`` [B]
-    + the pad width ``prompt_width``.
+    + the pad width ``prompt_width``.  Int8 cache mode passes
+    ``k_scale``/``v_scale`` [B, max_len, Hkv, 1] with int8 ``k``/``v``: the
+    dequantization is deferred past the dots (ops/decode_attention.py).
 
     ``impl``: ``"auto"`` runs the plain einsum on a CPU tensor and the
     decode kernel's wrapper on any other, which launches the kernel or
@@ -86,9 +104,9 @@ def cached_attention(
             q, k, v, kv_len, prompt_lengths, prompt_width, k_scale, v_scale,
             block_tables=block_tables, q_starts=q_starts,
         )
-    if any(x is not None for x in (k_scale, v_scale, block_tables, q_starts)):
-        raise _not_ported("int8-KV / paged / q_starts decode attention", "serve-engine slice")
-    return decode_attention_plain(q, k, v, kv_len, prompt_lengths, prompt_width)
+    if block_tables is not None or q_starts is not None:
+        raise _not_ported("paged / q_starts decode attention", "serve-engine slice")
+    return decode_attention_plain(q, k, v, kv_len, prompt_lengths, prompt_width, k_scale, v_scale)
 
 
 @torch.no_grad()  # decoding never differentiates: no graph over the trainable params
@@ -103,23 +121,23 @@ def prefill(
 ) -> Tuple[Cache, torch.Tensor]:
     """Run the prompt through the forward once; return the padded KV cache
     and each row's last REAL position's logits ``[B, vocab]``.
-    ``attn_impl`` picks the prefill attention (ops/attention.py)."""
+    ``kv_quant="int8"`` stores the cache as int8 with per-slot f32 scales
+    (zero in the unwritten slots).  ``attn_impl`` picks the prefill
+    attention (ops/attention.py)."""
     _check_config(cfg)
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds cache max_len {max_len}")
     if kv_quant not in ("", "int8"):
         raise ValueError(f"unknown kv_quant mode {kv_quant!r}; use 'int8' or ''")
-    if kv_quant:
-        raise _not_ported("the int8 KV cache", "serve-engine slice")
     hidden, (k, v) = llama_hidden(params, tokens, cfg, return_kv=True, attn_impl=attn_impl)
-    n_layers, _, _, hkv, d = k.shape
-    cache = {
-        name: torch.zeros((n_layers, b, max_len, hkv, d), dtype=x.dtype, device=x.device)
-        for name, x in (("k", k), ("v", v))
-    }
-    cache["k"][:, :, :s] = k
-    cache["v"][:, :, :s] = v
+    filled = {"k": k, "v": v}
+    if kv_quant == "int8":
+        (filled["k"], filled["k_s"]), (filled["v"], filled["v_s"]) = _quantize_kv(k), _quantize_kv(v)
+    cache = {}
+    for name, x in filled.items():
+        cache[name] = torch.zeros((*x.shape[:2], max_len, *x.shape[3:]), dtype=x.dtype, device=x.device)
+        cache[name][:, :, :s] = x
     if prompt_lengths is None:
         last = hidden[:, -1]
     else:
@@ -162,8 +180,7 @@ def decode_step(
         raise _not_ported("paged decode (block_tables)", "serve-engine slice")
     if write_mask is not None:
         raise _not_ported("frozen-row decode (write_mask, decode_scan)", "serve-engine slice")
-    if "k_s" in cache:
-        raise _not_ported("the int8 KV cache", "serve-engine slice")
+    kv_quant = "k_s" in cache  # int8 KV mode travels with the cache itself
     ct = cfg.dtype
     b = token.shape[0]
     max_len = cache["k"].shape[2]
@@ -210,12 +227,21 @@ def decode_step(
         v = weight_einsum("bse,ehd->bshd", h, layer["wv"], ct)
         q = _rope(q, cos, sin)
         k = _rope(k, cos, sin)
+        scales = {}
+        if kv_quant:
+            # quantize at write: the row is written once and re-read every
+            # later step as int8, its scale at the same index
+            (k, k_s), (v, v_s) = _quantize_kv(k), _quantize_kv(v)
+            cks, cvs = cache["k_s"][li], cache["v_s"][li]
+            cks[write_idx] = k_s[:, 0]
+            cvs[write_idx] = v_s[:, 0]
+            scales = dict(k_scale=cks, v_scale=cvs)
         ck, cv = cache["k"][li], cache["v"][li]
         ck[write_idx] = k[:, 0]
         cv[write_idx] = v[:, 0]
         o = cached_attention(
             q, ck, cv, att_kv_len, prompt_lengths=att_lens, prompt_width=att_width,
-            impl=decode_kernel,
+            impl=decode_kernel, **scales,
         )
         x = x + weight_einsum("bshd,hde->bse", o, layer["wo"], ct)
         x = mlp_block(x, layer, cfg)
@@ -234,6 +260,25 @@ def extend_step(*args, **kwargs):
 
 def verify_step(*args, **kwargs):
     raise _not_ported("verify_step (speculative verify)", "serve-engine slice")
+
+
+@torch.no_grad()
+def teacher_forced_decode_ce(
+    params, tokens: torch.Tensor, cfg: LlamaConfig, kv_quant: str = "", decode_kernel: str = "auto",
+) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``tokens`` [B, S] scored THROUGH
+    the decode path: prefill one token, then ``decode_step`` with teacher
+    forcing.  The quality probe for the serving-side levers (int8/int4
+    weights, int8 KV): it exercises exactly the code ``generate`` runs."""
+    tokens = tokens.long()
+    cache, logits = prefill(params, tokens[:, :1], cfg, max_len=tokens.shape[1], kv_quant=kv_quant)
+    ces = []
+    for pos in range(1, tokens.shape[1]):
+        tok_next = tokens[:, pos].to(logits.device)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        ces.append(-torch.gather(lp, -1, tok_next[:, None])[:, 0])
+        logits, cache = decode_step(params, cache, tok_next, pos, cfg, decode_kernel=decode_kernel)
+    return torch.stack(ces).mean()
 
 
 def sample_logits(
@@ -286,6 +331,7 @@ def generate(
     [B, max_new_tokens].  ``temperature=0`` is greedy; otherwise sampling
     from ``generator``, optionally truncated to ``top_k`` / the ``top_p``
     nucleus.  Ragged batches RIGHT-pad and pass ``prompt_lengths`` [B].
+    ``kv_quant="int8"`` keeps the KV cache int8 with per-slot scales.
     ``attn_impl`` / ``decode_kernel`` pick the prefill and decode attention
     (``"plain"`` runs the whole path without the kernels)."""
     b, s = prompt.shape

@@ -6,7 +6,9 @@
   JAX parameter tree (``params["layers"]["wq"]``), so the blocks below and
   the converter (``models/convert.py``) share one set of key paths.
 * The blocks are plain functions on tensors.  Weights are cast to the
-  compute dtype at the use site (``weight_einsum``), as in the reference.
+  compute dtype at the use site (``weight_einsum``), as in the reference;
+  a quantized tree (``models/quant.py::QuantizedParams``) runs through the
+  same blocks, its weight products dispatched by ``weight_einsum``.
 * Random init draws from an explicit ``torch.Generator``; it gives other
   numbers than ``jax.random`` for the same seed, so tests carry weights
   across with ``models/convert.py``.
@@ -201,8 +203,9 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def layer_params(params, li: int) -> Dict[str, torch.Tensor]:
-    """Layer ``li``'s slice of the stacked per-layer leaves (views)."""
+def layer_params(params, li: int) -> Dict[str, Any]:
+    """Layer ``li``'s slice of the stacked per-layer leaves (views); a
+    quantized leaf slices its values and scales together."""
     return {name: w[li] for name, w in params["layers"].items()}
 
 

@@ -1,8 +1,9 @@
 """Decode attention: the split-KV CUDA kernel's wrapper and its plain version.
 
 Replaces ``tpu_nexus/ops/decode_attention.py::_decode_kernel`` (launched by
-``decode_attention``) in its contiguous-cache, model-dtype mode: every
-decode step runs it once per layer.  The kernel lives in
+``decode_attention``) in its contiguous-cache modes — the cache in the
+model dtype, or int8 with per-slot scales: every decode step runs it once
+per layer.  The kernel lives in
 ``csrc/decode_attention.cu``; its source note says what bounds it on the
 H100 (device-memory bandwidth) and how the design answers that.
 
@@ -14,15 +15,21 @@ q_len, kv_len)``.  Slot ``s`` is live for batch row ``b`` and query row
 ``lens``/``width`` come from a ragged right-padded batch
 (``prompt_lengths``/``prompt_width``; 0 and 0 otherwise).
 
+Int8-KV mode (``k_scale``/``v_scale`` [B, max_len, Hkv, 1] f32, both or
+neither; ``k``/``v`` int8): the dequantization is deferred past the dots,
+which is exact because a slot's scale is constant along head_dim —
+``k_scale`` multiplies the f32 scores, ``v_scale`` the softmax weights
+before they are rounded to q's dtype.
+
 * :func:`decode_attention_plain` — the masked einsum of
   ``models/generate.py::cached_attention``'s XLA path: softmax, weights
-  rounded to q's dtype, f32 accumulation.
+  (times ``v_scale``) rounded to q's dtype, f32 accumulation.
 * :func:`decode_attention` — the wrapper: a CPU tensor takes the plain
   version, a CUDA tensor launches the kernel (partial pass + combine) or
   raises.
 
-The int8-KV, paged (block-table) and per-row ``q_starts`` modes of the TPU
-kernel are not ported yet and raise (ROADMAP.md, serve-engine slice).
+The paged (block-table) and per-row ``q_starts`` modes of the TPU kernel
+are not ported yet and raise (ROADMAP.md, serve-engine slice).
 """
 
 from __future__ import annotations
@@ -49,20 +56,41 @@ def _unported(**modes) -> None:
     if given:
         raise NotImplementedError(
             f"decode attention modes {given} are not ported yet (ROADMAP.md: "
-            "serve-engine slice, kernel #4's int8-KV, paged and q_starts modes)"
+            "serve-engine slice, kernel #4's paged and q_starts modes)"
         )
 
 
-def decode_supported(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """Inputs the CUDA kernel takes."""
+def _check_scales(k: torch.Tensor, k_scale, v_scale) -> None:
+    """Int8-KV mode needs both scales, shaped like the cache with a last
+    dim of 1; a mixed configuration is a caller bug."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("int8-KV decode attention needs both k_scale and v_scale (or neither)")
+    if k_scale is not None:
+        want = (*k.shape[:3], 1)
+        if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+            raise ValueError(
+                f"k_scale {tuple(k_scale.shape)} / v_scale {tuple(v_scale.shape)} must be {want}"
+            )
+
+
+def decode_supported(q: torch.Tensor, k: torch.Tensor, k_scale=None, v_scale=None) -> bool:
+    """Inputs the CUDA kernel takes: the cache in q's dtype, or int8 with
+    both f32 scales."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
+    if k_scale is None and v_scale is None:
+        cache_ok = k.dtype == q.dtype
+    else:
+        cache_ok = (
+            k_scale is not None and v_scale is not None and k.dtype == torch.int8
+            and all(s.dtype == torch.float32 and s.device == q.device for s in (k_scale, v_scale))
+        )
     return (
         q.is_cuda
         and k.device == q.device
         and d in (64, 128)
         and q.dtype in _DTYPES
-        and k.dtype == q.dtype
+        and cache_ok
         and 1 <= sq <= MAX_DECODE_Q_LEN
         and hq % hkv == 0
         and sq * (hq // hkv) <= MAX_ROWS
@@ -80,9 +108,11 @@ def _lens_width(b, prompt_lengths, prompt_width, device):
 def decode_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int,
     prompt_lengths: Optional[torch.Tensor] = None, prompt_width: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
     *, scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (see module docstring)."""
+    _check_scales(k, k_scale, v_scale)
     b, sq, hq, d = q.shape
     max_len, hkv = k.shape[1], k.shape[2]
     if hq % hkv:
@@ -91,7 +121,11 @@ def decode_attention_plain(
         scale = d**-0.5
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, d)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.to(q.dtype).float()) * scale
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.to(q.dtype).float())
+    if k_scale is not None:
+        # [B, max_len, Hkv, 1] -> [B, Hkv, 1, 1, max_len]
+        scores = scores * k_scale[:, :, :, 0].transpose(1, 2)[:, :, None, None, :]
+    scores = scores * scale
     k_pos = torch.arange(max_len, device=q.device)
     lens, width = _lens_width(b, prompt_lengths, prompt_width, q.device)
     if lens is None:
@@ -104,7 +138,10 @@ def decode_attention_plain(
         row_last = kv_len - sq + torch.arange(sq, device=q.device)
         mask = mask & (k_pos[None, :] <= row_last[:, None])[None, None, None, :, :]
     scores = torch.where(mask, scores, torch.full((), -1e30, device=q.device))
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    w = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        w = w * v_scale[:, :, :, 0].transpose(1, 2)[:, :, None, None, :]
+    w = w.to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w.float(), v.to(q.dtype).float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
@@ -130,20 +167,24 @@ def decode_attention(
     """Fused decode attention of a short query block against the cache.
     CPU tensors take :func:`decode_attention_plain`; CUDA tensors launch
     the kernel (counted in ``decode_attention.launches``) or raise.
-    ``kv_len`` is a host int: it sizes the kernel's grid."""
-    _unported(k_scale=k_scale, v_scale=v_scale, block_tables=block_tables, q_starts=q_starts)
+    ``k_scale``/``v_scale`` select the int8-KV mode.  ``kv_len`` is a host
+    int: it sizes the kernel's grid."""
+    _unported(block_tables=block_tables, q_starts=q_starts)
+    _check_scales(k, k_scale, v_scale)
     kv_len = int(kv_len)
     if q.device.type == "cpu":
         return decode_attention_plain(
-            q, k, v, kv_len, prompt_lengths, prompt_width, scale=scale
+            q, k, v, kv_len, prompt_lengths, prompt_width, k_scale, v_scale, scale=scale
         )
     b, sq, hq, d = q.shape
     max_len, hkv = k.shape[1], k.shape[2]
-    if not decode_supported(q, k) or v.shape != k.shape or v.dtype != k.dtype or v.device != k.device:
+    if (not decode_supported(q, k, k_scale, v_scale) or v.shape != k.shape or v.dtype != k.dtype
+            or v.device != k.device):
         raise ValueError(
             f"decode_attention kernel unsupported inputs: q {tuple(q.shape)} "
             f"{q.dtype} on {q.device}, k {tuple(k.shape)} {k.dtype}, v "
             f"{tuple(v.shape)} (needs CUDA tensors, head_dim 64|128, bf16|f32, "
+            f"the cache in q's dtype or int8 with f32 scales, "
             f"q_len 1-{MAX_DECODE_Q_LEN}, q_len*group <= {MAX_ROWS})"
         )
     if not 1 <= kv_len <= max_len or kv_len < sq:
@@ -154,6 +195,8 @@ def decode_attention(
     if lens is not None:
         lens = lens.contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if k_scale is not None:
+        k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
     rows = sq * (hq // hkv)
     split_len, n_splits = split_plan(b, hkv, kv_len)
     part_acc = torch.empty((b, hkv, n_splits, rows, d), dtype=torch.float32, device=q.device)
@@ -162,14 +205,21 @@ def decode_attention(
     lib = _build.library()
     with torch.cuda.device(q.device):  # the runtime launches on its current device
         status = lib.nexus_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr() if lens is not None else None,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if k_scale is not None else None,
+            v_scale.data_ptr() if v_scale is not None else None,
+            lens.data_ptr() if lens is not None else None,
             out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
             b, sq, hq, hkv, d, max_len, width, kv_len - 1, split_len, n_splits,
             _DTYPES[q.dtype], float(scale * _LOG2E), _build.stream_ptr(q.device),
         )
     _build.check(status, "nexus_decode_attention")
     decode_attention.launches += 1
+    if k_scale is not None:
+        decode_attention.launches_int8kv += 1
     return out
 
 
+#: launches of the kernel in any mode, and those of them in int8-KV mode
 decode_attention.launches = 0
+decode_attention.launches_int8kv = 0

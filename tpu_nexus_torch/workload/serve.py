@@ -7,10 +7,15 @@ KV-cache batch decoding (models/generate.py) on one CUDA device, or on the
 CPU when the caller asks for it (``NEXUS_DEVICE=cpu``).  A CUDA request on
 a machine without a card raises: it never carries on on the CPU.
 
+Quantized serving: ``NEXUS_QUANTIZE=int8|int4`` (with
+``NEXUS_QUANT_GROUP`` for int4) quantizes the matmul weights after init, so
+each decode step's weight products run through the dequant-matmul kernels
+(ops/quant_matmul.py); ``NEXUS_QUANTIZE_KV=int8`` keeps the KV cache int8.
+Bad values fail at parse with the reference's wording.
+
 Knobs of the reference that this slice does not port raise at parse,
 naming the ROADMAP.md item that brings them: ``NEXUS_CHECKPOINT_DIR``,
-``NEXUS_QUANTIZE``/``NEXUS_QUANT_GROUP``, ``NEXUS_QUANTIZE_KV``, fault
-injection, and every engine-only knob set to a non-default value.
+fault injection, and every engine-only knob set to a non-default value.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from tpu_nexus_torch.checkpoint.store import CheckpointStore
 from tpu_nexus_torch.models.generate import DECODE_IMPLS, generate
 from tpu_nexus_torch.models.llama import LlamaConfig
+from tpu_nexus_torch.models.quant import DEFAULT_INT4_GROUP, quantize_params, quantized_bytes
 from tpu_nexus_torch.models.registry import LlamaAdapter, adapter_for, get_adapter
 from tpu_nexus_torch.parallel.distributed import ProcessContext, initialize_distributed
 from tpu_nexus_torch.workload.harness import LedgerReporter, resolve_device
@@ -83,7 +89,12 @@ class ServeConfig:
     heartbeat_every: int = 2
     checkpoint_dir: str = ""
     seed: int = 0
+    #: weight-only quantization of the matmul weights: "" | "int8" | "int4"
+    #: (NEXUS_QUANTIZE)
     quantize: str = ""
+    #: int4 group size, 0 = the default 64 (NEXUS_QUANT_GROUP)
+    quant_group: int = 0
+    #: KV-cache quantization: "" | "int8" (NEXUS_QUANTIZE_KV)
     quantize_kv: str = ""
     #: decode-attention dispatch: "auto" (the CUDA decode kernel on the
     #: card, the plain einsum on the CPU) | "plain" (NEXUS_DECODE_KERNEL)
@@ -98,16 +109,48 @@ class ServeConfig:
                 "checkpoints is not ported yet (ROADMAP.md: tensor checkpoints "
                 "and hot reload)"
             )
-        if self.quantize:
-            raise NotImplementedError(
-                f"quantize={self.quantize!r} (NEXUS_QUANTIZE): weight "
-                "quantization is not ported yet (ROADMAP.md: weight quantization)"
+        if self.quantize not in ("", "int8", "int4"):
+            raise ValueError(f"unknown quantize mode {self.quantize!r}; use 'int8' or 'int4'")
+        if self.quant_group < 0:
+            raise ValueError(
+                f"quant_group (NEXUS_QUANT_GROUP) must be >= 0, got {self.quant_group}"
             )
-        if self.quantize_kv:
-            raise NotImplementedError(
-                f"quantize_kv={self.quantize_kv!r} (NEXUS_QUANTIZE_KV): the int8 "
-                "KV cache is not ported yet (ROADMAP.md: serve-engine slice)"
+        if self.quant_group and self.quantize != "int4":
+            # a group size silently ignored under int8/full precision would
+            # let a typo'd NEXUS_QUANTIZE ship the wrong width unnoticed
+            raise ValueError(
+                f"quant_group (NEXUS_QUANT_GROUP={self.quant_group}) only "
+                f"applies to quantize='int4', got quantize={self.quantize!r}"
             )
+        if self.quantize == "int4":
+            group = self.quant_group or DEFAULT_INT4_GROUP
+            if group % 2:
+                raise ValueError(
+                    f"quant_group (NEXUS_QUANT_GROUP) must be even (two "
+                    f"nibbles pack per byte within a group), got {group}"
+                )
+            model_cfg = getattr(self.model, "config", self.model)
+            widths = []
+            hidden = getattr(model_cfg, "hidden", None)
+            if hidden is not None:
+                widths.append((hidden, "hidden (wq/wk/wv/w_gate/w_up contraction)"))
+            inter = getattr(model_cfg, "intermediate", None)
+            if inter is not None:
+                widths.append((inter, "intermediate (w_down contraction)"))
+            hq = getattr(model_cfg, "n_heads", None)
+            hd = getattr(model_cfg, "head_dim", None)
+            if hq is not None and hd is not None:
+                widths.append((hq * hd, "n_heads*head_dim (wo contraction)"))
+            for width, what in widths:
+                if width % group:
+                    raise ValueError(
+                        f"quant_group (NEXUS_QUANT_GROUP={group}) does not "
+                        f"divide the model's {width} {what} — every "
+                        "quantized contraction width must be a whole "
+                        "number of groups"
+                    )
+        if self.quantize_kv not in ("", "int8"):
+            raise ValueError(f"unknown quantize_kv mode {self.quantize_kv!r}; use 'int8'")
         if self.decode_kernel not in DECODE_IMPLS:
             raise ValueError(
                 f"unknown decode_kernel mode {self.decode_kernel!r}; use "
@@ -139,11 +182,6 @@ class ServeConfig:
                     "(NEXUS_MODE=serve-engine), which is not ported yet "
                     "(ROADMAP.md: serve-engine slice)"
                 )
-        if int(e.get("NEXUS_QUANT_GROUP", "0") or 0):
-            raise NotImplementedError(
-                "NEXUS_QUANT_GROUP: weight quantization is not ported yet "
-                "(ROADMAP.md: weight quantization)"
-            )
         if e.get("NEXUS_FAULT_MODE", ""):
             raise NotImplementedError(
                 "NEXUS_FAULT_MODE: fault injection (workload/faults.py) is not "
@@ -162,6 +200,7 @@ class ServeConfig:
             checkpoint_dir=e.get("NEXUS_CHECKPOINT_DIR", ""),
             seed=int(e.get("NEXUS_SEED", "0")),
             quantize=e.get("NEXUS_QUANTIZE", ""),
+            quant_group=int(e.get("NEXUS_QUANT_GROUP", "0") or 0),
             quantize_kv=e.get("NEXUS_QUANTIZE_KV", ""),
             decode_kernel=e.get("NEXUS_DECODE_KERNEL", "auto"),
             device=e.get("NEXUS_DEVICE", "cuda"),
@@ -169,8 +208,9 @@ class ServeConfig:
 
 
 def _load_serving_params(cfg: ServeConfig, ctx: ProcessContext, device: torch.device):
-    """Resolve the LM adapter and init its params on ``device`` from
-    ``cfg.seed``.  Returns ``(adapter, model_cfg, params, restored_from)``;
+    """Resolve the LM adapter, init its params on ``device`` from
+    ``cfg.seed`` and, under ``cfg.quantize``, quantize the matmul weights.
+    Returns ``(adapter, model_cfg, params, restored_from)``;
     ``restored_from`` is None (checkpoint restore is a later slice)."""
     adapter = adapter_for(cfg.model)
     if not isinstance(adapter, LlamaAdapter):
@@ -178,6 +218,11 @@ def _load_serving_params(cfg: ServeConfig, ctx: ProcessContext, device: torch.de
     logger.info("serving %s/%s: model %s on %s", ctx.algorithm, ctx.run_id, adapter.name, device)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     params = adapter.init(generator, device)
+    if cfg.quantize:
+        params = quantize_params(params, mode=cfg.quantize, group=cfg.quant_group)
+        logger.info(
+            "serving with %s weight-only quantization: %d weight bytes", cfg.quantize, quantized_bytes(params)
+        )
     return adapter, adapter.config, params, None
 
 
@@ -207,7 +252,7 @@ def run_serving(
             max_new_tokens=cfg.gen_tokens, temperature=cfg.temperature,
             top_k=cfg.top_k, top_p=cfg.top_p,
             generator=sampler if cfg.temperature > 0.0 else None,
-            decode_kernel=cfg.decode_kernel,
+            kv_quant=cfg.quantize_kv, decode_kernel=cfg.decode_kernel,
         )
 
     reporter.running()
