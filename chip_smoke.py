@@ -23,7 +23,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    backward: nexus_1b's B8 S2048 Hq16 Hkv8 D128, Llama-3-8B heads at S512,
    S200 (unaligned), D64 and non-causal, bf16 and f32; and a backward run
    twice is bit-identical.
-5. times        — per-launch time (CUDA events) at the main paths' shapes
+5. moe_parity   — the grouped-matmul kernels (#7 gmm, also on rhsᵀ as the
+   backward's d_lhs call; #8 tgmm) against their plain versions at the
+   nexus_moe train step's shapes (m_pad 36864, bm 512, uneven expert runs,
+   one expert holding only its padding tile), a bm-128 layout and
+   Mixtral-8x7B's gate (K 4096, N 14336), bf16 and f32, each run twice
+   bit-identical; tgmm writes zeros for an expert with no tile.
+6. times        — per-launch time (CUDA events) at the main paths' shapes
    (the kernels line reports the flash forward and backward at nexus_1b's
    training shape, decode at the serve step's), the bound, the plain
    version's time and the ``library_ms`` yardstick
@@ -31,35 +37,52 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the port never calls them).  For the dequant-matmul kernels the shape is
    the step's largest launch (K4096 x N14336, M8) and the yardstick is
    ``torch.matmul`` with the pre-dequantized bf16 weight; for int8-KV
-   decode, ``scaled_dot_product_attention`` on a dequantized cache.
-6. e2e          — Llama-3-8B widths at 2 layers in f32: greedy ``generate``
+   decode, ``scaled_dot_product_attention`` on a dequantized cache.  For
+   the grouped matmul, the nexus_moe train step's four products and
+   Mixtral's gate; the yardstick is ``torch._grouped_mm`` with group
+   offsets where this PyTorch takes the layout, else a loop of
+   ``torch.matmul`` over the expert runs.
+7. e2e          — Llama-3-8B widths at 2 layers in f32: greedy ``generate``
    with the kernels is token-identical to ``generate`` with the plain
    versions — with plain weights, with int8 weights + an int8 KV cache,
    and with int4 weights.
-7. train_e2e    — nexus_1b widths at 2 layers in f32: 3 training steps
+8. train_e2e    — nexus_1b widths at 2 layers in f32: 3 training steps
    through the kernels agree with 3 steps through dense attention.
-8. serve        — ``run_serving`` on ``llama3_8b`` at full width and depth
+9. moe_train_e2e — nexus_moe widths at 2 layers in f32, dispatch gmm: 3
+   training steps through the kernels agree with 3 steps through the
+   plain versions (dense attention, plain grouped matmul); nothing dropped;
+   the derived launches.
+10. serve        — ``run_serving`` on ``llama3_8b`` at full width and depth
    with bf16 params (batch 8, prompt 128, 32 new tokens, 3 rounds) into an
    in-memory ledger; the launch counters, zeroed just before, show the
    path went through the forward and decode kernels.
-9. serve_quant  — ``run_serving`` on ``llama3_8b`` at full width and depth
+11. serve_quant  — ``run_serving`` on ``llama3_8b`` at full width and depth
    (bf16 params, batch 8, prompt 128, 32 new tokens, 3 rounds), once with
    ``quantize="int8", quantize_kv="int8"`` and once with
    ``quantize="int4"``: COMPLETED, exactly 7 x layers x decode-steps
    dequant-matmul launches each, decoded tokens/s, weight bytes, peak
    memory.
-10. train       — ``run_workload`` on ``nexus_1b`` at full width and depth
+12. serve_moe   — ``run_serving`` on ``nexus_moe`` at full width and depth
+   (batch 8, prompt 128, 32 new tokens, 3 rounds): COMPLETED with exact
+   flash and decode launches; greedy ``generate`` at 2 layers in f32 is
+   token-identical between kernels and plain.
+13. train       — ``run_workload`` on ``nexus_1b`` at full width and depth
    (bf16, adamw, remat attn_out, batch 8, seq 2048, 20 steps) into an
    in-memory ledger: COMPLETED, tokens/s, MFU against the 989 TFLOP/s bf16
    peak, peak memory, and 14 launches per step of each of the flash
    forward, dQ and dK/dV kernels.
+14. train_moe   — ``run_workload`` on ``nexus_moe`` at full width and depth
+   (bf16, dispatch gmm, adamw, remat attn_out, batch 8, seq 2048, 20
+   steps): COMPLETED, exactly 72 gmm, 24 tgmm and 8 of each flash kernel
+   per step, ``dropped_frac`` 0, tokens/s, MFU, peak memory.
 
 Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
 share (``python3 chip_smoke.py --phases build,profile``); ``train_profile``
 — the same for two warm steps of the train phase's shape
 (``--phases build,train_profile``); ``profile_int8`` and ``profile_int4`` —
-``profile`` with the serve_quant phase's two configurations.
+``profile`` with the serve_quant phase's two configurations;
+``train_moe_profile`` — ``train_profile`` for train_moe's shape.
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -70,6 +93,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -80,10 +104,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "parity", "train_parity", "times", "e2e", "train_e2e", "serve", "serve_quant",
-          "train")
+PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "times", "e2e", "train_e2e", "moe_train_e2e",
+          "serve", "serve_quant", "serve_moe", "train", "train_moe")
 #: phases run only when named in --phases
-OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile")
+OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile")
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, f32 CUDA
 # core rate, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -561,6 +585,7 @@ def phase_times(results):
         del layers, lib_sets
     bwd_times(times)
     quant_times(times)
+    moe_times(times)
     results["times"] = times
 
 
@@ -1117,6 +1142,503 @@ def phase_train_profile(results):
     del state, batches
 
 
+# -- the MoE slice: grouped matmul (kernels #7 and #8), MoE training and serving --
+
+
+#: grouped-matmul cases of moe_parity: (M, K, N, block_m, tiles per expert,
+#: dtypes).  The nexus_moe train step's shapes (gate/up and down, bm 512,
+#: m_pad 36864 = 72 tiles; expert 1 holds only its padding tile), a bm-128
+#: layout, and Mixtral-8x7B's gate at one layer (K 4096, N 14336).
+GMM_PARITY_CASES = [
+    (36864, 1024, 2048, 512, (20, 1, 8, 12, 9, 7, 10, 5), ("bfloat16", "float32")),
+    (36864, 2048, 1024, 512, (20, 1, 8, 12, 9, 7, 10, 5), ("bfloat16", "float32")),
+    (4096, 1024, 2048, 128, (1, 10, 3, 4, 6, 2, 5, 1), ("bfloat16", "float32")),
+    (12288, 4096, 14336, 512, (3, 3, 4, 2, 3, 3, 3, 3), ("bfloat16",)),
+]
+#: f32 limit on max-abs error relative to the reference's largest magnitude
+#: (kernel and plain version differ in the order of the f32 sums only)
+GMM_F32_MAXABS_REL = 1e-5
+
+
+def tile_map(tiles_per_expert):
+    import torch
+
+    return torch.repeat_interleave(
+        torch.arange(len(tiles_per_expert), dtype=torch.int32), torch.tensor(tiles_per_expert)
+    ).to("cuda")
+
+
+def gmm_inputs(m, k, n, e, dtype, seed, transpose=False):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lhs = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+    rhs = (torch.randn((e, n, k) if transpose else (e, k, n), generator=g, device="cuda") * k**-0.5).to(dtype)
+    return lhs, rhs
+
+
+def _gmm_check(out, again, ref, dtype):
+    """(ok, fields): bit-identical twice, finite, and within the limits."""
+    import torch
+
+    same = bool(torch.equal(out, again))
+    err, ref_max, e_row = max_err(out, ref), float(ref.float().abs().max()), row_rel_err(out, ref)
+    good = e_row <= ROW_REL_TOL if dtype == torch.bfloat16 else err <= GMM_F32_MAXABS_REL * ref_max
+    ok = same and good and bool(torch.isfinite(out).all())
+    return ok, dict(max_abs_err=err, ref_max_abs=ref_max, max_row_rel_err=e_row, bit_identical_twice=same,
+                    tol_f32_max_abs_rel=GMM_F32_MAXABS_REL, tol_bf16_row_rel=ROW_REL_TOL, ok=ok)
+
+
+def phase_moe_parity(results):
+    """Kernels #7 (forward and the transposed-rhs d_lhs call) and #8 against
+    ``gmm_plain`` / ``tgmm_plain`` on the card, each run twice."""
+    import torch
+
+    from tpu_nexus_torch.ops.grouped_matmul import gmm_kernel_call, gmm_plain, tgmm_kernel_call, tgmm_plain
+
+    worst = {"nexus_gmm": 0.0, "nexus_tgmm": 0.0}
+    seed = 6000
+    for m, k, n, bm, tiles, dtypes in GMM_PARITY_CASES:
+        te = tile_map(tiles)
+        e = len(tiles)
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            for kind in ("gmm", "gmm_transposed_rhs", "tgmm"):
+                if kind == "tgmm" and k * n > 1024 * 2048:
+                    continue  # the weight gradient runs at the train step's shapes only
+                seed += 1
+                transpose = kind == "gmm_transposed_rhs"
+                lhs, rhs = gmm_inputs(m, k, n, e, dtype, seed, transpose)
+                if kind == "tgmm":
+                    d_out = torch.randn((m, n), generator=torch.Generator(device="cuda").manual_seed(seed + 1),
+                                        device="cuda").to(dtype)
+                    out, again = (tgmm_kernel_call(lhs, d_out, te, e, bm) for _ in range(2))
+                    torch.cuda.synchronize()
+                    ref = tgmm_plain(lhs, d_out, te, e, bm)
+                else:
+                    out, again = (gmm_kernel_call(lhs, rhs, te, bm, transpose_rhs=transpose) for _ in range(2))
+                    torch.cuda.synchronize()
+                    ref = gmm_plain(lhs, rhs.transpose(1, 2) if transpose else rhs, te, bm)
+                ok, fields = _gmm_check(out, again, ref, dtype)
+                emit("moe_parity", kernel=kind, m=m, k=k, n=n, block_m=bm, tiles_per_expert=list(tiles),
+                     dtype=name, **fields)
+                if not ok:
+                    raise AssertionError(f"{kind} kernel disagrees with its plain version: M{m} K{k} N{n} {name}")
+                key = "nexus_tgmm" if kind == "tgmm" else "nexus_gmm"
+                if dtype == torch.bfloat16 and (m, k, n) == (36864, 1024, 2048):
+                    worst[key] = max(worst[key], fields["max_abs_err"])
+                del lhs, rhs, out, again, ref
+                torch.cuda.empty_cache()
+    # an expert with no tile at all: tgmm writes its block as zeros
+    te = tile_map((2, 0, 2))
+    lhs, _ = gmm_inputs(512, 256, 256, 3, torch.bfloat16, 6500)
+    d_out = torch.randn((512, 256), device="cuda").to(torch.bfloat16)
+    out = tgmm_kernel_call(lhs, d_out, te, 3, 128)
+    torch.cuda.synchronize()
+    emit("moe_parity", kernel="tgmm", case="expert 1 owns no tile", max_abs_of_absent_block=float(out[1].abs().max()))
+    if float(out[1].abs().max()) != 0.0:
+        raise AssertionError("tgmm wrote a nonzero block for an expert with no tile")
+    results.setdefault("max_abs_err", {}).update(worst)
+
+
+def gmm_bound(m, k, n, e, dtype, tgmm=False):
+    """Least time: 2MKN operations at the peak of the inputs' type, or the
+    inputs read once and the output written once at the HBM rate."""
+    import torch
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if tgmm:  # lhs [M,K], d_out [M,N] -> f32 [E,K,N]
+        nbytes = (m * k + m * n) * itemsize + e * k * n * 4
+    else:  # lhs [M,K], rhs [E,K,N] -> [M,N]
+        nbytes = (m * k + e * k * n + m * n) * itemsize
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = 2 * m * k * n / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def event_ms(fn, iters=3):
+    """Mean ms per call between CUDA events around ``iters`` calls, host
+    gaps included: for the plain versions, which read tile_expert on the
+    host (``nonzero``) and so cannot be enqueued behind a spin."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def grouped_library(lhs, rhs, tiles, bm, tgmm_out=None):
+    """``(fn, what)``: one PyTorch call for the same grouped product, as a
+    yardstick the port never calls.  ``torch._grouped_mm`` with group
+    offsets where this PyTorch has it and takes the layout; else a loop of
+    E ``torch.matmul`` over the expert runs (host offsets)."""
+    import torch
+
+    ends = [bm * sum(tiles[: i + 1]) for i in range(len(tiles))]
+    offs = torch.tensor(ends, dtype=torch.int32, device="cuda")
+    starts = [0] + ends[:-1]
+    grouped = getattr(torch, "_grouped_mm", None)
+    if tgmm_out is None:
+        candidates = [("torch._grouped_mm(lhs, rhs, offs)", lambda: grouped(lhs, rhs, offs=offs)),
+                      ("torch._grouped_mm(lhs, rhs column-major, offs)",
+                       (lambda rc=rhs.transpose(1, 2).contiguous().transpose(1, 2): grouped(lhs, rc, offs=offs)))]
+        loop = ("loop of E torch.matmul over the expert runs",
+                lambda: [torch.matmul(lhs[s:t], rhs[i]) for i, (s, t) in enumerate(zip(starts, ends))])
+    else:
+        d_out = tgmm_out
+        candidates = [("torch._grouped_mm(lhs.T, d_out, offs)", lambda: grouped(lhs.T, d_out, offs=offs,
+                                                                                  out_dtype=torch.float32)),
+                      ("torch._grouped_mm(lhs.T contiguous, d_out, offs)",
+                       (lambda lt=lhs.T.contiguous(): grouped(lt, d_out, offs=offs, out_dtype=torch.float32)))]
+        loop = ("loop of E torch.matmul over the expert runs (bf16 out)",
+                lambda: [torch.matmul(lhs[s:t].T, d_out[s:t]) for s, t in zip(starts, ends)])
+    if grouped is not None:
+        for what, fn in candidates:
+            try:
+                fn()
+                torch.cuda.synchronize()
+                return fn, what
+            except (RuntimeError, TypeError, ValueError):
+                continue
+    return loop[1], loop[0]
+
+
+def moe_times(times):
+    """Kernels #7 and #8 at the nexus_moe train step's shapes (B8 S2048:
+    T 16384, A 32768, bm 512, m_pad 36864; gate/up, down, the d_lhs call,
+    the weight gradient) and #7 at Mixtral-8x7B's gate for one layer (T
+    4096, m_pad 12288, K 4096, N 14336), bf16, uneven expert runs.  Two
+    input sets per shape, cycled, so operands come from HBM."""
+    import torch
+
+    from tpu_nexus_torch.ops.grouped_matmul import gmm_kernel_call, gmm_plain, tgmm_kernel_call, tgmm_plain
+
+    dt = torch.bfloat16
+    tiles_nexus, tiles_mixtral = (9, 8, 10, 9, 8, 9, 10, 9), (3, 3, 4, 2, 3, 3, 3, 3)
+    rows = (
+        ("nexus_gmm", "gmm gate/up (nexus_moe train step)", 36864, 1024, 2048, tiles_nexus, "gmm"),
+        (None, "gmm down (nexus_moe train step)", 36864, 2048, 1024, tiles_nexus, "gmm"),
+        (None, "gmm d_lhs of gate/up, rhs read transposed", 36864, 2048, 1024, tiles_nexus, "gmm_t"),
+        ("nexus_tgmm", "tgmm d_rhs of gate/up (nexus_moe train step)", 36864, 1024, 2048, tiles_nexus, "tgmm"),
+        ("nexus_gmm_mixtral", "gmm gate (mixtral_8x7b, one layer)", 12288, 4096, 14336, tiles_mixtral, "gmm"),
+    )
+    for key, what, m, k, n, tiles, kind in rows:
+        te, e, bm = tile_map(tiles), len(tiles), 512
+        if kind == "tgmm":
+            sets = []
+            for i in range(2):
+                g = torch.Generator(device="cuda").manual_seed(7000 + i)
+                sets.append((torch.randn((m, k), generator=g, device="cuda").to(dt),
+                             torch.randn((m, n), generator=g, device="cuda").to(dt)))
+            kern = [lambda s=s: tgmm_kernel_call(s[0], s[1], te, e, bm) for s in sets]
+            plain = lambda s=sets[0]: tgmm_plain(s[0], s[1], te, e, bm)  # noqa: E731
+            lib, lib_what = grouped_library(sets[0][0], None, tiles, bm, tgmm_out=sets[0][1])
+            bound, by = gmm_bound(m, k, n, e, dt, tgmm=True)
+        else:
+            transpose = kind == "gmm_t"
+            sets = [gmm_inputs(m, k, n, e, dt, 7200 + i, transpose) for i in range(2)]
+            kern = [lambda s=s: gmm_kernel_call(s[0], s[1], te, bm, transpose_rhs=transpose) for s in sets]
+            plain = (lambda s=sets[0]: gmm_plain(s[0], s[1].transpose(1, 2) if transpose else s[1], te, bm))  # noqa: E731
+            lib, lib_what = grouped_library(sets[0][0], sets[0][1].transpose(1, 2) if transpose else sets[0][1],
+                                            tiles, bm)
+            bound, by = gmm_bound(m, k, n, e, dt)
+        ms, enqueue_ms = timed(kern, iters=20)
+        row = dict(shape=[m, k, n, e], block_m=bm, tiles_per_expert=list(tiles), dtype="bfloat16", ms=ms,
+                   enqueue_ms=enqueue_ms, plain_ms=event_ms(plain), library_ms=cuda_ms([lib], iters=20),
+                   library_ms_is=lib_what, bound_ms=bound, bound_by=by, share=bound / ms)
+        emit("times", kernel=what, plain_ms_is="events around calls that read tile_expert on the host", **row)
+        if key:
+            times[key] = row
+        del sets, kern, plain, lib
+        torch.cuda.empty_cache()
+
+
+class plain_grouped_matmul:
+    """Within the block, ``ops.grouped_matmul``'s two wrappers are replaced
+    by their plain versions, so the model runs the same code with the
+    kernels' arithmetic in plain PyTorch (what ``attn_impl="plain"`` is to
+    attention)."""
+
+    def __enter__(self):
+        from tpu_nexus_torch.ops import grouped_matmul as gm
+
+        self.saved = gm.gmm_kernel_call, gm.tgmm_kernel_call
+        gm.gmm_kernel_call = lambda lhs, rhs, te, bm, transpose_rhs=False: gm.gmm_plain(
+            lhs, rhs.transpose(1, 2) if transpose_rhs else rhs, te, bm)
+        gm.tgmm_kernel_call = gm.tgmm_plain
+        return self
+
+    def __exit__(self, *exc):
+        from tpu_nexus_torch.ops import grouped_matmul as gm
+
+        gm.gmm_kernel_call, gm.tgmm_kernel_call = self.saved
+        return False
+
+
+def _moe_counters():
+    from tpu_nexus_torch.ops.grouped_matmul import gmm_kernel_call, tgmm_kernel_call
+
+    return (gmm_kernel_call, tgmm_kernel_call) + _bwd_counters()
+
+
+def moe_launches_per_step(cfg):
+    """(gmm, tgmm, flash fwd, dQ, dK/dV) launches of one MoE train step.
+    Per layer the forward runs three gmm (gate, up, down); under a
+    checkpointing policy the backward re-runs them (the "attn_out" and
+    "qkv" policies keep the flash outputs, so attention's forward does not
+    re-run, while "nothing" re-runs it); the backward adds one gmm on rhsᵀ
+    (d_lhs) and one tgmm (d_rhs) per product."""
+    recompute = cfg.remat and cfg.remat_policy != "dots"
+    l = cfg.n_layers
+    flash_fwd = l * (2 if recompute and cfg.remat_policy == "nothing" else 1)
+    return (l * 3 * (3 if recompute else 2), 3 * l, flash_fwd, l, l)
+
+
+def phase_moe_train_e2e(results):
+    """nexus_moe widths at 2 layers in f32, dispatch gmm: 3 adamw steps
+    through the kernels against 3 through the plain versions (dense
+    attention, ``plain_grouped_matmul``) on the card, same init and
+    batches; the limits of ``train_e2e``; nothing dropped."""
+    import torch
+
+    from tpu_nexus_torch.models.moe import MoeConfig, moe_head, moe_hidden
+    from tpu_nexus_torch.models.registry import MoeAdapter
+    from tpu_nexus_torch.workload.data import synthetic_tokens
+    from tpu_nexus_torch.workload.train import TrainConfig, chunked_next_token_loss, init_train_state, make_train_step
+
+    class PlainMoeAdapter(MoeAdapter):
+        """MoeAdapter whose loss runs dense attention."""
+
+        def make_loss(self, train_cfg):
+            cfg = self.config
+
+            def loss_fn(params, tokens):
+                hidden, aux = moe_hidden(params, tokens, cfg, attn_impl="plain")
+                loss, metrics = chunked_next_token_loss(hidden, moe_head(params, cfg), tokens, train_cfg.z_loss,
+                                                        chunk=train_cfg.ce_chunk)
+                loss = loss + cfg.load_balance_coef * aux["load_balance"] + cfg.router_z_coef * aux["router_z"]
+                return loss, dict(metrics, dropped_frac=aux["dropped_frac"])
+
+            return loss_fn
+
+    cfg = dataclasses.replace(MoeConfig.nexus_moe(), n_layers=2, dtype=torch.float32, param_dtype=torch.float32)
+    tcfg = TrainConfig(warmup_steps=1, total_steps=3)
+    counters = _moe_counters()
+    runs = {}
+    for impl, model in (("kernels", MoeAdapter(config=cfg)), ("plain", PlainMoeAdapter(config=cfg))):
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0), model, tcfg, device="cuda")
+        step_fn = make_train_step(model, tcfg)
+        data = synthetic_tokens(2, 512, cfg.vocab_size, seed=3)
+        before = [c.launches for c in counters]
+        rows = []
+        with plain_grouped_matmul() if impl == "plain" else contextlib.nullcontext():
+            for _ in range(3):
+                state, m = step_fn(state, torch.as_tensor(next(data), device="cuda").long())
+                rows.append((float(m["loss"]), float(m["grad_norm"]), float(m["dropped_frac"])))
+        runs[impl] = (rows, [c.launches - b for c, b in zip(counters, before)])
+        del state
+    (got, launched), (ref, plain_launched) = runs["kernels"], runs["plain"]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, ref))
+    gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, ref))
+    dropped = max(r[2] for r in got + ref)
+    want = [3 * n for n in moe_launches_per_step(cfg)]
+    emit("moe_train_e2e", config="nexus_moe widths, 2 layers, f32, dispatch gmm; batch 2, seq 512, 3 adamw steps",
+         kernels=got, plain=ref, max_loss_rel_err=loss_rel, max_grad_norm_rel_err=gn_rel, max_dropped_frac=dropped,
+         tol_loss_rel=1e-4, tol_grad_norm_rel=1e-3, launches_gmm_tgmm_fwd_dq_dkv=launched, want=want,
+         plain_launches=plain_launched)
+    if loss_rel > 1e-4 or gn_rel > 1e-3 or dropped != 0.0:
+        raise AssertionError("MoE kernel training steps disagree with the plain path (or dropped tokens)")
+    if launched != want or plain_launched != [0] * len(counters):
+        raise AssertionError(f"launches {launched} (plain {plain_launched}) != {want}")
+    torch.cuda.empty_cache()
+
+
+def phase_train_moe(results):
+    """``run_workload`` on nexus_moe at full width and depth (bf16 params,
+    dispatch gmm, remat attn_out; adamw, batch 8, seq 2048, 20 steps) into
+    an in-memory ledger: COMPLETED, exactly the derived gmm, tgmm and flash
+    launches, nothing dropped; steady tokens/s, MFU, peak memory and the
+    goodput buckets."""
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.core.telemetry import NullMetrics
+    from tpu_nexus_torch.models.moe import MoeConfig, moe_param_count
+    from tpu_nexus_torch.models.registry import MoeAdapter
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.workload.goodput import model_flops_per_token
+    from tpu_nexus_torch.workload.harness import WorkloadConfig, run_workload
+    from tpu_nexus_torch.workload.train import TrainConfig
+
+    torch.cuda.empty_cache()
+    model = MoeConfig.nexus_moe()
+    steps, batch, seq = 20, 8, 2048
+    cfg = WorkloadConfig(model=MoeAdapter(config=model),
+                         train=TrainConfig(warmup_steps=10, total_steps=steps, optimizer="adamw"),
+                         batch_size=batch, seq_len=seq, steps=steps, heartbeat_every=5, device="cuda")
+    store = InMemoryCheckpointStore()
+    ctx = ProcessContext(run_id="chip-smoke-train-moe", algorithm="train", process_id=0, num_processes=1,
+                         coordinator=None)
+    counters = _moe_counters()
+    names = ("nexus_gmm", "nexus_tgmm", "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    summary = run_workload(cfg, store=store, ctx=ctx, telemetry=NullMetrics())
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in zip(names, counters)}
+    row = store.read_checkpoint("train", "chip-smoke-train-moe")
+    stage = row.lifecycle_stage if row else None
+    flops_per_token = model_flops_per_token(model, seq)
+    buckets = summary["goodput"]["buckets_s"]
+    steady_tps = (steps - 1) * batch * seq / (buckets["data_draw"] + buckets["step_dispatch"])
+    want = {name: n * steps for name, n in zip(names, moe_launches_per_step(model))}
+    emit("train_moe", config="nexus_moe full width and depth, bf16 params, dispatch gmm, adamw, remat attn_out",
+         batch=batch, seq=seq, steps=steps, params=moe_param_count(model), stage=stage,
+         per_chip_steps=row.per_chip_steps if row else None, wall_s=wall,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches, want_launches=want,
+         model_flops_per_token=flops_per_token, peak_flops=PEAK_BF16_FLOPS, steady_tokens_per_second=steady_tps,
+         steady_mfu=steady_tps * flops_per_token / PEAK_BF16_FLOPS, **summary)
+    if stage != LifecycleStage.COMPLETED:
+        raise AssertionError(f"ledger row is {stage}, not COMPLETED")
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    if summary.get("dropped_frac") != 0.0:
+        raise AssertionError(f"dropped_frac {summary.get('dropped_frac')} != 0 on the dropless path")
+    results.setdefault("launches", {})["train_moe"] = launches
+    results["train_moe"] = summary
+
+
+def phase_serve_moe(results):
+    """``run_serving`` on nexus_moe at full width and depth (bf16 params;
+    decode dispatches by scatter at a dropless capacity, as the reference):
+    batch 8, prompt 128, 32 new tokens, 3 rounds; COMPLETED with exactly
+    layers x prefill calls flash and layers x decode steps decode launches.
+    Then greedy ``generate`` at 2 layers in f32, kernels against plain:
+    token-identical."""
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.models.generate import generate
+    from tpu_nexus_torch.models.moe import MoeConfig, moe_init
+    from tpu_nexus_torch.ops.decode_attention import decode_attention
+    from tpu_nexus_torch.ops.flash_attention import flash_attention
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serving
+
+    torch.cuda.empty_cache()
+    model = MoeConfig.nexus_moe()
+    cfg = ServeConfig(model=model, batch_size=8, prompt_len=128, gen_tokens=32, rounds=3, device="cuda")
+    store = InMemoryCheckpointStore()
+    ctx = ProcessContext(run_id="chip-smoke-moe", algorithm="serve", process_id=0, num_processes=1, coordinator=None)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = decode_attention.launches = 0
+    t0 = time.perf_counter()
+    summary = run_serving(cfg, store=store, ctx=ctx)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches}
+    row = store.read_checkpoint("serve", "chip-smoke-moe")
+    stage = row.lifecycle_stage if row else None
+    want = {"flash_attention": model.n_layers * summary["prefill_calls"],
+            "decode_attention": model.n_layers * summary["decode_steps"]}
+    emit("serve_moe", config="nexus_moe full width and depth, bf16 params", stage=stage,
+         per_chip_steps=row.per_chip_steps if row else None, wall_s=wall,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches, want_launches=want, **summary)
+    if stage != LifecycleStage.COMPLETED:
+        raise AssertionError(f"ledger row is {stage}, not COMPLETED")
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    results.setdefault("launches", {})["serve_moe"] = launches
+
+    small = dataclasses.replace(model, n_layers=2, dtype=torch.float32, param_dtype=torch.float32)
+    params = moe_init(torch.Generator(device="cuda").manual_seed(0), small, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, small.vocab_size, (4, 128), generator=g, device="cuda", dtype=torch.int32)
+    f0, d0 = flash_attention.launches, decode_attention.launches
+    with_kernels = generate(params, prompt, small, max_new_tokens=32)
+    launched = (flash_attention.launches - f0, decode_attention.launches - d0)
+    plain = generate(params, prompt, small, max_new_tokens=32, attn_impl="plain", decode_kernel="plain")
+    torch.cuda.synchronize()
+    same = bool(torch.equal(with_kernels, plain))
+    emit("serve_moe", config="nexus_moe widths, 2 layers, f32: greedy generate, kernels vs plain", batch=4,
+         prompt=128, new_tokens=32, token_identical=same, mismatched_tokens=int((with_kernels != plain).sum()),
+         flash_launches=launched[0], decode_launches=launched[1])
+    if not same or launched != (small.n_layers, small.n_layers * 31):
+        raise AssertionError("MoE kernel decode is not token-identical to the plain path (or skipped a kernel)")
+    del params
+
+
+def phase_train_moe_profile(results):
+    """Opt-in (``--phases build,train_moe_profile``): two warm training
+    steps of train_moe's shape under ``torch.profiler``: device ms by group
+    and the busy share of the profiled window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_nexus_torch.models.moe import MoeConfig
+    from tpu_nexus_torch.models.registry import host_to_device
+    from tpu_nexus_torch.workload.data import synthetic_tokens
+    from tpu_nexus_torch.workload.health import HealthConfig
+    from tpu_nexus_torch.workload.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = MoeConfig.nexus_moe()
+    tcfg = TrainConfig(warmup_steps=10, total_steps=20)
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg, tcfg, device="cuda")
+    step_fn = make_train_step(cfg, tcfg, health=HealthConfig())
+    data = synthetic_tokens(8, 2048, cfg.vocab_size, seed=0)
+    batches = [host_to_device(next(data), "cuda", torch.long) for _ in range(6)]
+    for batch in batches[:2]:
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches[2:4]:
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches[4:]:
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+
+    def group_of(low):
+        if "tgmm" in low:
+            return "tgmm kernel (#8)"
+        if "gmm_" in low:
+            return "gmm kernel (#7)"
+        if "flash_bwd_dq" in low:
+            return "flash backward dQ kernel"
+        if "flash_bwd_dkv" in low:
+            return "flash backward dK/dV kernel"
+        if "flash_fwd" in low:
+            return "flash forward kernel"
+        if any(k in low for k in ("nvjet", "gemm", "xmma", "cutlass", "cublas", "sm90")):
+            return "matmul (cuBLAS)"
+        if any(k in low for k in ("index", "gather", "scatter", "sort", "radix", "searchsorted", "cumsum", "scan")):
+            return "dispatch/combine gathers, sort and index maps"
+        return "other (elementwise, reductions, copies)"
+
+    groups, top = _group_device_time(prof, group_of)
+    groups = {k: v / 2 for k, v in groups.items()}
+    device_ms = sum(groups.values())
+    emit("train_moe_profile", config="nexus_moe full depth, bf16, dispatch gmm, adamw, attn_out; batch 8, seq 2048; "
+         "ms per step, mean of 2 profiled steps", wall_ms=wall_ms, unprofiled_wall_ms=plain_wall_ms,
+         device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+         busy_share_of_unprofiled_step=device_ms / plain_wall_ms, groups_ms=groups,
+         top=[{"ms_per_step": t / 2, "calls": c // 2, "name": n} for t, c, n in top[:24]])
+    del state, batches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1160,8 +1682,10 @@ def main(argv=None) -> int:
     runners = {
         "parity": phase_parity, "train_parity": phase_train_parity, "times": phase_times,
         "e2e": phase_e2e, "train_e2e": phase_train_e2e, "serve": phase_serve, "serve_quant": phase_serve_quant,
-        "train": phase_train,
+        "train": phase_train, "moe_parity": phase_moe_parity, "moe_train_e2e": phase_moe_train_e2e,
+        "serve_moe": phase_serve_moe, "train_moe": phase_train_moe,
         "profile": phase_profile, "train_profile": phase_train_profile,
+        "train_moe_profile": phase_train_moe_profile,
         "profile_int8": lambda r: phase_profile(r, "int8", "int8"),
         "profile_int4": lambda r: phase_profile(r, "int4", ""),
     }
@@ -1188,6 +1712,10 @@ def main(argv=None) -> int:
                                   "tpu_nexus/ops/quant_matmul.py:131", "serve_int8"),
             "quant_matmul_int4": ("tpu_nexus_torch/csrc/quant_matmul.cu",
                                   "tpu_nexus/ops/quant_matmul.py:154", "serve_int4"),
+            "nexus_gmm": ("tpu_nexus_torch/csrc/grouped_matmul.cu",
+                          "tpu_nexus/ops/grouped_matmul.py:68", "train_moe"),
+            "nexus_tgmm": ("tpu_nexus_torch/csrc/grouped_matmul.cu",
+                           "tpu_nexus/ops/grouped_matmul.py:84", "train_moe"),
         }
         kernels = []
         whole_bwd = results["times"]["flash_attention_bwd"]
@@ -1201,6 +1729,12 @@ def main(argv=None) -> int:
                 "ms": t["ms"], "enqueue_ms": t["enqueue_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             }
+            if name == "nexus_gmm":
+                entry.update(library_ms_is=t["library_ms_is"],
+                             mixtral_8x7b_gate={k: results["times"]["nexus_gmm_mixtral"][k]
+                                                for k in ("shape", "ms", "bound_ms", "plain_ms", "library_ms")})
+            if name == "nexus_tgmm":
+                entry.update(library_ms_is=t["library_ms_is"])
             if name.startswith("flash_attention_bwd"):
                 # plain_ms and library_ms are of the whole backward; so is this pair
                 entry.update(bound_matmuls=t["bound_matmuls"], backward_ms=whole_bwd["ms"],

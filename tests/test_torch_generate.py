@@ -281,3 +281,36 @@ def test_quantized_forward_matches():
 
         out = llama_forward(pparams, torch.from_numpy(tok), pcfg)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+
+
+# -- the MoE family ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dispatch", ["gmm", "scatter"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_moe_greedy_generate_is_token_identical(dispatch, ragged):
+    """Tiny MoE in f32: both packages decode MoE with scatter dispatch at a
+    dropless capacity (``_decode_cfg``), whatever the config trains with;
+    prefill logits agree to 1e-5 and greedy tokens are identical."""
+    from test_torch_moe import carried as moe_carried
+    from test_torch_moe import moe_configs
+
+    jcfg, pcfg = moe_configs(dispatch=dispatch)
+    assert port_gen._decode_cfg(pcfg).capacity_factor == jax_gen._decode_cfg(jcfg).capacity_factor == 2.0
+    jparams, pparams = moe_carried(jcfg, pcfg, seed=4)
+    prompt = tokens(3, 16, jcfg.vocab_size, seed=5)
+    lens = _lens(3, 16, seed=6) if ragged else None
+    _, jlogits = jax_gen.prefill(jparams, jnp.asarray(prompt), jcfg, 28,
+                                 None if lens is None else jnp.asarray(lens))
+    _, plogits = port_gen.prefill(pparams, torch.from_numpy(prompt), pcfg, 28,
+                                  None if lens is None else torch.from_numpy(lens))
+    _close(plogits.numpy(), jlogits)
+    ref = jax_gen.generate(
+        jparams, jnp.asarray(prompt), jcfg, max_new_tokens=12,
+        prompt_lengths=None if lens is None else jnp.asarray(lens),
+    )
+    out = port_gen.generate(
+        pparams, torch.from_numpy(prompt), pcfg, max_new_tokens=12,
+        prompt_lengths=None if lens is None else torch.from_numpy(lens),
+    )
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))

@@ -6,7 +6,10 @@ D 64 and 128, ragged decode lens/width, q_len > 1), and the backward
 kernels at the shapes of ``chip_smoke.py``'s train_parity phase; the int8
 and int4 dequant-matmul kernels (f32 1e-4 of the reference's largest
 magnitude, bf16 1e-2 on the worst row) and the decode kernel's int8-KV
-mode, each bit-identical run to run.
+mode, each bit-identical run to run; the grouped-matmul kernels (#7 gmm,
+also on rhsᵀ, and #8 tgmm: f32 1e-5 of the reference's largest magnitude,
+bf16 1e-2 on the worst row, bit-identical run to run) and MoE training
+through them against the plain versions.
 Tolerances: bf16 out 2e-2 and lse 1e-3 (max-abs) and 1e-2 on the worst
 row's relative L2 error, f32 1e-5 (max-abs); bf16 gradients 2e-2 of the
 reference's largest magnitude (max-abs) and 1e-2 on the worst row's
@@ -39,6 +42,7 @@ from tpu_nexus_torch.ops.flash_attention import (
     flash_attention_differentiable,
     flash_attention_plain,
 )
+from tpu_nexus_torch.ops.grouped_matmul import gmm, gmm_kernel_call, gmm_plain, tgmm_kernel_call, tgmm_plain
 from tpu_nexus_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain, weight_einsum
 from tpu_nexus_torch.workload.train import TrainConfig, init_train_state, make_train_step
 
@@ -354,3 +358,122 @@ def test_quantized_kernel_generate_is_token_identical_to_plain_in_f32(cuda_devic
         assert getattr(quant_matmul, counter) - m0 == 7 * 2 * 16
         assert torch.equal(out, ref)
 
+
+
+# -- grouped matmul (kernels #7 and #8) -----------------------------------------
+
+#: (M, K, N, E, block_m, tile_expert): uneven runs; an unaligned K and N; a
+#: 512-row layout tile with expert 2 absent
+GMM_CASES = [
+    (1024, 256, 384, 4, 128, [0, 0, 0, 1, 2, 2, 3, 3]),
+    (768, 200, 72, 3, 128, [0, 1, 1, 1, 2, 2]),
+    (2048, 128, 256, 4, 512, [0, 1, 1, 3]),
+]
+
+
+def _gmm_close(out, ref, dtype):
+    """f32: max-abs within 1e-5 of the reference's largest magnitude (the
+    sums differ in order only); bf16: every row's relative L2 within 1e-2."""
+    out, ref = out.float(), ref.float()
+    if dtype == torch.float32:
+        assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        rel = (out - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+        assert float(rel.max()) <= ROW_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("case", range(len(GMM_CASES)))
+def test_gmm_kernel_matches_plain(cuda_device, dtype, transpose, case):
+    m, k, n, e, bm, te = GMM_CASES[case]
+    lhs = _randn((m, k), case, cuda_device, dtype)
+    rhs = _randn((e, n, k) if transpose else (e, k, n), case + 10, cuda_device, dtype)
+    te = torch.tensor(te, dtype=torch.int32, device=cuda_device)
+    before = gmm_kernel_call.launches
+    out = gmm_kernel_call(lhs, rhs, te, bm, transpose_rhs=transpose)
+    again = gmm_kernel_call(lhs, rhs, te, bm, transpose_rhs=transpose)
+    torch.cuda.synchronize()
+    assert gmm_kernel_call.launches == before + 2 and torch.equal(out, again)
+    _gmm_close(out, gmm_plain(lhs, rhs.transpose(1, 2) if transpose else rhs, te, bm), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", range(len(GMM_CASES)))
+def test_tgmm_kernel_matches_plain(cuda_device, dtype, case):
+    m, k, n, e, bm, te = GMM_CASES[case]
+    lhs = _randn((m, k), case, cuda_device, dtype)
+    d_out = _randn((m, n), case + 20, cuda_device, dtype)
+    te = torch.tensor(te, dtype=torch.int32, device=cuda_device)
+    before = tgmm_kernel_call.launches
+    out, again = tgmm_kernel_call(lhs, d_out, te, e, bm), tgmm_kernel_call(lhs, d_out, te, e, bm)
+    torch.cuda.synchronize()
+    assert tgmm_kernel_call.launches == before + 2 and torch.equal(out, again)
+    ref = tgmm_plain(lhs, d_out, te, e, bm)
+    assert out.dtype == torch.float32
+    absent = [x for x in range(e) if x not in te.tolist()]
+    for x in absent:
+        assert float(out[x].abs().max()) == 0.0
+    _gmm_close(out, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gmm_differentiates_through_the_kernels(cuda_device, dtype):
+    m, k, n, e, bm, te = GMM_CASES[0]
+    lhs = _randn((m, k), 1, cuda_device, dtype).requires_grad_()
+    rhs = _randn((e, k, n), 2, cuda_device, dtype).requires_grad_()
+    te = torch.tensor(te, dtype=torch.int32, device=cuda_device)
+    dout = _randn((m, n), 3, cuda_device, dtype)
+    g0, t0 = gmm_kernel_call.launches, tgmm_kernel_call.launches
+    d_lhs, d_rhs = torch.autograd.grad(gmm(lhs, rhs, te, bm), (lhs, rhs), dout)
+    assert (gmm_kernel_call.launches - g0, tgmm_kernel_call.launches - t0) == (2, 1)
+    ref_lhs = gmm_plain(dout, rhs.detach().transpose(1, 2), te, bm)
+    ref_rhs = tgmm_plain(lhs.detach(), dout, te, e, bm).to(dtype)
+    _gmm_close(d_lhs, ref_lhs, dtype)
+    _gmm_close(d_rhs, ref_rhs, dtype)
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_inputs_the_kernels_do_not_take_raise(cuda_device):
+    te = torch.zeros((4,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="block_m 64"):
+        gmm_kernel_call(torch.zeros((256, 64), device=cuda_device), torch.zeros((1, 64, 64), device=cuda_device),
+                        te, 64)
+    with pytest.raises(ValueError, match="gmm kernel unsupported"):
+        gmm_kernel_call(torch.zeros((256, 64), device=cuda_device, dtype=torch.float16),
+                        torch.zeros((1, 64, 64), device=cuda_device, dtype=torch.float16), te[:2], 128)
+    with pytest.raises(ValueError, match="K 12"):
+        tgmm_kernel_call(torch.zeros((256, 12), device=cuda_device, dtype=torch.bfloat16),
+                         torch.zeros((256, 64), device=cuda_device, dtype=torch.bfloat16), te[:2], 1, 128)
+
+
+@pytest.mark.gpu
+def test_moe_train_steps_through_the_grouped_kernels_match_plain(cuda_device, monkeypatch):
+    """Two f32 train steps of a small MoE (head_dim 128, dispatch gmm,
+    remat attn_out) through kernels #7/#8 against the same steps with the
+    wrappers swapped for their plain versions: losses within 1e-5
+    relative, 9 gmm and 3 tgmm launches per layer per step."""
+    import tpu_nexus_torch.ops.grouped_matmul as gm
+    from tpu_nexus_torch.models.moe import MoeConfig
+
+    cfg = MoeConfig(vocab_size=512, hidden=256, n_layers=2, n_heads=2, n_kv_heads=1, head_dim=128,
+                    intermediate=256, n_experts=4, max_seq_len=256, dtype=torch.float32,
+                    remat_policy="attn_out", dispatch="gmm")
+    tcfg = TrainConfig(warmup_steps=1, total_steps=2)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 512, size=(2, 128))).to(cuda_device)
+    losses = {}
+    for impl in ("kernels", "plain"):
+        if impl == "plain":
+            monkeypatch.setattr(gm, "gmm_kernel_call", lambda lhs, rhs, te, bm, transpose_rhs=False: gm.gmm_plain(
+                lhs, rhs.transpose(1, 2) if transpose_rhs else rhs, te, bm))
+            monkeypatch.setattr(gm, "tgmm_kernel_call", gm.tgmm_plain)
+        state = init_train_state(torch.Generator(device=cuda_device).manual_seed(0), cfg, tcfg, device=cuda_device)
+        step = make_train_step(cfg, tcfg)
+        g0, t0 = gmm_kernel_call.launches, tgmm_kernel_call.launches
+        losses[impl] = [float(step(state, tokens)[1]["loss"]) for _ in range(2)]
+        if impl == "kernels":
+            assert (gmm_kernel_call.launches - g0, tgmm_kernel_call.launches - t0) == (2 * 2 * 9, 2 * 2 * 3)
+    np.testing.assert_allclose(losses["kernels"], losses["plain"], rtol=1e-5)

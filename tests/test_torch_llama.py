@@ -139,8 +139,9 @@ def test_registry_resolves_llama_and_names_the_unported():
     assert isinstance(get_adapter("llama3_8b"), LlamaAdapter)
     assert get_adapter("tiny").config == port_llama.LlamaConfig.tiny()
     assert get_adapter("mnist").name == "mnist"
-    for preset, item in (("moe_tiny", "MoE"), ("nexus_moe", "MoE"), ("mixtral_8x7b", "MoE")):
-        with pytest.raises(KeyError, match=item):
-            get_adapter(preset)
+    # the MoE presets resolve since the MoE slice (tests/test_torch_moe.py
+    # holds them against the JAX package's)
+    for preset in ("moe_tiny", "nexus_moe", "mixtral_8x7b"):
+        assert get_adapter(preset).name == "moe"
     with pytest.raises(KeyError, match="unknown"):
         get_adapter("gpt2")

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from tpu_nexus.checkpoint.store import InMemoryCheckpointStore as JaxInMemoryStore
+from tpu_nexus.models.registry import get_adapter as jax_get_adapter
 from tpu_nexus.parallel.distributed import ProcessContext as JaxProcessContext
 from tpu_nexus.workload.serve import ServeConfig as JaxServeConfig
 from tpu_nexus.workload.serve import run_serving as jax_run_serving
@@ -215,6 +216,35 @@ def test_run_serving_quantized_lands_completed_in_a_sqlite_ledger(tmp_path, capl
     (logged,) = [r.args for r in caplog.records if "weight-only quantization" in r.msg]
     dense = get_adapter("tiny").init(torch.Generator().manual_seed(0), torch.device("cpu"))
     assert logged[0] == quant["quantize"] and 0 < logged[1] < quantized_bytes(dense)
+
+
+def test_run_serving_moe_preset_lands_completed():
+    """``run_serving`` on ``moe_tiny`` (decoded with scatter dispatch at a
+    dropless capacity) lands COMPLETED with the reference's summary keys."""
+    cfg = ServeConfig.from_env({"NEXUS_MODEL_PRESET": "moe_tiny", "NEXUS_DEVICE": "cpu", "NEXUS_BATCH": "2",
+                                "NEXUS_PROMPT_LEN": "8", "NEXUS_GEN_TOKENS": "4", "NEXUS_STEPS": "3",
+                                "NEXUS_HEARTBEAT_EVERY": "1"})
+    assert cfg.model.name == "moe"
+    store = InMemoryCheckpointStore()
+    ctx = ProcessContext(run_id="m1", algorithm="serve", process_id=0, num_processes=1, coordinator=None)
+    summary = run_serving(cfg, store=store, ctx=ctx)
+    row = store.read_checkpoint("serve", "m1")
+    assert row.lifecycle_stage == LifecycleStage.COMPLETED
+    assert row.per_chip_steps == {"host0/chip0": 3}
+    assert summary["last_tokens_shape"] == (2, 4)
+    jstore = JaxInMemoryStore()
+    jctx = JaxProcessContext(run_id="m1", algorithm="serve", process_id=0, num_processes=1, coordinator=None)
+    ref = jax_run_serving(JaxServeConfig(model=jax_get_adapter("moe_tiny"), **dict(SMALL, rounds=1)),
+                          store=jstore, ctx=jctx)
+    assert set(ref) <= set(summary)
+
+
+@pytest.mark.parametrize("preset", ["moe_tiny", "nexus_moe"])
+@pytest.mark.parametrize("quantize", ["int8", "int4"])
+def test_quantized_moe_serving_raises_naming_the_roadmap_item(preset, quantize):
+    with pytest.raises(NotImplementedError, match="A5b"):
+        ServeConfig.from_env({"NEXUS_MODEL_PRESET": preset, "NEXUS_QUANTIZE": quantize})
+    assert ServeConfig.from_env({"NEXUS_MODEL_PRESET": preset, "NEXUS_QUANTIZE_KV": "int8"}).quantize_kv == "int8"
 
 
 def test_entrypoint_serves_quantized_with_jax_and_the_reference_blocked(tmp_path):

@@ -1,12 +1,14 @@
-"""Model zoo of the port: the Llama family and the mnist demo (MoE is a later slice)."""
+"""Model zoo of the port: the Llama and MoE families and the mnist demo."""
 
 from tpu_nexus_torch.models.generate import decode_step, generate, prefill
 from tpu_nexus_torch.models.llama import LlamaConfig, LlamaParams, llama_forward, llama_init
 from tpu_nexus_torch.models.mnist import MnistConfig
+from tpu_nexus_torch.models.moe import MoeConfig, moe_hidden, moe_init
 from tpu_nexus_torch.models.registry import (
     LlamaAdapter,
     MnistAdapter,
     ModelAdapter,
+    MoeAdapter,
     adapter_for,
     get_adapter,
 )
@@ -23,6 +25,10 @@ __all__ = [
     "LlamaAdapter",
     "MnistAdapter",
     "MnistConfig",
+    "MoeAdapter",
+    "MoeConfig",
+    "moe_hidden",
+    "moe_init",
     "adapter_for",
     "get_adapter",
 ]

@@ -1,9 +1,10 @@
-"""Carry Llama weights between the JAX package's tree and the port, bit-exact.
+"""Carry Llama and MoE weights between the JAX package's tree and the port, bit-exact.
 
 The JAX package's parameter tree (``tpu_nexus/models/llama.py::
-llama_init``) arrives here as nested dicts of numpy arrays with the same
-keys and layouts — stacked ``[L, ...]`` per-layer leaves included — so the
-conversion is a leaf-for-leaf copy.  bf16 leaves come out of jax as
+llama_init`` or ``tpu_nexus/models/moe.py::moe_init``) arrives here as
+nested dicts of numpy arrays with the same keys and layouts — stacked
+``[L, ...]`` per-layer leaves included — so the conversion is a
+leaf-for-leaf copy.  bf16 leaves come out of jax as
 ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` rejects: they
 travel as an int16 view of the same bits.
 
@@ -20,7 +21,9 @@ from typing import Any, Dict, Union
 import numpy as np
 import torch
 
-from tpu_nexus_torch.models.llama import LlamaConfig, LlamaParams, _layer_shapes
+from tpu_nexus_torch.models import llama, moe
+from tpu_nexus_torch.models.llama import LlamaConfig, LlamaParams
+from tpu_nexus_torch.models.moe import MoeConfig
 from tpu_nexus_torch.models.quant import QTensor, QTensor4, QuantizedParams
 
 
@@ -62,13 +65,14 @@ def _leaf_to_numpy(leaf: Any):
 
 
 def params_from_numpy(
-    tree: Dict[str, Any], cfg: LlamaConfig, device: Any = "cuda"
+    tree: Dict[str, Any], cfg: Union[LlamaConfig, MoeConfig], device: Any = "cuda"
 ) -> Union[LlamaParams, QuantizedParams]:
-    """The JAX package's Llama tree (numpy leaves) as the port's module
-    state on ``device``; shapes are checked against ``cfg``.  A tree with
-    quantized leaves (see the module docstring) comes back as a
-    ``QuantizedParams``."""
-    shapes = _layer_shapes(cfg)
+    """The JAX package's Llama or MoE tree (numpy leaves) as the port's
+    module state on ``device``; shapes are checked against ``cfg`` (an MoE
+    tree's layers add the router and the ``[L, n_experts, ...]`` expert
+    stacks).  A tree with quantized leaves (see the module docstring) comes
+    back as a ``QuantizedParams``."""
+    shapes = (moe if isinstance(cfg, MoeConfig) else llama)._layer_shapes(cfg)
     missing = set(shapes) ^ set(tree["layers"])
     if missing:
         raise ValueError(f"layer keys differ from the config's: {sorted(missing)}")

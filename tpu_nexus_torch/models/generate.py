@@ -19,14 +19,18 @@
   with the cache (``"k_s" in cache``).
 * Quantized weight trees (``models/quant.py``) run through the same code:
   every weight product goes through ``weight_einsum``.
+* The MoE family decodes through the same code: its configs are
+  normalized by :func:`_decode_cfg` (scatter dispatch, dropless capacity)
+  and its post-attention sub-block is the routed experts (:func:`_ffn_block`).
 
 Left out of this slice, each raising where it would be asked for
-(ROADMAP.md): ``decode_scan``, ``extend_step``, ``verify_step``, the paged
-cache (``block_tables``) and the MoE family.
+(ROADMAP.md): ``decode_scan``, ``extend_step``, ``verify_step`` and the
+paged cache (``block_tables``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -40,11 +44,13 @@ from tpu_nexus_torch.models.llama import (
     mlp_block,
     rope_tables,
 )
+from tpu_nexus_torch.models.moe import MoeConfig, moe_block, moe_head, moe_hidden
 from tpu_nexus_torch.models.quant import quantize_tensor
 from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from tpu_nexus_torch.ops.quant_matmul import weight_einsum
 from tpu_nexus_torch.ops.rmsnorm import rms_norm
 
+ModelConfig = Union[LlamaConfig, MoeConfig]  # the same stacked-layer layout
 _NEG_INF = -1e30
 DECODE_IMPLS = ("auto", "plain")
 
@@ -58,8 +64,46 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_config(cfg: Any) -> None:
-    if not isinstance(cfg, LlamaConfig):
-        raise _not_ported(f"decoding {type(cfg).__name__}", "MoE slice")
+    if not isinstance(cfg, (LlamaConfig, MoeConfig)):
+        raise TypeError(f"decoding needs a LlamaConfig or MoeConfig, got {type(cfg).__name__}")
+
+
+def _decode_cfg(cfg):
+    """Normalize a config for the decode path.  MoE always uses scatter
+    dispatch here: the training-tuned gmm layout pads each call's
+    assignments up to whole m-tiles, which at decode token counts inflates
+    expert compute many times over.  Scatter is capacity-bounded, so the
+    capacity factor rises to the dropless bound ``n_experts /
+    experts_per_token`` (``expert_capacity >= T`` for any routing): a model
+    trained dropless must not drop assignments at serve time."""
+    if isinstance(cfg, MoeConfig):
+        dropless = cfg.n_experts / cfg.experts_per_token
+        if cfg.dispatch != "scatter" or cfg.capacity_factor < dropless:
+            return dataclasses.replace(
+                cfg, dispatch="scatter", capacity_factor=max(cfg.capacity_factor, dropless)
+            )
+    return cfg
+
+
+def _prefill_hidden_kv(params, tokens, cfg, attn_impl: str = "auto"):
+    """Family dispatch for the prompt pass (the router aux is dropped)."""
+    if isinstance(cfg, MoeConfig):
+        hidden, _aux, kv = moe_hidden(params, tokens, cfg, return_kv=True, attn_impl=attn_impl)
+        return hidden, kv
+    return llama_hidden(params, tokens, cfg, return_kv=True, attn_impl=attn_impl)
+
+
+def _head(params, cfg):
+    return moe_head(params, cfg) if isinstance(cfg, MoeConfig) else llama_head(params, cfg)
+
+
+def _ffn_block(x, layer, cfg):
+    """Post-attention sub-block: dense SwiGLU (Llama) or routed experts
+    (MoE: a router over the step's tokens, aux discarded).  The config
+    arrives normalized by :func:`_decode_cfg`."""
+    if isinstance(cfg, MoeConfig):
+        return moe_block(x, layer, cfg)[0]
+    return mlp_block(x, layer, cfg)
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -113,7 +157,7 @@ def cached_attention(
 def prefill(
     params,
     tokens: torch.Tensor,
-    cfg: LlamaConfig,
+    cfg: ModelConfig,
     max_len: int,
     prompt_lengths: Optional[torch.Tensor] = None,
     kv_quant: str = "",
@@ -125,12 +169,13 @@ def prefill(
     (zero in the unwritten slots).  ``attn_impl`` picks the prefill
     attention (ops/attention.py)."""
     _check_config(cfg)
+    cfg = _decode_cfg(cfg)
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds cache max_len {max_len}")
     if kv_quant not in ("", "int8"):
         raise ValueError(f"unknown kv_quant mode {kv_quant!r}; use 'int8' or ''")
-    hidden, (k, v) = llama_hidden(params, tokens, cfg, return_kv=True, attn_impl=attn_impl)
+    hidden, (k, v) = _prefill_hidden_kv(params, tokens, cfg, attn_impl)
     filled = {"k": k, "v": v}
     if kv_quant == "int8":
         (filled["k"], filled["k_s"]), (filled["v"], filled["v_s"]) = _quantize_kv(k), _quantize_kv(v)
@@ -144,7 +189,7 @@ def prefill(
         # clamp at 0: a (buggy) zero length must not wrap to the last pad
         idx = (prompt_lengths.to(hidden.device).long() - 1).clamp_min(0)
         last = hidden[torch.arange(b, device=hidden.device), idx]
-    logits = torch.einsum("be,ev->bv", last, llama_head(params, cfg))
+    logits = torch.einsum("be,ev->bv", last, _head(params, cfg))
     return cache, logits
 
 
@@ -154,7 +199,7 @@ def decode_step(
     cache: Cache,
     token: torch.Tensor,
     pos: Union[int, torch.Tensor],
-    cfg: LlamaConfig,
+    cfg: ModelConfig,
     prompt_lengths: Optional[torch.Tensor] = None,
     prompt_width: Optional[int] = None,
     decode_kernel: str = "auto",
@@ -176,6 +221,7 @@ def decode_step(
     ``decode_kernel``: ``"auto"`` | ``"plain"`` (see
     :func:`cached_attention`)."""
     _check_config(cfg)
+    cfg = _decode_cfg(cfg)
     if block_tables is not None or logical_limit is not None:
         raise _not_ported("paged decode (block_tables)", "serve-engine slice")
     if write_mask is not None:
@@ -244,9 +290,9 @@ def decode_step(
             impl=decode_kernel, **scales,
         )
         x = x + weight_einsum("bshd,hde->bse", o, layer["wo"], ct)
-        x = mlp_block(x, layer, cfg)
+        x = _ffn_block(x, layer, cfg)
     hidden = rms_norm(x, params["out_norm"], cfg.norm_eps)
-    logits = torch.einsum("be,ev->bv", hidden[:, 0], llama_head(params, cfg))
+    logits = torch.einsum("be,ev->bv", hidden[:, 0], _head(params, cfg))
     return logits, cache
 
 
@@ -264,7 +310,7 @@ def verify_step(*args, **kwargs):
 
 @torch.no_grad()
 def teacher_forced_decode_ce(
-    params, tokens: torch.Tensor, cfg: LlamaConfig, kv_quant: str = "", decode_kernel: str = "auto",
+    params, tokens: torch.Tensor, cfg: ModelConfig, kv_quant: str = "", decode_kernel: str = "auto",
 ) -> torch.Tensor:
     """Mean next-token cross-entropy of ``tokens`` [B, S] scored THROUGH
     the decode path: prefill one token, then ``decode_step`` with teacher
@@ -314,7 +360,7 @@ def sample_logits(
 def generate(
     params,
     prompt: torch.Tensor,
-    cfg: LlamaConfig,
+    cfg: ModelConfig,
     *,
     max_new_tokens: int,
     temperature: float = 0.0,

@@ -256,12 +256,12 @@ def llama_head(params, cfg: LlamaConfig) -> torch.Tensor:
 REMAT_POLICIES = ("dots", "attn_out", "qkv", "nothing")
 
 
-def _layer(x, layer, cfg, cos, sin, attn_impl):
-    return mlp_block(attention_block(x, layer, cfg, cos, sin, attn_impl), layer, cfg)
+def _layer(x, layer, cfg, cos, sin, attn_impl, ffn):
+    return ffn(attention_block(x, layer, cfg, cos, sin, attn_impl), layer, cfg)
 
 
-def _after_qkv(x, q, k, v, layer, cfg, attn_impl):
-    return mlp_block(attend_block(x, q, k, v, layer, cfg, attn_impl), layer, cfg)
+def _after_qkv(x, q, k, v, layer, cfg, attn_impl, ffn):
+    return ffn(attend_block(x, q, k, v, layer, cfg, attn_impl), layer, cfg)
 
 
 def _keep_flash_outputs():
@@ -279,10 +279,13 @@ def _keep_flash_outputs():
     return create_selective_checkpoint_contexts(policy)
 
 
-def remat_layer(x, layer, cfg: LlamaConfig, cos, sin, attn_impl: str = "auto"):
+def remat_layer(x, layer, cfg, cos, sin, attn_impl: str = "auto", ffn=mlp_block):
     """One decoder layer under ``cfg.remat_policy`` (the reference's
     ``jax.checkpoint`` around the layer scan body).  Checkpointing applies
     only while gradients are taken; see :attr:`LlamaConfig.remat_policy`.
+    ``ffn(x, layer, cfg)`` is the post-attention sub-block: the dense MLP,
+    or the MoE family's routed experts (``models/moe.py::moe_block``, which
+    also returns its router aux losses), recomputed like the rest.
     Unlike XLA, eager recompute cannot drop work whose outputs are saved:
     under "qkv" the backward still re-runs norm and projections for their
     own gradients, and only the attention inputs are kept."""
@@ -290,19 +293,19 @@ def remat_layer(x, layer, cfg: LlamaConfig, cos, sin, attn_impl: str = "auto"):
     if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {policy!r}; use {', '.join(REMAT_POLICIES)}")
     if not (cfg.remat and torch.is_grad_enabled()) or policy == "dots":
-        return _layer(x, layer, cfg, cos, sin, attn_impl)
+        return _layer(x, layer, cfg, cos, sin, attn_impl, ffn)
     from torch.utils.checkpoint import checkpoint
 
     if policy == "nothing":
-        return checkpoint(_layer, x, layer, cfg, cos, sin, attn_impl, use_reentrant=False)
+        return checkpoint(_layer, x, layer, cfg, cos, sin, attn_impl, ffn, use_reentrant=False)
     if policy == "attn_out":
         return checkpoint(
-            _layer, x, layer, cfg, cos, sin, attn_impl, use_reentrant=False,
+            _layer, x, layer, cfg, cos, sin, attn_impl, ffn, use_reentrant=False,
             context_fn=_keep_flash_outputs,
         )
     q, k, v = checkpoint(qkv_block, x, layer, cfg, cos, sin, use_reentrant=False)
     return checkpoint(
-        _after_qkv, x, q, k, v, layer, cfg, attn_impl, use_reentrant=False,
+        _after_qkv, x, q, k, v, layer, cfg, attn_impl, ffn, use_reentrant=False,
         context_fn=_keep_flash_outputs,
     )
 

@@ -1,9 +1,10 @@
 """Model registry: the port of ``tpu_nexus/models/registry.py``.
 
-``NEXUS_MODEL_PRESET`` names a :class:`LlamaConfig` preset or ``mnist``;
-the adapter gives the serving and training loops their init, loss, batch
-layout and synthetic data.  The MoE presets raise ``KeyError`` until their
-slice lands.
+``NEXUS_MODEL_PRESET`` names a :class:`LlamaConfig` preset, a
+:class:`MoeConfig` preset (bare, or ``moe_``-prefixed: ``moe_tiny``,
+``nexus_moe``, ``mixtral_8x7b``) or ``mnist``; the adapter gives the
+serving and training loops their init, loss, batch layout and synthetic
+data.
 """
 
 from __future__ import annotations
@@ -16,9 +17,7 @@ import torch
 
 from tpu_nexus_torch.models.llama import LlamaConfig, LlamaParams, llama_head, llama_hidden, llama_init
 from tpu_nexus_torch.models.mnist import MnistConfig, MnistParams, mnist_forward, mnist_init
-
-#: MoeConfig presets of the JAX package (addressable bare or "moe_"-prefixed)
-MOE_PRESETS = ("tiny", "nexus_moe", "mixtral_8x7b")
+from tpu_nexus_torch.models.moe import MoeConfig, moe_head, moe_hidden, moe_init
 
 LossFn = Callable[[Any, Any], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
@@ -77,18 +76,33 @@ class ModelAdapter:
         raise NotImplementedError
 
 
+class _TokenLMAdapter(ModelAdapter):
+    """Batches of the decoder families: int32 token arrays [B, S]."""
+
+    def batch_axes(self):
+        return ("batch", "seq")
+
+    def data(self, batch, seq_len, seed):
+        from tpu_nexus_torch.workload.data import synthetic_tokens
+
+        return synthetic_tokens(batch, seq_len, self.config.vocab_size, seed=seed)
+
+    def to_device(self, batch, device):
+        return host_to_device(batch, device, torch.long)
+
+    def items_in(self, batch):
+        return int(np.prod(batch.shape))
+
+
 @dataclass(frozen=True)
-class LlamaAdapter(ModelAdapter):
-    """Flagship decoder family.  Batches are int32 token arrays [B, S]."""
+class LlamaAdapter(_TokenLMAdapter):
+    """Flagship decoder family."""
 
     config: LlamaConfig = field(default_factory=LlamaConfig.tiny)
     name: str = "llama"
 
     def init(self, generator: torch.Generator, device: Any = "cuda") -> LlamaParams:
         return llama_init(generator, self.config, device=device)
-
-    def batch_axes(self):
-        return ("batch", "seq")
 
     def make_loss(self, train_cfg):
         from tpu_nexus_torch.workload.train import chunked_next_token_loss
@@ -104,16 +118,42 @@ class LlamaAdapter(ModelAdapter):
 
         return loss_fn
 
-    def data(self, batch, seq_len, seed):
-        from tpu_nexus_torch.workload.data import synthetic_tokens
 
-        return synthetic_tokens(batch, seq_len, self.config.vocab_size, seed=seed)
+@dataclass(frozen=True)
+class MoeAdapter(_TokenLMAdapter):
+    """Mixture-of-Experts decoder (Mixtral-style).  The router's auxiliary
+    losses (load balance + z) join the training loss here and surface in
+    the metrics and heartbeats with the dropped-assignment share.  One
+    device: the reference's refusals of ``sort`` and of an indivisible
+    ``gmm`` on an ep-sharded mesh cannot arise until the multi-GPU slice."""
 
-    def to_device(self, batch, device):
-        return host_to_device(batch, device, torch.long)
+    config: MoeConfig = field(default_factory=MoeConfig.tiny)
+    name: str = "moe"
 
-    def items_in(self, batch):
-        return int(np.prod(batch.shape))
+    def init(self, generator: torch.Generator, device: Any = "cuda") -> LlamaParams:
+        return moe_init(generator, self.config, device=device)
+
+    def make_loss(self, train_cfg):
+        from tpu_nexus_torch.workload.train import chunked_next_token_loss
+
+        _single_device_only(train_cfg)
+        cfg = self.config
+        z_loss = getattr(train_cfg, "z_loss", 0.0)
+        ce_chunk = getattr(train_cfg, "ce_chunk", 256)
+
+        def loss_fn(params, tokens):
+            hidden, aux = moe_hidden(params, tokens, cfg)
+            loss, metrics = chunked_next_token_loss(hidden, moe_head(params, cfg), tokens, z_loss, chunk=ce_chunk)
+            loss = loss + cfg.load_balance_coef * aux["load_balance"] + cfg.router_z_coef * aux["router_z"]
+            metrics = dict(
+                metrics,
+                load_balance=aux["load_balance"],
+                router_z=aux["router_z"],
+                dropped_frac=aux["dropped_frac"],
+            )
+            return loss, metrics
+
+        return loss_fn
 
 
 @dataclass(frozen=True)
@@ -169,18 +209,25 @@ def adapter_for(model_config: Any) -> ModelAdapter:
         return LlamaAdapter(config=model_config)
     if isinstance(model_config, MnistConfig):
         return MnistAdapter(config=model_config)
+    if isinstance(model_config, MoeConfig):
+        return MoeAdapter(config=model_config)
     raise TypeError(f"no adapter for model config {type(model_config).__name__}")
 
 
+def _presets(cls) -> list:
+    return [n for n, v in vars(cls).items() if isinstance(v, staticmethod)]
+
+
 def get_adapter(preset: str) -> ModelAdapter:
-    """Resolve a preset name (``NEXUS_MODEL_PRESET``): ``mnist`` or any
-    LlamaConfig preset."""
+    """Resolve a preset name (``NEXUS_MODEL_PRESET``): ``mnist``, any
+    LlamaConfig preset, or a MoeConfig preset by its own name or with a
+    ``moe_`` prefix.  Llama wins a bare name both define (``tiny``)."""
     if preset == "mnist":
         return MnistAdapter()
-    factory = vars(LlamaConfig).get(preset)
-    if isinstance(factory, staticmethod):
+    if preset in _presets(LlamaConfig):
         return LlamaAdapter(config=getattr(LlamaConfig, preset)())
-    if preset.removeprefix("moe_") in MOE_PRESETS:
-        raise KeyError(f"model preset {preset!r} is not ported yet (ROADMAP.md: MoE)")
-    known = ["mnist"] + [n for n in vars(LlamaConfig) if isinstance(vars(LlamaConfig)[n], staticmethod)]
+    moe_name = preset.removeprefix("moe_")
+    if moe_name in _presets(MoeConfig):
+        return MoeAdapter(config=getattr(MoeConfig, moe_name)())
+    known = ["mnist"] + _presets(LlamaConfig) + [f"moe_{n}" for n in _presets(MoeConfig)]
     raise KeyError(f"unknown model preset {preset!r}; known: {sorted(known)}")

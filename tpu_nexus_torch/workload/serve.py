@@ -13,6 +13,11 @@ each decode step's weight products run through the dequant-matmul kernels
 (ops/quant_matmul.py); ``NEXUS_QUANTIZE_KV=int8`` keeps the KV cache int8.
 Bad values fail at parse with the reference's wording.
 
+The MoE presets serve through the same loop (``models/generate.py``
+decodes them with scatter dispatch at a dropless capacity);
+``NEXUS_QUANTIZE`` with an MoE preset raises at parse (quantized expert
+stacks are ROADMAP.md item A5b).
+
 Knobs of the reference that this slice does not port raise at parse,
 naming the ROADMAP.md item that brings them: ``NEXUS_CHECKPOINT_DIR``,
 fault injection, and every engine-only knob set to a non-default value.
@@ -30,8 +35,9 @@ import torch
 from tpu_nexus_torch.checkpoint.store import CheckpointStore
 from tpu_nexus_torch.models.generate import DECODE_IMPLS, generate
 from tpu_nexus_torch.models.llama import LlamaConfig
+from tpu_nexus_torch.models.moe import MoeConfig
 from tpu_nexus_torch.models.quant import DEFAULT_INT4_GROUP, quantize_params, quantized_bytes
-from tpu_nexus_torch.models.registry import LlamaAdapter, adapter_for, get_adapter
+from tpu_nexus_torch.models.registry import LlamaAdapter, MoeAdapter, adapter_for, get_adapter
 from tpu_nexus_torch.parallel.distributed import ProcessContext, initialize_distributed
 from tpu_nexus_torch.workload.harness import LedgerReporter, resolve_device
 from tpu_nexus_torch.workload.harness import sync as _sync
@@ -111,6 +117,11 @@ class ServeConfig:
             )
         if self.quantize not in ("", "int8", "int4"):
             raise ValueError(f"unknown quantize mode {self.quantize!r}; use 'int8' or 'int4'")
+        if self.quantize and isinstance(getattr(self.model, "config", self.model), MoeConfig):
+            raise NotImplementedError(
+                f"quantize={self.quantize!r} (NEXUS_QUANTIZE) with an MoE model: quantized "
+                "expert stacks are not ported yet (ROADMAP.md: A5b quantized MoE serving)"
+            )
         if self.quant_group < 0:
             raise ValueError(
                 f"quant_group (NEXUS_QUANT_GROUP) must be >= 0, got {self.quant_group}"
@@ -208,13 +219,13 @@ class ServeConfig:
 
 
 def _load_serving_params(cfg: ServeConfig, ctx: ProcessContext, device: torch.device):
-    """Resolve the LM adapter, init its params on ``device`` from
+    """Resolve the LM adapter (llama or moe), init its params on ``device`` from
     ``cfg.seed`` and, under ``cfg.quantize``, quantize the matmul weights.
     Returns ``(adapter, model_cfg, params, restored_from)``;
     ``restored_from`` is None (checkpoint restore is a later slice)."""
     adapter = adapter_for(cfg.model)
-    if not isinstance(adapter, LlamaAdapter):
-        raise ValueError(f"serving requires an LM adapter (llama), got {adapter.name!r}")
+    if not isinstance(adapter, (LlamaAdapter, MoeAdapter)):
+        raise ValueError(f"serving requires an LM adapter (llama/moe), got {adapter.name!r}")
     logger.info("serving %s/%s: model %s on %s", ctx.algorithm, ctx.run_id, adapter.name, device)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     params = adapter.init(generator, device)
