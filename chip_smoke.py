@@ -6,7 +6,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --phases build,parity  # a subset, for quick checks
 
-Phases, one JSON line each; any failure raises and exits non-zero:
+Phases, one JSON line each (in the order of ``PHASES``); any failure
+raises and exits non-zero:
 
 1. device       — the card's name, count and power limit; TF32 is switched
    off for matmuls and cuDNN so f32 comparisons mean f32.
@@ -75,6 +76,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (bf16, dispatch gmm, adamw, remat attn_out, batch 8, seq 2048, 20
    steps): COMPLETED, exactly 72 gmm, 24 tgmm and 8 of each flash kernel
    per step, ``dropped_frac`` 0, tokens/s, MFU, peak memory.
+15. engine_parity — kernel #4's paged (block-table) and ``q_starts`` modes
+   against ``decode_attention_plain`` at Llama-3-8B heads: pages 4, 16 and
+   32, shuffled tables with a scratch block, staggered per-row lengths,
+   q_len 1-5, every combination of paged x ragged x int8-KV in bf16 and
+   f32, each run twice bit-identical; kernel #9 (RMSNorm) at [1024, 4096]
+   and [16384, 2048], bf16 and f32.  (``times`` adds paged decode at
+   kv_len 144 and 4096, ragged verify at q_len 5 and RMSNorm rows.)
+16. engine_e2e  — Llama-3-8B widths at 2 layers in f32, greedy:
+   ``ServingEngine`` is token-identical to one-shot ``generate`` through
+   the kernels and through the plain path — contiguous, paged (page 16),
+   paged + int8-KV, speculative (spec_k 4, ngram) and decode_steps 4.
+17. serve_engine — ``run_serve_engine`` on ``llama3_8b`` at full width and
+   depth, bf16 (8 slots, prompt 128, 32 new tokens, 3 rounds): (a)
+   contiguous, (b) page 32 with a shared 120-token prefix (prefix hits,
+   extend through the paged kernel), (c) page 32 with spec_k 4 (ngram):
+   COMPLETED, tokens/s, TTFT/TPOT p50/p99, prefix hits and kernel #4's
+   launches by mode (paged > 0 in (b) and (c), ragged > 0 in (c)).
 
 Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
@@ -104,8 +122,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "times", "e2e", "train_e2e", "moe_train_e2e",
-          "serve", "serve_quant", "serve_moe", "train", "train_moe")
+PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
+          "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile")
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, f32 CUDA
@@ -264,6 +282,21 @@ def decode_bound(b, sq, kv_len, hq, hkv, d, dtype):
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def zero_rms_norm_launches() -> None:
+    """Kernel #9 (RMSNorm) is on no main path, as in the JAX package: every
+    main-path run sets its count to 0 just before and reads it just after
+    (:func:`read_rms_norm_launches`), so the kernels line's 0 is measured."""
+    from tpu_nexus_torch.ops.rmsnorm import rms_norm_kernel
+
+    rms_norm_kernel.launches = 0
+
+
+def read_rms_norm_launches(results, path: str) -> None:
+    from tpu_nexus_torch.ops.rmsnorm import rms_norm_kernel
+
+    results.setdefault("rms_norm_launches", {})[path] = rms_norm_kernel.launches
 
 
 def phase_parity(results):
@@ -438,12 +471,12 @@ def decode_int8kv_parity(results):
             width = max_len // 2
             g = torch.Generator(device="cuda").manual_seed(3500 + i)
             lens = torch.randint(1, width + 1, (b,), generator=g, device="cuda", dtype=torch.int32)
-        before = decode_attention.launches_int8kv
+        before = decode_attention.launches_by_mode["contiguous+int8"]
         out = decode_attention(q, k8, v8, kv_len, lens, width, ks, vs)
         again = decode_attention(q, k8, v8, kv_len, lens, width, ks, vs)
         torch.cuda.synchronize()
         ref = decode_attention_plain(q, k8, v8, kv_len, lens, width, ks, vs)
-        same = bool(torch.equal(out, again)) and decode_attention.launches_int8kv == before + 2
+        same = bool(torch.equal(out, again)) and decode_attention.launches_by_mode["contiguous+int8"] == before + 2
         err, ref_max, e_row = max_err(out, ref), float(ref.float().abs().max()), row_rel_err(out, ref)
         if dtype == torch.bfloat16:
             ok = err <= TOL["bfloat16"][0] and e_row <= ROW_REL_TOL
@@ -586,6 +619,7 @@ def phase_times(results):
     bwd_times(times)
     quant_times(times)
     moe_times(times)
+    engine_times(times)
     results["times"] = times
 
 
@@ -754,9 +788,10 @@ def phase_e2e(results):
 
     for mode, kv_quant, counter in (("int8", "int8", "launches_int8"), ("int4", "", "launches_int4")):
         qparams = quantize_params(params, mode=mode)
-        before = (getattr(quant_matmul, counter), decode_attention.launches_int8kv)
+        counts = lambda: (getattr(quant_matmul, counter), decode_attention.launches_by_mode["contiguous+int8"])  # noqa: E731
+        before = counts()
         with_kernels = generate(qparams, prompt, cfg, max_new_tokens=32, kv_quant=kv_quant)
-        launched = (getattr(quant_matmul, counter) - before[0], decode_attention.launches_int8kv - before[1])
+        launched = tuple(n - b for n, b in zip(counts(), before))
         os.environ["NEXUS_QUANT_KERNEL"] = "plain"
         try:
             plain = generate(qparams, prompt, cfg, max_new_tokens=32, kv_quant=kv_quant, attn_impl="plain",
@@ -877,9 +912,11 @@ def phase_train(results):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+    zero_rms_norm_launches()
     t0 = time.perf_counter()
     summary = run_workload(cfg, store=store, ctx=ctx, telemetry=NullMetrics())
     wall = time.perf_counter() - t0
+    read_rms_norm_launches(results, "train")
     launches = {c.__name__: c.launches for c in counters}
     row = store.read_checkpoint("train", "chip-smoke-train")
     stage = row.lifecycle_stage if row else None
@@ -923,9 +960,11 @@ def phase_serve(results):
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
     decode_attention.launches = 0
+    zero_rms_norm_launches()
     t0 = time.perf_counter()
     summary = run_serving(cfg, store=store, ctx=ctx)
     wall = time.perf_counter() - t0
+    read_rms_norm_launches(results, "serve")
     launches = {"flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches}
     row = store.read_checkpoint("serve", "chip-smoke")
     stage = row.lifecycle_stage if row else None
@@ -953,7 +992,7 @@ def phase_serve_quant(results):
     from tpu_nexus_torch.checkpoint.models import LifecycleStage
     from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
     from tpu_nexus_torch.models.llama import LlamaConfig
-    from tpu_nexus_torch.ops.decode_attention import decode_attention
+    from tpu_nexus_torch.ops.decode_attention import decode_attention, reset_launches
     from tpu_nexus_torch.ops.flash_attention import flash_attention
     from tpu_nexus_torch.ops.quant_matmul import quant_matmul
     from tpu_nexus_torch.parallel.distributed import ProcessContext
@@ -976,12 +1015,14 @@ def phase_serve_quant(results):
         store = InMemoryCheckpointStore()
         ctx = ProcessContext(run_id=name, algorithm="serve", process_id=0, num_processes=1, coordinator=None)
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = decode_attention.launches = decode_attention.launches_int8kv = 0
+        flash_attention.launches = 0
+        reset_launches()
         quant_matmul.launches_int8 = quant_matmul.launches_int4 = 0
         weight_bytes = WeightBytes(level=logging.INFO)
         serve_log.addHandler(weight_bytes)
         level = serve_log.level
         serve_log.setLevel(logging.INFO)
+        zero_rms_norm_launches()
         t0 = time.perf_counter()
         try:
             summary = run_serving(cfg, store=store, ctx=ctx)
@@ -989,9 +1030,10 @@ def phase_serve_quant(results):
             serve_log.removeHandler(weight_bytes)
             serve_log.setLevel(level)
         wall = time.perf_counter() - t0
+        read_rms_norm_launches(results, name)
         launches = {
             "flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches,
-            "decode_attention_int8kv": decode_attention.launches_int8kv,
+            "decode_attention_int8kv": decode_attention.launches_by_mode["contiguous+int8"],
             "quant_matmul_int8": quant_matmul.launches_int8, "quant_matmul_int4": quant_matmul.launches_int4,
         }
         row = store.read_checkpoint("serve", name)
@@ -1491,9 +1533,11 @@ def phase_train_moe(results):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+    zero_rms_norm_launches()
     t0 = time.perf_counter()
     summary = run_workload(cfg, store=store, ctx=ctx, telemetry=NullMetrics())
     wall = time.perf_counter() - t0
+    read_rms_norm_launches(results, "train_moe")
     launches = {name: c.launches for name, c in zip(names, counters)}
     row = store.read_checkpoint("train", "chip-smoke-train-moe")
     stage = row.lifecycle_stage if row else None
@@ -1542,9 +1586,11 @@ def phase_serve_moe(results):
     ctx = ProcessContext(run_id="chip-smoke-moe", algorithm="serve", process_id=0, num_processes=1, coordinator=None)
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = decode_attention.launches = 0
+    zero_rms_norm_launches()
     t0 = time.perf_counter()
     summary = run_serving(cfg, store=store, ctx=ctx)
     wall = time.perf_counter() - t0
+    read_rms_norm_launches(results, "serve_moe")
     launches = {"flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches}
     row = store.read_checkpoint("serve", "chip-smoke-moe")
     stage = row.lifecycle_stage if row else None
@@ -1639,6 +1685,383 @@ def phase_train_moe_profile(results):
     del state, batches
 
 
+# -- the serve-engine slice: kernel #4's paged and q_starts modes, kernel #9 ----
+
+
+def paged_case(b, sq, page, n_log, live, dtype, seed, int8=False):
+    """q [B, sq, 32, 128] and a pooled cache [NB, page, 8, 128] with
+    shuffled block tables: block 0 is the scratch block, each row's live
+    logical blocks get distinct shuffled physical blocks, and the entries
+    past a row's live length point at the scratch block.  With ``int8``
+    the pool is quantized the way decode writes it."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nb = 1 + b * n_log
+    phys = rng.permutation(np.arange(1, nb)).reshape(b, n_log).astype(np.int32)
+    live_blocks = -(-np.asarray(live) // page)
+    tables = np.where(np.arange(n_log)[None, :] < live_blocks[:, None], phys, 0).astype(np.int32)
+    q, k, v = decode_inputs(nb, sq, page, 32, 8, 128, dtype, seed=seed)
+    q = q[:b].contiguous()
+    scales = {}
+    if int8:
+        k, v, ks, vs = int8_cache(k, v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    return q, k, v, torch.from_numpy(tables).cuda(), scales
+
+
+def _gather_rows(pool, tables):
+    b, n_log = tables.shape
+    return pool[tables.long()].reshape(b, n_log * pool.shape[1], *pool.shape[2:])
+
+
+def phase_engine_parity(results):
+    """Kernel #4's paged and ``q_starts`` modes against
+    ``decode_attention_plain`` at Llama-3-8B heads (Hq 32, Hkv 8, D 128):
+    pages 4, 16 and 32, shuffled tables with a scratch block, staggered
+    per-row lengths, q_len 1-5, every combination of paged x ragged x
+    int8-KV in bf16 and f32, and the shapes of the serve_engine runs (the
+    8-token extend tail, per-slot decode and verify at page 32, max_len
+    160), each run twice bit-identical; then kernel #9
+    (RMSNorm) against its plain version at [1024, 4096] and [16384, 2048]."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain, mode_name
+    from tpu_nexus_torch.ops.rmsnorm import rms_norm, rms_norm_kernel
+
+    # (B, page, q_len, n_log, per-row starts, logical_limit, (paged, ragged, int8) combinations)
+    every = [(p, r, q) for p in (False, True) for r in (False, True) for q in (False, True) if p or r]
+    cases = []
+    for page in (4, 16, 32):
+        for sq in (1, 3, 5):
+            n_log = -(-(4096 if page == 32 and sq == 1 else 160) // page)
+            rng = np.random.default_rng(page * 10 + sq)
+            starts = rng.integers(0, n_log * page - sq, size=8).astype(np.int32)
+            starts[0], starts[1] = 0, n_log * page - sq  # the shortest and the deepest row
+            cases.append((8, page, sq, n_log, starts, None, every))
+    # the shapes the serve_engine runs give the kernel: page 32, max_len 160
+    # (n_log 5) and logical_limit 160 — an admission's 8-token extend tail at
+    # one start (q_len 8, kv_len 128; B 1 as the engine runs it, and B 8),
+    # the per-slot decode of 8 slots and spec_k 4's verify (q_len 5)
+    for bb in (1, 8):
+        cases.append((bb, 32, 8, 5, np.full(bb, 120, np.int32), 160, [(True, False, False), (True, False, True)]))
+    for sq, ragged in ((1, False), (5, True)):
+        starts = np.random.default_rng(900 + sq).integers(0, 160 - sq, size=8).astype(np.int32)
+        starts[0], starts[1] = 0, 160 - sq
+        cases.append((8, 32, sq, 5, starts, 160, [(True, ragged, False), (True, ragged, True)]))
+
+    worst = {"decode_attention_paged": 0.0, "decode_attention_ragged": 0.0}
+    i = 0
+    for b, page, sq, n_log, starts, limit, combos in cases:
+        logical = n_log * page
+        for paged, ragged, int8 in combos:
+            for dtype in (torch.bfloat16, torch.float32):
+                i += 1
+                q, k, v, tables, scales = paged_case(b, sq, page, n_log, starts + sq, dtype, 6000 + i, int8)
+                if not paged:
+                    k, v = _gather_rows(k, tables), _gather_rows(v, tables)
+                    scales = {n: _gather_rows(s, tables) for n, s in scales.items()}
+                kv_len = int(starts.max()) + sq
+                if ragged:
+                    kw = dict(prompt_lengths=torch.zeros(b, dtype=torch.int32, device="cuda"), prompt_width=0,
+                              q_starts=torch.from_numpy(starts).cuda())
+                elif sq == 1:  # per-slot decode
+                    kw = dict(prompt_lengths=torch.from_numpy(starts + 1).cuda(), prompt_width=logical)
+                else:  # a shared-start extend
+                    kw = {}
+                if paged:
+                    kw.update(block_tables=tables, logical_limit=limit)
+                mode = mode_name(paged, ragged, int8)
+                before = decode_attention.launches_by_mode[mode]
+                out = decode_attention(q, k, v, kv_len, **scales, **kw)
+                again = decode_attention(q, k, v, kv_len, **scales, **kw)
+                torch.cuda.synchronize()
+                ref = decode_attention_plain(q, k, v, kv_len, **scales, **kw)
+                same = bool(torch.equal(out, again)) and decode_attention.launches_by_mode[mode] == before + 2
+                err, ref_max, e_row = max_err(out, ref), float(ref.float().abs().max()), row_rel_err(out, ref)
+                if dtype == torch.bfloat16:
+                    ok = err <= TOL["bfloat16"][0] and e_row <= ROW_REL_TOL
+                elif int8:
+                    ok = err <= QUANT_F32_MAXABS_REL * ref_max
+                else:
+                    ok = err <= TOL["float32"][0]
+                ok = ok and same and bool(torch.isfinite(out).all())
+                emit("engine_parity", kernel="decode_attention", mode=mode, page=page, q_len=sq, b=b,
+                     logical_len=logical, logical_limit=limit, kv_len=kv_len, dtype=str(dtype), max_abs_err=err,
+                     ref_max_abs=ref_max, max_row_rel_err=e_row, bit_identical_twice=same, ok=ok)
+                if not ok:
+                    raise AssertionError(f"decode kernel mode {mode} disagrees with its plain version: "
+                                         f"B {b} page {page} q_len {sq} kv_len {kv_len} {dtype}")
+                if dtype == torch.bfloat16 and page == 32 and mode in ("paged", "paged+ragged"):
+                    key = "decode_attention_" + ("ragged" if ragged else "paged")
+                    worst[key] = max(worst[key], err)
+                del q, k, v, tables, scales, out, again, ref
+    torch.cuda.empty_cache()
+
+    worst["rms_norm"] = 0.0
+    for rows, hidden in ((1024, 4096), (16384, 2048)):
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(rows + hidden)
+            x = (torch.randn((rows, hidden), generator=g, device="cuda") * 3).to(dtype)
+            w = torch.randn((hidden,), generator=g, device="cuda") + 1
+            before = rms_norm_kernel.launches
+            out, again = rms_norm_kernel(x, w), rms_norm_kernel(x, w)
+            torch.cuda.synchronize()
+            ref = rms_norm(x, w)
+            same = bool(torch.equal(out, again)) and rms_norm_kernel.launches == before + 2
+            err, ref_max = max_err(out, ref), float(ref.float().abs().max())
+            if dtype == torch.bfloat16:  # one rounding of the same f32 value apart: one bf16 ulp
+                ok = bool(((out.float() - ref.float()).abs() <= 2**-7 * ref.float().abs()).all())
+            else:
+                ok = err <= 1e-5 * ref_max
+            ok = ok and same and out.dtype == dtype
+            emit("engine_parity", kernel="rms_norm", shape=[rows, hidden], dtype=str(dtype), max_abs_err=err,
+                 ref_max_abs=ref_max, bit_identical_twice=same, tol="f32: 1e-5 x max|ref|; bf16: one ulp", ok=ok)
+            if not ok:
+                raise AssertionError(f"rms_norm kernel disagrees with its plain version: {rows}x{hidden} {dtype}")
+            if dtype == torch.bfloat16 and rows == 16384:
+                worst["rms_norm"] = err
+    results.setdefault("max_abs_err", {}).update(worst)
+
+
+def engine_times(times):
+    """Kernel #4's paged decode (B8, per-slot cursors at kv_len 144 and
+    4096, page 32) and its ragged verify (B8, q_len 5, page 32, staggered
+    starts), cycling per-layer pools so K/V come from HBM; kernel #9 at
+    [16384, 2048] bf16.  ``bound_ms``: the live K/V (and x, y) bytes read
+    or written once at 3.35 TB/s.  ``library_ms``: one PyTorch call on the
+    same function — ``scaled_dot_product_attention`` on the pre-gathered
+    contiguous cache with the boolean mask, ``torch.nn.functional.rms_norm``
+    — which the port never calls."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from tpu_nexus_torch.ops.rmsnorm import rms_norm, rms_norm_kernel
+
+    dt, b, page, hq, hkv, d = torch.bfloat16, 8, 32, 32, 8, 128
+    for key, sq, kv_len, n_layers in (("decode_attention_paged", 1, 144, 32), (None, 1, 4096, 4),
+                                      ("decode_attention_ragged", 5, 144, 32)):
+        n_log = -(-(kv_len + 16) // page)
+        if sq == 1:  # every slot at cursor kv_len - 1
+            starts = np.full(b, kv_len - 1, np.int32)
+        else:  # verify windows at staggered cursors ending at or before kv_len
+            starts = (kv_len - sq - np.arange(b) * 7).astype(np.int32)
+        live = starts + sq
+        layers = [paged_case(b, sq, page, n_log, live, dt, 7000 + i) for i in range(n_layers)]
+        if sq == 1:
+            kw = dict(prompt_lengths=torch.from_numpy(live).cuda(), prompt_width=n_log * page)
+        else:
+            kw = dict(prompt_lengths=torch.zeros(b, dtype=torch.int32, device="cuda"), prompt_width=0,
+                      q_starts=torch.from_numpy(starts).cuda())
+        deepest = int(live.max())
+        kern = [lambda x=x: decode_attention(x[0], x[1], x[2], deepest, block_tables=x[3], **kw) for x in layers]
+        plain = [lambda x=x: decode_attention_plain(x[0], x[1], x[2], deepest, block_tables=x[3], **kw)
+                 for x in layers]
+        # the yardstick: SDPA over each row's gathered contiguous view, masked to its live slots
+        k_pos = torch.arange(deepest, device="cuda")
+        row_last = torch.from_numpy(starts).cuda()[:, None] + torch.arange(sq, device="cuda")[None, :]
+        mask = (k_pos[None, None, :] <= row_last[:, :, None])[:, None]  # [B, 1, sq, deepest]
+        lib_sets = [(x[0].transpose(1, 2), _gather_rows(x[1], x[3])[:, :deepest].transpose(1, 2),
+                     _gather_rows(x[2], x[3])[:, :deepest].transpose(1, 2)) for x in layers]
+        lib = [lambda x=x: F.scaled_dot_product_attention(*x, attn_mask=mask, enable_gqa=True) for x in lib_sets]
+        nbytes = (int(live.sum()) * hkv * d * 2 + 2 * b * sq * hq * d) * 2 + b * n_log * 4
+        flops = 4 * hq * d * sq * int(live.sum())
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        ms, enqueue_ms = timed(kern, iters=64)
+        row = dict(shape=[b, sq, page, n_log, kv_len, hq, hkv, d], dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
+                   plain_ms=cuda_ms(plain, iters=16), library_ms=cuda_ms(lib, iters=64),
+                   bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+                   library_ms_is="scaled_dot_product_attention, pre-gathered contiguous cache with the mask")
+        if key:
+            times[key] = row
+        emit("times", kernel="decode_attention_" + ("ragged" if sq > 1 else "paged"), **row)
+        del layers, lib_sets, kern, plain, lib
+        torch.cuda.empty_cache()
+
+    rows, hidden = 16384, 2048
+    g = torch.Generator(device="cuda").manual_seed(7500)
+    xs = [torch.randn((rows, hidden), generator=g, device="cuda").to(dt) for _ in range(4)]
+    w = torch.randn((hidden,), generator=g, device="cuda") + 1
+    w_lib = w.to(dt)
+    nbytes = 2 * rows * hidden * 2 + hidden * 4
+    ms, enqueue_ms = timed([lambda x=x: rms_norm_kernel(x, w) for x in xs], iters=64)
+    library = getattr(F, "rms_norm", None)  # PyTorch >= 2.4
+    row = dict(shape=[rows, hidden], dtype="bfloat16 x, f32 weight", ms=ms, enqueue_ms=enqueue_ms,
+               plain_ms=cuda_ms([lambda x=x: rms_norm(x, w) for x in xs], iters=32),
+               library_ms=(cuda_ms([lambda x=x: library(x, (hidden,), w_lib, 1e-5) for x in xs], iters=64)
+                           if library is not None else None),
+               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+               library_ms_is="torch.nn.functional.rms_norm, bf16 weight")
+    times["rms_norm"] = row
+    emit("times", kernel="rms_norm", **row)
+    del xs
+    torch.cuda.empty_cache()
+
+
+def _engine_prompts(vocab, seed):
+    """Prompts of the engine_e2e phase: varied lengths, repetitive ones (the
+    ngram drafter's proposals get accepted), and a shared 100-token prefix
+    with 5 distinct tokens each (prefix hits, COW, the kernel's extend)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, size=100).astype(np.int32)
+    prompts = [rng.integers(0, vocab, size=n).astype(np.int32) for n in (128, 77, 100)]
+    prompts += [np.tile(rng.integers(0, vocab, size=8).astype(np.int32), 12)]
+    prompts += [np.concatenate([shared, rng.integers(0, vocab, size=5).astype(np.int32)]) for _ in range(3)]
+    return prompts
+
+
+def phase_engine_e2e(results):
+    """Llama-3-8B widths at 2 layers in f32, greedy: ``ServingEngine`` is
+    token-identical to one-shot ``generate`` (per request) through the
+    kernels and through the plain path — contiguous, paged (page 16),
+    paged with int8-KV, speculative (spec_k 4, ngram, paged) and
+    ``decode_steps`` 4 with overlap; the counters show the kernel modes
+    each ran."""
+    import torch
+
+    from tpu_nexus_torch.models.generate import generate
+    from tpu_nexus_torch.models.llama import LlamaConfig, llama_init
+    from tpu_nexus_torch.ops.decode_attention import decode_attention, reset_launches
+    from tpu_nexus_torch.serving import ModelExecutor, NGramDrafter, PagedModelExecutor, ServingEngine
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2, dtype=torch.float32, param_dtype=torch.float32)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    prompts = _engine_prompts(cfg.vocab_size, seed=2)
+    new = 24
+    refs = {}
+    for impl in ("auto", "plain"):
+        for kv_quant in ("", "int8"):
+            refs[impl, kv_quant] = [
+                generate(params, torch.from_numpy(p).cuda()[None], cfg, max_new_tokens=new, max_len=160,
+                         kv_quant=kv_quant, attn_impl=impl, decode_kernel=impl)[0].tolist()
+                for p in prompts
+            ]
+    cases = {
+        "contiguous": dict(), "paged16": dict(page=16), "paged16_int8kv": dict(page=16, kv_quant="int8"),
+        "spec4_ngram_paged16": dict(page=16, spec=4), "decode_steps4_overlap": dict(steps=4, overlap=True),
+    }
+    for name, case in cases.items():
+        for impl in ("auto", "plain"):
+            kw = dict(num_slots=3, max_len=160, kv_quant=case.get("kv_quant", ""), decode_kernel=impl, attn_impl=impl,
+                      decode_steps=case.get("steps", 1))
+            if case.get("page"):
+                ex = PagedModelExecutor(params, cfg, page_size=case["page"], **kw)
+            else:
+                ex = ModelExecutor(params, cfg, **kw)
+            spec = case.get("spec", 0)
+            eng = ServingEngine(ex, spec_k=spec, drafter=NGramDrafter(3) if spec else None,
+                                overlap=case.get("overlap", False))
+            reset_launches()
+            for i, p in enumerate(prompts):
+                eng.submit(p, new, request_id=f"r{i}")
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            modes = {m: n for m, n in decode_attention.launches_by_mode.items() if n}
+            got = {r.request_id: [int(t) for t in r.output_tokens] for r in eng.retired}
+            want = refs[impl, case.get("kv_quant", "")]
+            mismatched = sum(got[f"r{i}"] != want[i] for i in range(len(prompts)))
+            emit("engine_e2e", config=f"llama3_8b widths, 2 layers, f32: {name}", impl=impl, requests=len(prompts),
+                 new_tokens=new, token_identical=mismatched == 0, mismatched_requests=mismatched,
+                 decode_launches_by_mode=modes, prefix_hits=eng.metrics.prefix_hits,
+                 spec_accepted=eng.metrics.spec_accepted)
+            if mismatched:
+                raise AssertionError(f"engine_e2e {name} ({impl}): {mismatched} requests differ from generate")
+            if impl == "auto":
+                need = {"contiguous": "contiguous", "paged16": "paged", "paged16_int8kv": "paged+int8",
+                        "spec4_ngram_paged16": "paged+ragged", "decode_steps4_overlap": "contiguous"}[name]
+                if not modes.get(need):
+                    raise AssertionError(f"engine_e2e {name}: no {need} decode launch ({modes})")
+            elif modes:
+                raise AssertionError(f"engine_e2e {name}: the plain path launched {modes}")
+            del eng, ex
+    del params
+    torch.cuda.empty_cache()
+
+
+def _shared_prefix_prompts(vocab, batch, prompt_len, seed, shared_len=120):
+    """An endless stream of [batch, prompt_len] rounds: one fixed random
+    prefix of ``shared_len`` tokens, then distinct random tokens per row."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, size=shared_len).astype(np.int32)
+    while True:
+        tail = rng.integers(0, vocab, size=(batch, prompt_len - shared_len)).astype(np.int32)
+        yield np.concatenate([np.broadcast_to(shared, (batch, shared_len)), tail], axis=1)
+
+
+def phase_serve_engine(results):
+    """``run_serve_engine`` on llama3_8b at full width and depth, bf16: 8
+    slots, prompt 128, 32 new tokens, 3 rounds (24 requests) plus the
+    warm-up, into an in-memory ledger — (a) contiguous, (b) page 32 with
+    prompts that share a 120-token prefix (8 distinct tokens each), so
+    admissions hit the prefix index and run ``extend_step`` through the
+    kernel's paged mode, (c) page 32 with spec_k 4 (ngram).  Each lands
+    COMPLETED; the counters, zeroed just before each run, give kernel #4's
+    launches by mode (``decode_attention_paged`` counts every launch on the
+    paged layout, ``decode_attention_ragged`` every launch in the q_starts
+    mode)."""
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.models.llama import LlamaConfig
+    from tpu_nexus_torch.ops.decode_attention import decode_attention, reset_launches
+    from tpu_nexus_torch.ops.flash_attention import flash_attention
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
+
+    model = dataclasses.replace(LlamaConfig.llama3_8b(), param_dtype=torch.bfloat16)
+    runs = (("serve_engine_contiguous", {}, False), ("serve_engine_paged", dict(page_size=32), True),
+            ("serve_engine_spec", dict(page_size=32, spec_k=4), False))
+    for name, extra, shared in runs:
+        torch.cuda.empty_cache()
+        cfg = ServeConfig(model=model, batch_size=8, prompt_len=128, gen_tokens=32, rounds=3, device="cuda", **extra)
+        prompts = _shared_prefix_prompts(model.vocab_size, 8, 128, seed=8) if shared else None
+        store = InMemoryCheckpointStore()
+        ctx = ProcessContext(run_id=name, algorithm="serve", process_id=0, num_processes=1, coordinator=None)
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        reset_launches()
+        zero_rms_norm_launches()
+        t0 = time.perf_counter()
+        summary = run_serve_engine(cfg, store=store, ctx=ctx, prompts=prompts)
+        wall = time.perf_counter() - t0
+        read_rms_norm_launches(results, name)
+        modes = dict(decode_attention.launches_by_mode)
+        # by flag: the paged layout (decode, extend and, with spec_k, verify)
+        # and the q_starts mode (verify)
+        launches = {"flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches,
+                    "decode_attention_paged": sum(n for m, n in modes.items() if m.startswith("paged")),
+                    "decode_attention_ragged": sum(n for m, n in modes.items() if "ragged" in m)}
+        row = store.read_checkpoint("serve", name)
+        stage = row.lifecycle_stage if row else None
+        keys = ("requests", "finished", "engine_steps", "elapsed_s", "decoded_tokens_per_second", "ttft_p50_s",
+                "ttft_p99_s", "tpot_p50_s", "tpot_p99_s", "prefix_hits", "prefix_shared_tokens", "blocks_cow",
+                "spec_proposed", "spec_accepted", "spec_acceptance_rate")
+        emit("serve_engine", run=name, config=f"llama3_8b full width and depth, bf16 params, {extra or 'contiguous'}",
+             stage=stage, per_chip_steps=row.per_chip_steps if row else None, wall_s=wall,
+             max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+             decode_launches_by_mode={m: n for m, n in modes.items() if n}, **{k: summary[k] for k in keys})
+        if stage != LifecycleStage.COMPLETED or summary["finished"] != 24:
+            raise AssertionError(f"{name}: ledger row is {stage}, {summary['finished']} of 24 finished")
+        if extra.get("page_size") and not launches["decode_attention_paged"]:
+            raise AssertionError(f"{name}: no paged decode launch ({modes})")
+        if extra.get("spec_k") and not launches["decode_attention_ragged"]:
+            raise AssertionError(f"{name}: no ragged (q_starts) launch ({modes})")
+        if shared and not summary["prefix_hits"]:
+            raise AssertionError(f"{name}: no prefix hit")
+        if not extra and (modes["contiguous"] < model.n_layers * summary["engine_steps"]):
+            raise AssertionError(f"{name}: {modes['contiguous']} contiguous launches < layers x steps")
+        results.setdefault("launches", {})[name] = launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -1684,6 +2107,7 @@ def main(argv=None) -> int:
         "e2e": phase_e2e, "train_e2e": phase_train_e2e, "serve": phase_serve, "serve_quant": phase_serve_quant,
         "train": phase_train, "moe_parity": phase_moe_parity, "moe_train_e2e": phase_moe_train_e2e,
         "serve_moe": phase_serve_moe, "train_moe": phase_train_moe,
+        "engine_parity": phase_engine_parity, "engine_e2e": phase_engine_e2e, "serve_engine": phase_serve_engine,
         "profile": phase_profile, "train_profile": phase_train_profile,
         "train_moe_profile": phase_train_moe_profile,
         "profile_int8": lambda r: phase_profile(r, "int8", "int8"),
@@ -1716,15 +2140,26 @@ def main(argv=None) -> int:
                           "tpu_nexus/ops/grouped_matmul.py:68", "train_moe"),
             "nexus_tgmm": ("tpu_nexus_torch/csrc/grouped_matmul.cu",
                            "tpu_nexus/ops/grouped_matmul.py:84", "train_moe"),
+            # kernel #4's paged mode (decode, extend) and its paged + q_starts
+            # mode (speculative verify), on the serve-engine runs
+            "decode_attention_paged": ("tpu_nexus_torch/csrc/decode_attention.cu",
+                                       "tpu_nexus/ops/decode_attention.py:125", "serve_engine_paged"),
+            "decode_attention_ragged": ("tpu_nexus_torch/csrc/decode_attention.cu",
+                                        "tpu_nexus/ops/decode_attention.py:125", "serve_engine_spec"),
+            # kernel #9: no path of the JAX package launches it; its launches
+            # are summed over every main-path run of this script
+            "rms_norm": ("tpu_nexus_torch/csrc/rmsnorm.cu", "tpu_nexus/ops/rmsnorm.py:27", None),
         }
         kernels = []
         whole_bwd = results["times"]["flash_attention_bwd"]
         for name, (source, replaces, path) in meta.items():
             t = results["times"][name]
+            by_path = ({p: n[name] for p, n in results["launches"].items() if name in n} if path
+                       else results["rms_norm_launches"])
             entry = {
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": results["launches"][path][name],
-                "launches_by_path": {p: n[name] for p, n in results["launches"].items() if name in n},
+                "launches": results["launches"][path][name] if path else sum(by_path.values()),
+                "launches_by_path": by_path,
                 "max_abs_err": results["max_abs_err"][name],
                 "ms": t["ms"], "enqueue_ms": t["enqueue_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
@@ -1733,8 +2168,10 @@ def main(argv=None) -> int:
                 entry.update(library_ms_is=t["library_ms_is"],
                              mixtral_8x7b_gate={k: results["times"]["nexus_gmm_mixtral"][k]
                                                 for k in ("shape", "ms", "bound_ms", "plain_ms", "library_ms")})
-            if name == "nexus_tgmm":
+            if name in ("nexus_tgmm", "decode_attention_paged", "decode_attention_ragged", "rms_norm"):
                 entry.update(library_ms_is=t["library_ms_is"])
+            if path is None:
+                entry.update(on_a_main_path=False)
             if name.startswith("flash_attention_bwd"):
                 # plain_ms and library_ms are of the whole backward; so is this pair
                 entry.update(bound_matmuls=t["bound_matmuls"], backward_ms=whole_bwd["ms"],

@@ -11,6 +11,12 @@ carried across by ``params_from_numpy``.  ``prefill``'s int8 cache has
 equal ``k``/``v`` and scales within 1e-6 relative; decode-step logits match
 to 1e-4; greedy ``generate`` is token-identical for int8, int4 and int8 +
 int8-KV, uniform and ragged; ``teacher_forced_decode_ce`` matches to 1e-4.
+
+The serving engine's entry points start both packages from the same cache
+state (carried with ``cache_from_numpy``): the paged ``decode_step`` (with
+frozen rows), ``extend_step``, ``verify_step`` and ``decode_scan`` give
+logits within 1e-5 and pooled caches equal to 1e-5 (f32), and the scan's
+tokens, counts and carries are identical.
 """
 
 import importlib
@@ -23,7 +29,7 @@ import torch
 
 from tpu_nexus.models import llama as jax_llama
 from tpu_nexus.models import quant as jax_quant
-from tpu_nexus_torch.models.convert import params_from_numpy
+from tpu_nexus_torch.models.convert import cache_from_numpy, cache_to_numpy, params_from_numpy
 from test_torch_llama import carried, d128_configs, tiny_configs, tokens
 from test_torch_quant import numpy_tree
 
@@ -157,9 +163,11 @@ def test_sample_logits_greedy_and_validation():
         port_gen.generate(pparams, prompt, pcfg, max_new_tokens=2, temperature=1.0)
     with pytest.raises(ValueError, match="unknown kv_quant mode 'int4'"):
         port_gen.generate(pparams, prompt, pcfg, max_new_tokens=2, kv_quant="int4")
-    for fn in (port_gen.decode_scan, port_gen.extend_step, port_gen.verify_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn()
+    cache, _ = port_gen.prefill(pparams, prompt, pcfg, 8)
+    with pytest.raises(ValueError, match="require per-slot vector pos"):
+        port_gen.decode_step(pparams, cache, prompt[:, 0], 4, pcfg, write_mask=torch.ones(1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="num_steps must be >= 1"):
+        port_gen.decode_scan(pparams, cache, prompt[:, 0], torch.tensor([4]), torch.tensor([1]), pcfg, num_steps=0)
 
 
 # -- quantized weights and the int8 KV cache -------------------------------------
@@ -314,3 +322,171 @@ def test_moe_greedy_generate_is_token_identical(dispatch, ragged):
         prompt_lengths=None if lens is None else torch.from_numpy(lens),
     )
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+# -- the serving engine's entry points: paged cache, frozen rows, scan, extend, verify --
+
+
+def _pool_case(jcfg, b, page, n_log, pos, seed):
+    """A pooled cache [L, NB, page, Hkv, D] (numpy) with shuffled tables:
+    block 0 is the scratch block, each row owns blocks up to its cursor."""
+    rng = np.random.default_rng(seed)
+    nb = 1 + b * n_log
+    shape = (jcfg.n_layers, nb, page, jcfg.n_kv_heads, jcfg.head_dim)
+    pool = {name: rng.standard_normal(shape, dtype=np.float32) for name in ("k", "v")}
+    phys = rng.permutation(np.arange(1, nb)).reshape(b, n_log).astype(np.int32)
+    live = np.asarray(pos) // page + 1
+    tables = np.where(np.arange(n_log)[None, :] < live[:, None], phys, 0).astype(np.int32)
+    return pool, tables
+
+
+def _run_both(jfn, pfn, cache):
+    """Run the JAX and the port entry point from the same cache state;
+    return (JAX outputs, port outputs, JAX cache, port cache) as numpy."""
+    jout, jcache = jfn({n: jnp.asarray(x) for n, x in cache.items()})
+    pout, pcache = pfn(cache_from_numpy(cache, "cpu"))
+    return jout, pout, {n: np.asarray(x) for n, x in jcache.items()}, cache_to_numpy(pcache)
+
+
+def _close_caches(jc, pc):
+    assert set(jc) == set(pc)
+    for name in jc:
+        _close(pc[name], jc[name])
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_paged_decode_step_matches(frozen):
+    """Per-slot decode through the block tables (``logical_limit`` = the
+    engine's max_len), with and without frozen rows: logits to 1e-5 and
+    the pooled caches equal to 1e-5 (a frozen row writes nothing live)."""
+    jcfg, pcfg = tiny_configs()
+    jparams, pparams = carried(jcfg, pcfg)
+    b, page, n_log = 3, 4, 6
+    pos = np.array([3, 13, 0], np.int32)
+    pool, tables = _pool_case(jcfg, b, page, n_log, pos, seed=1)
+    tok = np.random.default_rng(2).integers(0, jcfg.vocab_size, size=b).astype(np.int32)
+    mask = np.array([True, False, True]) if frozen else None
+    jl, pl, jc, pc = _run_both(
+        lambda c: jax_gen.decode_step(
+            jparams, c, jnp.asarray(tok), jnp.asarray(pos), jcfg, decode_kernel="xla",
+            block_tables=jnp.asarray(tables), logical_limit=22,
+            write_mask=None if mask is None else jnp.asarray(mask)),
+        lambda c: port_gen.decode_step(
+            pparams, c, torch.from_numpy(tok), torch.from_numpy(pos), pcfg,
+            block_tables=torch.from_numpy(tables), logical_limit=22,
+            write_mask=None if mask is None else torch.from_numpy(mask)),
+        pool,
+    )
+    _close(pl, jl)
+    _close_caches(jc, pc)
+
+
+@pytest.mark.parametrize("width", [5, 11])
+def test_extend_step_matches(width):
+    """Partial prefill of a tail at a shared-prefix start through the
+    paged cache: a tail of <= 8 tokens takes the decode kernel's route on
+    the card, a wider one the plain gathered path — both equal the JAX
+    package's here."""
+    jcfg, pcfg = tiny_configs()
+    jparams, pparams = carried(jcfg, pcfg)
+    pool, tables = _pool_case(jcfg, 2, 4, 6, np.array([20, 20]), seed=3)
+    tail = np.random.default_rng(4).integers(0, jcfg.vocab_size, size=(1, width)).astype(np.int32)
+    length = np.array([width - 2], np.int32)
+    jl, pl, jc, pc = _run_both(
+        lambda c: jax_gen.extend_step(
+            jparams, c, jnp.asarray(tail), 8, jnp.asarray(length), jnp.asarray(tables[1:]), jcfg,
+            decode_kernel="xla", logical_limit=22),
+        lambda c: port_gen.extend_step(
+            pparams, c, torch.from_numpy(tail), 8, torch.from_numpy(length),
+            torch.from_numpy(tables[1:]), pcfg, logical_limit=22),
+        pool,
+    )
+    _close(pl, jl)
+    _close_caches(jc, pc)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_step_matches(paged):
+    """Speculative verify at q_len 4 through the ``q_starts`` mode, per-row
+    cursors; the contiguous case has a row whose window runs past the
+    cache (those writes are dropped, as in the JAX package)."""
+    jcfg, pcfg = tiny_configs()
+    jparams, pparams = carried(jcfg, pcfg)
+    b, w = 3, 4
+    rng = np.random.default_rng(5)
+    block = rng.integers(0, jcfg.vocab_size, size=(b, w)).astype(np.int32)
+    if paged:
+        pos = np.array([3, 13, 0], np.int32)
+        cache, tables = _pool_case(jcfg, b, 4, 6, pos + w, seed=6)
+        jkw = dict(block_tables=jnp.asarray(tables), logical_limit=22)
+        pkw = dict(block_tables=torch.from_numpy(tables), logical_limit=22)
+    else:
+        pos = np.array([3, 14, 0], np.int32)  # 14 + 4 > max_len 16
+        shape = (jcfg.n_layers, b, 16, jcfg.n_kv_heads, jcfg.head_dim)
+        cache = {n: rng.standard_normal(shape, dtype=np.float32) for n in ("k", "v")}
+        jkw, pkw = {}, {}
+    jl, pl, jc, pc = _run_both(
+        lambda c: jax_gen.verify_step(
+            jparams, c, jnp.asarray(block), jnp.asarray(pos), jcfg, decode_kernel="xla", **jkw),
+        lambda c: port_gen.verify_step(pparams, c, torch.from_numpy(block), torch.from_numpy(pos), pcfg, **pkw),
+        cache,
+    )
+    _close(pl, jl)
+    _close_caches(jc, pc)
+
+
+@pytest.mark.parametrize("paged,stop", [(False, -1), (True, -1), (True, 57)])
+def test_decode_scan_matches(paged, stop):
+    """k steps in one call with per-row budgets (a dead lane at limit 0)
+    and stop detection: tokens, counts, carries and caches match."""
+    jcfg, pcfg = tiny_configs()
+    jparams, pparams = carried(jcfg, pcfg)
+    b = 3
+    rng = np.random.default_rng(7)
+    tok = rng.integers(0, jcfg.vocab_size, size=b).astype(np.int32)
+    pos = np.array([3, 13, 0], np.int32)
+    limit = np.array([4, 2, 0], np.int32)
+    if paged:
+        cache, tables = _pool_case(jcfg, b, 4, 6, pos + 4, seed=8)
+        jkw = dict(block_tables=jnp.asarray(tables), logical_limit=22)
+        pkw = dict(block_tables=torch.from_numpy(tables), logical_limit=22)
+    else:
+        shape = (jcfg.n_layers, b, 24, jcfg.n_kv_heads, jcfg.head_dim)
+        cache = {n: rng.standard_normal(shape, dtype=np.float32) for n in ("k", "v")}
+        jkw, pkw = {}, {}
+
+    def jfn(c):
+        *out, c = jax_gen.decode_scan(
+            jparams, c, jnp.asarray(tok), jnp.asarray(pos), jnp.asarray(limit), jcfg,
+            num_steps=4, stop_token=stop, decode_kernel="xla", **jkw)
+        return [np.asarray(x) for x in out], c
+
+    def pfn(c):
+        *out, c = port_gen.decode_scan(
+            pparams, c, torch.from_numpy(tok), torch.from_numpy(pos), torch.from_numpy(limit), pcfg,
+            num_steps=4, stop_token=stop, **pkw)
+        return [x.numpy() for x in out], c
+
+    jout, pout, jc, pc = _run_both(jfn, pfn, cache)
+    for j, p in zip(jout, pout):
+        np.testing.assert_array_equal(p, j)
+    _close_caches(jc, pc)
+
+
+def test_caches_cross_both_ways_bit_exact():
+    """``cache_from_numpy``/``cache_to_numpy`` carry a contiguous int8-KV
+    cache and a pooled bf16 cache across unchanged."""
+    jcfg, pcfg = tiny_configs()
+    jparams, _ = carried(jcfg, pcfg)
+    jcache, _ = jax_gen.prefill(jparams, jnp.asarray(tokens(2, 6, jcfg.vocab_size)), jcfg, 12, kv_quant="int8")
+    tree = {n: np.asarray(x) for n, x in jcache.items()}
+    back = cache_to_numpy(cache_from_numpy(tree, "cpu"))
+    assert set(back) == {"k", "v", "k_s", "v_s"}
+    for name in tree:
+        assert back[name].dtype == tree[name].dtype
+        np.testing.assert_array_equal(back[name], tree[name])
+    pool = {n: np.asarray(jnp.ones((2, 5, 4, 2, 16), jnp.bfloat16) * 1.5) for n in ("k", "v")}
+    out = cache_from_numpy(pool, "cpu")
+    assert out["k"].dtype == torch.bfloat16 and float(out["k"].float().sum()) == 1.5 * 2 * 5 * 4 * 2 * 16
+    with pytest.raises(ValueError, match="cache keys"):
+        cache_from_numpy({"k": tree["k"]}, "cpu")

@@ -44,6 +44,7 @@ from tpu_nexus_torch.ops.flash_attention import (
 )
 from tpu_nexus_torch.ops.grouped_matmul import gmm, gmm_kernel_call, gmm_plain, tgmm_kernel_call, tgmm_plain
 from tpu_nexus_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain, weight_einsum
+from tpu_nexus_torch.ops.rmsnorm import rms_norm, rms_norm_kernel
 from tpu_nexus_torch.workload.train import TrainConfig, init_train_state, make_train_step
 
 torch.set_num_threads(1)
@@ -315,11 +316,12 @@ def test_int8kv_decode_kernel_matches_plain(cuda_device, dtype, sq, max_len, kv_
     if ragged:
         width = max_len // 2
         lens = torch.tensor([width, 1, width // 2, width - 3], dtype=torch.int32, device=cuda_device)
-    before = (decode_attention.launches, decode_attention.launches_int8kv)
+    counts = lambda: (decode_attention.launches, decode_attention.launches_by_mode["contiguous+int8"])  # noqa: E731
+    before = counts()
     out = decode_attention(q, k8, v8, kv_len, lens, width, ks, vs)
     again = decode_attention(q, k8, v8, kv_len, lens, width, ks, vs)
     torch.cuda.synchronize()
-    assert (decode_attention.launches, decode_attention.launches_int8kv) == (before[0] + 2, before[1] + 2)
+    assert counts() == (before[0] + 2, before[1] + 2)
     assert torch.equal(out, again)
     ref = decode_attention_plain(q, k8, v8, kv_len, lens, width, ks, vs)
     if dtype == torch.float32:
@@ -347,11 +349,11 @@ def test_quantized_kernel_generate_is_token_identical_to_plain_in_f32(cuda_devic
     counter = "launches_int8" if mode == "int8" else "launches_int4"
     for prompt_lengths in (None, lens):
         monkeypatch.delenv("NEXUS_QUANT_KERNEL", raising=False)
-        m0, d0 = getattr(quant_matmul, counter), decode_attention.launches_int8kv
+        m0, d0 = getattr(quant_matmul, counter), decode_attention.launches_by_mode["contiguous+int8"]
         out = generate(params, prompt, cfg, max_new_tokens=16, prompt_lengths=prompt_lengths, kv_quant=kv_quant)
         # the prefill's M = 3 x 40 rows is under the cap, so it launches too: 1 + 15 passes
         assert getattr(quant_matmul, counter) - m0 == 7 * 2 * 16
-        assert decode_attention.launches_int8kv - d0 == (2 * 15 if kv_quant else 0)
+        assert decode_attention.launches_by_mode["contiguous+int8"] - d0 == (2 * 15 if kv_quant else 0)
         monkeypatch.setenv("NEXUS_QUANT_KERNEL", "plain")
         ref = generate(params, prompt, cfg, max_new_tokens=16, prompt_lengths=prompt_lengths, kv_quant=kv_quant,
                        attn_impl="plain", decode_kernel="plain")
@@ -477,3 +479,134 @@ def test_moe_train_steps_through_the_grouped_kernels_match_plain(cuda_device, mo
         if impl == "kernels":
             assert (gmm_kernel_call.launches - g0, tgmm_kernel_call.launches - t0) == (2 * 2 * 9, 2 * 2 * 3)
     np.testing.assert_allclose(losses["kernels"], losses["plain"], rtol=1e-5)
+
+
+def _paged_case(device, dtype, b, sq, page, n_log, live, seed, int8=False):
+    """A pooled cache [NB, page, 8, 128] with shuffled block tables: block 0
+    is the scratch block, every row's live logical blocks get distinct
+    shuffled physical blocks and the entries past its live length point at
+    the scratch block."""
+    rng = np.random.default_rng(seed)
+    nb = 1 + b * n_log
+    phys = rng.permutation(np.arange(1, nb)).reshape(b, n_log).astype(np.int32)
+    live_blocks = -(-np.asarray(live) // page)
+    tables = np.where(np.arange(n_log)[None, :] < live_blocks[:, None], phys, 0).astype(np.int32)
+    q = _randn((b, sq, 32, 128), seed + 1, device, dtype)
+    k = _randn((nb, page, 8, 128), seed + 2, device, dtype)
+    v = _randn((nb, page, 8, 128), seed + 3, device, dtype)
+    scales = {}
+    if int8:
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    return q, k, v, torch.from_numpy(tables).to(device), scales
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("paged,ragged", [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("page,sq", [(4, 1), (16, 5), (32, 3)])
+def test_paged_and_ragged_decode_kernel_matches_plain(cuda_device, dtype, int8, paged, ragged, page, sq):
+    """Kernel #4's paged and q_starts modes, alone and together, with and
+    without int8-KV, against the plain version: staggered per-row lengths,
+    shuffled tables, bit-identical run to run."""
+    b, n_log = 4, 40 // page + 3
+    logical = n_log * page
+    starts = np.array([0, 7, logical - sq - 2, 19], dtype=np.int32)
+    q, k, v, tables, scales = _paged_case(cuda_device, dtype, b, sq, page, n_log, starts + sq, seed=page + sq, int8=int8)
+    if not paged:  # the same rows as a contiguous cache [B, logical, Hkv, D]
+        gather = lambda pool: pool[tables.long()].reshape(b, logical, *pool.shape[2:])  # noqa: E731
+        k, v = gather(k), gather(v)
+        scales = {name: gather(s) for name, s in scales.items()}
+        tables = None
+    if ragged:
+        kw = dict(prompt_lengths=torch.zeros(b, dtype=torch.int32, device=cuda_device), prompt_width=0,
+                  q_starts=torch.from_numpy(starts).to(cuda_device))
+        kv_len = int(starts.max()) + sq
+    else:  # per-slot decode (sq 1) or a shared-start extend (sq > 1)
+        kv_len = int(starts.max()) + sq
+        kw = dict(prompt_lengths=torch.from_numpy(starts + sq).to(cuda_device), prompt_width=logical) if sq == 1 else {}
+    mode = f"{'paged' if paged else 'contiguous'}{'+ragged' if ragged else ''}{'+int8' if int8 else ''}"
+    before = decode_attention.launches_by_mode[mode]
+    out = decode_attention(q, k, v, kv_len, block_tables=tables, **scales, **kw)
+    again = decode_attention(q, k, v, kv_len, block_tables=tables, **scales, **kw)
+    torch.cuda.synchronize()
+    assert decode_attention.launches_by_mode[mode] == before + 2
+    assert torch.equal(out, again)
+    ref = decode_attention_plain(q, k, v, kv_len, block_tables=tables, **scales, **kw)
+    if int8 and dtype == torch.float32:
+        assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    else:
+        _check(out, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,hidden", [(1024, 4096), (16384, 2048), (3, 100)])
+def test_rms_norm_kernel_matches_plain(cuda_device, dtype, rows, hidden):
+    """Kernel #9 against the plain version: f32 to 1e-5 of the largest
+    magnitude; bf16 within one bf16 ulp of each element."""
+    x = _randn((rows, hidden), 11, cuda_device, dtype) * 3
+    w = _randn((hidden,), 12, cuda_device, torch.float32) + 1
+    before = rms_norm_kernel.launches
+    out = rms_norm_kernel(x, w)
+    torch.cuda.synchronize()
+    assert rms_norm_kernel.launches == before + 1 and out.dtype == dtype
+    ref = rms_norm(x, w)
+    if dtype == torch.float32:
+        assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    else:  # both round one f32 result to bf16: at most one bf16 ulp apart
+        assert bool(((out.float() - ref.float()).abs() <= 2**-7 * ref.float().abs()).all())
+    with pytest.raises(ValueError, match="rms_norm kernel unsupported"):
+        rms_norm_kernel(x.half(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case",
+    [dict(), dict(page=16), dict(page=16, kv_quant="int8"), dict(page=4, spec=4), dict(steps=4, overlap=True)],
+    ids=["contiguous", "paged16", "paged16-int8kv", "paged4-spec4", "multistep-overlap"],
+)
+def test_engine_through_the_kernels_is_token_identical_to_plain_in_f32(cuda_device, case):
+    """The serving engine over the kernels (flash prefill, kernel #4 in its
+    contiguous, paged and q_starts modes) against the same engine over the
+    plain versions, greedy f32 at head_dim 128, shared-prefix prompts (so
+    admissions extend through the paged kernel); the counters show the
+    modes each run launched."""
+    from tpu_nexus_torch.ops.decode_attention import reset_launches
+    from tpu_nexus_torch.serving import ModelExecutor, NGramDrafter, PagedModelExecutor, ServingEngine
+
+    cfg = LlamaConfig(
+        vocab_size=512, hidden=256, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=128,
+        intermediate=512, max_seq_len=256, dtype=torch.float32, param_dtype=torch.float32,
+    )
+    params = llama_init(torch.Generator(device=cuda_device).manual_seed(0), cfg, device=cuda_device)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, 512, size=37).astype(np.int32)
+    prompts = [rng.integers(0, 512, size=n).astype(np.int32) for n in (40, 9, 23)]
+    prompts += [np.concatenate([shared, rng.integers(0, 512, size=k).astype(np.int32)]) for k in (3, 5, 12)]
+    out = {}
+    for impl in ("auto", "plain"):
+        kw = dict(num_slots=3, max_len=80, kv_quant=case.get("kv_quant", ""), decode_kernel=impl, attn_impl=impl,
+                  decode_steps=case.get("steps", 1))
+        ex = (PagedModelExecutor(params, cfg, page_size=case["page"], **kw) if case.get("page")
+              else ModelExecutor(params, cfg, **kw))
+        spec = case.get("spec", 0)
+        eng = ServingEngine(ex, spec_k=spec, drafter=NGramDrafter(3) if spec else None,
+                            overlap=case.get("overlap", False))
+        reset_launches()
+        for i, p in enumerate(prompts):
+            eng.submit(p, 20, request_id=f"r{i}")
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        out[impl] = [(r.request_id, r.state, list(r.output_tokens)) for r in eng.retired]
+        modes = {m: n for m, n in decode_attention.launches_by_mode.items() if n}
+        if impl == "plain":
+            assert modes == {}
+        elif case.get("spec"):
+            assert modes.get("paged+ragged", 0) > 0
+        elif case.get("page"):
+            assert modes.get("paged+int8" if case.get("kv_quant") else "paged", 0) > 0
+        else:
+            assert modes.get("contiguous", 0) > 0
+    assert out["auto"] == out["plain"]

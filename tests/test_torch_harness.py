@@ -192,7 +192,7 @@ def test_mnist_preset_trains():
     [
         ("NEXUS_CHECKPOINT_EVERY", "2", "A2"),
         ("NEXUS_CHECKPOINT_DIR", "/ckpt", "A2"),
-        ("NEXUS_FAULT_MODE", "nan-grads", "A1"),
+        ("NEXUS_FAULT_MODE", "nan-grads", "A2"),
         ("NEXUS_MESH", "fsdp=2", "A6"),
         ("NEXUS_SP_ATTN", "ulysses", "A6"),
         ("NEXUS_PP_MICROBATCHES", "4", "A6"),

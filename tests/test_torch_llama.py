@@ -145,3 +145,32 @@ def test_registry_resolves_llama_and_names_the_unported():
         assert get_adapter(preset).name == "moe"
     with pytest.raises(KeyError, match="unknown"):
         get_adapter("gpt2")
+
+
+@pytest.mark.parametrize("shape,dtype", [((4, 256, 128), "f32"), ((512, 64), "bf16")])
+def test_rms_norm_plain_matches_the_pallas_kernel(shape, dtype):
+    """Kernel #9's plain version (what the CPU runs and the card holds the
+    CUDA kernel against) against the JAX package's ``rms_norm_pallas`` in
+    interpret mode on the same numpy inputs: f32 to 1e-5 (as
+    ``tests/test_ops.py`` holds the Pallas kernel to XLA), bf16 within one
+    bf16 ulp of each element.  On the CPU the kernel's wrapper is the plain
+    version and launches nothing."""
+    from tpu_nexus.ops.rmsnorm import rms_norm_pallas
+    from tpu_nexus_torch.ops.rmsnorm import rms_norm, rms_norm_kernel
+
+    rng = np.random.default_rng(len(shape))
+    x = rng.standard_normal(shape, dtype=np.float32) * 3
+    w = rng.standard_normal(shape[-1:], dtype=np.float32) + 1
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    ref = np.asarray(rms_norm_pallas(jnp.asarray(x).astype(jdt), jnp.asarray(w), interpret=True).astype(jnp.float32))
+    xt = torch.from_numpy(np.array(jnp.asarray(x).astype(jdt).astype(jnp.float32))).to(tdt)
+    out = rms_norm(xt, torch.from_numpy(w)).float().numpy()
+    if dtype == "f32":
+        np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+    else:
+        assert (np.abs(out - ref) <= 2**-7 * np.abs(ref)).all()
+    before = rms_norm_kernel.launches
+    assert torch.equal(rms_norm_kernel(xt, torch.from_numpy(w)), rms_norm(xt, torch.from_numpy(w)))
+    assert rms_norm_kernel.launches == before
+    with pytest.raises(ValueError, match="rms_norm kernel unsupported"):
+        rms_norm_kernel(torch.empty(2, 9000, device="meta"), torch.empty(9000, device="meta"))

@@ -228,11 +228,11 @@ def test_int8kv_plain_matches_the_reference(mode, sq, jax_impl, dtype):
     np.testing.assert_allclose(
         out.float().numpy(), np.asarray(ref.astype(jnp.float32)), atol=TOL[dtype], rtol=0
     )
-    before = (decode_attention.launches, decode_attention.launches_int8kv)
+    before = (decode_attention.launches, dict(decode_attention.launches_by_mode))
     assert torch.equal(decode_attention(*args), out)  # the wrapper on CPU tensors
     assert torch.equal(cached_attention(*args), out)
     assert torch.equal(cached_attention(*args, impl="plain"), out)
-    assert (decode_attention.launches, decode_attention.launches_int8kv) == before
+    assert (decode_attention.launches, dict(decode_attention.launches_by_mode)) == before
 
 
 def test_int8kv_is_close_to_the_unquantized_cache():

@@ -8,7 +8,10 @@
   validate as in the reference (same wording), and a quantized run lands
   COMPLETED in a sqlite ledger;
 * ``NEXUS_DEVICE`` defaults to ``cuda`` and raises without a card — the
-  workload never carries on on the CPU unasked;
+  workload never carries on on the CPU unasked (lockstep and engine);
+* the knobs of slices still to come raise at parse naming their ROADMAP.md
+  item; ``NEXUS_FAULT_MODE`` fires the reference's process modes in the
+  lockstep loop;
 * no file of the port (nor ``chip_smoke.py``) imports ``jax`` or
   ``tpu_nexus``.
 """
@@ -110,15 +113,16 @@ def test_entrypoint_trains_on_the_cpu(tmp_path):
     assert row.per_chip_steps == {"host0/chip0": 3}
 
 
-@pytest.mark.parametrize("mode", ["serve-engine", "bogus"])
+@pytest.mark.parametrize("mode", ["serve-engines", "bogus"])
 def test_entrypoint_refuses_unported_modes(tmp_path, monkeypatch, mode):
+    """Every mode of the reference is ported: an unknown mode exits
+    non-zero naming the modes there are."""
     for k, v in _serve_env(tmp_path, NEXUS_MODE=mode).items():
         monkeypatch.setenv(k, v)
     with pytest.raises(SystemExit) as exc:
         entry.main()
     assert exc.value.code not in (0, None)
-    if mode != "bogus":
-        assert "ROADMAP.md" in str(exc.value.code)
+    assert "serve-engine" in str(exc.value.code)
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
@@ -134,11 +138,11 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     "key,value,item",
     [
         ("NEXUS_CHECKPOINT_DIR", "/ckpt", "tensor checkpoints"),
-        ("NEXUS_FAULT_MODE", "step-ici", "serve-engine"),
-        ("NEXUS_PAGE_SIZE", "16", "serve-engine"),
-        ("NEXUS_SPEC_K", "2", "serve-engine"),
-        ("NEXUS_OVERLAP", "1", "serve-engine"),
-        ("NEXUS_SERVE_MESH", "tp=2", "serve-engine"),
+        ("NEXUS_RELOAD_CHECK_S", "2", "A2 tensor checkpoints"),
+        ("NEXUS_ROUTER_POLICY", "round-robin", "A1c fleet"),
+        ("NEXUS_AUTOSCALE_MAX", "4", "A1c fleet"),
+        ("NEXUS_SCALE_COOLDOWN_S", "5", "A1c fleet"),
+        ("NEXUS_SERVE_MESH", "tp=2", "A6 sharded executors"),
     ],
 )
 def test_unported_knobs_raise_at_parse(key, value, item):
@@ -263,7 +267,7 @@ def test_entrypoint_serves_quantized_with_jax_and_the_reference_blocked(tmp_path
 
 
 def test_engine_knobs_at_their_defaults_parse():
-    env = {k: str(int(d) if isinstance(d, bool) else d) for k, (_, d) in ENGINE_ONLY_ENV.items()}
+    env = {k: str(int(d) if isinstance(d, bool) else d) for k, (_, d, _) in ENGINE_ONLY_ENV.items()}
     env["NEXUS_OVERLAP"] = "0"
     cfg = ServeConfig.from_env(dict(env, NEXUS_DECODE_KERNEL="plain", NEXUS_DEVICE="cpu"))
     assert cfg.decode_kernel == "plain" and cfg.device == "cpu"
@@ -298,3 +302,30 @@ def test_the_port_imports_neither_jax_nor_the_reference():
         if mod.split(".")[0] in ("jax", "jaxlib", "tpu_nexus")
     ]
     assert bad == []
+
+
+@pytest.mark.parametrize(
+    "mode,exc,match",
+    [("hbm-oom", RuntimeError, "RESOURCE_EXHAUSTED"), ("step-ici", ValueError, "NEXUS_MODE=serve-engine")],
+)
+def test_lockstep_serving_injects_the_reference_fault_modes(monkeypatch, mode, exc, match):
+    """``NEXUS_FAULT_MODE`` parses now: the lockstep loop fires a process
+    mode at its round with the reference's wording, and refuses an
+    executor mode, which only the engine can inject."""
+    monkeypatch.setenv("NEXUS_FAULT_MODE", mode)
+    monkeypatch.setenv("NEXUS_FAULT_STEP", "1")
+    cfg = dataclasses.replace(ServeConfig.from_env({"NEXUS_MODEL_PRESET": "tiny"}), device="cpu", **SMALL)
+    store = InMemoryCheckpointStore()
+    with pytest.raises(exc, match=match):
+        run_serving(cfg, store=store)
+
+
+def test_serve_engine_default_device_is_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from tpu_nexus_torch.workload.serve import run_serve_engine
+
+    cfg = ServeConfig.from_env({"NEXUS_MODEL_PRESET": "tiny", "NEXUS_PAGE_SIZE": "4"})
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="NEXUS_DEVICE"):
+        run_serve_engine(dataclasses.replace(cfg, **SMALL), store=InMemoryCheckpointStore())

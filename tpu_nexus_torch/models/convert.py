@@ -12,6 +12,10 @@ A quantized tree (``models/quant.py``) crosses as well: a ``QTensor`` leaf
 is the dict ``{"q": int8, "s": f32}``, a ``QTensor4`` leaf that plus its
 ``contract_shape``, ``out_shape`` and ``group``; a tree with such a leaf
 becomes a frozen ``QuantizedParams``.
+
+KV caches, contiguous and pooled, cross both ways too
+(:func:`cache_from_numpy`, :func:`cache_to_numpy`), so the two packages'
+decode entry points can start from the same cache state.
 """
 
 from __future__ import annotations
@@ -107,3 +111,22 @@ def params_to_numpy(params: Union[LlamaParams, QuantizedParams]) -> Dict[str, An
     if "lm_head" in params:
         tree["lm_head"] = _to_numpy(params["lm_head"])
     return tree
+
+
+#: the leaves a KV cache may hold: values, and per-slot scales in int8-KV mode
+CACHE_KEYS = ("k", "v", "k_s", "v_s")
+
+
+def cache_from_numpy(tree: Dict[str, Any], device: Any = "cuda") -> Dict[str, torch.Tensor]:
+    """A KV cache of the JAX package (contiguous ``[L, B, max_len, Hkv, D]``
+    or pooled ``[L, num_blocks, page, Hkv, D]``, numpy leaves) as the
+    port's cache dict on ``device``, bit-exact."""
+    extra = set(tree) - set(CACHE_KEYS)
+    if extra or not {"k", "v"} <= set(tree) or ("k_s" in tree) != ("v_s" in tree):
+        raise ValueError(f"cache keys {sorted(tree)}: want k, v and optionally both k_s, v_s")
+    return {name: _to_torch(tree[name], device) for name in CACHE_KEYS if name in tree}
+
+
+def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`cache_from_numpy`."""
+    return {name: _to_numpy(x) for name, x in cache.items()}

@@ -3,8 +3,9 @@
 Reads the launcher's NEXUS_* env contract, opens the ledger store, and runs
 the workload on ``NEXUS_DEVICE`` (default ``cuda``; a CUDA request without
 a card fails): ``NEXUS_MODE=train`` (the default, as in the reference)
-runs the training loop, ``serve`` the lockstep serving loop.
-``serve-engine`` exits non-zero until its slice lands.
+runs the training loop, ``serve`` the lockstep serving loop and
+``serve-engine`` the continuous-batching engine, each under the same ledger
+contract.
 
 The ledger store comes from the same keys the supervisor's app config
 reads: ``NEXUS__CQL_STORE_TYPE`` = ``memory`` (the default here) or
@@ -24,13 +25,6 @@ from tpu_nexus_torch.checkpoint.store import (
     InMemoryCheckpointStore,
     SqliteCheckpointStore,
 )
-
-#: modes of the JAX package's entrypoint that this slice does not port,
-#: and the ROADMAP.md item that brings each
-NOT_PORTED_MODES = {
-    "serve-engine": "A1 serve-engine slice",
-}
-
 
 def store_from_env(env: Optional[Dict[str, str]] = None) -> CheckpointStore:
     e = os.environ if env is None else env
@@ -52,11 +46,6 @@ def store_from_env(env: Optional[Dict[str, str]] = None) -> CheckpointStore:
 def main() -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     mode = os.environ.get("NEXUS_MODE", "train")
-    if mode in NOT_PORTED_MODES:
-        raise SystemExit(
-            f"NEXUS_MODE={mode!r} is not ported to tpu_nexus_torch yet "
-            f"(ROADMAP.md: {NOT_PORTED_MODES[mode]}); use NEXUS_MODE=train or serve"
-        )
     if mode == "train":
         from tpu_nexus_torch.workload.harness import WorkloadConfig, run_workload
 
@@ -65,8 +54,12 @@ def main() -> int:
         from tpu_nexus_torch.workload.serve import ServeConfig, run_serving
 
         cfg, run = ServeConfig.from_env(), run_serving
+    elif mode == "serve-engine":
+        from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
+
+        cfg, run = ServeConfig.from_env(), run_serve_engine
     else:
-        raise SystemExit(f"unknown NEXUS_MODE {mode!r}; use 'train' or 'serve'")
+        raise SystemExit(f"unknown NEXUS_MODE {mode!r}; use 'train', 'serve' or 'serve-engine'")
     store = store_from_env()
     try:
         result = run(cfg, store=store)

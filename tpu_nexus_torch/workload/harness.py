@@ -19,7 +19,8 @@ Cooperation contract with the supervisor, as the reference's:
 
 Not ported in this slice, refused at parse naming the ROADMAP.md item
 that brings each: tensor checkpoints (``NEXUS_CHECKPOINT_EVERY``/
-``NEXUS_CHECKPOINT_DIR``, A2), fault injection (``NEXUS_FAULT_MODE``, A1),
+``NEXUS_CHECKPOINT_DIR``, A2), fault injection into training
+(``NEXUS_FAULT_MODE``: its checkpoint and data seams are A2),
 multi-device meshes, sequence-parallel attention and pipeline
 microbatches (``NEXUS_MESH``, ``NEXUS_SP_ATTN``,
 ``NEXUS_PP_MICROBATCHES``, A6), and the device profiler
@@ -264,8 +265,9 @@ class WorkloadConfig:
         e = os.environ if env is None else env
         if e.get("NEXUS_FAULT_MODE", ""):
             raise NotImplementedError(
-                "NEXUS_FAULT_MODE: fault injection (workload/faults.py) is not "
-                "ported yet (ROADMAP.md: A1 serve-engine slice)"
+                "NEXUS_FAULT_MODE: fault injection into training (the checkpoint "
+                "and data-stream seams of workload/faults.py) is not ported yet "
+                "(ROADMAP.md: A2 tensor checkpoints and hot reload)"
             )
         mesh = _parse_mesh(e.get("NEXUS_MESH", ""))
         if any(size > 1 for size in mesh.values()):

@@ -1,11 +1,16 @@
 """Serving workload: supervised batch inference, the port of
-``tpu_nexus/workload/serve.py``'s lockstep loop (``NEXUS_MODE=serve``).
+``tpu_nexus/workload/serve.py`` — the lockstep loop (``NEXUS_MODE=serve``,
+:func:`run_serving`) and the continuous-batching engine
+(``NEXUS_MODE=serve-engine``, :func:`run_serve_engine`, tpu_nexus_torch/
+serving: per-request admission, slot refill every iteration, the paged KV
+cache with shared-prefix reuse, speculative decoding, overlapped and
+multi-step dispatch, fault isolation and graceful drain).
 
 Same ledger protocol as the reference (RUNNING → heartbeats with per-chip
-progress → COMPLETED) and the same returned summary; the inner loop is
-KV-cache batch decoding (models/generate.py) on one CUDA device, or on the
-CPU when the caller asks for it (``NEXUS_DEVICE=cpu``).  A CUDA request on
-a machine without a card raises: it never carries on on the CPU.
+progress → COMPLETED, or PREEMPTED after a drain) and the same returned
+summaries; the inner loop runs on one CUDA device, or on the CPU when the
+caller asks for it (``NEXUS_DEVICE=cpu``).  A CUDA request on a machine
+without a card raises: it never carries on on the CPU.
 
 Quantized serving: ``NEXUS_QUANTIZE=int8|int4`` (with
 ``NEXUS_QUANT_GROUP`` for int4) quantizes the matmul weights after init, so
@@ -18,67 +23,58 @@ decodes them with scatter dispatch at a dropless capacity);
 ``NEXUS_QUANTIZE`` with an MoE preset raises at parse (quantized expert
 stacks are ROADMAP.md item A5b).
 
-Knobs of the reference that this slice does not port raise at parse,
-naming the ROADMAP.md item that brings them: ``NEXUS_CHECKPOINT_DIR``,
-fault injection, and every engine-only knob set to a non-default value.
+Engine knobs (``NEXUS_PAGE_SIZE``, ``NEXUS_KV_BLOCKS``, ``NEXUS_SPEC_K``,
+``NEXUS_SPEC_DRAFTER``, ``NEXUS_OVERLAP``, ``NEXUS_DECODE_STEPS``,
+``NEXUS_STOP_TOKEN``, ``NEXUS_DEADLINE_S``, ``NEXUS_QUEUE_LIMIT``,
+``NEXUS_DRAIN_GRACE_S``, ``NEXUS_TRACE*``, ``NEXUS_SLO_*``) and the serving
+fault modes (``NEXUS_FAULT_MODE``, workload/faults.py) parse and validate
+with the reference's wording.  Knobs of the reference that the port does
+not have yet raise at parse, naming the ROADMAP.md item that brings them:
+``NEXUS_CHECKPOINT_DIR`` and ``NEXUS_RELOAD_CHECK_S`` (A2),
+``NEXUS_SERVE_MESH`` (A6), the fleet router and autoscaler (A1c).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from tpu_nexus_torch.checkpoint.store import CheckpointStore
+from tpu_nexus_torch.core.signals import LifecycleContext, setup_signal_context
 from tpu_nexus_torch.models.generate import DECODE_IMPLS, generate
 from tpu_nexus_torch.models.llama import LlamaConfig
 from tpu_nexus_torch.models.moe import MoeConfig
 from tpu_nexus_torch.models.quant import DEFAULT_INT4_GROUP, quantize_params, quantized_bytes
 from tpu_nexus_torch.models.registry import LlamaAdapter, MoeAdapter, adapter_for, get_adapter
+from tpu_nexus_torch.ops.decode_attention import MAX_DECODE_Q_LEN
 from tpu_nexus_torch.parallel.distributed import ProcessContext, initialize_distributed
+from tpu_nexus_torch.serving.loadstats import SloTargets
+from tpu_nexus_torch.serving.speculative import DRAFTERS
+from tpu_nexus_torch.workload.faults import FaultPlan, maybe_inject
 from tpu_nexus_torch.workload.harness import LedgerReporter, resolve_device
 from tpu_nexus_torch.workload.harness import sync as _sync
 
 logger = logging.getLogger(__name__)
 
 
-def _flag(v: str) -> bool:
-    return v not in ("", "0")
-
-
-#: env keys of the continuous-batching engine (NEXUS_MODE=serve-engine) and
-#: the fleet controller, with their parsers and defaults: a non-default
-#: value is refused at parse until the serve-engine slice is ported
+#: env keys of the reference's serving that the port does not have yet,
+#: with their parsers, defaults and the ROADMAP.md item that brings them:
+#: a non-default value is refused at parse
 ENGINE_ONLY_ENV = {
-    "NEXUS_DEADLINE_S": (float, 0.0),
-    "NEXUS_QUEUE_LIMIT": (int, 0),
-    "NEXUS_DRAIN_GRACE_S": (float, 5.0),
-    "NEXUS_PAGE_SIZE": (int, 0),
-    "NEXUS_KV_BLOCKS": (int, 0),
-    "NEXUS_SPEC_K": (int, 0),
-    "NEXUS_SPEC_DRAFTER": (str, "ngram"),
-    "NEXUS_SPEC_DRAFT_PRESET": (str, ""),
-    "NEXUS_SERVE_MESH": (str, ""),
-    "NEXUS_RELOAD_CHECK_S": (float, 0.0),
-    "NEXUS_TRACE": (lambda v: v != "0", True),
-    "NEXUS_TRACE_DIR": (str, ""),
-    "NEXUS_OVERLAP": (_flag, False),
-    "NEXUS_DECODE_STEPS": (int, 1),
-    "NEXUS_STOP_TOKEN": (int, -1),
-    "NEXUS_SLO_TTFT_S": (float, 0.0),
-    "NEXUS_SLO_TPOT_S": (float, 0.0),
-    "NEXUS_SLO_SHED_RATE": (float, 0.0),
-    "NEXUS_SLO_SHORT_N": (int, 4),
-    "NEXUS_SLO_LONG_N": (int, 12),
-    "NEXUS_ROUTER_POLICY": (str, "pressure"),
-    "NEXUS_AUTOSCALE_MIN": (int, 0),
-    "NEXUS_AUTOSCALE_MAX": (int, 0),
-    "NEXUS_SCALE_UP_N": (int, 3),
-    "NEXUS_SCALE_DOWN_N": (int, 12),
-    "NEXUS_SCALE_COOLDOWN_S": (float, 60.0),
+    "NEXUS_SERVE_MESH": (str, "", "A6 sharded executors"),
+    "NEXUS_RELOAD_CHECK_S": (float, 0.0, "A2 tensor checkpoints and hot reload"),
+    "NEXUS_ROUTER_POLICY": (str, "pressure", "A1c fleet, router and remote handoff"),
+    "NEXUS_AUTOSCALE_MIN": (int, 0, "A1c fleet, router and remote handoff"),
+    "NEXUS_AUTOSCALE_MAX": (int, 0, "A1c fleet, router and remote handoff"),
+    "NEXUS_SCALE_UP_N": (int, 3, "A1c fleet, router and remote handoff"),
+    "NEXUS_SCALE_DOWN_N": (int, 12, "A1c fleet, router and remote handoff"),
+    "NEXUS_SCALE_COOLDOWN_S": (float, 60.0, "A1c fleet, router and remote handoff"),
 }
 
 
@@ -107,6 +103,60 @@ class ServeConfig:
     decode_kernel: str = "auto"
     #: where the model runs: "cuda" (default), "cuda:N" or "cpu" (NEXUS_DEVICE)
     device: str = "cuda"
+    #: engine mode only — per-request latency budget in seconds; requests
+    #: that outlive it (queued OR decoding) retire EVICTED with cause
+    #: "deadline exceeded"; 0 = no deadline (NEXUS_DEADLINE_S)
+    deadline_s: float = 0.0
+    #: engine mode only — bounded admission queue: submits beyond this are
+    #: SHED (serving.shed counter); 0 = unbounded (NEXUS_QUEUE_LIMIT)
+    queue_limit: int = 0
+    #: engine mode only — graceful-drain grace budget after SIGTERM: in-flight
+    #: requests get this many seconds to finish before being evicted with an
+    #: honest cause (NEXUS_DRAIN_GRACE_S)
+    drain_grace_s: float = 5.0
+    #: engine mode only — KV paging: > 0 switches the engine to the paged
+    #: executor with this many tokens per KV block (block-table decode
+    #: through the kernel's paged mode, ref-counted shared-prefix reuse,
+    #: copy-on-write).  0 = contiguous whole-row slots (NEXUS_PAGE_SIZE)
+    page_size: int = 0
+    #: engine mode only, paged only — physical KV block count (``kv_blocks
+    #: × page_size`` cache rows + 1 scratch block); 0 = full occupancy
+    #: (NEXUS_KV_BLOCKS)
+    kv_blocks: int = 0
+    #: engine mode only — speculative decoding: > 0 proposes this many draft
+    #: tokens per slot per step and verifies them in ONE q_len = spec_k+1
+    #: call (the kernel's q_starts mode).  Greedy-only.  0 = off (NEXUS_SPEC_K)
+    spec_k: int = 0
+    #: engine mode only — "ngram" (prompt lookup) or "model" (a draft model
+    #: through a second executor; NEXUS_SPEC_DRAFT_PRESET names its preset,
+    #: empty = self-draft with the serving params) (NEXUS_SPEC_DRAFTER)
+    spec_drafter: str = "ngram"
+    #: draft-model preset for spec_drafter="model" (NEXUS_SPEC_DRAFT_PRESET)
+    spec_draft_preset: str = ""
+    #: engine mode only — overlapped dispatch: step N+1 dispatches while
+    #: step N's tokens are still on the device; results materialize one
+    #: step late (NEXUS_OVERLAP)
+    overlap_dispatch: bool = False
+    #: engine mode only — decode steps per dispatch, with stop detection on
+    #: the device and per-row early freeze (NEXUS_DECODE_STEPS)
+    decode_steps: int = 1
+    #: engine mode only — stop-token id; -1 = disabled (NEXUS_STOP_TOKEN)
+    stop_token: int = -1
+    #: engine mode only — request-span tracing + flight recorder, DEFAULT ON;
+    #: NEXUS_TRACE=0 opts out
+    trace_enabled: bool = True
+    #: where flight-recorder artifacts land; "" = NEXUS_TRACE_DIR else
+    #: <tmpdir>/tpu-nexus-traces (NEXUS_TRACE_DIR)
+    trace_dir: str = ""
+    #: SLO targets for the pressure plane (serving/loadstats.py): TTFT/TPOT
+    #: p99 ceilings in seconds and a shed-rate ceiling; all 0 disables the
+    #: monitor (NEXUS_SLO_TTFT_S / NEXUS_SLO_TPOT_S / NEXUS_SLO_SHED_RATE)
+    slo_ttft_s: float = 0.0
+    slo_tpot_s: float = 0.0
+    slo_shed_rate: float = 0.0
+    #: burn windows in heartbeat observations (NEXUS_SLO_SHORT_N / _LONG_N)
+    slo_short_window: int = 4
+    slo_long_window: int = 12
 
     def __post_init__(self) -> None:
         if self.checkpoint_dir:
@@ -180,24 +230,110 @@ class ServeConfig:
                 raise ValueError(
                     f"{field_name} must be >= 1, got {getattr(self, field_name)}"
                 )
+        self._validate_engine()
+
+    def _validate_engine(self) -> None:
+        """The reference's validation of the engine knobs, same wording."""
+        for field_name in (
+            "deadline_s",
+            "queue_limit",
+            "drain_grace_s",
+            "page_size",
+            "kv_blocks",
+            "spec_k",
+        ):
+            if getattr(self, field_name) < 0:
+                raise ValueError(
+                    f"{field_name} must be >= 0, got {getattr(self, field_name)}"
+                )
+        if self.decode_steps < 1:
+            raise ValueError(
+                f"decode_steps (NEXUS_DECODE_STEPS) must be >= 1, got "
+                f"{self.decode_steps}"
+            )
+        if self.stop_token < -1:
+            raise ValueError(
+                f"stop_token (NEXUS_STOP_TOKEN) must be -1 (disabled) or a "
+                f"token id >= 0, got {self.stop_token}"
+            )
+        if self.spec_k and (self.overlap_dispatch or self.decode_steps > 1):
+            # the speculative acceptance rule runs on host — exactly the
+            # per-step readback overlap/multi-step exist to hide
+            raise ValueError(
+                "speculative decoding (NEXUS_SPEC_K > 0) is mutually "
+                "exclusive with NEXUS_OVERLAP/NEXUS_DECODE_STEPS > 1 until "
+                "in-device acceptance lands"
+            )
+        if self.spec_k and self.stop_token >= 0:
+            raise ValueError(
+                "stop_token (NEXUS_STOP_TOKEN) with speculative decoding is "
+                "not composed yet — the acceptance rule would emit past an "
+                "accepted stop token"
+            )
+        if self.spec_k:
+            if self.spec_k + 1 > MAX_DECODE_Q_LEN:
+                raise ValueError(
+                    f"spec_k {self.spec_k} exceeds the decode kernel's "
+                    f"verify width (spec_k + 1 <= {MAX_DECODE_Q_LEN})"
+                )
+            if self.temperature > 0.0:
+                raise ValueError(
+                    "speculative decoding (NEXUS_SPEC_K > 0) is greedy-only "
+                    "for now: temperature > 0 requires rejection sampling"
+                )
+            if self.spec_drafter not in DRAFTERS:
+                raise ValueError(
+                    f"unknown spec_drafter {self.spec_drafter!r}; use one "
+                    f"of {sorted(DRAFTERS)}"
+                )
+            if self.spec_draft_preset and self.spec_drafter != "model":
+                raise ValueError(
+                    "spec_draft_preset (NEXUS_SPEC_DRAFT_PRESET) only "
+                    "applies to spec_drafter='model'"
+                )
+        if self.kv_blocks and not self.page_size:
+            raise ValueError(
+                "kv_blocks (NEXUS_KV_BLOCKS) requires page_size "
+                "(NEXUS_PAGE_SIZE) > 0 — the block budget is meaningless "
+                "without paging"
+            )
+        if self.kv_blocks == 1:
+            raise ValueError(
+                "kv_blocks must be 0 (full occupancy) or >= 2 "
+                "(scratch block 0 + one usable), got 1"
+            )
+        # SloTargets owns the window/burn/target invariants: building one
+        # at parse is the validation
+        if self.slo_targets() is not None and not self.heartbeat_every:
+            raise ValueError(
+                "NEXUS_SLO_* targets require a heartbeat cadence "
+                "(NEXUS_HEARTBEAT_EVERY > 0) — the SLO monitor observes "
+                "at heartbeat intervals and would otherwise never grade"
+            )
+
+    def slo_targets(self) -> Optional[SloTargets]:
+        """The validated :class:`SloTargets`, or None when every target is
+        0 (monitor disabled)."""
+        if not (self.slo_ttft_s or self.slo_tpot_s or self.slo_shed_rate):
+            return None
+        return SloTargets(
+            ttft_p99_s=self.slo_ttft_s,
+            tpot_p99_s=self.slo_tpot_s,
+            shed_rate=self.slo_shed_rate,
+            short_window=self.slo_short_window,
+            long_window=self.slo_long_window,
+        )
 
     @staticmethod
     def from_env(env: Optional[Dict[str, str]] = None) -> "ServeConfig":
         import os
 
         e = os.environ if env is None else env
-        for key, (parse, default) in ENGINE_ONLY_ENV.items():
+        for key, (parse, default, item) in ENGINE_ONLY_ENV.items():
             if key in e and parse(e[key]) != default:
                 raise NotImplementedError(
-                    f"{key}={e[key]!r} configures the continuous-batching engine "
-                    "(NEXUS_MODE=serve-engine), which is not ported yet "
-                    "(ROADMAP.md: serve-engine slice)"
+                    f"{key}={e[key]!r} is not ported yet (ROADMAP.md: {item})"
                 )
-        if e.get("NEXUS_FAULT_MODE", ""):
-            raise NotImplementedError(
-                "NEXUS_FAULT_MODE: fault injection (workload/faults.py) is not "
-                "ported yet (ROADMAP.md: serve-engine slice)"
-            )
         return ServeConfig(
             model=get_adapter(e.get("NEXUS_MODEL_PRESET", "tiny")),
             batch_size=int(e.get("NEXUS_BATCH", "8")),
@@ -215,6 +351,24 @@ class ServeConfig:
             quantize_kv=e.get("NEXUS_QUANTIZE_KV", ""),
             decode_kernel=e.get("NEXUS_DECODE_KERNEL", "auto"),
             device=e.get("NEXUS_DEVICE", "cuda"),
+            deadline_s=float(e.get("NEXUS_DEADLINE_S", "0")),
+            queue_limit=int(e.get("NEXUS_QUEUE_LIMIT", "0")),
+            drain_grace_s=float(e.get("NEXUS_DRAIN_GRACE_S", "5.0")),
+            page_size=int(e.get("NEXUS_PAGE_SIZE", "0")),
+            kv_blocks=int(e.get("NEXUS_KV_BLOCKS", "0")),
+            spec_k=int(e.get("NEXUS_SPEC_K", "0")),
+            spec_drafter=e.get("NEXUS_SPEC_DRAFTER", "ngram"),
+            spec_draft_preset=e.get("NEXUS_SPEC_DRAFT_PRESET", ""),
+            trace_enabled=e.get("NEXUS_TRACE", "1") != "0",
+            trace_dir=e.get("NEXUS_TRACE_DIR", ""),
+            overlap_dispatch=e.get("NEXUS_OVERLAP", "") not in ("", "0"),
+            decode_steps=int(e.get("NEXUS_DECODE_STEPS", "1")),
+            stop_token=int(e.get("NEXUS_STOP_TOKEN", "-1")),
+            slo_ttft_s=float(e.get("NEXUS_SLO_TTFT_S", "0")),
+            slo_tpot_s=float(e.get("NEXUS_SLO_TPOT_S", "0")),
+            slo_shed_rate=float(e.get("NEXUS_SLO_SHED_RATE", "0")),
+            slo_short_window=int(e.get("NEXUS_SLO_SHORT_N", "4")),
+            slo_long_window=int(e.get("NEXUS_SLO_LONG_N", "12")),
         )
 
 
@@ -251,6 +405,7 @@ def run_serving(
     device = resolve_device(cfg.device)
     ctx = initialize_distributed(ctx)
     reporter = LedgerReporter(store, ctx, local_devices=1)
+    plan = FaultPlan.from_env()
     adapter, mcfg, params, restored_from = _load_serving_params(cfg, ctx, device)
 
     if prompts is None:
@@ -275,6 +430,7 @@ def run_serving(
     tokens_done = 0
     last = None
     for r in range(cfg.rounds):
+        maybe_inject(plan, r)
         last = gen_fn(next(prompts))
         tokens_done += last.numel()
         if cfg.heartbeat_every and (r + 1) % cfg.heartbeat_every == 0:
@@ -296,4 +452,281 @@ def run_serving(
         "device": str(device),
         "prefill_calls": calls,
         "decode_steps": calls * (cfg.gen_tokens - 1),
+    }
+
+
+def run_serve_engine(
+    cfg: ServeConfig,
+    store: Optional[CheckpointStore] = None,
+    ctx: Optional[ProcessContext] = None,
+    prompts: Optional[Any] = None,
+    lifecycle: Optional[LifecycleContext] = None,
+) -> Dict[str, Any]:
+    """Continuous-batching serving under the SAME ledger protocol as
+    :func:`run_serving` (``NEXUS_MODE=serve-engine``): RUNNING →
+    per-iteration heartbeats → COMPLETED, with ``FaultPlan`` injection
+    keyed on engine iterations.
+
+    Traffic shape mirrors the lockstep loop: ``rounds * batch_size``
+    requests of ``prompt_len`` prompt tokens and ``gen_tokens`` generated
+    tokens each, over ``batch_size`` KV slots — but admission is
+    per-request and per-iteration, so slots refill the moment a request
+    retires.  Returns the reference's summary (TTFT/TPOT p50/p99 beside
+    throughput) plus the device it ran on.
+
+    Fault isolation: step faults are classified and recovered inside the
+    engine (transient → retry, fatal → per-request FAILED); SIGTERM/SIGINT
+    cancels ``lifecycle`` and triggers the graceful drain — stop admission,
+    finish what fits in ``cfg.drain_grace_s``, evict the rest, and land the
+    ledger row PREEMPTED with the per-cause retirement counts.
+    ``lifecycle`` is injectable for tests; by default signal handlers
+    install when running on the main thread (and are restored on exit)."""
+    import signal as _signal
+    import threading
+
+    device = resolve_device(cfg.device)
+    ctx = initialize_distributed(ctx)
+    reporter = LedgerReporter(store, ctx, local_devices=1)
+    plan = FaultPlan.from_env()
+    restore_handlers = {}
+    if lifecycle is None:
+        on_main = threading.current_thread() is threading.main_thread()
+        if on_main:
+            restore_handlers = {s: _signal.getsignal(s) for s in (_signal.SIGINT, _signal.SIGTERM)}
+        lifecycle = setup_signal_context(install=on_main)
+    try:
+        return _serve_engine_loop(cfg, ctx, prompts, lifecycle, reporter, plan, device)
+    finally:
+        for sig, handler in restore_handlers.items():
+            _signal.signal(sig, handler)
+
+
+def _serve_engine_loop(
+    cfg: ServeConfig,
+    ctx: ProcessContext,
+    prompts: Optional[Any],
+    lifecycle: LifecycleContext,
+    reporter: LedgerReporter,
+    plan: FaultPlan,
+    device: torch.device,
+) -> Dict[str, Any]:
+    from tpu_nexus_torch.core.telemetry import StatsdClient
+    from tpu_nexus_torch.serving import (
+        EngineTracer,
+        FifoScheduler,
+        FlightRecorder,
+        ModelDrafter,
+        ModelExecutor,
+        NGramDrafter,
+        NullTracer,
+        PagedModelExecutor,
+        QueueFull,
+        RequestState,
+        SchedulerConfig,
+        ServingEngine,
+        ServingMetrics,
+    )
+    from tpu_nexus_torch.serving.tracing import DeviceProfiler
+    from tpu_nexus_torch.workload.faults import wrap_executor
+
+    # the device profiler hook is not ported: arming it fails before any
+    # device work starts
+    DeviceProfiler.from_env()
+    # live DogStatsD emission, fire-and-forget: an absent agent drops
+    # datagrams, never raises into the serving loop
+    statsd = StatsdClient(
+        "tpu_nexus.workload",  # metric names carry their own serving. prefix
+        static_tags={"algorithm": ctx.algorithm, "run_id": ctx.run_id},
+    )
+    adapter, mcfg, params, restored_from = _load_serving_params(cfg, ctx, device)
+    if prompts is None:
+        prompts = adapter.data(cfg.batch_size, cfg.prompt_len, seed=cfg.seed + 101)
+
+    executor_kwargs = dict(
+        num_slots=cfg.batch_size,
+        max_len=cfg.prompt_len + cfg.gen_tokens,
+        kv_quant=cfg.quantize_kv,
+        # weight-only quantization is an EXECUTOR property: it re-applies it
+        # at every swap_params (idempotent over the tree loaded here)
+        quantize=cfg.quantize,
+        quant_group=cfg.quant_group,
+        decode_kernel=cfg.decode_kernel,
+        temperature=cfg.temperature,
+        top_k=cfg.top_k,
+        top_p=cfg.top_p,
+        seed=cfg.seed,
+        decode_steps=cfg.decode_steps,
+        stop_token=cfg.stop_token,
+    )
+    if cfg.page_size:
+        # paged KV: block-table decode + ref-counted shared-prefix reuse;
+        # NEXUS_KV_BLOCKS caps the physical pool
+        executor = PagedModelExecutor(
+            params, mcfg, page_size=cfg.page_size, num_blocks=cfg.kv_blocks, **executor_kwargs,
+        )
+    else:
+        executor = ModelExecutor(params, mcfg, **executor_kwargs)
+    drafter = None
+    if cfg.spec_k:
+        # speculative decoding (greedy-only, validated at parse): ngram needs
+        # no weights; the model drafter runs a contiguous executor over the
+        # draft preset's weights (empty preset = self-draft)
+        if cfg.spec_drafter == "ngram":
+            drafter = NGramDrafter(cfg.batch_size)
+        else:
+            draft_params, draft_cfg = params, mcfg
+            if cfg.spec_draft_preset:
+                draft_adapter = adapter_for(get_adapter(cfg.spec_draft_preset))
+                draft_cfg = draft_adapter.config
+                if draft_cfg.vocab_size != mcfg.vocab_size:
+                    raise ValueError(
+                        f"spec_draft_preset {cfg.spec_draft_preset!r} vocab "
+                        f"{draft_cfg.vocab_size} != serving model vocab "
+                        f"{mcfg.vocab_size}"
+                    )
+                draft_params = draft_adapter.init(torch.Generator(device=device).manual_seed(cfg.seed), device)
+            draft_executor = ModelExecutor(
+                draft_params, draft_cfg,
+                # the draft runs full precision: its budget is acceptance
+                **dict(executor_kwargs, kv_quant="", quantize="", quant_group=0),
+            )
+            drafter = ModelDrafter(draft_executor)
+    # observability, DEFAULT ON — NEXUS_TRACE=0 swaps in the NullTracer
+    tracer = (
+        EngineTracer(recorder=FlightRecorder(dump_dir=cfg.trace_dir or None))
+        if cfg.trace_enabled
+        else NullTracer()
+    )
+    engine = ServingEngine(
+        executor,
+        scheduler=FifoScheduler(SchedulerConfig(max_queue=cfg.queue_limit)),
+        spec_k=cfg.spec_k,
+        drafter=drafter,
+        overlap=cfg.overlap_dispatch,
+        tracer=tracer,
+    )
+
+    reporter.running()
+    # untimed warmup: one short request builds the CUDA kernels and warms
+    # the allocator, which would otherwise dominate small-run throughput
+    warm = np.asarray(next(prompts))
+    engine.submit(warm[0], min(2, cfg.gen_tokens), request_id="warmup-0")
+    engine.run_until_drained()
+    _sync(device)
+    n_warm = len(engine.retired)
+    engine.metrics = metrics = ServingMetrics(statsd)  # drop warmup samples
+    # chaos seam AFTER warmup, so NEXUS_FAULT_STEP counts served decode
+    # steps on the same zero base as the iteration counter below
+    engine.executor = wrap_executor(plan, executor)
+
+    # the pressure plane (NEXUS_SLO_*): grade this engine as a fleet-of-one
+    # every heartbeat interval; observation reads materialized host state
+    slo_monitor = None
+    slo_targets = cfg.slo_targets()
+    if slo_targets is not None:
+        from tpu_nexus_torch.serving.loadstats import FleetSnapshot, SloMonitor
+
+        slo_monitor = SloMonitor(slo_targets, metrics=statsd)
+
+        def observe_slo() -> None:
+            snap = engine.load_snapshot(replica="engine")
+            for tr in slo_monitor.observe(FleetSnapshot.aggregate({"engine": snap})):
+                logger.warning(
+                    "serving pressure transition: %s %s -> %s (%s)",
+                    tr["scope"], tr["from"], tr["to"],
+                    tr.get("violated", tr.get("cause", "")),
+                )
+                if "dump" in tr["action"] and tr["scope"] == "engine":
+                    engine.dump_pressure(f"slo-{tr['to']}:engine")
+    else:
+
+        def observe_slo() -> None:
+            return None
+
+    t0 = time.perf_counter()
+    deadline_s = cfg.deadline_s or None
+    # iteration counter from 0, NOT engine.steps (warmup already advanced
+    # it): NEXUS_FAULT_STEP keys off the same zero-based count
+    it = 0
+
+    def pump() -> None:
+        nonlocal it
+        maybe_inject(plan, it, executor_faults_handled=True)
+        engine.step()
+        it += 1
+        if cfg.heartbeat_every and it % cfg.heartbeat_every == 0:
+            reporter.heartbeat(it)
+            observe_slo()
+
+    for _ in range(cfg.rounds):
+        if lifecycle.cancelled:
+            break  # admission stops the moment shutdown is requested
+        for row in np.asarray(next(prompts)):
+            while not lifecycle.cancelled:
+                try:
+                    engine.submit(row, cfg.gen_tokens, deadline_s=deadline_s)
+                    break
+                except QueueFull:  # noqa: BLE001 - backpressure IS the handled outcome: every rejection is counted on serving.shed, then this closed-loop client retries after pumping the engine
+                    if not engine.has_work:
+                        break  # nothing to pump — drop rather than spin
+                    pump()
+    while engine.has_work and not lifecycle.cancelled:
+        pump()
+    _sync(device)
+    elapsed = time.perf_counter() - t0
+
+    drain_summary: Dict[str, Any] = {}
+    if lifecycle.cancelled:
+        # graceful drain: finish what fits in the grace budget, evict the
+        # rest with honest causes, then report PREEMPTED + per-cause counts
+        drain_summary = engine.drain(cfg.drain_grace_s)
+        it += drain_summary["drain_steps"]
+        _sync(device)
+        elapsed = time.perf_counter() - t0
+        cause = f"serving drain: {lifecycle.reason or 'shutdown requested'}"
+        logger.warning(
+            "%s — %s; retirement causes: %s", cause, drain_summary, metrics.retired_causes,
+        )
+        reporter.heartbeat(it)
+        if ctx.is_coordinator:
+            details = {
+                "retired_states": metrics.retired,
+                "retired_causes": metrics.retired_causes,
+                "load_snapshot": engine.load_snapshot().to_dict(),
+                **drain_summary,
+            }
+            if tracer.enabled:
+                details["flight_recorder"] = tracer.recorder.summary()
+            if slo_monitor is not None:
+                details["pressure"] = slo_monitor.summary()
+            reporter.preempted(cause=cause, details=json.dumps(details, sort_keys=True))
+    else:
+        reporter.heartbeat(it)
+        if ctx.is_coordinator:
+            details = {"load_snapshot": engine.load_snapshot().to_dict()}
+            if slo_monitor is not None:
+                details["pressure"] = slo_monitor.summary()
+            reporter.completed(details=json.dumps(details, sort_keys=True))
+
+    done = engine.retired[n_warm:]
+    finished = [r for r in done if r.state == RequestState.FINISHED]
+    tokens_done = sum(len(r.output_tokens) for r in finished)
+    return {
+        "requests": len(done),
+        "finished": len(finished),
+        "spec_k": cfg.spec_k,
+        "restored_from": restored_from,
+        "serving_step": restored_from,
+        "weight_reloads": engine.weight_swaps,
+        "engine_steps": it,
+        "elapsed_s": elapsed,
+        "decoded_tokens_per_second": tokens_done / elapsed if elapsed > 0 else 0.0,
+        "drained": lifecycle.cancelled,
+        "load_snapshot": engine.load_snapshot().to_dict(),
+        "pressure": slo_monitor.summary() if slo_monitor is not None else None,
+        "flight_recorder": tracer.recorder.summary() if tracer.enabled else None,
+        "profiler": None,
+        "device": str(device),
+        **drain_summary,
+        **metrics.summary(),
     }
