@@ -12,10 +12,15 @@ raises and exits non-zero:
 1. device       — the card's name, count and power limit; TF32 is switched
    off for matmuls and cuDNN so f32 comparisons mean f32.
 2. build        — compile the CUDA kernels from ``tpu_nexus_torch/csrc``
-   (one ``nvcc`` per source, all started together).
+   (one ``nvcc`` per source, all started together); the bf16 forward
+   kernel's registers, local memory (spills and stack), shared memory and
+   the count of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
+   in its SASS, read by the toolkit's ``cuobjdump`` (fails without it).
 3. parity       — the forward and decode kernels against their plain
    PyTorch versions at the training and serving paths' shapes, bf16 and
-   f32; the int8 and int4 dequant-matmul kernels at the Llama-3-8B decode
+   f32 (the forward also at S 1, 127, 129 and 383, GQA groups 1, 4 and 8,
+   D 64, causal and full; each forward case run twice, bit-identical);
+   the int8 and int4 dequant-matmul kernels at the Llama-3-8B decode
    step's (K, N) with M = 8, at M = 1 and 256 and at unaligned shapes,
    int4 at groups 64 and 128 (and 2 and K), each run twice bit-identical;
    the decode kernel's int8-KV mode at the serve shape, kv_len 4096, q_len
@@ -299,6 +304,45 @@ def read_rms_norm_launches(results, path: str) -> None:
     results.setdefault("rms_norm_launches", {})[path] = rms_norm_kernel.launches
 
 
+def flash_forward_resources(_build):
+    """The bf16 forward kernel at D 64 and 128, read from the built library
+    by the toolkit's ``cuobjdump -res-usage -sass``: registers a thread at
+    entry, stack and local memory (spills) a thread, static shared memory,
+    and the SASS counts that show the path is wgmma (``HGMMA``) and TMA
+    (``UTMALDG``); and the dynamic shared memory a launch asks for, from the
+    source's constants (``SmemLayout``).  Fails without cuobjdump, or where
+    either count is 0."""
+    import re
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        raise RuntimeError(f"no cuobjdump beside nvcc ({cuobjdump}): the build phase reads the kernel's SASS")
+    dump = subprocess.run([str(cuobjdump), "-res-usage", "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    tile_k, stages = (int(re.search(rf"constexpr int {c} = (\d+);", src).group(1)) for c in ("kTileK", "kStages"))
+    report = {}
+    for d in (64, 128):
+        usage = re.search(rf"Function \S*flash_fwd_bf16_kernelILi{d}E\S*:\s*\n(.*)", dump)
+        fields = dict(re.findall(r"(\w+):(\d+)", usage.group(1))) if usage else {}
+        sass = next((f for f in dump.split("Function : ")[1:]
+                     if re.match(rf"\S*flash_fwd_bf16_kernelILi{d}E", f)), "")
+        tile = d // 64 * tile_k * 128  # one 128-row tile of D bf16 columns, as 64-column panels
+        report[f"d{d}"] = dict(
+            registers=int(fields.get("REG", 0)), stack_bytes=int(fields.get("STACK", 0)),
+            local_bytes=int(fields.get("LOCAL", 0)), static_smem=int(fields.get("SHARED", 0)),
+            # SmemLayout<D>::kBytes: Q, kStages K and V tiles, (1 + 3 kStages) barriers, 1024 alignment slack
+            dynamic_smem=tile * (1 + 2 * stages) + (1 + 3 * stages) * 8 + 1024,
+            sass_hgmma=len(re.findall(r"\bHGMMA\.", sass)),
+            sass_utmaldg=len(re.findall(r"\bUTMALDG\b", sass)),
+            sass_hmma=len(re.findall(r"\bHMMA\.", sass)),
+        )
+        if not (fields and report[f"d{d}"]["sass_hgmma"] and report[f"d{d}"]["sass_utmaldg"]):
+            raise AssertionError(f"the bf16 forward kernel at D {d}: no resource usage, wgmma or TMA load "
+                                 f"in cuobjdump's output: {report}\n{dump[:4000]}")
+    return report
+
+
 def phase_parity(results):
     import torch
 
@@ -318,26 +362,42 @@ def phase_parity(results):
         (1, 2048, 32, 8, 128, torch.float32, True),
         (1, 200, 32, 8, 128, torch.float32, True),
         (2, 256, 32, 8, 64, torch.float32, False),
+        # the 128-row tiles' edges: one row, a tile short of full, a tile
+        # and one row, three tiles with a ragged end; GQA groups 1, 4, 8; D 64
+        (2, 1, 32, 8, 128, torch.bfloat16, True),
+        (2, 127, 32, 8, 128, torch.bfloat16, True),
+        (2, 129, 32, 8, 128, torch.bfloat16, True),
+        (2, 383, 32, 8, 128, torch.bfloat16, True),
+        (2, 383, 32, 8, 128, torch.bfloat16, False),
+        (2, 383, 32, 8, 64, torch.bfloat16, True),
+        (2, 129, 32, 8, 64, torch.bfloat16, True),
+        (1, 383, 8, 8, 128, torch.bfloat16, True),
+        (1, 383, 64, 8, 128, torch.bfloat16, False),
+        (2, 1, 32, 8, 64, torch.bfloat16, False),
+        (2, 1, 32, 8, 128, torch.float32, True),
+        (2, 383, 32, 8, 64, torch.float32, True),
     ]
     for i, (b, s, hq, hkv, d, dtype, causal) in enumerate(flash_cases):
         q, k, v = flash_inputs(b, s, hq, hkv, d, dtype, seed=10 + i)
         out, lse = flash_attention(q, k, v, causal=causal)
+        out2, lse2 = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        same = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
         ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal)
         e_out, e_lse = max_err(out, ref_out), max_err(lse, ref_lse)
         e_row = row_rel_err(out, ref_out)
         tol_out, tol_lse = TOL[str(dtype).split(".")[-1]]
         tol_row = ROW_REL_TOL if dtype == torch.bfloat16 else None
-        ok = (e_out <= tol_out and e_lse <= tol_lse and (tol_row is None or e_row <= tol_row)
+        ok = (same and e_out <= tol_out and e_lse <= tol_lse and (tol_row is None or e_row <= tol_row)
               and bool(torch.isfinite(out).all()))
         emit("parity", kernel="flash_attention", shape=[b, s, hq, hkv, d], dtype=str(dtype),
              causal=causal, max_abs_err_out=e_out, max_abs_err_lse=e_lse, max_row_rel_err=e_row,
-             tol_out=tol_out, tol_lse=tol_lse, tol_row_rel=tol_row, ok=ok)
+             tol_out=tol_out, tol_lse=tol_lse, tol_row_rel=tol_row, bit_identical_twice=same, ok=ok)
         if not ok:
             raise AssertionError(f"flash_attention kernel disagrees with its plain version: {flash_cases[i]}")
         if dtype == torch.bfloat16 and (b, s, hq) == (8, 2048, 16):
             worst["flash_attention"] = e_out
-        del q, k, v, out, lse, ref_out, ref_lse
+        del q, k, v, out, lse, out2, lse2, ref_out, ref_lse
         torch.cuda.empty_cache()
 
     decode_cases = []  # (B, q_len, max_len, kv_len, ragged, dtype)
@@ -2101,7 +2161,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         _build.library()
         emit("build", seconds=time.perf_counter() - t0, library=str(_build.library_path().name),
-             sources=[str(p.relative_to(ROOT)) for p in _build.sources()])
+             sources=[str(p.relative_to(ROOT)) for p in _build.sources()],
+             flash_forward_bf16=flash_forward_resources(_build))
     runners = {
         "parity": phase_parity, "train_parity": phase_train_parity, "times": phase_times,
         "e2e": phase_e2e, "train_e2e": phase_train_e2e, "serve": phase_serve, "serve_quant": phase_serve_quant,
@@ -2164,6 +2225,8 @@ def main(argv=None) -> int:
                 "ms": t["ms"], "enqueue_ms": t["enqueue_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             }
+            if name == "flash_attention":
+                entry.update(design="wgmma+tma")
             if name == "nexus_gmm":
                 entry.update(library_ms_is=t["library_ms_is"],
                              mixtral_8x7b_gate={k: results["times"]["nexus_gmm_mixtral"][k]

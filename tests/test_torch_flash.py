@@ -37,9 +37,12 @@ def _qkv(b, s, hq, hkv, d, seed):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4)])
-@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4), (8, 2), (16, 2)])
+@pytest.mark.parametrize("s", [128, 256, 383])
 def test_plain_matches_pallas_forward(s, hq, hkv, causal):
+    """GQA groups 1, 2, 4 and 8, and S 383: three of the CUDA kernel's
+    128-row tiles with a ragged end (the interpret-mode kernel takes it as
+    one 383-row block)."""
     q, k, v = _qkv(1, s, hq, hkv, 128, seed=s + hq * 10 + hkv + causal)
     scale = 128**-0.5
     ref_out, ref_lse = _flash_forward(

@@ -2,7 +2,9 @@
 
 Each kernel against its plain PyTorch version on the same seeded inputs,
 at small shapes that still cover the kernels' cases (GQA, ragged tails,
-D 64 and 128, ragged decode lens/width, q_len > 1), and the backward
+D 64 and 128, ragged decode lens/width, q_len > 1; the forward at every
+tiling edge of its 128-row tiles, GQA groups 1-8, bit-identical run to
+run), and the backward
 kernels at the shapes of ``chip_smoke.py``'s train_parity phase; the int8
 and int4 dequant-matmul kernels (f32 1e-4 of the reference's largest
 magnitude, bf16 1e-2 on the worst row) and the decode kernel's int8-KV
@@ -87,17 +89,34 @@ def _check_grad(got, ref, dtype):
     assert float(rel.max()) <= ROW_REL_TOL
 
 
+#: (S, D, GQA group, causal): S of one row, under, at and just over one
+#: 128-row tile, ragged multi-tile ends and 16 tiles; D 64 and 128; GQA
+#: groups 1-8 (Hkv 2); causal and full; and S 256 at D 64, full.
+FLASH_CASES = [(256, 64, 4, False)] + [
+    (s, d, group, causal)
+    for s in (1, 64, 127, 128, 129, 200, 383, 2048)
+    for d in (64, 128)
+    for group in (1, 2, 4, 8)
+    for causal in (True, False)
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("s,d,causal", [(128, 128, True), (200, 128, True), (256, 64, False)])
-def test_flash_kernel_matches_plain(cuda_device, dtype, s, d, causal):
-    q = _randn((2, s, 8, d), 1, cuda_device, dtype)
-    k = _randn((2, s, 2, d), 2, cuda_device, dtype)
-    v = _randn((2, s, 2, d), 3, cuda_device, dtype)
+@pytest.mark.parametrize("s,d,group,causal", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda_device, dtype, s, d, group, causal):
+    """One launch a call, and a second run is bit-identical (no atomics)."""
+    b, hkv = (1, 2) if s == 2048 else (2, 2)
+    seed = s * 10 + d + group + causal
+    q = _randn((b, s, hkv * group, d), seed, cuda_device, dtype)
+    k = _randn((b, s, hkv, d), seed + 1, cuda_device, dtype)
+    v = _randn((b, s, hkv, d), seed + 2, cuda_device, dtype)
     before = flash_attention.launches
     out, lse = flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    again, lse_again = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
     ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal)
     _check(out, ref_out, dtype)
     assert float((lse - ref_lse).abs().max()) <= TOL[dtype][1]

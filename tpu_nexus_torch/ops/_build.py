@@ -2,8 +2,10 @@
 
 Every ``csrc/*.cu`` source is compiled at first use, one ``nvcc`` process
 per source started together, and linked into a shared library with a
-plain C interface under ``build/`` at the repository root, keyed by a hash of the sources and the flags (a changed
-source builds a new library; an unchanged one is reused).  The library is
+plain C interface under ``build/`` at the repository root, keyed by a hash
+of every file a source can include (``csrc/*.cu`` and ``csrc/*.cuh``) and
+of the compile and link flags: a changed source, header or flag builds a
+new library; an unchanged tree reuses it.  The library is
 loaded with :mod:`ctypes`: every pointer and the stream travel as
 ``c_void_p``, and every entry point returns ``cudaGetLastError()`` so a
 refused launch raises here instead of vanishing.
@@ -29,6 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 )
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,8 +73,10 @@ def sources() -> list:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    """The library's path, named by a hash of the flags and of every file
+    under ``csrc/`` that a source compiles or includes."""
+    digest = hashlib.sha256(repr((NVCC_FLAGS, LINK_FLAGS)).encode())
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libnexus_kernels_{digest.hexdigest()[:16]}.so"
@@ -112,7 +117,7 @@ def build() -> Path:
         if failures:
             raise RuntimeError("\n".join(failures))
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        _run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objects)])
+        _run([_nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objects)])
         for obj in objects:
             obj.unlink()
         os.replace(tmp, target)
