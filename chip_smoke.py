@@ -12,10 +12,12 @@ raises and exits non-zero:
 1. device       — the card's name, count and power limit; TF32 is switched
    off for matmuls and cuDNN so f32 comparisons mean f32.
 2. build        — compile the CUDA kernels from ``tpu_nexus_torch/csrc``
-   (one ``nvcc`` per source, all started together); the bf16 forward
-   kernel's registers, local memory (spills and stack), shared memory and
-   the count of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
-   in its SASS, read by the toolkit's ``cuobjdump`` (fails without it).
+   (one ``nvcc`` per source, all started together); the bf16 flash
+   kernels' (forward, dQ, dK/dV at D 64 and 128) registers, local memory
+   (spills and stack), shared memory and the count of ``HGMMA`` (wgmma),
+   ``UTMALDG`` (TMA load) and ``HMMA`` (mma.sync) instructions in their
+   SASS, read by the toolkit's ``cuobjdump``; fails without it, without
+   wgmma or TMA, or with mma.sync or spills.
 3. parity       — the forward and decode kernels against their plain
    PyTorch versions at the training and serving paths' shapes, bf16 and
    f32 (the forward also at S 1, 127, 129 and 383, GQA groups 1, 4 and 8,
@@ -27,8 +29,9 @@ raises and exits non-zero:
    4 and ragged.
 4. train_parity — the backward kernels (dQ, dK/dV) against the plain
    backward: nexus_1b's B8 S2048 Hq16 Hkv8 D128, Llama-3-8B heads at S512,
-   S200 (unaligned), D64 and non-causal, bf16 and f32; and a backward run
-   twice is bit-identical.
+   S200 (unaligned), D64 and non-causal, and S 64, 65, 127, 129 and 200 at
+   GQA groups 1, 2 and 4, D 64 and 128, causal and not; bf16 and f32; each
+   backward run twice is bit-identical.
 5. moe_parity   — the grouped-matmul kernels (#7 gmm, also on rhsᵀ as the
    backward's d_lhs call; #8 tgmm) against their plain versions at the
    nexus_moe train step's shapes (m_pad 36864, bm 512, uneven expert runs,
@@ -40,7 +43,9 @@ raises and exits non-zero:
    training shape, decode at the serve step's), the bound, the plain
    version's time and the ``library_ms`` yardstick
    (``scaled_dot_product_attention`` and its backward, timed here only;
-   the port never calls them).  For the dequant-matmul kernels the shape is
+   the port never calls them).  The backward is also timed whole
+   (``flash_attention_bwd``: dsum, q̃ and both kernels) and at nexus_moe's
+   attention shape (Hq8 Hkv4).  For the dequant-matmul kernels the shape is
    the step's largest launch (K4096 x N14336, M8) and the yardstick is
    ``torch.matmul`` with the pre-dequantized bf16 weight; for int8-KV
    decode, ``scaled_dot_product_attention`` on a dequantized cache.  For
@@ -304,42 +309,51 @@ def read_rms_norm_launches(results, path: str) -> None:
     results.setdefault("rms_norm_launches", {})[path] = rms_norm_kernel.launches
 
 
-def flash_forward_resources(_build):
-    """The bf16 forward kernel at D 64 and 128, read from the built library
-    by the toolkit's ``cuobjdump -res-usage -sass``: registers a thread at
-    entry, stack and local memory (spills) a thread, static shared memory,
-    and the SASS counts that show the path is wgmma (``HGMMA``) and TMA
-    (``UTMALDG``); and the dynamic shared memory a launch asks for, from the
-    source's constants (``SmemLayout``).  Fails without cuobjdump, or where
-    either count is 0."""
+#: the Hopper (wgmma + TMA) kernels the build phase reads from the library's
+#: SASS: report key -> (kernel name, its dynamic shared memory at D)
+HOPPER_KERNELS = {
+    "flash_forward_bf16": ("flash_fwd_bf16_kernel", lambda lib, d: lib.nexus_flash_fwd_smem_bytes(d)),
+    "flash_bwd_dq_bf16": ("flash_bwd_dq_bf16_kernel", lambda lib, d: lib.nexus_flash_bwd_smem_bytes(0, d)),
+    "flash_bwd_dkv_bf16": ("flash_bwd_dkv_bf16_kernel", lambda lib, d: lib.nexus_flash_bwd_smem_bytes(1, d)),
+}
+
+
+def hopper_kernel_resources(_build):
+    """The bf16 flash kernels (#1 forward, #2 dQ, #3 dK/dV) at D 64 and 128,
+    read from the built library by the toolkit's ``cuobjdump -res-usage
+    -sass``: registers a thread at entry, stack and local memory (spills) a
+    thread, static shared memory, and the SASS counts that show the path is
+    wgmma (``HGMMA``), TMA (``UTMALDG``) and no ``mma.sync`` (``HMMA``); and
+    the dynamic shared memory a launch asks for, from the library's own
+    layouts.  Fails without cuobjdump, or where a kernel has no ``HGMMA`` or
+    no ``UTMALDG``, any ``HMMA``, or any local memory or stack."""
     import re
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     if not cuobjdump.exists():
-        raise RuntimeError(f"no cuobjdump beside nvcc ({cuobjdump}): the build phase reads the kernel's SASS")
+        raise RuntimeError(f"no cuobjdump beside nvcc ({cuobjdump}): the build phase reads the kernels' SASS")
     dump = subprocess.run([str(cuobjdump), "-res-usage", "-sass", str(_build.library_path())],
                           capture_output=True, text=True, timeout=300, check=True).stdout
-    src = (_build.CSRC / "flash_attention.cu").read_text()
-    tile_k, stages = (int(re.search(rf"constexpr int {c} = (\d+);", src).group(1)) for c in ("kTileK", "kStages"))
+    lib = _build.library()
     report = {}
-    for d in (64, 128):
-        usage = re.search(rf"Function \S*flash_fwd_bf16_kernelILi{d}E\S*:\s*\n(.*)", dump)
-        fields = dict(re.findall(r"(\w+):(\d+)", usage.group(1))) if usage else {}
-        sass = next((f for f in dump.split("Function : ")[1:]
-                     if re.match(rf"\S*flash_fwd_bf16_kernelILi{d}E", f)), "")
-        tile = d // 64 * tile_k * 128  # one 128-row tile of D bf16 columns, as 64-column panels
-        report[f"d{d}"] = dict(
-            registers=int(fields.get("REG", 0)), stack_bytes=int(fields.get("STACK", 0)),
-            local_bytes=int(fields.get("LOCAL", 0)), static_smem=int(fields.get("SHARED", 0)),
-            # SmemLayout<D>::kBytes: Q, kStages K and V tiles, (1 + 3 kStages) barriers, 1024 alignment slack
-            dynamic_smem=tile * (1 + 2 * stages) + (1 + 3 * stages) * 8 + 1024,
-            sass_hgmma=len(re.findall(r"\bHGMMA\.", sass)),
-            sass_utmaldg=len(re.findall(r"\bUTMALDG\b", sass)),
-            sass_hmma=len(re.findall(r"\bHMMA\.", sass)),
-        )
-        if not (fields and report[f"d{d}"]["sass_hgmma"] and report[f"d{d}"]["sass_utmaldg"]):
-            raise AssertionError(f"the bf16 forward kernel at D {d}: no resource usage, wgmma or TMA load "
-                                 f"in cuobjdump's output: {report}\n{dump[:4000]}")
+    for key, (kernel, dynamic_smem) in HOPPER_KERNELS.items():
+        for d in (64, 128):
+            usage = re.search(rf"Function \S*{kernel}ILi{d}E\S*:\s*\n(.*)", dump)
+            fields = dict(re.findall(r"(\w+):(\d+)", usage.group(1))) if usage else {}
+            sass = next((f for f in dump.split("Function : ")[1:] if re.match(rf"\S*{kernel}ILi{d}E", f)), "")
+            row = dict(
+                registers=int(fields.get("REG", 0)), stack_bytes=int(fields.get("STACK", 0)),
+                local_bytes=int(fields.get("LOCAL", 0)), static_smem=int(fields.get("SHARED", 0)),
+                dynamic_smem=dynamic_smem(lib, d),
+                sass_hgmma=len(re.findall(r"\bHGMMA\.", sass)),
+                sass_utmaldg=len(re.findall(r"\bUTMALDG\b", sass)),
+                sass_hmma=len(re.findall(r"\bHMMA\.", sass)),
+            )
+            report.setdefault(key, {})[f"d{d}"] = row
+            if not (fields and row["sass_hgmma"] and row["sass_utmaldg"]) or row["sass_hmma"] \
+                    or row["local_bytes"] or row["stack_bytes"]:
+                raise AssertionError(f"{kernel} at D {d}: no resource usage, wgmma or TMA load, or mma.sync, "
+                                     f"local memory or stack in cuobjdump's output: {row}\n{dump[:4000]}")
     return report
 
 
@@ -578,17 +592,22 @@ def bwd_inputs(b, s, hq, hkv, d, dtype, causal, seed):
 
 def phase_train_parity(results):
     """Kernels #2 (dQ) and #3 (dK/dV) against the plain backward, and the
-    backward run twice is bit-identical."""
+    backward run twice is bit-identical: the training shapes, and every
+    tile edge at GQA groups 1, 2 and 4, D 64 and 128, causal and not."""
     import torch
 
     from tpu_nexus_torch.ops.flash_attention import flash_attention_bwd, flash_attention_bwd_plain
 
     worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
-    cases = []  # (B, S, Hq, Hkv, D, causal)
+    cases = []  # (B, S, Hq, Hkv, D, causal, dtype)
     for dtype in (torch.bfloat16, torch.float32):
         cases += [(8, 2048, 16, 8, 128, True, dtype), (2, 512, 32, 8, 128, True, dtype),
                   (2, 200, 16, 8, 128, True, dtype), (2, 256, 16, 8, 64, True, dtype),
                   (2, 384, 16, 8, 128, False, dtype)]
+        # the tile edges of the bf16 kernels' 64-row streamed and 128-row
+        # resident tiles, GQA groups 1, 2 and 4, D 64 and 128, causal and not
+        cases += [(2, s, 2 * group, 2, d, causal, dtype) for s in (64, 65, 127, 129, 200)
+                  for group in (1, 2, 4) for d in (64, 128) for causal in (True, False)]
     for i, (b, s, hq, hkv, d, causal, dtype) in enumerate(cases):
         q, k, v, out, lse, dout = bwd_inputs(b, s, hq, hkv, d, dtype, causal, seed=200 + i)
         got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
@@ -761,57 +780,68 @@ def bwd_bound(b, s, hq, hkv, d, dtype, n_matmuls, outputs, causal=True):
 
 def bwd_times(times):
     """Kernels #2 (dQ) and #3 (dK/dV) at the nexus_1b training shape (B8
-    S2048 Hq16 Hkv8 D128 causal, bf16): ms per launch, the plain backward's
-    ms (dQ, dK and dV together) and, as a yardstick only, the backward of
-    ``scaled_dot_product_attention`` on the same inputs (all three grads)."""
+    S2048 Hq16 Hkv8 D128 causal, bf16) and at nexus_moe's (Hq8 Hkv4): ms per
+    launch (q̃ made beforehand), the whole ``flash_attention_bwd`` (dsum, q̃
+    and both kernels: the number to set beside the library's), the plain
+    backward's ms (dQ, dK and dV together) and, as a yardstick only, the
+    backward of ``scaled_dot_product_attention`` on the same inputs (all
+    three grads, its own preprocessing included)."""
     import torch
     import torch.nn.functional as F
 
     from tpu_nexus_torch.ops.flash_attention import (
+        flash_attention_bwd,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_attention_bwd_plain,
+        flash_bwd_qt,
         flash_dsum,
     )
 
-    b, s, hq, hkv, d, dt = 8, 2048, 16, 8, 128, torch.bfloat16
-    sets = [bwd_inputs(b, s, hq, hkv, d, dt, True, seed=1200 + i) for i in range(2)]
-    dsums = [flash_dsum(x[3], x[5]) for x in sets]
-    dq_fns = [lambda x=x, ds=ds: flash_attention_bwd_dq(x[0], x[1], x[2], x[5], x[4], ds)
-              for x, ds in zip(sets, dsums)]
-    dkv_fns = [lambda x=x, ds=ds: flash_attention_bwd_dkv(x[0], x[1], x[2], x[5], x[4], ds)
-               for x, ds in zip(sets, dsums)]
-    plain = [lambda x=sets[0]: flash_attention_bwd_plain(*x)]
-    lib = []
-    for q, k, v, _, _, dout in sets:
-        ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
-        g = dout.transpose(1, 2)
-        lib.append(lambda out=out, g=g, leaves=(ql, kl, vl): torch.autograd.grad(
-            out, leaves, g, retain_graph=True))
-    plain_ms = cuda_ms(plain, iters=3, warmup=1)
-    lib_ms = cuda_ms(lib, iters=20)
-    # the function's 5 products split between the kernels: dQ = dS·K and one
-    # of the two both kernels need (S = q̃·Kᵀ, dP = dO·Vᵀ); dV, dK and the
-    # other.  The split design recomputes both shared products in each
-    # kernel (3 and 4 products), which the bound does not count.
-    for key, fns, n_matmuls, outputs in (
-        ("flash_attention_bwd_dq", dq_fns, 2, "dq"), ("flash_attention_bwd_dkv", dkv_fns, 3, "dkv"),
-    ):
-        bound, by = bwd_bound(b, s, hq, hkv, d, dt, n_matmuls, outputs)
-        ms, enqueue_ms = timed(fns, iters=20)
-        times[key] = dict(shape=[b, s, hq, hkv, d], dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
-                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                          bound_matmuls=f"{n_matmuls} of the function's 5")
-        emit("times", kernel=key, plain_ms_is="plain backward, dQ+dK+dV",
-             library_ms_is="scaled_dot_product_attention backward, dQ+dK+dV", **times[key])
-    whole, whole_by = bwd_bound(b, s, hq, hkv, d, dt, 5, "all")
-    times["flash_attention_bwd"] = dict(
-        shape=[b, s, hq, hkv, d], dtype="bfloat16",
-        ms=times["flash_attention_bwd_dq"]["ms"] + times["flash_attention_bwd_dkv"]["ms"],
-        bound_ms=whole, bound_by=whole_by, library_ms=lib_ms, plain_ms=plain_ms)
-    emit("times", kernel="flash_attention_bwd (dQ + dK/dV)", **times["flash_attention_bwd"])
-    del sets, dsums, lib
+    b, s, d, dt = 8, 2048, 128, torch.bfloat16
+    for hq, hkv, suffix in ((16, 8, ""), (8, 4, "_moe")):
+        sets = [bwd_inputs(b, s, hq, hkv, d, dt, True, seed=1200 + i) for i in range(2)]
+        pre = [(flash_dsum(x[3], x[5]), flash_bwd_qt(x[0], d**-0.5)) for x in sets]
+        dq_fns = [lambda x=x, p=p: flash_attention_bwd_dq(x[0], x[1], x[2], x[5], x[4], p[0], qt=p[1])
+                  for x, p in zip(sets, pre)]
+        dkv_fns = [lambda x=x, p=p: flash_attention_bwd_dkv(x[0], x[1], x[2], x[5], x[4], p[0], qt=p[1])
+                   for x, p in zip(sets, pre)]
+        whole_fns = [lambda x=x: flash_attention_bwd(*x) for x in sets]
+        plain = [lambda x=sets[0]: flash_attention_bwd_plain(*x)]
+        lib = []
+        for q, k, v, _, _, dout in sets:
+            ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+            g = dout.transpose(1, 2)
+            lib.append(lambda out=out, g=g, leaves=(ql, kl, vl): torch.autograd.grad(
+                out, leaves, g, retain_graph=True))
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        lib_ms = cuda_ms(lib, iters=20)
+        # the function's 5 products split between the kernels: dQ = dS·K and one
+        # of the two both kernels need (S = q̃·Kᵀ, dP = dO·Vᵀ); dV, dK and the
+        # other.  The split design recomputes both shared products in each
+        # kernel (3 and 4 products), which the bound does not count.
+        for key, fns, n_matmuls, outputs in (
+            ("flash_attention_bwd_dq", dq_fns, 2, "dq"), ("flash_attention_bwd_dkv", dkv_fns, 3, "dkv"),
+        ):
+            bound, by = bwd_bound(b, s, hq, hkv, d, dt, n_matmuls, outputs)
+            ms, enqueue_ms = timed(fns, iters=20)
+            times[key + suffix] = dict(shape=[b, s, hq, hkv, d], dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
+                                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                                       bound_matmuls=f"{n_matmuls} of the function's 5")
+            emit("times", kernel=key, plain_ms_is="plain backward, dQ+dK+dV",
+                 library_ms_is="scaled_dot_product_attention backward, dQ+dK+dV", **times[key + suffix])
+        whole, whole_by = bwd_bound(b, s, hq, hkv, d, dt, 5, "all")
+        wrapper_ms, wrapper_enqueue_ms = timed(whole_fns, iters=20)
+        times["flash_attention_bwd" + suffix] = dict(
+            shape=[b, s, hq, hkv, d], dtype="bfloat16",
+            ms=times["flash_attention_bwd_dq" + suffix]["ms"] + times["flash_attention_bwd_dkv" + suffix]["ms"],
+            wrapper_ms=wrapper_ms, wrapper_enqueue_ms=wrapper_enqueue_ms,
+            bound_ms=whole, bound_by=whole_by, library_ms=lib_ms, plain_ms=plain_ms)
+        emit("times", kernel="flash_attention_bwd (ms: dQ + dK/dV; wrapper_ms: flash_attention_bwd, "
+             "dsum + q̃ + both kernels)", **times["flash_attention_bwd" + suffix])
+        del sets, pre, lib, dq_fns, dkv_fns, whole_fns, plain
+        torch.cuda.empty_cache()
 
 
 def phase_e2e(results):
@@ -2162,7 +2192,7 @@ def main(argv=None) -> int:
         _build.library()
         emit("build", seconds=time.perf_counter() - t0, library=str(_build.library_path().name),
              sources=[str(p.relative_to(ROOT)) for p in _build.sources()],
-             flash_forward_bf16=flash_forward_resources(_build))
+             **hopper_kernel_resources(_build))
     runners = {
         "parity": phase_parity, "train_parity": phase_train_parity, "times": phase_times,
         "e2e": phase_e2e, "train_e2e": phase_train_e2e, "serve": phase_serve, "serve_quant": phase_serve_quant,
@@ -2225,7 +2255,7 @@ def main(argv=None) -> int:
                 "ms": t["ms"], "enqueue_ms": t["enqueue_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             }
-            if name == "flash_attention":
+            if name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
                 entry.update(design="wgmma+tma")
             if name == "nexus_gmm":
                 entry.update(library_ms_is=t["library_ms_is"],
@@ -2238,7 +2268,7 @@ def main(argv=None) -> int:
             if name.startswith("flash_attention_bwd"):
                 # plain_ms and library_ms are of the whole backward; so is this pair
                 entry.update(bound_matmuls=t["bound_matmuls"], backward_ms=whole_bwd["ms"],
-                             backward_bound_ms=whole_bwd["bound_ms"])
+                             backward_wrapper_ms=whole_bwd["wrapper_ms"], backward_bound_ms=whole_bwd["bound_ms"])
             kernels.append(entry)
         print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=time.perf_counter() - t_start)

@@ -3,9 +3,12 @@
 * :func:`flash_attention_bwd_plain` — the plain version of the dQ and
   dK/dV CUDA kernels — is held against the Pallas backward it replaces,
   run in interpret mode (``_flash_backward(..., interpret=True)``), on the
-  same numpy inputs and the same forward residuals (out, lse).
-  Tolerance: f32, 1e-5 max-abs (both accumulate in f32; only summation
-  order differs).
+  same numpy inputs and the same forward residuals (out, lse); so is the
+  entry point :func:`flash_attention_bwd` on CPU tensors at an unaligned
+  S.  Tolerance: f32, 1e-5 max-abs (both accumulate in f32; only
+  summation order differs).
+* The q prescale the kernels read, :func:`flash_bwd_qt`, is
+  ``_flash_backward``'s ``qt`` bit for bit, in bf16 and f32.
 * :class:`FlashAttention`'s CPU branch (plain forward + plain backward) is
   held against autograd through :func:`dense_attention`: 1e-5 max-abs.
 * The remat policies of ``models/llama.py``: the same loss and gradients
@@ -50,9 +53,10 @@ def _inputs(b, s, hq, hkv, d, seed):
     )
 
 
-def _against_pallas(s, hq, hkv, causal, seed, dtype=np.float32):
+def _against_pallas(s, hq, hkv, causal, seed, dtype=np.float32, port_bwd=flash_attention_bwd_plain):
     """(port grads, JAX grads) as numpy f32, from the same inputs and the
-    same Pallas forward residuals."""
+    same Pallas forward residuals; ``port_bwd`` is the port's backward
+    (the plain version, or the entry point on CPU tensors)."""
     q, k, v, do = _inputs(1, s, hq, hkv, 128, seed)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     jq, jk, jv, jdo = (jnp.asarray(x, jdt) for x in (q, k, v, do))
@@ -63,7 +67,7 @@ def _against_pallas(s, hq, hkv, causal, seed, dtype=np.float32):
     tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
     t_out = torch.from_numpy(np.swapaxes(np.asarray(out.astype(jnp.float32)), 1, 2).copy()).to(tdt)
     t_lse = torch.from_numpy(np.asarray(lse)[..., 0].copy())
-    got = flash_attention_bwd_plain(tq, tk, tv, t_out, t_lse, tdo, causal=causal)
+    got = port_bwd(tq, tk, tv, t_out, t_lse, tdo, causal=causal)
     return [g.float().numpy() for g in got], [np.asarray(r.astype(jnp.float32)) for r in ref]
 
 
@@ -97,6 +101,33 @@ def test_bf16_plain_backward_rounds_like_the_kernels():
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (8, 2)], ids=["gqa1", "gqa4"])
+def test_backward_entry_point_matches_pallas_at_unaligned_s(hq, hkv, causal):
+    """:func:`flash_attention_bwd` on CPU tensors (the path the card's
+    wrappers share their q̃ and dsum with) against the Pallas backward at
+    S 200, which no tile of the CUDA kernels divides, GQA groups 1 and 4."""
+    got, ref = _against_pallas(200, hq, hkv, causal, seed=hq + causal, port_bwd=flash_attention_bwd)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a, r, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d,scale", [(128, None), (64, None), (128, 0.3)])
+def test_qt_is_bit_identical_to_the_pallas_backwards_qt(dtype, d, scale):
+    """The kernels' q̃ (:func:`flash_bwd_qt`, made once per backward) is
+    ``_flash_backward``'s ``qt`` expression bit for bit: q·scale·log2(e)
+    in f32, rounded to the input dtype."""
+    q = np.random.default_rng(d).standard_normal((2, 96, 4, d), dtype=np.float32) * 3
+    scale = d**-0.5 if scale is None else scale
+    jq = jnp.asarray(q, getattr(jnp, dtype))
+    ref = (jnp.swapaxes(jq, 1, 2).astype(jnp.float32) * (scale * jax_flash._LOG2E)).astype(jq.dtype)
+    ref = np.swapaxes(np.asarray(ref.astype(jnp.float32)), 1, 2)
+    got = port_flash.flash_bwd_qt(torch.from_numpy(q).to(getattr(torch, dtype)), scale)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s,d", [(128, 128), (200, 64)])
 def test_flash_attention_function_matches_dense_autograd(s, d, causal):
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(2, s, 4, 2, d, seed=s + d))
@@ -109,6 +140,16 @@ def test_flash_attention_function_matches_dense_autograd(s, d, causal):
     assert torch.allclose(out, ref, atol=TOL, rtol=0)
     for a, r in zip(leaves, ref_leaves):
         assert float((a.grad - r.grad).abs().max()) <= TOL
+
+
+def test_dsum_is_the_f32_rowsum():
+    """:func:`flash_dsum` widens ``out`` inside the product: the same f32
+    value as the two-upcast expression, bit for bit."""
+    _, _, _, do = (torch.from_numpy(x).bfloat16() for x in _inputs(2, 96, 4, 2, 128, seed=11))
+    out = torch.from_numpy(_inputs(2, 96, 4, 2, 128, seed=12)[0]).bfloat16()
+    ref = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = flash_dsum(out, do)
+    assert got.dtype == torch.float32 and got.shape == (2, 4, 96) and torch.equal(got, ref)
 
 
 def test_cpu_wrappers_take_the_plain_parts_and_launch_nothing():

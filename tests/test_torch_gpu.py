@@ -5,7 +5,9 @@ at small shapes that still cover the kernels' cases (GQA, ragged tails,
 D 64 and 128, ragged decode lens/width, q_len > 1; the forward at every
 tiling edge of its 128-row tiles, GQA groups 1-8, bit-identical run to
 run), and the backward
-kernels at the shapes of ``chip_smoke.py``'s train_parity phase; the int8
+kernels at the shapes of ``chip_smoke.py``'s train_parity phase (every
+edge of their 64- and 128-row tiles, GQA groups 1-4, D 64 and 128, causal
+and full, bit-identical run to run); the int8
 and int4 dequant-matmul kernels (f32 1e-4 of the reference's largest
 magnitude, bf16 1e-2 on the worst row) and the decode kernel's int8-KV
 mode, each bit-identical run to run; the grouped-matmul kernels (#7 gmm,
@@ -43,6 +45,8 @@ from tpu_nexus_torch.ops.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_differentiable,
     flash_attention_plain,
+    flash_bwd_qt,
+    flash_dsum,
 )
 from tpu_nexus_torch.ops.grouped_matmul import gmm, gmm_kernel_call, gmm_plain, tgmm_kernel_call, tgmm_plain
 from tpu_nexus_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain, weight_einsum
@@ -210,12 +214,25 @@ def _bwd_case(device, dtype, b, s, hq, hkv, d, causal, seed):
     return q, k, v, out, lse, dout
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,s,hq,hkv,d,causal", [
+#: (B, S, Hq, Hkv, D, causal) of the backward: chip_smoke.py's train_parity
+#: shapes, and S at the edges of the bf16 kernels' 64-row streamed and
+#: 128-row resident tiles at GQA groups 1, 2 and 4 (Hkv 2), D 64 and 128,
+#: causal and full.
+BWD_CASES = [
     (8, 2048, 16, 8, 128, True), (2, 512, 32, 8, 128, True), (2, 200, 16, 8, 128, True),
     (2, 256, 16, 8, 64, True), (2, 384, 16, 8, 128, False),
-])
+] + [
+    (2, s, 2 * group, 2, d, causal)
+    for s in (64, 65, 127, 129, 200)
+    for group in (1, 2, 4)
+    for d in (64, 128)
+    for causal in (True, False)
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal", BWD_CASES)
 def test_backward_kernels_match_plain(cuda_device, dtype, b, s, hq, hkv, d, causal):
     case = _bwd_case(cuda_device, dtype, b, s, hq, hkv, d, causal, seed=s + d + causal)
     before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
@@ -224,6 +241,19 @@ def test_backward_kernels_match_plain(cuda_device, dtype, b, s, hq, hkv, d, caus
     assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
     for a, r in zip(got, flash_attention_bwd_plain(*case, causal=causal)):
         _check_grad(a, r, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_backward_prescale_and_dsum_are_the_f32_expressions_on_the_card(cuda_device, dtype):
+    """The backward's one-pass q̃ and dsum equal their f32 expressions bit
+    for bit on the card, as on the CPU (the plain backward reads them too,
+    so kernel-against-plain parity alone would not show a difference)."""
+    q, _, _, out, _, dout = _bwd_case(cuda_device, dtype, 2, 384, 16, 8, 128, True, seed=41)
+    for scale in (128**-0.5, 0.3):
+        ref = (q.float() * (scale * 1.4426950408889634)).to(dtype)
+        assert torch.equal(flash_bwd_qt(q, scale), ref)
+    assert torch.equal(flash_dsum(out, dout), (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous())
 
 
 @pytest.mark.gpu

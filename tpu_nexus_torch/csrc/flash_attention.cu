@@ -473,6 +473,11 @@ int nexus_flash_fwd(const void* q, const void* k, const void* v, void* out, void
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory a bf16 launch asks for at D 64 or 128 (else -1).
+int nexus_flash_fwd_smem_bytes(int D) {
+  return D == 128 ? SmemLayout<128>::kBytes : D == 64 ? SmemLayout<64>::kBytes : -1;
+}
+
 const char* nexus_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
 }  // extern "C"

@@ -3,357 +3,485 @@
 // tpu_nexus_torch/ops/_build.py).
 //
 // Replaces: tpu_nexus/ops/flash_attention.py::_bwd_dq_kernel and
-// ::_bwd_dkv_kernel (launched by _flash_backward).  Same function: with q
-// pre-scaled by scale*log2(e) and rounded to the input dtype (q~), the
-// forward's natural-log lse and dsum = rowsum(dO*O) (f32, computed by the
-// caller), per (query row i, key row j):
+// ::_bwd_dkv_kernel (launched by _flash_backward).  Same function: with q~
+// = q*scale*log2(e) rounded to the input dtype (computed once by the caller,
+// ops/flash_attention.py::flash_bwd_qt, as _flash_backward computes qt once
+// in XLA for both Pallas kernels), the forward's natural-log lse and dsum =
+// rowsum(dO*O) (f32, also computed by the caller), per (query row i, key
+// row j):
 //     P  = exp2(q~_i.k_j - lse_i*log2(e))       (0 where causally masked)
 //     dS = P * (dO_i.v_j - dsum_i)
 //     dQ = scale * sum_j (dS->dtype) k_j                    (dQ kernel)
 //     dV = sum_i (P->dtype)^T dO_i                         (dK/dV kernel)
 //     dK = (1/log2(e)) * sum_i (dS->dtype)^T q~_i          (dK/dV kernel)
 // dK and dV sum over the G query heads of each KV head inside the kernel
-// (GQA), in f32, and are written once.  Layouts: q/dO/out [B,S,Hq,D],
-// k/v [B,S,Hkv,D], lse/dsum [B,Hq,S] f32; grads in the input's layout and
-// dtype.
+// (GQA), in f32, and are written once.  Layouts: q~/dO/dQ [B,S,Hq,D],
+// k/v/dK/dV [B,S,Hkv,D], lse/dsum [B,Hq,S] f32.
 //
-// What bounds it on this card: at training shapes (S 2048, D 128) the
-// work is 5 matmuls of S*S*D per head (halved by causality) against a few
-// bytes per element of q/k/v/dO/grads -- far above the H100's ~295
-// FLOP/byte ridge, so it is bound by the tensor cores.  Design, as the TPU
-// split has it (no atomics, deterministic run to run):
-//   * dQ: one CTA (4 warps) per (b, q head, 64-row Q tile), looping over the
-//     KV tiles up to the diagonal; each warp owns 16 Q rows and keeps its dQ
-//     accumulator in registers.  S = q~.K^T and dP = dO.V^T run on mma.sync
-//     m16n8k16 (bf16 in, f32 accumulate); dS stays in registers and its
-//     accumulator fragment is reused as the A operand of dS.K, rounded to
-//     bf16 exactly where the TPU kernel rounds it.
-//   * dK/dV: one CTA per (b, kv head, 64-row KV tile), looping over the G
-//     query heads and the Q tiles from the diagonal on; each warp owns 16 KV
-//     rows and computes the transposed tiles S^T = K.q~^T and dP^T = V.dO^T
-//     in 32-column halves, so P^T and dS^T are A operands of P^T.dO and
-//     dS^T.q~ without leaving registers.
-// Tiles are staged through shared memory with 16-byte loads; only the
-// diagonal and the ragged tail tiles pay for masking, so any S works without
-// padding.  A simple first kernel: no cp.async pipelining, no wgmma/TMA.
+// What bounds it on this card: at the training shape (B8 S2048 Hq16 Hkv8
+// D128, causal) the function is 5 products of S*S*D/2 per head, 344 GFLOP,
+// against 337 MB of inputs and grads read or written once: ~1,000 FLOP a
+// byte, far above the H100's ~295 FLOP/byte ridge, so the tensor cores
+// bound it.
 //
-// f32 inputs take CUDA-core FMA kernels in this file with the same grids and
-// tiling (thread pairs own rows, as in the forward's f32 kernel), so the card
-// can hold the kernel path against the plain path at f32 precision.
+// Design (bf16), the TPU's split kept: two kernels, each CTA owning its
+// outputs and writing them once, so no atomics and a run repeated is
+// bit-identical.  The split recomputes S and dP in both kernels (7 products
+// where the bound counts 5: a ceiling of ~71 % of the bound); a fused kernel
+// that sums dQ across CTAs with f32 atomics would not be deterministic.
+// Both kernels follow the forward's pipeline (csrc/flash_attention.cu;
+// building blocks in csrc/hopper.cuh): one CTA of three warpgroups, a
+// producer warpgroup that gives up registers (setmaxnreg) and issues TMA
+// through 4-D tensor maps over the model layout into an mbarrier ring, and
+// two consumer warpgroups of 64 resident rows each that run every product
+// on wgmma.  Tiles wholly above the diagonal are never loaded; only tiles on
+// the diagonal or at a ragged end pay for masking, which compares row
+// positions (the resident and streamed tiles differ in size).
+//  * dQ (#2): a CTA per (q head, batch, 128-row Q tile), heaviest causal
+//    tiles first.  q~ and dO arrive once; 64-row K and V tiles stream
+//    through kStages stages.  Per K/V tile a consumer runs S = q~.K^T and
+//    dP = dO.V^T (wgmma m64n64k16, both operands K-major from shared
+//    memory), forms dS = P*(dP - dsum) in the accumulators, rounds it to
+//    bf16 packed in place as the A operand (the accumulator layout is the
+//    A-register layout), and runs dQ += dS.K with K read MN-major through
+//    the descriptor's transpose bit.  lse and dsum are two rows a thread,
+//    read once.
+//  * dK/dV (#3): a CTA per (kv head, batch, 128-row KV tile), heaviest
+//    (first) tiles first.  K and V arrive once; for each of the G query
+//    heads, 64-row q~ and dO tiles from the first one that reaches the
+//    diagonal on (the TPU's _q_index clamp) stream through the ring, with
+//    their lse*log2(e) and dsum rows, which the producer warp stages with
+//    plain loads (an f32 row of S floats has no 16-byte stride for TMA) and
+//    counts into the same full barrier.  Per tile a consumer runs
+//    S^T = K.q~^T and dP^T = V.dO^T, P^T = exp2(S^T - lse2[col]),
+//    dS^T = P^T*(dP^T - dsum[col]), packs both to bf16 and runs
+//    dV += P^T.dO and dK += dS^T.q~ (dO, q~ MN-major).  dK and dV stay in
+//    registers (128 f32 a thread at D 128) across all G*n tiles.
+//  * epilogues write dQ*scale, dK/log2(e) and dV as bf16 rows straight from
+//    the registers; rows >= S are not written.
+// Left for later: ping-pong scheduling of the two consumers, overlapping a
+// tile's elementwise work with the next tile's products (queueing the next
+// tile's S and dP behind dQ's product made ptxas serialize the wgmma, and
+// dK/dV has no registers left for it), a persistent tile scheduler, a fused
+// kernel with a deterministic dQ reduction, fp8.
+//
+// f32 inputs take CUDA-core FMA kernels in this file (64-row tiles, thread
+// pairs own rows, as in the forward's f32 kernel), so the card can hold the
+// kernel path against the plain path at f32 precision.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 128;
-constexpr int kPad = 8;  // bf16 row padding: keeps 16-byte row alignment, spreads banks
-constexpr int kStride32 = 1;  // f32 row padding (words)
+using namespace nexus_hopper;
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// -- bf16: the Hopper kernels ------------------------------------------------------------------
+
+constexpr int kResident = 128;               // rows a CTA owns: two consumer warpgroups of 64
+constexpr int kStream = 64;                  // rows of a streamed tile
+constexpr int kStages = 3;                   // streamed-tile ring depth
+constexpr int kConsumerThreads = 256;
+constexpr int kHopperThreads = kConsumerThreads + 128;  // + the producer warpgroup
+constexpr int kResidentPanel = kResident * 128;  // bytes of one 64-column box of a resident tile
+constexpr int kStreamPanel = kStream * 128;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 40*128 + 232*256 <= 65536
+
+template <int D>
+struct Tiles {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kResidentBytes = kPanels * kResidentPanel;
+  static constexpr int kStreamBytes = kPanels * kStreamPanel;
+};
+
+template <int D>
+struct DqSmem : Tiles<D> {  // byte offsets from a 1024-byte-aligned base
+  static constexpr int kQ = 0;
+  static constexpr int kDO = Tiles<D>::kResidentBytes;
+  static constexpr int kK = 2 * Tiles<D>::kResidentBytes;
+  static constexpr int kV = kK + kStages * Tiles<D>::kStreamBytes;
+  static constexpr int kBarriers = kV + kStages * Tiles<D>::kStreamBytes;  // qd_full, k_full[], v_full[], empty[]
+  static constexpr int kBytes = kBarriers + (1 + 3 * kStages) * 8 + 1024;  // + alignment slack
+};
+
+template <int D>
+struct DkvSmem : Tiles<D> {
+  static constexpr int kK = 0;
+  static constexpr int kV = Tiles<D>::kResidentBytes;
+  static constexpr int kQ = 2 * Tiles<D>::kResidentBytes;
+  static constexpr int kDO = kQ + kStages * Tiles<D>::kStreamBytes;
+  static constexpr int kRows = kDO + kStages * Tiles<D>::kStreamBytes;  // per stage: lse*log2(e), dsum (f32)
+  static constexpr int kBarriers = kRows + kStages * 2 * kStream * 4;  // kv_full, q_full[], do_full[], empty[]
+  static constexpr int kBytes = kBarriers + (1 + 3 * kStages) * 8 + 1024;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16_raw(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// Copy 64 rows of D bf16 (row r = sequence position s0+r of head h) into
-// shared memory with 16-byte loads; rows past S are zeroed.  With qscale > 0
-// each element is multiplied by it in f32 and rounded back to bf16 (q~).
+// acc[64 x 64] = A . B^T over the head dim: A is 64 rows of a tile (K-major, 64-column panels
+// a_panel bytes apart), B the 64 rows of a streamed or resident tile (K-major, b_panel apart).
 template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, int s0, int S, int heads, int h, int b,
-                                               float qscale) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const int s = s0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (s < S) {
-      val = *reinterpret_cast<const uint4*>(src + ((size_t)(b * S + s) * heads + h) * D + c * 8);
-      if (qscale > 0.f) {
-        bf16* e = reinterpret_cast<bf16*>(&val);
+__device__ __forceinline__ void gemm_abt(float (&acc)[32], uint32_t a_addr, int a_panel, uint32_t b_addr,
+                                         int b_panel) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * qscale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c * 8) = val;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_m64n64k16_ss(acc, sw128_desc(a_addr + (kk / 4) * a_panel + off, 16, 1024),
+                       sw128_desc(b_addr + (kk / 4) * b_panel + off, 16, 1024), kk > 0);
   }
 }
 
-// A fragment (row-major 16x16, k-step kk) of rows [row0, row0+16) of a tile.
+// acc[64 x D] += A . B over 64 rows: A from registers (the packed fragments of a 64 x 64
+// accumulator, four k-steps), B a streamed 64-row tile read MN-major (panels kStreamPanel apart).
 template <int D>
-__device__ __forceinline__ void load_a_frag(uint32_t* a, const bf16* tile, int row0, int kk, int g, int t) {
-  const bf16* base = tile + (row0 + g) * (D + kPad) + kk * 16 + 2 * t;
-  a[0] = ld32(base);
-  a[1] = ld32(base + 8 * (D + kPad));
-  a[2] = ld32(base + 8);
-  a[3] = ld32(base + 8 * (D + kPad) + 8);
+__device__ __forceinline__ void gemm_ab(float (&acc)[D / 2], const uint32_t (&a)[4][4], uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = sw128_desc(b_addr + kk * 16 * 128, kStreamPanel, 1024);
+    if constexpr (D == 128) {
+      wgmma_m64n128k16_rs_mn(acc, a[kk], desc);
+    } else {
+      wgmma_m64n64k16_rs_mn(acc, a[kk], desc);
+    }
+  }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 dQ kernel
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dsum,
-    bf16* __restrict__ dq, int S, int Hq, int Hkv, float qscale, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kBlockQ * (D + kPad);
-  bf16* Ks = dOs + kBlockQ * (D + kPad);
-  bf16* Vs = Ks + kBlockK * (D + kPad);
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (Hq / Hkv);
-  const int q0 = qt * kBlockQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g;  // rows row0 and row0 + 8
-
-  load_tile_bf16<D>(Qs, q, q0, S, Hq, h, b, qscale);
-  load_tile_bf16<D>(dOs, dout, q0, S, Hq, h, b, 0.f);
-  float lse2[2], dsr[2];
+// A fragments of a 64 x 64 accumulator, rounded to bf16: n-blocks (2kk, 2kk+1) are k-step kk.
+__device__ __forceinline__ void pack_fragments(uint32_t (&a)[4][4], const float (&acc)[32]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = row0 + 8 * i;
-    const size_t idx = ((size_t)b * Hq + h) * S + s;
-    lse2[i] = s < S ? lse[idx] * kLog2e : 0.f;
-    dsr[i] = s < S ? dsum[idx] : 0.f;
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1]);
   }
+}
 
-  float dqacc[D / 8][4];
+__device__ __forceinline__ void fence_fragments(uint32_t (&a)[4][4]) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) dqacc[n][0] = dqacc[n][1] = dqacc[n][2] = dqacc[n][3] = 0.f;
+  for (int kk = 0; kk < 4; ++kk) fence_operands(a[kk]);
+}
 
-  const int n_tiles_all = (S + kBlockK - 1) / kBlockK;
-  const int n_tiles = causal ? min(qt + 1, n_tiles_all) : n_tiles_all;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the previous K/V tile (and Q/dO are staged)
-    load_tile_bf16<D>(Ks, k, k0, S, Hkv, kvh, b, 0.f);
-    load_tile_bf16<D>(Vs, v, k0, S, Hkv, kvh, b, 0.f);
-    __syncthreads();
+// One tile at (row0, head h, batch b) into shared memory: D/64 panels of 64 columns, panel_bytes
+// (= the map's box rows x 128) apart.
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, int panel_bytes, const CUtensorMap* map, uint64_t* bar,
+                                         int h, int row0, int b) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p) tma_load_4d(dst + p * panel_bytes, map, bar, p * 64, h, row0, b);
+}
 
-    float sacc[kBlockK / 8][4], dpacc[kBlockK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = dpacc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a_frag<D>(qa, Qs, warp * 16, kk, g, t);
-      load_a_frag<D>(da, dOs, warp * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < kBlockK / 8; ++j) {
-        const bf16* kb = Ks + (j * 8 + g) * (D + kPad) + kk * 16 + 2 * t;
-        mma_bf16_16816(sacc[j], qa, ld32(kb), ld32(kb + 8));
-        const bf16* vb = Vs + (j * 8 + g) * (D + kPad) + kk * 16 + 2 * t;
-        mma_bf16_16816(dpacc[j], da, ld32(vb), ld32(vb + 8));
+// dQ of one (q head, batch, 128-row Q tile).  Accumulator rows of a consumer thread: row0 and
+// row0 + 8; columns j*8 + 2t + {0, 1} of n-block j.
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1) flash_bwd_dq_bf16_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ dsum, bf16* __restrict__ dq, int S, int Hq, int Hkv,
+    float scale, int causal) {
+  using L = DqSmem<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // (the f32 kernels' declaration)
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(smem + L::kBarriers);
+  uint64_t* k_full = qd_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kResident;  // heaviest causal Q tiles first
+  const int kv_end = causal ? min(q0 + kResident, S) : S;  // keys past the tile's last row: never loaded
+  const int n_kt = (kv_end + kStream - 1) / kStream;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&k_full[st], 1);
+      mbar_init(&v_full[st], 1);
+      mbar_init(&empty[st], kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {
+    // producer warpgroup: one thread issues every load
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads) {
+      const int kvh = h / (Hq / Hkv);
+      prefetch_tensor_map(&tm_q);
+      prefetch_tensor_map(&tm_k);
+      prefetch_tensor_map(&tm_v);
+      prefetch_tensor_map(&tm_do);
+      mbar_arrive_expect_tx(qd_full, 2 * L::kResidentBytes);
+      tma_tile<D>(smem + L::kQ, kResidentPanel, &tm_q, qd_full, h, q0, b);
+      tma_tile<D>(smem + L::kDO, kResidentPanel, &tm_do, qd_full, h, q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % kStages;
+        mbar_wait(&empty[st], ((kt / kStages) & 1) ^ 1);  // the first round passes at once
+        mbar_arrive_expect_tx(&k_full[st], L::kStreamBytes);
+        tma_tile<D>(smem + L::kK + st * L::kStreamBytes, kStreamPanel, &tm_k, &k_full[st], kvh, kt * kStream, b);
+        mbar_arrive_expect_tx(&v_full[st], L::kStreamBytes);
+        tma_tile<D>(smem + L::kV + st * L::kStreamBytes, kStreamPanel, &tm_v, &v_full[st], kvh, kt * kStream, b);
       }
     }
-    const bool masked = (causal && kt == qt) || (k0 + kBlockK > S);
+  } else {
+    // consumer warpgroups: 64 Q rows each
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + wg * 64;  // this warpgroup's first row
+    const int row0 = r0 + warp * 16 + g;
+    const uint32_t q_addr = smem_u32(smem + L::kQ) + wg * 64 * 128;
+    const uint32_t do_addr = smem_u32(smem + L::kDO) + wg * 64 * 128;
+    float lse2[2], dsr[2];
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
+    for (int i = 0; i < 2; ++i) {
+      const int s = row0 + 8 * i;
+      const size_t idx = ((size_t)b * Hq + h) * S + s;
+      lse2[i] = s < S ? lse[idx] * kLog2e : 0.f;
+      dsr[i] = s < S ? dsum[idx] : 0.f;
+    }
+    float acc[D / 2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float p = exp2f(sacc[j][e] - lse2[i]);
-        if (masked) {
-          const int row = row0 + 8 * i;
-          const int col = k0 + j * 8 + 2 * t + (e & 1);
-          if (col >= S || (causal && col > row)) p = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(qd_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % kStages;
+      const uint32_t parity = (kt / kStages) & 1;
+      const int k0 = kt * kStream;
+      const uint32_t k_addr = smem_u32(smem + L::kK + st * L::kStreamBytes);
+      const uint32_t v_addr = smem_u32(smem + L::kV + st * L::kStreamBytes);
+      mbar_wait(&k_full[st], parity);
+      mbar_wait(&v_full[st], parity);
+      if (causal && k0 > r0 + 63) {  // every key of the tile lies above this warpgroup's rows
+        mbar_arrive(&empty[st]);
+        continue;
+      }
+      __syncwarp();
+      float s[32], dp[32];
+      wgmma_fence();
+      gemm_abt<D>(s, q_addr, kResidentPanel, k_addr, kStreamPanel);
+      gemm_abt<D>(dp, do_addr, kResidentPanel, v_addr, kStreamPanel);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(s);
+      fence_operands(dp);
+
+      const bool masked = (causal && k0 + kStream - 1 > r0) || k0 + kStream > S;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = exp2f(s[4 * j + e] - lse2[i]);
+          if (masked) {
+            const int row = row0 + 8 * i;
+            const int col = k0 + j * 8 + 2 * t + (e & 1);
+            if (col >= S || (causal && col > row)) p = 0.f;
+          }
+          s[4 * j + e] = p * (dp[4 * j + e] - dsr[i]);  // dS
         }
-        sacc[j][e] = p * (dpacc[j][e] - dsr[i]);  // dS
       }
+      // dQ += (dS->bf16) . K, rounded where the TPU kernel rounds dS
+      uint32_t ds[4][4];
+      pack_fragments(ds, s);
+      wgmma_fence();
+      gemm_ab<D>(acc, ds, k_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_fragments(ds);
+      mbar_arrive(&empty[st]);  // this thread is done with the stage's K and V
     }
-    // dQ += (dS->bf16) . K: the accumulator fragment of n-tiles (2kk, 2kk+1)
-    // is the A operand of k-step kk; K^T's B operand is K read row-wise.
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]);
-      a[1] = pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]);
-      a[2] = pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]);
-      a[3] = pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]);
-      const bf16* kb = Ks + (kk * 16 + 2 * t) * (D + kPad) + g;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const bf16* kc = kb + n * 8;
-        const uint32_t b0 = pack_bf16_raw(kc[0], kc[D + kPad]);
-        const uint32_t b1 = pack_bf16_raw(kc[8 * (D + kPad)], kc[9 * (D + kPad)]);
-        mma_bf16_16816(dqacc[n], a, b0, b1);
-      }
-    }
-  }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = row0 + 8 * i;
-    if (s < S) {
-      bf16* orow = dq + ((size_t)(b * S + s) * Hq + h) * D;
+    for (int i = 0; i < 2; ++i) {
+      const int s_row = row0 + 8 * i;
+      if (s_row < S) {
+        bf16* orow = dq + (((size_t)b * S + s_row) * Hq + h) * D;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        __nv_bfloat162 val = __floats2bfloat162_rn(dqacc[n][2 * i] * scale, dqacc[n][2 * i + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) = val;
+        for (int n = 0; n < D / 8; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * i] * scale, acc[4 * n + 2 * i + 1] * scale);
+        }
       }
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 dK/dV kernel
-// ---------------------------------------------------------------------------
-
+// dK and dV of one (kv head, batch, 128-row KV tile), summed over the G query heads.
+// Accumulator rows of a consumer thread are KV rows krow0 and krow0 + 8; the columns of S^T and
+// dP^T are query rows.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dsum,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Hq, int Hkv, float qscale, int causal) {
+__global__ void __launch_bounds__(kHopperThreads, 1) flash_bwd_dkv_bf16_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ dsum, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int S, int Hq, int Hkv, int causal) {
+  using L = DkvSmem<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kBlockK * (D + kPad);
-  bf16* Qs = Vs + kBlockK * (D + kPad);
-  bf16* dOs = Qs + kBlockQ * (D + kPad);
-  float* lse2s = reinterpret_cast<float*>(dOs + kBlockQ * (D + kPad));
-  float* dsums = lse2s + kBlockQ;
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* rows = reinterpret_cast<float*>(smem + L::kRows);  // stage st: lse2 [64] then dsum [64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBarriers);
+  uint64_t* q_full = kv_full + 1;  // q~ (TMA) and the lse/dsum rows (32 producer lanes)
+  uint64_t* do_full = q_full + kStages;
+  uint64_t* empty = do_full + kStages;
 
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kResident;  // heaviest causal KV tiles (the first) first
   const int group = Hq / Hkv;
-  const int k0 = kt * kBlockK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int krow0 = k0 + warp * 16 + g;  // KV rows krow0 and krow0 + 8
+  const int qt_first = causal ? k0 / kStream : 0;  // query rows before k0 see none of these keys
+  const int n_qt = (S + kStream - 1) / kStream - qt_first;  // Q tiles a query head streams
+  const int n_items = group * n_qt;
 
-  load_tile_bf16<D>(Ks, k, k0, S, Hkv, kvh, b, 0.f);
-  load_tile_bf16<D>(Vs, v, k0, S, Hkv, kvh, b, 0.f);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&q_full[st], 1 + 32);
+      mbar_init(&do_full[st], 1);
+      mbar_init(&empty[st], kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  float dkacc[D / 8][4], dvacc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkacc[n][e] = dvacc[n][e] = 0.f;
-
-  const int n_q_tiles = (S + kBlockQ - 1) / kBlockQ;
-  const int qt_first = causal ? kt : 0;  // Q tiles wholly above the diagonal see none of these keys
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
-    for (int qt = qt_first; qt < n_q_tiles; ++qt) {
-      const int q0 = qt * kBlockQ;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile_bf16<D>(Qs, q, q0, S, Hq, h, b, qscale);
-      load_tile_bf16<D>(dOs, dout, q0, S, Hq, h, b, 0.f);
-      if (threadIdx.x < kBlockQ) {
-        const int s = q0 + threadIdx.x;
-        const size_t idx = ((size_t)b * Hq + h) * S + s;
-        lse2s[threadIdx.x] = s < S ? lse[idx] * kLog2e : 0.f;
-        dsums[threadIdx.x] = s < S ? dsum[idx] : 0.f;
+  if (threadIdx.x >= kConsumerThreads) {
+    // producer warpgroup: its first warp loads; lane 0 issues the TMA
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (threadIdx.x < kConsumerThreads + 32) {
+      const int lane = threadIdx.x - kConsumerThreads;
+      if (lane == 0) {
+        prefetch_tensor_map(&tm_q);
+        prefetch_tensor_map(&tm_k);
+        prefetch_tensor_map(&tm_v);
+        prefetch_tensor_map(&tm_do);
+        mbar_arrive_expect_tx(kv_full, 2 * L::kResidentBytes);
+        tma_tile<D>(smem + L::kK, kResidentPanel, &tm_k, kv_full, kvh, k0, b);
+        tma_tile<D>(smem + L::kV, kResidentPanel, &tm_v, kv_full, kvh, k0, b);
       }
-      __syncthreads();
-      const bool masked = (causal && qt == kt) || (q0 + kBlockQ > S);
-
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {  // 32 query columns at a time
-        const int c0 = half * 32;
-        float st[4][4], dpt[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t ka[4], va[4];
-          load_a_frag<D>(ka, Ks, warp * 16, kk, g, t);
-          load_a_frag<D>(va, Vs, warp * 16, kk, g, t);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const bf16* qb = Qs + (c0 + j * 8 + g) * (D + kPad) + kk * 16 + 2 * t;
-            mma_bf16_16816(st[j], ka, ld32(qb), ld32(qb + 8));
-            const bf16* db = dOs + (c0 + j * 8 + g) * (D + kPad) + kk * 16 + 2 * t;
-            mma_bf16_16816(dpt[j], va, ld32(db), ld32(db + 8));
-          }
+      for (int it = 0; it < n_items; ++it) {
+        const int st = it % kStages;
+        const int h = kvh * group + it / n_qt;
+        const int q0 = (qt_first + it % n_qt) * kStream;
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&q_full[st], L::kStreamBytes);
+          tma_tile<D>(smem + L::kQ + st * L::kStreamBytes, kStreamPanel, &tm_q, &q_full[st], h, q0, b);
+          mbar_arrive_expect_tx(&do_full[st], L::kStreamBytes);
+          tma_tile<D>(smem + L::kDO + st * L::kStreamBytes, kStreamPanel, &tm_do, &do_full[st], h, q0, b);
         }
-        // P^T and dS^T: rows are KV rows, columns are query rows
+        float* r = rows + st * 2 * kStream;
+        const size_t base = ((size_t)b * Hq + h) * S;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = c0 + j * 8 + 2 * t + (e & 1);
-            float p = exp2f(st[j][e] - lse2s[c]);
-            if (masked) {
-              const int krow = krow0 + (e >= 2 ? 8 : 0);
-              const int qrow = q0 + c;
-              if (qrow >= S || (causal && krow > qrow)) p = 0.f;
-            }
-            st[j][e] = p;
-            dpt[j][e] = p * (dpt[j][e] - dsums[c]);
-          }
+        for (int j = 0; j < kStream / 32; ++j) {
+          const int c = lane + 32 * j, s = q0 + c;
+          r[c] = s < S ? lse[base + s] * kLog2e : 0.f;
+          r[kStream + c] = s < S ? dsum[base + s] : 0.f;
         }
-        // dV += (P^T->bf16) . dO and dK += (dS^T->bf16) . q~ over these 32
-        // query rows (two k-steps of 16)
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          uint32_t pa[4], sa[4];
-          pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-          pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-          pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-          pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-          sa[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-          sa[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-          sa[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-          sa[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-          const int r = c0 + kk * 16 + 2 * t;
-          const bf16* db = dOs + r * (D + kPad) + g;
-          const bf16* qb = Qs + r * (D + kPad) + g;
-#pragma unroll
-          for (int n = 0; n < D / 8; ++n) {
-            const bf16* dc = db + n * 8;
-            mma_bf16_16816(dvacc[n], pa, pack_bf16_raw(dc[0], dc[D + kPad]),
-                           pack_bf16_raw(dc[8 * (D + kPad)], dc[9 * (D + kPad)]));
-            const bf16* qc = qb + n * 8;
-            mma_bf16_16816(dkacc[n], sa, pack_bf16_raw(qc[0], qc[D + kPad]),
-                           pack_bf16_raw(qc[8 * (D + kPad)], qc[9 * (D + kPad)]));
-          }
-        }
+        mbar_arrive(&q_full[st]);  // releases this lane's row writes to the consumers
       }
     }
-  }
+  } else {
+    // consumer warpgroups: 64 KV rows each
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int kr0 = k0 + wg * 64;  // this warpgroup's first KV row
+    const int krow0 = kr0 + warp * 16 + g;
+    const uint32_t k_addr = smem_u32(smem + L::kK) + wg * 64 * 128;
+    const uint32_t v_addr = smem_u32(smem + L::kV) + wg * 64 * 128;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_items; ++it) {
+      const int st = it % kStages;
+      const uint32_t parity = (it / kStages) & 1;
+      const int q0 = (qt_first + it % n_qt) * kStream;
+      const uint32_t q_addr = smem_u32(smem + L::kQ + st * L::kStreamBytes);
+      const uint32_t do_addr = smem_u32(smem + L::kDO + st * L::kStreamBytes);
+      const float* r = rows + st * 2 * kStream;
+      mbar_wait(&q_full[st], parity);
+      mbar_wait(&do_full[st], parity);
+      if (causal && kr0 > q0 + kStream - 1) {  // every query row of the tile lies before this warpgroup's keys
+        mbar_arrive(&empty[st]);
+        continue;
+      }
+      __syncwarp();
+      float s[32], dp[32];
+      wgmma_fence();
+      gemm_abt<D>(s, k_addr, kResidentPanel, q_addr, kStreamPanel);
+      wgmma_commit();
+      gemm_abt<D>(dp, v_addr, kResidentPanel, do_addr, kStreamPanel);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T has landed; dP^T may still be running
+      fence_operands(s);
+
+      const bool masked = (causal && kr0 + 63 > q0) || q0 + kStream > S;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t + (e & 1);
+          float p = exp2f(s[4 * j + e] - r[c]);
+          if (masked) {
+            const int krow = krow0 + 8 * (e >> 1);
+            const int qrow = q0 + c;
+            if (qrow >= S || (causal && krow > qrow)) p = 0.f;
+          }
+          s[4 * j + e] = p;  // P^T
+        }
+      }
+      wgmma_wait<0>();
+      fence_operands(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t + (e & 1);
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - r[kStream + c]);  // dS^T
+        }
+      }
+      // dV += (P^T->bf16) . dO and dK += (dS^T->bf16) . q~ over the tile's 64 query rows
+      uint32_t pa[4][4], sa[4][4];
+      pack_fragments(pa, s);
+      pack_fragments(sa, dp);
+      wgmma_fence();
+      gemm_ab<D>(dv_acc, pa, do_addr);
+      gemm_ab<D>(dk_acc, sa, q_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dv_acc);
+      fence_operands(dk_acc);
+      fence_fragments(pa);
+      fence_fragments(sa);
+      mbar_arrive(&empty[st]);  // this thread is done with the stage
+    }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = krow0 + 8 * i;
-    if (s < S) {
-      const size_t off = ((size_t)(b * S + s) * Hkv + kvh) * D;
+    for (int i = 0; i < 2; ++i) {
+      const int s_row = krow0 + 8 * i;
+      if (s_row < S) {
+        const size_t off = (((size_t)b * S + s_row) * Hkv + kvh) * D;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + 2 * t) =
-            __floats2bfloat162_rn(dkacc[n][2 * i] * (1.f / kLog2e), dkacc[n][2 * i + 1] * (1.f / kLog2e));
-        *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8 + 2 * t) =
-            __floats2bfloat162_rn(dvacc[n][2 * i], dvacc[n][2 * i + 1]);
+        for (int n = 0; n < D / 8; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + 2 * t) = __floats2bfloat162_rn(
+              dk_acc[4 * n + 2 * i] * (1.f / kLog2e), dk_acc[4 * n + 2 * i + 1] * (1.f / kLog2e));
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8 + 2 * t) =
+              __floats2bfloat162_rn(dv_acc[4 * n + 2 * i], dv_acc[4 * n + 2 * i + 1]);
+        }
       }
     }
   }
@@ -363,6 +491,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(
 // f32 kernels (CUDA-core FMA): thread pair (2r, 2r+1) owns tile row r; each
 // computes half of the row's 64 scores and accumulates half of its D outputs.
 // ---------------------------------------------------------------------------
+
+constexpr int kBlockQ = 64;
+constexpr int kBlockK = 64;
+constexpr int kThreads = 128;
+constexpr int kStride32 = 1;  // f32 row padding (words)
 
 // Copy 64 rows of D f32 into shared memory (row stride D+1), scaled by
 // `mul`; rows past S are zeroed.
@@ -542,59 +675,70 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
 }
 
 bool bad_args(int B, int S, int Hq, int Hkv, int D, int dtype) {
-  return B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128) || (dtype != 0 && dtype != 1);
+  return B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128) || (dtype != 0 && dtype != 1) ||
+         B > 65535 || (S + kBlockQ - 1) / kBlockQ > 65535;
+}
+
+// The tensor maps of a bf16 launch: q~ and dO with boxes of q_rows rows, K and V of kv_rows.
+cudaError_t make_maps(CUtensorMap (&m)[4], const void* qt, const void* k, const void* v, const void* dout, int B,
+                      int S, int Hq, int Hkv, int D, int q_rows, int kv_rows) {
+  cudaError_t err;
+  if ((err = make_bshd_map(&m[0], qt, B, S, Hq, D, q_rows)) != cudaSuccess) return err;
+  if ((err = make_bshd_map(&m[1], k, B, S, Hkv, D, kv_rows)) != cudaSuccess) return err;
+  if ((err = make_bshd_map(&m[2], v, B, S, Hkv, D, kv_rows)) != cudaSuccess) return err;
+  return make_bshd_map(&m[3], dout, B, S, Hq, D, q_rows);
 }
 
 template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                      const float* dsum, void* dq, int B, int S, int Hq, int Hkv, int dtype, float qscale,
-                      float scale, int causal, cudaStream_t st) {
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, Hq, B);
+cudaError_t launch_dq(const void* qt, const void* k, const void* v, const void* dout, const float* lse,
+                      const float* dsum, void* dq, int B, int S, int Hq, int Hkv, int dtype, float scale, int causal,
+                      cudaStream_t st) {
   cudaError_t err;
   if (dtype == 1) {
-    const size_t smem = (size_t)(2 * kBlockQ + 2 * kBlockK) * (D + kPad) * sizeof(bf16);
-    err = set_smem(flash_bwd_dq_bf16_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, dsum, static_cast<bf16*>(dq), S, Hq, Hkv, qscale, scale, causal);
+    CUtensorMap m[4];
+    if ((err = make_maps(m, qt, k, v, dout, B, S, Hq, Hkv, D, kResident, kStream)) != cudaSuccess) return err;
+    const int smem = DqSmem<D>::kBytes;
+    if ((err = set_smem(flash_bwd_dq_bf16_kernel<D>, smem)) != cudaSuccess) return err;
+    const dim3 grid(Hq, B, (S + kResident - 1) / kResident);
+    flash_bwd_dq_bf16_kernel<D><<<grid, kHopperThreads, smem, st>>>(m[0], m[1], m[2], m[3], lse, dsum,
+                                                                    static_cast<bf16*>(dq), S, Hq, Hkv, scale,
+                                                                    causal);
   } else {
+    const dim3 grid((S + kBlockQ - 1) / kBlockQ, Hq, B);
     const size_t smem = ((size_t)(2 * kBlockQ + 2 * kBlockK) * (D + kStride32) + kBlockQ * (kBlockK + 1)) *
                         sizeof(float);
-    err = set_smem(flash_bwd_dq_f32_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
+    if ((err = set_smem(flash_bwd_dq_f32_kernel<D>, smem)) != cudaSuccess) return err;
+    // q arrives as q~, the product the kernel's qscale would form in f32: the kernel scales by 1
     flash_bwd_dq_f32_kernel<D><<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), lse, dsum, static_cast<float*>(dq), S, Hq, Hkv, qscale, scale, causal);
+        static_cast<const float*>(qt), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), lse, dsum, static_cast<float*>(dq), S, Hq, Hkv, 1.f, scale, causal);
   }
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                       const float* dsum, void* dk, void* dv, int B, int S, int Hq, int Hkv, int dtype,
-                       float qscale, int causal, cudaStream_t st) {
-  const dim3 grid((S + kBlockK - 1) / kBlockK, Hkv, B);
+cudaError_t launch_dkv(const void* qt, const void* k, const void* v, const void* dout, const float* lse,
+                       const float* dsum, void* dk, void* dv, int B, int S, int Hq, int Hkv, int dtype, int causal,
+                       cudaStream_t st) {
   cudaError_t err;
   if (dtype == 1) {
-    const size_t smem = (size_t)(2 * kBlockQ + 2 * kBlockK) * (D + kPad) * sizeof(bf16) +
-                        2 * kBlockQ * sizeof(float);
-    err = set_smem(flash_bwd_dkv_bf16_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hq, Hkv,
-        qscale, causal);
+    CUtensorMap m[4];
+    if ((err = make_maps(m, qt, k, v, dout, B, S, Hq, Hkv, D, kStream, kResident)) != cudaSuccess) return err;
+    const int smem = DkvSmem<D>::kBytes;
+    if ((err = set_smem(flash_bwd_dkv_bf16_kernel<D>, smem)) != cudaSuccess) return err;
+    const dim3 grid(Hkv, B, (S + kResident - 1) / kResident);
+    flash_bwd_dkv_bf16_kernel<D><<<grid, kHopperThreads, smem, st>>>(
+        m[0], m[1], m[2], m[3], lse, dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hq, Hkv, causal);
   } else {
+    const dim3 grid((S + kBlockK - 1) / kBlockK, Hkv, B);
     const size_t smem = ((size_t)(2 * kBlockQ + 2 * kBlockK) * (D + kStride32) +
                          2 * kBlockK * (kBlockQ + 1) + 2 * kBlockQ) *
                         sizeof(float);
-    err = set_smem(flash_bwd_dkv_f32_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
+    if ((err = set_smem(flash_bwd_dkv_f32_kernel<D>, smem)) != cudaSuccess) return err;
     flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(qt), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), lse, dsum, static_cast<float*>(dk), static_cast<float*>(dv), S, Hq, Hkv,
-        qscale, causal);
+        1.f, causal);
   }
   return cudaGetLastError();
 }
@@ -603,31 +747,40 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  q/k/v/dout/dq contiguous in [B,S,H,D];
-// lse and dsum [B,Hq,S] f32.  qscale = softmax scale * log2(e) and scale,
-// both computed by the caller in double precision.  Returns the launch's
-// cudaGetLastError().
-int nexus_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                       const void* dsum, void* dq, int B, int S, int Hq, int Hkv, int D, int dtype, float qscale,
-                       float scale, int causal, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16.  qt is q~ = q*scale*log2(e) rounded to
+// the dtype (ops/flash_attention.py::flash_bwd_qt); qt/k/v/dout/dq
+// contiguous in [B,S,H,D]; lse and dsum [B,Hq,S] f32; scale computed by the
+// caller in double precision.  Returns the launch's cudaGetLastError(), or
+// cudaErrorInvalidValue for inputs the kernels do not take (bf16: tensors
+// not 16-byte aligned, as TMA needs).
+int nexus_flash_bwd_dq(const void* qt, const void* k, const void* v, const void* dout, const void* lse,
+                       const void* dsum, void* dq, int B, int S, int Hq, int Hkv, int D, int dtype, float scale,
+                       int causal, void* stream) {
   if (bad_args(B, S, Hq, Hkv, D, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* ds = static_cast<const float*>(dsum);
-  if (D == 128) return (int)launch_dq<128>(q, k, v, dout, l, ds, dq, B, S, Hq, Hkv, dtype, qscale, scale, causal, st);
-  return (int)launch_dq<64>(q, k, v, dout, l, ds, dq, B, S, Hq, Hkv, dtype, qscale, scale, causal, st);
+  if (D == 128) return (int)launch_dq<128>(qt, k, v, dout, l, ds, dq, B, S, Hq, Hkv, dtype, scale, causal, st);
+  return (int)launch_dq<64>(qt, k, v, dout, l, ds, dq, B, S, Hq, Hkv, dtype, scale, causal, st);
 }
 
 // Same conventions; dk/dv contiguous in [B,S,Hkv,D].
-int nexus_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+int nexus_flash_bwd_dkv(const void* qt, const void* k, const void* v, const void* dout, const void* lse,
                         const void* dsum, void* dk, void* dv, int B, int S, int Hq, int Hkv, int D, int dtype,
-                        float qscale, int causal, void* stream) {
+                        int causal, void* stream) {
   if (bad_args(B, S, Hq, Hkv, D, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* ds = static_cast<const float*>(dsum);
-  if (D == 128) return (int)launch_dkv<128>(q, k, v, dout, l, ds, dk, dv, B, S, Hq, Hkv, dtype, qscale, causal, st);
-  return (int)launch_dkv<64>(q, k, v, dout, l, ds, dk, dv, B, S, Hq, Hkv, dtype, qscale, causal, st);
+  if (D == 128) return (int)launch_dkv<128>(qt, k, v, dout, l, ds, dk, dv, B, S, Hq, Hkv, dtype, causal, st);
+  return (int)launch_dkv<64>(qt, k, v, dout, l, ds, dk, dv, B, S, Hq, Hkv, dtype, causal, st);
+}
+
+// Dynamic shared memory a bf16 launch asks for: kernel 0 = dQ, 1 = dK/dV; D 64 or 128 (else -1).
+int nexus_flash_bwd_smem_bytes(int kernel, int D) {
+  if (D == 128) return kernel == 0 ? DqSmem<128>::kBytes : DkvSmem<128>::kBytes;
+  if (D == 64) return kernel == 0 ? DqSmem<64>::kBytes : DkvSmem<64>::kBytes;
+  return -1;
 }
 
 }  // extern "C"

@@ -36,11 +36,14 @@ LINK_FLAGS = ("-shared",)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-#: C signatures of the library's entry points (all return an int status)
+#: C signatures of the library's entry points (all return an int: a status,
+#: or for ``*_smem_bytes`` a size)
 SIGNATURES = {
     "nexus_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "nexus_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
-    "nexus_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "nexus_flash_fwd_smem_bytes": [_I],
+    "nexus_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "nexus_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "nexus_flash_bwd_smem_bytes": [_I, _I],
     "nexus_decode_attention": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,

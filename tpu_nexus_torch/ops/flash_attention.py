@@ -20,8 +20,9 @@ says what bounds its kernel on the H100 and how the design answers that.
   the other.
 * :class:`FlashAttention` differentiates through them: the forward as
   the dispatcher op ``nexus::flash_fwd`` (so selective checkpointing can
-  keep its outputs), the backward as ``rowsum(dO∘O)`` in plain torch then
-  the dQ and dK/dV kernels.
+  keep its outputs), the backward as ``rowsum(dO∘O)`` and the q prescale
+  (:func:`flash_bwd_qt`, once for both kernels) in plain torch, then the
+  dQ and dK/dV kernels.
 
 Shapes: q ``[B, S, Hq, D]``, k/v ``[B, S, Hkv, D]`` (self-attention, any
 S, ``Hq % Hkv == 0``); the kernels take D 64 or 128 in bf16 or f32.  The
@@ -153,7 +154,7 @@ def _bwd_plain_parts(q, k, v, dout, lse, dsum, causal, scale):
         scale = d**-0.5
     g = hq // hkv
     dt = q.dtype
-    qg = (q.float() * (scale * _LOG2E)).to(dt).reshape(b, s, hkv, g, d).float()
+    qg = flash_bwd_qt(q, scale).reshape(b, s, hkv, g, d).float()
     dog = dout.reshape(b, s, hkv, g, d).float()
     s2 = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
     lse2 = (lse.float() * _LOG2E).reshape(b, hkv, g, s)[..., None]
@@ -170,18 +171,30 @@ def _bwd_plain_parts(q, k, v, dout, lse, dsum, causal, scale):
     return dq.reshape(b, s, hq, d).to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_qt(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """``q̃ = q·scale·log2(e)`` in f32, rounded to q's dtype: the backward's
+    one q prescale, which both kernels read (``_flash_backward`` computes
+    ``qt`` once in XLA for both Pallas kernels).  One pass: PyTorch
+    multiplies a bf16 tensor by a Python scalar in f32 and rounds once, so
+    this is ``(q.float() * c).to(q.dtype)`` bit for bit (held so by the
+    tests, on the CPU and on the card) without its f32 temporaries."""
+    return q * (scale * _LOG2E)
+
+
 def flash_dsum(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """``rowsum(dO∘O)`` in f32, ``[B, Hq, S]`` (outside the kernels, as in
-    the TPU design)."""
-    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    the TPU design); ``out`` is widened to f32 inside the product."""
+    return (dout.float() * out).sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_checked(q, k, v, dout, lse, dsum):
-    """Raise unless the backward kernels take these inputs."""
+def _bwd_checked(q, k, v, dout, lse, dsum, qt, scale):
+    """``(q̃, k, v, dout, lse, dsum)`` contiguous, with q̃ :func:`flash_bwd_qt`
+    of q where ``qt`` is None; raise unless the backward kernels take them."""
     b, s, hq, d = q.shape if q.dim() == 4 else (0, 0, 0, 0)
     ok = (
         flash_supported(q, k, v)
-        and dout.shape == q.shape and dout.dtype == q.dtype and dout.device == q.device
+        and all(t.shape == q.shape and t.dtype == q.dtype and t.device == q.device
+                for t in (dout, q if qt is None else qt))
         and all(
             t.shape == (b, hq, s) and t.dtype == torch.float32 and t.device == q.device
             for t in (lse, dsum)
@@ -193,31 +206,36 @@ def _bwd_checked(q, k, v, dout, lse, dsum):
             f"{tuple(q.shape)} {q.dtype} on {q.device}, k {tuple(k.shape)} {k.dtype}, dout "
             f"{tuple(dout.shape)} {dout.dtype}, lse {tuple(lse.shape)} {lse.dtype}, dsum "
             f"{tuple(dsum.shape)} {dsum.dtype} (needs CUDA tensors, head_dim 64|128, "
-            "bf16|f32, self-attention, Hq % Hkv == 0, lse and dsum [B, Hq, S] f32)"
+            "bf16|f32, self-attention, Hq % Hkv == 0, dout and q̃ like q, lse and dsum "
+            "[B, Hq, S] f32)"
         )
-    return tuple(t.contiguous() for t in (q, k, v, dout, lse, dsum))
+    if qt is None:
+        qt = flash_bwd_qt(q, scale)
+    return tuple(t.contiguous() for t in (qt, k, v, dout, lse, dsum))
 
 
 def flash_attention_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
     dsum: torch.Tensor, *, causal: bool = True, scale: Optional[float] = None,
+    qt: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The dQ kernel's wrapper: CPU tensors take the plain version's dQ;
     CUDA tensors launch the kernel (counted in
     ``flash_attention_bwd_dq.launches``) or raise.  ``dsum`` is
-    :func:`flash_dsum`."""
+    :func:`flash_dsum`; ``qt`` is :func:`flash_bwd_qt` of q, computed here
+    when not given."""
     if q.device.type == "cpu":
         return _bwd_plain_parts(q, k, v, dout, lse, dsum, causal, scale)[0]
-    q, k, v, dout, lse, dsum = _bwd_checked(q, k, v, dout, lse, dsum)
-    b, s, hq, d = q.shape
     if scale is None:
-        scale = d**-0.5
-    dq = torch.empty_like(q)
+        scale = q.shape[-1] ** -0.5
+    qt, k, v, dout, lse, dsum = _bwd_checked(q, k, v, dout, lse, dsum, qt, scale)
+    b, s, hq, d = qt.shape
+    dq = torch.empty_like(qt)
     with torch.cuda.device(q.device):
         status = _build.library().nexus_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            qt.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             dsum.data_ptr(), dq.data_ptr(), b, s, hq, k.shape[2], d, _DTYPES[q.dtype],
-            float(scale * _LOG2E), float(scale), int(bool(causal)), _build.stream_ptr(q.device),
+            float(scale), int(bool(causal)), _build.stream_ptr(q.device),
         )
     _build.check(status, "nexus_flash_bwd_dq")
     flash_attention_bwd_dq.launches += 1
@@ -227,22 +245,24 @@ def flash_attention_bwd_dq(
 def flash_attention_bwd_dkv(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
     dsum: torch.Tensor, *, causal: bool = True, scale: Optional[float] = None,
+    qt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel's wrapper: CPU tensors take the plain version's
     dK/dV; CUDA tensors launch the kernel (counted in
-    ``flash_attention_bwd_dkv.launches``) or raise."""
+    ``flash_attention_bwd_dkv.launches``) or raise.  ``qt`` as for
+    :func:`flash_attention_bwd_dq`."""
     if q.device.type == "cpu":
         return _bwd_plain_parts(q, k, v, dout, lse, dsum, causal, scale)[1:]
-    q, k, v, dout, lse, dsum = _bwd_checked(q, k, v, dout, lse, dsum)
-    b, s, hq, d = q.shape
     if scale is None:
-        scale = d**-0.5
+        scale = q.shape[-1] ** -0.5
+    qt, k, v, dout, lse, dsum = _bwd_checked(q, k, v, dout, lse, dsum, qt, scale)
+    b, s, hq, d = qt.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         status = _build.library().nexus_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            qt.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, hq, k.shape[2], d,
-            _DTYPES[q.dtype], float(scale * _LOG2E), int(bool(causal)), _build.stream_ptr(q.device),
+            _DTYPES[q.dtype], int(bool(causal)), _build.stream_ptr(q.device),
         )
     _build.check(status, "nexus_flash_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
@@ -258,15 +278,18 @@ def flash_attention_bwd(
     dout: torch.Tensor, *, causal: bool = True, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash attention backward, ``(dq, dk, dv)``.  CPU tensors take
-    :func:`flash_attention_bwd_plain`; CUDA tensors compute ``dsum`` and
-    launch the dQ and dK/dV kernels, or raise."""
+    :func:`flash_attention_bwd_plain`; CUDA tensors compute ``dsum`` and q̃
+    once, then launch the dQ and dK/dV kernels, or raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal, scale=scale)
     if out.shape != dout.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} differ")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     dsum = flash_dsum(out, dout)
-    dq = flash_attention_bwd_dq(q, k, v, dout, lse, dsum, causal=causal, scale=scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, dsum, causal=causal, scale=scale)
+    qt = flash_bwd_qt(q, scale)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, dsum, causal=causal, scale=scale, qt=qt)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, dsum, causal=causal, scale=scale, qt=qt)
     return dq, dk, dv
 
 
