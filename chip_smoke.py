@@ -13,11 +13,14 @@ raises and exits non-zero:
    off for matmuls and cuDNN so f32 comparisons mean f32.
 2. build        — compile the CUDA kernels from ``tpu_nexus_torch/csrc``
    (one ``nvcc`` per source, all started together); the bf16 flash
-   kernels' (forward, dQ, dK/dV at D 64 and 128) registers, local memory
-   (spills and stack), shared memory and the count of ``HGMMA`` (wgmma),
-   ``UTMALDG`` (TMA load) and ``HMMA`` (mma.sync) instructions in their
-   SASS, read by the toolkit's ``cuobjdump``; fails without it, without
-   wgmma or TMA, or with mma.sync or spills.
+   kernels' (forward, dQ, dK/dV) and kernel #4's bf16 and int8-KV
+   instantiations' (at D 64 and 128) registers, local memory (spills and
+   stack), shared memory and the count of ``HGMMA`` (wgmma), ``HMMA``
+   (mma.sync), ``UTMALDG`` (TMA load) and ``LDGSTS`` (cp.async)
+   instructions in their SASS, read by the toolkit's ``cuobjdump``; fails
+   without it, where a flash kernel lacks wgmma or TMA or has mma.sync,
+   where #4 lacks an asynchronous ring or tensor-core dots, or where any
+   of them (every instantiation of #4) spills.
 3. parity       — the forward and decode kernels against their plain
    PyTorch versions at the training and serving paths' shapes, bf16 and
    f32 (the forward also at S 1, 127, 129 and 383, GQA groups 1, 4 and 8,
@@ -26,7 +29,9 @@ raises and exits non-zero:
    step's (K, N) with M = 8, at M = 1 and 256 and at unaligned shapes,
    int4 at groups 64 and 128 (and 2 and K), each run twice bit-identical;
    the decode kernel's int8-KV mode at the serve shape, kv_len 4096, q_len
-   4 and ragged.
+   4 and ragged.  Every decode case runs twice, bit-identical; they cover
+   q_len 8 x GQA 8 (64 query rows), GQA 1 and 8, D 64, and one row's 8 kv
+   heads over 4096 slots (a launch that merges >= 8 splits).
 4. train_parity — the backward kernels (dQ, dK/dV) against the plain
    backward: nexus_1b's B8 S2048 Hq16 Hkv8 D128, Llama-3-8B heads at S512,
    S200 (unaligned), D64 and non-causal, and S 64, 65, 127, 129 and 200 at
@@ -87,12 +92,13 @@ raises and exits non-zero:
    steps): COMPLETED, exactly 72 gmm, 24 tgmm and 8 of each flash kernel
    per step, ``dropped_frac`` 0, tokens/s, MFU, peak memory.
 15. engine_parity — kernel #4's paged (block-table) and ``q_starts`` modes
-   against ``decode_attention_plain`` at Llama-3-8B heads: pages 4, 16 and
-   32, shuffled tables with a scratch block, staggered per-row lengths,
+   against ``decode_attention_plain`` at Llama-3-8B heads: pages 4, 16, 32
+   and 64, shuffled tables with a scratch block, staggered per-row lengths,
    q_len 1-5, every combination of paged x ragged x int8-KV in bf16 and
-   f32, each run twice bit-identical; kernel #9 (RMSNorm) at [1024, 4096]
-   and [16384, 2048], bf16 and f32.  (``times`` adds paged decode at
-   kv_len 144 and 4096, ragged verify at q_len 5 and RMSNorm rows.)
+   f32, each run twice bit-identical, and f32 at 4096 slots and q_len 5
+   against the plain version evaluated in f64; kernel #9 (RMSNorm) at [1024, 4096]
+   and [16384, 2048], bf16 and f32.  (``times`` adds paged decode and
+   ragged verify at q_len 5, each at kv_len 144 and 4096, and RMSNorm rows.)
 16. engine_e2e  — Llama-3-8B widths at 2 layers in f32, greedy:
    ``ServingEngine`` is token-identical to one-shot ``generate`` through
    the kernels and through the plain path — contiguous, paged (page 16),
@@ -110,7 +116,11 @@ share (``python3 chip_smoke.py --phases build,profile``); ``train_profile``
 — the same for two warm steps of the train phase's shape
 (``--phases build,train_profile``); ``profile_int8`` and ``profile_int4`` —
 ``profile`` with the serve_quant phase's two configurations;
-``train_moe_profile`` — ``train_profile`` for train_moe's shape.
+``train_moe_profile`` — ``train_profile`` for train_moe's shape;
+``decode_probe`` — kernel #4 (bf16, contiguous) across q_len x GQA at kv_len
+144 and 4096, then built again from copies of its source with one and two
+producer warps in place of four, timed at the serve step's and kv 4096's
+shapes in every mode (``--phases build,decode_probe``).
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -135,7 +145,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe")
 #: phases run only when named in --phases
-OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile")
+OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe")
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, f32 CUDA
 # core rate, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -294,6 +304,19 @@ def decode_bound(b, sq, kv_len, hq, hkv, d, dtype):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
+def decode_splits(b, sq, hq, hkv, d, kv_len, dtype, int8=False) -> int:
+    """The split count kernel #4's wrapper plans for a contiguous launch of
+    these shapes (bf16: by the CTAs the card holds)."""
+    import torch
+
+    from tpu_nexus_torch.ops.decode_attention import f32_split_plan, resident_ctas, split_plan
+
+    if dtype == torch.bfloat16:
+        device = torch.device("cuda", torch.cuda.current_device())
+        return split_plan(b, hkv, kv_len, resident_ctas(device, d, sq * (hq // hkv), int8))[1]
+    return f32_split_plan(b, hkv, kv_len)[1]
+
+
 def zero_rms_norm_launches() -> None:
     """Kernel #9 (RMSNorm) is on no main path, as in the JAX package: every
     main-path run sets its count to 0 just before and reads it just after
@@ -309,24 +332,37 @@ def read_rms_norm_launches(results, path: str) -> None:
     results.setdefault("rms_norm_launches", {})[path] = rms_norm_kernel.launches
 
 
-#: the Hopper (wgmma + TMA) kernels the build phase reads from the library's
-#: SASS: report key -> (kernel name, its dynamic shared memory at D)
+#: the Hopper kernels the build phase reads from the library's SASS: report
+#: key -> (mangled-name prefix at head dim {d}, its dynamic shared memory at
+#: D, the instructions its path needs).  "tma+wgmma": wgmma (HGMMA) fed by
+#: TMA loads (UTMALDG) and no mma.sync (HMMA); "ring+tensor": an
+#: asynchronous ring (UTMALDG or LDGSTS) and tensor-core dots (HGMMA or
+#: HMMA).  #4 is read at the serve step's shape, q_len 1 x GQA 4 (N 8).
 HOPPER_KERNELS = {
-    "flash_forward_bf16": ("flash_fwd_bf16_kernel", lambda lib, d: lib.nexus_flash_fwd_smem_bytes(d)),
-    "flash_bwd_dq_bf16": ("flash_bwd_dq_bf16_kernel", lambda lib, d: lib.nexus_flash_bwd_smem_bytes(0, d)),
-    "flash_bwd_dkv_bf16": ("flash_bwd_dkv_bf16_kernel", lambda lib, d: lib.nexus_flash_bwd_smem_bytes(1, d)),
+    "flash_forward_bf16": ("flash_fwd_bf16_kernelILi{d}E", lambda lib, d: lib.nexus_flash_fwd_smem_bytes(d),
+                           "tma+wgmma"),
+    "flash_bwd_dq_bf16": ("flash_bwd_dq_bf16_kernelILi{d}E", lambda lib, d: lib.nexus_flash_bwd_smem_bytes(0, d),
+                          "tma+wgmma"),
+    "flash_bwd_dkv_bf16": ("flash_bwd_dkv_bf16_kernelILi{d}E", lambda lib, d: lib.nexus_flash_bwd_smem_bytes(1, d),
+                           "tma+wgmma"),
+    "decode_bf16": ("decode_hopper_kernelILi{d}ELb0ELi8E", lambda lib, d: lib.nexus_decode_smem_bytes(d, 4, 0),
+                    "ring+tensor"),
+    "decode_int8kv": ("decode_hopper_kernelILi{d}ELb1ELi8E", lambda lib, d: lib.nexus_decode_smem_bytes(d, 4, 1),
+                      "ring+tensor"),
 }
 
 
 def hopper_kernel_resources(_build):
-    """The bf16 flash kernels (#1 forward, #2 dQ, #3 dK/dV) at D 64 and 128,
-    read from the built library by the toolkit's ``cuobjdump -res-usage
-    -sass``: registers a thread at entry, stack and local memory (spills) a
-    thread, static shared memory, and the SASS counts that show the path is
-    wgmma (``HGMMA``), TMA (``UTMALDG``) and no ``mma.sync`` (``HMMA``); and
-    the dynamic shared memory a launch asks for, from the library's own
-    layouts.  Fails without cuobjdump, or where a kernel has no ``HGMMA`` or
-    no ``UTMALDG``, any ``HMMA``, or any local memory or stack."""
+    """The bf16 flash kernels (#1 forward, #2 dQ, #3 dK/dV) and kernel #4's
+    bf16 and int8-KV instantiations at D 64 and 128, read from the built
+    library by the toolkit's ``cuobjdump -res-usage -sass``: registers a
+    thread at entry, stack and local memory (spills) a thread, static shared
+    memory, and the SASS counts that show the path — wgmma (``HGMMA``),
+    ``mma.sync`` (``HMMA``), TMA loads (``UTMALDG``) and cp.async
+    (``LDGSTS``); and the dynamic shared memory a launch asks for, from the
+    library's own layouts.  Fails without cuobjdump, where a kernel lacks
+    what its path needs (``HOPPER_KERNELS``), or where any instantiation of
+    #4's Hopper kernel (every N) has local memory or stack."""
     import re
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -336,24 +372,37 @@ def hopper_kernel_resources(_build):
                           capture_output=True, text=True, timeout=300, check=True).stdout
     lib = _build.library()
     report = {}
-    for key, (kernel, dynamic_smem) in HOPPER_KERNELS.items():
+    for key, (pattern, dynamic_smem, needs) in HOPPER_KERNELS.items():
         for d in (64, 128):
-            usage = re.search(rf"Function \S*{kernel}ILi{d}E\S*:\s*\n(.*)", dump)
+            name = pattern.format(d=d)
+            usage = re.search(rf"Function \S*{name}\S*:\s*\n(.*)", dump)
             fields = dict(re.findall(r"(\w+):(\d+)", usage.group(1))) if usage else {}
-            sass = next((f for f in dump.split("Function : ")[1:] if re.match(rf"\S*{kernel}ILi{d}E", f)), "")
+            sass = next((f for f in dump.split("Function : ")[1:] if re.match(rf"\S*{name}", f)), "")
             row = dict(
                 registers=int(fields.get("REG", 0)), stack_bytes=int(fields.get("STACK", 0)),
                 local_bytes=int(fields.get("LOCAL", 0)), static_smem=int(fields.get("SHARED", 0)),
                 dynamic_smem=dynamic_smem(lib, d),
                 sass_hgmma=len(re.findall(r"\bHGMMA\.", sass)),
-                sass_utmaldg=len(re.findall(r"\bUTMALDG\b", sass)),
                 sass_hmma=len(re.findall(r"\bHMMA\.", sass)),
+                sass_utmaldg=len(re.findall(r"\bUTMALDG\b", sass)),
+                sass_ldgsts=len(re.findall(r"\bLDGSTS\b", sass)),
             )
             report.setdefault(key, {})[f"d{d}"] = row
-            if not (fields and row["sass_hgmma"] and row["sass_utmaldg"]) or row["sass_hmma"] \
-                    or row["local_bytes"] or row["stack_bytes"]:
-                raise AssertionError(f"{kernel} at D {d}: no resource usage, wgmma or TMA load, or mma.sync, "
-                                     f"local memory or stack in cuobjdump's output: {row}\n{dump[:4000]}")
+            if needs == "tma+wgmma":
+                path_ok = row["sass_hgmma"] and row["sass_utmaldg"] and not row["sass_hmma"]
+            else:
+                path_ok = (row["sass_utmaldg"] or row["sass_ldgsts"]) and (row["sass_hgmma"] or row["sass_hmma"])
+            if not (fields and path_ok) or row["local_bytes"] or row["stack_bytes"]:
+                raise AssertionError(f"{name}: no resource usage, its path ({needs}) missing, or local memory or "
+                                     f"stack in cuobjdump's output: {row}\n{dump[:4000]}")
+    # every instantiation of #4's Hopper kernel (D x int8-KV x N 8/16/32/64): none spills
+    spills = {f: dict(re.findall(r"(\w+):(\d+)", u)) for f, u in
+              re.findall(r"Function (\S*decode_hopper_kernel\S*):\s*\n(.*)", dump)}
+    worst = {f: (int(u.get("REG", 0)), int(u.get("LOCAL", 0)), int(u.get("STACK", 0))) for f, u in spills.items()}
+    if len(worst) != 16 or any(local or stack for _, local, stack in worst.values()):
+        raise AssertionError(f"decode_hopper_kernel: {len(worst)} instantiations (want 16), or one spills: {worst}")
+    report["decode_all_instantiations"] = dict(count=len(worst), max_registers=max(r for r, _, _ in worst.values()),
+                                               local_or_stack_bytes=0)
     return report
 
 
@@ -414,35 +463,55 @@ def phase_parity(results):
         del q, k, v, out, lse, out2, lse2, ref_out, ref_lse
         torch.cuda.empty_cache()
 
-    decode_cases = []  # (B, q_len, max_len, kv_len, ragged, dtype)
+    # (B, q_len, max_len, kv_len, ragged, dtype, Hq, Hkv, D): Llama-3-8B heads (32, 8, 128) unless named
+    decode_cases = []
     for max_len, kv_lens in ((160, (4, 100, 160)), (4096, (129, 2000, 4096))):
         for sq in (1, 4):
             for kv_len in kv_lens:
-                decode_cases.append((8, sq, max_len, kv_len, False, torch.bfloat16))
-        decode_cases.append((8, 1, max_len, max_len // 2 + 7, True, torch.bfloat16))
-        decode_cases.append((8, 4, max_len, max_len - 3, True, torch.float32))
-        decode_cases.append((8, 1, max_len, max_len, False, torch.float32))
-    for i, (b, sq, max_len, kv_len, ragged, dtype) in enumerate(decode_cases):
-        q, k, v = decode_inputs(b, sq, max_len, 32, 8, 128, dtype, seed=100 + i)
+                decode_cases.append((8, sq, max_len, kv_len, False, torch.bfloat16, 32, 8, 128))
+        decode_cases.append((8, 1, max_len, max_len // 2 + 7, True, torch.bfloat16, 32, 8, 128))
+        decode_cases.append((8, 4, max_len, max_len - 3, True, torch.float32, 32, 8, 128))
+        decode_cases.append((8, 1, max_len, max_len, False, torch.float32, 32, 8, 128))
+    decode_cases += [
+        # q_len 8 x GQA 8: 64 query rows (wgmma N 64)
+        (8, 8, 4096, 4096, False, torch.bfloat16, 64, 8, 128), (8, 8, 160, 150, True, torch.bfloat16, 64, 8, 128),
+        (2, 8, 4096, 4096, False, torch.float32, 64, 8, 128),
+        # GQA 1 and 8
+        (8, 1, 4096, 4000, True, torch.bfloat16, 8, 8, 128), (8, 5, 4096, 4096, False, torch.bfloat16, 8, 8, 128),
+        (8, 1, 4096, 4096, False, torch.bfloat16, 64, 8, 128), (8, 2, 160, 144, False, torch.bfloat16, 64, 8, 128),
+        # one row's 8 kv heads over 4096 slots: the launch merges >= 8 splits
+        (1, 1, 4096, 4096, False, torch.bfloat16, 32, 8, 128), (1, 4, 4096, 3001, True, torch.bfloat16, 32, 8, 128),
+        # head_dim 64 (nexus_moe's attention is 128; D 64 is the kernel's other width)
+        (8, 1, 4096, 4096, False, torch.bfloat16, 32, 8, 64), (8, 3, 160, 144, False, torch.bfloat16, 16, 8, 64),
+    ]
+    for i, (b, sq, max_len, kv_len, ragged, dtype, hq, hkv, d) in enumerate(decode_cases):
+        q, k, v = decode_inputs(b, sq, max_len, hq, hkv, d, dtype, seed=100 + i)
         lens = width = None
         if ragged:
             width = max_len // 2
             g = torch.Generator(device="cuda").manual_seed(500 + i)
             lens = torch.randint(1, width + 1, (b,), generator=g, device="cuda", dtype=torch.int32)
+        before = decode_attention.launches
         out = decode_attention(q, k, v, kv_len, lens, width)
+        again = decode_attention(q, k, v, kv_len, lens, width)
         torch.cuda.synchronize()
+        same = bool(torch.equal(out, again)) and decode_attention.launches == before + 2
         ref = decode_attention_plain(q, k, v, kv_len, lens, width)
         err, e_row = max_err(out, ref), row_rel_err(out, ref)
         tol = TOL[str(dtype).split(".")[-1]][0]
         tol_row = ROW_REL_TOL if dtype == torch.bfloat16 else None
-        ok = err <= tol and (tol_row is None or e_row <= tol_row) and bool(torch.isfinite(out).all())
-        emit("parity", kernel="decode_attention", b=b, q_len=sq, max_len=max_len, kv_len=kv_len,
-             ragged=ragged, dtype=str(dtype), max_abs_err=err, max_row_rel_err=e_row, tol=tol,
-             tol_row_rel=tol_row, ok=ok)
+        n_splits = decode_splits(b, sq, hq, hkv, d, kv_len, dtype)
+        merged = n_splits >= 8 if (b, max_len, sq) == (1, 4096, 1) else True
+        ok = (same and merged and err <= tol and (tol_row is None or e_row <= tol_row)
+              and bool(torch.isfinite(out).all()))
+        emit("parity", kernel="decode_attention", b=b, q_len=sq, max_len=max_len, kv_len=kv_len, heads=[hq, hkv, d],
+             ragged=ragged, dtype=str(dtype), n_splits=n_splits, max_abs_err=err, max_row_rel_err=e_row, tol=tol,
+             tol_row_rel=tol_row, bit_identical_twice=same, ok=ok)
         if not ok:
             raise AssertionError(f"decode_attention kernel disagrees with its plain version: {decode_cases[i]}")
-        if dtype == torch.bfloat16 and max_len == 160 and sq == 1:
+        if dtype == torch.bfloat16 and max_len == 160 and sq == 1 and hq == 32:
             worst["decode_attention"] = max(worst["decode_attention"], err)
+        del q, k, v, out, again, ref
     results.setdefault("max_abs_err", {}).update(worst)
     quant_matmul_parity(results)
     decode_int8kv_parity(results)
@@ -532,13 +601,19 @@ def decode_int8kv_parity(results):
 
     from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
 
-    cases = []  # (B, q_len, max_len, kv_len, ragged, dtype)
+    cases = []  # (B, q_len, max_len, kv_len, ragged, dtype, Hq, Hkv, D)
     for dtype in (torch.bfloat16, torch.float32):
         cases += [(8, 1, 160, 144, False, dtype), (8, 1, 4096, 4096, False, dtype), (8, 4, 160, 144, False, dtype),
                   (8, 4, 4096, 3000, False, dtype), (8, 1, 160, 150, True, dtype), (8, 4, 4096, 4000, True, dtype)]
+    cases = [c + (32, 8, 128) for c in cases] + [
+        (8, 8, 4096, 4096, False, torch.bfloat16, 64, 8, 128),  # 64 query rows
+        (8, 1, 4096, 4000, True, torch.bfloat16, 8, 8, 128),  # GQA 1
+        (1, 1, 4096, 4096, False, torch.bfloat16, 32, 8, 128),  # a merge of >= 8 splits
+        (8, 1, 4096, 4096, False, torch.bfloat16, 32, 8, 64),  # D 64
+    ]
     worst = 0.0
-    for i, (b, sq, max_len, kv_len, ragged, dtype) in enumerate(cases):
-        q, k, v = decode_inputs(b, sq, max_len, 32, 8, 128, dtype, seed=3000 + i)
+    for i, (b, sq, max_len, kv_len, ragged, dtype, hq, hkv, d) in enumerate(cases):
+        q, k, v = decode_inputs(b, sq, max_len, hq, hkv, d, dtype, seed=3000 + i)
         k8, v8, ks, vs = int8_cache(k, v)
         lens = width = None
         if ragged:
@@ -556,14 +631,17 @@ def decode_int8kv_parity(results):
             ok = err <= TOL["bfloat16"][0] and e_row <= ROW_REL_TOL
         else:
             ok = err <= QUANT_F32_MAXABS_REL * ref_max
-        ok = ok and same and bool(torch.isfinite(out).all())
+        n_splits = decode_splits(b, sq, hq, hkv, d, kv_len, dtype, int8=True)
+        merged = n_splits >= 8 if (b, max_len, sq) == (1, 4096, 1) else True
+        ok = ok and same and merged and bool(torch.isfinite(out).all())
         emit("parity", kernel="decode_attention_int8kv", b=b, q_len=sq, max_len=max_len, kv_len=kv_len,
-             ragged=ragged, dtype=str(dtype), max_abs_err=err, ref_max_abs=ref_max, max_row_rel_err=e_row,
+             heads=[hq, hkv, d], ragged=ragged, dtype=str(dtype), n_splits=n_splits, max_abs_err=err,
+             ref_max_abs=ref_max, max_row_rel_err=e_row,
              bit_identical_twice=same, tol_bf16_max_abs=TOL["bfloat16"][0], tol_bf16_row_rel=ROW_REL_TOL,
              tol_f32_max_abs_rel=QUANT_F32_MAXABS_REL, ok=ok)
         if not ok:
             raise AssertionError(f"int8-KV decode kernel disagrees with its plain version: {cases[i]}")
-        if dtype == torch.bfloat16 and (sq, max_len) == (1, 160) and not ragged:
+        if dtype == torch.bfloat16 and (sq, max_len, hq) == (1, 160, 32) and not ragged:
             worst = err
     results.setdefault("max_abs_err", {})["decode_attention_int8kv"] = worst
 
@@ -1183,7 +1261,7 @@ def phase_profile(results, quantize="", kv_quant=""):
     def group_of(low):
         if "flash_fwd" in low:
             return "flash_attention kernel"
-        if "decode_partial" in low or "decode_combine" in low:
+        if "decode_hopper" in low or "decode_partial" in low or "decode_combine" in low:
             return "decode_attention kernel"
         if "quant_matmul" in low:
             return "quant_matmul kernels (partial + finalize)"
@@ -1713,6 +1791,90 @@ def phase_serve_moe(results):
     del params
 
 
+def _decode_probe_times():
+    """Kernel #4 (bf16) at the serve step's and kv 4096's shapes: contiguous
+    and int8-KV at B8 q_len 1, paged (page 32) per-slot decode and the
+    q_len-5 verify; ms on the card per launch."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.ops.decode_attention import decode_attention
+
+    dt, times = torch.bfloat16, {}
+    for label, max_len, kv_len, n_layers, int8 in (("contiguous_144", 160, 144, 32, False),
+                                                   ("contiguous_4096", 4096, 4096, 4, False),
+                                                   ("int8_144", 160, 144, 32, True),
+                                                   ("int8_4096", 4096, 4096, 4, True)):
+        layers = []
+        for i in range(n_layers):
+            q, k, v = decode_inputs(8, 1, max_len, 32, 8, 128, dt, seed=1000 + i)
+            layers.append((q, *int8_cache(k, v)) if int8 else (q, k, v, None, None))
+        times[label] = cuda_ms([lambda a=a: decode_attention(a[0], a[1], a[2], kv_len, None, None, a[3], a[4])
+                                for a in layers], iters=64)
+        del layers
+    for label, sq, kv_len in (("paged_144", 1, 144), ("verify_q5_144", 5, 144)):
+        n_log = -(-(kv_len + 16) // 32)
+        starts = np.full(8, kv_len - 1, np.int32) if sq == 1 else (kv_len - sq - np.arange(8) * 7).astype(np.int32)
+        layers = [paged_case(8, sq, 32, n_log, starts + sq, dt, 7000 + i) for i in range(32)]
+        if sq == 1:
+            kw = dict(prompt_lengths=torch.from_numpy(starts + sq).cuda(), prompt_width=n_log * 32)
+        else:
+            kw = dict(prompt_lengths=torch.zeros(8, dtype=torch.int32, device="cuda"), prompt_width=0,
+                      q_starts=torch.from_numpy(starts).cuda())
+        deepest = int((starts + sq).max())
+        times[label] = cuda_ms([lambda x=x: decode_attention(x[0], x[1], x[2], deepest, block_tables=x[3], **kw)
+                                for x in layers], iters=64)
+        del layers
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_decode_probe(results):
+    """Opt-in: what sets kernel #4's pace.  (1) bf16 contiguous B8 across
+    q_len x GQA (query rows 4-64, so wgmma N 8-64) at kv_len 144 and 4096;
+    (2) the library built again from copies of ``csrc`` whose
+    ``kProducerThreads`` is 32 and 64 (one and two producer warps; the
+    kernel ships four) and timed beside the shipped build in every mode."""
+    import re
+    import shutil
+
+    import torch
+
+    from tpu_nexus_torch.ops import _build
+    from tpu_nexus_torch.ops import decode_attention as dec
+
+    sweep = {}
+    for sq, hq in ((1, 32), (2, 32), (3, 32), (5, 32), (8, 32), (5, 8), (1, 64), (8, 64)):
+        for max_len, kv_len, n_layers in ((160, 144, 32), (4096, 4096, 4)):
+            layers = [decode_inputs(8, sq, max_len, hq, 8, 128, torch.bfloat16, seed=1000 + i)
+                      for i in range(n_layers)]
+            sweep[f"q_len{sq}_hq{hq}_kv{kv_len}"] = cuda_ms([lambda a=a: dec.decode_attention(*a, kv_len)
+                                                            for a in layers], iters=64)
+            del layers
+    emit("decode_probe", sweep_ms=sweep, rows="q_len x Hq/Hkv; wgmma N = rows rounded up to 8, 16, 32 or 64")
+    by_producer = {128: _decode_probe_times()}
+    shipped = (_build.CSRC, _build.BUILD_DIR, _build._library)
+    source = (_build.CSRC / "decode_attention.cu").read_text()
+    try:
+        for threads in (32, 64):
+            probe = ROOT / "build" / f"decode_probe_producer{threads}"
+            shutil.rmtree(probe, ignore_errors=True)
+            shutil.copytree(shipped[0], probe / "csrc")
+            edited, n = re.subn(r"constexpr int kProducerThreads = \d+;",
+                                f"constexpr int kProducerThreads = {threads};", source)
+            if n != 1:
+                raise RuntimeError("decode_probe: kProducerThreads not found once in decode_attention.cu")
+            (probe / "csrc" / "decode_attention.cu").write_text(edited)
+            _build.CSRC, _build.BUILD_DIR, _build._library = probe / "csrc", probe / "build", None
+            dec._RESIDENT.clear()
+            by_producer[threads] = _decode_probe_times()
+    finally:
+        _build.CSRC, _build.BUILD_DIR, _build._library = shipped
+        dec._RESIDENT.clear()
+    emit("decode_probe", ms_by_producer_threads=by_producer)
+    results["decode_probe"] = dict(sweep_ms=sweep, ms_by_producer_threads=by_producer)
+
+
 def phase_train_moe_profile(results):
     """Opt-in (``--phases build,train_moe_profile``): two warm training
     steps of train_moe's shape under ``torch.profiler``: device ms by group
@@ -1809,12 +1971,13 @@ def _gather_rows(pool, tables):
 def phase_engine_parity(results):
     """Kernel #4's paged and ``q_starts`` modes against
     ``decode_attention_plain`` at Llama-3-8B heads (Hq 32, Hkv 8, D 128):
-    pages 4, 16 and 32, shuffled tables with a scratch block, staggered
+    pages 4, 16, 32 and 64, shuffled tables with a scratch block, staggered
     per-row lengths, q_len 1-5, every combination of paged x ragged x
     int8-KV in bf16 and f32, and the shapes of the serve_engine runs (the
     8-token extend tail, per-slot decode and verify at page 32, max_len
-    160), each run twice bit-identical; then kernel #9
-    (RMSNorm) against its plain version at [1024, 4096] and [16384, 2048]."""
+    160), each run twice bit-identical; f32 at 4096 slots and q_len 5
+    against the plain version in f64; then kernel #9 (RMSNorm) against its
+    plain version at [1024, 4096] and [16384, 2048]."""
     import numpy as np
     import torch
 
@@ -1824,13 +1987,17 @@ def phase_engine_parity(results):
     # (B, page, q_len, n_log, per-row starts, logical_limit, (paged, ragged, int8) combinations)
     every = [(p, r, q) for p in (False, True) for r in (False, True) for q in (False, True) if p or r]
     cases = []
-    for page in (4, 16, 32):
+
+    def page_cases(page):
         for sq in (1, 3, 5):
             n_log = -(-(4096 if page == 32 and sq == 1 else 160) // page)
             rng = np.random.default_rng(page * 10 + sq)
             starts = rng.integers(0, n_log * page - sq, size=8).astype(np.int32)
             starts[0], starts[1] = 0, n_log * page - sq  # the shortest and the deepest row
             cases.append((8, page, sq, n_log, starts, None, every))
+
+    for page in (4, 16, 32):
+        page_cases(page)
     # the shapes the serve_engine runs give the kernel: page 32, max_len 160
     # (n_log 5) and logical_limit 160 — an admission's 8-token extend tail at
     # one start (q_len 8, kv_len 128; B 1 as the engine runs it, and B 8),
@@ -1841,6 +2008,7 @@ def phase_engine_parity(results):
         starts = np.random.default_rng(900 + sq).integers(0, 160 - sq, size=8).astype(np.int32)
         starts[0], starts[1] = 0, 160 - sq
         cases.append((8, 32, sq, 5, starts, 160, [(True, ragged, False), (True, ragged, True)]))
+    page_cases(64)  # last, so the cases above keep their inputs (seeds follow the case order)
 
     worst = {"decode_attention_paged": 0.0, "decode_attention_ragged": 0.0}
     i = 0
@@ -1888,6 +2056,25 @@ def phase_engine_parity(results):
                     key = "decode_attention_" + ("ragged" if ragged else "paged")
                     worst[key] = max(worst[key], err)
                 del q, k, v, tables, scales, out, again, ref
+    # f32 at 4096 slots, q_len 5 (B4, pages 4 and 32): the kernel against the plain version
+    # evaluated in f64, with the plain version's own f32 error beside it (at this depth it passes
+    # the f32 limit, which the kernel stays inside)
+    for page in (4, 32):
+        starts = np.array([0, 7, 4096 - 7, 19], dtype=np.int32)
+        q, k, v, tables, _ = paged_case(4, 5, page, 4096 // page, starts + 5, torch.float32, 6500 + page)
+        kv_len = int(starts.max()) + 5
+        out = decode_attention(q, k, v, kv_len, block_tables=tables)
+        ref64 = decode_attention_plain(q.double(), k.double(), v.double(), kv_len, block_tables=tables)
+        ref32 = decode_attention_plain(q, k, v, kv_len, block_tables=tables)
+        err = float((out.double() - ref64).abs().max())
+        plain_err = float((ref32.double() - ref64).abs().max())
+        ok = err <= TOL["float32"][0] and bool(torch.isfinite(out).all())
+        emit("engine_parity", kernel="decode_attention", mode="paged", page=page, q_len=5, b=4, kv_len=kv_len,
+             dtype="torch.float32", reference="decode_attention_plain in f64", max_abs_err=err,
+             plain_f32_max_abs_err=plain_err, tol=TOL["float32"][0], ok=ok)
+        if not ok:
+            raise AssertionError(f"f32 decode kernel at page {page}, 4096 slots, q_len 5: {err} from the f64 reference")
+        del q, k, v, tables, out, ref64, ref32
     torch.cuda.empty_cache()
 
     worst["rms_norm"] = 0.0
@@ -1919,7 +2106,8 @@ def phase_engine_parity(results):
 def engine_times(times):
     """Kernel #4's paged decode (B8, per-slot cursors at kv_len 144 and
     4096, page 32) and its ragged verify (B8, q_len 5, page 32, staggered
-    starts), cycling per-layer pools so K/V come from HBM; kernel #9 at
+    starts, at kv_len 144 and 4096), cycling per-layer pools so K/V come
+    from HBM; kernel #9 at
     [16384, 2048] bf16.  ``bound_ms``: the live K/V (and x, y) bytes read
     or written once at 3.35 TB/s.  ``library_ms``: one PyTorch call on the
     same function — ``scaled_dot_product_attention`` on the pre-gathered
@@ -1934,7 +2122,7 @@ def engine_times(times):
 
     dt, b, page, hq, hkv, d = torch.bfloat16, 8, 32, 32, 8, 128
     for key, sq, kv_len, n_layers in (("decode_attention_paged", 1, 144, 32), (None, 1, 4096, 4),
-                                      ("decode_attention_ragged", 5, 144, 32)):
+                                      ("decode_attention_ragged", 5, 144, 32), (None, 5, 4096, 4)):
         n_log = -(-(kv_len + 16) // page)
         if sq == 1:  # every slot at cursor kv_len - 1
             starts = np.full(b, kv_len - 1, np.int32)
@@ -2200,7 +2388,7 @@ def main(argv=None) -> int:
         "serve_moe": phase_serve_moe, "train_moe": phase_train_moe,
         "engine_parity": phase_engine_parity, "engine_e2e": phase_engine_e2e, "serve_engine": phase_serve_engine,
         "profile": phase_profile, "train_profile": phase_train_profile,
-        "train_moe_profile": phase_train_moe_profile,
+        "train_moe_profile": phase_train_moe_profile, "decode_probe": phase_decode_probe,
         "profile_int8": lambda r: phase_profile(r, "int8", "int8"),
         "profile_int4": lambda r: phase_profile(r, "int4", ""),
     }
@@ -2257,6 +2445,8 @@ def main(argv=None) -> int:
             }
             if name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
                 entry.update(design="wgmma+tma")
+            if name.startswith("decode_attention"):
+                entry.update(design="wgmma+cp.async ring, merge in the launch")
             if name == "nexus_gmm":
                 entry.update(library_ms_is=t["library_ms_is"],
                              mixtral_8x7b_gate={k: results["times"]["nexus_gmm_mixtral"][k]

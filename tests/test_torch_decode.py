@@ -27,11 +27,18 @@ from tpu_nexus.models.generate import cached_attention as jax_cached_attention
 from tpu_nexus.ops.decode_attention import decode_attention as jax_decode_attention
 from tpu_nexus_torch.models.generate import cached_attention
 from tpu_nexus_torch.ops.decode_attention import (
+    F32_TILE,
+    MAX_SPLITS,
+    MIN_SPLIT_TILES,
     MODES,
+    TILE,
+    _workspace,
     decode_attention,
     decode_attention_plain,
+    f32_split_plan,
     mode_name,
     split_plan,
+    workspace_layout,
 )
 
 torch.set_num_threads(1)
@@ -139,13 +146,67 @@ def test_non_cpu_tensors_go_to_the_kernel_or_raise():
     assert decode_attention.launches == before
 
 
+@pytest.mark.parametrize("resident", [132, 264, 396])
 @pytest.mark.parametrize(
-    "b,hkv,live", [(8, 8, 144), (8, 8, 4096), (1, 8, 100), (64, 8, 4), (2, 2, 1)]
+    "b,hkv,live",
+    [(8, 8, 144), (8, 8, 4096), (1, 8, 100), (64, 8, 4), (2, 2, 1), (1, 8, 4096), (1, 1, 131072), (64, 8, 4096),
+     (8, 8, 448), (8, 8, 511), (8, 8, 512)],
 )
-def test_split_plan_covers_the_live_prefix(b, hkv, live):
-    split_len, n_splits = split_plan(b, hkv, live)
-    assert split_len % 32 == 0
+def test_split_plan_covers_the_live_prefix(b, hkv, live, resident):
+    """The bf16 plan: splits of whole 64-slot tiles that cover every live
+    slot exactly once (split i holds [i·split_len, (i+1)·split_len)); one
+    split where the b·hkv CTAs fill the card or the prefix is short (the
+    serve step, B8 Hkv8 kv 144, among them); never more CTAs than the card
+    holds, nor more splits than the launch merges; and a workspace of one
+    counter per (b, kv head) and (m, l) and D floats per split and query
+    row.  The f32 plan (unchanged) covers the prefix the same way."""
+    split_len, n_splits = split_plan(b, hkv, live, resident)
+    assert split_len % TILE == 0
     assert (n_splits - 1) * split_len < live <= n_splits * split_len
+    assert 1 <= n_splits <= MAX_SPLITS
+    if n_splits > 1:
+        assert b * hkv * n_splits <= resident and split_len >= MIN_SPLIT_TILES * TILE
+    if b * hkv >= resident or -(-live // TILE) < 2 * MIN_SPLIT_TILES:
+        assert n_splits == 1
+    if (b, hkv, live) == (8, 8, 144):
+        assert (split_len, n_splits) == (192, 1)
+    if (b, hkv, live, resident) == (8, 8, 4096, 264):
+        assert (split_len, n_splits) == (1024, 4)  # 256 CTAs of 16 tiles
+    rows, d = 4, 128
+    assert workspace_layout(b, hkv, n_splits, rows, d) == dict(
+        counters=b * hkv, part_ml=b * hkv * n_splits * rows * 2, part_acc=b * hkv * n_splits * rows * d)
+    f32_len, f32_splits = f32_split_plan(b, hkv, live)
+    assert f32_len % F32_TILE == 0
+    assert (f32_splits - 1) * f32_len < live <= f32_splits * f32_len
+
+
+def test_merge_workspace_keeps_zeroed_counters_before_part_ml():
+    """The wrapper's workspace (one buffer per device and stream): the
+    counters a merging launch uses are the words just before ``part_ml``
+    and are zero; ``part_acc`` follows the (m, l) words 16-byte aligned; a
+    launch that fits reuses the buffer, a larger one regrows it zeroed."""
+    from tpu_nexus_torch.ops import decode_attention as mod
+
+    cpu, stream = torch.device("cpu"), 12345
+    mod._WORKSPACES.pop((cpu.index, stream), None)
+    try:
+        layout = workspace_layout(8, 8, 4, 5, 128)
+        acc, ml = _workspace(cpu, stream, layout)
+        buf, n_counters, n_parts = mod._WORKSPACES[(cpu.index, stream)]
+        assert ml - buf.data_ptr() == 4 * n_counters and n_counters >= layout["counters"]
+        assert acc % 16 == 0 and acc - ml >= 4 * layout["part_ml"]
+        assert acc + 4 * layout["part_acc"] <= buf.data_ptr() + 4 * buf.numel()
+        assert not buf[:n_counters].any()
+        assert _workspace(cpu, stream, workspace_layout(8, 8, 2, 5, 128))[1] == ml  # fits: reused
+        assert mod._WORKSPACES[(cpu.index, stream)][0] is buf
+        bigger = workspace_layout(64, 8, 8, 64, 128)
+        acc2, ml2 = _workspace(cpu, stream, bigger)
+        buf2, n_counters2, _ = mod._WORKSPACES[(cpu.index, stream)]
+        assert n_counters2 >= bigger["counters"] and ml2 - buf2.data_ptr() == 4 * n_counters2
+        assert acc2 + 4 * bigger["part_acc"] <= buf2.data_ptr() + 4 * buf2.numel()
+        assert not buf2.any()
+    finally:
+        mod._WORKSPACES.pop((cpu.index, stream), None)
 
 
 def _paged_case(b, sq, hq, hkv, d, page, n_log, live, seed, dtype=np.float32):

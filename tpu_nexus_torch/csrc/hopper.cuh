@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: TMA tensor maps over the model
-// layout, mbarrier wrappers, warpgroup register reallocation, and wgmma with its shared-memory
-// matrix descriptors.  Included by the kernels' sources; the build hashes it with them
-// (ops/_build.py), so a change here rebuilds the library.
+// layout, cp.async copies into a ring, mbarrier wrappers, warpgroup register reallocation, and
+// wgmma with its shared-memory matrix descriptors.  Included by the kernels' sources; the build
+// hashes it with them (ops/_build.py), so a change here rebuilds the library.
 //
 // Layout convention: a bf16 tensor [B, S, H, D] (contiguous, the model layout) is read through a
 // 4-D tensor map over (D, H, S, B) whose box is 64 columns x 1 head x `rows` rows x 1 batch, with
@@ -9,7 +9,9 @@
 // bf16), so a tile of D columns is D/64 "panels", each `rows` x 128 bytes, stored one after the
 // other: element (r, c) of a tile lies in panel c/64 at row r, and within the row's 128 bytes its
 // 16-byte chunk (c%64)/8 is XORed with r%8.  Rows past S are zero-filled by the hardware.  A
-// panel is 1024-byte aligned, so an 8-row group is one swizzle atom.
+// panel is 1024-byte aligned, so an 8-row group is one swizzle atom.  A kernel that fills a panel
+// with cp.async or plain stores writes the same pattern: chunk (c%64)/8 of row r at byte
+// r*128 + (((c%64)/8) ^ (r%8))*16 of the panel.
 //
 // The same panel serves as a wgmma operand in two ways (descriptors: sw128_desc):
 //  * K-major (the reduction dim runs along the row): the start address steps 32 bytes per
@@ -114,6 +116,38 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       __trap();
     }
   }
+}
+
+// -- device: cp.async (LDGSTS) into a ring -----------------------------------------------------
+
+// 16 bytes global -> shared through L2 only.  src_bytes 0 reads nothing and writes 16 zero bytes
+// (src must still be a valid address).
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes global -> shared; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// One arrival of this thread on `bar` once every cp.async it issued before has landed (.noinc:
+// the arrival is one of the count the barrier was initialised with).  The copies write through
+// the generic proxy: a thread that waits on the barrier and then feeds the data to wgmma issues
+// fence_proxy_async_shared first.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Closes this thread's group of cp.async copies issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Waits until at most kPending of this thread's committed groups are still in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
@@ -255,6 +289,74 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x N] (+)= A[64 x 16] . B[16 x N], N in {8, 16, 32, 64}: A and B from shared memory
+// through 128B-swizzle descriptors, B K-major, A K-major (kTransA 0) or MN-major (kTransA 1, the
+// transpose bit); f32 accumulators; scale_d == 0 overwrites D.
+template <int N, int kTransA>
+struct WgmmaSS;
+
+template <int kTransA>
+struct WgmmaSS<8, kTransA> {
+  static __device__ __forceinline__ void run(float (&d)[4], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}"
+      ", %4, %5, p, 1, 1, %7, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA));
+  }
+};
+
+template <int kTransA>
+struct WgmmaSS<16, kTransA> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", %8, %9, p, 1, 1, %11, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA));
+  }
+};
+
+template <int kTransA>
+struct WgmmaSS<32, kTransA> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, %19, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA));
+  }
+};
+
+template <int kTransA>
+struct WgmmaSS<64, kTransA> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, %35, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA));
+  }
+};
+
+template <int N, int kTransA>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  WgmmaSS<N, kTransA>::run(d, desc_a, desc_b, scale_d);
 }
 
 }  // namespace nexus_hopper

@@ -48,6 +48,8 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
+    "nexus_decode_smem_bytes": [_I, _I, _I],
+    "nexus_decode_ctas_per_sm": [_I, _I, _I],
     "nexus_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "nexus_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "nexus_tgmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

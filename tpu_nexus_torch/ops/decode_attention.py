@@ -3,8 +3,11 @@
 Replaces ``tpu_nexus/ops/decode_attention.py::_decode_kernel`` (launched by
 ``decode_attention``) in all its modes: every decode, extend and verify step
 runs it once per layer.  The kernel lives in ``csrc/decode_attention.cu``;
-its source note says what bounds it on the H100 (device-memory bandwidth)
-and how the design answers that.
+its source note says what bounds it on the H100 (device-memory bandwidth,
+and latency at short contexts) and how the design answers that.  The
+wrapper plans the KV splits (:func:`split_plan`: by the live length and the
+CTAs the card holds) and keeps the merge's workspace, whose arrival counters
+must stay zero between launches, per device and stream.
 
 Contract (the same as the JAX package's ``decode_attention`` and XLA
 fallback): ``q`` [B, q_len<=8, Hq, D]; ``k``/``v`` [B, max_len, Hkv, D];
@@ -37,13 +40,14 @@ query ``j`` sits at slot ``q_starts[b] + j`` and sees exactly the slots
   ``logical_limit``): softmax, weights (times ``v_scale``) rounded to q's
   dtype, f32 accumulation.
 * :func:`decode_attention` — the wrapper: a CPU tensor takes the plain
-  version, a CUDA tensor launches the kernel (partial pass + combine) or
-  raises.  Launches are counted in ``decode_attention.launches`` and, by
-  mode, in ``decode_attention.launches_by_mode`` (:func:`mode_name`).
+  version, a CUDA tensor launches the kernel or raises.  Launches are
+  counted in ``decode_attention.launches`` and, by mode, in
+  ``decode_attention.launches_by_mode`` (:func:`mode_name`).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -55,10 +59,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DECODE_Q_LEN = 8
 #: q_len * GQA group rows one CTA holds
 MAX_ROWS = 64
-#: KV slots per shared-memory tile in the kernel; splits are multiples of it
-TILE = 32
-#: CTAs the split count aims for (two waves of the H100's 132 SMs)
-TARGET_CTAS = 264
+#: KV slots per tile of the bf16 kernel (the M of its S^T = K.Q^T); its
+#: splits are multiples of it
+TILE = 64
+#: a split holds at least this many tiles: a shorter live prefix is one split
+MIN_SPLIT_TILES = 4
+#: splits the bf16 kernel merges in its launch
+MAX_SPLITS = 64
+#: the f32 kernel's tile and the CTAs its split count aims for (two waves of
+#: the H100's 132 SMs): the f32 kernel keeps its first plan
+F32_TILE = 32
+F32_TARGET_CTAS = 264
 
 
 def mode_name(paged: bool, ragged: bool, int8: bool) -> str:
@@ -140,7 +151,8 @@ def decode_attention_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (see module docstring).  A paged
     cache is gathered into each row's view of ``logical_limit`` slots
-    (default: the whole table row) before the masked einsum."""
+    (default: the whole table row) before the masked einsum.  The sums are
+    f32, or f64 for an f64 ``q`` (the on-card tests' exact reference)."""
     _check_scales(k, k_scale, v_scale)
     _check_tables(q, block_tables, q_starts)
     if block_tables is not None:
@@ -155,8 +167,9 @@ def decode_attention_plain(
     if scale is None:
         scale = d**-0.5
     g = hq // hkv
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
     qg = q.reshape(b, sq, hkv, g, d)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.to(q.dtype).float())
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(acc), k.to(q.dtype).to(acc))
     if k_scale is not None:
         # [B, max_len, Hkv, 1] -> [B, Hkv, 1, 1, max_len]
         scores = scores * k_scale[:, :, :, 0].transpose(1, 2)[:, :, None, None, :]
@@ -181,19 +194,83 @@ def decode_attention_plain(
     if v_scale is not None:
         w = w * v_scale[:, :, :, 0].transpose(1, 2)[:, :, None, None, :]
     w = w.to(q.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", w.float(), v.to(q.dtype).float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(acc), v.to(q.dtype).to(acc))
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
-def split_plan(b: int, hkv: int, live: int):
-    """(split_len, n_splits) over the live prefix: enough splits that
-    ``b·hkv·n_splits`` reaches :data:`TARGET_CTAS`, each a whole number of
-    kernel tiles."""
+def split_plan(b: int, hkv: int, live: int, resident: int):
+    """(split_len, n_splits) of the bf16 kernel over ``live`` slots on a card
+    that holds ``resident`` CTAs at once.  One split where the ``b·hkv`` CTAs
+    already fill the card or the prefix is under ``2·MIN_SPLIT_TILES``
+    tiles; else as many splits as the card holds beside each other (at most
+    :data:`MAX_SPLITS`, each at least :data:`MIN_SPLIT_TILES` tiles), each a
+    whole number of tiles, so every live slot lies in exactly one split."""
     n_tiles = -(-live // TILE)
-    want = max(1, -(-TARGET_CTAS // (b * hkv)))
-    tiles_per_split = max(1, -(-n_tiles // want))
-    split_len = tiles_per_split * TILE
+    n = max(1, min(resident // (b * hkv), n_tiles // MIN_SPLIT_TILES, MAX_SPLITS))
+    split_len = -(-n_tiles // n) * TILE
     return split_len, -(-live // split_len)
+
+
+def f32_split_plan(b: int, hkv: int, live: int):
+    """(split_len, n_splits) of the f32 kernel: enough splits that
+    ``b·hkv·n_splits`` reaches :data:`F32_TARGET_CTAS`, each a whole number
+    of its tiles."""
+    n_tiles = -(-live // F32_TILE)
+    want = max(1, -(-F32_TARGET_CTAS // (b * hkv)))
+    tiles_per_split = max(1, -(-n_tiles // want))
+    split_len = tiles_per_split * F32_TILE
+    return split_len, -(-live // split_len)
+
+
+def workspace_layout(b: int, hkv: int, n_splits: int, rows: int, d: int) -> dict:
+    """32-bit words of a launch's workspace: the merge's arrival counters
+    (one per (b, kv head)), then each split's (m, l) per query row, then its
+    partial output rows (f32)."""
+    return dict(counters=b * hkv, part_ml=b * hkv * n_splits * rows * 2, part_acc=b * hkv * n_splits * rows * d)
+
+
+#: (device index, stream) -> (zeroed int32 buffer, counter words, partial words)
+_WORKSPACES: dict = {}
+_WORKSPACES_LOCK = threading.Lock()
+
+
+def _workspace(device: torch.device, stream: int, layout: dict):
+    """(part_acc, part_ml) addresses in the workspace of ``device`` and
+    ``stream``.  The buffer starts with counter words, zeroed once: a launch
+    that merges uses the ``counters`` words just before ``part_ml`` and
+    leaves them 0, so the buffer is reused as it is and regrown (zeroed) only
+    when a launch needs more.  Launches on one stream run in order; another
+    stream gets its own buffer."""
+    key = (device.index, stream)
+    ml = -(-layout["part_ml"] // 4) * 4  # part_acc stays 16-byte aligned
+    with _WORKSPACES_LOCK:
+        buf, n_counters, n_parts = _WORKSPACES.get(key, (None, 0, 0))
+        if buf is None or n_counters < layout["counters"] or n_parts < ml + layout["part_acc"]:
+            n_counters = max(n_counters, -(-layout["counters"] // 256) * 256)
+            n_parts = max(n_parts, ml + layout["part_acc"])
+            buf = torch.zeros(n_counters + n_parts, dtype=torch.int32, device=device)
+            _WORKSPACES[key] = (buf, n_counters, n_parts)
+    part_ml = buf.data_ptr() + 4 * n_counters
+    return part_ml + 4 * ml, part_ml
+
+
+#: (device index, head dim, query rows, int8 cache) -> CTAs the card holds
+_RESIDENT: dict = {}
+
+
+def resident_ctas(device: torch.device, d: int, rows: int, int8: bool) -> int:
+    """CTAs of the bf16 kernel that ``device`` holds at once for this head
+    dim, q_len·G query rows and cache type: its SMs times the CTAs an SM
+    holds (the library's occupancy query), cached."""
+    key = (device.index, d, rows, int8)
+    found = _RESIDENT.get(key)
+    if found is None:
+        with torch.cuda.device(device):
+            per_sm = _build.library().nexus_decode_ctas_per_sm(d, rows, int(int8))
+        if per_sm <= 0:
+            raise RuntimeError(f"nexus_decode_ctas_per_sm({d}, {rows}, {int(int8)}) = {per_sm}")
+        found = _RESIDENT[key] = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+    return found
 
 
 def decode_attention(
@@ -254,18 +331,23 @@ def decode_attention(
     if q_starts is not None:
         q_starts = q_starts.contiguous()
     rows = sq * (hq // hkv)
-    split_len, n_splits = split_plan(b, hkv, last_pos + 1)
-    part_acc = torch.empty((b, hkv, n_splits, rows, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, hkv, n_splits, rows, 2), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        split_len, n_splits = split_plan(b, hkv, last_pos + 1, resident_ctas(q.device, d, rows, k_scale is not None))
+    else:
+        split_len, n_splits = f32_split_plan(b, hkv, last_pos + 1)
+    stream = _build.stream_ptr(q.device)
+    part_acc = part_ml = None  # one bf16 split writes no partials
+    if n_splits > 1 or q.dtype == torch.float32:
+        part_acc, part_ml = _workspace(q.device, stream, workspace_layout(b, hkv, n_splits, rows, d))
     out = torch.empty_like(q)
     lib = _build.library()
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(q.device):  # the runtime launches on its current device
         status = lib.nexus_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale), ptr(lens),
-            ptr(block_tables), ptr(q_starts), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            ptr(block_tables), ptr(q_starts), out.data_ptr(), part_acc, part_ml,
             b, sq, hq, hkv, d, logical, n_log, page, width, kv_len - sq, last_pos, split_len, n_splits,
-            _DTYPES[q.dtype], float(scale * _LOG2E), _build.stream_ptr(q.device),
+            _DTYPES[q.dtype], float(scale * _LOG2E), stream,
         )
     _build.check(status, "nexus_decode_attention")
     decode_attention.launches += 1
