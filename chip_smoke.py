@@ -14,13 +14,14 @@ raises and exits non-zero:
 2. build        — compile the CUDA kernels from ``tpu_nexus_torch/csrc``
    (one ``nvcc`` per source, all started together); the bf16 flash
    kernels' (forward, dQ, dK/dV) and kernel #4's bf16 and int8-KV
-   instantiations' (at D 64 and 128) registers, local memory (spills and
+   instantiations' (at D 64 and 128) and the bf16 grouped-matmul kernels'
+   (#7 with either rhs layout, #8) registers, local memory (spills and
    stack), shared memory and the count of ``HGMMA`` (wgmma), ``HMMA``
    (mma.sync), ``UTMALDG`` (TMA load) and ``LDGSTS`` (cp.async)
    instructions in their SASS, read by the toolkit's ``cuobjdump``; fails
-   without it, where a flash kernel lacks wgmma or TMA or has mma.sync,
-   where #4 lacks an asynchronous ring or tensor-core dots, or where any
-   of them (every instantiation of #4) spills.
+   without it, where a flash or grouped-matmul kernel lacks wgmma or TMA
+   or has mma.sync, where #4 lacks an asynchronous ring or tensor-core
+   dots, or where any of them (every instantiation of #4) spills.
 3. parity       — the forward and decode kernels against their plain
    PyTorch versions at the training and serving paths' shapes, bf16 and
    f32 (the forward also at S 1, 127, 129 and 383, GQA groups 1, 4 and 8,
@@ -42,7 +43,12 @@ raises and exits non-zero:
    nexus_moe train step's shapes (m_pad 36864, bm 512, uneven expert runs,
    one expert holding only its padding tile), a bm-128 layout and
    Mixtral-8x7B's gate (K 4096, N 14336), bf16 and f32, each run twice
-   bit-identical; tgmm writes zeros for an expert with no tile.
+   bit-identical; tgmm writes zeros for an expert with no tile.  Edge
+   cases, all three calls in bf16 and f32, each twice bit-identical: K and
+   N not multiples of 64 (K 200 N 72; K 1000 N 1336), K of one slab (64)
+   and under one (8), M of one tile (fewer work units than SMs), an
+   unsorted tile_expert, expert ids outside [0, E) (gmm writes zeros),
+   and 300 experts (tgmm past its ranked table).
 6. times        — per-launch time (CUDA events) at the main paths' shapes
    (the kernels line reports the flash forward and backward at nexus_1b's
    training shape, decode at the serve step's), the bound, the plain
@@ -333,36 +339,45 @@ def read_rms_norm_launches(results, path: str) -> None:
 
 
 #: the Hopper kernels the build phase reads from the library's SASS: report
-#: key -> (mangled-name prefix at head dim {d}, its dynamic shared memory at
-#: D, the instructions its path needs).  "tma+wgmma": wgmma (HGMMA) fed by
-#: TMA loads (UTMALDG) and no mma.sync (HMMA); "ring+tensor": an
-#: asynchronous ring (UTMALDG or LDGSTS) and tensor-core dots (HGMMA or
-#: HMMA).  #4 is read at the serve step's shape, q_len 1 x GQA 4 (N 8).
+#: key -> (mangled-name prefix with {v} for the instantiation, the dynamic
+#: shared memory of a launch of instantiation v, the instructions its path
+#: needs, the instantiations read: row label -> v).  "tma+wgmma": wgmma
+#: (HGMMA) fed by TMA loads (UTMALDG) and no mma.sync (HMMA);
+#: "ring+tensor": an asynchronous ring (UTMALDG or LDGSTS) and tensor-core
+#: dots (HGMMA or HMMA).  The attention kernels are read at head dims 64 and
+#: 128, #4 at the serve step's shape, q_len 1 x GQA 4 (N 8); #7 with rhs
+#: [E,K,N] (read MN-major) and [E,N,K] (d_lhs, K-major), #8 once.
+HEAD_DIMS = {"d64": 64, "d128": 128}
 HOPPER_KERNELS = {
-    "flash_forward_bf16": ("flash_fwd_bf16_kernelILi{d}E", lambda lib, d: lib.nexus_flash_fwd_smem_bytes(d),
-                           "tma+wgmma"),
-    "flash_bwd_dq_bf16": ("flash_bwd_dq_bf16_kernelILi{d}E", lambda lib, d: lib.nexus_flash_bwd_smem_bytes(0, d),
-                          "tma+wgmma"),
-    "flash_bwd_dkv_bf16": ("flash_bwd_dkv_bf16_kernelILi{d}E", lambda lib, d: lib.nexus_flash_bwd_smem_bytes(1, d),
-                           "tma+wgmma"),
-    "decode_bf16": ("decode_hopper_kernelILi{d}ELb0ELi8E", lambda lib, d: lib.nexus_decode_smem_bytes(d, 4, 0),
-                    "ring+tensor"),
-    "decode_int8kv": ("decode_hopper_kernelILi{d}ELb1ELi8E", lambda lib, d: lib.nexus_decode_smem_bytes(d, 4, 1),
-                      "ring+tensor"),
+    "flash_forward_bf16": ("flash_fwd_bf16_kernelILi{v}E", lambda lib, d: lib.nexus_flash_fwd_smem_bytes(d),
+                           "tma+wgmma", HEAD_DIMS),
+    "flash_bwd_dq_bf16": ("flash_bwd_dq_bf16_kernelILi{v}E", lambda lib, d: lib.nexus_flash_bwd_smem_bytes(0, d),
+                          "tma+wgmma", HEAD_DIMS),
+    "flash_bwd_dkv_bf16": ("flash_bwd_dkv_bf16_kernelILi{v}E", lambda lib, d: lib.nexus_flash_bwd_smem_bytes(1, d),
+                           "tma+wgmma", HEAD_DIMS),
+    "decode_bf16": ("decode_hopper_kernelILi{v}ELb0ELi8E", lambda lib, d: lib.nexus_decode_smem_bytes(d, 4, 0),
+                    "ring+tensor", HEAD_DIMS),
+    "decode_int8kv": ("decode_hopper_kernelILi{v}ELb1ELi8E", lambda lib, d: lib.nexus_decode_smem_bytes(d, 4, 1),
+                      "ring+tensor", HEAD_DIMS),
+    "gmm_bf16": ("gmm_bf16_kernelILb{v}E", lambda lib, _: lib.nexus_gmm_smem_bytes(0), "tma+wgmma",
+                 {"rhs_ekn": 0, "rhs_enk_transposed": 1}),
+    "tgmm_bf16": ("tgmm_bf16_kernel{v}", lambda lib, _: lib.nexus_gmm_smem_bytes(1), "tma+wgmma", {"all": ""}),
 }
 
 
 def hopper_kernel_resources(_build):
     """The bf16 flash kernels (#1 forward, #2 dQ, #3 dK/dV) and kernel #4's
-    bf16 and int8-KV instantiations at D 64 and 128, read from the built
+    bf16 and int8-KV instantiations at D 64 and 128, and the bf16 grouped
+    matmul kernels (#7 in both rhs layouts, #8), read from the built
     library by the toolkit's ``cuobjdump -res-usage -sass``: registers a
     thread at entry, stack and local memory (spills) a thread, static shared
     memory, and the SASS counts that show the path — wgmma (``HGMMA``),
     ``mma.sync`` (``HMMA``), TMA loads (``UTMALDG``) and cp.async
     (``LDGSTS``); and the dynamic shared memory a launch asks for, from the
     library's own layouts.  Fails without cuobjdump, where a kernel lacks
-    what its path needs (``HOPPER_KERNELS``), or where any instantiation of
-    #4's Hopper kernel (every N) has local memory or stack."""
+    what its path needs (``HOPPER_KERNELS``), where any of them has local
+    memory or stack, or where any instantiation of #4's Hopper kernel (every
+    N) has."""
     import re
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -372,22 +387,22 @@ def hopper_kernel_resources(_build):
                           capture_output=True, text=True, timeout=300, check=True).stdout
     lib = _build.library()
     report = {}
-    for key, (pattern, dynamic_smem, needs) in HOPPER_KERNELS.items():
-        for d in (64, 128):
-            name = pattern.format(d=d)
+    for key, (pattern, dynamic_smem, needs, variants) in HOPPER_KERNELS.items():
+        for label, v in variants.items():
+            name = pattern.format(v=v)
             usage = re.search(rf"Function \S*{name}\S*:\s*\n(.*)", dump)
             fields = dict(re.findall(r"(\w+):(\d+)", usage.group(1))) if usage else {}
             sass = next((f for f in dump.split("Function : ")[1:] if re.match(rf"\S*{name}", f)), "")
             row = dict(
                 registers=int(fields.get("REG", 0)), stack_bytes=int(fields.get("STACK", 0)),
                 local_bytes=int(fields.get("LOCAL", 0)), static_smem=int(fields.get("SHARED", 0)),
-                dynamic_smem=dynamic_smem(lib, d),
+                dynamic_smem=dynamic_smem(lib, v),
                 sass_hgmma=len(re.findall(r"\bHGMMA\.", sass)),
                 sass_hmma=len(re.findall(r"\bHMMA\.", sass)),
                 sass_utmaldg=len(re.findall(r"\bUTMALDG\b", sass)),
                 sass_ldgsts=len(re.findall(r"\bLDGSTS\b", sass)),
             )
-            report.setdefault(key, {})[f"d{d}"] = row
+            report.setdefault(key, {})[label] = row
             if needs == "tma+wgmma":
                 path_ok = row["sass_hgmma"] and row["sass_utmaldg"] and not row["sass_hmma"]
             else:
@@ -1368,6 +1383,20 @@ GMM_PARITY_CASES = [
 #: f32 limit on max-abs error relative to the reference's largest magnitude
 #: (kernel and plain version differ in the order of the f32 sums only)
 GMM_F32_MAXABS_REL = 1e-5
+#: edge cases of moe_parity, each through gmm, gmm on rhsᵀ and tgmm in bf16
+#: and f32: (what, M, K, N, block_m, E, tile_expert)
+GMM_EDGE_CASES = [
+    ("K and N not multiples of 64", 1024, 200, 72, 128, 4, (0, 0, 0, 1, 2, 2, 3, 3)),
+    ("a ragged last slab and column tile", 2048, 1000, 1336, 256, 3, (0, 0, 0, 1, 1, 2, 2, 2)),
+    ("K of one slab", 1024, 64, 512, 128, 2, (0, 0, 0, 0, 1, 1, 1, 1)),
+    ("K under one slab", 512, 8, 256, 128, 2, (0, 1, 1, 1)),
+    ("M of one tile: fewer units than SMs", 128, 1024, 2048, 128, 1, (0,)),
+    ("an unsorted tile_expert", 1024, 256, 384, 128, 4, (2, 0, 3, 1, 0, 2, 3, 0)),
+    ("expert ids outside [0, E): gmm writes zeros, tgmm skips them", 1024, 256, 384, 128, 3,
+     (0, -1, 1, 3, 1, 2, 7, 0)),
+    ("300 experts: tgmm past the ranked table, in expert order", 2048, 128, 256, 128, 300,
+     (0, 299, 5, 5, 150, 299, 0, 7, 8, 9, 10, 11, 12, 13, 14, 15)),
+]
 
 
 def tile_map(tiles_per_expert):
@@ -1439,6 +1468,34 @@ def phase_moe_parity(results):
                     worst[key] = max(worst[key], fields["max_abs_err"])
                 del lhs, rhs, out, again, ref
                 torch.cuda.empty_cache()
+    for what, m, k, n, bm, e, te_list in GMM_EDGE_CASES:
+        te = torch.tensor(te_list, dtype=torch.int32, device="cuda")
+        outside = torch.tensor([not 0 <= x < e for x in te_list], device="cuda").repeat_interleave(bm)
+        for name in ("bfloat16", "float32"):
+            dtype = getattr(torch, name)
+            for kind in ("gmm", "gmm_transposed_rhs", "tgmm"):
+                seed += 1
+                transpose = kind == "gmm_transposed_rhs"
+                lhs, rhs = gmm_inputs(m, k, n, e, dtype, seed, transpose)
+                if kind == "tgmm":
+                    d_out = torch.randn((m, n), generator=torch.Generator(device="cuda").manual_seed(seed + 1),
+                                        device="cuda").to(dtype)
+                    out, again = (tgmm_kernel_call(lhs, d_out, te, e, bm) for _ in range(2))
+                    torch.cuda.synchronize()
+                    ref = tgmm_plain(lhs, d_out, te, e, bm)
+                    zeros_ok = True
+                else:
+                    out, again = (gmm_kernel_call(lhs, rhs, te, bm, transpose_rhs=transpose) for _ in range(2))
+                    torch.cuda.synchronize()
+                    ref = gmm_plain(lhs, rhs.transpose(1, 2) if transpose else rhs, te, bm)
+                    zeros_ok = not bool(out[outside].any())
+                ok, fields = _gmm_check(out, again, ref, dtype)
+                emit("moe_parity", kernel=kind, case=what, m=m, k=k, n=n, block_m=bm, experts=e,
+                     tile_expert=list(te_list), dtype=name, rows_of_outside_ids_zero=zeros_ok, **fields)
+                if not (ok and zeros_ok):
+                    raise AssertionError(f"{kind} kernel disagrees with its plain version: {what}, {name}")
+                del lhs, rhs, out, again, ref
+    torch.cuda.empty_cache()
     # an expert with no tile at all: tgmm writes its block as zeros
     te = tile_map((2, 0, 2))
     lhs, _ = gmm_inputs(512, 256, 256, 3, torch.bfloat16, 6500)
@@ -2445,6 +2502,8 @@ def main(argv=None) -> int:
             }
             if name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
                 entry.update(design="wgmma+tma")
+            if name in ("nexus_gmm", "nexus_tgmm"):
+                entry.update(design="wgmma+tma, persistent")
             if name.startswith("decode_attention"):
                 entry.update(design="wgmma+cp.async ring, merge in the launch")
             if name == "nexus_gmm":

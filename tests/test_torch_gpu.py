@@ -453,11 +453,20 @@ def test_quantized_kernel_generate_is_token_identical_to_plain_in_f32(cuda_devic
 # -- grouped matmul (kernels #7 and #8) -----------------------------------------
 
 #: (M, K, N, E, block_m, tile_expert): uneven runs; an unaligned K and N; a
-#: 512-row layout tile with expert 2 absent
+#: 512-row layout tile with expert 2 absent; K of one 64-deep slab and
+#: under one; M of one tile (fewer work units than SMs); an unsorted map;
+#: expert ids outside [0, E) (gmm writes zeros there, tgmm skips them); 300
+#: experts (tgmm past its table of ranked experts)
 GMM_CASES = [
     (1024, 256, 384, 4, 128, [0, 0, 0, 1, 2, 2, 3, 3]),
     (768, 200, 72, 3, 128, [0, 1, 1, 1, 2, 2]),
     (2048, 128, 256, 4, 512, [0, 1, 1, 3]),
+    (1024, 64, 512, 2, 128, [0, 0, 0, 0, 1, 1, 1, 1]),
+    (512, 8, 256, 2, 128, [0, 1, 1, 1]),
+    (128, 1024, 2048, 1, 128, [0]),
+    (1024, 256, 384, 4, 128, [2, 0, 3, 1, 0, 2, 3, 0]),
+    (1024, 256, 384, 3, 128, [0, -1, 1, 3, 1, 2, 7, 0]),
+    (2048, 128, 256, 300, 128, [0, 299, 5, 5, 150, 299, 0, 7, 8, 9, 10, 11, 12, 13, 14, 15]),
 ]
 
 
@@ -486,6 +495,8 @@ def test_gmm_kernel_matches_plain(cuda_device, dtype, transpose, case):
     again = gmm_kernel_call(lhs, rhs, te, bm, transpose_rhs=transpose)
     torch.cuda.synchronize()
     assert gmm_kernel_call.launches == before + 2 and torch.equal(out, again)
+    outside = torch.tensor([not 0 <= x < e for x in te.tolist()], device=cuda_device).repeat_interleave(bm)
+    assert not bool(out[outside].any())
     _gmm_close(out, gmm_plain(lhs, rhs.transpose(1, 2) if transpose else rhs, te, bm), dtype)
 
 

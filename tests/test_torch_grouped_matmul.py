@@ -15,6 +15,9 @@ mode).  Inputs are numpy with a fixed seed at 128-multiple widths, f32.
 * On CPU tensors the wrappers take the plain versions and count no
   launch; the forward is the dispatcher op ``nexus::gmm``, which
   selective checkpointing sees.
+* ``_check_kernel_inputs`` accepts exactly the kernels' contract (bf16 or
+  f32, ``block_m`` a multiple of 128, 16-byte K and N rows, 16-byte
+  aligned operands) and raises on the rest, naming the clause.
 """
 
 import jax
@@ -29,11 +32,13 @@ from tpu_nexus_torch.ops import grouped_matmul as port_gmm
 torch.set_num_threads(1)
 REL = 1e-5
 #: (M, K, N, E, block_m, tile_expert): uneven runs; one 512-row tile layout
-#: with an expert absent
+#: with an expert absent; K and N not multiples of 64 (the card's kernels
+#: take them through TMA's zero fill, so their oracle is held to JAX there)
 CASES = [
     (1024, 256, 384, 4, 128, [0, 0, 0, 1, 2, 2, 3, 3]),
     (512, 128, 128, 4, 128, [0, 1, 2, 3]),
     (1024, 128, 256, 3, 512, [0, 2]),
+    (768, 200, 72, 3, 128, [0, 1, 1, 1, 2, 2]),
 ]
 
 
@@ -156,3 +161,41 @@ def test_selective_checkpointing_sees_the_gmm_op():
     assert torch.ops.nexus.gmm.default in seen
     ref = torch.autograd.grad(port_gmm.gmm(pl, pr, torch.from_numpy(te), bm), (pl, pr), torch.from_numpy(d_out))
     assert torch.equal(gl, ref[0]) and torch.equal(gr, ref[1])
+
+
+#: (what, lhs dtype, other dtype, te dtype, block_m, K, N, byte offset of
+#: lhs, the clause the message must name or None where the kernels take it)
+CONTRACT = [
+    ("bf16", torch.bfloat16, torch.bfloat16, torch.int32, 512, 1024, 2048, 0, None),
+    ("f32", torch.float32, torch.float32, torch.int32, 128, 256, 384, 0, None),
+    ("int64 map", torch.bfloat16, torch.bfloat16, torch.int64, 256, 64, 64, 0, None),
+    ("ragged bf16 K and N", torch.bfloat16, torch.bfloat16, torch.int32, 128, 200, 72, 0, None),
+    ("one 16-byte row", torch.bfloat16, torch.bfloat16, torch.int32, 128, 8, 8, 0, None),
+    ("f32 K 4", torch.float32, torch.float32, torch.int32, 128, 4, 12, 0, None),
+    ("fp16", torch.float16, torch.float16, torch.int32, 128, 64, 64, 0, "dtypes torch.float16"),
+    ("mixed dtypes", torch.bfloat16, torch.float32, torch.int32, 128, 64, 64, 0, "dtypes torch.bfloat16 / torch.float32"),
+    ("float map", torch.bfloat16, torch.bfloat16, torch.float32, 128, 64, 64, 0, "tile_expert dtype"),
+    ("block_m 64", torch.bfloat16, torch.bfloat16, torch.int32, 64, 64, 64, 0, "block_m 64"),
+    ("block_m 192", torch.bfloat16, torch.bfloat16, torch.int32, 192, 64, 64, 0, "block_m 192"),
+    ("bf16 K 12", torch.bfloat16, torch.bfloat16, torch.int32, 128, 12, 64, 0, "K 12"),
+    ("bf16 N 4", torch.bfloat16, torch.bfloat16, torch.int32, 128, 64, 4, 0, "N 4"),
+    ("f32 N 6", torch.float32, torch.float32, torch.int32, 128, 64, 6, 0, "N 6"),
+    ("K 0", torch.bfloat16, torch.bfloat16, torch.int32, 128, 0, 64, 0, "K 0"),
+    ("misaligned lhs", torch.bfloat16, torch.bfloat16, torch.int32, 128, 64, 64, 8, "base addresses at 8 / 0"),
+]
+
+
+@pytest.mark.parametrize("case", CONTRACT, ids=[c[0] for c in CONTRACT])
+def test_check_kernel_inputs_accepts_exactly_the_kernels_contract(case):
+    _, dt, other_dt, te_dt, bm, k, n, offset, clause = case
+    item = torch.empty((), dtype=dt).element_size()
+    # lhs as a contiguous view starting `offset` bytes into a fresh (aligned) buffer
+    lhs = torch.zeros(offset // item + 2 * bm * k, dtype=dt)[offset // item:].view(2 * bm, k)
+    other = torch.zeros((2 * bm, n), dtype=other_dt)
+    te = torch.zeros((2,), dtype=te_dt)
+    if clause is None:
+        port_gmm._check_kernel_inputs("gmm", lhs, other, te, bm, k, n)
+    else:
+        with pytest.raises(ValueError, match="gmm kernel unsupported inputs") as info:
+            port_gmm._check_kernel_inputs("gmm", lhs, other, te, bm, k, n)
+        assert clause in str(info.value)

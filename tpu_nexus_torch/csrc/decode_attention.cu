@@ -92,21 +92,6 @@ using namespace nexus_hopper;
 
 constexpr int kMaxRows = 64;  // q_len * group
 
-// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and device: the attribute
-// outlives the launch, and the serving loops that launch this kernel are host-bound.  `done` is
-// the calling instantiation's own bitmask of devices.
-template <typename Kernel>
-cudaError_t allow_smem_once(std::atomic<unsigned long long>& done, Kernel kernel, int bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 // -- bf16 q: the Hopper kernel ----------------------------------------------------------------
 
 constexpr int kSlots = 64;            // KV slots a ring stage holds: the M of S^T = K.Q^T

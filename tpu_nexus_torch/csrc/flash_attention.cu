@@ -93,7 +93,7 @@ __device__ __forceinline__ void qk_gemm(float (&s)[64], uint32_t q_addr, uint32_
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-    wgmma_m64n128k16_ss(s, sw128_desc(q_addr + off, 16, 1024), sw128_desc(k_addr + off, 16, 1024), kk > 0);
+    wgmma_ss<128, 0>(s, sw128_desc(q_addr + off, 16, 1024), sw128_desc(k_addr + off, 16, 1024), kk > 0);
   }
 }
 

@@ -136,8 +136,8 @@ __device__ __forceinline__ void gemm_abt(float (&acc)[32], uint32_t a_addr, int 
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_m64n64k16_ss(acc, sw128_desc(a_addr + (kk / 4) * a_panel + off, 16, 1024),
-                       sw128_desc(b_addr + (kk / 4) * b_panel + off, 16, 1024), kk > 0);
+    wgmma_ss<64, 0>(acc, sw128_desc(a_addr + (kk / 4) * a_panel + off, 16, 1024),
+                    sw128_desc(b_addr + (kk / 4) * b_panel + off, 16, 1024), kk > 0);
   }
 }
 

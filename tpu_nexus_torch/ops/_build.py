@@ -53,6 +53,7 @@ SIGNATURES = {
     "nexus_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "nexus_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "nexus_tgmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "nexus_gmm_smem_bytes": [_I],
     "nexus_rms_norm": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 

@@ -4,8 +4,14 @@ versions, and the autograd functions that train through them.
 Replaces ``tpu_nexus/ops/grouped_matmul.py``: ``_gmm_kernel`` (launched by
 ``_gmm_raw``) and ``_tgmm_kernel`` (launched by ``_tgmm_raw`` inside
 ``_gmm_bwd``).  The kernels live in ``csrc/grouped_matmul.cu``; the source
-note there says what bounds them on the H100 and what the design does
-about it.
+note there says what bounds them on the H100 (the tensor cores, at the
+MoE train step's shapes) and what the design does about it: in bf16,
+persistent CTAs whose producer warp feeds a TMA ring of 64-deep slabs to
+two consumer warpgroups running ``wgmma`` on 128 × 256 output tiles,
+operands read in place through tensor maps (``rhs`` by expert, and
+transposed for ``d_lhs``, without a copy); tgmm's units run heaviest
+expert first and each writes its f32 block once.  f32 runs on the CUDA
+cores.
 
 Rows of ``lhs [M, K]`` are sorted by expert and each expert's run is
 padded to a multiple of the m-tile ``block_m``, so every ``block_m``-row
@@ -34,7 +40,8 @@ layout and must agree with the JAX package.  The reference's
 ``NEXUS_GMM_BLOCK_N`` / ``NEXUS_GMM_BLOCK_K`` are TPU tile sizes: the CUDA
 kernels choose their own tiles and the port does not read them.  The
 kernels take bf16 or f32 (lhs and rhs in one dtype), ``block_m`` a
-multiple of 128, and K and N whose rows are 16-byte aligned.
+multiple of 128, K and N whose rows are 16-byte aligned, and operands
+whose first element is 16-byte aligned (as every fresh allocation is).
 """
 
 from __future__ import annotations
@@ -103,7 +110,8 @@ def tgmm_plain(
 
 
 def _check_kernel_inputs(what: str, lhs, other, tile_expert, block_m, k, n) -> None:
-    """Raise, naming every clause, on CUDA inputs the kernels do not take."""
+    """Raise, naming every clause, on CUDA inputs the kernels do not take
+    (``lhs`` and ``other`` as the kernel will read them: contiguous)."""
     problems = []
     if lhs.dtype not in _DTYPES or other.dtype != lhs.dtype:
         problems.append(f"dtypes {lhs.dtype} / {other.dtype} (both bfloat16 or both float32)")
@@ -119,6 +127,9 @@ def _check_kernel_inputs(what: str, lhs, other, tile_expert, block_m, k, n) -> N
     for name, width in (("K", k), ("N", n)):
         if width < 1 or width % align:
             problems.append(f"{name} {width} (16-byte rows: a multiple of {align} in {lhs.dtype})")
+    offsets = [t.data_ptr() % 16 for t in (lhs, other)]
+    if any(offsets):
+        problems.append(f"base addresses at {offsets[0]} / {offsets[1]} bytes past 16 (16-byte aligned)")
     if problems:
         raise ValueError(f"{what} kernel unsupported inputs: " + "; ".join(problems))
 
@@ -141,8 +152,8 @@ def gmm_kernel_call(
     _check_tiles(m, block_m, tile_expert)
     if lhs.device.type == "cpu":
         return gmm_plain(lhs, rhs.transpose(1, 2) if transpose_rhs else rhs, tile_expert, block_m)
-    _check_kernel_inputs("gmm", lhs, rhs, tile_expert, block_m, k, n)
     lhs, rhs = lhs.contiguous(), rhs.contiguous()
+    _check_kernel_inputs("gmm", lhs, rhs, tile_expert, block_m, k, n)
     te = tile_expert.to(torch.int32).contiguous()
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
     if m == 0:
@@ -170,9 +181,11 @@ def tgmm_kernel_call(
     _check_tiles(m, block_m, tile_expert)
     if lhs.device.type == "cpu":
         return tgmm_plain(lhs, d_out, tile_expert, n_experts, block_m)
-    _check_kernel_inputs("tgmm", lhs, d_out, tile_expert, block_m, k, n)
     lhs, d_out = lhs.contiguous(), d_out.contiguous()
+    _check_kernel_inputs("tgmm", lhs, d_out, tile_expert, block_m, k, n)
     te = tile_expert.to(torch.int32).contiguous()
+    if m == 0:
+        return torch.zeros((n_experts, k, n), dtype=torch.float32, device=lhs.device)
     out = torch.empty((n_experts, k, n), dtype=torch.float32, device=lhs.device)
     with torch.cuda.device(lhs.device):
         status = _build.library().nexus_tgmm(
