@@ -14,21 +14,26 @@ raises and exits non-zero:
 2. build        — compile the CUDA kernels from ``tpu_nexus_torch/csrc``
    (one ``nvcc`` per source, all started together); the bf16 flash
    kernels' (forward, dQ, dK/dV) and kernel #4's bf16 and int8-KV
-   instantiations' (at D 64 and 128) and the bf16 grouped-matmul kernels'
-   (#7 with either rhs layout, #8) registers, local memory (spills and
-   stack), shared memory and the count of ``HGMMA`` (wgmma), ``HMMA``
-   (mma.sync), ``UTMALDG`` (TMA load) and ``LDGSTS`` (cp.async)
+   instantiations' (at D 64 and 128), the bf16 grouped-matmul kernels'
+   (#7 with either rhs layout, #8), #6's int4 ring kernel's (and the first
+   design it keeps for the pitch branch) and #9's registers, local memory
+   (spills and stack), shared memory and the count of ``HGMMA`` (wgmma),
+   ``HMMA`` (mma.sync), ``UTMALDG`` (TMA load), ``LDGSTS`` (cp.async),
+   ``I2F``/``I2FP`` (int -> float) and 128-bit global load and store
    instructions in their SASS, read by the toolkit's ``cuobjdump``; fails
    without it, where a flash or grouped-matmul kernel lacks wgmma or TMA
-   or has mma.sync, where #4 lacks an asynchronous ring or tensor-core
-   dots, or where any of them (every instantiation of #4) spills.
+   or has mma.sync, where #4 or #6's ring kernel lacks an asynchronous
+   ring or tensor-core dots, where #9 lacks 128-bit loads or stores, or
+   where any of them (every instantiation of #4 and #9) spills.
 3. parity       — the forward and decode kernels against their plain
    PyTorch versions at the training and serving paths' shapes, bf16 and
    f32 (the forward also at S 1, 127, 129 and 383, GQA groups 1, 4 and 8,
    D 64, causal and full; each forward case run twice, bit-identical);
    the int8 and int4 dequant-matmul kernels at the Llama-3-8B decode
-   step's (K, N) with M = 8, at M = 1 and 256 and at unaligned shapes,
-   int4 at groups 64 and 128 (and 2 and K), each run twice bit-identical;
+   step's (K, N) with M = 8, at M = 1, 40 and 256 and at unaligned shapes,
+   int4 at groups 64 and 128 (and 2 and K), each run twice bit-identical,
+   each int4 bf16 case naming its kernel (the ring kernel, or the pitch
+   branch for N 200 and 71 and group 2; both must be reached);
    the decode kernel's int8-KV mode at the serve shape, kv_len 4096, q_len
    4 and ragged.  Every decode case runs twice, bit-identical; they cover
    q_len 8 x GQA 8 (64 query rows), GQA 1 and 8, D 64, and one row's 8 kv
@@ -57,8 +62,9 @@ raises and exits non-zero:
    the port never calls them).  The backward is also timed whole
    (``flash_attention_bwd``: dsum, q̃ and both kernels) and at nexus_moe's
    attention shape (Hq8 Hkv4).  For the dequant-matmul kernels the shape is
-   the step's largest launch (K4096 x N14336, M8) and the yardstick is
-   ``torch.matmul`` with the pre-dequantized bf16 weight; for int8-KV
+   the step's largest launch (K4096 x N14336, M8; int4 also at w_down,
+   wq/wo and wk/wv) and the yardstick is ``torch.matmul`` with the
+   pre-dequantized bf16 weight; for int8-KV
    decode, ``scaled_dot_product_attention`` on a dequantized cache.  For
    the grouped matmul, the nexus_moe train step's four products and
    Mixtral's gate; the yardstick is ``torch._grouped_mm`` with group
@@ -103,8 +109,10 @@ raises and exits non-zero:
    q_len 1-5, every combination of paged x ragged x int8-KV in bf16 and
    f32, each run twice bit-identical, and f32 at 4096 slots and q_len 5
    against the plain version evaluated in f64; kernel #9 (RMSNorm) at [1024, 4096]
-   and [16384, 2048], bf16 and f32.  (``times`` adds paged decode and
-   ragged verify at q_len 5, each at kv_len 144 and 4096, and RMSNorm rows.)
+   and [16384, 2048], H 8192, H 100 and 2056, one row and 100 rows, an f32
+   and a bf16 weight, bf16 and f32 x, each run twice bit-identical.
+   (``times`` adds paged decode and ragged verify at q_len 5, each at
+   kv_len 144 and 4096, and RMSNorm at [16384, 2048] and [1024, 4096].)
 16. engine_e2e  — Llama-3-8B widths at 2 layers in f32, greedy:
    ``ServingEngine`` is token-identical to one-shot ``generate`` through
    the kernels and through the plain path — contiguous, paged (page 16),
@@ -126,7 +134,9 @@ share (``python3 chip_smoke.py --phases build,profile``); ``train_profile``
 ``decode_probe`` — kernel #4 (bf16, contiguous) across q_len x GQA at kv_len
 144 and 4096, then built again from copies of its source with one and two
 producer warps in place of four, timed at the serve step's and kv 4096's
-shapes in every mode (``--phases build,decode_probe``).
+shapes in every mode (``--phases build,decode_probe``); ``quant_rms_times``
+— only the dequant-matmul and RMSNorm rows of ``times``, to compare two
+trees of the package in one call (``--phases device,quant_rms_times``).
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -151,7 +161,8 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe")
 #: phases run only when named in --phases
-OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe")
+OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
+          "quant_rms_times", "int4_probe")
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, f32 CUDA
 # core rate, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -344,9 +355,14 @@ def read_rms_norm_launches(results, path: str) -> None:
 #: needs, the instantiations read: row label -> v).  "tma+wgmma": wgmma
 #: (HGMMA) fed by TMA loads (UTMALDG) and no mma.sync (HMMA);
 #: "ring+tensor": an asynchronous ring (UTMALDG or LDGSTS) and tensor-core
-#: dots (HGMMA or HMMA).  The attention kernels are read at head dims 64 and
-#: 128, #4 at the serve step's shape, q_len 1 x GQA 4 (N 8); #7 with rhs
-#: [E,K,N] (read MN-major) and [E,N,K] (d_lhs, K-major), #8 once.
+#: dots (HGMMA or HMMA); "vector": 128-bit global loads and stores
+#: (LDG.E.128, STG.E.128); "report": read, nothing required.  The attention
+#: kernels are read at head dims 64 and 128, #4 at the serve step's shape,
+#: q_len 1 x GQA 4 (N 8); #7 with rhs [E,K,N] (read MN-major) and [E,N,K]
+#: (d_lhs, K-major), #8 once; #6's ring kernel (bf16 activations) and the
+#: first design it keeps for the pitch branch; #9 at the widths of its
+#: timed rows (bf16 and f32 x, 16-byte accesses).  ``sass_i2f`` counts the
+#: int -> float conversions (I2F, I2FP).
 HEAD_DIMS = {"d64": 64, "d128": 128}
 HOPPER_KERNELS = {
     "flash_forward_bf16": ("flash_fwd_bf16_kernelILi{v}E", lambda lib, d: lib.nexus_flash_fwd_smem_bytes(d),
@@ -362,22 +378,31 @@ HOPPER_KERNELS = {
     "gmm_bf16": ("gmm_bf16_kernelILb{v}E", lambda lib, _: lib.nexus_gmm_smem_bytes(0), "tma+wgmma",
                  {"rhs_ekn": 0, "rhs_enk_transposed": 1}),
     "tgmm_bf16": ("tgmm_bf16_kernel{v}", lambda lib, _: lib.nexus_gmm_smem_bytes(1), "tma+wgmma", {"all": ""}),
+    "quant_int4_ring": ("quant_int4_ring_kernel{v}", lambda lib, _: lib.nexus_quant_int4_smem_bytes(), "ring+tensor",
+                        {"bf16": ""}),
+    "quant_int4_pitch_branch": ("quant_matmul_mma_kernelILb{v}E", lambda lib, _: 0, "report", {"bf16": 1}),
+    "rms_norm": ("rms_kernelI{v}", lambda lib, _: 0, "vector",
+                 {"bf16_h2048": "13__nv_bfloat16Li2ELb1E", "bf16_h4096": "13__nv_bfloat16Li4ELb1E",
+                  "f32_h2048": "fLi2ELb1E", "f32_h8192": "fLi8ELb1E"}),
 }
+#: kernels whose every instantiation must be free of local memory and stack: name -> how many
+ALL_INSTANTIATIONS = {"decode_hopper_kernel": 16, "rms_kernel": 16, "quant_int4_ring_kernel": 1}
 
 
 def hopper_kernel_resources(_build):
-    """The bf16 flash kernels (#1 forward, #2 dQ, #3 dK/dV) and kernel #4's
-    bf16 and int8-KV instantiations at D 64 and 128, and the bf16 grouped
-    matmul kernels (#7 in both rhs layouts, #8), read from the built
+    """The kernels of :data:`HOPPER_KERNELS` (the bf16 flash kernels, #4's
+    bf16 and int8-KV instantiations, the bf16 grouped matmul kernels, #6's
+    int4 ring kernel and the first design it keeps, #9) read from the built
     library by the toolkit's ``cuobjdump -res-usage -sass``: registers a
     thread at entry, stack and local memory (spills) a thread, static shared
     memory, and the SASS counts that show the path — wgmma (``HGMMA``),
-    ``mma.sync`` (``HMMA``), TMA loads (``UTMALDG``) and cp.async
-    (``LDGSTS``); and the dynamic shared memory a launch asks for, from the
+    ``mma.sync`` (``HMMA``), TMA loads (``UTMALDG``), cp.async (``LDGSTS``),
+    int -> float conversions (``I2F``/``I2FP``), 128-bit global loads and
+    stores; and the dynamic shared memory a launch asks for, from the
     library's own layouts.  Fails without cuobjdump, where a kernel lacks
-    what its path needs (``HOPPER_KERNELS``), where any of them has local
-    memory or stack, or where any instantiation of #4's Hopper kernel (every
-    N) has."""
+    what its path needs, where any of them but a "report" row has local
+    memory or stack, or where any instantiation of a kernel in
+    :data:`ALL_INSTANTIATIONS` has."""
     import re
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -401,23 +426,33 @@ def hopper_kernel_resources(_build):
                 sass_hmma=len(re.findall(r"\bHMMA\.", sass)),
                 sass_utmaldg=len(re.findall(r"\bUTMALDG\b", sass)),
                 sass_ldgsts=len(re.findall(r"\bLDGSTS\b", sass)),
+                sass_i2f=len(re.findall(r"\bI2FP?(?:\.|\s)", sass)),
+                sass_ldg128=len(re.findall(r"\bLDG\.E(?:\.\w+)*\.128\b", sass)),
+                sass_stg128=len(re.findall(r"\bSTG\.E(?:\.\w+)*\.128\b", sass)),
             )
             report.setdefault(key, {})[label] = row
             if needs == "tma+wgmma":
                 path_ok = row["sass_hgmma"] and row["sass_utmaldg"] and not row["sass_hmma"]
-            else:
+            elif needs == "ring+tensor":
                 path_ok = (row["sass_utmaldg"] or row["sass_ldgsts"]) and (row["sass_hgmma"] or row["sass_hmma"])
-            if not (fields and path_ok) or row["local_bytes"] or row["stack_bytes"]:
+            elif needs == "vector":
+                path_ok = row["sass_ldg128"] and row["sass_stg128"]
+            else:
+                path_ok = True
+            spills = needs != "report" and (row["local_bytes"] or row["stack_bytes"])  # "report": as it is
+            if not (fields and path_ok) or spills:
                 raise AssertionError(f"{name}: no resource usage, its path ({needs}) missing, or local memory or "
                                      f"stack in cuobjdump's output: {row}\n{dump[:4000]}")
-    # every instantiation of #4's Hopper kernel (D x int8-KV x N 8/16/32/64): none spills
-    spills = {f: dict(re.findall(r"(\w+):(\d+)", u)) for f, u in
-              re.findall(r"Function (\S*decode_hopper_kernel\S*):\s*\n(.*)", dump)}
-    worst = {f: (int(u.get("REG", 0)), int(u.get("LOCAL", 0)), int(u.get("STACK", 0))) for f, u in spills.items()}
-    if len(worst) != 16 or any(local or stack for _, local, stack in worst.values()):
-        raise AssertionError(f"decode_hopper_kernel: {len(worst)} instantiations (want 16), or one spills: {worst}")
-    report["decode_all_instantiations"] = dict(count=len(worst), max_registers=max(r for r, _, _ in worst.values()),
-                                               local_or_stack_bytes=0)
+    # every instantiation of #4's Hopper kernel (D x int8-KV x N 8/16/32/64), of #9 (x dtype x warps a
+    # row x aligned) and #6's ring kernel: none spills
+    for kernel, count in ALL_INSTANTIATIONS.items():
+        spills = {f: dict(re.findall(r"(\w+):(\d+)", u)) for f, u in
+                  re.findall(rf"Function (\S*{kernel}\S*):\s*\n(.*)", dump)}
+        worst = {f: (int(u.get("REG", 0)), int(u.get("LOCAL", 0)), int(u.get("STACK", 0))) for f, u in spills.items()}
+        if len(worst) != count or any(local or stack for _, local, stack in worst.values()):
+            raise AssertionError(f"{kernel}: {len(worst)} instantiations (want {count}), or one spills: {worst}")
+        report[f"{kernel}_all_instantiations"] = dict(
+            count=len(worst), max_registers=max(r for r, _, _ in worst.values()), local_or_stack_bytes=0)
     return report
 
 
@@ -568,11 +603,13 @@ def quant_matmul_parity(results):
     """Kernels #5 (int8) and #6 (int4) against ``quant_matmul_plain``."""
     import torch
 
-    from tpu_nexus_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+    from tpu_nexus_torch.ops.quant_matmul import int4_ring_route, quant_matmul, quant_matmul_plain
 
     cases = [(8, k, n, (64, 128)) for k, n in LLAMA8B_KN]  # (M, K, N, int4 groups)
-    cases += [(1, 4096, 4096, (64,)), (256, 4096, 4096, (64,)), (5, 448, 200, (64, 2)), (3, 640, 71, (128, 640))]
+    cases += [(1, 4096, 4096, (64,)), (256, 4096, 4096, (64,)), (40, 4096, 14336, (64,)), (256, 4096, 14336, (64,)),
+              (8, 4096, 1024, (4096, 2)), (5, 448, 200, (64, 2)), (3, 640, 71, (128, 640))]
     worst = {"quant_matmul_int8": 0.0, "quant_matmul_int4": 0.0}
+    routes = {}
     seed = 2000
     for m, k, n, groups in cases:
         for mode, group in [("int8", 0)] + [("int4", g) for g in groups]:
@@ -588,8 +625,12 @@ def quant_matmul_parity(results):
                 err, ref_max, e_row = max_err(out, ref), float(ref.float().abs().max()), row_rel_err(out, ref)
                 ok = same and bool(torch.isfinite(out).all()) and (
                     e_row <= ROW_REL_TOL if dtype == torch.bfloat16 else err <= QUANT_F32_MAXABS_REL * ref_max)
+                # the kernel that ran: int4 bf16 takes the ring kernel or the pitch branch
+                route = ("ring" if int4_ring_route(x, w.q, w.s, n, group) else "pitch_branch") if (
+                    mode == "int4" and dtype == torch.bfloat16) else "first_design"
+                routes.setdefault(f"{mode}_{str(dtype)[6:]}_{route}", []).append([m, k, n, group or None])
                 emit("parity", kernel=f"quant_matmul_{mode}", m=m, k=k, n=n, group=group or None,
-                     dtype=str(dtype), max_abs_err=err, ref_max_abs=ref_max, max_row_rel_err=e_row,
+                     dtype=str(dtype), route=route, max_abs_err=err, ref_max_abs=ref_max, max_row_rel_err=e_row,
                      bit_identical_twice=same, tol_f32_max_abs_rel=QUANT_F32_MAXABS_REL,
                      tol_bf16_row_rel=ROW_REL_TOL, ok=ok)
                 if not ok:
@@ -599,6 +640,9 @@ def quant_matmul_parity(results):
                     worst[f"quant_matmul_{mode}"] = err
             del w
     torch.cuda.empty_cache()
+    emit("parity", kernel="quant_matmul", routes=routes)
+    if not routes.get("int4_bfloat16_ring") or not routes.get("int4_bfloat16_pitch_branch"):
+        raise AssertionError(f"the int4 bf16 cases missed the ring kernel or the pitch branch: {routes}")
     results.setdefault("max_abs_err", {}).update(worst)
 
 
@@ -795,12 +839,23 @@ def phase_times(results):
     results["times"] = times
 
 
+#: the timed dequant-matmul launches: (times key, M, K, N, mode, group).  The
+#: first two are the kernels line's rows (the decode step's largest launch,
+#: w_gate/w_up); #6 also at w_down, wq/wo and wk/wv.
+QUANT_TIMED = (("quant_matmul_int8", 8, 4096, 14336, "int8", 0), ("quant_matmul_int4", 8, 4096, 14336, "int4", 64),
+               ("quant_matmul_int4_down", 8, 14336, 4096, "int4", 64),
+               ("quant_matmul_int4_wq", 8, 4096, 4096, "int4", 64),
+               ("quant_matmul_int4_wk", 8, 4096, 1024, "int4", 64))
+
+
 def quant_times(times):
-    """Kernels #5 and #6 at the decode step's largest launch (K4096 x N14336,
-    M8, bf16; int4 at group 64), cycling four weight copies so the packed
-    bytes come from HBM; and kernel #4's int8-KV mode at the two decode
-    shapes.  ``library_ms``: ``torch.matmul`` with the pre-dequantized bf16
-    weight, ``scaled_dot_product_attention`` on a dequantized cache."""
+    """Kernels #5 (int8) and #6 (int4, group 64) at the Llama-3-8B decode
+    step's launches, M 8, bf16 (:data:`QUANT_TIMED`), cycling enough weight
+    copies (at least four, over 128 MB in all) that the packed bytes come
+    from HBM as a per-layer caller finds them; and kernel #4's int8-KV mode
+    at the two decode shapes.  ``library_ms``: ``torch.matmul`` with the
+    pre-dequantized bf16 weight, ``scaled_dot_product_attention`` on a
+    dequantized cache."""
     import torch
     import torch.nn.functional as F
 
@@ -808,22 +863,23 @@ def quant_times(times):
     from tpu_nexus_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
 
     dt = torch.bfloat16
-    m, k, n = 8, 4096, 14336
-    x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(4000), device="cuda").to(dt)
-    for mode, group in (("int8", 0), ("int4", 64)):
-        weights = [quant_weight(k, n, mode, group, 4001 + i) for i in range(4)]
-        dense = [w.to(dt) for w in weights]
+    for key, m, k, n, mode, group in QUANT_TIMED:
+        x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(4000), device="cuda").to(dt)
+        first = quant_weight(k, n, mode, group, 4001)
+        copies = max(4, -(-128 * 2**20 // (first.q.numel() + first.s.numel() * 4)))
+        weights = [first] + [quant_weight(k, n, mode, group, 4001 + i) for i in range(1, copies)]
+        dense = [w.to(dt) for w in weights[: max(4, -(-copies // 4))]]  # 4x the bytes each: as many over L2
         bound, by = quant_bound(m, k, n, weights[0], dt)
         ms, enqueue_ms = timed([lambda w=w: quant_matmul(x, w) for w in weights], iters=64)
         row = dict(
             shape=[m, k, n], group=group or None, dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
-            plain_ms=cuda_ms([lambda w=w: quant_matmul_plain(x, w) for w in weights], iters=8, warmup=2),
+            plain_ms=cuda_ms([lambda w=w: quant_matmul_plain(x, w) for w in weights[:4]], iters=8, warmup=2),
             library_ms=cuda_ms([lambda w=w: torch.matmul(x, w) for w in dense], iters=64),
-            bound_ms=bound, bound_by=by,
+            bound_ms=bound, bound_by=by, weight_copies=copies,
         )
-        times[f"quant_matmul_{mode}"] = row
-        emit("times", kernel=f"quant_matmul_{mode}", library_ms_is="torch.matmul, pre-dequantized bf16 weight", **row)
-        del weights, dense
+        times[key] = row
+        emit("times", kernel=key, library_ms_is="torch.matmul, pre-dequantized bf16 weight", **row)
+        del weights, dense, first
         torch.cuda.empty_cache()
 
     hq, hkv, d = 32, 8, 128
@@ -1278,8 +1334,8 @@ def phase_profile(results, quantize="", kv_quant=""):
             return "flash_attention kernel"
         if "decode_hopper" in low or "decode_partial" in low or "decode_combine" in low:
             return "decode_attention kernel"
-        if "quant_matmul" in low:
-            return "quant_matmul kernels (partial + finalize)"
+        if "quant_matmul" in low or "quant_int4_ring" in low:
+            return "quant_matmul kernels (int4 ring; int8 partial + finalize)"
         if any(s in low for s in ("nvjet", "gemm", "xmma", "cutlass", "cublas", "sm90")):
             return "matmul (cuBLAS)"
         return "other (elementwise, copies, reductions)"
@@ -1932,6 +1988,119 @@ def phase_decode_probe(results):
     results["decode_probe"] = dict(sweep_ms=sweep, ms_by_producer_threads=by_producer)
 
 
+#: int4_probe's builds of #6's ring kernel: label -> textual edits of csrc/quant_matmul.cu (each must
+#: match once).  "truncating_pack" packs two f32 into bf16 by keeping their high halves (a byte
+#: permute) instead of cvt.rn.bf16x2; "no_dequant" also skips the nibble decode and scale; "no_x_reads"
+#: zero-fills the activation copies instead of reading x; "stages5_two_ctas" has a 5-stage ring at two
+#: CTAs an SM (shipped: 8 stages, one CTA), "stages12" a 12-stage ring; "l2_promotion_128b" fills L2 in 128-byte lines; "consumers_skip" releases each stage as
+#: soon as it lands; "ring_only" also drops the end of every run (sums, partials, merge); "no_merge"
+#: writes every tile as if whole (no partials, no merge); "merge_reads_nothing" keeps the partials and
+#: arrivals but the last CTA adds no partial.  Only times: most edits change results.
+_TRUNC_PACK = [("__device__ __forceinline__ float int4_value(",
+                "__device__ __forceinline__ uint32_t pack_trunc(float lo, float hi) {\n"
+                "  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);\n}\n"
+                "__device__ __forceinline__ float int4_value("),
+               ("pack_bf16(int4_value(", "pack_trunc(int4_value(")]
+_SKIP_STAGE = [("        mbar_wait(&full[st], phase);\n",
+                "        mbar_wait(&full[st], phase);\n        if (kb >= 0) {  // the stage arrived: release it\n"
+                "          __syncwarp();\n          if (lane == 0) mbar_arrive(&empty[st]);\n"
+                "          if (++st == kRingStages) st = 0, phase ^= 1;\n          continue;\n        }\n")]
+INT4_PROBE_EDITS = {
+    "truncating_pack": _TRUNC_PACK,
+    "no_dequant": _TRUNC_PACK + [
+        ("return (__uint_as_float(__byte_perm(nibbles, kTwoPow23Bits, 0x7650 + j)) - 8388616.f) * s;",
+         "return __uint_as_float(nibbles ^ j);")],
+    "no_x_reads": [("ok ? 16 : 0);", "0);")],
+    "stages5_two_ctas": [("constexpr int kRingStages = 8;", "constexpr int kRingStages = 5;"),
+                         ("constexpr int kRingCtasPerSm = 1;", "constexpr int kRingCtasPerSm = 2;")],
+    "stages12": [("constexpr int kRingStages = 8;", "constexpr int kRingStages = 12;")],
+    "l2_promotion_128b": [("CU_TENSOR_MAP_L2_PROMOTION_L2_256B", "CU_TENSOR_MAP_L2_PROMOTION_L2_128B")],
+    "consumers_skip": _SKIP_STAGE,
+    "ring_only": _SKIP_STAGE + [("      // The tile's sums: the eight warps added in a fixed order",
+                                 "      if (u > 0) continue;  // no end of the run\n"
+                                 "      // The tile's sums: the eight warps added in a fixed order")],
+    "no_merge": [("      if (seg_begin == tile_begin && seg_end == tile_begin + n_kb) {",
+                  "      if (true) {  // every tile written as if whole: no partials, no merge")],
+    "merge_reads_nothing": [("        for (int c0 = first; c0 <= last; c0 += 16) {",
+                             "        for (int c0 = first; c0 < first; c0 += 16) {")],
+}
+
+
+def _streamk_int4_plan(rows, n, m, resident):
+    """A plan for the probe: every shape cut into runs over all the CTAs the card holds (at least
+    two units each), runs free to straddle tiles, as the shipped plan does only for many tiles."""
+    from tpu_nexus_torch.ops import quant_matmul as qmm
+
+    units = -(-n // qmm.COLS) * -(-m // qmm.ROWS_M) * -(-rows // qmm.RING_ROWS)
+    return units, max(1, min(resident, units // qmm.MIN_RING_UNITS))
+
+
+def _int4_probe_times(hot=False):
+    """#6's bf16 launches of :data:`QUANT_TIMED` (int4 rows), kernel time only (ms): weight copies
+    over 128 MB (from HBM), or with ``hot`` one copy, left in L2 by the call before."""
+    import torch
+
+    from tpu_nexus_torch.ops.quant_matmul import quant_matmul
+
+    out = {}
+    for key, m, k, n, mode, group in QUANT_TIMED:
+        if mode != "int4":
+            continue
+        x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(4000), device="cuda")
+        x = x.to(torch.bfloat16)
+        first = quant_weight(k, n, mode, group, 4001)
+        copies = 1 if hot else max(4, -(-128 * 2**20 // (first.q.numel() + first.s.numel() * 4)))
+        weights = [first] + [quant_weight(k, n, mode, group, 4001 + i) for i in range(1, copies)]
+        out[key] = cuda_ms([lambda w=w: quant_matmul(x, w) for w in weights], iters=64)
+        del weights, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_int4_probe(results):
+    """Opt-in: what sets the pace of #6's ring kernel.  The shipped build
+    with the plan of :func:`_streamk_int4_plan`; then the library built
+    again from copies of ``csrc`` edited as :data:`INT4_PROBE_EDITS` says;
+    each timed beside the shipped build at the four int4 rows of
+    ``quant_times``, the weights from HBM and (``*_hot``) left in L2 by the
+    call before (``--phases build,int4_probe``)."""
+    import shutil
+
+    from tpu_nexus_torch.ops import _build
+    from tpu_nexus_torch.ops import quant_matmul as qmm
+
+    by_build = {"shipped": _int4_probe_times(), "shipped_hot": _int4_probe_times(hot=True)}
+    plan = qmm.int4_plan
+    try:  # the shipped build with runs free to straddle tiles at every shape
+        qmm.int4_plan = _streamk_int4_plan
+        by_build["streamk_runs"] = _int4_probe_times()
+    finally:
+        qmm.int4_plan = plan
+    shipped = (_build.CSRC, _build.BUILD_DIR, _build._library)
+    source = (_build.CSRC / "quant_matmul.cu").read_text()
+    try:
+        for label, edits in INT4_PROBE_EDITS.items():
+            edited = source
+            for old, new in edits:
+                if edited.count(old) != (4 if old.startswith("pack_bf16(int4") else 1):
+                    raise RuntimeError(f"int4_probe {label}: {old!r} not found as expected in quant_matmul.cu")
+                edited = edited.replace(old, new)
+            probe = ROOT / "build" / f"int4_probe_{label}"
+            shutil.rmtree(probe, ignore_errors=True)
+            shutil.copytree(shipped[0], probe / "csrc")
+            (probe / "csrc" / "quant_matmul.cu").write_text(edited)
+            _build.CSRC, _build.BUILD_DIR, _build._library = probe / "csrc", probe / "build", None
+            qmm._RING_RESIDENT.clear()
+            by_build[label] = _int4_probe_times()
+            by_build[label + "_hot"] = _int4_probe_times(hot=True)
+    finally:
+        _build.CSRC, _build.BUILD_DIR, _build._library = shipped
+        qmm._RING_RESIDENT.clear()
+    by_build["shipped_again"] = _int4_probe_times()
+    emit("int4_probe", ms_by_build=by_build)
+    results["int4_probe"] = by_build
+
+
 def phase_train_moe_profile(results):
     """Opt-in (``--phases build,train_moe_profile``): two warm training
     steps of train_moe's shape under ``torch.profiler``: device ms by group
@@ -2135,11 +2304,16 @@ def phase_engine_parity(results):
     torch.cuda.empty_cache()
 
     worst["rms_norm"] = 0.0
-    for rows, hidden in ((1024, 4096), (16384, 2048)):
+    # the timed rows, H 8192 (eight warps a row), H 100 and 2056 (element accesses, a ragged warp), one
+    # row, fewer rows than SMs, and a bf16 weight
+    for rows, hidden, w_dtype in ((1024, 4096, torch.float32), (16384, 2048, torch.float32),
+                                  (64, 8192, torch.float32), (37, 100, torch.float32), (1, 4096, torch.float32),
+                                  (100, 2048, torch.float32), (7, 2056, torch.bfloat16),
+                                  (1024, 4096, torch.bfloat16)):
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device="cuda").manual_seed(rows + hidden)
             x = (torch.randn((rows, hidden), generator=g, device="cuda") * 3).to(dtype)
-            w = torch.randn((hidden,), generator=g, device="cuda") + 1
+            w = (torch.randn((hidden,), generator=g, device="cuda") + 1).to(w_dtype)
             before = rms_norm_kernel.launches
             out, again = rms_norm_kernel(x, w), rms_norm_kernel(x, w)
             torch.cuda.synchronize()
@@ -2151,11 +2325,12 @@ def phase_engine_parity(results):
             else:
                 ok = err <= 1e-5 * ref_max
             ok = ok and same and out.dtype == dtype
-            emit("engine_parity", kernel="rms_norm", shape=[rows, hidden], dtype=str(dtype), max_abs_err=err,
+            emit("engine_parity", kernel="rms_norm", shape=[rows, hidden], dtype=str(dtype),
+                 weight_dtype=str(w_dtype), max_abs_err=err,
                  ref_max_abs=ref_max, bit_identical_twice=same, tol="f32: 1e-5 x max|ref|; bf16: one ulp", ok=ok)
             if not ok:
                 raise AssertionError(f"rms_norm kernel disagrees with its plain version: {rows}x{hidden} {dtype}")
-            if dtype == torch.bfloat16 and rows == 16384:
+            if dtype == torch.bfloat16 and rows == 16384 and w_dtype == torch.float32:
                 worst["rms_norm"] = err
     results.setdefault("max_abs_err", {}).update(worst)
 
@@ -2164,18 +2339,15 @@ def engine_times(times):
     """Kernel #4's paged decode (B8, per-slot cursors at kv_len 144 and
     4096, page 32) and its ragged verify (B8, q_len 5, page 32, staggered
     starts, at kv_len 144 and 4096), cycling per-layer pools so K/V come
-    from HBM; kernel #9 at
-    [16384, 2048] bf16.  ``bound_ms``: the live K/V (and x, y) bytes read
-    or written once at 3.35 TB/s.  ``library_ms``: one PyTorch call on the
-    same function — ``scaled_dot_product_attention`` on the pre-gathered
-    contiguous cache with the boolean mask, ``torch.nn.functional.rms_norm``
-    — which the port never calls."""
+    from HBM; then kernel #9 (:func:`rms_times`).  ``bound_ms``: the live
+    K/V bytes read once at 3.35 TB/s.  ``library_ms``:
+    ``scaled_dot_product_attention`` on the pre-gathered contiguous cache
+    with the boolean mask, which the port never calls."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
-    from tpu_nexus_torch.ops.rmsnorm import rms_norm, rms_norm_kernel
 
     dt, b, page, hq, hkv, d = torch.bfloat16, 8, 32, 32, 8, 128
     for key, sq, kv_len, n_layers in (("decode_attention_paged", 1, 144, 32), (None, 1, 4096, 4),
@@ -2217,24 +2389,50 @@ def engine_times(times):
         del layers, lib_sets, kern, plain, lib
         torch.cuda.empty_cache()
 
-    rows, hidden = 16384, 2048
-    g = torch.Generator(device="cuda").manual_seed(7500)
-    xs = [torch.randn((rows, hidden), generator=g, device="cuda").to(dt) for _ in range(4)]
-    w = torch.randn((hidden,), generator=g, device="cuda") + 1
-    w_lib = w.to(dt)
-    nbytes = 2 * rows * hidden * 2 + hidden * 4
-    ms, enqueue_ms = timed([lambda x=x: rms_norm_kernel(x, w) for x in xs], iters=64)
+    rms_times(times)
+
+
+def rms_times(times):
+    """Kernel #9 at [16384, 2048] (the kernels line's row) and [1024, 4096]
+    (Llama-3-8B's prefill rows at batch 8, prompt 128), bf16 x and an f32
+    weight, cycling input copies over 128 MB so x comes from HBM.
+    ``bound_ms``: x read and y written once, the weight read once, at 3.35
+    TB/s.  ``library_ms``: ``torch.nn.functional.rms_norm`` with the weight
+    in bf16 (it takes one dtype), which the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_nexus_torch.ops.rmsnorm import rms_norm, rms_norm_kernel
+
+    dt = torch.bfloat16
     library = getattr(F, "rms_norm", None)  # PyTorch >= 2.4
-    row = dict(shape=[rows, hidden], dtype="bfloat16 x, f32 weight", ms=ms, enqueue_ms=enqueue_ms,
-               plain_ms=cuda_ms([lambda x=x: rms_norm(x, w) for x in xs], iters=32),
-               library_ms=(cuda_ms([lambda x=x: library(x, (hidden,), w_lib, 1e-5) for x in xs], iters=64)
-                           if library is not None else None),
-               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
-               library_ms_is="torch.nn.functional.rms_norm, bf16 weight")
-    times["rms_norm"] = row
-    emit("times", kernel="rms_norm", **row)
-    del xs
-    torch.cuda.empty_cache()
+    for key, rows, hidden in (("rms_norm", 16384, 2048), ("rms_norm_1024x4096", 1024, 4096)):
+        g = torch.Generator(device="cuda").manual_seed(7500)
+        xs = [torch.randn((rows, hidden), generator=g, device="cuda").to(dt)
+              for _ in range(max(4, -(-128 * 2**20 // (rows * hidden * 2))))]
+        w = torch.randn((hidden,), generator=g, device="cuda") + 1
+        w_lib = w.to(dt)
+        nbytes = 2 * rows * hidden * 2 + hidden * 4
+        ms, enqueue_ms = timed([lambda x=x: rms_norm_kernel(x, w) for x in xs], iters=64)
+        row = dict(shape=[rows, hidden], dtype="bfloat16 x, f32 weight", ms=ms, enqueue_ms=enqueue_ms,
+                   plain_ms=cuda_ms([lambda x=x: rms_norm(x, w) for x in xs], iters=32),
+                   library_ms=(cuda_ms([lambda x=x: library(x, (hidden,), w_lib, 1e-5) for x in xs], iters=64)
+                               if library is not None else None),
+                   bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+                   library_ms_is="torch.nn.functional.rms_norm, bf16 weight")
+        times[key] = row
+        emit("times", kernel=key, **row)
+        del xs
+        torch.cuda.empty_cache()
+
+
+def phase_quant_rms_times(results):
+    """Only kernel #6's and #9's timed rows and #5's control (``quant_times``
+    and ``rms_times``): the opt-in phase that compares two trees of the
+    package in one call, parent and change in turns."""
+    times = results.setdefault("times", {})
+    quant_times(times)
+    rms_times(times)
 
 
 def _engine_prompts(vocab, seed):
@@ -2448,6 +2646,7 @@ def main(argv=None) -> int:
         "train_moe_profile": phase_train_moe_profile, "decode_probe": phase_decode_probe,
         "profile_int8": lambda r: phase_profile(r, "int8", "int8"),
         "profile_int4": lambda r: phase_profile(r, "int4", ""),
+        "quant_rms_times": phase_quant_rms_times, "int4_probe": phase_int4_probe,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:
@@ -2506,6 +2705,17 @@ def main(argv=None) -> int:
                 entry.update(design="wgmma+tma, persistent")
             if name.startswith("decode_attention"):
                 entry.update(design="wgmma+cp.async ring, merge in the launch")
+            if name == "quant_matmul_int4":
+                entry.update(design="stream-K, TMA ring fed by a producer warp, mma.sync, merge in the launch",
+                             other_shapes={k: {f: results["times"][k][f] for f in ("shape", "ms", "bound_ms",
+                                                                                    "library_ms")}
+                                           for k in ("quant_matmul_int4_down", "quant_matmul_int4_wq",
+                                                     "quant_matmul_int4_wk")})
+            if name == "rms_norm":
+                entry.update(design="16-byte vector streams, persistent, next row prefetched",
+                             other_shapes={"rms_norm_1024x4096": {f: results["times"]["rms_norm_1024x4096"][f]
+                                                                  for f in ("shape", "ms", "bound_ms",
+                                                                            "library_ms")}})
             if name == "nexus_gmm":
                 entry.update(library_ms_is=t["library_ms_is"],
                              mixtral_8x7b_gate={k: results["times"]["nexus_gmm_mixtral"][k]

@@ -348,7 +348,11 @@ def _quantized(device, k, n, mode, group, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mode,group", [("int8", 0), ("int4", 64), ("int4", 128), ("int4", 2)])
-@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (1, 1024, 4096), (256, 512, 384), (5, 640, 200), (3, 384, 71)])
+@pytest.mark.parametrize(
+    "m,k,n",
+    [(8, 4096, 1024), (1, 1024, 4096), (256, 512, 384), (5, 640, 200), (3, 384, 71), (40, 4096, 14336),
+     (256, 4096, 14336)],
+)
 def test_quant_matmul_kernels_match_plain(cuda_device, dtype, mode, group, m, k, n):
     w = _quantized(cuda_device, k, n, mode, group, seed=k + n)
     x = _randn((m, k), 11, cuda_device, dtype)
@@ -643,16 +647,18 @@ def test_paged_and_ragged_decode_kernel_matches_plain(cuda_device, dtype, int8, 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,hidden", [(1024, 4096), (16384, 2048), (3, 100)])
+@pytest.mark.parametrize("rows,hidden", [(1024, 4096), (16384, 2048), (3, 100), (1, 8192), (7, 2056)])
 def test_rms_norm_kernel_matches_plain(cuda_device, dtype, rows, hidden):
     """Kernel #9 against the plain version: f32 to 1e-5 of the largest
-    magnitude; bf16 within one bf16 ulp of each element."""
+    magnitude; bf16 within one bf16 ulp of each element; bit-identical run
+    to run."""
     x = _randn((rows, hidden), 11, cuda_device, dtype) * 3
     w = _randn((hidden,), 12, cuda_device, torch.float32) + 1
     before = rms_norm_kernel.launches
-    out = rms_norm_kernel(x, w)
+    out, again = rms_norm_kernel(x, w), rms_norm_kernel(x, w)
     torch.cuda.synchronize()
-    assert rms_norm_kernel.launches == before + 1 and out.dtype == dtype
+    assert rms_norm_kernel.launches == before + 2 and out.dtype == dtype
+    assert torch.equal(out, again)
     ref = rms_norm(x, w)
     if dtype == torch.float32:
         assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

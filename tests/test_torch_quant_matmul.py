@@ -27,7 +27,7 @@ from tpu_nexus_torch.models.generate import _quantize_kv, cached_attention
 from tpu_nexus_torch.models.quant import quantize_tensor, quantize_tensor_int4
 from tpu_nexus_torch.ops import quant_matmul as port_qmm
 from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
-from tpu_nexus_torch.ops.qtensor import QTensor, QTensor4
+from tpu_nexus_torch.ops.qtensor import QTensor, QTensor4, _unpack_nibbles
 
 torch.set_num_threads(1)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -184,6 +184,154 @@ def test_split_plan_covers_every_row_in_whole_tiles(rows, n, m):
     # the grid stays within one wave of resident CTAs where the strips alone do
     strips = -(-n // port_qmm.COLS) * -(-m // port_qmm.ROWS_M)
     assert strips * n_splits <= max(port_qmm.TARGET_CTAS, strips)
+
+
+# -- the int4 ring kernel's plan (bf16 activations) -------------------------------
+
+RING_SHAPES = [  # (packed rows, N, M): the Llama-3-8B decode step's four launches, M 1/40/256, edges
+    (2048, 14336, 8), (7168, 4096, 8), (2048, 4096, 8), (2048, 1024, 8),
+    (2048, 14336, 40), (2048, 4096, 256), (2048, 4096, 1), (32, 16, 3), (96, 400, 9),
+]
+
+
+@pytest.mark.parametrize("grid", [264, 132, 7, 1, None])
+@pytest.mark.parametrize("rows,n,m", RING_SHAPES)
+def test_int4_partition_covers_every_unit_once_in_a_fixed_merge_order(rows, n, m, grid):
+    """Every (strip, M chunk, packed row) is in exactly one CTA's run; a
+    tile's runs are listed in CTA order with their rows in k order (the
+    merge order, the same every launch); a workspace slot holds one partial;
+    the runs differ by at most one unit (even bytes per CTA); and each run
+    is owned, unit by unit, by the CTA the kernel's ``run_owner`` names."""
+    units, planned = port_qmm.int4_plan(rows, n, m, resident=264)
+    grid = planned if grid is None else min(grid, units)
+    assert 1 <= planned <= min(units, 264)
+    tiles = port_qmm.int4_partition(rows, n, m, grid)
+    n_tiles = -(-n // port_qmm.COLS) * -(-m // port_qmm.ROWS_M)
+    n_kb = -(-rows // port_qmm.RING_ROWS)
+    assert sorted(tiles) == list(range(n_tiles)) and n_tiles * n_kb == units
+    slots, per_cta = set(), {}
+    for tile, runs in tiles.items():
+        assert [c for c, _, _, _ in runs] == sorted({c for c, _, _, _ in runs})
+        covered = 0
+        for c, slot, r0, r1 in runs:
+            assert r0 == covered and r1 > r0  # contiguous, in k order, no overlap
+            covered = r1
+            kb0, kb1 = r0 // port_qmm.RING_ROWS, -(-r1 // port_qmm.RING_ROWS)
+            per_cta[c] = per_cta.get(c, 0) + kb1 - kb0
+            for u in range(tile * n_kb + kb0, tile * n_kb + kb1):
+                assert ((u + 1) * grid - 1) // units == c
+            if len(runs) > 1:
+                assert (c, slot) not in slots
+                slots.add((c, slot))
+        assert covered == rows
+    assert sorted(per_cta) == list(range(grid))
+    assert max(per_cta.values()) - min(per_cta.values()) <= 1
+    assert sum(per_cta.values()) == units
+
+
+@pytest.mark.parametrize("rows,n,m", RING_SHAPES)
+def test_int4_plan_keeps_runs_inside_tiles_when_tiles_are_few(rows, n, m):
+    """With fewer tiles than resident CTAs, every tile is cut into equal
+    runs that divide its stages: no run straddles two tiles, so a CTA
+    merges at most one; with more, the runs cover every resident CTA."""
+    resident = 132
+    tiles = -(-n // port_qmm.COLS) * -(-m // port_qmm.ROWS_M)
+    units, grid = port_qmm.int4_plan(rows, n, m, resident)
+    parts = port_qmm.int4_partition(rows, n, m, grid)
+    runs_per_cta = {}
+    for runs in parts.values():
+        for c, _, _, _ in runs:
+            runs_per_cta[c] = runs_per_cta.get(c, 0) + 1
+    if tiles < resident:
+        assert grid % tiles == 0 and grid <= resident and units % grid == 0
+        assert max(runs_per_cta.values()) == 1
+        assert {len(runs) for runs in parts.values()} == {grid // tiles}
+    else:
+        assert grid == min(resident, units // port_qmm.MIN_RING_UNITS)
+
+
+@pytest.mark.parametrize("group", [16, 32, 48, 64, 80, 96, 128, 192, 256, 4096, 14336])
+def test_int4_scale_rows_cover_every_stage(group):
+    """The scale box a stage stages holds every group its 64 packed rows
+    touch, and for the groups that divide or are divided by a stage's rows
+    not one row more (the box's bytes are read)."""
+    hg, rows = group // 2, 40 * group
+    touched = max(
+        len({r // hg for r in range(kb * port_qmm.RING_ROWS, min((kb + 1) * port_qmm.RING_ROWS, rows))})
+        for kb in range(-(-rows // port_qmm.RING_ROWS))
+    )
+    assert touched <= port_qmm.int4_scale_rows(group) <= port_qmm.RING_SCALE_ROWS
+    if port_qmm.RING_ROWS % hg == 0 or hg % port_qmm.RING_ROWS == 0:
+        assert port_qmm.int4_scale_rows(group) == touched
+
+
+def _divide(n, d):
+    """The kernel's ``Divider``: n / d by a multiply-high and a shift."""
+    shift = (d - 1).bit_length()
+    mul = ((((1 << shift) - d) << 32) // d + 1) & 0xFFFFFFFF
+    return (((n * mul) >> 32) + n) >> shift
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 7, 8, 12, 24, 256, 896, 1000, 2**20 + 7, 2**27])
+def test_the_kernels_group_divider_is_exact(d):
+    rng = np.random.default_rng(d)
+    edges = [q * d + e for q in range(0, 2**31 // d, max(1, 2**31 // d // 64)) for e in (-1, 0, 1)]
+    ns = np.concatenate([np.arange(0, 1024), rng.integers(0, 2**31 - 1, 2000), [2**31 - 1], edges])
+    ns = ns[(ns >= 0) & (ns < 2**31)]
+    for n in ns.tolist():
+        assert _divide(n, d) == n // d
+
+
+def test_int4_bit_decode_reproduces_the_plain_values():
+    """A numpy model of the ring kernel's decode over all 256 byte values:
+    each 32-bit word's nibbles made offset-binary ((w & 0x0F0F0F0F) ^
+    0x08080808, the high ones shifted down first), a byte permuted into
+    the mantissa of 2^23 (0x4B000000 | u), 2^23 + 8 subtracted in f32, then
+    the product with the scale formed exactly in f64 and rounded once to
+    f32.  It reproduces ``_unpack_nibbles`` and the f32 ``n * s`` of
+    ``quant_matmul_plain`` bit for bit, and so does the FFMA form
+    ``u * s - 8 s`` (u = the float minus 2^23) rounded once; bf16
+    activations then round that value to bf16."""
+    rng = np.random.default_rng(0)
+    raw = np.arange(256, dtype=np.uint8)
+    words = raw.view(np.uint32)
+    u = {}
+    for half, shifted in (("lo", words), ("hi", words >> np.uint32(4))):
+        nib = (shifted & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808)
+        per_byte = np.stack([(nib >> np.uint32(8 * j)) & np.uint32(0xFF) for j in range(4)], axis=1).reshape(-1)
+        u[half] = (np.uint32(0x4B000000) | per_byte).view(np.float32)  # 2^23 + n + 8, exactly
+    n_lo, n_hi = (u[h] - np.float32(8388616.0) for h in ("lo", "hi"))
+    packed = torch.from_numpy(raw.view(np.int8).reshape(1, 256))
+    ref = _unpack_nibbles(packed, 2)  # [2, 256]: row 0 the low nibbles, row 1 the high ones
+    np.testing.assert_array_equal(n_lo, ref[0].numpy().astype(np.float32))
+    np.testing.assert_array_equal(n_hi, ref[1].numpy().astype(np.float32))
+
+    s = (np.abs(rng.standard_normal(256)) * np.float32(10.0) ** rng.integers(-30, 30, 256)).astype(np.float32)
+    w = QTensor4(packed, torch.from_numpy(s.reshape(1, 256)), (2,), (256,), 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        eye = torch.eye(2, dtype=dtype)  # y rows = the dequantized weight rows, in x's dtype
+        plain = port_qmm.quant_matmul_plain(eye, w)
+        for row, n in enumerate((n_lo, n_hi)):
+            fmul = (n.astype(np.float64) * s.astype(np.float64)).astype(np.float32)
+            fma = ((u["lo" if row == 0 else "hi"] - np.float32(2**23)).astype(np.float64) * s
+                   - 8.0 * s.astype(np.float64)).astype(np.float32)
+            np.testing.assert_array_equal(fmul, fma)
+            assert torch.equal(torch.from_numpy(fmul).to(dtype), plain[row])
+
+
+def test_int4_ring_route_names_the_pitch_branch():
+    """bf16 int4 shapes the ring kernel takes (N and the group multiples of
+    16, 16-byte-aligned operands) and the ones that go to the first design."""
+    x = torch.zeros(8, 4096, dtype=torch.bfloat16)
+
+    def route(n, group, x=x):
+        q, s = torch.zeros(2048, n, dtype=torch.int8), torch.zeros(4096 // group, n)
+        return port_qmm.int4_ring_route(x, q, s, n, group)
+
+    assert route(14336, 64) and route(1024, 4096) and route(4096, 16)
+    assert not route(200, 64) and not route(71, 128)  # the 16-byte row pitch
+    assert not route(1024, 2) and not route(1024, 8)  # a k block across groups
+    assert not route(1024, 64, x=torch.zeros(8 * 4096 + 1, dtype=torch.bfloat16)[1:].view(8, 4096))
 
 
 # -- decode attention, int8-KV mode ---------------------------------------------

@@ -17,7 +17,59 @@
 //
 // What bounds it on this card: at decode-sized M every weight byte is read
 // once for 2*M FLOP, far below the ridge, so the packed weight's bytes over
-// the HBM rate are the bound.  Design:
+// the HBM rate are the bound.
+//
+// int4 with bf16 activations (the quantized decode step's path) is one
+// launch of quant_int4_ring_kernel, built for that bound:
+//  * even bytes per SM: the work is a stream-K walk over units of one ring
+//    stage (64 packed rows x a 128-column strip, for each 8-row M chunk).
+//    The units, strip after strip, are cut into equal contiguous runs, one
+//    for each persistent CTA (ops/quant_matmul.py::int4_plan): no thin last
+//    wave.  Where the strips are fewer than the CTAs, each strip is cut
+//    into the same number of runs, so no run straddles two strips.
+//  * the K split merged in the launch: a CTA whose run covers a whole strip
+//    writes y; a strip shared by several CTAs gets each one's f32 partial
+//    in a workspace (it stays in L2), and the last CTA to arrive, told by a
+//    per-strip arrival counter, sums the partials in CTA order (k order),
+//    writes y in bf16 and sets the counter back to 0.  A run shares at most
+//    its first and its last strip; their sums wait in registers and are
+//    published together once the run is streamed.  No atomics on values:
+//    bit-identical run to run.  No second launch.
+//  * a ring fed by a producer warp: TMA brings each stage's packed tile
+//    (a 2-D map over [K/2, N] int8, 128-byte swizzle, zero fill past the
+//    edges) and its group-scale rows (a map over [K/G, N] f32) into an
+//    8-stage mbarrier ring; the producer's lanes copy the stage's
+//    activations beside them with 16-byte cp.async, already in the
+//    kernel's k-slot order (per stage, not once a CTA: at K 14336 a run's
+//    activations would not fit beside the ring).  One CTA an SM keeps
+//    ~72 KB of weight in flight (two CTAs with 5 stages each read slower:
+//    the probe's stages5_two_ctas).
+//  * dequant by bit operations: the nibbles are made offset-binary
+//    (n ^ 8 = n + 8) and byte-permuted into the mantissa of 2^23
+//    (0x4B000000 | u is the float 2^23 + u); one FADD of -(2^23 + 8) gives
+//    n exactly and one FMUL rounds n * s once, the f32 product of the plain
+//    version and the TPU kernel; one cvt.rn.bf16x2 rounds two values to x's
+//    dtype.  No int -> float conversion on the weights (the kernel's few
+//    I2F belong to the 32-bit divisions of its run bounds).
+//  * what sets its pace, measured (chip_smoke.py --phases build,int4_probe;
+//    PERF.md): not HBM.  The ring alone streams the decode step's largest
+//    weight at about two thirds of the HBM rate; the consumers' dequant
+//    (~6 instructions a weight value with the addressing, at ~2 IPC) and
+//    the merge at the end (dependent round trips to L2) add to it.
+//  * tensor cores: mma.sync m16n8k16 with the weight as A (the layout note
+//    above quant_matmul_mma_kernel), eight consumer warps taking one 8-row
+//    k block of each stage.  At M 8 the products are ~1 us of tensor-core
+//    time against a ~10 us byte bound, so the synchronous mma, which takes
+//    A from the registers the dequant writes, costs nothing that matters;
+//    M above 8 runs one 8-row chunk a tile, chunks of one strip next to
+//    each other in the walk so their weight reads meet in L2.
+//  * shapes it takes: N % 16 == 0 (TMA's 16-byte row pitch), G % 16 == 0 (a
+//    k block of 8 packed rows in one group, a 16-byte activation copy in
+//    one group half), 16-byte-aligned operands.  Any other int4 shape takes
+//    quant_matmul_mma_kernel<true> and its finalize pass (the "pitch
+//    branch"), chosen from the shape before launch.
+//
+// The other paths keep their first design:
 //  * partial pass: one CTA per (128-column strip, K split, 8-row M tile);
 //    the 4 warps take 32 rows each of a 128-row weight tile whose
 //    activations are staged in shared memory.  N = 1024 gives only 8 strips,
@@ -27,10 +79,10 @@
 //    adjacent columns, so a warp reads 128 contiguous bytes of one weight
 //    row per load (32-bit loads, 8 rows in flight per lane), and the
 //    activations are read as broadcast 16-byte loads.
-//  * bf16 activations: mma.sync m16n8k16 with the weight as the A operand
-//    (see the note above quant_matmul_mma_kernel): 16-byte weight loads, the
-//    int8 -> bf16 convert (int4: unpack, scale, round) feeds the fragment
-//    directly.  wgmma and a cp.async/TMA pipeline are later steps.
+//  * bf16 activations (int8, and int4's pitch branch): mma.sync m16n8k16
+//    with the weight as the A operand (see the note above
+//    quant_matmul_mma_kernel): 16-byte weight loads, the int8 -> bf16
+//    convert (int4: unpack, scale, round) feeds the fragment directly.
 //  * no atomics: warps are summed in a fixed order in shared memory, splits
 //    in a fixed order by the finalize pass (which also applies the int8
 //    scale and casts), so a result is bit-identical run to run.
@@ -42,9 +94,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace nexus_hopper;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -438,6 +495,304 @@ __global__ void __launch_bounds__(256) quant_matmul_finalize_kernel(
   store_out(y + i, sum);
 }
 
+// ---- int4, bf16 activations: the ring kernel --------------------------------------------
+//
+// A persistent CTA of eight consumer warps and one producer warp walks its run [begin, end) of
+// the units (see the source note): unit u is stage kb = u % n_kb (packed rows [64 kb, 64 kb +
+// 64)) of tile u / n_kb, and tile = strip * n_mc + (8-row M chunk).  Stage by stage the producer
+// brings the unit's packed tile, its scale rows and its activations into the ring; consumer warp
+// w dequantizes packed rows 8w .. 8w + 7 of the stage into the A fragments of eight m16n8k16 mma
+// (the k-slot order of quant_matmul_mma_kernel<true>: the low nibbles of the 8 rows in slots 0-7,
+// the high nibbles in 8-15) against the 8 activation rows staged in that slot order.
+//
+// A run holds at most two tiles it shares with other CTAs: its first (slot 0) and its last (slot
+// 1).  Their sums are kept in registers, and published (partial, fence, arrival) together once
+// the run is streamed: the round trips to L2 that a merge needs never stall the ring mid-run.
+
+constexpr int kRingWarps = 8;                        // consumer warps: one 8-row k block of a stage each
+constexpr int kRingThreads = (kRingWarps + 1) * 32;  // + the producer warp
+constexpr int kRingRows = 8 * kRingWarps;            // packed rows a stage
+constexpr int kRingStages = 8;
+constexpr int kRingCtasPerSm = 1;  // the ring's 147 KB of shared memory: one CTA an SM
+constexpr int kMaxScaleRows = 8;                     // groups a stage can touch (G % 16 == 0)
+constexpr int kRingXPitch = 2 * kRingRows + kXPad;   // bf16 a staged activation row: 64 low, 64 high slots
+constexpr int kRedPitch = kCols + 4;                 // f32 a row of a warp's sums: fewer bank conflicts
+
+struct RingSmem {  // byte offsets from a 1024-byte-aligned base
+  static constexpr int kPackedBytes = kRingRows * kCols;         // a stage's packed tile (128B swizzle)
+  static constexpr int kScaleBytes = kMaxScaleRows * kCols * 4;  // its scale rows [rows][128] f32
+  static constexpr int kXBytes = kRowsM * kRingXPitch * 2;       // its activations [8][136] bf16
+  static constexpr int kPacked = 0;
+  static constexpr int kScales = kPacked + kRingStages * kPackedBytes;
+  static constexpr int kX = kScales + kRingStages * kScaleBytes;
+  static constexpr int kRed = kX + kRingStages * kXBytes;                   // [warp][8 rows][kRedPitch] f32
+  static constexpr int kFlag = kRed + kRingWarps * kRowsM * kRedPitch * 4;  // int[2]: merges of slots 0, 1
+  static constexpr int kBar = kFlag + 16;                                   // full[stages], empty[stages]
+  static constexpr int kBytes = kBar + 2 * kRingStages * 8 + 1024;          // + alignment slack
+};
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (Granlund and Montgomery's round-up method;
+// make_divider gives the magic number).  The packed rows' groups, at every stage.
+struct Divider {
+  uint32_t mul, shift;
+  __device__ __forceinline__ int operator()(int n) const {
+    return static_cast<int>((__umulhi(static_cast<uint32_t>(n), mul) + static_cast<uint32_t>(n)) >> shift);
+  }
+};
+
+Divider make_divider(uint32_t d) {
+  uint32_t shift = 0;
+  while ((1ull << shift) < d) ++shift;
+  return {static_cast<uint32_t>((((1ull << shift) - d) << 32) / d + 1), shift};
+}
+
+// The bits of 2^23 as f32.  Read from constant memory (the compiler cannot fold it), so the byte
+// permute below takes it as its constant-bank operand and keeps its selector immediate, instead of
+// materializing a selector register for every value.
+__constant__ uint32_t kTwoPow23Bits = 0x4B000000u;
+
+// One weight value from four offset-binary nibbles (n + 8 in the low 4 bits of each byte): byte j
+// permuted into the mantissa of 2^23 is the float 2^23 + n + 8, exact; subtracting 2^23 + 8 gives
+// n exactly, and the product with the group scale rounds once: the f32 n * s of the plain version.
+__device__ __forceinline__ float int4_value(uint32_t nibbles, int j, float s) {
+  return (__uint_as_float(__byte_perm(nibbles, kTwoPow23Bits, 0x7650 + j)) - 8388616.f) * s;
+}
+
+// CTA c's run of units starts at c * units / grid; owner(u) is the CTA whose run holds unit u
+// (grid * units < 2^32: the launch checks it).  Divisions once a CTA and once a merged tile.
+__device__ __forceinline__ int run_begin(int c, int units) {
+  return static_cast<int>(static_cast<uint32_t>(c) * static_cast<uint32_t>(units) / gridDim.x);
+}
+__device__ __forceinline__ int run_owner(int u, int units) {
+  return static_cast<int>((static_cast<uint32_t>(u + 1) * gridDim.x - 1) / static_cast<uint32_t>(units));
+}
+
+// counter += 1 at GPU scope with acquire-release semantics; returns the value before
+__device__ __forceinline__ unsigned arrive_acq_rel(unsigned* counter) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n" : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
+// 4 adjacent outputs of y, rounded to bf16
+__device__ __forceinline__ void store_y4(__nv_bfloat16* dst, float4 v) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+// tm_q: packed [K/2, N] uint8, boxes of 64 rows x 128 columns, 128-byte swizzle.  tm_s: scales
+// [K/G, N] f32, boxes of scale_rows rows x 128 columns.  part: [grid][2][8][128] f32, a CTA's
+// partials of its first (0) and last (1) tile; arrivals: [tiles] counters, 0 between launches.
+__global__ void __launch_bounds__(kRingThreads, kRingCtasPerSm) quant_int4_ring_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_s,
+    const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+    unsigned* __restrict__ arrivals, int M, int K, int N, int half_group, int scale_rows, int n_kb, int n_mc,
+    int units, Divider div_h8) {
+  extern __shared__ __align__(16) unsigned char ring_smem_raw[];
+  // aligned by an offset from the array (not through an integer), so the compiler keeps every
+  // access below in the shared window (LDS/STS, not generic loads)
+  unsigned char* smem = ring_smem_raw + ((1024 - (smem_u32(ring_smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + RingSmem::kBar);
+  uint64_t* empty = full + kRingStages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int begin = run_begin(blockIdx.x, units), end = run_begin(blockIdx.x + 1, units);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kRingStages; ++st) {
+      mbar_init(&full[st], 1 + 32);  // the TMA's expect_tx, the producer lanes' cp.async
+      mbar_init(&empty[st], kRingWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kRingWarps) {
+    // producer warp: lane 0 issues the TMA loads, every lane copies 4 x 16 bytes of activations
+    if (lane == 0) {
+      prefetch_tensor_map(&tm_q);
+      prefetch_tensor_map(&tm_s);
+    }
+    const int rows = K / 2, m_in = lane / 4;
+    // the walk's position, stepped (no division a stage): tile = strip * n_mc + mc, stage kb
+    int kb = begin % n_kb, mc = (begin / n_kb) % n_mc, strip = begin / n_kb / n_mc, st = 0, phase = 0;
+    for (int u = begin; u < end; ++u) {
+      const int m = mc * kRowsM + m_in;
+      mbar_wait(&empty[st], phase ^ 1);  // the first round passes at once
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[st], RingSmem::kPackedBytes + scale_rows * kCols * 4);
+        tma_load_3d(smem + RingSmem::kPacked + st * RingSmem::kPackedBytes, &tm_q, &full[st], strip * kCols,
+                    kb * kRingRows, 0);
+        tma_load_3d(smem + RingSmem::kScales + st * RingSmem::kScaleBytes, &tm_s, &full[st], strip * kCols,
+                    div_h8(kb * 8), 0);
+      }
+      // activation row m_in, chunks of 8 slots: 0-7 the low slots (packed rows 8j .. 8j + 7 of the
+      // stage), 8-15 the high slots.  Packed row r of group grp holds K index r + grp * G/2 in its
+      // low nibble and that + G/2 in its high one; G % 16 == 0 keeps a chunk in one group half.
+      const uint32_t xs = smem_u32(smem + RingSmem::kX + st * RingSmem::kXBytes) + m_in * kRingXPitch * 2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ch = (lane % 4) * 4 + i, jc = ch % 8, r = kb * kRingRows + jc * 8;
+        const int k = r + (div_h8(kb * 8 + jc) + ch / 8) * half_group;
+        const bool ok = m < M && r < rows;
+        cp_async_16(xs + ((ch / 8) * kRingRows + jc * 8) * 2, ok ? x + static_cast<size_t>(m) * K + k : x,
+                    ok ? 16 : 0);
+      }
+      cp_async_mbar_arrive(&full[st]);
+      if (++st == kRingStages) st = 0, phase ^= 1;
+      if (++kb == n_kb) {
+        kb = 0;
+        if (++mc == n_mc) mc = 0, ++strip;
+      }
+    }
+  } else {
+    // consumer warps
+    const int g = lane / 4, t = lane % 4;
+    const int m_in = threadIdx.x / 32, col = (threadIdx.x % 32) * 4;  // this thread's 4 outputs of a tile
+    float* red = reinterpret_cast<float*>(smem + RingSmem::kRed);
+    int* merges = reinterpret_cast<int*>(smem + RingSmem::kFlag);
+    int shared_tile[2] = {-1, -1};  // the run's first (0) and last (1) tile shared with other CTAs
+    float4 shared_sum[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+    int st = 0, phase = 0;
+    for (int u = begin; u < end;) {
+      const int tile = u / n_kb, tile_begin = tile * n_kb;  // one division a tile
+      const int seg_begin = u, seg_end = min(end, tile_begin + n_kb);
+      float acc[8][4];  // [column pair][(c0, m 2t), (c0, 2t+1), (c1, 2t), (c1, 2t+1)]
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+      for (; u < seg_end; ++u) {
+        const int kb = u - tile_begin;
+        mbar_wait(&full[st], phase);
+        // packed rows 8w + 2t and 8w + 2t + 1, columns 16g .. 16g + 15 (chunk g, swizzled by row)
+        const unsigned char* pk = smem + RingSmem::kPacked + st * RingSmem::kPackedBytes + (8 * warp + 2 * t) * kCols;
+        const uint4 w0 = *reinterpret_cast<const uint4*>(pk + ((g ^ (2 * t)) << 4));
+        const uint4 w1 = *reinterpret_cast<const uint4*>(pk + kCols + ((g ^ (2 * t + 1)) << 4));
+        // the k block's group (G % 16 == 0: one group for its 8 rows), as a row of the staged scales
+        const float* srow = reinterpret_cast<const float*>(smem + RingSmem::kScales + st * RingSmem::kScaleBytes) +
+                            (div_h8(kb * 8 + warp) - div_h8(kb * 8)) * kCols + g * 16;
+        float sc[16];
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          const float4 v = reinterpret_cast<const float4*>(srow)[c4];
+          sc[4 * c4] = v.x, sc[4 * c4 + 1] = v.y, sc[4 * c4 + 2] = v.z, sc[4 * c4 + 3] = v.w;
+        }
+        const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(smem + RingSmem::kX + st * RingSmem::kXBytes) +
+                                  g * kRingXPitch + 8 * warp + 2 * t;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xs);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xs + kRingRows);
+        const uint32_t r0[4] = {w0.x, w0.y, w0.z, w0.w}, r1[4] = {w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // columns 4q .. 4q + 3: word q of each row
+          const uint32_t lo0 = (r0[q] & 0x0F0F0F0Fu) ^ 0x08080808u, hi0 = ((r0[q] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+          const uint32_t lo1 = (r1[q] & 0x0F0F0F0Fu) ^ 0x08080808u, hi1 = ((r1[q] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // column pair cp = 2q + h: columns c0 = 4q + 2h and c1 = c0 + 1
+            const int j0 = 2 * h, j1 = j0 + 1;
+            const float s0 = sc[4 * q + j0], s1 = sc[4 * q + j1];
+            uint32_t a[4];
+            a[0] = pack_bf16(int4_value(lo0, j0, s0), int4_value(lo1, j0, s0));
+            a[1] = pack_bf16(int4_value(lo0, j1, s1), int4_value(lo1, j1, s1));
+            a[2] = pack_bf16(int4_value(hi0, j0, s0), int4_value(hi1, j0, s0));
+            a[3] = pack_bf16(int4_value(hi0, j1, s1), int4_value(hi1, j1, s1));
+            mma_bf16_16816(acc[2 * q + h], a, b0, b1);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+        if (++st == kRingStages) st = 0, phase ^= 1;
+      }
+
+      // The tile's sums: the eight warps added in a fixed order (through shared memory), then y
+      // for a tile the run covers whole, else kept for the end of the run.
+      float* rw = red + warp * kRowsM * kRedPitch;
+#pragma unroll
+      for (int cp = 0; cp < 8; ++cp) {
+        const int c = 16 * g + 2 * cp;
+        *reinterpret_cast<float2*>(rw + (2 * t) * kRedPitch + c) = make_float2(acc[cp][0], acc[cp][2]);
+        *reinterpret_cast<float2*>(rw + (2 * t + 1) * kRedPitch + c) = make_float2(acc[cp][1], acc[cp][3]);
+      }
+      named_barrier_sync(1, kRingWarps * 32);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < kRingWarps; ++w) {
+        const float4 r = *reinterpret_cast<const float4*>(red + (w * kRowsM + m_in) * kRedPitch + col);
+        v.x += r.x, v.y += r.y, v.z += r.z, v.w += r.w;
+      }
+      named_barrier_sync(1, kRingWarps * 32);  // red is free for the next tile
+      if (seg_begin == tile_begin && seg_end == tile_begin + n_kb) {
+        const int m = (tile % n_mc) * kRowsM + m_in, n = (tile / n_mc) * kCols + col;
+        if (m < M && n < N) store_y4(y + static_cast<size_t>(m) * N + n, v);
+      } else if (seg_begin == begin) {
+        shared_tile[0] = tile, shared_sum[0] = v;
+      } else {
+        shared_tile[1] = tile, shared_sum[1] = v;
+      }
+    }
+
+    // The shared tiles: each partial written, then one arrival a tile (by threads 0 and 1, after
+    // the barrier that orders every thread's stores); the last CTA of a tile to arrive adds its
+    // partials in CTA (k) order, writes y and sets the counter back to 0.
+    if (shared_tile[0] >= 0 || shared_tile[1] >= 0) {
+#pragma unroll
+      for (int slot = 0; slot < 2; ++slot)
+        if (shared_tile[slot] >= 0)
+          *reinterpret_cast<float4*>(part + ((static_cast<size_t>(blockIdx.x) * 2 + slot) * kRowsM + m_in) * kCols +
+                                     col) = shared_sum[slot];
+      named_barrier_sync(1, kRingWarps * 32);
+      if (threadIdx.x < 2) {
+        const int tile = threadIdx.x == 0 ? shared_tile[0] : shared_tile[1];
+        // one acquire-release arrival: it publishes the CTA's partials (ordered before it by the
+        // barrier) and, for the last to arrive, orders the other CTAs' partials before the merge
+        merges[threadIdx.x] = tile >= 0 && arrive_acq_rel(&arrivals[tile]) ==
+                                               static_cast<unsigned>(run_owner(tile * n_kb + n_kb - 1, units) -
+                                                                     run_owner(tile * n_kb, units));
+      }
+      named_barrier_sync(1, kRingWarps * 32);
+#pragma unroll
+      for (int slot = 0; slot < 2; ++slot) {
+        if (!merges[slot]) continue;
+        const int tile = shared_tile[slot], tile_begin = tile * n_kb;
+        const int first = run_owner(tile_begin, units), last = run_owner(tile_begin + n_kb - 1, units);
+        // the first contributor's run may start in an earlier tile (its slot 1); the others start here
+        const int first_slot = run_begin(first, units) < tile_begin ? 1 : 0;
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int c0 = first; c0 <= last; c0 += 16) {  // sixteen loads in flight, then added in order
+          float4 p[16];
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int c = c0 + j, sl = c == first ? first_slot : 0;
+            p[j] = c <= last ? __ldcg(reinterpret_cast<const float4*>(
+                                   part + ((static_cast<size_t>(c) * 2 + sl) * kRowsM + m_in) * kCols + col))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            if (c0 + j <= last) sum.x += p[j].x, sum.y += p[j].y, sum.z += p[j].z, sum.w += p[j].w;
+        }
+        const int m = (tile % n_mc) * kRowsM + m_in, n = (tile / n_mc) * kCols + col;
+        if (m < M && n < N) store_y4(y + static_cast<size_t>(m) * N + n, sum);
+        if (threadIdx.x == 0) arrivals[tile] = 0u;
+      }
+    }
+  }
+}
+
+// A row-major matrix [rows, cols] of `elem`-byte values as a 3-D tensor map (cols, rows, 1) with
+// boxes of box_cols x box_rows; rows and columns past the edges arrive zero-filled.
+cudaError_t make_rows_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem, int rows, int cols,
+                          int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem, (cuuint64_t)rows * cols * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult res = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+std::atomic<unsigned long long> ring_smem_set{0};
+
 template <typename T, bool kInt4>
 cudaError_t launch(const void* x, const void* q, const void* s, void* y, void* part, int M, int K, int N,
                    int half_group, int rows_per_split, int n_splits, cudaStream_t st) {
@@ -498,5 +853,53 @@ int nexus_quant_matmul(const void* x, const void* q, const void* s, void* y, voi
   }
   return (int)err;
 }
+
+// int4 with bf16 activations through the ring kernel, one launch.  x [M,K] bf16, q [K/2,N] packed
+// int8, s [K/G,N] f32, y [M,N] bf16, part [grid][2][8][128] f32, arrivals [ceil(N/128) *
+// ceil(M/8)] uint32 (0 on entry, 0 on return); all contiguous and 16-byte aligned.  half_group =
+// G/2 with G % 16 == 0, N % 16 == 0, M <= 256; scale_rows: the most groups a 64-row stage touches
+// (ops/quant_matmul.py::int4_scale_rows); grid: the CTAs, no more than the units.  Returns the
+// launch's cudaGetLastError(), or cudaErrorInvalidValue for inputs the kernel does not take.
+int nexus_quant_int4_ring(const void* x, const void* q, const void* s, void* y, void* part, void* arrivals, int M,
+                          int K, int N, int half_group, int scale_rows, int grid, void* stream) {
+  const auto at16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (M <= 0 || M > 256 || K <= 0 || N <= 0 || N % 16 != 0 || half_group <= 0 || half_group % 8 != 0 ||
+      K % (2 * half_group) != 0 || scale_rows <= 0 || scale_rows > kMaxScaleRows || grid <= 0 || !at16(x) ||
+      !at16(q) || !at16(s) || !at16(y) || !at16(part) || arrivals == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int rows = K / 2, n_kb = (rows + kRingRows - 1) / kRingRows, n_mc = (M + kRowsM - 1) / kRowsM;
+  const long long units = static_cast<long long>((N + kCols - 1) / kCols) * n_mc * n_kb;
+  if (grid > units || units * grid >= (1ll << 32)) return (int)cudaErrorInvalidValue;
+  // the device's primary context current on this thread: the map encoder needs one
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  CUtensorMap tm_q, tm_s;
+  if (err == cudaSuccess)
+    err = make_rows_map(&tm_q, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, N, kCols, kRingRows,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = make_rows_map(&tm_s, s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K / (2 * half_group), N, kCols, scale_rows,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess) err = allow_smem_once(ring_smem_set, quant_int4_ring_kernel, RingSmem::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  quant_int4_ring_kernel<<<grid, kRingThreads, RingSmem::kBytes, reinterpret_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_s, static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
+      static_cast<unsigned*>(arrivals), M, K, N, half_group, scale_rows, n_kb, n_mc, static_cast<int>(units),
+      make_divider(static_cast<uint32_t>(half_group / 8)));
+  return (int)cudaGetLastError();
+}
+
+// CTAs of the ring kernel an SM holds (-1 on error), and the dynamic shared memory a launch asks for.
+int nexus_quant_int4_ctas_per_sm() {
+  int n = 0;
+  if (allow_smem_once(ring_smem_set, quant_int4_ring_kernel, RingSmem::kBytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, quant_int4_ring_kernel, kRingThreads, RingSmem::kBytes) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
+int nexus_quant_int4_smem_bytes() { return RingSmem::kBytes; }
 
 }  // extern "C"

@@ -51,6 +51,9 @@ SIGNATURES = {
     "nexus_decode_smem_bytes": [_I, _I, _I],
     "nexus_decode_ctas_per_sm": [_I, _I, _I],
     "nexus_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "nexus_quant_int4_ring": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "nexus_quant_int4_ctas_per_sm": [],
+    "nexus_quant_int4_smem_bytes": [],
     "nexus_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "nexus_tgmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "nexus_gmm_smem_bytes": [_I],

@@ -5,7 +5,14 @@ Replaces ``tpu_nexus/ops/quant_matmul.py``: ``_int8_kernel`` and
 ``_int4_kernel`` (launched by ``quant_matmul``) and ``weight_einsum``.  The
 kernels live in ``csrc/quant_matmul.cu``; the source note there says what
 bounds them on the H100 (the packed weight's bytes at decode-sized M) and
-what the design does about it.
+what each design does about it.  int4 with bf16 activations takes the ring
+kernel, one launch over a stream-K partition of the packed weight into
+equal runs, one a persistent CTA (:func:`int4_plan`, :func:`int4_partition`),
+the K split merged in the launch through a per-device workspace of arrival
+counters and partials (:func:`_ring_workspace`); an int4 shape it does not
+take (:func:`int4_ring_route`: N or the group not a multiple of 16, an
+unaligned operand) takes the first design, a partial pass over a
+:func:`split_plan` and a finalize launch, as int8 and f32 activations do.
 
 * :func:`quant_matmul_plain` — the kernels' arithmetic in PyTorch, in
   their operation order.  int8: ``x · q8`` accumulated in f32, the
@@ -29,7 +36,8 @@ what the design does about it.
 from __future__ import annotations
 
 import os
-from typing import Tuple
+import threading
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -48,6 +56,13 @@ ROWS_M = 8
 TILE_ROWS = 128
 #: CTAs the K-split fills (four resident CTAs on each of the H100's 132 SMs)
 TARGET_CTAS = 528
+#: the int4 ring kernel: packed rows a ring stage holds (one 8-row mma k block
+#: for each of its 8 consumer warps), the most scale rows a stage stages, and
+#: the fewest units a CTA takes (so a tile is not cut into more partials
+#: than its merge can read back quickly)
+RING_ROWS = 64
+RING_SCALE_ROWS = 8
+MIN_RING_UNITS = 2
 
 
 def _geometry(w) -> Tuple[tuple, tuple, tuple]:
@@ -114,6 +129,112 @@ def split_plan(rows: int, n: int, m: int) -> Tuple[int, int]:
     return rows_per_split, -(-rows // rows_per_split)
 
 
+def int4_ring_route(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, n: int, group: int) -> bool:
+    """Whether a bf16 int4 call takes the ring kernel: N a multiple of 16
+    (TMA's 16-byte row pitch), the group a multiple of 16 (an 8-row k block
+    in one group, a 16-byte activation copy in one group half) and the
+    operands 16-byte aligned.  Anything else is the pitch branch, the first
+    design's partial pass and finalize launch: chosen from the shape before
+    launch, never after a failed one."""
+    return n % 16 == 0 and group % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, q, s))
+
+
+def int4_scale_rows(group: int) -> int:
+    """The most groups (scale rows) the 64 packed rows of one ring stage
+    touch, for a group that is a multiple of 16: the rows of the scale box
+    the kernel's producer stages with each packed tile."""
+    h8 = group // 16  # 8-row k blocks in half a group
+    if RING_SCALE_ROWS % h8 == 0:
+        return RING_SCALE_ROWS // h8
+    if h8 % RING_SCALE_ROWS == 0:
+        return 1
+    return min(RING_SCALE_ROWS, (RING_SCALE_ROWS - 1) // h8 + 2)
+
+
+def int4_plan(rows: int, n: int, m: int, resident: int) -> Tuple[int, int]:
+    """``(units, grid)`` of the ring kernel for ``rows`` packed rows, N
+    columns and M activation rows: a unit is one stage (:data:`RING_ROWS`
+    packed rows of a 128-column strip, for an 8-row M chunk).  Where the
+    tiles are fewer than the CTAs the card holds (``resident``), each tile
+    is cut into the most equal runs that divide its stages and fit, so no
+    run straddles two tiles: a CTA then merges at most one tile, and the
+    merge's round trips come once a run (measured faster at every decode
+    shape, ``chip_smoke.py --phases build,int4_probe``).  Else the grid is
+    the resident CTAs, no more than the units allow at
+    :data:`MIN_RING_UNITS` each."""
+    tiles, n_kb = -(-n // COLS) * -(-m // ROWS_M), -(-rows // RING_ROWS)
+    if tiles < resident:
+        runs = resident // tiles
+        while n_kb % runs:
+            runs -= 1
+        return tiles * n_kb, tiles * runs
+    return tiles * n_kb, max(1, min(resident, tiles * n_kb // MIN_RING_UNITS))
+
+
+def int4_partition(rows: int, n: int, m: int, grid: int) -> Dict[int, List[Tuple[int, int, int, int]]]:
+    """The ring kernel's work, as its CTAs derive it: CTA c takes units
+    ``[c·units/grid, (c+1)·units/grid)`` of the walk (k block fastest, then
+    the M chunk, then the strip).  Returns, for every tile (strip · M chunks
+    + chunk), its runs in merge order: ``(cta, slot, first packed row,
+    end packed row)``.  A tile of one run is written by its CTA; otherwise
+    each CTA writes its partial into workspace slot ``(cta, slot)`` (0: the
+    run's first tile, 1: its last) and the last to arrive adds them in this
+    order.  The partition is the kernel's contract, held by a CPU test."""
+    units, _ = int4_plan(rows, n, m, grid)
+    n_kb = -(-rows // RING_ROWS)
+    tiles: Dict[int, List[Tuple[int, int, int, int]]] = {}
+    for c in range(grid):
+        begin, end = c * units // grid, (c + 1) * units // grid
+        u = begin
+        while u < end:
+            tile = u // n_kb
+            seg_end = min(end, (tile + 1) * n_kb)
+            slot = 0 if begin >= tile * n_kb else 1
+            kb0, kb1 = u - tile * n_kb, seg_end - tile * n_kb
+            tiles.setdefault(tile, []).append((c, slot, kb0 * RING_ROWS, min(kb1 * RING_ROWS, rows)))
+            u = seg_end
+    return tiles
+
+
+#: (device index, stream) -> (workspace, counter words, partial floats)
+_RING_WORKSPACES: dict = {}
+_RING_LOCK = threading.Lock()
+#: device index -> CTAs of the ring kernel the card holds
+_RING_RESIDENT: dict = {}
+
+
+def _ring_resident(device: torch.device) -> int:
+    """SMs times the ring kernel's CTAs an SM holds (the library's occupancy
+    query), cached per device."""
+    found = _RING_RESIDENT.get(device.index)
+    if found is None:
+        with torch.cuda.device(device):
+            per_sm = _build.library().nexus_quant_int4_ctas_per_sm()
+        if per_sm <= 0:
+            raise RuntimeError(f"nexus_quant_int4_ctas_per_sm: the ring kernel fits no CTA on {device}")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        found = _RING_RESIDENT[device.index] = per_sm * sms
+    return found
+
+
+def _ring_workspace(device: torch.device, stream: int, tiles: int, grid: int) -> Tuple[int, int]:
+    """``(partials, counters)`` addresses in the ring kernel's workspace of
+    ``device`` and ``stream``: ``tiles`` arrival counters, zeroed once (a
+    launch leaves them 0), then ``grid · 2 · 8 · 128`` f32 partials.  Regrown
+    (zeroed) when a launch needs more; launches on one stream run in order,
+    another stream gets its own buffer."""
+    key = (device.index, stream)
+    need = grid * 2 * ROWS_M * COLS
+    with _RING_LOCK:
+        buf, n_counters, n_parts = _RING_WORKSPACES.get(key, (None, 0, 0))
+        if buf is None or n_counters < tiles or n_parts < need:
+            n_counters = max(n_counters, -(-tiles // 256) * 256)
+            n_parts = max(n_parts, need)
+            buf = torch.zeros(n_counters + n_parts, dtype=torch.int32, device=device)
+            _RING_WORKSPACES[key] = (buf, n_counters, n_parts)
+    return buf.data_ptr() + 4 * n_counters, buf.data_ptr()
+
+
 def quant_matmul(x: torch.Tensor, w) -> torch.Tensor:
     """Fused ``x @ dequant(w)`` for a 2D activation ``x`` [M, K] against a
     lead-dim-free :class:`QTensor` (int8, per-output-channel scales) or
@@ -167,17 +288,28 @@ def quant_matmul(x: torch.Tensor, w) -> torch.Tensor:
         q2 = w.q.reshape(k, n).contiguous()
         s2 = w.s.reshape(n).float().contiguous()
         rows, half_group = k, 0
-    rows_per_split, n_splits = split_plan(rows, n, m)
-    part = torch.empty((n_splits, m, n), dtype=torch.float32, device=x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.library()
-    with torch.cuda.device(x.device):  # the runtime launches on its current device
-        status = lib.nexus_quant_matmul(
-            x.data_ptr(), q2.data_ptr(), s2.data_ptr(), y.data_ptr(), part.data_ptr(),
-            m, k, n, half_group, rows_per_split, n_splits, _DTYPES[x.dtype],
-            _build.stream_ptr(x.device),
-        )
-    _build.check(status, "nexus_quant_matmul")
+    if int4 and x.dtype == torch.bfloat16 and int4_ring_route(x, q2, s2, n, w.group):
+        _, grid = int4_plan(rows, n, m, _ring_resident(x.device))
+        stream = _build.stream_ptr(x.device)
+        part, arrivals = _ring_workspace(x.device, stream, -(-n // COLS) * -(-m // ROWS_M), grid)
+        with torch.cuda.device(x.device):  # the runtime launches on its current device
+            status = lib.nexus_quant_int4_ring(
+                x.data_ptr(), q2.data_ptr(), s2.data_ptr(), y.data_ptr(), part, arrivals,
+                m, k, n, half_group, int4_scale_rows(w.group), grid, stream,
+            )
+        _build.check(status, "nexus_quant_int4_ring")
+    else:
+        rows_per_split, n_splits = split_plan(rows, n, m)
+        part = torch.empty((n_splits, m, n), dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            status = lib.nexus_quant_matmul(
+                x.data_ptr(), q2.data_ptr(), s2.data_ptr(), y.data_ptr(), part.data_ptr(),
+                m, k, n, half_group, rows_per_split, n_splits, _DTYPES[x.dtype],
+                _build.stream_ptr(x.device),
+            )
+        _build.check(status, "nexus_quant_matmul")
     if int4:
         quant_matmul.launches_int4 += 1
     else:

@@ -4,8 +4,11 @@ Counterpart of ``tpu_nexus/ops/rmsnorm.py``: :func:`rms_norm` is its plain
 ``rms_norm`` (the JAX package's default, plain XLA there too, and what
 every model of the port calls); :func:`rms_norm_kernel` replaces its Pallas
 ``_rms_kernel`` (launched by ``rms_norm_pallas``) with the CUDA C++ of
-``csrc/rmsnorm.cu``.  As in the JAX package, no path of the model launches
-the kernel.
+``csrc/rmsnorm.cu``: a memory stream (16-byte accesses, a row held in the
+registers of one to eight warps and reduced by shuffles, persistent CTAs
+that load the next row before storing the current one; the source note
+says why).  As in the JAX package, no path of the model launches the
+kernel.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 from tpu_nexus_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: widest row the kernel takes (256 threads x 32 elements in registers)
+#: widest row the kernel takes (8 warps x 32 lanes x 32 elements in registers)
 MAX_HIDDEN = 8192
 
 
@@ -28,8 +31,8 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
 
 
 def rms_norm_kernel(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm over the last dim through the CUDA kernel (one row per CTA,
-    f32 sums, the output in x's dtype), counted in
+    """RMSNorm over the last dim through the CUDA kernel (f32 sums in a fixed
+    order, the output in x's dtype), counted in
     ``rms_norm_kernel.launches``.  A CPU tensor takes :func:`rms_norm`; a
     CUDA tensor launches the kernel or raises."""
     if x.device.type == "cpu":
