@@ -15,16 +15,17 @@ raises and exits non-zero:
    (one ``nvcc`` per source, all started together); the bf16 flash
    kernels' (forward, dQ, dK/dV) and kernel #4's bf16 and int8-KV
    instantiations' (at D 64 and 128), the bf16 grouped-matmul kernels'
-   (#7 with either rhs layout, #8), #6's int4 ring kernel's (and the first
-   design it keeps for the pitch branch) and #9's registers, local memory
+   (#7 with either rhs layout, #8), #5's int8 and #6's int4 ring kernels'
+   (and the first design they keep for other shapes) and #9's registers, local memory
    (spills and stack), shared memory and the count of ``HGMMA`` (wgmma),
    ``HMMA`` (mma.sync), ``UTMALDG`` (TMA load), ``LDGSTS`` (cp.async),
    ``I2F``/``I2FP`` (int -> float) and 128-bit global load and store
    instructions in their SASS, read by the toolkit's ``cuobjdump``; fails
    without it, where a flash or grouped-matmul kernel lacks wgmma or TMA
-   or has mma.sync, where #4 or #6's ring kernel lacks an asynchronous
-   ring or tensor-core dots, where #9 lacks 128-bit loads or stores, or
-   where any of them (every instantiation of #4 and #9) spills.
+   or has mma.sync, where #4 or a ring kernel of #5 or #6 lacks an
+   asynchronous ring or tensor-core dots, where #5's ring kernel converts
+   weights with I2F, where #9 lacks 128-bit loads or stores, or where any of
+   them (every instantiation of #4 and #9) spills.
 3. parity       — the forward and decode kernels against their plain
    PyTorch versions at the training and serving paths' shapes, bf16 and
    f32 (the forward also at S 1, 127, 129 and 383, GQA groups 1, 4 and 8,
@@ -32,8 +33,10 @@ raises and exits non-zero:
    the int8 and int4 dequant-matmul kernels at the Llama-3-8B decode
    step's (K, N) with M = 8, at M = 1, 40 and 256 and at unaligned shapes,
    int4 at groups 64 and 128 (and 2 and K), each run twice bit-identical,
-   each int4 bf16 case naming its kernel (the ring kernel, or the pitch
-   branch for N 200 and 71 and group 2; both must be reached);
+   each case naming the kernel its launch counter saw (int8 bf16: the ring
+   kernel, or the first design for N 200 and 71; int4 bf16: the ring
+   kernel, or the pitch branch for N 200 and 71 and group 2; each of the
+   four must be reached);
    the decode kernel's int8-KV mode at the serve shape, kv_len 4096, q_len
    4 and ragged.  Every decode case runs twice, bit-identical; they cover
    q_len 8 x GQA 8 (64 query rows), GQA 1 and 8, D 64, and one row's 8 kv
@@ -62,7 +65,7 @@ raises and exits non-zero:
    the port never calls them).  The backward is also timed whole
    (``flash_attention_bwd``: dsum, q̃ and both kernels) and at nexus_moe's
    attention shape (Hq8 Hkv4).  For the dequant-matmul kernels the shape is
-   the step's largest launch (K4096 x N14336, M8; int4 also at w_down,
+   the step's largest launch (K4096 x N14336, M8; both also at w_down,
    wq/wo and wk/wv) and the yardstick is ``torch.matmul`` with the
    pre-dequantized bf16 weight; for int8-KV
    decode, ``scaled_dot_product_attention`` on a dequantized cache.  For
@@ -88,8 +91,8 @@ raises and exits non-zero:
    (bf16 params, batch 8, prompt 128, 32 new tokens, 3 rounds), once with
    ``quantize="int8", quantize_kv="int8"`` and once with
    ``quantize="int4"``: COMPLETED, exactly 7 x layers x decode-steps
-   dequant-matmul launches each, decoded tokens/s, weight bytes, peak
-   memory.
+   dequant-matmul launches each, all of the int8 or int4 ring kernel,
+   decoded tokens/s, weight bytes, peak memory.
 12. serve_moe   — ``run_serving`` on ``nexus_moe`` at full width and depth
    (batch 8, prompt 128, 32 new tokens, 3 rounds): COMPLETED with exact
    flash and decode launches; greedy ``generate`` at 2 layers in f32 is
@@ -129,14 +132,18 @@ Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 share (``python3 chip_smoke.py --phases build,profile``); ``train_profile``
 — the same for two warm steps of the train phase's shape
 (``--phases build,train_profile``); ``profile_int8`` and ``profile_int4`` —
-``profile`` with the serve_quant phase's two configurations;
+``profile`` with the serve_quant phase's two configurations (no finalize
+kernel may be among their top kernels);
 ``train_moe_profile`` — ``train_profile`` for train_moe's shape;
 ``decode_probe`` — kernel #4 (bf16, contiguous) across q_len x GQA at kv_len
 144 and 4096, then built again from copies of its source with one and two
 producer warps in place of four, timed at the serve step's and kv 4096's
 shapes in every mode (``--phases build,decode_probe``); ``quant_rms_times``
 — only the dequant-matmul and RMSNorm rows of ``times``, to compare two
-trees of the package in one call (``--phases device,quant_rms_times``).
+trees of the package in one call (``--phases device,quant_rms_times``);
+``int4_probe`` and ``int8_probe`` — what sets the pace of #6's and #5's ring
+kernels: edited rebuilds (stage geometries, ring-only streams) timed beside
+the shipped build (``--phases build,int8_probe``).
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -162,7 +169,7 @@ PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_par
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
-          "quant_rms_times", "int4_probe")
+          "quant_rms_times", "int4_probe", "int8_probe")
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, f32 CUDA
 # core rate, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -359,8 +366,8 @@ def read_rms_norm_launches(results, path: str) -> None:
 #: (LDG.E.128, STG.E.128); "report": read, nothing required.  The attention
 #: kernels are read at head dims 64 and 128, #4 at the serve step's shape,
 #: q_len 1 x GQA 4 (N 8); #7 with rhs [E,K,N] (read MN-major) and [E,N,K]
-#: (d_lhs, K-major), #8 once; #6's ring kernel (bf16 activations) and the
-#: first design it keeps for the pitch branch; #9 at the widths of its
+#: (d_lhs, K-major), #8 once; #5's and #6's ring kernels (bf16 activations)
+#: and the first design they keep for other shapes; #9 at the widths of its
 #: timed rows (bf16 and f32 x, 16-byte accesses).  ``sass_i2f`` counts the
 #: int -> float conversions (I2F, I2FP).
 HEAD_DIMS = {"d64": 64, "d128": 128}
@@ -381,12 +388,19 @@ HOPPER_KERNELS = {
     "quant_int4_ring": ("quant_int4_ring_kernel{v}", lambda lib, _: lib.nexus_quant_int4_smem_bytes(), "ring+tensor",
                         {"bf16": ""}),
     "quant_int4_pitch_branch": ("quant_matmul_mma_kernelILb{v}E", lambda lib, _: 0, "report", {"bf16": 1}),
+    "quant_int8_ring": ("quant_int8_ring_kernel{v}", lambda lib, _: lib.nexus_quant_int8_smem_bytes(),
+                        "ring+tensor", {"bf16": ""}),
+    "quant_int8_first_design": ("quant_matmul_mma_kernelILb{v}E", lambda lib, _: 0, "report", {"bf16": 0}),
     "rms_norm": ("rms_kernelI{v}", lambda lib, _: 0, "vector",
                  {"bf16_h2048": "13__nv_bfloat16Li2ELb1E", "bf16_h4096": "13__nv_bfloat16Li4ELb1E",
                   "f32_h2048": "fLi2ELb1E", "f32_h8192": "fLi8ELb1E"}),
 }
 #: kernels whose every instantiation must be free of local memory and stack: name -> how many
-ALL_INSTANTIATIONS = {"decode_hopper_kernel": 16, "rms_kernel": 16, "quant_int4_ring_kernel": 1}
+ALL_INSTANTIATIONS = {"decode_hopper_kernel": 16, "rms_kernel": 16, "quant_int4_ring_kernel": 1,
+                      "quant_int8_ring_kernel": 1}
+#: the most int -> float conversions the int8 ring kernel may hold: those of its run bounds' 32-bit
+#: divisions (a conversion on the weights would be one a widened value, hundreds in the SASS)
+INT8_RING_MAX_I2F = 16
 
 
 def hopper_kernel_resources(_build):
@@ -453,6 +467,10 @@ def hopper_kernel_resources(_build):
             raise AssertionError(f"{kernel}: {len(worst)} instantiations (want {count}), or one spills: {worst}")
         report[f"{kernel}_all_instantiations"] = dict(
             count=len(worst), max_registers=max(r for r, _, _ in worst.values()), local_or_stack_bytes=0)
+    i2f = report["quant_int8_ring"]["bf16"]["sass_i2f"]
+    if i2f > INT8_RING_MAX_I2F:
+        raise AssertionError(f"quant_int8_ring_kernel: {i2f} I2F, more than its run bounds need "
+                             f"({INT8_RING_MAX_I2F}): a conversion on the weights?")
     return report
 
 
@@ -603,7 +621,9 @@ def quant_matmul_parity(results):
     """Kernels #5 (int8) and #6 (int4) against ``quant_matmul_plain``."""
     import torch
 
-    from tpu_nexus_torch.ops.quant_matmul import int4_ring_route, quant_matmul, quant_matmul_plain
+    from tpu_nexus_torch.ops.quant_matmul import (
+        int4_ring_route, int8_ring_route, quant_matmul, quant_matmul_plain,
+    )
 
     cases = [(8, k, n, (64, 128)) for k, n in LLAMA8B_KN]  # (M, K, N, int4 groups)
     cases += [(1, 4096, 4096, (64,)), (256, 4096, 4096, (64,)), (40, 4096, 14336, (64,)), (256, 4096, 14336, (64,)),
@@ -618,19 +638,29 @@ def quant_matmul_parity(results):
                 seed += 1
                 x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(seed),
                                 device="cuda").to(dtype)
+                before = dict(quant_matmul.launches_by_route)
                 out, again = quant_matmul(x, w), quant_matmul(x, w)
                 torch.cuda.synchronize()
+                launched = {r: c - before[r] for r, c in quant_matmul.launches_by_route.items()
+                            if c != before[r]}
                 ref = quant_matmul_plain(x, w)
                 same = bool(torch.equal(out, again))
                 err, ref_max, e_row = max_err(out, ref), float(ref.float().abs().max()), row_rel_err(out, ref)
                 ok = same and bool(torch.isfinite(out).all()) and (
                     e_row <= ROW_REL_TOL if dtype == torch.bfloat16 else err <= QUANT_F32_MAXABS_REL * ref_max)
-                # the kernel that ran: int4 bf16 takes the ring kernel or the pitch branch
-                route = ("ring" if int4_ring_route(x, w.q, w.s, n, group) else "pitch_branch") if (
-                    mode == "int4" and dtype == torch.bfloat16) else "first_design"
+                # the kernel that ran: int4 bf16 takes the ring kernel or the pitch branch, int8 the ring
+                # kernel or the first design (as f32 does)
+                if mode == "int4" and dtype == torch.bfloat16:
+                    route = "ring" if int4_ring_route(x, w.q, w.s, n, group) else "pitch_branch"
+                elif mode == "int8":
+                    route = "ring" if int8_ring_route(x, w.q, w.s, n) else "first_design"
+                else:
+                    route = "first_design"
+                ok = ok and launched == {f"{mode}_{'ring' if route == 'ring' else 'first_design'}": 2}
                 routes.setdefault(f"{mode}_{str(dtype)[6:]}_{route}", []).append([m, k, n, group or None])
                 emit("parity", kernel=f"quant_matmul_{mode}", m=m, k=k, n=n, group=group or None,
-                     dtype=str(dtype), route=route, max_abs_err=err, ref_max_abs=ref_max, max_row_rel_err=e_row,
+                     dtype=str(dtype), route=route, launches_by_route=launched, max_abs_err=err,
+                     ref_max_abs=ref_max, max_row_rel_err=e_row,
                      bit_identical_twice=same, tol_f32_max_abs_rel=QUANT_F32_MAXABS_REL,
                      tol_bf16_row_rel=ROW_REL_TOL, ok=ok)
                 if not ok:
@@ -643,6 +673,8 @@ def quant_matmul_parity(results):
     emit("parity", kernel="quant_matmul", routes=routes)
     if not routes.get("int4_bfloat16_ring") or not routes.get("int4_bfloat16_pitch_branch"):
         raise AssertionError(f"the int4 bf16 cases missed the ring kernel or the pitch branch: {routes}")
+    if not routes.get("int8_bfloat16_ring") or not routes.get("int8_bfloat16_first_design"):
+        raise AssertionError(f"the int8 bf16 cases missed the ring kernel or the first design: {routes}")
     results.setdefault("max_abs_err", {}).update(worst)
 
 
@@ -841,8 +873,11 @@ def phase_times(results):
 
 #: the timed dequant-matmul launches: (times key, M, K, N, mode, group).  The
 #: first two are the kernels line's rows (the decode step's largest launch,
-#: w_gate/w_up); #6 also at w_down, wq/wo and wk/wv.
+#: w_gate/w_up); #5 and #6 also at w_down, wq/wo and wk/wv.
 QUANT_TIMED = (("quant_matmul_int8", 8, 4096, 14336, "int8", 0), ("quant_matmul_int4", 8, 4096, 14336, "int4", 64),
+               ("quant_matmul_int8_down", 8, 14336, 4096, "int8", 0),
+               ("quant_matmul_int8_wq", 8, 4096, 4096, "int8", 0),
+               ("quant_matmul_int8_wk", 8, 4096, 1024, "int8", 0),
                ("quant_matmul_int4_down", 8, 14336, 4096, "int4", 64),
                ("quant_matmul_int4_wq", 8, 4096, 4096, "int4", 64),
                ("quant_matmul_int4_wk", 8, 4096, 1024, "int4", 64))
@@ -850,7 +885,7 @@ QUANT_TIMED = (("quant_matmul_int8", 8, 4096, 14336, "int8", 0), ("quant_matmul_
 
 def quant_times(times):
     """Kernels #5 (int8) and #6 (int4, group 64) at the Llama-3-8B decode
-    step's launches, M 8, bf16 (:data:`QUANT_TIMED`), cycling enough weight
+    step's four launches, M 8, bf16 (:data:`QUANT_TIMED`), cycling enough weight
     copies (at least four, over 128 MB in all) that the packed bytes come
     from HBM as a per-layer caller finds them; and kernel #4's int8-KV mode
     at the two decode shapes.  ``library_ms``: ``torch.matmul`` with the
@@ -1225,7 +1260,8 @@ def phase_serve_quant(results):
     weights: int8 weights + int8 KV cache, then int4 weights (group 64).
     The counters, zeroed just before each run, must show exactly 7
     dequant-matmul launches per layer per decode step (wq, wk, wv, wo,
-    w_gate, w_up, w_down; prefill's M = 1024 rows take the dense matmul)."""
+    w_gate, w_up, w_down; prefill's M = 1024 rows take the dense matmul),
+    all of them of the int8 or int4 ring kernel."""
     import torch
 
     from tpu_nexus_torch.checkpoint.models import LifecycleStage
@@ -1257,6 +1293,7 @@ def phase_serve_quant(results):
         flash_attention.launches = 0
         reset_launches()
         quant_matmul.launches_int8 = quant_matmul.launches_int4 = 0
+        quant_matmul.launches_by_route.update(dict.fromkeys(quant_matmul.launches_by_route, 0))
         weight_bytes = WeightBytes(level=logging.INFO)
         serve_log.addHandler(weight_bytes)
         level = serve_log.level
@@ -1274,6 +1311,7 @@ def phase_serve_quant(results):
             "flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches,
             "decode_attention_int8kv": decode_attention.launches_by_mode["contiguous+int8"],
             "quant_matmul_int8": quant_matmul.launches_int8, "quant_matmul_int4": quant_matmul.launches_int4,
+            **{f"quant_matmul_{r}": c for r, c in quant_matmul.launches_by_route.items()},
         }
         row = store.read_checkpoint("serve", name)
         stage = row.lifecycle_stage if row else None
@@ -1289,6 +1327,9 @@ def phase_serve_quant(results):
             "decode_attention_int8kv": n_layers * summary["decode_steps"] if quantize_kv else 0,
             "quant_matmul_int8": 7 * n_layers * summary["decode_steps"] if quantize == "int8" else 0,
             "quant_matmul_int4": 7 * n_layers * summary["decode_steps"] if quantize == "int4" else 0,
+            # every decode-step product of the quantized configurations goes through a ring kernel
+            "quant_matmul_int8_ring": 7 * n_layers * summary["decode_steps"] if quantize == "int8" else 0,
+            "quant_matmul_int4_ring": 7 * n_layers * summary["decode_steps"] if quantize == "int4" else 0,
         }
         wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
         if wrong or launches["decode_attention"] < n_layers * summary["decode_steps"]:
@@ -1334,8 +1375,8 @@ def phase_profile(results, quantize="", kv_quant=""):
             return "flash_attention kernel"
         if "decode_hopper" in low or "decode_partial" in low or "decode_combine" in low:
             return "decode_attention kernel"
-        if "quant_matmul" in low or "quant_int4_ring" in low:
-            return "quant_matmul kernels (int4 ring; int8 partial + finalize)"
+        if "quant_matmul" in low or "quant_int4_ring" in low or "quant_int8_ring" in low:
+            return "quant_matmul kernels (int8 ring, int4 ring; first design's partial + finalize)"
         if any(s in low for s in ("nvjet", "gemm", "xmma", "cutlass", "cublas", "sm90")):
             return "matmul (cuBLAS)"
         return "other (elementwise, copies, reductions)"
@@ -1348,6 +1389,10 @@ def phase_profile(results, quantize="", kv_quant=""):
          busy_share_of_unprofiled_round=device_ms / plain_wall_ms,
          groups_ms=groups, top=[{"ms": t, "calls": c, "name": n} for t, c, n in top[:12]])
     del params
+    # the quantized rounds' decode-sized products are one launch each: no finalize pass among the kernels
+    finalize = [n for _, _, n in top[:12] if "finalize" in n.lower()]
+    if quantize and finalize:
+        raise AssertionError(f"profile quantize={quantize!r}: a finalize kernel in the top list: {finalize}")
 
 
 def _group_device_time(prof, groups_of):
@@ -2026,12 +2071,31 @@ INT4_PROBE_EDITS = {
 }
 
 
-def _streamk_int4_plan(rows, n, m, resident):
-    """A plan for the probe: every shape cut into runs over all the CTAs the card holds (at least
+#: quant_matmul.cu's int8 ring kernel section (its constants, layout and kernel): int4_probe's edits
+#: are made outside it, int8_probe's inside it
+_INT8_SECTION = ("// ---- int8, bf16 activations: the ring kernel", "// A row-major matrix [rows, cols]")
+
+
+def _edit_source(source, edits, label, inside_int8):
+    """``source`` with ``edits`` made either only inside :data:`_INT8_SECTION` or only outside it;
+    each ``old`` must be found there once (int4's four ``pack_bf16(int4`` calls: four times)."""
+    i = source.index(_INT8_SECTION[0])
+    j = source.index(_INT8_SECTION[1], i)
+    head, section, tail = source[:i], source[i:j], source[j:]
+    text = section if inside_int8 else head + "\x00" + tail
+    for old, new in edits:
+        if text.count(old) != (4 if old.startswith("pack_bf16(int4") else 1):
+            raise RuntimeError(f"{label}: {old!r} not found as expected in quant_matmul.cu")
+        text = text.replace(old, new)
+    return head + text + tail if inside_int8 else text.replace("\x00", section)
+
+
+def _streamk_plan(rows, n, m, resident, stage_rows, cols=128):
+    """A plan for the probes: every shape cut into runs over all the CTAs the card holds (at least
     two units each), runs free to straddle tiles, as the shipped plan does only for many tiles."""
     from tpu_nexus_torch.ops import quant_matmul as qmm
 
-    units = -(-n // qmm.COLS) * -(-m // qmm.ROWS_M) * -(-rows // qmm.RING_ROWS)
+    units = -(-n // cols) * -(-m // qmm.ROWS_M) * -(-rows // stage_rows)
     return units, max(1, min(resident, units // qmm.MIN_RING_UNITS))
 
 
@@ -2059,7 +2123,7 @@ def _int4_probe_times(hot=False):
 
 def phase_int4_probe(results):
     """Opt-in: what sets the pace of #6's ring kernel.  The shipped build
-    with the plan of :func:`_streamk_int4_plan`; then the library built
+    with the plan of :func:`_streamk_plan`; then the library built
     again from copies of ``csrc`` edited as :data:`INT4_PROBE_EDITS` says;
     each timed beside the shipped build at the four int4 rows of
     ``quant_times``, the weights from HBM and (``*_hot``) left in L2 by the
@@ -2070,21 +2134,17 @@ def phase_int4_probe(results):
     from tpu_nexus_torch.ops import quant_matmul as qmm
 
     by_build = {"shipped": _int4_probe_times(), "shipped_hot": _int4_probe_times(hot=True)}
-    plan = qmm.int4_plan
+    plan = qmm.ring_plan
     try:  # the shipped build with runs free to straddle tiles at every shape
-        qmm.int4_plan = _streamk_int4_plan
+        qmm.ring_plan = _streamk_plan
         by_build["streamk_runs"] = _int4_probe_times()
     finally:
-        qmm.int4_plan = plan
+        qmm.ring_plan = plan
     shipped = (_build.CSRC, _build.BUILD_DIR, _build._library)
     source = (_build.CSRC / "quant_matmul.cu").read_text()
     try:
         for label, edits in INT4_PROBE_EDITS.items():
-            edited = source
-            for old, new in edits:
-                if edited.count(old) != (4 if old.startswith("pack_bf16(int4") else 1):
-                    raise RuntimeError(f"int4_probe {label}: {old!r} not found as expected in quant_matmul.cu")
-                edited = edited.replace(old, new)
+            edited = _edit_source(source, edits, f"int4_probe {label}", inside_int8=False)
             probe = ROOT / "build" / f"int4_probe_{label}"
             shutil.rmtree(probe, ignore_errors=True)
             shutil.copytree(shipped[0], probe / "csrc")
@@ -2099,6 +2159,191 @@ def phase_int4_probe(results):
     by_build["shipped_again"] = _int4_probe_times()
     emit("int4_probe", ms_by_build=by_build)
     results["int4_probe"] = by_build
+
+
+#: the int8 ring kernel with consumers that release each stage as soon as it lands and skip the end
+#: of every run (sums, partials, merge): the producer's stream alone.  Only times: y is not written.
+_I8_SKIP_STAGE = [("          mbar_wait(&full[st], phase);\n",
+                   "          mbar_wait(&full[st], phase);\n          if (u >= 0) {  // the stage arrived: release it\n"
+                   "            __syncwarp();\n            if (lane == 0) mbar_arrive(&empty[st]);\n"
+                   "            if (++st == kI8Stages) st = 0, phase ^= 1;\n            continue;\n          }\n")]
+_I8_NO_TILE_END = [("      // The tile's sums: the warps of each box added in warp order",
+                    "      if (u > 0) continue;  // no end of the run\n"
+                    "      // The tile's sums: the warps of each box added in warp order")]
+_I8_64x128 = dict(kI8Rows=64, kI8Boxes=1, kI8Stages=16, kI8CtasPerSm=1)
+_I8_128x128 = dict(kI8Rows=128, kI8Boxes=1, kI8Stages=8, kI8CtasPerSm=1)
+_I8_64x256 = dict(kI8Rows=64, kI8Boxes=2, kI8Stages=8, kI8CtasPerSm=1)
+_I8_TWO_CTAS = dict(kI8Rows=64, kI8Boxes=1, kI8Stages=8, kI8CtasPerSm=2)
+_I8_WALK_ROWS = [("  const int cta = blockIdx.x;\n",
+                  "  const int n_tiles = units / n_kb, n_runs = gridDim.x / n_tiles;\n"
+                  "  const int cta = gridDim.x % n_tiles ? blockIdx.x\n"
+                  "                                      : (blockIdx.x % n_tiles) * n_runs + blockIdx.x / n_tiles;\n")]
+#: int8_probe's builds of #5's ring kernel: label -> (the section's constants, textual edits inside it,
+#: each matching once).  The stage geometries: 128 rows x 128 columns (16 KB a stage, shipped), 64 x
+#: 128 (8 KB, as #6's), 64 x 256 (two 128-byte swizzled boxes side by side), 64 x 128 at two CTAs an
+#: SM; "walk_rows": the blocks renumbered so that CTAs with neighbouring indices read the same rows of
+#: neighbouring strips.  "ring_only": the consumers release each stage as it lands and skip the end of every run
+#: (the producer's stream alone); "consumers_skip": only the release; "no_tile_end": the consumers'
+#: products, no end of a run (sums, partials, merge, y); "no_widen": one shift in place of the
+#: byte permute and FADD of each weight value; "lop_widen": each value by a mask-and-or (LOP3) and an
+#: FFMA, each pair packed by a shift-add, no byte permute; "no_mma": an XOR and an FADD in place of
+#: each mma;
+#: "no_merge": every tile written as if whole; "consumers_only": no weight streamed (each stage
+#: complete at once, the consumers at their own pace); "_sN": an N-stage ring.  Only
+#: times: most edits change results.
+INT8_PROBE_BUILDS = {
+    # the shipped geometry (128 x 128, 8 stages) with parts taken away
+    "128x128_s8_ring_only": (_I8_128x128, _I8_SKIP_STAGE + _I8_NO_TILE_END),
+    "128x128_s8_consumers_skip": (_I8_128x128, _I8_SKIP_STAGE),
+    "128x128_s8_consumers_only": (_I8_128x128, [
+        ("        mbar_arrive_expect_tx(&full[st], Int8RingSmem::kStageBytes);",
+         "        mbar_arrive(&full[st]);  // no weight: the consumers at their own pace"),
+        ("          tma_load_3d(tile + b * kI8Rows * kCols, &tm_q,",
+         "          if (kb < 0) tma_load_3d(tile + b * kI8Rows * kCols, &tm_q,")]),
+    "128x128_s8_no_tile_end": (_I8_128x128, _I8_NO_TILE_END),
+    "128x128_s8_no_merge": (_I8_128x128, [
+        ("      if (seg_begin == tile_begin && seg_end == tile_begin + n_kb) {",
+         "      if (true) {  // every tile written as if whole: no partials, no merge")]),
+    "128x128_s8_no_widen": (_I8_128x128, [
+        ("return __uint_as_float(__byte_perm(u, kTwoPow23Bits, 0x7650 + j)) - 8388736.f;",
+         "return __uint_as_float(u << (8 * j));")]),
+    "128x128_s8_lop_widen": (_I8_128x128, [
+        ("  return __uint_as_float(__byte_perm(u, kTwoPow23Bits, 0x7650 + j)) - 8388736.f;",
+         "  if (j == 0) return __uint_as_float((u & 0xFFu) | 0x4B000000u) - 8388736.f;\n"
+         "  if (j == 1) return fmaf(__uint_as_float((u & 0xFF00u) | 0x4F000000u), 0x1p-8f, -8388736.f);\n"
+         "  if (j == 2) return fmaf(__uint_as_float((u & 0xFF0000u) | 0x53000000u), 0x1p-16f, -8388736.f);\n"
+         "  return __uint_as_float((u >> 24) + 0x4B000000u) - 8388736.f;"),
+        ("  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);",
+         "  return (__float_as_uint(lo) >> 16) + __float_as_uint(hi);")]),
+    "128x128_s8_no_mma": (_I8_128x128, [
+        ("for (int cp = 0; cp < 8; ++cp) mma_bf16_16816(acc[cp], a[cp], b0, b1);",
+         "for (int cp = 0; cp < 8; ++cp)\n"
+         "              acc[cp][0] += __uint_as_float(a[cp][0] ^ a[cp][1] ^ a[cp][2] ^ a[cp][3] ^ b0 ^ b1);")]),
+    # other stage geometries, ring depths and walks
+    "128x128_s10_ring_only": (dict(_I8_128x128, kI8Stages=10), _I8_SKIP_STAGE + _I8_NO_TILE_END),
+    "64x128_s16": (_I8_64x128, []),
+    "64x128_s16_ring_only": (_I8_64x128, _I8_SKIP_STAGE + _I8_NO_TILE_END),
+    "64x128_s12_ring_only": (dict(_I8_64x128, kI8Stages=12), _I8_SKIP_STAGE + _I8_NO_TILE_END),
+    "64x128_s20_ring_only": (dict(_I8_64x128, kI8Stages=20), _I8_SKIP_STAGE + _I8_NO_TILE_END),
+    "64x256_s8": (_I8_64x256, []),
+    "64x256_s8_ring_only": (_I8_64x256, _I8_SKIP_STAGE + _I8_NO_TILE_END),
+    "64x128_s8_two_ctas": (_I8_TWO_CTAS, []),
+    "64x128_s8_two_ctas_ring_only": (_I8_TWO_CTAS, _I8_SKIP_STAGE + _I8_NO_TILE_END),
+    "64x128_s16_walk_rows_ring_only": (_I8_64x128, _I8_WALK_ROWS + _I8_SKIP_STAGE + _I8_NO_TILE_END),
+}
+
+
+def _sass_mix(library, kernel):
+    """Opcode counts in the SASS of ``kernel`` in ``library`` (the toolkit's cuobjdump): the mix of
+    instructions a probe build compiled to."""
+    import re
+
+    from tpu_nexus_torch.ops import _build
+
+    dump = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    body = next((f for f in dump.split("Function : ")[1:] if re.match(rf"\S*{kernel}", f)), "")
+    mix = {}
+    for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body):
+        mix[op] = mix.get(op, 0) + 1
+    return dict(sorted(mix.items(), key=lambda kv: -kv[1]))
+
+
+def phase_int8_probe(results):
+    """Opt-in: the int8 weight's stream, measured before and beside #5's ring kernel's consumers.
+    At the four int8 rows of ``quant_times`` (weights from HBM), kernel time (ms) of: the parent
+    design (the partial pass and its finalize, forced), ``torch.matmul`` on the bf16 weight, the
+    shipped build with the plan it ships, with every shared tile merged through the workspace
+    (``*_global_merge``), with runs over every resident CTA free to straddle tiles
+    (``*_streamk``) and with clusters of up to 16 CTAs (``*_clusters16``), and the library built again from copies of ``csrc`` edited as each
+    entry of :data:`INT8_PROBE_BUILDS` says (stage geometries, the stream alone, parts of the
+    consumers taken away).  ``TBps`` divides each launch's bytes (the
+    int8 weight, its scales, x and y) by its time (``--phases build,int8_probe``)."""
+    import re
+    import shutil
+
+    import torch
+
+    from tpu_nexus_torch.ops import _build
+    from tpu_nexus_torch.ops import quant_matmul as qmm
+
+    dt = torch.bfloat16
+    rows = [(key, m, k, n) for key, m, k, n, mode, _ in QUANT_TIMED if mode == "int8"]
+    inputs, nbytes = {}, {}
+    for key, m, k, n in rows:
+        x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(4000), device="cuda").to(dt)
+        first = quant_weight(k, n, "int8", 0, 4001)
+        copies = max(4, -(-128 * 2**20 // (first.q.numel() + first.s.numel() * 4)))
+        weights = [first] + [quant_weight(k, n, "int8", 0, 4001 + i) for i in range(1, copies)]
+        inputs[key] = (x, weights)
+        nbytes[key] = first.q.numel() + first.s.numel() * 4 + (m * k + m * n) * 2
+
+    def times():
+        return {key: cuda_ms([lambda w=w, x=x: qmm.quant_matmul(x, w) for w in weights], iters=64)
+                for key, (x, weights) in inputs.items()}
+
+    by_build = {}
+    route = qmm.int8_ring_route
+    try:  # the parent's design, as the wrapper launches it for the shapes the ring kernel does not take
+        qmm.int8_ring_route = lambda *a: False
+        by_build["parent_first_design"] = times()
+    finally:
+        qmm.int8_ring_route = route
+    library = {}
+    for key, (x, weights) in inputs.items():
+        dense = [w.to(dt) for w in weights[: max(4, -(-len(weights) // 4))]]
+        library[key] = cuda_ms([lambda w=w, x=x: torch.matmul(x, w) for w in dense], iters=64)
+        del dense
+    by_build["library_torch_matmul_bf16"] = library
+    by_build["shipped"] = times()
+    sass = {"shipped": _sass_mix(_build.library_path(), "quant_int8_ring_kernel")}
+    plan, max_cluster = qmm.ring_plan, qmm.INT8_MAX_CLUSTER
+    try:
+        qmm.INT8_MAX_CLUSTER = 1  # every shared tile merged through the workspace, as #6 does
+        by_build["shipped_global_merge"] = times()
+        qmm.ring_plan = _streamk_plan
+        by_build["shipped_streamk"] = times()
+        qmm.ring_plan, qmm.INT8_MAX_CLUSTER = plan, 16  # non-portable clusters of up to 16 CTAs
+        by_build["shipped_clusters16"] = times()
+    finally:
+        qmm.ring_plan, qmm.INT8_MAX_CLUSTER = plan, max_cluster
+    capacity = {c: qmm._int8_cluster_capacity(torch.device("cuda", torch.cuda.current_device()), c)
+                for c in (1, 2, 4, 8, 16)}
+
+    shipped = (_build.CSRC, _build.BUILD_DIR, _build._library)
+    geometry = (qmm.INT8_RING_ROWS, qmm.INT8_RING_COLS)
+    source = (_build.CSRC / "quant_matmul.cu").read_text()
+    errors = {}
+    try:
+        for label, (consts, extra) in INT8_PROBE_BUILDS.items():
+            edits = []
+            for name, value in consts.items():
+                found = re.search(rf"constexpr int {name} = \d+;", source)
+                if found is None:
+                    raise RuntimeError(f"int8_probe {label}: no {name} in quant_matmul.cu")
+                edits.append((found.group(0), f"constexpr int {name} = {value};"))
+            edited = _edit_source(source, edits + extra, f"int8_probe {label}", inside_int8=True)
+            probe = ROOT / "build" / f"int8_probe_{label}"
+            shutil.rmtree(probe, ignore_errors=True)
+            shutil.copytree(shipped[0], probe / "csrc")
+            (probe / "csrc" / "quant_matmul.cu").write_text(edited)
+            _build.CSRC, _build.BUILD_DIR, _build._library = probe / "csrc", probe / "build", None
+            qmm.INT8_RING_ROWS, qmm.INT8_RING_COLS = consts["kI8Rows"], 128 * consts["kI8Boxes"]
+            qmm._RING_RESIDENT.clear()
+            try:
+                by_build[label] = times()
+                sass[label] = _sass_mix(_build.library_path(), "quant_int8_ring_kernel")
+            except RuntimeError as err:  # a geometry that does not build or launch is a reading too
+                errors[label] = str(err)[-2000:]
+    finally:
+        _build.CSRC, _build.BUILD_DIR, _build._library = shipped
+        qmm.INT8_RING_ROWS, qmm.INT8_RING_COLS = geometry
+        qmm._RING_RESIDENT.clear()
+    by_build["shipped_again"] = times()
+    rates = {label: {key: nbytes[key] / ms / 1e9 for key, ms in row.items()} for label, row in by_build.items()}
+    emit("int8_probe", bytes=nbytes, ms_by_build=by_build, TBps_by_build=rates, errors=errors,
+         shipped_cluster_capacity=capacity, sass_opcodes_by_build=sass)
+    results["int8_probe"] = dict(ms_by_build=by_build, TBps_by_build=rates, errors=errors)
 
 
 def phase_train_moe_profile(results):
@@ -2646,7 +2891,7 @@ def main(argv=None) -> int:
         "train_moe_profile": phase_train_moe_profile, "decode_probe": phase_decode_probe,
         "profile_int8": lambda r: phase_profile(r, "int8", "int8"),
         "profile_int4": lambda r: phase_profile(r, "int4", ""),
-        "quant_rms_times": phase_quant_rms_times, "int4_probe": phase_int4_probe,
+        "quant_rms_times": phase_quant_rms_times, "int4_probe": phase_int4_probe, "int8_probe": phase_int8_probe,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:
@@ -2705,12 +2950,11 @@ def main(argv=None) -> int:
                 entry.update(design="wgmma+tma, persistent")
             if name.startswith("decode_attention"):
                 entry.update(design="wgmma+cp.async ring, merge in the launch")
-            if name == "quant_matmul_int4":
+            if name in ("quant_matmul_int8", "quant_matmul_int4"):
                 entry.update(design="stream-K, TMA ring fed by a producer warp, mma.sync, merge in the launch",
                              other_shapes={k: {f: results["times"][k][f] for f in ("shape", "ms", "bound_ms",
                                                                                     "library_ms")}
-                                           for k in ("quant_matmul_int4_down", "quant_matmul_int4_wq",
-                                                     "quant_matmul_int4_wk")})
+                                           for k in (f"{name}_down", f"{name}_wq", f"{name}_wk")})
             if name == "rms_norm":
                 entry.update(design="16-byte vector streams, persistent, next row prefetched",
                              other_shapes={"rms_norm_1024x4096": {f: results["times"]["rms_norm_1024x4096"][f]

@@ -345,28 +345,63 @@ def _quantized(device, k, n, mode, group, seed):
     return quantize_tensor(w, (-2,)) if mode == "int8" else quantize_tensor_int4(w, (-2,), group, name="w")
 
 
+#: (mode, group, M, K, N): every mode at small and ragged shapes, and int8 at
+#: the Llama-3-8B decode step's four launches (M 8) and at M 1, 40 and 256
+QUANT_CASES = [
+    (mode, group, m, k, n)
+    for m, k, n in [(8, 4096, 1024), (1, 1024, 4096), (256, 512, 384), (5, 640, 200), (3, 384, 71),
+                    (40, 4096, 14336), (256, 4096, 14336)]
+    for mode, group in [("int8", 0), ("int4", 64), ("int4", 128), ("int4", 2)]
+] + [("int8", 0, m, k, n) for m, k, n in [(8, 4096, 14336), (8, 14336, 4096), (8, 4096, 4096), (1, 4096, 4096),
+                                          (40, 4096, 4096), (256, 4096, 4096)]]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("mode,group", [("int8", 0), ("int4", 64), ("int4", 128), ("int4", 2)])
-@pytest.mark.parametrize(
-    "m,k,n",
-    [(8, 4096, 1024), (1, 1024, 4096), (256, 512, 384), (5, 640, 200), (3, 384, 71), (40, 4096, 14336),
-     (256, 4096, 14336)],
-)
+@pytest.mark.parametrize("mode,group,m,k,n", QUANT_CASES)
 def test_quant_matmul_kernels_match_plain(cuda_device, dtype, mode, group, m, k, n):
+    """Each case twice: bit-identical, through the kernel its shape routes to
+    (bf16: the ring kernels where N, K and the group are on their pitch,
+    else the first design; f32: the first design), two launches counted."""
     w = _quantized(cuda_device, k, n, mode, group, seed=k + n)
     x = _randn((m, k), 11, cuda_device, dtype)
     counter = "launches_int8" if mode == "int8" else "launches_int4"
-    before = getattr(quant_matmul, counter)
+    ring = dtype == torch.bfloat16 and n % 16 == 0 and (k % 8 == 0 if mode == "int8" else group % 16 == 0)
+    route = f"{mode}_{'ring' if ring else 'first_design'}"
+    before, by_route = getattr(quant_matmul, counter), dict(quant_matmul.launches_by_route)
     out, again = quant_matmul(x, w), quant_matmul(x, w)
     torch.cuda.synchronize()
     assert getattr(quant_matmul, counter) == before + 2
+    assert {r: c - by_route[r] for r, c in quant_matmul.launches_by_route.items() if c != by_route[r]} == {route: 2}
     assert torch.equal(out, again)
     ref = quant_matmul_plain(x, w)
     if dtype == torch.float32:
         assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     else:
         rel = (out.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-30)
+        assert float(rel.max()) <= ROW_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (8, 14336, 4096), (1, 1024, 4096)])
+def test_int8_ring_merge_paths_agree(cuda_device, monkeypatch, m, k, n):
+    """The int8 ring kernel's K split merged in a cluster's shared memory
+    (clusters of up to 8 and 16 CTAs, where the card holds them) and
+    through the workspace (``INT8_MAX_CLUSTER`` 1): each within the bf16
+    limit of the plain version and bit-identical run to run."""
+    from tpu_nexus_torch.ops import quant_matmul as qmm
+
+    w = _quantized(cuda_device, k, n, "int8", 0, seed=k + n)
+    x = _randn((m, k), 12, cuda_device, torch.bfloat16)
+    ref = quant_matmul_plain(x, w).float()
+    for max_cluster in (1, 8, 16):
+        monkeypatch.setattr(qmm, "INT8_MAX_CLUSTER", max_cluster)
+        before = quant_matmul.launches_by_route["int8_ring"]
+        out, again = quant_matmul(x, w), quant_matmul(x, w)
+        torch.cuda.synchronize()
+        assert quant_matmul.launches_by_route["int8_ring"] == before + 2
+        assert torch.equal(out, again)
+        rel = (out.float() - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
         assert float(rel.max()) <= ROW_REL_TOL
 
 

@@ -186,28 +186,43 @@ def test_split_plan_covers_every_row_in_whole_tiles(rows, n, m):
     assert strips * n_splits <= max(port_qmm.TARGET_CTAS, strips)
 
 
-# -- the int4 ring kernel's plan (bf16 activations) -------------------------------
+# -- the ring kernels' plan (bf16 activations): int4 and int8 ----------------------
 
-RING_SHAPES = [  # (packed rows, N, M): the Llama-3-8B decode step's four launches, M 1/40/256, edges
+#: the kernels' stage geometries: weight rows a stage holds (packed rows for
+#: int4), a tile's columns
+RING_GEOMETRIES = {
+    "int4": (port_qmm.RING_ROWS, port_qmm.COLS),
+    "int8": (port_qmm.INT8_RING_ROWS, port_qmm.INT8_RING_COLS),
+}
+INT4_RING_SHAPES = [  # (packed rows, N, M): the Llama-3-8B decode step's four launches, M 1/40/256, edges
     (2048, 14336, 8), (7168, 4096, 8), (2048, 4096, 8), (2048, 1024, 8),
     (2048, 14336, 40), (2048, 4096, 256), (2048, 4096, 1), (32, 16, 3), (96, 400, 9),
+]
+INT8_RING_SHAPES = [  # (K, N, M): the same launches in int8, and edges (K past a stage, one stage, ragged)
+    (4096, 14336, 8), (14336, 4096, 8), (4096, 4096, 8), (4096, 1024, 8),
+    (4096, 14336, 40), (4096, 4096, 256), (4096, 4096, 1), (64, 16, 3), (200, 400, 9), (8, 1024, 8),
+]
+RING_CASES = [pytest.param("int4", r, n, m, id=f"{r}-{n}-{m}") for r, n, m in INT4_RING_SHAPES] + [
+    pytest.param("int8", r, n, m, id=f"int8-{r}-{n}-{m}") for r, n, m in INT8_RING_SHAPES
 ]
 
 
 @pytest.mark.parametrize("grid", [264, 132, 7, 1, None])
-@pytest.mark.parametrize("rows,n,m", RING_SHAPES)
-def test_int4_partition_covers_every_unit_once_in_a_fixed_merge_order(rows, n, m, grid):
-    """Every (strip, M chunk, packed row) is in exactly one CTA's run; a
-    tile's runs are listed in CTA order with their rows in k order (the
-    merge order, the same every launch); a workspace slot holds one partial;
-    the runs differ by at most one unit (even bytes per CTA); and each run
-    is owned, unit by unit, by the CTA the kernel's ``run_owner`` names."""
-    units, planned = port_qmm.int4_plan(rows, n, m, resident=264)
+@pytest.mark.parametrize("kernel,rows,n,m", RING_CASES)
+def test_int4_partition_covers_every_unit_once_in_a_fixed_merge_order(kernel, rows, n, m, grid):
+    """For either ring kernel's stage geometry: every (strip, M chunk, row)
+    is in exactly one CTA's run; a tile's runs are listed in CTA order with
+    their rows in k order (the merge order, the same every launch); a
+    workspace slot holds one partial; the runs differ by at most one unit
+    (even bytes per CTA); and each run is owned, unit by unit, by the CTA
+    the kernel's ``run_owner`` names."""
+    stage_rows, cols = RING_GEOMETRIES[kernel]
+    units, planned = port_qmm.ring_plan(rows, n, m, 264, stage_rows, cols)
     grid = planned if grid is None else min(grid, units)
     assert 1 <= planned <= min(units, 264)
-    tiles = port_qmm.int4_partition(rows, n, m, grid)
-    n_tiles = -(-n // port_qmm.COLS) * -(-m // port_qmm.ROWS_M)
-    n_kb = -(-rows // port_qmm.RING_ROWS)
+    tiles = port_qmm.ring_partition(rows, n, m, grid, stage_rows, cols)
+    n_tiles = -(-n // cols) * -(-m // port_qmm.ROWS_M)
+    n_kb = -(-rows // stage_rows)
     assert sorted(tiles) == list(range(n_tiles)) and n_tiles * n_kb == units
     slots, per_cta = set(), {}
     for tile, runs in tiles.items():
@@ -216,7 +231,7 @@ def test_int4_partition_covers_every_unit_once_in_a_fixed_merge_order(rows, n, m
         for c, slot, r0, r1 in runs:
             assert r0 == covered and r1 > r0  # contiguous, in k order, no overlap
             covered = r1
-            kb0, kb1 = r0 // port_qmm.RING_ROWS, -(-r1 // port_qmm.RING_ROWS)
+            kb0, kb1 = r0 // stage_rows, -(-r1 // stage_rows)
             per_cta[c] = per_cta.get(c, 0) + kb1 - kb0
             for u in range(tile * n_kb + kb0, tile * n_kb + kb1):
                 assert ((u + 1) * grid - 1) // units == c
@@ -229,15 +244,17 @@ def test_int4_partition_covers_every_unit_once_in_a_fixed_merge_order(rows, n, m
     assert sum(per_cta.values()) == units
 
 
-@pytest.mark.parametrize("rows,n,m", RING_SHAPES)
-def test_int4_plan_keeps_runs_inside_tiles_when_tiles_are_few(rows, n, m):
-    """With fewer tiles than resident CTAs, every tile is cut into equal
-    runs that divide its stages: no run straddles two tiles, so a CTA
-    merges at most one; with more, the runs cover every resident CTA."""
+@pytest.mark.parametrize("kernel,rows,n,m", RING_CASES)
+def test_int4_plan_keeps_runs_inside_tiles_when_tiles_are_few(kernel, rows, n, m):
+    """For either ring kernel's geometry: with fewer tiles than resident
+    CTAs, every tile is cut into equal runs that divide its stages: no run
+    straddles two tiles, so a CTA merges at most one; with more, the runs
+    cover every resident CTA."""
     resident = 132
-    tiles = -(-n // port_qmm.COLS) * -(-m // port_qmm.ROWS_M)
-    units, grid = port_qmm.int4_plan(rows, n, m, resident)
-    parts = port_qmm.int4_partition(rows, n, m, grid)
+    stage_rows, cols = RING_GEOMETRIES[kernel]
+    tiles = -(-n // cols) * -(-m // port_qmm.ROWS_M)
+    units, grid = port_qmm.ring_plan(rows, n, m, resident, stage_rows, cols)
+    parts = port_qmm.ring_partition(rows, n, m, grid, stage_rows, cols)
     runs_per_cta = {}
     for runs in parts.values():
         for c, _, _, _ in runs:
@@ -248,6 +265,54 @@ def test_int4_plan_keeps_runs_inside_tiles_when_tiles_are_few(rows, n, m):
         assert {len(runs) for runs in parts.values()} == {grid // tiles}
     else:
         assert grid == min(resident, units // port_qmm.MIN_RING_UNITS)
+
+
+@pytest.mark.parametrize("capacity", [None, 4])
+@pytest.mark.parametrize("k,n,m", INT8_RING_SHAPES)
+def test_int8_plan_launches_a_tiles_runs_as_one_cluster(k, n, m, capacity):
+    """The int8 plan is :func:`ring_plan`'s, merged through the workspace
+    (cluster 1), or launches each tile's runs as one cluster: the runs of
+    tile t are CTAs t·c .. t·c + c - 1 in k order (the cluster's ranks), c
+    divides the tile's stages, is at most ``max_cluster``, and the card holds
+    a cluster for every tile at once; c is the ring plan's own runs, or
+    fewer only where each run stays within ``INT8_SHORT_RUN`` stages."""
+    cap = (lambda c: 10**6) if capacity is None else (lambda c: capacity)
+    stage_rows, cols = RING_GEOMETRIES["int8"]
+    tiles, n_kb = -(-n // cols) * -(-m // port_qmm.ROWS_M), -(-k // stage_rows)
+    ring = port_qmm.ring_plan(k, n, m, 132, stage_rows, cols)
+    units, grid, cluster = port_qmm.int8_plan(k, n, m, 132, cap, 8)
+    assert units == tiles * n_kb == ring[0]
+    if cluster == 1:
+        assert grid == ring[1]
+    else:
+        assert tiles < 132 and grid == tiles * cluster and n_kb % cluster == 0 and 2 <= cluster <= 8
+        assert cap(cluster) >= tiles
+        assert grid == ring[1] or n_kb // cluster <= port_qmm.INT8_SHORT_RUN
+        for tile, runs in port_qmm.ring_partition(k, n, m, grid, stage_rows, cols).items():
+            assert [c for c, _, _, _ in runs] == [tile * cluster + j for j in range(cluster)]
+    assert port_qmm.int8_plan(k, n, m, 132, cap, 1) == (*ring, 1)
+
+
+def test_int8_plan_at_the_decode_step():
+    """The Llama-3-8B decode step's four int8 launches (M 8) on 132 SMs at
+    one CTA each, with the cluster capacities the H100 reported (132, 66,
+    30, 15 and 7 clusters of 1, 2, 4, 8 and 16 CTAs): gate/up's 112 strips
+    one CTA each (no merge); down and wq/wo 32 strips of 4 runs merged
+    through L2 (30 clusters of 4 would leave two for a second wave); wk/wv
+    8 strips in clusters of 8 runs of 4 stages.  With room for 32 clusters
+    of 4, down and wq/wo take them."""
+    h100 = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}.get
+    got = [port_qmm.int8_plan(k, n, m, 132, h100, 8)[1:] for k, n, m in INT8_RING_SHAPES[:4]]
+    assert got == [(112, 1), (128, 1), (128, 1), (64, 8)]
+    got = [port_qmm.int8_plan(k, n, m, 132, lambda c: 10**6, 8)[1:] for k, n, m in INT8_RING_SHAPES[:4]]
+    assert got == [(112, 1), (128, 4), (128, 4), (64, 8)]
+
+
+def test_the_int4_plan_is_unchanged_by_the_generalisation():
+    """The int4 kernel's grids at the Llama-3-8B decode step, 132 CTAs
+    resident (one an SM): the grids of the int4-only plan it replaced."""
+    got = [port_qmm.ring_plan(r, n, m, 132, port_qmm.RING_ROWS)[1] for r, n, m in INT4_RING_SHAPES[:4]]
+    assert got == [112, 128, 128, 128]
 
 
 @pytest.mark.parametrize("group", [16, 32, 48, 64, 80, 96, 128, 192, 256, 4096, 14336])
@@ -332,6 +397,80 @@ def test_int4_ring_route_names_the_pitch_branch():
     assert not route(200, 64) and not route(71, 128)  # the 16-byte row pitch
     assert not route(1024, 2) and not route(1024, 8)  # a k block across groups
     assert not route(1024, 64, x=torch.zeros(8 * 4096 + 1, dtype=torch.bfloat16)[1:].view(8, 4096))
+
+
+def test_int8_ring_route_names_the_first_design():
+    """int8 calls the ring kernel takes (bf16 x, N a multiple of 16, K of 8,
+    16-byte-aligned operands) and the ones that go to the first design."""
+    x = torch.zeros(8, 4096, dtype=torch.bfloat16)
+
+    def route(n, x=x):
+        q, s = torch.zeros(x.shape[1], n, dtype=torch.int8), torch.zeros(n)
+        return port_qmm.int8_ring_route(x, q, s, n)
+
+    assert route(14336) and route(4096) and route(1024) and route(16)
+    assert not route(200) and not route(71)  # the 16-byte row pitch
+    assert not route(1024, x=torch.zeros(8, 4100, dtype=torch.bfloat16))  # K off the 16-byte copies
+    assert not route(1024, x=torch.zeros(8 * 4096 + 1, dtype=torch.bfloat16)[1:].view(8, 4096))  # unaligned x
+    assert not route(1024, x=torch.zeros(8, 4096))  # f32 activations: the CUDA-core design
+    q = torch.zeros(4096 * 1024 + 1, dtype=torch.int8)[1:].view(4096, 1024)
+    assert not port_qmm.int8_ring_route(x, q, torch.zeros(1024), 1024)  # unaligned weight
+
+
+def test_int8_byte_widening_reproduces_the_plain_values():
+    """A numpy model of the int8 ring kernel's widening over all 256 byte
+    values: each 32-bit word made offset-binary (w ^ 0x80808080), a byte
+    permuted into the mantissa of 2^23 (0x4B000000 | u), 2^23 + 128
+    subtracted in f32, then two values packed as bf16x2 by keeping their
+    high halves.  The f32 value is ``q.float()`` bit for bit, and the high
+    half is its bf16 (no rounding happens: |q| <= 128 has at most 8
+    significant bits), the operand the plain version multiplies."""
+    raw = np.arange(256, dtype=np.uint8)
+    words = raw.view(np.uint32) ^ np.uint32(0x80808080)
+    per_byte = np.stack([(words >> np.uint32(8 * j)) & np.uint32(0xFF) for j in range(4)], axis=1).reshape(-1)
+    f = (np.uint32(0x4B000000) | per_byte).view(np.float32) - np.float32(8388736.0)
+    q = torch.from_numpy(raw.view(np.int8))
+    np.testing.assert_array_equal(f, q.float().numpy())
+    high = (f.view(np.uint32) >> np.uint32(16)).astype(np.uint16)
+    assert np.all(f.view(np.uint32) & np.uint32(0xFFFF) == 0)  # the truncation drops only zeros
+    np.testing.assert_array_equal(high.view(np.int16), q.to(torch.bfloat16).view(torch.int16).numpy())
+    # each pair (lo, hi) packs as hi << 16 | lo, the mma's operand order
+    pair = (high[1::2].astype(np.uint32) << np.uint32(16)) | high[0::2].astype(np.uint32)
+    bf = q.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16).astype(np.uint32)
+    np.testing.assert_array_equal(pair, (bf[1::2] << np.uint32(16)) | bf[0::2])
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (3, 640, 256)])
+def test_int8_merge_then_scale_is_the_plain_op_order(m, k, n):
+    """The int8 ring kernel's arithmetic around the K split: f32 partial
+    sums over each CTA's run (``int8_plan``, ``ring_partition``: the
+    cluster's ranks in k order), added in that order, times the per-channel
+    scale ONCE, rounded to bf16.  With integer
+    activations every sum is exact in f32, so this model equals
+    ``quant_matmul_plain`` bit for bit in any summation order; scaling each
+    partial before the merge (a rounding neither reference has) does not."""
+    rng = np.random.default_rng(m + k)
+    x = torch.from_numpy(rng.integers(-8, 9, (m, k)).astype(np.float32)).to(torch.bfloat16)
+    q = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    s = torch.from_numpy((rng.random((1, n)) * 0.02 + 1e-3).astype(np.float32))
+    w = QTensor(q, s)
+    stage_rows, cols = RING_GEOMETRIES["int8"]
+    _, grid, _ = port_qmm.int8_plan(k, n, m, 132, lambda c: 10**6, port_qmm.INT8_MAX_CLUSTER)
+    runs = port_qmm.ring_partition(k, n, m, grid, stage_rows, cols)
+    xf, qf = x.float(), q.float()
+    merged = torch.zeros(m, n)
+    split = torch.zeros(m, n)
+    for tile, parts in runs.items():
+        c0 = (tile // -(-m // port_qmm.ROWS_M)) * cols
+        cs = slice(c0, min(c0 + cols, n))
+        assert len(parts) > 1  # the shapes here split K
+        for _, _, r0, r1 in parts:  # CTA (k) order
+            partial = xf[:, r0:r1] @ qf[r0:r1, cs]
+            merged[:, cs] += partial
+            split[:, cs] += partial * s[:, cs]
+    y = (merged * s).to(torch.bfloat16)
+    assert torch.equal(y, port_qmm.quant_matmul_plain(x, w))
+    assert not torch.equal(split, merged * s)
 
 
 # -- decode attention, int8-KV mode ---------------------------------------------

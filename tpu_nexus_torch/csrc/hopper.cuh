@@ -251,6 +251,26 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// -- device: thread block clusters ------------------------------------------------------------
+
+// Every thread of every CTA of the cluster arrives (release: its earlier writes, shared memory
+// included, become visible to the cluster) and waits for all of them (acquire).  Warp-aligned.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes from the shared memory of the cluster's CTA `rank`, at the offset of the local address p.
+__device__ __forceinline__ float4 ld_shared_cluster_f4(const void* p, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
 // Warpgroup register reallocation: the whole warpgroup executes it, in a branch that never rejoins
 // the other roles (else ptxas ignores it).
 template <int kRegs>

@@ -7,7 +7,8 @@
 // from x [M,K] (bf16 or f32, M <= 256) with f32 accumulation:
 //  * int8: W is q [K,N] int8 (N contiguous) with a per-output-channel scale
 //    s [N] f32.  y = (x . q8) * s: the bytes convert to floats on the way to
-//    the FMA, and the scale multiplies the f32 sum once, at finalize.
+//    the FMA or the mma, and the scale multiplies the merged f32 sum of the
+//    whole K range once (never a partial).
 //  * int4: W is packed [K/2,N] int8, two sign-extended nibbles a byte in the
 //    per-group half-split order (packed row i of a G-row group holds row i
 //    in its low nibble and row i + G/2 in its high nibble), with group
@@ -24,7 +25,7 @@
 //  * even bytes per SM: the work is a stream-K walk over units of one ring
 //    stage (64 packed rows x a 128-column strip, for each 8-row M chunk).
 //    The units, strip after strip, are cut into equal contiguous runs, one
-//    for each persistent CTA (ops/quant_matmul.py::int4_plan): no thin last
+//    for each persistent CTA (ops/quant_matmul.py::ring_plan): no thin last
 //    wave.  Where the strips are fewer than the CTAs, each strip is cut
 //    into the same number of runs, so no run straddles two strips.
 //  * the K split merged in the launch: a CTA whose run covers a whole strip
@@ -69,6 +70,44 @@
 //    quant_matmul_mma_kernel<true> and its finalize pass (the "pitch
 //    branch"), chosen from the shape before launch.
 //
+// int8 with bf16 activations (the int8 decode step's path) is one launch of
+// quant_int8_ring_kernel, the same walk, runs, merge and producer as the int4
+// ring kernel, with what int8 changes:
+//  * what bounds it is the int8 weight's bytes (58.7 MB at the step's largest
+//    launch, 17.6 us at 3.35 TB/s).  A unit is kI8Rows weight rows of a
+//    kI8Cols-column strip, TMA boxes of 128 columns (128-byte swizzle) into a
+//    kI8Stages-deep ring.  With few tiles the runs stay inside tiles, all the
+//    CTAs run in one wave, and at each moment they read the same rows of
+//    neighbouring strips: whole rows of the weight.
+//  * what sets its pace, measured (chip_smoke.py --phases build,int8_probe;
+//    PERF.md): not the stream alone.  The ring by itself streams the
+//    largest launch at ~2.5 TB/s (cuBLAS's rate on the bf16 weight) with
+//    16 KB stages, 8 or 10 deep.  With 8 KB stages the consumers alone took
+//    the whole kernel's time, and neither fewer widening instructions nor a
+//    second CTA an SM moved that; 128-row stages (16 KB) with all eight
+//    warps on every stage take less than the stream, and the consumers'
+//    work beside it still adds ~10 %.
+//  * the K split merged in the launch: where the card holds a cluster of a
+//    tile's runs for every tile at once (the wrapper asks), they run as one
+//    thread block cluster and their sums meet in distributed shared memory,
+//    added by rank 0 in rank (k) order; otherwise through the workspace as
+//    int4 does.  Dependent round trips to L2 cost ~3-4 us at the end of a
+//    launch; the cluster barrier a fraction of that.
+//  * widening without I2F: a word of 4 bytes made offset-binary (q ^ 0x80),
+//    each byte permuted into the mantissa of 2^23 and one FADD of -(2^23 +
+//    128) give q exactly; two such floats' high halves are their bf16 (|q|
+//    <= 128 is exact in bf16), packed by one more byte permute: ~2.75
+//    instructions a value, about 6 us of issue on 132 SMs at the largest
+//    launch, under its byte bound.
+//  * the activations go beside each tile in natural k order (16-byte
+//    cp.async by the producer's lanes); the per-channel scales are not
+//    streamed: the thread that writes 4 outputs of y reads their 4 scales
+//    once, after the K range is merged.
+//  * no finalize launch and no per-call workspace: a decode step's int8
+//    product is one launch (a CUDA graph can capture it).
+//  * shapes it takes: N % 16 == 0, K % 8 == 0, 16-byte-aligned operands.
+//    Any other int8 shape, and f32 activations, keep the first design.
+//
 // The other paths keep their first design:
 //  * partial pass: one CTA per (128-column strip, K split, 8-row M tile);
 //    the 4 warps take 32 rows each of a 128-row weight tile whose
@@ -79,7 +118,7 @@
 //    adjacent columns, so a warp reads 128 contiguous bytes of one weight
 //    row per load (32-bit loads, 8 rows in flight per lane), and the
 //    activations are read as broadcast 16-byte loads.
-//  * bf16 activations (int8, and int4's pitch branch): mma.sync m16n8k16
+//  * bf16 activations (int8's and int4's other shapes): mma.sync m16n8k16
 //    with the weight as the A operand (see the note above
 //    quant_matmul_mma_kernel): 16-byte weight loads, the int8 -> bf16
 //    convert (int4: unpack, scale, round) feeds the fragment directly.
@@ -775,6 +814,312 @@ __global__ void __launch_bounds__(kRingThreads, kRingCtasPerSm) quant_int4_ring_
   }
 }
 
+// ---- int8, bf16 activations: the ring kernel --------------------------------------------
+//
+// The walk, the runs and the merge are the int4 ring kernel's (see the note above it), over units
+// of kI8Rows weight rows of a tile (kI8Cols columns x an 8-row M chunk).  A stage of the ring holds
+// one unit's int8 tile, kI8Boxes TMA boxes of 128 columns side by side, and its activations in
+// natural k order.  A stage is cut into blocks of 16 rows x 128 columns, one mma k block each;
+// consumer warp w takes kI8BlocksPerWarp adjacent blocks of every kI8StageGroups-th stage (with
+// fewer blocks than warps, groups of warps take alternate stages), all in one box, so a warp's
+// sums cover one box's 128 columns.  The warps of a box are added in warp order at the end of a
+// tile; the per-channel scale multiplies the merged sum of the whole K range, once.
+
+constexpr int kI8Rows = 128;      // weight rows a ring stage holds
+constexpr int kI8Boxes = 1;       // 128-column TMA boxes side by side in a stage
+constexpr int kI8Stages = 8;
+constexpr int kI8CtasPerSm = 1;
+constexpr int kI8Cols = kI8Boxes * kCols;                  // a tile's columns
+constexpr int kI8RowBlocks = kI8Rows / 16;                 // 16-row k blocks a box
+constexpr int kI8Blocks = kI8RowBlocks * kI8Boxes;         // blocks a stage
+constexpr int kI8WarpsPerStage = kI8Blocks < kRingWarps ? kI8Blocks : kRingWarps;
+constexpr int kI8StageGroups = kRingWarps / kI8WarpsPerStage;  // stages consumed side by side
+constexpr int kI8BlocksPerWarp = kI8Blocks / kI8WarpsPerStage;
+constexpr int kI8XPitch = kI8Rows + kXPad;                 // bf16 a staged activation row
+constexpr int kI8MaxCluster = 16;                          // a tile's runs merged in shared memory, at most
+static_assert(kI8Rows % 32 == 0 && kI8Rows <= 256, "a stage's activations are whole 16-byte chunks, one box deep");
+static_assert(kRingWarps % kI8WarpsPerStage == 0 && kI8Blocks % kI8WarpsPerStage == 0 &&
+                  kI8RowBlocks % kI8BlocksPerWarp == 0,
+              "each warp takes whole blocks of one box");
+
+struct Int8RingSmem {  // byte offsets from a 1024-byte-aligned base
+  static constexpr int kStageBytes = kI8Rows * kI8Cols;  // a stage's int8 tile (128B swizzle, box by box)
+  static constexpr int kXBytes = kRowsM * kI8XPitch * 2;  // its activations [8][kI8XPitch] bf16
+  static constexpr int kW = 0;
+  static constexpr int kX = kW + kI8Stages * kStageBytes;
+  static constexpr int kRed = kX + kI8Stages * kXBytes;      // [warp][column pair][lane] float4
+  static constexpr int kFlag = kRed + kRingWarps * 8 * 32 * 16;  // int[2]: merges of slots 0, 1
+  static constexpr int kBar = kFlag + 16;                       // full[stages], empty[stages]
+  static constexpr int kBytes = kBar + 2 * kI8Stages * 8 + 1024;  // + alignment slack
+};
+
+// The box that warp w's blocks lie in.
+__device__ __forceinline__ int int8_box_of(int w) {
+  return (w % kI8WarpsPerStage) * kI8BlocksPerWarp / kI8RowBlocks;
+}
+
+// Byte j of an offset-binary word (q ^ 0x80 = q + 128) as the float q, exactly: permuted into the
+// mantissa of 2^23 it is 2^23 + q + 128, and one FADD takes 2^23 + 128 away.
+__device__ __forceinline__ float int8_value(uint32_t u, int j) {
+  return __uint_as_float(__byte_perm(u, kTwoPow23Bits, 0x7650 + j)) - 8388736.f;
+}
+
+// Two small integers' floats as bf16x2, the first in the low half: their high halves (exact, since
+// |q| <= 128 has at most 8 significant bits).
+__device__ __forceinline__ uint32_t pack_high_halves(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Four outputs in the mma's accumulator order, v = y[m0][n0], y[m0 + 1][n0], y[m0][n0 + 1],
+// y[m0 + 1][n0 + 1] before the scale: each times its channel's scale (the K range's merged f32 sum
+// scaled once), rounded to bf16; rows past M are not written.
+__device__ __forceinline__ void store_y2x2_scaled(__nv_bfloat16* y, int M, int N, int m0, int n0, float4 v,
+                                                  float2 sc) {
+  if (n0 >= N) return;
+  if (m0 < M) *reinterpret_cast<uint32_t*>(y + static_cast<size_t>(m0) * N + n0) = pack_bf16(v.x * sc.x, v.z * sc.y);
+  if (m0 + 1 < M)
+    *reinterpret_cast<uint32_t*>(y + static_cast<size_t>(m0 + 1) * N + n0) = pack_bf16(v.y * sc.x, v.w * sc.y);
+}
+
+// tm_q: q [K, N] uint8, boxes of 128 columns x kI8Rows rows, 128-byte swizzle.  part: [grid][2][8]
+// [kI8Cols] f32, a CTA's partials of its first (0) and last (1) tile; arrivals: [tiles] counters, 0
+// between launches.  cluster > 1: the launch's clusters are the tiles, each CTA one run of its tile
+// (rank = run, in k order): the runs' sums meet in the cluster's shared memory instead (no
+// partials, no arrivals), and the rank-0 CTA adds them in rank order.
+__global__ void __launch_bounds__(kRingThreads, kI8CtasPerSm) quant_int8_ring_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __nv_bfloat16* __restrict__ x, const float* __restrict__ s,
+    __nv_bfloat16* __restrict__ y, float* __restrict__ part, unsigned* __restrict__ arrivals, int M, int K, int N,
+    int n_kb, int n_mc, int units, int cluster) {
+  extern __shared__ __align__(16) unsigned char int8_smem_raw[];
+  unsigned char* smem = int8_smem_raw + ((1024 - (smem_u32(int8_smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Int8RingSmem::kBar);
+  uint64_t* empty = full + kI8Stages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cta = blockIdx.x;
+  const int begin = run_begin(cta, units), end = run_begin(cta + 1, units);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kI8Stages; ++st) {
+      mbar_init(&full[st], 1 + 32);  // the TMA's expect_tx, the producer lanes' cp.async
+      mbar_init(&empty[st], kI8WarpsPerStage);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kRingWarps) {
+    // producer warp: lane 0 issues the TMA loads, every lane copies 16-byte chunks of activations
+    if (lane == 0) prefetch_tensor_map(&tm_q);
+    int kb = begin % n_kb, mc = (begin / n_kb) % n_mc, strip = begin / n_kb / n_mc, st = 0, phase = 0;
+    for (int u = begin; u < end; ++u) {
+      mbar_wait(&empty[st], phase ^ 1);  // the first round passes at once
+      if (lane == 0) {
+        unsigned char* tile = smem + Int8RingSmem::kW + st * Int8RingSmem::kStageBytes;
+        mbar_arrive_expect_tx(&full[st], Int8RingSmem::kStageBytes);
+#pragma unroll
+        for (int b = 0; b < kI8Boxes; ++b)
+          tma_load_3d(tile + b * kI8Rows * kCols, &tm_q, &full[st], (strip * kI8Boxes + b) * kCols, kb * kI8Rows, 0);
+      }
+      // the stage's activations: 8 rows x kI8Rows k, kI8Rows / 8 chunks a row (K % 8 == 0: a chunk
+      // is all inside K or all past it)
+      const uint32_t xs = smem_u32(smem + Int8RingSmem::kX + st * Int8RingSmem::kXBytes);
+#pragma unroll
+      for (int i = 0; i < kI8Rows / 32; ++i) {
+        const int c = lane + 32 * i, m_in = c / (kI8Rows / 8), ch = c % (kI8Rows / 8);
+        const int m = mc * kRowsM + m_in, k = kb * kI8Rows + ch * 8;
+        const bool ok = m < M && k < K;
+        cp_async_16(xs + (m_in * kI8XPitch + ch * 8) * 2, ok ? x + static_cast<size_t>(m) * K + k : x, ok ? 16 : 0);
+      }
+      cp_async_mbar_arrive(&full[st]);
+      if (++st == kI8Stages) st = 0, phase ^= 1;
+      if (++kb == n_kb) {
+        kb = 0;
+        if (++mc == n_mc) mc = 0, ++strip;
+      }
+    }
+    if (cluster > 1) {  // the consumers' two cluster barriers at the end of the run
+      cluster_sync();
+      cluster_sync();
+    }
+  } else {
+    // consumer warps
+    const int g = lane / 4, t = lane % 4;
+    const int group = warp / kI8WarpsPerStage;                     // this warp's stages: u - begin = group mod
+    const int blk0 = (warp % kI8WarpsPerStage) * kI8BlocksPerWarp;  // its first block of a stage
+    const int box = blk0 / kI8RowBlocks;
+    // At the end of a tile thread i adds up, for each box, the sums that lane i % 32 of every warp of
+    // the box holds for column pair i / 32: rows 2t', 2t' + 1 and columns 16g' + 2(i / 32) + {0, 1}
+    // (g', t' of lane i % 32), the mma's accumulator order, kept in it through partials and merges.
+    const int out_cp = threadIdx.x / 32, out_lane = threadIdx.x % 32;
+    const int out_row = 2 * (out_lane % 4), out_col = 16 * (out_lane / 4) + 2 * out_cp;
+    float4* red = reinterpret_cast<float4*>(smem + Int8RingSmem::kRed);
+    int* merges = reinterpret_cast<int*>(smem + Int8RingSmem::kFlag);
+    int shared_tile[2] = {-1, -1};  // the run's first (0) and last (1) tile shared with other CTAs
+    float4 shared_sum[2][kI8Boxes];
+    float2 shared_sc[2][kI8Boxes];
+    int st = 0, phase = 0;
+    for (int u = begin; u < end;) {
+      const int tile = u / n_kb, tile_begin = tile * n_kb;  // one division a tile
+      const int seg_begin = u, seg_end = min(end, tile_begin + n_kb);
+      const int m = (tile % n_mc) * kRowsM + out_row;
+      // this thread's 2 scales of each box, loaded while the tile streams (none past N: N % 16 == 0)
+      float2 sc[kI8Boxes];
+#pragma unroll
+      for (int b = 0; b < kI8Boxes; ++b) {
+        const int n = (tile / n_mc) * kI8Cols + b * kCols + out_col;
+        sc[b] = n < N ? __ldg(reinterpret_cast<const float2*>(s + n)) : make_float2(0.f, 0.f);
+      }
+      float acc[8][4];  // [column pair][(c0, m 2t), (c0, 2t+1), (c1, 2t), (c1, 2t+1)]
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+      for (; u < seg_end; ++u) {
+        if ((u - begin) % kI8StageGroups == group) {
+          mbar_wait(&full[st], phase);
+          const unsigned char* bx = smem + Int8RingSmem::kW + st * Int8RingSmem::kStageBytes + box * kI8Rows * kCols;
+          const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(smem + Int8RingSmem::kX +
+                                                                           st * Int8RingSmem::kXBytes) +
+                                    g * kI8XPitch + 2 * t;
+#pragma unroll
+          for (int j = 0; j < kI8BlocksPerWarp; ++j) {
+            // rows r, r + 1, r + 8, r + 9 (r = 2t of the block), columns 16g .. 16g + 15: chunk g,
+            // swizzled by the row (r % 8 = 2t)
+            const int r = ((blk0 + j) % kI8RowBlocks) * 16 + 2 * t;
+            const uint4 w0 = *reinterpret_cast<const uint4*>(bx + r * kCols + ((g ^ (2 * t)) << 4));
+            const uint4 w1 = *reinterpret_cast<const uint4*>(bx + (r + 1) * kCols + ((g ^ (2 * t + 1)) << 4));
+            const uint4 w2 = *reinterpret_cast<const uint4*>(bx + (r + 8) * kCols + ((g ^ (2 * t)) << 4));
+            const uint4 w3 = *reinterpret_cast<const uint4*>(bx + (r + 9) * kCols + ((g ^ (2 * t + 1)) << 4));
+            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xs + r - 2 * t);
+            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xs + r - 2 * t + 8);
+            const uint32_t q0[4] = {w0.x, w0.y, w0.z, w0.w}, q1[4] = {w1.x, w1.y, w1.z, w1.w};
+            const uint32_t q2[4] = {w2.x, w2.y, w2.z, w2.w}, q3[4] = {w3.x, w3.y, w3.z, w3.w};
+            uint32_t a[8][4];  // the block's A fragments, all widened before the eight mma issue
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {  // columns 4q .. 4q + 3: word q of each row
+              const uint32_t u0 = q0[q] ^ 0x80808080u, u1 = q1[q] ^ 0x80808080u;
+              const uint32_t u2 = q2[q] ^ 0x80808080u, u3 = q3[q] ^ 0x80808080u;
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {  // column pair 2q + h: columns c0 = 4q + 2h and c0 + 1
+                const int j0 = 2 * h, j1 = j0 + 1;
+                a[2 * q + h][0] = pack_high_halves(int8_value(u0, j0), int8_value(u1, j0));
+                a[2 * q + h][1] = pack_high_halves(int8_value(u0, j1), int8_value(u1, j1));
+                a[2 * q + h][2] = pack_high_halves(int8_value(u2, j0), int8_value(u3, j0));
+                a[2 * q + h][3] = pack_high_halves(int8_value(u2, j1), int8_value(u3, j1));
+              }
+            }
+#pragma unroll
+            for (int cp = 0; cp < 8; ++cp) mma_bf16_16816(acc[cp], a[cp], b0, b1);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[st]);
+        }
+        if (++st == kI8Stages) st = 0, phase ^= 1;
+      }
+
+      // The tile's sums: the warps of each box added in warp order (through shared memory, 16-byte
+      // accesses without bank conflicts), then y for a tile the run covers whole, else kept for the
+      // end of the run.
+#pragma unroll
+      for (int cp = 0; cp < 8; ++cp)
+        red[(warp * 8 + cp) * 32 + lane] = make_float4(acc[cp][0], acc[cp][1], acc[cp][2], acc[cp][3]);
+      named_barrier_sync(1, kRingWarps * 32);
+      float4 v[kI8Boxes];
+#pragma unroll
+      for (int b = 0; b < kI8Boxes; ++b) {
+        v[b] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int w = 0; w < kRingWarps; ++w) {
+          if (int8_box_of(w) != b) continue;
+          const float4 r = red[(w * 8 + out_cp) * 32 + out_lane];
+          v[b].x += r.x, v[b].y += r.y, v[b].z += r.z, v[b].w += r.w;
+        }
+      }
+      named_barrier_sync(1, kRingWarps * 32);  // red is free for the next tile
+      if (seg_begin == tile_begin && seg_end == tile_begin + n_kb) {
+#pragma unroll
+        for (int b = 0; b < kI8Boxes; ++b)
+          store_y2x2_scaled(y, M, N, m, (tile / n_mc) * kI8Cols + b * kCols + out_col, v[b], sc[b]);
+      } else if (cluster > 1) {
+        // the tile's runs are the cluster's CTAs: each leaves its sums in its shared memory (red is
+        // free past the barrier above), and rank 0 adds them in rank (k) order
+        float4* xch = red + threadIdx.x;
+#pragma unroll
+        for (int b = 0; b < kI8Boxes; ++b) xch[b * kRingWarps * 32] = v[b];
+        cluster_sync();
+        if (blockIdx.x % cluster == 0) {
+#pragma unroll
+          for (int b = 0; b < kI8Boxes; ++b) {
+            float4 p[kI8MaxCluster];
+#pragma unroll
+            for (int j = 0; j < kI8MaxCluster; ++j)
+              p[j] = j < cluster ? ld_shared_cluster_f4(xch + b * kRingWarps * 32, j) : make_float4(0.f, 0.f, 0.f, 0.f);
+            float4 sum = p[0];
+#pragma unroll
+            for (int j = 1; j < kI8MaxCluster; ++j)
+              if (j < cluster) sum.x += p[j].x, sum.y += p[j].y, sum.z += p[j].z, sum.w += p[j].w;
+            store_y2x2_scaled(y, M, N, m, (tile / n_mc) * kI8Cols + b * kCols + out_col, sum, sc[b]);
+          }
+        }
+        cluster_sync();  // no CTA leaves while rank 0 reads its shared memory
+      } else if (seg_begin == begin) {  // (constant indices: a runtime one would put the arrays on the stack)
+        shared_tile[0] = tile;
+#pragma unroll
+        for (int b = 0; b < kI8Boxes; ++b) shared_sum[0][b] = v[b], shared_sc[0][b] = sc[b];
+      } else {
+        shared_tile[1] = tile;
+#pragma unroll
+        for (int b = 0; b < kI8Boxes; ++b) shared_sum[1][b] = v[b], shared_sc[1][b] = sc[b];
+      }
+    }
+
+    // The shared tiles, as in the int4 ring kernel: each partial written, one arrival a tile, and
+    // the last CTA to arrive adds the partials in CTA (k) order, scales the sum and writes y.
+    if (shared_tile[0] >= 0 || shared_tile[1] >= 0) {
+#pragma unroll
+      for (int slot = 0; slot < 2; ++slot)
+        if (shared_tile[slot] >= 0)
+#pragma unroll
+          for (int b = 0; b < kI8Boxes; ++b)
+            reinterpret_cast<float4*>(part)[((static_cast<size_t>(cta) * 2 + slot) * kI8Boxes + b) * 256 +
+                                            threadIdx.x] = shared_sum[slot][b];
+      named_barrier_sync(1, kRingWarps * 32);
+      if (threadIdx.x < 2) {
+        const int tile = threadIdx.x == 0 ? shared_tile[0] : shared_tile[1];
+        merges[threadIdx.x] = tile >= 0 && arrive_acq_rel(&arrivals[tile]) ==
+                                               static_cast<unsigned>(run_owner(tile * n_kb + n_kb - 1, units) -
+                                                                     run_owner(tile * n_kb, units));
+      }
+      named_barrier_sync(1, kRingWarps * 32);
+#pragma unroll
+      for (int slot = 0; slot < 2; ++slot) {
+        if (!merges[slot]) continue;
+        const int tile = shared_tile[slot], tile_begin = tile * n_kb;
+        const int first = run_owner(tile_begin, units), last = run_owner(tile_begin + n_kb - 1, units);
+        const int first_slot = run_begin(first, units) < tile_begin ? 1 : 0;
+        const int m = (tile % n_mc) * kRowsM + out_row;
+#pragma unroll
+        for (int b = 0; b < kI8Boxes; ++b) {
+          float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+          for (int c0 = first; c0 <= last; c0 += 16) {  // sixteen loads in flight, then added in order
+            float4 p[16];
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              const int c = c0 + j, sl = c == first ? first_slot : 0;
+              p[j] = c <= last ? __ldcg(reinterpret_cast<const float4*>(part) +
+                                        ((static_cast<size_t>(c) * 2 + sl) * kI8Boxes + b) * 256 + threadIdx.x)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+              if (c0 + j <= last) sum.x += p[j].x, sum.y += p[j].y, sum.z += p[j].z, sum.w += p[j].w;
+          }
+          store_y2x2_scaled(y, M, N, m, (tile / n_mc) * kI8Cols + b * kCols + out_col, sum, shared_sc[slot][b]);
+        }
+        if (threadIdx.x == 0) arrivals[tile] = 0u;
+      }
+    }
+  }
+}
+
 // A row-major matrix [rows, cols] of `elem`-byte values as a 3-D tensor map (cols, rows, 1) with
 // boxes of box_cols x box_rows; rows and columns past the edges arrive zero-filled.
 cudaError_t make_rows_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem, int rows, int cols,
@@ -792,6 +1137,20 @@ cudaError_t make_rows_map(CUtensorMap* map, const void* base, CUtensorMapDataTyp
 }
 
 std::atomic<unsigned long long> ring_smem_set{0};
+std::atomic<unsigned long long> int8_smem_set{0};
+std::atomic<unsigned long long> int8_cluster_set{0};
+
+// The int8 ring kernel's shared memory, and clusters past the portable 8 CTAs, allowed once a device.
+cudaError_t allow_int8_ring() {
+  cudaError_t err = allow_smem_once(int8_smem_set, quant_int8_ring_kernel, Int8RingSmem::kBytes);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (err != cudaSuccess || (int8_cluster_set.load(std::memory_order_acquire) & bit)) return err;
+  err = cudaFuncSetAttribute(quant_int8_ring_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) int8_cluster_set.fetch_or(bit, std::memory_order_release);
+  return err;
+}
 
 template <typename T, bool kInt4>
 cudaError_t launch(const void* x, const void* q, const void* s, void* y, void* part, int M, int K, int N,
@@ -901,5 +1260,80 @@ int nexus_quant_int4_ctas_per_sm() {
 }
 
 int nexus_quant_int4_smem_bytes() { return RingSmem::kBytes; }
+
+// int8 with bf16 activations through the ring kernel, one launch.  x [M,K] bf16, q [K,N] int8, s [N]
+// f32, y [M,N] bf16, part [grid][2][8][cols] f32, arrivals [ceil(N/cols) * ceil(M/8)] uint32 (0 on
+// entry, 0 on return); all contiguous and 16-byte aligned.  N % 16 == 0, K % 8 == 0, M <= 256;
+// stage_rows and cols: the kernel's stage rows and tile columns, as the caller planned with them;
+// grid: the CTAs, no more than the units; cluster: 1, or the runs of every tile (a divisor of its
+// stages, at most kI8MaxCluster) launched as thread block clusters, grid = tiles x cluster.  Returns
+// the launch's cudaGetLastError(), or cudaErrorInvalidValue for inputs the kernel does not take.
+int nexus_quant_int8_ring(const void* x, const void* q, const void* s, void* y, void* part, void* arrivals, int M,
+                          int K, int N, int stage_rows, int cols, int grid, int cluster, void* stream) {
+  const auto at16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (M <= 0 || M > 256 || K <= 0 || K % 8 != 0 || N <= 0 || N % 16 != 0 || stage_rows != kI8Rows ||
+      cols != kI8Cols || grid <= 0 || cluster < 1 || cluster > kI8MaxCluster || !at16(x) || !at16(q) || !at16(s) ||
+      !at16(y) || !at16(part) || arrivals == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int n_kb = (K + kI8Rows - 1) / kI8Rows, n_mc = (M + kRowsM - 1) / kRowsM;
+  const long long tiles = static_cast<long long>((N + kI8Cols - 1) / kI8Cols) * n_mc, units = tiles * n_kb;
+  if (grid > units || units * grid >= (1ll << 32) ||
+      (cluster > 1 && (grid != tiles * cluster || n_kb % cluster != 0)))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;  // the device's primary context current on this thread: the map encoder needs one
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  CUtensorMap tm_q;
+  if (err == cudaSuccess)
+    err = make_rows_map(&tm_q, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, kCols, kI8Rows, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess) err = allow_int8_ring();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(kRingThreads);
+  config.dynamicSmemBytes = Int8RingSmem::kBytes;
+  config.stream = reinterpret_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&config, quant_int8_ring_kernel, tm_q, static_cast<const __nv_bfloat16*>(x),
+                           static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
+                           static_cast<unsigned*>(arrivals), M, K, N, n_kb, n_mc, static_cast<int>(units), cluster);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Clusters of `cluster` CTAs of the int8 ring kernel the card holds at once (-1 on error).
+int nexus_quant_int8_max_clusters(int cluster) {
+  if (cluster < 1 || cluster > kI8MaxCluster || allow_int8_ring() != cudaSuccess) return -1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster);
+  config.blockDim = dim3(kRingThreads);
+  config.dynamicSmemBytes = Int8RingSmem::kBytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, quant_int8_ring_kernel, &config) == cudaSuccess ? n : -1;
+}
+
+// CTAs of the int8 ring kernel an SM holds (-1 on error), and the dynamic shared memory a launch asks for.
+int nexus_quant_int8_ctas_per_sm() {
+  int n = 0;
+  if (allow_int8_ring() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, quant_int8_ring_kernel, kRingThreads,
+                                                    Int8RingSmem::kBytes) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+int nexus_quant_int8_smem_bytes() { return Int8RingSmem::kBytes; }
 
 }  // extern "C"

@@ -54,6 +54,10 @@ SIGNATURES = {
     "nexus_quant_int4_ring": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "nexus_quant_int4_ctas_per_sm": [],
     "nexus_quant_int4_smem_bytes": [],
+    "nexus_quant_int8_ring": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "nexus_quant_int8_ctas_per_sm": [],
+    "nexus_quant_int8_max_clusters": [_I],
+    "nexus_quant_int8_smem_bytes": [],
     "nexus_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "nexus_tgmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "nexus_gmm_smem_bytes": [_I],

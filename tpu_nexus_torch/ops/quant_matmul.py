@@ -5,14 +5,16 @@ Replaces ``tpu_nexus/ops/quant_matmul.py``: ``_int8_kernel`` and
 ``_int4_kernel`` (launched by ``quant_matmul``) and ``weight_einsum``.  The
 kernels live in ``csrc/quant_matmul.cu``; the source note there says what
 bounds them on the H100 (the packed weight's bytes at decode-sized M) and
-what each design does about it.  int4 with bf16 activations takes the ring
-kernel, one launch over a stream-K partition of the packed weight into
-equal runs, one a persistent CTA (:func:`int4_plan`, :func:`int4_partition`),
-the K split merged in the launch through a per-device workspace of arrival
-counters and partials (:func:`_ring_workspace`); an int4 shape it does not
-take (:func:`int4_ring_route`: N or the group not a multiple of 16, an
-unaligned operand) takes the first design, a partial pass over a
-:func:`split_plan` and a finalize launch, as int8 and f32 activations do.
+what each design does about it.  With bf16 activations int8 and int4 each
+take a ring kernel, one launch over a stream-K partition of the weight into
+equal runs, one a persistent CTA (:func:`ring_plan`, :func:`int8_plan`,
+:func:`ring_partition`), the K split merged in the launch: for int8 with few
+tiles in the shared memory of a cluster of a tile's CTAs, otherwise through
+a per-device workspace of arrival counters and partials
+(:func:`_ring_workspace`).  A shape a ring kernel does not take
+(:func:`int8_ring_route`, :func:`int4_ring_route`: N, K or the group off its
+pitch, an unaligned operand) and f32 activations take the first design, a
+partial pass over a :func:`split_plan` and a finalize launch.
 
 * :func:`quant_matmul_plain` — the kernels' arithmetic in PyTorch, in
   their operation order.  int8: ``x · q8`` accumulated in f32, the
@@ -22,7 +24,7 @@ unaligned operand) takes the first design, a partial pass over a
 * :func:`quant_matmul` — the wrapper for a 2D ``x [M, K]``: validation
   that names every violated clause; a CPU tensor takes the plain version,
   a CUDA tensor launches the kernel (counted in ``launches_int8`` /
-  ``launches_int4``) or raises.
+  ``launches_int4``, and by route in ``launches_by_route``) or raises.
 * :func:`weight_einsum` — ``einsum(spec, x, w)`` with the weight consumed
   at the compute dtype.  Plain tensors take the unchanged ``torch.einsum``.
   Quantized weights go to :func:`quant_matmul` on the card when
@@ -63,6 +65,18 @@ TARGET_CTAS = 528
 RING_ROWS = 64
 RING_SCALE_ROWS = 8
 MIN_RING_UNITS = 2
+#: the int8 ring kernel: weight rows a ring stage holds and a tile's columns
+#: (``kI8Rows`` and ``kI8Cols`` of ``csrc/quant_matmul.cu``; the launch
+#: refuses a plan made with other values), and the most runs of one tile it
+#: launches as a thread block cluster (their sums merged in the cluster's
+#: shared memory; 8 is the portable cluster size)
+INT8_RING_ROWS = 128
+INT8_RING_COLS = 128
+INT8_MAX_CLUSTER = 8
+#: the longest run (stages) the int8 plan lengthens to launch a tile's runs
+#: as a cluster (at the decode step's wk/wv launch, 8 runs in clusters beat
+#: 16 merged through L2: ``chip_smoke.py --phases build,int8_probe``)
+INT8_SHORT_RUN = 8
 
 
 def _geometry(w) -> Tuple[tuple, tuple, tuple]:
@@ -129,6 +143,17 @@ def split_plan(rows: int, n: int, m: int) -> Tuple[int, int]:
     return rows_per_split, -(-rows // rows_per_split)
 
 
+def int8_ring_route(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, n: int) -> bool:
+    """Whether an int8 call takes the ring kernel: bf16 activations, N a
+    multiple of 16 (TMA's 16-byte row pitch), K a multiple of 8 (16-byte
+    activation copies) and the operands 16-byte aligned.  Anything else
+    (f32 activations, N 200 or 71, an unaligned operand) takes the first
+    design's partial pass and finalize launch: chosen from the shape before
+    launch, never after a failed one."""
+    return (x.dtype == torch.bfloat16 and n % 16 == 0 and x.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, q, s)))
+
+
 def int4_ring_route(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, n: int, group: int) -> bool:
     """Whether a bf16 int4 call takes the ring kernel: N a multiple of 16
     (TMA's 16-byte row pitch), the group a multiple of 16 (an 8-row k block
@@ -151,18 +176,19 @@ def int4_scale_rows(group: int) -> int:
     return min(RING_SCALE_ROWS, (RING_SCALE_ROWS - 1) // h8 + 2)
 
 
-def int4_plan(rows: int, n: int, m: int, resident: int) -> Tuple[int, int]:
-    """``(units, grid)`` of the ring kernel for ``rows`` packed rows, N
-    columns and M activation rows: a unit is one stage (:data:`RING_ROWS`
-    packed rows of a 128-column strip, for an 8-row M chunk).  Where the
-    tiles are fewer than the CTAs the card holds (``resident``), each tile
-    is cut into the most equal runs that divide its stages and fit, so no
-    run straddles two tiles: a CTA then merges at most one tile, and the
-    merge's round trips come once a run (measured faster at every decode
-    shape, ``chip_smoke.py --phases build,int4_probe``).  Else the grid is
-    the resident CTAs, no more than the units allow at
-    :data:`MIN_RING_UNITS` each."""
-    tiles, n_kb = -(-n // COLS) * -(-m // ROWS_M), -(-rows // RING_ROWS)
+def ring_plan(rows: int, n: int, m: int, resident: int, stage_rows: int, cols: int = COLS) -> Tuple[int, int]:
+    """``(units, grid)`` of a ring kernel for ``rows`` weight rows (packed
+    rows for int4), N columns and M activation rows: a unit is one stage
+    (``stage_rows`` rows of a ``cols``-column strip, for an 8-row M chunk;
+    int4: :data:`RING_ROWS`, int8: :data:`INT8_RING_ROWS` and
+    :data:`INT8_RING_COLS`).  Where the tiles are fewer than the CTAs the
+    card holds (``resident``), each tile is cut into the most equal runs
+    that divide its stages and fit, so no run straddles two tiles: a CTA
+    then merges at most one tile, and the merge's round trips come once a
+    run (measured faster at every int4 decode shape, ``chip_smoke.py
+    --phases build,int4_probe``).  Else the grid is the resident CTAs, no
+    more than the units allow at :data:`MIN_RING_UNITS` each."""
+    tiles, n_kb = -(-n // cols) * -(-m // ROWS_M), -(-rows // stage_rows)
     if tiles < resident:
         runs = resident // tiles
         while n_kb % runs:
@@ -171,17 +197,44 @@ def int4_plan(rows: int, n: int, m: int, resident: int) -> Tuple[int, int]:
     return tiles * n_kb, max(1, min(resident, tiles * n_kb // MIN_RING_UNITS))
 
 
-def int4_partition(rows: int, n: int, m: int, grid: int) -> Dict[int, List[Tuple[int, int, int, int]]]:
-    """The ring kernel's work, as its CTAs derive it: CTA c takes units
+def int8_plan(
+    k: int, n: int, m: int, resident: int, cluster_capacity, max_cluster: int
+) -> Tuple[int, int, int]:
+    """``(units, grid, cluster)`` of the int8 ring kernel: :func:`ring_plan`'s
+    plan (its K split merged through the workspace, ``cluster`` 1), unless a
+    tile's runs can be launched as one thread block cluster (``cluster`` c:
+    the runs' sums meet in the cluster's shared memory, no round trips to
+    L2).  ``cluster_capacity(c)``: how many clusters of c CTAs the card
+    holds at once; every tile's cluster must be resident together.  The
+    cluster takes the plan's own runs where they fit (at most
+    ``max_cluster``); fewer, longer runs only where each stays within
+    :data:`INT8_SHORT_RUN` stages, where a launch is mostly its merge."""
+    units, grid = ring_plan(k, n, m, resident, INT8_RING_ROWS, INT8_RING_COLS)
+    tiles, n_kb = -(-n // INT8_RING_COLS) * -(-m // ROWS_M), -(-k // INT8_RING_ROWS)
+    runs = grid // tiles
+    if tiles >= resident or runs < 2 or max_cluster < 2:
+        return units, grid, 1
+    c = min(runs, max_cluster)
+    while c > 1 and (n_kb % c or cluster_capacity(c) < tiles):
+        c -= 1
+    if c == runs or (c > 1 and n_kb // c <= INT8_SHORT_RUN):
+        return units, tiles * c, c
+    return units, grid, 1
+
+
+def ring_partition(
+    rows: int, n: int, m: int, grid: int, stage_rows: int, cols: int = COLS
+) -> Dict[int, List[Tuple[int, int, int, int]]]:
+    """A ring kernel's work, as its CTAs derive it: CTA c takes units
     ``[c·units/grid, (c+1)·units/grid)`` of the walk (k block fastest, then
     the M chunk, then the strip).  Returns, for every tile (strip · M chunks
-    + chunk), its runs in merge order: ``(cta, slot, first packed row,
-    end packed row)``.  A tile of one run is written by its CTA; otherwise
-    each CTA writes its partial into workspace slot ``(cta, slot)`` (0: the
-    run's first tile, 1: its last) and the last to arrive adds them in this
-    order.  The partition is the kernel's contract, held by a CPU test."""
-    units, _ = int4_plan(rows, n, m, grid)
-    n_kb = -(-rows // RING_ROWS)
+    + chunk), its runs in merge order: ``(cta, slot, first row, end row)``.
+    A tile of one run is written by its CTA; otherwise each CTA writes its
+    partial into workspace slot ``(cta, slot)`` (0: the run's first tile,
+    1: its last) and the last to arrive adds them in this order.  The
+    partition is the kernels' contract, held by a CPU test."""
+    units = -(-n // cols) * -(-m // ROWS_M) * -(-rows // stage_rows)
+    n_kb = -(-rows // stage_rows)
     tiles: Dict[int, List[Tuple[int, int, int, int]]] = {}
     for c in range(grid):
         begin, end = c * units // grid, (c + 1) * units // grid
@@ -191,7 +244,7 @@ def int4_partition(rows: int, n: int, m: int, grid: int) -> Dict[int, List[Tuple
             seg_end = min(end, (tile + 1) * n_kb)
             slot = 0 if begin >= tile * n_kb else 1
             kb0, kb1 = u - tile * n_kb, seg_end - tile * n_kb
-            tiles.setdefault(tile, []).append((c, slot, kb0 * RING_ROWS, min(kb1 * RING_ROWS, rows)))
+            tiles.setdefault(tile, []).append((c, slot, kb0 * stage_rows, min(kb1 * stage_rows, rows)))
             u = seg_end
     return tiles
 
@@ -199,37 +252,51 @@ def int4_partition(rows: int, n: int, m: int, grid: int) -> Dict[int, List[Tuple
 #: (device index, stream) -> (workspace, counter words, partial floats)
 _RING_WORKSPACES: dict = {}
 _RING_LOCK = threading.Lock()
-#: device index -> CTAs of the ring kernel the card holds
+#: (kernel, device index) -> CTAs of that ring kernel the card holds;
+#: ("int8_clusters", size, device index) -> clusters of the int8 kernel it holds
 _RING_RESIDENT: dict = {}
 
 
-def _ring_resident(device: torch.device) -> int:
-    """SMs times the ring kernel's CTAs an SM holds (the library's occupancy
-    query), cached per device."""
-    found = _RING_RESIDENT.get(device.index)
+def _ring_resident(device: torch.device, kernel: str) -> int:
+    """SMs times the CTAs of ring kernel ``kernel`` ("int4" or "int8") an
+    SM holds (the library's occupancy query), cached per kernel and
+    device."""
+    found = _RING_RESIDENT.get((kernel, device.index))
     if found is None:
+        query = f"nexus_quant_{kernel}_ctas_per_sm"
         with torch.cuda.device(device):
-            per_sm = _build.library().nexus_quant_int4_ctas_per_sm()
+            per_sm = getattr(_build.library(), query)()
         if per_sm <= 0:
-            raise RuntimeError(f"nexus_quant_int4_ctas_per_sm: the ring kernel fits no CTA on {device}")
+            raise RuntimeError(f"{query}: the {kernel} ring kernel fits no CTA on {device}")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        found = _RING_RESIDENT[device.index] = per_sm * sms
+        found = _RING_RESIDENT[(kernel, device.index)] = per_sm * sms
     return found
 
 
-def _ring_workspace(device: torch.device, stream: int, tiles: int, grid: int) -> Tuple[int, int]:
-    """``(partials, counters)`` addresses in the ring kernel's workspace of
+def _int8_cluster_capacity(device: torch.device, cluster: int) -> int:
+    """Clusters of ``cluster`` CTAs of the int8 ring kernel the card holds at
+    once (the library's occupancy query), cached per size and device."""
+    key = ("int8_clusters", cluster, device.index)
+    found = _RING_RESIDENT.get(key)
+    if found is None:
+        with torch.cuda.device(device):
+            found = _RING_RESIDENT[key] = _build.library().nexus_quant_int8_max_clusters(cluster)
+    return found
+
+
+def _ring_workspace(device: torch.device, stream: int, tiles: int, part_floats: int) -> Tuple[int, int]:
+    """``(partials, counters)`` addresses in the ring kernels' workspace of
     ``device`` and ``stream``: ``tiles`` arrival counters, zeroed once (a
-    launch leaves them 0), then ``grid · 2 · 8 · 128`` f32 partials.  Regrown
-    (zeroed) when a launch needs more; launches on one stream run in order,
-    another stream gets its own buffer."""
+    launch leaves them 0), then ``part_floats`` f32 partials (grid · 2 · 8 ·
+    the tile's columns).  Regrown (zeroed) when a launch needs more;
+    launches on one stream run in order, so the int4 and int8 kernels share
+    it, and another stream gets its own buffer."""
     key = (device.index, stream)
-    need = grid * 2 * ROWS_M * COLS
     with _RING_LOCK:
         buf, n_counters, n_parts = _RING_WORKSPACES.get(key, (None, 0, 0))
-        if buf is None or n_counters < tiles or n_parts < need:
+        if buf is None or n_counters < tiles or n_parts < part_floats:
             n_counters = max(n_counters, -(-tiles // 256) * 256)
-            n_parts = max(n_parts, need)
+            n_parts = max(n_parts, part_floats)
             buf = torch.zeros(n_counters + n_parts, dtype=torch.int32, device=device)
             _RING_WORKSPACES[key] = (buf, n_counters, n_parts)
     return buf.data_ptr() + 4 * n_counters, buf.data_ptr()
@@ -291,15 +358,34 @@ def quant_matmul(x: torch.Tensor, w) -> torch.Tensor:
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.library()
     if int4 and x.dtype == torch.bfloat16 and int4_ring_route(x, q2, s2, n, w.group):
-        _, grid = int4_plan(rows, n, m, _ring_resident(x.device))
+        _, grid = ring_plan(rows, n, m, _ring_resident(x.device, "int4"), RING_ROWS)
         stream = _build.stream_ptr(x.device)
-        part, arrivals = _ring_workspace(x.device, stream, -(-n // COLS) * -(-m // ROWS_M), grid)
+        part, arrivals = _ring_workspace(
+            x.device, stream, -(-n // COLS) * -(-m // ROWS_M), grid * 2 * ROWS_M * COLS
+        )
         with torch.cuda.device(x.device):  # the runtime launches on its current device
             status = lib.nexus_quant_int4_ring(
                 x.data_ptr(), q2.data_ptr(), s2.data_ptr(), y.data_ptr(), part, arrivals,
                 m, k, n, half_group, int4_scale_rows(w.group), grid, stream,
             )
         _build.check(status, "nexus_quant_int4_ring")
+        route = "int4_ring"
+    elif not int4 and int8_ring_route(x, q2, s2, n):
+        _, grid, cluster = int8_plan(
+            k, n, m, _ring_resident(x.device, "int8"), lambda c: _int8_cluster_capacity(x.device, c),
+            INT8_MAX_CLUSTER,
+        )
+        stream = _build.stream_ptr(x.device)
+        part, arrivals = _ring_workspace(
+            x.device, stream, -(-n // INT8_RING_COLS) * -(-m // ROWS_M), grid * 2 * ROWS_M * INT8_RING_COLS
+        )
+        with torch.cuda.device(x.device):
+            status = lib.nexus_quant_int8_ring(
+                x.data_ptr(), q2.data_ptr(), s2.data_ptr(), y.data_ptr(), part, arrivals,
+                m, k, n, INT8_RING_ROWS, INT8_RING_COLS, grid, cluster, stream,
+            )
+        _build.check(status, "nexus_quant_int8_ring")
+        route = "int8_ring"
     else:
         rows_per_split, n_splits = split_plan(rows, n, m)
         part = torch.empty((n_splits, m, n), dtype=torch.float32, device=x.device)
@@ -310,15 +396,21 @@ def quant_matmul(x: torch.Tensor, w) -> torch.Tensor:
                 _build.stream_ptr(x.device),
             )
         _build.check(status, "nexus_quant_matmul")
+        route = "int4_first_design" if int4 else "int8_first_design"
     if int4:
         quant_matmul.launches_int4 += 1
     else:
         quant_matmul.launches_int8 += 1
+    quant_matmul.launches_by_route[route] += 1
     return y
 
 
 quant_matmul.launches_int8 = 0
 quant_matmul.launches_int4 = 0
+#: launches by kernel: the ring kernels and the first design (with its finalize pass)
+quant_matmul.launches_by_route = dict.fromkeys(
+    ("int8_ring", "int8_first_design", "int4_ring", "int4_first_design"), 0
+)
 
 
 def weight_einsum(spec: str, x: torch.Tensor, w, ct: torch.dtype, *, impl: str = "auto") -> torch.Tensor:
