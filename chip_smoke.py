@@ -126,6 +126,19 @@ raises and exits non-zero:
    extend through the paged kernel), (c) page 32 with spec_k 4 (ngram):
    COMPLETED, tokens/s, TTFT/TPOT p50/p99, prefix hits and kernel #4's
    launches by mode (paged > 0 in (b) and (c), ragged > 0 in (c)).
+18. train_ckpt  — tensor checkpoints through ``run_workload`` on nexus_1b at
+   full width and depth (bf16, adamw, remat attn_out, batch 8, seq 2048) in
+   a temporary directory: 12 steps uninterrupted; checkpoint_every 4 and
+   cancelled after step 6 (PREEMPTED, emergency save at 6); resumed from 6
+   to COMPLETED at 12; step 12 bit-flipped and restarted (rolled back to 8,
+   ``12.corrupt``).  Resumed per-step losses equal the uninterrupted run's
+   bit for bit; 14 launches a step of each flash kernel; the bytes and
+   seconds of every save, commit and verified restore.
+19. serve_reload — ``run_serving`` on nexus_1b from that directory restores
+   step 12 (equal to the resumed run's params in memory, and its greedy
+   tokens equal to theirs); then an engine over step 12 hot-swaps a newly
+   committed step 13 through ``_reload_if_newer``: one swap, 16 requests
+   FINISHED, pre- and post-swap tokens each the own of their params.
 
 Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
@@ -143,7 +156,10 @@ shapes in every mode (``--phases build,decode_probe``); ``quant_rms_times``
 trees of the package in one call (``--phases device,quant_rms_times``);
 ``int4_probe`` and ``int8_probe`` — what sets the pace of #6's and #5's ring
 kernels: edited rebuilds (stage geometries, ring-only streams) timed beside
-the shipped build (``--phases build,int8_probe``).
+the shipped build (``--phases build,int8_probe``); ``ckpt_probe`` — where a
+nexus_1b checkpoint's seconds go (device-to-host copies, ``torch.save``,
+fsync, one SHA-256 pass, ``torch.load``, host-to-device copies;
+``--phases device,ckpt_probe``).
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -166,10 +182,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
-          "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe")
+          "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe",
+          "train_ckpt", "serve_reload")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
-          "quant_rms_times", "int4_probe", "int8_probe")
+          "quant_rms_times", "int4_probe", "int8_probe", "ckpt_probe")
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, f32 CUDA
 # core rate, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -2840,6 +2857,408 @@ def phase_serve_engine(results):
         results.setdefault("launches", {})[name] = launches
 
 
+@contextlib.contextmanager
+def timed_checkpoints(events, label):
+    """Time every ``TensorCheckpointer`` save, commit, verified-step scan and
+    restore while the block runs (host wall seconds: the copy to the host,
+    the disk and the SHA-256 passes), recording each as a dict in
+    ``events`` tagged with ``label["run"]``; saves carry their tensor bytes,
+    commits the step directory's manifested bytes."""
+    from tpu_nexus_torch.workload import durability
+    from tpu_nexus_torch.workload.tensor_checkpoint import TensorCheckpointer
+
+    names = ("save", "commit", "latest_verified_step", "restore", "restore_params")
+    originals = {name: getattr(TensorCheckpointer, name) for name in names}
+
+    def timed(name, fn):
+        def method(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            event = {"run": label["run"], "op": name, "seconds": time.perf_counter() - t0}
+            if name == "save":
+                event.update(step=args[0])
+            elif name == "commit":
+                manifest = durability.verify_step(self.step_dir(args[0]), args[0], deep=False)
+                event.update(step=args[0], dir_bytes=manifest["total_bytes"], dir_files=manifest["file_count"])
+            elif name == "latest_verified_step":
+                event.update(step=out, deep_verified_bytes=(
+                    durability.verify_step(self.step_dir(out), out, deep=False)["total_bytes"] if out else 0))
+            else:
+                event.update(step=args[1] if name == "restore" and len(args) > 1 else (args[0] if args else None))
+            events.append(event)
+            return out
+
+        return method
+
+    for name, fn in originals.items():
+        setattr(TensorCheckpointer, name, timed(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(TensorCheckpointer, name, fn)
+
+
+def phase_train_ckpt(results):
+    """Tensor checkpoints through ``run_workload`` on nexus_1b at full width
+    and depth (bf16, adamw, remat attn_out, batch 8, seq 2048) into a
+    temporary directory: A — 12 steps, no checkpoints; B — checkpoint_every
+    4, cancelled after step 6 (PREEMPTED, emergency save at 6); C — the
+    same directory, resumed from 6, COMPLETED at 12; D — a byte of step
+    12's first tensor file flipped, then a restart: rolled back to 8
+    (``ckpt_rollback``, ``12.corrupt``), COMPLETED at 12 again.  Per-step
+    losses of B, C and D must equal A's bit for bit, and each run launch
+    the flash forward, dQ and dK/dV kernels 14 times a step.  Prints the
+    bytes and host seconds of every save, commit and verified restore.
+    C's final params stay in memory for serve_reload, which removes the
+    directory."""
+    import atexit
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.core.signals import LifecycleContext
+    from tpu_nexus_torch.core.telemetry import NullMetrics
+    from tpu_nexus_torch.models.llama import LlamaConfig
+    from tpu_nexus_torch.models.registry import LlamaAdapter
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.workload import durability
+    from tpu_nexus_torch.workload import train as train_module
+    from tpu_nexus_torch.workload.faults import flip_committed_leaf
+    from tpu_nexus_torch.workload.harness import WorkloadConfig, run_workload
+    from tpu_nexus_torch.workload.train import TrainConfig
+
+    class Losses(NullMetrics):
+        def __init__(self):
+            self.losses = []
+
+        def gauge(self, name, value, tags=None):
+            if name == "train.loss":
+                self.losses.append(value)
+
+    torch.cuda.empty_cache()
+    model = LlamaConfig.nexus_1b()
+    adapter = LlamaAdapter(config=model)
+    steps, batch, seq = 12, 8, 2048
+    directory = tempfile.mkdtemp(prefix="nexus-ckpt-")
+    atexit.register(shutil.rmtree, directory, True)
+    store = InMemoryCheckpointStore()
+    counters = _bwd_counters()
+    events, label, live = [], {"run": ""}, {}
+    real_make = train_module.make_train_step
+
+    def keeping_make(*args, **kwargs):
+        """The harness's step, keeping a reference to the live state it
+        updates (C's final params are served from memory later)."""
+        step_fn = real_make(*args, **kwargs)
+
+        def step(state, batch_):
+            out = step_fn(state, batch_)
+            live[label["run"]] = out[0]
+            return out
+
+        return step
+
+    def cancelling(lifecycle, at):
+        source = adapter.data(batch, seq, seed=0)
+        for i, item in enumerate(source):
+            if i == at:
+                lifecycle.cancel("SIGTERM")
+            yield item
+
+    runs, launches_total = {}, {c.__name__: 0 for c in counters}
+
+    def run(name, run_id, checkpoint_every=0, cancel_at=None):
+        label["run"] = name
+        lifecycle = LifecycleContext()
+        cfg = WorkloadConfig(model=adapter, train=TrainConfig(warmup_steps=10, total_steps=steps, optimizer="adamw"),
+                             batch_size=batch, seq_len=seq, steps=steps, heartbeat_every=1,
+                             checkpoint_every=checkpoint_every, checkpoint_dir=directory if checkpoint_every else "",
+                             device="cuda")
+        ctx = ProcessContext(run_id=run_id, algorithm="train", process_id=0, num_processes=1, coordinator=None)
+        telemetry = Losses()
+        for c in counters:
+            c.launches = 0
+        zero_rms_norm_launches()
+        t0 = time.perf_counter()
+        summary = run_workload(cfg, store=store, ctx=ctx, telemetry=telemetry, lifecycle=lifecycle,
+                               data=None if cancel_at is None else cancelling(lifecycle, cancel_at))
+        wall = time.perf_counter() - t0
+        read_rms_norm_launches(results, f"train_ckpt_{name}")
+        launches = {c.__name__: c.launches for c in counters}
+        for k, v in launches.items():
+            launches_total[k] += v
+        row = store.read_checkpoint("train", run_id)
+        goodput = summary.get("goodput", {})
+        runs[name] = dict(
+            stage=row.lifecycle_stage, uri=row.tensor_checkpoint_uri, wall_s=wall, losses=telemetry.losses,
+            launches=launches, final_step=summary["final_step"], resumed_from=summary["resumed_from"],
+            emergency_step=summary.get("emergency_step"), emergency_skipped=summary.get("emergency_skipped"),
+            ckpt_rollbacks=[{k: e[k] for k in ("step", "cause")} for e in summary.get("ckpt_rollbacks", [])],
+            details_keys=sorted(json.loads(row.algorithm_failure_details or "{}")),
+            checkpoint_bucket_s=goodput.get("buckets_s", {}).get("checkpoint"),
+            goodput_elapsed_s=goodput.get("elapsed_s"),
+            directory=sorted(os.listdir(directory)),
+        )
+        want = model.n_layers * (len(telemetry.losses))
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"run {name}: launches {launches} != {model.n_layers} x {len(telemetry.losses)}")
+        return runs[name]
+
+    train_module.make_train_step = keeping_make
+    try:
+        with timed_checkpoints(events, label):
+            a = run("A", "chip-smoke-ckpt-a")
+            b = run("B", "chip-smoke-ckpt", checkpoint_every=4, cancel_at=5)
+            c = run("C", "chip-smoke-ckpt", checkpoint_every=4)
+            c_params = live["C"]["params"]
+            live.clear()
+            flipped = flip_committed_leaf(os.path.join(directory, "12"))
+            d = run("D", "chip-smoke-ckpt-restart", checkpoint_every=4)
+            live.clear()
+    finally:
+        train_module.make_train_step = real_make
+    losses = {"A": a["losses"], "B": b["losses"], "C": c["losses"], "D": d["losses"]}
+    mismatch = {
+        "B_vs_A_1_6": max((abs(x - y) for x, y in zip(b["losses"], a["losses"][:6])), default=None),
+        "C_vs_A_7_12": max((abs(x - y) for x, y in zip(c["losses"], a["losses"][6:])), default=None),
+        "D_vs_A_9_12": max((abs(x - y) for x, y in zip(d["losses"], a["losses"][8:])), default=None),
+    }
+    ckpt_c = c["checkpoint_bucket_s"]
+    emit("train_ckpt", config="nexus_1b full width and depth, bf16 params, adamw, remat attn_out",
+         batch=batch, seq=seq, steps=steps, runs=runs, losses_max_abs_diff=mismatch,
+         flipped=os.path.relpath(flipped, directory), checkpoint_events=events,
+         checkpoint_share_of_run_C=ckpt_c / c["goodput_elapsed_s"] if ckpt_c is not None else None,
+         directory_free_bytes=shutil.disk_usage(directory).free)
+    if a["stage"] != LifecycleStage.COMPLETED or a["final_step"] != steps or len(a["losses"]) != steps:
+        raise AssertionError(f"A: {a['stage']} at {a['final_step']}")
+    if (b["stage"] != LifecycleStage.PREEMPTED or b["final_step"] != 6 or b["uri"] != f"{directory}/6"
+            or b["emergency_step"] != 6 or b["emergency_skipped"]):
+        raise AssertionError(f"B: {b['stage']} at {b['final_step']}, uri {b['uri']}, emergency {b['emergency_step']}")
+    if c["stage"] != LifecycleStage.COMPLETED or c["resumed_from"] != 6 or c["final_step"] != steps:
+        raise AssertionError(f"C: {c['stage']}, resumed from {c['resumed_from']}, at {c['final_step']}")
+    if (d["stage"] != LifecycleStage.COMPLETED or d["resumed_from"] != 8 or d["final_step"] != steps
+            or d["ckpt_rollbacks"] != [{"step": 12, "cause": "corrupt"}] or "ckpt_rollback" not in d["details_keys"]
+            or "12" + durability.QUARANTINE_SUFFIX not in d["directory"]):
+        raise AssertionError(f"D: {d['stage']}, resumed from {d['resumed_from']}, rollbacks {d['ckpt_rollbacks']}, "
+                             f"details {d['details_keys']}, directory {d['directory']}")
+    if losses["B"] != losses["A"][:6] or losses["C"] != losses["A"][6:] or losses["D"] != losses["A"][8:]:
+        raise AssertionError(f"resumed losses differ from the uninterrupted run's: {mismatch}")
+    results.setdefault("launches", {})["train_ckpt"] = launches_total
+    results["train_ckpt"] = {"dir": directory, "c_params": c_params, "model": model}
+    torch.cuda.empty_cache()
+
+
+def phase_ckpt_probe(results):
+    """Where a checkpoint's seconds go, for a nexus_1b adamw train state on
+    the card (5.7 GB in 38 tensors; opt-in): the copies to pageable host
+    memory, ``torch.save`` into the page cache, the fsyncs, one SHA-256
+    pass over the files (what ``commit`` and a verified restore each pay),
+    ``torch.load`` back to the host and the copies to the card — each
+    host wall seconds over all the leaves, with its rate."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpu_nexus_torch.models.llama import LlamaConfig
+    from tpu_nexus_torch.models.registry import LlamaAdapter
+    from tpu_nexus_torch.workload.train import TrainConfig, init_train_state, param_leaves
+
+    torch.cuda.empty_cache()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0), LlamaAdapter(config=LlamaConfig.nexus_1b()),
+                             TrainConfig(), "cuda")
+    leaves = [p.detach() for _, p in param_leaves(state["params"])]
+    leaves += [t for leaf in state["opt_state"]["leaves"] for t in leaf.values()]
+    total = sum(t.numel() * t.element_size() for t in leaves)
+    directory = tempfile.mkdtemp(prefix="nexus-ckpt-probe-")
+    seconds = {}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = [t.to("cpu") for t in leaves]
+        seconds["device_to_host"] = time.perf_counter() - t0
+        paths = [os.path.join(directory, f"{i:05d}.pt") for i in range(len(host))]
+        t0 = time.perf_counter()
+        handles = []
+        for t, path in zip(host, paths):
+            fh = open(path, "wb")
+            torch.save(t, fh)
+            fh.flush()
+            handles.append(fh)
+        seconds["torch_save_to_page_cache"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for fh in handles:
+            os.fsync(fh.fileno())
+            fh.close()
+        seconds["fsync"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for path in paths:
+            digest = hashlib.sha256()
+            with open(path, "rb") as fh:
+                for block in iter(lambda: fh.read(1 << 20), b""):
+                    digest.update(block)
+        seconds["sha256_pass"] = time.perf_counter() - t0
+        del host
+        t0 = time.perf_counter()
+        loaded = [torch.load(path, weights_only=True) for path in paths]
+        seconds["torch_load_to_host"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_card = [t.to("cuda") for t in loaded]
+        torch.cuda.synchronize()
+        seconds["host_to_device"] = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(on_card, leaves)):
+            raise AssertionError("the probe's round trip changed a tensor")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    emit("ckpt_probe", config="nexus_1b adamw train state (params, mu, nu in bf16)", bytes=total, tensors=len(leaves),
+         seconds=seconds, gb_per_second={k: total / v / 1e9 for k, v in seconds.items()},
+         cpus=os.cpu_count(), disk=shutil.disk_usage(tempfile.gettempdir())._asdict())
+    del state, leaves, loaded, on_card
+    torch.cuda.empty_cache()
+
+
+def phase_serve_reload(results):
+    """Serving from train_ckpt's directory on nexus_1b (bf16): (1)
+    ``run_serving`` (batch 8, prompt 128, 32 new tokens, 2 rounds) restores
+    the newest verified step, 12, whose params equal C's final params in
+    memory bit for bit, and each greedy round's tokens equal ``generate``
+    over C's params from memory on the same prompts; (2) a
+    ``ServingEngine`` on the restored params takes 8 requests, a new step
+    13 (step 12's params plus seeded noise) is committed, and
+    ``_reload_if_newer`` quiesces the engine (the in-flight requests finish
+    on step 12) and hot-swaps 13; 8 more requests follow.  One weight swap,
+    all 16 requests FINISHED, the pre-swap tokens are step 12's own and the
+    post-swap tokens step 13's own (an engine over those params alone).
+    Removes the directory."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.models.registry import LlamaAdapter
+    from tpu_nexus_torch.ops.decode_attention import decode_attention
+    from tpu_nexus_torch.ops.flash_attention import flash_attention
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.serving import ModelExecutor, RequestState, ServingEngine
+    from tpu_nexus_torch.workload import durability
+    from tpu_nexus_torch.workload import serve as serve_module
+    from tpu_nexus_torch.workload.tensor_checkpoint import TensorCheckpointer
+
+    if "train_ckpt" not in results:
+        raise AssertionError("serve_reload serves train_ckpt's directory: run it with --phases train_ckpt,serve_reload")
+    directory, c_params, model = (results["train_ckpt"][k] for k in ("dir", "c_params", "model"))
+    events, label = [], {"run": "serve"}
+    calls = []
+    real_generate = serve_module.generate
+
+    def recording(params, prompt, cfg, **kwargs):
+        out = real_generate(params, prompt, cfg, **kwargs)
+        calls.append((prompt.clone(), out.clone(), kwargs))
+        return out
+
+    cfg = serve_module.ServeConfig(model=LlamaAdapter(config=model), batch_size=8, prompt_len=128, gen_tokens=32,
+                                   rounds=2, checkpoint_dir=directory, device="cuda")
+    store = InMemoryCheckpointStore()
+    ctx = ProcessContext(run_id="chip-smoke-reload", algorithm="serve", process_id=0, num_processes=1,
+                         coordinator=None)
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    zero_rms_norm_launches()
+    serve_module.generate = recording
+    t0 = time.perf_counter()
+    try:
+        with timed_checkpoints(events, label):
+            summary = serve_module.run_serving(cfg, store=store, ctx=ctx)
+    finally:
+        serve_module.generate = real_generate
+    serve_wall = time.perf_counter() - t0
+    serve_launches = {"flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches}
+    newest = durability.newest_verified_step(directory, quarantine=False)[0]
+    restored = TensorCheckpointer(directory).restore_params(newest)
+    same_params = all(torch.equal(p, q) for p, q in zip(restored.parameters(), c_params.parameters()))
+    with torch.inference_mode():
+        same_tokens = [torch.equal(out, real_generate(c_params, prompt, model, **kw)) for prompt, out, kw in calls]
+    row = store.read_checkpoint("serve", "chip-smoke-reload")
+
+    # (2) the hot swap: step 13 = step 12's params plus seeded noise
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    new_params = TensorCheckpointer(directory).restore_params(newest)
+    with torch.no_grad():
+        for p in new_params.parameters():
+            p.add_((torch.randn(p.shape, generator=gen, device="cuda") * 0.02).to(p.dtype))
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(0, model.vocab_size, size=(16, 128)).astype(np.int32)
+
+    def engine_over(params):
+        return ServingEngine(ModelExecutor(params, model, num_slots=8, max_len=128 + 32))
+
+    def own_tokens(params, rows):
+        eng = engine_over(params)
+        reqs = [eng.submit(p, 32) for p in rows]
+        eng.run_until_drained()
+        return [list(r.output_tokens) for r in reqs]
+
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    engine = engine_over(restored)
+    label["run"] = "swap"
+    with timed_checkpoints(events, label):
+        pre = [engine.submit(p, 32) for p in prompts[:8]]
+        for _ in range(4):
+            engine.step()
+        ckpt = TensorCheckpointer(directory)
+        ckpt.save(newest + 1, {"params": new_params, "step": torch.tensor(newest + 1, dtype=torch.int32)})
+        ckpt.commit(newest + 1)
+        poller = durability.VerifiedStepPoller(directory)
+        t0 = time.perf_counter()
+        serving_step = serve_module._reload_if_newer(engine, poller.latest_verified_step(), directory, newest, "", 60.0)
+        swap_s = time.perf_counter() - t0
+    post = [engine.submit(p, 32) for p in prompts[8:]]
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    swap_launches = {"flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches}
+    read_rms_norm_launches(results, "serve_reload")
+    states = [r.state for r in pre + post]
+    pre_ok = [list(r.output_tokens) for r in pre] == own_tokens(restored, prompts[:8])
+    post_ok = [list(r.output_tokens) for r in post] == own_tokens(new_params, prompts[8:])
+    emit("serve_reload", config="nexus_1b full width and depth, bf16, restored from train_ckpt's directory",
+         restored_from=summary["restored_from"], newest_verified=newest, stage=row.lifecycle_stage if row else None,
+         serve_wall_s=serve_wall, restored_equals_c_params=same_params, rounds_token_identical=same_tokens,
+         serve_launches=serve_launches, serving_step=serving_step, weight_swaps=engine.weight_swaps,
+         swap_s=swap_s, finished=sum(s == RequestState.FINISHED for s in states), requests=len(states),
+         pre_swap_tokens_are_step12s=pre_ok, post_swap_tokens_are_step13s=post_ok, swap_launches=swap_launches,
+         checkpoint_events=events, decoded_tokens_per_second=summary["decoded_tokens_per_second"])
+    shutil.rmtree(directory)
+    del results["train_ckpt"]
+    if row is None or row.lifecycle_stage != LifecycleStage.COMPLETED:
+        raise AssertionError(f"run_serving ledger row is {row.lifecycle_stage if row else None}")
+    if summary["restored_from"] != newest or newest != 12:
+        raise AssertionError(f"restored_from {summary['restored_from']}, newest verified {newest}, not 12")
+    if not same_params or not same_tokens or not all(same_tokens):
+        raise AssertionError(f"served tokens differ from C's params in memory: params {same_params}, {same_tokens}")
+    if serving_step != newest + 1 or engine.weight_swaps != 1:
+        raise AssertionError(f"hot swap: serving step {serving_step}, weight swaps {engine.weight_swaps}")
+    if states != [RequestState.FINISHED] * 16 or not pre_ok or not post_ok:
+        raise AssertionError(f"swap: states {states}, pre-swap tokens {pre_ok}, post-swap tokens {post_ok}")
+    if (serve_launches["flash_attention"] != model.n_layers * summary["prefill_calls"]
+            or serve_launches["decode_attention"] < model.n_layers * summary["decode_steps"]):
+        raise AssertionError(f"run_serving launches {serve_launches} for {summary['prefill_calls']} prefill calls "
+                             f"and {summary['decode_steps']} decode steps of {model.n_layers} layers")
+    if not all(swap_launches.values()):
+        raise AssertionError(f"the engine launched no kernel of a path: {swap_launches}")
+    results.setdefault("launches", {})["serve_reload"] = {
+        k: serve_launches[k] + swap_launches[k] for k in serve_launches
+    }
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2892,6 +3311,7 @@ def main(argv=None) -> int:
         "profile_int8": lambda r: phase_profile(r, "int8", "int8"),
         "profile_int4": lambda r: phase_profile(r, "int4", ""),
         "quant_rms_times": phase_quant_rms_times, "int4_probe": phase_int4_probe, "int8_probe": phase_int8_probe,
+        "train_ckpt": phase_train_ckpt, "serve_reload": phase_serve_reload, "ckpt_probe": phase_ckpt_probe,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:

@@ -11,7 +11,8 @@
   HBM OOM (its raw wording matches no signature);
 * the hang handler writes FAILED with a classified ``step-hang`` cause;
 * the mnist preset trains (loss falls);
-* knobs of unported slices raise at parse, naming their ROADMAP.md item.
+* knobs of unported slices raise at parse, naming their ROADMAP.md item;
+  the checkpoint and fault-injection knobs parse.
 """
 
 import json
@@ -190,9 +191,6 @@ def test_mnist_preset_trains():
 @pytest.mark.parametrize(
     "key,value,item",
     [
-        ("NEXUS_CHECKPOINT_EVERY", "2", "A2"),
-        ("NEXUS_CHECKPOINT_DIR", "/ckpt", "A2"),
-        ("NEXUS_FAULT_MODE", "nan-grads", "A2"),
         ("NEXUS_MESH", "fsdp=2", "A6"),
         ("NEXUS_SP_ATTN", "ulysses", "A6"),
         ("NEXUS_PP_MICROBATCHES", "4", "A6"),
@@ -202,6 +200,23 @@ def test_mnist_preset_trains():
 def test_unported_knobs_raise_at_parse(key, value, item):
     with pytest.raises(NotImplementedError, match=item):
         WorkloadConfig.from_env({key: value})
+
+
+@pytest.mark.parametrize(
+    "key,value,field,want",
+    [
+        ("NEXUS_CHECKPOINT_EVERY", "2", "checkpoint_every", 2),
+        ("NEXUS_CHECKPOINT_DIR", "/ckpt", "checkpoint_dir", "/ckpt"),
+        ("NEXUS_FAULT_MODE", "nan-grads", None, None),
+    ],
+)
+def test_checkpoint_and_fault_knobs_parse(key, value, field, want):
+    """Tensor checkpoints and training fault injection are ported: their
+    knobs parse (the drills themselves run in test_torch_checkpoint_chaos)."""
+    cfg = WorkloadConfig.from_env({key: value})
+    if field is not None:
+        assert getattr(cfg, field) == want
+    assert harness.FaultPlan.from_env({key: value}).mode == (value if key == "NEXUS_FAULT_MODE" else None)
 
 
 def test_env_contract_defaults_and_device():

@@ -10,7 +10,7 @@
 * ``NEXUS_DEVICE`` defaults to ``cuda`` and raises without a card — the
   workload never carries on on the CPU unasked (lockstep and engine);
 * the knobs of slices still to come raise at parse naming their ROADMAP.md
-  item; ``NEXUS_FAULT_MODE`` fires the reference's process modes in the
+  item; the checkpoint knobs parse; ``NEXUS_FAULT_MODE`` fires the reference's process modes in the
   lockstep loop;
 * no file of the port (nor ``chip_smoke.py``) imports ``jax`` or
   ``tpu_nexus``.
@@ -137,8 +137,6 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 @pytest.mark.parametrize(
     "key,value,item",
     [
-        ("NEXUS_CHECKPOINT_DIR", "/ckpt", "tensor checkpoints"),
-        ("NEXUS_RELOAD_CHECK_S", "2", "A2 tensor checkpoints"),
         ("NEXUS_ROUTER_POLICY", "round-robin", "A1c fleet"),
         ("NEXUS_AUTOSCALE_MAX", "4", "A1c fleet"),
         ("NEXUS_SCALE_COOLDOWN_S", "5", "A1c fleet"),
@@ -148,6 +146,19 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 def test_unported_knobs_raise_at_parse(key, value, item):
     with pytest.raises(NotImplementedError, match=item):
         ServeConfig.from_env({key: value})
+
+
+@pytest.mark.parametrize(
+    "env,field,want",
+    [
+        ({"NEXUS_CHECKPOINT_DIR": "/ckpt"}, "checkpoint_dir", "/ckpt"),
+        ({"NEXUS_RELOAD_CHECK_S": "2", "NEXUS_CHECKPOINT_DIR": "/ckpt"}, "reload_check_interval_s", 2.0),
+    ],
+)
+def test_checkpoint_knobs_parse(env, field, want):
+    """Serving from checkpoints and hot reload are ported: the knobs parse
+    (serving from a directory runs in test_torch_reload)."""
+    assert getattr(ServeConfig.from_env(env), field) == want
 
 
 @pytest.mark.parametrize(

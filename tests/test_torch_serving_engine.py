@@ -355,6 +355,18 @@ def test_unported_engine_knobs_raise_naming_their_roadmap_item(key):
         ServeConfig.from_env({key: value})
 
 
+def test_reload_check_knob_parses_with_the_reference_wording():
+    """NEXUS_RELOAD_CHECK_S is ported: it parses beside a checkpoint
+    directory, and without one both packages refuse it alike."""
+    env = {"NEXUS_RELOAD_CHECK_S": "2.5", "NEXUS_CHECKPOINT_DIR": "/ckpt"}
+    assert ServeConfig.from_env(env).reload_check_interval_s == JaxServeConfig.from_env(env).reload_check_interval_s
+    with pytest.raises(ValueError) as mine:
+        ServeConfig.from_env({"NEXUS_RELOAD_CHECK_S": "2.5"})
+    with pytest.raises(ValueError) as ref:
+        JaxServeConfig.from_env({"NEXUS_RELOAD_CHECK_S": "2.5"})
+    assert str(mine.value) == str(ref.value)
+
+
 @pytest.mark.parametrize(
     "env,match",
     [

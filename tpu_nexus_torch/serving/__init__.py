@@ -23,8 +23,10 @@ Layering (each module imports only downward), as in the JAX package:
                        CUDA kernels on the card) + ServingEngine (host loop)
 
 Every module but ``engine`` and the cache buffers of ``cache_manager`` is
-a copy of the JAX package's host code with its imports changed.  Not
-ported (ROADMAP.md): ``fleet`` and ``router`` (A1c), ``sharded`` (A6).
+a copy of the JAX package's host code with its imports changed.
+``fleet`` holds only the checkpoint watcher of the serve-engine hot
+reload.  Not ported (ROADMAP.md): the rest of ``fleet`` and ``router``
+(A1c), ``sharded`` (A6).
 Comments in the copies that name nxlint rules (NX005, NX014, ...) describe
 the JAX package's static gates: nxlint scans ``tpu_nexus/`` only.
 """

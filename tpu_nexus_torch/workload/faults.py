@@ -1,4 +1,4 @@
-"""Fault-injection hooks: the serving half of ``tpu_nexus/workload/faults.py``.
+"""Fault-injection hooks: the port of ``tpu_nexus/workload/faults.py``.
 
 Process modes, fired by :func:`maybe_inject` at the configured loop step
 (the reference's table):
@@ -75,14 +75,62 @@ fault can target iteration N or the Nth admitted request.
 ``NEXUS_FAULT_TIMES`` repeats the fault (default 1; how ``step-ici``
 exercises retry-then-succeed vs retries-exhausted).
 
-The checkpoint-durability modes (``ckpt-*``, ``preempt-sigterm``), the
-training-data modes (``nan-grads``, ``loss-spike``) and ``step-hang``
-need the tensor checkpointer, the data-stream wrapper and the step
-watchdog's fault wiring, which are not ported (ROADMAP.md A2): a loop
-that does not own such a seam raises at the fault step with the
-reference's wording, as the reference does.  The handoff modes keep the
-reference's executor wrapper; the port's executors raise at the handoff
-seam itself (ROADMAP.md A1c).
+Checkpoint-durability fault modes inject inside the ``TensorCheckpointer``
+commit protocol (:func:`checkpoint_fault_hook` wired as its
+``fault_hook``); for these, ``NEXUS_FAULT_STEP`` names the **checkpoint
+step being committed**, not a loop iteration:
+
+=======================  ======================================================
+mode                     effect / expected recovery
+=======================  ======================================================
+``ckpt-crash-mid-save``  ``os._exit(1)`` between the manifest temp write and
+                         the commit-marker rename — the torn-save window.  The
+                         restart resumes from the last *committed* step and
+                         quarantines the torn directory; the ledger never saw
+                         the torn URI (publish happens only after ``commit()``).
+``ckpt-bitflip``         flips one byte of a committed tensor file AFTER the
+                         marker is published — silent media corruption.  The
+                         next restore detects the checksum mismatch,
+                         quarantines the step and rolls back one step, cause
+                         recorded.
+``preempt-sigterm``      SIGTERM to self during the save window (pre-commit).
+                         The harness's signal handler catches it; the commit
+                         completes, the loop drains, and the emergency-save
+                         path skips the duplicate same-step save and exits
+                         PREEMPTED with the saved step in the ledger details.
+=======================  ======================================================
+
+Training-health fault modes exercise the on-device numerical sentinel and
+the rollback-and-skip recovery (workload/health.py).  The data modes
+inject at the BATCH boundary (:func:`wrap_data_stream` around the training
+stream — where real data poison arrives); ``NEXUS_FAULT_STEP`` names the
+batch **draw index** and ``NEXUS_FAULT_TIMES`` the window width:
+
+==============  ==============================================================
+mode            effect / expected recovery
+==============  ==============================================================
+``nan-grads``   float batch leaves become NaN for the window → the sentinel
+                flags non-finite, the update is skipped on the device, and
+                the harness rolls back to the newest verified pre-window
+                checkpoint, skipping the poisoned draws via the data cursor
+                (run ends COMPLETED; recurrence → classified FAILED).
+``loss-spike``  float batch leaves scaled x1e4 for the window → loss/grad
+                spike vs the EMA baseline; each spiking step's update is
+                skipped on the device (bounded skip budget), a streak past
+                the budget escalates to the same rollback-and-skip path.
+``step-hang``   the training loop wedges at the fault step (sleep-forever —
+                a stand-in for a hung device).  The step-hang watchdog
+                (NEXUS_STEP_TIMEOUT_S) must fire: emergency save, classified
+                ``step-hang`` cause on the ledger, exit code 70 — never a
+                silent wedge (the unwatched variant of this is ``hang``).
+==============  ==============================================================
+
+Both data modes require an adapter with float batch leaves (the mnist
+preset); poisoning an int token batch cannot produce NaN grads, so the
+wrapper raises instead of running a vacuous drill.
+
+The handoff modes keep the reference's executor wrapper; the port's
+executors raise at the handoff seam itself (ROADMAP.md A1c).
 """
 
 from __future__ import annotations
@@ -130,6 +178,9 @@ CHECKPOINT_FAULT_MODES = frozenset(
 #: silent when the stream is wrapped, and raises in loops that would make
 #: the drill vacuous (no wrapped stream)
 DATA_FAULT_MODES = frozenset({"nan-grads", "loss-spike"})
+
+#: loss-spike poison: float batch leaves scaled by this factor
+LOSS_SPIKE_SCALE = 1e4
 
 #: message wordings recognized by the supervisor's classifier
 #: (tpu_nexus_torch.supervisor.taxonomy) — injection uses the same strings so the
@@ -446,6 +497,166 @@ class FaultyExecutor:
             else:
                 self._fire()
         return self.inner.install_blocks(payload, block_ids)
+
+
+def flip_committed_leaf(step_dir: str) -> str:
+    """Flip one byte of a committed payload file — silent media corruption
+    the manifest checksums must catch.  Prefers the tensor files
+    (``tensors/<n>.pt``) over the index and sidecars so the drill corrupts
+    an actual tensor leaf: the middle byte of the first sorted one, which
+    lies in its tensor data.  Public: the reload tests corrupt candidate
+    checkpoints with the same primitive the checkpoint drills use."""
+    from tpu_nexus_torch.workload import durability
+    from tpu_nexus_torch.workload.tensor_checkpoint import TENSOR_DIR
+
+    files = durability.manifest_files(step_dir)
+    leaves = [f for f in files if f.startswith(TENSOR_DIR + "/")] or files
+    if not leaves:
+        raise ValueError(f"ckpt-bitflip: no payload files under {step_dir}")
+    target = os.path.join(step_dir, sorted(leaves)[0])
+    size = os.path.getsize(target)
+    with open(target, "r+b") as fh:
+        fh.seek(size // 2)
+        byte = fh.read(1)
+        fh.seek(size // 2)
+        fh.write(bytes([byte[0] ^ 0xFF]))
+    return target
+
+
+def checkpoint_fault_hook(plan: FaultPlan):
+    """``TensorCheckpointer.fault_hook`` wired from the fault plan; None
+    when no checkpoint-commit mode is configured (hook-free fast path).
+
+    ``NEXUS_FAULT_STEP`` names the checkpoint step being committed;
+    ``NEXUS_FAULT_TIMES`` repeats the fault for consecutive matching
+    commits (bitflip drills corrupting more than one step)."""
+    if plan.mode not in CHECKPOINT_FAULT_MODES:
+        return None
+    fired = {"count": 0}
+
+    def hook(point: str, step: int, step_dir: str) -> None:
+        if step != plan.step or fired["count"] >= plan.times:
+            return
+        if plan.mode == "ckpt-crash-mid-save" and point == "pre-commit":
+            fired["count"] += 1
+            logger.warning(
+                "injecting ckpt-crash-mid-save: dying between manifest temp "
+                "write and commit marker for step %d", step,
+            )
+            os._exit(1)
+        elif plan.mode == "preempt-sigterm" and point == "pre-commit":
+            fired["count"] += 1
+            logger.warning(
+                "injecting preempt-sigterm during the save window of step %d", step
+            )
+            # the harness's handler sets the cancellation flag; THIS commit
+            # still completes, so the emergency-save path must detect the
+            # already-durable same-step save and skip the duplicate
+            os.kill(os.getpid(), signal.SIGTERM)
+        elif plan.mode == "ckpt-bitflip" and point == "post-commit":
+            fired["count"] += 1
+            target = flip_committed_leaf(step_dir)
+            logger.warning(
+                "injecting ckpt-bitflip: corrupted %s after commit of step %d",
+                target, step,
+            )
+
+    # exposed so the harness can tell a completed drill from a VACUOUS one
+    # (NEXUS_FAULT_STEP naming a step that is never a commit boundary fires
+    # nothing — the run must not exit 0 looking like a passed drill)
+    hook.fired = fired
+    return hook
+
+
+def _poison_tree(batch, poison_leaf):
+    """Map ``poison_leaf`` over float ndarray leaves of a plain batch pytree
+    (dict/tuple/list/ndarray — the numpy batches adapters yield).  Returns
+    ``(new_batch, n_poisoned)``."""
+    import numpy as np
+
+    count = 0
+
+    def walk(node):
+        nonlocal count
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            mapped = [walk(v) for v in node]
+            return type(node)(mapped) if isinstance(node, tuple) else mapped
+        arr = np.asarray(node)
+        if np.issubdtype(arr.dtype, np.floating):
+            count += 1
+            return poison_leaf(arr)
+        return node
+
+    return walk(batch), count
+
+
+class PoisonedDataStream:
+    """Training-stream wrapper injecting numeric poison at the batch
+    boundary — exactly where real data corruption arrives, so the on-device
+    sentinel + rollback-and-skip recovery is exercised end to end.
+
+    ``at_draw`` counts batches drawn from the underlying stream (the
+    DataCursor's draw-index space, so a recorded skip window lines up with
+    the poisoned window 1:1); ``times`` consecutive draws are poisoned.
+    ``fired`` is the vacuous-drill observable: a run that completes with
+    ``fired["count"] == 0`` must raise, not exit 0 looking like a passed
+    drill (same contract as :func:`checkpoint_fault_hook`)."""
+
+    def __init__(self, inner, mode: str, at_draw: int, times: int = 1) -> None:
+        if mode not in DATA_FAULT_MODES:
+            raise ValueError(
+                f"unknown data fault mode {mode!r}; use one of {sorted(DATA_FAULT_MODES)}"
+            )
+        self.inner = inner
+        self.mode = mode
+        self.at_draw = at_draw
+        self.times = times
+        self.draws = 0
+        self.fired = {"count": 0}
+
+    def __iter__(self) -> "PoisonedDataStream":
+        return self
+
+    def __next__(self):
+        import numpy as np
+
+        batch = next(self.inner)
+        index = self.draws
+        self.draws += 1
+        if not self.at_draw <= index < self.at_draw + self.times:
+            return batch
+        if self.mode == "nan-grads":
+            poison = lambda arr: np.full_like(arr, np.nan)  # noqa: E731
+        else:  # loss-spike
+            poison = lambda arr: arr * LOSS_SPIKE_SCALE  # noqa: E731
+        batch, poisoned = _poison_tree(batch, poison)
+        if poisoned == 0:
+            raise ValueError(
+                f"fault mode {self.mode!r} found no float leaves in the batch "
+                "(int token batches cannot carry NaN) — use a float-batch "
+                "adapter (mnist preset) for this drill"
+            )
+        self.fired["count"] += 1
+        logger.warning(
+            "injecting %s into batch draw %d (%d float leaves poisoned)",
+            self.mode, index, poisoned,
+        )
+        return batch
+
+
+def wrap_data_stream(plan: FaultPlan, stream):
+    """Wrap the training batch stream per the fault plan; pass-through for
+    non-data modes.  ``NEXUS_FAULT_STEP`` names the batch draw index,
+    ``NEXUS_FAULT_TIMES`` the poisoned-window width."""
+    if plan.mode not in DATA_FAULT_MODES:
+        return stream
+    logger.warning(
+        "training chaos: poisoning data stream with %r (draw=%d times=%d)",
+        plan.mode, plan.step, plan.times,
+    )
+    return PoisonedDataStream(stream, plan.mode, at_draw=plan.step, times=plan.times)
 
 
 def wrap_executor(plan: FaultPlan, executor):

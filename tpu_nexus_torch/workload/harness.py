@@ -1,31 +1,44 @@
 """The workload run loop: the port of ``tpu_nexus/workload/harness.py`` for
-one process on one device.
+one process on one device — train, heartbeat, checkpoint, die honestly.
 
 Cooperation contract with the supervisor, as the reference's:
 
 * on start: transition the ledger row to RUNNING (first-writer-wins);
 * every ``heartbeat_every`` steps: write this process's per-chip step
   counters into ``per_chip_steps`` (ledger merge, not overwrite);
-* on SIGTERM/SIGINT (preemption): stop at the next step boundary and land
-  the row PREEMPTED with the signal in the cause and the goodput in the
-  details (the emergency checkpoint comes with tensor checkpoints,
-  ROADMAP.md A2);
-* on clean exit: COMPLETED with the goodput accounting in the details
-  (only if not already terminal — a cancelled run stays CANCELLED);
+* every ``checkpoint_every`` steps: save the train state with the data
+  cursor, run the durability barrier (``commit()``: manifest + read-back)
+  and only THEN record ``tensor_checkpoint_uri`` — the ledger never points
+  at an uncommitted or unverified step (nxlint NX007);
+* on restore: verify the manifest first; a torn/corrupt latest step rolls
+  back to the newest verifiable one, quarantined + cause recorded to
+  metrics and the ledger, instead of crashing or loading garbage;
+* on a health anomaly: roll back to the newest verified step before the
+  poisoned window, skip the window on the data cursor, and go on;
+* on SIGTERM/SIGINT (preemption): stop at the next step boundary, cut an
+  emergency checkpoint within ``emergency_grace_s`` (skipped when the
+  same step is already durable), publish it, and land the row PREEMPTED
+  with the saved step and the goodput in the details;
+* on clean exit: COMPLETED with the goodput accounting and any rollback
+  evidence in the details (only if not already terminal — a cancelled
+  run stays CANCELLED);
 * on crash: raise, with a failure-trace artifact written and its
   reference both in the ledger (``hlo_trace_ref``) and in the raised text,
   where the supervisor's taxonomy classifies the cause.  A CUDA
   out-of-memory error is re-raised in the taxonomy's HBM-OOM wording.
 
+The train step writes the state in place (``workload/train.py``), unlike
+the reference's pure step.  So the step-hang watchdog's emergency save
+cannot take an immutable snapshot: the loop holds ``state_lock`` while a
+step writes the state (from the step call until the cursor snapshot of
+its end is recorded), and the hang handler saves only if it can take that
+lock — a hang inside the window saves nothing (``emergency_step: null``).
+
 Not ported in this slice, refused at parse naming the ROADMAP.md item
-that brings each: tensor checkpoints (``NEXUS_CHECKPOINT_EVERY``/
-``NEXUS_CHECKPOINT_DIR``, A2), fault injection into training
-(``NEXUS_FAULT_MODE``: its checkpoint and data seams are A2),
-multi-device meshes, sequence-parallel attention and pipeline
-microbatches (``NEXUS_MESH``, ``NEXUS_SP_ATTN``,
+that brings each: multi-device meshes, sequence-parallel attention and
+pipeline microbatches (``NEXUS_MESH``, ``NEXUS_SP_ATTN``,
 ``NEXUS_PP_MICROBATCHES``, A6), and the device profiler
-(``NEXUS_PROFILE_DIR``).  Health rollback needs a checkpoint, so without
-one an anomaly ends the run with the reference's classified failure.
+(``NEXUS_PROFILE_DIR``).
 """
 
 from __future__ import annotations
@@ -46,7 +59,15 @@ from tpu_nexus_torch.core.signals import LifecycleContext, setup_signal_context
 from tpu_nexus_torch.core.telemetry import Metrics, StatsdClient
 from tpu_nexus_torch.models.llama import LlamaConfig
 from tpu_nexus_torch.parallel.distributed import ProcessContext, initialize_distributed
+from tpu_nexus_torch.workload import durability
+from tpu_nexus_torch.workload.faults import (
+    FaultPlan,
+    checkpoint_fault_hook,
+    maybe_inject,
+    wrap_data_stream,
+)
 from tpu_nexus_torch.workload.goodput import (
+    BUCKET_CKPT,
     BUCKET_DATA,
     BUCKET_EMERGENCY,
     BUCKET_EVAL,
@@ -57,7 +78,6 @@ from tpu_nexus_torch.workload.goodput import (
     build_meter,
 )
 from tpu_nexus_torch.workload.health import (
-    CAUSE_NUMERIC_NAN,
     CAUSE_STEP_HANG,
     STEP_HANG_EXIT_CODE,
     Anomaly,
@@ -68,6 +88,7 @@ from tpu_nexus_torch.workload.health import (
     classified_failure_text,
     hang_cause,
 )
+from tpu_nexus_torch.workload.tensor_checkpoint import CheckpointError, TensorCheckpointer
 from tpu_nexus_torch.workload.train import TrainConfig
 
 logger = logging.getLogger(__name__)
@@ -222,8 +243,7 @@ class WorkloadConfig:
     seq_len: int = 128
     steps: int = 20
     heartbeat_every: int = 5
-    #: tensor checkpoints are a later slice (ROADMAP.md A2): 0 / "" only
-    checkpoint_every: int = 0
+    checkpoint_every: int = 0  # 0 = disabled
     checkpoint_dir: str = ""
     seed: int = 0
     #: path to a 1-D integer .npy token corpus (workload/data.py
@@ -234,7 +254,10 @@ class WorkloadConfig:
     #: held-out stream (disjoint seed) and log/report eval_loss; 0 = off
     eval_every: int = 0
     eval_steps: int = 4
-    #: preemption grace budget (seconds), reported in the PREEMPTED details
+    #: preemption grace budget (seconds) for the emergency checkpoint cut on
+    #: SIGTERM/SIGINT, and the join timeout of the step-hang watchdog's
+    #: emergency save.  The save is attempted regardless and its duration
+    #: reported honestly.
     emergency_grace_s: float = 30.0
     #: numerical-health sentinel + step-hang watchdog knobs
     #: (workload/health.py; NEXUS_HEALTH*/NEXUS_STEP_TIMEOUT_S env contract)
@@ -245,12 +268,8 @@ class WorkloadConfig:
     device: str = "cuda"
 
     def __post_init__(self) -> None:
-        if self.checkpoint_every or self.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_every/checkpoint_dir (NEXUS_CHECKPOINT_EVERY, "
-                "NEXUS_CHECKPOINT_DIR): tensor checkpoints are not ported yet "
-                "(ROADMAP.md: A2 tensor checkpoints and hot reload)"
-            )
+        if self.checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be >= 0, got {self.checkpoint_every}")
         for name in ("batch_size", "seq_len", "steps"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
@@ -263,12 +282,6 @@ class WorkloadConfig:
         from tpu_nexus_torch.models.registry import get_adapter
 
         e = os.environ if env is None else env
-        if e.get("NEXUS_FAULT_MODE", ""):
-            raise NotImplementedError(
-                "NEXUS_FAULT_MODE: fault injection into training (the checkpoint "
-                "and data-stream seams of workload/faults.py) is not ported yet "
-                "(ROADMAP.md: A2 tensor checkpoints and hot reload)"
-            )
         mesh = _parse_mesh(e.get("NEXUS_MESH", ""))
         if any(size > 1 for size in mesh.values()):
             raise NotImplementedError(
@@ -374,37 +387,124 @@ def _dump_failure_trace(cfg: WorkloadConfig, ctx: ProcessContext, step: int, exc
         return ""
 
 
+def _restore_train_state(
+    ckpt: TensorCheckpointer, state: Dict[str, Any], step: int
+) -> Dict[str, Any]:
+    """Restore ``step`` into the current state template, migrating
+    PRE-HEALTH checkpoints on the way: a checkpoint written before the
+    state grew its ``health`` subtree (sentinel EMA scalars) fails the
+    template restore with a structure mismatch; on that mismatch, restore
+    the legacy structure and seed fresh sentinel state (the EMA re-warms
+    over ``warmup_steps`` applied steps)."""
+    from tpu_nexus_torch.workload.health import health_init
+
+    try:
+        return ckpt.restore(state, step)
+    except (ValueError, KeyError, TypeError) as exc:
+        if "health" not in state:
+            raise
+        legacy_template = {k: v for k, v in state.items() if k != "health"}
+        try:
+            restored = ckpt.restore(legacy_template, step)
+        except (CheckpointError, OSError, ValueError, KeyError, TypeError):
+            # the probe shares restore's failure surface; whichever fires,
+            # surface the ORIGINAL structure error, not the probe's
+            raise exc from None
+        logger.info(
+            "restored pre-health checkpoint at step %d (sentinel state reseeded)",
+            step,
+        )
+        return {**restored, "health": health_init(state["step"].device)}
+
+
 def _make_hang_handler(
     cfg: WorkloadConfig,
     reporter: LedgerReporter,
     ctx: ProcessContext,
     telemetry: Metrics,
     evidence: Optional[Callable[[], Dict[str, Any]]] = None,
+    ckpt: Optional[TensorCheckpointer] = None,
+    latest_ref: Optional[Dict[str, Any]] = None,
+    state_lock: Optional[threading.Lock] = None,
 ):
     """Build the StepWatchdog's on_hang callback.
 
     Runs on the watchdog thread while the main thread is wedged mid-step;
-    it never returns: write the ledger row FAILED with the classified
-    ``step-hang`` cause, then ``os._exit(STEP_HANG_EXIT_CODE)`` — the
-    wedged main thread cannot unwind, so a raw exit is the only way off the
-    box, nonzero so the JobSet never mistakes the wedge for success.  With
-    no checkpointer in this slice there is no emergency save
-    (``emergency_step`` is None in the details)."""
+    it never returns.  Protocol, as the reference's:
+
+    1. with a checkpointer, attempt the emergency save of the newest
+       COMPLETED state (``latest_ref["snap"]``: the state and the cursor
+       state of the step's end).  The state is updated in place, so the
+       save runs only when ``state_lock`` is free — the main thread holds
+       it while a step writes the state — and keeps it, so a step that
+       wakes up cannot write under the save.  A hang inside the window
+       saves nothing.  The save runs on a helper thread with the emergency
+       grace budget as a join timeout: its device-to-host copies queue
+       behind the wedged step's kernels and may never finish.
+    2. write the ledger row FAILED with the classified ``step-hang`` cause
+       and the save outcome in the details.
+    3. ``os._exit(STEP_HANG_EXIT_CODE)``: the wedged main thread cannot
+       unwind, so a raw exit is the only way off the box; nonzero so the
+       JobSet never mistakes the wedge for success.
+    """
     import os as _os
 
     def _on_hang(step: int, timeout_s: float) -> None:
-        # everything best-effort inside try/finally: a failing ledger write
-        # must never skip the exit and leave the wedged process alive
+        # everything best-effort inside try/finally: a failing save or
+        # ledger write must never skip the exit and leave the wedged
+        # process alive
         try:
-            cause = hang_cause(step, timeout_s)
-            if ctx.is_coordinator:
-                telemetry.count("train.anomaly", tags={"cause": CAUSE_STEP_HANG})
-            logger.error("%s — classified exit", cause)
-            info = {"hang_step": step, "deadline_s": timeout_s, "emergency_step": None}
-            payload = {**(evidence() if evidence is not None else {}), **info}
-            reporter.failed(cause, details=json.dumps(payload))
+            _hang_protocol(step, timeout_s)
         finally:
             _os._exit(STEP_HANG_EXIT_CODE)
+
+    def _hang_protocol(step: int, timeout_s: float) -> None:
+        cause = hang_cause(step, timeout_s)
+        if ctx.is_coordinator:
+            telemetry.count("train.anomaly", tags={"cause": CAUSE_STEP_HANG})
+        logger.error("%s — emergency save + classified exit", cause)
+        info: Dict[str, Any] = {
+            "hang_step": step,
+            "deadline_s": timeout_s,
+            "emergency_step": None,
+        }
+        if ckpt is not None and state_lock.acquire(blocking=False):
+            # the lock stays held: the process exits below
+            state, cursor_state = latest_ref["snap"]
+            saved: Dict[str, Any] = {}
+
+            def _save() -> None:
+                try:
+                    final_step = int(state["step"])
+                    if final_step <= 0:
+                        return
+                    if ckpt.last_committed_step != final_step:
+                        ckpt.save(final_step, state)
+                        # the cursor state of the same step's end, never the
+                        # live cursor: the wedge may sit after a draw
+                        ckpt.save_cursor(final_step, cursor_state)
+                        uri = ckpt.commit(final_step)
+                        reporter.tensor_checkpoint(uri, final_step)
+                    saved["step"] = final_step
+                except Exception:  # noqa: BLE001 - best-effort: a wedged device hangs or fails the save; the exit below still records the hang honestly
+                    logger.exception("emergency save during step-hang failed")
+
+            t0 = time.perf_counter()
+            saver = threading.Thread(target=_save, daemon=True)
+            saver.start()
+            saver.join(timeout=cfg.emergency_grace_s)
+            info["emergency_step"] = saved.get("step")
+            info["emergency_save_s"] = time.perf_counter() - t0
+            telemetry.count(
+                "train.emergency_save",
+                tags={"skipped": "false" if saved.get("step") else "failed"},
+            )
+        elif ckpt is not None:
+            logger.error("step-hang inside the state-write window: no consistent state to save")
+        # re-merge the run's earlier recovery evidence: the details column
+        # is rewritten wholesale
+        payload = {**(evidence() if evidence is not None else {}), **info}
+        reporter.failed(cause, details=json.dumps(payload))
 
     return _on_hang
 
@@ -422,8 +522,11 @@ def run_workload(
     ``store``/``ctx``/``data``/``lifecycle``/``telemetry`` are injectable
     for tests; production wiring reads env (launcher contract).
     ``lifecycle`` carries the preemption protocol: on SIGTERM/SIGINT the
-    loop stops and lands the ledger row PREEMPTED.  By default signal
-    handlers install on the main thread and are restored on exit."""
+    loop stops, cuts an emergency checkpoint inside
+    ``cfg.emergency_grace_s`` (skipping a duplicate of an already-committed
+    step), and lands the ledger row PREEMPTED with the saved step in the
+    details.  By default signal handlers install on the main thread and
+    are restored on exit."""
     restore_handlers = {}
     if lifecycle is None:
         import signal as _signal
@@ -459,6 +562,7 @@ def _workload_loop(
     device = resolve_device(cfg.device)
     ctx = initialize_distributed(ctx)
     reporter = LedgerReporter(store, ctx, local_devices=1)
+    plan = FaultPlan.from_env()
     if telemetry is None:
         # live DogStatsD emission, fire-and-forget — an absent agent drops
         # datagrams, never raises
@@ -475,6 +579,33 @@ def _workload_loop(
 
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     state = init_train_state(generator, adapter, cfg.train, device)
+    ckpt: Optional[TensorCheckpointer] = None
+    start_step = 0
+    resumed_from: Optional[int] = None
+    rollback_events: list = []
+    fault_hook = checkpoint_fault_hook(plan)
+    if cfg.checkpoint_every and cfg.checkpoint_dir:
+        ckpt = TensorCheckpointer(cfg.checkpoint_dir, fault_hook=fault_hook)
+        # durability barrier before anything restores or re-publishes: the
+        # newest VERIFIED step, quarantining torn/corrupt ones on the way
+        latest = ckpt.latest_verified_step(quarantine=True)
+        if latest is not None:
+            state = _restore_train_state(ckpt, state, latest)
+            start_step = latest
+            resumed_from = latest
+            logger.info("restored verified tensor checkpoint at step %d", latest)
+        if ckpt.rollbacks:
+            # corruption-tolerant restore: record WHY we are not at the
+            # newest on-disk step — metrics tag per cause, ledger details,
+            # and the ledger pointer repointed at the step actually restored
+            rollback_events = list(ckpt.rollbacks)
+            for event in rollback_events:
+                telemetry.count("train.ckpt_rollback", tags={"cause": event["cause"]})
+            reporter.checkpoint_rollback(
+                ckpt.uri_for(latest) if latest is not None else "",
+                latest or 0,
+                rollback_events,
+            )
     step_fn = make_train_step(adapter, cfg.train, health=cfg.health)
 
     def make_stream(batch: int, seed: int, part: str = "train"):
@@ -507,7 +638,22 @@ def _workload_loop(
 
     if data is None:
         data = make_stream(cfg.batch_size, seed=cfg.seed)
-    cursor = DataCursor(data)
+    # chaos seam: data fault modes (nan-grads/loss-spike) poison batches at
+    # the draw boundary, UNDER the cursor so draw indices line up with the
+    # cursor's skip-window space
+    poison = wrap_data_stream(plan, data)
+    data_faults_handled = poison is not data
+    # restart-from-step must also restart-from-*data*: the cursor replays
+    # the stream to the draw position the restored step's sidecar recorded
+    # (health-rollback skip windows included); a step without a sidecar
+    # falls back to the step-count fast-forward
+    if start_step:
+        cursor_state = (ckpt.load_cursor(start_step) if ckpt else None) or {
+            "position": start_step
+        }
+        cursor = DataCursor.restore(poison, cursor_state)
+    else:
+        cursor = DataCursor(poison)
 
     eval_fn = None
     eval_data = None
@@ -517,6 +663,9 @@ def _workload_loop(
         # held-out stream: a seed offset no training stream uses
         eval_data = make_stream(cfg.batch_size, seed=cfg.seed + 7919, part="eval")
 
+    def cancel_requested() -> bool:
+        return lifecycle.cancelled
+
     # -- self-healing machinery (workload/health.py) ---------------------------
     health_cfg = cfg.health
     monitor = HealthMonitor(health_cfg, metrics=telemetry) if health_cfg.enabled else None
@@ -524,21 +673,84 @@ def _workload_loop(
     health_events: list = []
 
     def _evidence() -> Dict[str, Any]:
-        return {"health_rollback": list(health_events)} if health_events else {}
+        # ONE details payload carrying every recovery story this run owns —
+        # each write rewrites the column wholesale, so later writers (the
+        # rollback repoint, the hang handler, preempted(), completed())
+        # re-merge the earlier evidence
+        details: Dict[str, Any] = {}
+        if health_events:
+            details["health_rollback"] = list(health_events)
+        if rollback_events:
+            details["ckpt_rollback"] = _rollback_record(rollback_events)
+        return details
 
-    def _health_recover(anomaly: Anomaly) -> None:
-        """Rollback-and-skip needs the newest verified checkpoint from before
-        the poisoned window; this slice has no checkpointer, so the policy's
-        verdict is the reference's terminal, classified failure."""
-        verdict, why = policy.decide(anomaly, None)
+    def _health_details() -> str:
+        return json.dumps(_evidence())
+
+    def _health_recover(anomaly: Anomaly, current_state: Dict[str, Any]):
+        """Rollback-and-skip: restore the newest VERIFIED checkpoint from
+        before the poisoned window, skip the window on the data cursor, and
+        resume — or raise a classified terminal failure when recovery
+        cannot help (no pre-window checkpoint, recurrence, budget)."""
+        limit = anomaly.step + 1  # checkpoints <= the flagged step predate the window
+        target = ckpt.latest_verified_step(quarantine=True, before=limit) if ckpt is not None else None
+        # the before-scan may have quarantined steps that rotted SINCE the
+        # startup scan — fold the fresh events into the run's evidence
+        if ckpt is not None and len(ckpt.rollbacks) > len(rollback_events):
+            fresh = ckpt.rollbacks[len(rollback_events):]
+            rollback_events.extend(fresh)
+            for event in fresh:
+                telemetry.count("train.ckpt_rollback", tags={"cause": event["cause"]})
+        verdict, why = policy.decide(anomaly, target)
         telemetry.count("train.anomaly", tags={"cause": anomaly.kind})
-        raise RuntimeError(classified_failure_text(anomaly, why))
+        if verdict == "fail":
+            raise RuntimeError(classified_failure_text(anomaly, why))
+        # newer steps are healthy bytes on the ABANDONED trajectory: the
+        # retrained run re-commits the same step numbers with different
+        # weights, so set them aside (never quarantine-as-corrupt — a
+        # postmortem must tell divergence recovery from bit rot)
+        abandoned = [
+            durability.abandon_step(cfg.checkpoint_dir, s)
+            for s in durability.list_steps(cfg.checkpoint_dir)
+            if s > target
+        ]
+        restored = _restore_train_state(ckpt, current_state, target)
+        sidecar = ckpt.load_cursor(target) or {"position": target}
+        window = [int(sidecar.get("position", target)), int(cursor.position)]
+        cursor.skip_window(window[0], window[1])
+        record = {
+            "cause": anomaly.kind,
+            "flagged_step": anomaly.step,
+            "restored_step": target,
+            "skipped_window": window,
+            "detail": str(anomaly.detail)[:200],
+        }
+        policy.record(record)
+        health_events.append(record)
+        if monitor is not None:
+            monitor.reset()  # pending flags belong to the abandoned trajectory
+        logger.warning(
+            "health rollback (%s): flagged step %d, restored verified step %d, "
+            "skipped data window [%d, %d), abandoned %d newer checkpoint(s)",
+            anomaly.kind, anomaly.step, target, window[0], window[1], len(abandoned),
+        )
+        telemetry.count("train.rollback", tags={"cause": anomaly.kind})
+        reporter.health_rollback(ckpt.uri_for(target), target, _health_details())
+        return restored, target
 
+    # the hang handler's snapshot: the state and the cursor state of the
+    # same step's end, assigned as ONE tuple.  The state is the live,
+    # in-place one; state_lock marks the window in which a step writes it
+    latest_ref: Dict[str, Any] = {"snap": (state, cursor.state())}
+    state_lock = threading.Lock()
     watchdog: Optional[StepWatchdog] = None
     if health_cfg.enabled and health_cfg.step_timeout_s > 0:
         watchdog = StepWatchdog(
             health_cfg.step_timeout_s,
-            _make_hang_handler(cfg, reporter, ctx, telemetry, evidence=_evidence),
+            _make_hang_handler(
+                cfg, reporter, ctx, telemetry, evidence=_evidence,
+                ckpt=ckpt, latest_ref=latest_ref, state_lock=state_lock,
+            ),
         )
         watchdog.start()
 
@@ -546,10 +758,11 @@ def _workload_loop(
     metrics: Dict[str, Any] = {}
     m: Dict[str, Any] = {}
     t0 = time.perf_counter()
-    # everything up to here — state init, step construction — is startup
+    # everything up to here — state init, verified restore, step
+    # construction — is startup
     meter.lap(BUCKET_INIT)
     tokens_done = 0
-    step = 0
+    step = start_step
     pending_anomaly: Optional[Anomaly] = None
     warmup_pending = True  # the first step builds the kernels and warms the allocator
     try:
@@ -558,22 +771,39 @@ def _workload_loop(
                 # the sentinel reads flags one step delayed — the FINAL
                 # step's verdict is still pending when the loop drains
                 pending_anomaly = monitor.drain()
-            if lifecycle.cancelled:
-                break  # preemption: stop consuming batches now
+            if cancel_requested():
+                break  # preemption: the grace window belongs to the emergency save
             if pending_anomaly is not None:
                 anomaly, pending_anomaly = pending_anomaly, None
+                with state_lock:
+                    state, step = _health_recover(anomaly, state)
+                    latest_ref["snap"] = (state, cursor.state())
                 meter.lap(BUCKET_RECOVERY)
-                _health_recover(anomaly)
+                continue
             if step >= cfg.steps:
                 break
+            # the first iteration (kernel build, allocator warm-up) runs
+            # unarmed; the armed window covers the fault seam, the batch
+            # draw, the step and the sentinel's delayed readback
             armed = watchdog is not None and not warmup_pending
             if armed:
                 watchdog.arm(step)
+            maybe_inject(
+                plan,
+                step,
+                checkpoint_faults_handled=ckpt is not None,
+                data_faults_handled=data_faults_handled,
+                hang_watchdog_armed=armed,
+            )
             meter.lap(BUCKET_OTHER)
             raw = next(cursor)
             batch = adapter.to_device(raw, device)
             meter.lap(BUCKET_DATA)
-            state, step_metrics = step_fn(state, batch)
+            with state_lock:
+                state, step_metrics = step_fn(state, batch)
+                # the step's end: its kernels are queued, so a copy queued
+                # after this point reads the state this cursor state matches
+                latest_ref["snap"] = (state, cursor.state())
             m = _HostCopy(step_metrics, device)
             items = adapter.items_in(raw)
             tokens_done += items
@@ -605,6 +835,16 @@ def _workload_loop(
                 eval_loss = float(sum(losses)) / max(len(losses), 1)
                 meter.lap(BUCKET_EVAL)
                 logger.info("step %d eval_loss %.4f", step + 1, eval_loss)
+            if ckpt and (step + 1) % cfg.checkpoint_every == 0:
+                # publish-after-durability: save() writes the step, the
+                # cursor sidecar stages before commit() so the manifest
+                # covers it, and only commit()'s URI reaches the ledger
+                # (nxlint NX007)
+                ckpt.save(step + 1, state)
+                ckpt.save_cursor(step + 1, cursor.state())
+                uri = ckpt.commit(step + 1)
+                reporter.tensor_checkpoint(uri, step + 1)
+                meter.lap(BUCKET_CKPT)
             step += 1
     except Exception as exc:  # noqa: BLE001 - annotate, record, re-raise
         # failure-time trace artifact, its ref in the ledger (hlo_trace_ref)
@@ -625,11 +865,41 @@ def _workload_loop(
     elapsed = time.perf_counter() - t0
     # draining the queued step chain is train time surfacing late
     meter.lap(BUCKET_STEP)
-    preempted = lifecycle.cancelled
+    preempted = cancel_requested()
     emergency: Dict[str, Any] = {}
     if preempted:
-        emergency = _emergency_save(cfg, lifecycle)
+        emergency = _emergency_save(cfg, ckpt, state, reporter, lifecycle, telemetry, cursor=cursor)
         meter.lap(BUCKET_EMERGENCY)
+    if ckpt:
+        ckpt.close()
+    if fault_hook is not None and not preempted and fault_hook.fired["count"] == 0:
+        # vacuous-drill guard, commit-protocol flavor: a checkpoint fault
+        # was configured but its step never matched a commit boundary, so
+        # nothing was injected — exiting 0 would read as a passed drill
+        # (`not preempted` spares a run a REAL preemption stopped early)
+        raise RuntimeError(
+            f"chaos drill injected nothing: fault mode {plan.mode!r} targets "
+            f"checkpoint step {plan.step}, but that step never committed "
+            f"(checkpoint_every={cfg.checkpoint_every}, steps={cfg.steps})"
+        )
+    if data_faults_handled and not preempted and poison.fired["count"] == 0:
+        # same guard, data-poison flavor: the fault draw index was never
+        # reached (or a rollback skip-window swallowed it before it fired)
+        raise RuntimeError(
+            f"chaos drill injected nothing: fault mode {plan.mode!r} targets "
+            f"batch draw {plan.step}, but only {cursor.position} draws happened "
+            f"(steps={cfg.steps})"
+        )
+    if plan.mode == "step-hang" and not preempted:
+        # reachable only if the fault step was never hit: a fired step-hang
+        # exits the process through the watchdog (exit code 70)
+        raise RuntimeError(
+            f"chaos drill injected nothing: fault mode 'step-hang' targets "
+            f"step {plan.step}, but the run completed {cfg.steps} steps "
+            "without wedging"
+        )
+    # close the goodput books: residual host time lands in host_other, so
+    # the buckets sum to elapsed exactly
     meter.stop()
     if meter.enabled:
         logger.info("%s", meter.table())
@@ -639,29 +909,89 @@ def _workload_loop(
     if ctx.is_coordinator:
         goodput = {"goodput": meter.summary()} if meter.enabled else {}
         if preempted:
+            # PREEMPTED is non-terminal: the supervisor's restart path
+            # resumes from the emergency step in the details; the details
+            # keep every recovery story of the run beside it
             reporter.preempted(
                 cause=f"signal:{lifecycle.reason or 'cancelled'}",
                 details=json.dumps({**emergency, **_evidence(), **goodput}),
             )
         else:
+            # COMPLETED details carry the goodput accounting AND the
+            # run's rollback evidence (health_rollback / ckpt_rollback)
             details = {**_evidence(), **goodput}
             reporter.completed(details=json.dumps(details, sort_keys=True) if details else "")
     return {
         "final_step": final_step,
-        "resumed_from": None,
+        "resumed_from": resumed_from,
         "elapsed_s": elapsed,
         "tokens_per_second": tokens_done / elapsed if elapsed > 0 else 0.0,
         "device": str(device),
         **({"goodput": meter.summary()} if meter.enabled else {}),
         **({"eval_loss": eval_loss} if eval_loss is not None else {}),
         **({"preempted": True, **emergency} if preempted else {}),
+        **({"ckpt_rollbacks": rollback_events} if rollback_events else {}),
+        **({"health_rollbacks": health_events} if health_events else {}),
         **({"health_skips": monitor.skips_observed} if monitor and monitor.skips_observed else {}),
         **metrics,
     }
 
 
-def _emergency_save(cfg: WorkloadConfig, lifecycle: LifecycleContext) -> Dict[str, Any]:
-    """Preemption → the grace info of the reference's emergency save.
-    Without a checkpointer (tensor checkpoints are ROADMAP.md A2) nothing is
-    saved, exactly as the reference returns when it has none."""
-    return {"reason": lifecycle.reason or "cancelled", "grace_s": cfg.emergency_grace_s}
+def _emergency_save(
+    cfg: WorkloadConfig,
+    ckpt: Optional[TensorCheckpointer],
+    state: Dict[str, Any],
+    reporter: LedgerReporter,
+    lifecycle: LifecycleContext,
+    telemetry: Metrics,
+    cursor: Optional[Any] = None,
+) -> Dict[str, Any]:
+    """Preemption → saved step: cut a final checkpoint inside the grace
+    window, skipping when the interrupted loop already committed this exact
+    step (a SIGTERM landing mid-save-window must not double-save), and
+    publish it only after the durability barrier.  Best-effort by design: a
+    failing emergency save still reports PREEMPTED honestly — the restart
+    then resumes from the last periodic commit."""
+    info: Dict[str, Any] = {
+        "reason": lifecycle.reason or "cancelled",
+        "grace_s": cfg.emergency_grace_s,
+    }
+    if ckpt is None:
+        return info
+    step = int(state["step"])
+    if step <= 0:
+        return info  # nothing trained yet — nothing worth saving
+    if ckpt.last_saved_step == step:
+        # the loop already wrote this exact step; a barrier that somehow
+        # did not finish completes here without a fresh save
+        if ckpt.last_committed_step != step:
+            uri = ckpt.commit(step)
+            reporter.tensor_checkpoint(uri, step)
+        logger.info("emergency save: step %d already committed; skipping", step)
+        telemetry.count("train.emergency_save", tags={"skipped": "true"})
+        info.update(emergency_step=step, emergency_skipped=True, emergency_save_s=0.0)
+        return info
+    t0 = time.perf_counter()
+    try:
+        ckpt.save(step, state)
+        if cursor is not None:
+            # restart-from-*data*: the emergency step's sidecar carries the
+            # cursor (incl. any health-rollback skip windows)
+            ckpt.save_cursor(step, cursor.state())
+        uri = ckpt.commit(step)  # durability barrier before publish (NX007)
+    except Exception:  # noqa: BLE001 - best-effort: a failing emergency save must not mask the preemption report; the run restarts from the last committed step
+        logger.exception("emergency save at step %d failed", step)
+        telemetry.count("train.emergency_save_failed")
+        info.update(emergency_step=None, emergency_skipped=False)
+        return info
+    save_s = time.perf_counter() - t0
+    reporter.tensor_checkpoint(uri, step)
+    info.update(emergency_step=step, emergency_skipped=False, emergency_save_s=save_s)
+    if save_s > cfg.emergency_grace_s:
+        logger.warning(
+            "emergency save took %.2fs, over the %.2fs grace budget — the "
+            "runtime may have killed the process mid-save",
+            save_s, cfg.emergency_grace_s,
+        )
+    telemetry.count("train.emergency_save", tags={"skipped": "false"})
+    return info

@@ -30,8 +30,14 @@ Engine knobs (``NEXUS_PAGE_SIZE``, ``NEXUS_KV_BLOCKS``, ``NEXUS_SPEC_K``,
 fault modes (``NEXUS_FAULT_MODE``, workload/faults.py) parse and validate
 with the reference's wording.  Knobs of the reference that the port does
 not have yet raise at parse, naming the ROADMAP.md item that brings them:
-``NEXUS_CHECKPOINT_DIR`` and ``NEXUS_RELOAD_CHECK_S`` (A2),
 ``NEXUS_SERVE_MESH`` (A6), the fleet router and autoscaler (A1c).
+
+Checkpoints: ``NEXUS_CHECKPOINT_DIR`` serves the params of the training
+run's newest VERIFIED step (read-only: a torn or corrupt step is skipped,
+never quarantined; steps that exist but none verify refuse to serve fresh
+weights).  ``NEXUS_RELOAD_CHECK_S`` (serve-engine) polls that directory
+and hot-swaps each newer verified step into the running engine through
+the quiesce seam — in-flight requests finish on the old weights.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from tpu_nexus_torch.serving.speculative import DRAFTERS
 from tpu_nexus_torch.workload.faults import FaultPlan, maybe_inject
 from tpu_nexus_torch.workload.harness import LedgerReporter, resolve_device
 from tpu_nexus_torch.workload.harness import sync as _sync
+from tpu_nexus_torch.workload.tensor_checkpoint import CheckpointError, TensorCheckpointer
 
 logger = logging.getLogger(__name__)
 
@@ -68,7 +75,6 @@ logger = logging.getLogger(__name__)
 #: a non-default value is refused at parse
 ENGINE_ONLY_ENV = {
     "NEXUS_SERVE_MESH": (str, "", "A6 sharded executors"),
-    "NEXUS_RELOAD_CHECK_S": (float, 0.0, "A2 tensor checkpoints and hot reload"),
     "NEXUS_ROUTER_POLICY": (str, "pressure", "A1c fleet, router and remote handoff"),
     "NEXUS_AUTOSCALE_MIN": (int, 0, "A1c fleet, router and remote handoff"),
     "NEXUS_AUTOSCALE_MAX": (int, 0, "A1c fleet, router and remote handoff"),
@@ -157,14 +163,13 @@ class ServeConfig:
     #: burn windows in heartbeat observations (NEXUS_SLO_SHORT_N / _LONG_N)
     slo_short_window: int = 4
     slo_long_window: int = 12
+    #: engine mode only — train-to-serve continuous deployment: every N
+    #: seconds, check ``checkpoint_dir`` for a newer VERIFIED step and
+    #: hot-swap it in (quiesce → swap_params → resume).  0 = off
+    #: (NEXUS_RELOAD_CHECK_S; requires NEXUS_CHECKPOINT_DIR)
+    reload_check_interval_s: float = 0.0
 
     def __post_init__(self) -> None:
-        if self.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_dir (NEXUS_CHECKPOINT_DIR): restoring tensor "
-                "checkpoints is not ported yet (ROADMAP.md: tensor checkpoints "
-                "and hot reload)"
-            )
         if self.quantize not in ("", "int8", "int4"):
             raise ValueError(f"unknown quantize mode {self.quantize!r}; use 'int8' or 'int4'")
         if self.quantize and isinstance(getattr(self.model, "config", self.model), MoeConfig):
@@ -241,6 +246,7 @@ class ServeConfig:
             "page_size",
             "kv_blocks",
             "spec_k",
+            "reload_check_interval_s",
         ):
             if getattr(self, field_name) < 0:
                 raise ValueError(
@@ -291,6 +297,12 @@ class ServeConfig:
                     "spec_draft_preset (NEXUS_SPEC_DRAFT_PRESET) only "
                     "applies to spec_drafter='model'"
                 )
+        if self.reload_check_interval_s and not self.checkpoint_dir:
+            raise ValueError(
+                "reload_check_interval_s (NEXUS_RELOAD_CHECK_S) requires "
+                "checkpoint_dir (NEXUS_CHECKPOINT_DIR) — there is no "
+                "directory to watch for new verified steps"
+            )
         if self.kv_blocks and not self.page_size:
             raise ValueError(
                 "kv_blocks (NEXUS_KV_BLOCKS) requires page_size "
@@ -369,26 +381,131 @@ class ServeConfig:
             slo_shed_rate=float(e.get("NEXUS_SLO_SHED_RATE", "0")),
             slo_short_window=int(e.get("NEXUS_SLO_SHORT_N", "4")),
             slo_long_window=int(e.get("NEXUS_SLO_LONG_N", "12")),
+            reload_check_interval_s=float(e.get("NEXUS_RELOAD_CHECK_S", "0")),
         )
 
 
 def _load_serving_params(cfg: ServeConfig, ctx: ProcessContext, device: torch.device):
-    """Resolve the LM adapter (llama or moe), init its params on ``device`` from
-    ``cfg.seed`` and, under ``cfg.quantize``, quantize the matmul weights.
-    Returns ``(adapter, model_cfg, params, restored_from)``;
-    ``restored_from`` is None (checkpoint restore is a later slice)."""
+    """Shared serving preamble for both loops: resolve the LM adapter (llama
+    or moe), restore the params of the newest verified step of
+    ``cfg.checkpoint_dir`` onto ``device`` (params only, template-free) or
+    else init them from ``cfg.seed``, and, under ``cfg.quantize``, quantize
+    the matmul weights.  Returns ``(adapter, model_cfg, params,
+    restored_from)``."""
     adapter = adapter_for(cfg.model)
     if not isinstance(adapter, (LlamaAdapter, MoeAdapter)):
         raise ValueError(f"serving requires an LM adapter (llama/moe), got {adapter.name!r}")
     logger.info("serving %s/%s: model %s on %s", ctx.algorithm, ctx.run_id, adapter.name, device)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    params = adapter.init(generator, device)
+    params = None
+    restored_from: Optional[int] = None
+    if cfg.checkpoint_dir:
+        ckpt = TensorCheckpointer(cfg.checkpoint_dir)
+        # verified restore, read-only flavor: a torn/corrupt latest step is
+        # skipped (rolled back) but NOT quarantined — the training run owns
+        # mutation of its checkpoint directory, serving only reads it
+        latest = ckpt.latest_verified_step(quarantine=False)
+        for event in ckpt.rollbacks:
+            logger.warning(
+                "serving restore rolled past unverifiable checkpoint step "
+                "%(step)s (%(cause)s): %(detail)s", event,
+            )
+        if latest is not None:
+            # params-only, template-free: serve must not assume the training
+            # run's TrainConfig (its opt-state structure is irrelevant here)
+            params = ckpt.restore_params(latest, device=device)
+            restored_from = latest
+            logger.info("restored verified tensor checkpoint at step %d", latest)
+        elif ckpt.rollbacks:
+            # steps exist but NONE verify: falling back to fresh weights
+            # would start a healthy-looking engine that serves garbage
+            causes = ", ".join(f"step {e['step']}: {e['cause']}" for e in ckpt.rollbacks)
+            raise CheckpointError(
+                f"{cfg.checkpoint_dir} has checkpoint steps but none verify "
+                f"({causes}); refusing to serve freshly-initialized weights. "
+                "Pre-durability checkpoints need `python -m "
+                "tpu_nexus_torch.workload.durability adopt` first (docs/RUNBOOK.md §11)."
+            )
+    if params is None:
+        generator = torch.Generator(device=device).manual_seed(cfg.seed)
+        params = adapter.init(generator, device)
     if cfg.quantize:
         params = quantize_params(params, mode=cfg.quantize, group=cfg.quant_group)
         logger.info(
             "serving with %s weight-only quantization: %d weight bytes", cfg.quantize, quantized_bytes(params)
         )
-    return adapter, adapter.config, params, None
+    return adapter, adapter.config, params, restored_from
+
+
+def _reload_if_newer(
+    engine: Any,
+    latest: Optional[int],
+    checkpoint_dir: str,
+    current_step: Optional[int],
+    quantize: str,
+    grace_s: float,
+) -> Optional[int]:
+    """One reload decision (``reload_check_interval_s`` cadence):
+    ``latest`` is the watcher's newest VERIFIED step — when it is newer
+    than ``current_step``, hot-swap it into the running engine — quiesce
+    (in-flight requests finish on the OLD weights, grace-bounded),
+    ``swap_params``, resume.  Returns the step now serving.
+
+    ``quantize`` is the serving config's weight-only quantization mode
+    (``""`` for none).  The restored tree is handed over plain and the
+    engine's ``swap_params`` applies its executor's quantization, so a
+    ``quantize`` that differs from the executor's is refused: the candidate
+    would not be served the way the caller configured.  The params land on
+    the executor's device.
+
+    Trust anchors, in order: the watcher's ``latest_verified_step`` only
+    sees steps with a commit marker (a torn save does not exist here), and
+    ``restore_params`` deep-verifies manifest + checksums at load time — a
+    candidate that rotted between poll and load is skipped with the engine
+    untouched (still serving the old verified weights), never half-loaded.
+    A candidate that verifies but does not FIT (model config changed) is
+    likewise skipped with the engine resumed on its old weights; the caller
+    remembers the bad step so a failed candidate costs one attempt, not one
+    per poll."""
+    if latest is None or (current_step is not None and latest <= current_step):
+        return current_step
+    serving_quantize = getattr(engine.executor, "quantize", quantize)
+    if serving_quantize != quantize:
+        logger.error(
+            "reload check: candidate step %d asked for quantize=%r but the engine "
+            "serves quantize=%r; keeping current weights (step %s)",
+            latest, quantize, serving_quantize, current_step,
+        )
+        return current_step
+    ckpt = TensorCheckpointer(checkpoint_dir)
+    try:
+        try:
+            new_params = ckpt.restore_params(latest, device=engine.executor.device)
+        except (CheckpointError, ValueError) as exc:  # noqa: BLE001 - classified Checkpoint* verdict (failed load-time verification): keep serving the OLD verified weights — the honest alternative to serving torn tensors
+            logger.warning(
+                "reload check: candidate step %d failed verification/"
+                "transform (%s); keeping current weights (step %s)",
+                latest, exc, current_step,
+            )
+            return current_step
+        summary = engine.quiesce(grace_s)
+        try:
+            engine.swap_params(new_params)
+        except ValueError as exc:  # noqa: BLE001 - tree spec mismatch (training changed the model config — a config fact): resume on the OLD weights instead of crashing the serving loop with admission paused
+            engine.resume_admission()
+            logger.error(
+                "reload check: candidate step %d verified but its params do "
+                "not fit this engine (%s); keeping current weights (step %s)",
+                latest, exc, current_step,
+            )
+            return current_step
+        engine.resume_admission()
+        logger.info(
+            "hot-reloaded verified checkpoint step %s -> %d (%s)",
+            current_step, latest, summary,
+        )
+        return latest
+    finally:
+        ckpt.close()
 
 
 @torch.inference_mode()
@@ -649,9 +766,41 @@ def _serve_engine_loop(
     # it): NEXUS_FAULT_STEP keys off the same zero-based count
     it = 0
 
+    # train-to-serve continuous deployment: watch checkpoint_dir for newly
+    # COMMITTED steps and hot-reload them through the quiesce seam.  The
+    # watcher is an interval gate over a fingerprint-cached verified-step
+    # poll (a steady-state check is a listdir + stats, not a re-hash)
+    reload_watcher = None
+    serving_step = restored_from
+    if cfg.reload_check_interval_s:
+        from tpu_nexus_torch.serving.fleet import CheckpointWatcher
+
+        reload_watcher = CheckpointWatcher(cfg.checkpoint_dir, interval_s=cfg.reload_check_interval_s)
+
+    # (step, poller scan count) of a candidate that failed its load/fit:
+    # shunned while the directory is unchanged, re-earned ONE attempt by
+    # any commit/quarantine (scan count bump) — a step RE-committed after
+    # a quarantine-and-retrain cycle must not be refused forever
+    bad_reload: Optional[tuple] = None
+
     def pump() -> None:
-        nonlocal it
+        nonlocal it, serving_step, bad_reload
         maybe_inject(plan, it, executor_faults_handled=True)
+        if reload_watcher is not None:
+            latest = reload_watcher.check()
+            scans = reload_watcher.poller.scans
+            if bad_reload is not None and (latest, scans) == bad_reload:
+                latest = None  # known-bad candidate, directory unchanged
+            reloaded = _reload_if_newer(
+                engine, latest, cfg.checkpoint_dir, serving_step, cfg.quantize, cfg.drain_grace_s,
+            )
+            if reloaded != serving_step:
+                serving_step = reloaded
+            elif latest is not None and (serving_step is None or latest > serving_step):
+                # a newer candidate was offered but NOT adopted: it failed
+                # verification or did not fit — remember it so the reload
+                # check does not pay a failed load (or a quiesce) per poll
+                bad_reload = (latest, scans)
         engine.step()
         it += 1
         if cfg.heartbeat_every and it % cfg.heartbeat_every == 0:
@@ -716,7 +865,7 @@ def _serve_engine_loop(
         "finished": len(finished),
         "spec_k": cfg.spec_k,
         "restored_from": restored_from,
-        "serving_step": restored_from,
+        "serving_step": serving_step,
         "weight_reloads": engine.weight_swaps,
         "engine_steps": it,
         "elapsed_s": elapsed,
