@@ -139,6 +139,27 @@ raises and exits non-zero:
    tokens equal to theirs); then an engine over step 12 hot-swaps a newly
    committed step 13 through ``_reload_if_newer``: one swap, 16 requests
    FINISHED, pre- and post-swap tokens each the own of their params.
+20. fleet        — three fused paged replicas of nexus_1b at full width and
+   depth (bf16, page 32, 32 slots) behind the ``pressure`` router, then
+   ``round-robin``: the reference's 48-request fan-out (a shared 96-token
+   prefix, unique 32-token tails, 32 new tokens) all FINISHED with the
+   tokens of an engine given the same requests in the same order as its
+   replica, 47 fleet-wide prefix hits on one replica under ``pressure``;
+   then ``kill_replica`` mid-burst accounts every live request with its
+   cause.
+21. disagg       — llama3_8b at full width and depth (bf16 params), one
+   prefill and two decode replicas on one params tree, bf16 KV and int8
+   KV: 24 requests of the reference's long-prompt / long-generation mix,
+   each prefilled, handed through the host and installed: tokens equal a
+   fused engine's, 24 handoffs, 0 fallbacks (uninstrumented: tokens/s
+   and launches); payload bytes and extract / seal / validate / install
+   ms per handoff from a separate timed run; then ``handoff-drop`` and
+   ``kill-mid-handoff`` drills (the retry, the hop, no silent drop).
+22. fleet_rollout — nexus_1b (bf16), three paged replicas rolled from step
+   1 to step 2 through ``CheckpointWatcher`` + ``start_rollout`` while 24
+   requests are in flight: converged, every request FINISHED on one step's
+   own tokens, post-swap tokens step 2's own; a step 3 flipped between
+   poll and load aborts with ``rollout_error``, the fleet stays at 2.
 
 Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
@@ -183,7 +204,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe",
-          "train_ckpt", "serve_reload")
+          "train_ckpt", "serve_reload", "fleet", "disagg", "fleet_rollout")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
           "quant_rms_times", "int4_probe", "int8_probe", "ckpt_probe")
@@ -3259,6 +3280,521 @@ def phase_serve_reload(results):
     torch.cuda.empty_cache()
 
 
+def _zero_serving_counts() -> None:
+    """Set the counts of the serving paths' kernels (#1, #4 by mode, #9) to
+    0 just before a main-path run."""
+    from tpu_nexus_torch.ops.decode_attention import reset_launches
+    from tpu_nexus_torch.ops.flash_attention import flash_attention
+
+    flash_attention.launches = 0
+    reset_launches()
+    zero_rms_norm_launches()
+
+
+def _serving_counts(results, path: str) -> dict:
+    """The serving kernels' counts just after one run, recorded under
+    ``path`` (one key a run: a main run and a fault drill never share one):
+    #1, #4 whole, #4 on the paged layout (``decode_attention_paged``) and
+    in its int8-KV mode (``decode_attention_int8kv``), and #9's."""
+    from tpu_nexus_torch.ops.decode_attention import decode_attention
+    from tpu_nexus_torch.ops.flash_attention import flash_attention
+
+    torch_sync()
+    read_rms_norm_launches(results, path)
+    modes = decode_attention.launches_by_mode
+    counts = {"flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches,
+              "decode_attention_paged": sum(n for m, n in modes.items() if m.startswith("paged")),
+              "decode_attention_int8kv": sum(n for m, n in modes.items() if "int8" in m)}
+    results.setdefault("launches", {})[path] = counts
+    return counts
+
+
+def torch_sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def _finished_tokens(reqs) -> int:
+    from tpu_nexus_torch.serving import RequestState
+
+    return sum(len(r.output_tokens) for r in reqs if r.state == RequestState.FINISHED)
+
+
+def phase_fleet(results):
+    """Three fused paged replicas of nexus_1b at full width and depth
+    (bf16), page 32, 32 slots each (the reference bench's 4 x 8 lanes),
+    unbounded queues, behind the ``pressure`` router and then
+    ``round-robin``.  The traffic is the reference's fan-out
+    (``bench_serving.py::make_prefix_requests``): 48 requests, one shared
+    96-token prefix plus a unique 32-token tail each, 32 new tokens.  Every
+    request FINISHED under both policies with the tokens of an engine of
+    the same geometry given the same requests in the same order as its
+    replica (under ``pressure`` one engine serving the whole fan-out
+    alone); under ``pressure`` the fan-out lands on one replica with 47
+    fleet-wide prefix hits (fanout - 1), under rotation more than one
+    replica pays the shared prefill.  Then a kill mid-burst: 24 requests
+    of distinct prompts, two ticks, ``kill_replica`` on the replica
+    holding the most live requests, 6 more requests; every request
+    terminal, each casualty with the kill's cause, none silently
+    dropped."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.models.llama import LlamaConfig, llama_init
+    from tpu_nexus_torch.serving import CAUSE_REPLICA_LOST, PagedModelExecutor, RequestState, ServingEngine, ServingFleet
+
+    torch.cuda.empty_cache()
+    model = LlamaConfig.nexus_1b()
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0), model, device="cuda")
+    fanout, shared_len, tail_len, new, page, slots = 48, 96, 32, 32, 32, 32
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, model.vocab_size, size=shared_len).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, model.vocab_size, size=tail_len).astype(np.int32)])
+               for _ in range(fanout)]
+    max_len = shared_len + tail_len + new
+
+    def engine():
+        return ServingEngine(PagedModelExecutor(params, model, num_slots=slots, max_len=max_len, page_size=page))
+
+    # warm-up: one full prefill and one extend per engine shape, outside the counts
+    warm = engine()
+    for i, p in enumerate((prompts[0], np.concatenate([prompts[0][:-1], [1]]).astype(np.int32))):
+        warm.submit(p, 2, request_id=f"warm-{i}")
+    warm.run_until_drained()
+    del warm
+    rows = {}
+    for policy in ("pressure", "round-robin"):
+        torch.cuda.empty_cache()
+        fleet = ServingFleet(policy=policy)
+        for i in range(3):
+            fleet.add_replica(f"page-{i}", engine(), step=0)
+        _zero_serving_counts()
+        torch_sync()
+        t0 = time.perf_counter()
+        reqs = [fleet.submit(p, new, request_id=f"fan-{i}") for i, p in enumerate(prompts)]
+        fleet.run_until_drained()
+        torch_sync()
+        wall = time.perf_counter() - t0
+        counts = _serving_counts(results, f"fleet_{policy}")
+        on = {r.request_id: name for name, rep in fleet.replicas.items() for r in rep.all_retired()}
+        landed = {name: sum(1 for r in reqs if on.get(r.request_id) == name) for name in fleet.replicas}
+        hits = sum(rep.engine.metrics.prefix_hits for rep in fleet.replicas.values())
+        steps = {n: rep.engine.steps for n, rep in fleet.replicas.items()}
+        retries = fleet.router.retries
+        del fleet
+        # each replica's reference: an engine given the same requests in the same order
+        want = {}
+        for name in landed:
+            mine = [i for i, r in enumerate(reqs) if on.get(r.request_id) == name]
+            if mine:
+                alone = engine()
+                got = [alone.submit(prompts[i], new, request_id=f"fan-{i}") for i in mine]
+                alone.run_until_drained()
+                want.update((i, list(r.output_tokens)) for i, r in zip(mine, got))
+                del alone
+        mismatched = sum(list(r.output_tokens) != want.get(i) for i, r in enumerate(reqs))
+        finished = sum(r.state == RequestState.FINISHED for r in reqs)
+        rows[policy] = dict(landed=landed, hits=hits, finished=finished, mismatched=mismatched)
+        emit("fleet", config=f"nexus_1b full width and depth, bf16, 3 paged replicas (page {page}, {slots} slots)",
+             policy=policy, requests=fanout, finished=finished, token_identical_to_replica_alone=mismatched == 0,
+             mismatched_requests=mismatched, prefix_hits_fleetwide=hits, landed_per_replica=landed,
+             replicas_touched=sum(1 for n in landed.values() if n), router_retries=retries, engine_steps=steps, wall_s=wall,
+             decoded_tokens_per_second=_finished_tokens(reqs) / wall, launches=counts)
+        if finished != fanout or mismatched:
+            raise AssertionError(f"fleet {policy}: {finished} of {fanout} FINISHED, {mismatched} differ from "
+                                 "an engine given its replica's requests")
+        if not counts["flash_attention"] or not counts["decode_attention_paged"]:
+            raise AssertionError(f"fleet {policy}: a kernel of the path was not launched: {counts}")
+    if rows["pressure"]["hits"] != fanout - 1 or sorted(rows["pressure"]["landed"].values()) != [0, 0, fanout]:
+        raise AssertionError(f"pressure: {rows['pressure']} (want the fan-out on one replica, {fanout - 1} hits)")
+    if sum(1 for n in rows["round-robin"]["landed"].values() if n) < 2:
+        raise AssertionError(f"round-robin: one replica took the whole fan-out: {rows['round-robin']}")
+
+    # kill mid-burst (a fault drill: its counts under their own key)
+    torch.cuda.empty_cache()
+    fleet = ServingFleet()
+    for i in range(3):
+        fleet.add_replica(f"page-{i}", engine(), step=0)
+    burst = rng.integers(0, model.vocab_size, size=(30, shared_len + tail_len)).astype(np.int32)
+    _zero_serving_counts()
+    reqs = [fleet.submit(p, new, request_id=f"burst-{i}") for i, p in enumerate(burst[:24])]
+    fleet.tick()
+    fleet.tick()
+    victim = max(fleet.replicas, key=lambda n: len(fleet.replicas[n].engine.requests))
+    held = len(fleet.replicas[victim].engine.requests)
+    cause = f"{CAUSE_REPLICA_LOST}:chip-smoke-kill"
+    accounted = fleet.kill_replica(victim, cause)
+    reqs += [fleet.submit(p, new, request_id=f"burst-{24 + i}") for i, p in enumerate(burst[24:])]
+    fleet.run_until_drained()
+    _serving_counts(results, "fleet_kill")
+    states = {}
+    for r in reqs:
+        states[r.state] = states.get(r.state, 0) + 1
+    casualties = [r for r in reqs if r.state != RequestState.FINISHED]
+    silent = [r.request_id for r in reqs if not r.is_terminal() or (r.state != RequestState.FINISHED and r.cause != cause)]
+    emit("fleet", run="kill mid-burst", victim=victim, live_on_victim=held, accounted_at_kill=accounted,
+         requests=len(reqs), retired_states=states, casualties=len(casualties), silently_dropped=len(silent),
+         victim_gets_no_new_request=not any(r.request_id in fleet.replicas[victim].engine.requests
+                                            for r in reqs[24:]))
+    if not held or accounted != held or len(casualties) != held or silent:
+        raise AssertionError(f"kill: {held} live, {accounted} accounted, {len(casualties)} casualties, silent {silent}")
+    del fleet, params
+    torch.cuda.empty_cache()
+
+
+class _TimedSeam:
+    """Wraps a paged executor and times each prefill and KV handoff
+    dispatch in host wall milliseconds with the stream synchronised before
+    and after (prefill: ``begin``, the flash prefill and the block scatter;
+    extract: the gather and the copy to the host; install: validation, the
+    copy to the card and the scatter).  Installed payloads are kept for the
+    seal and validate timings."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.prefill_ms, self.extract_ms, self.install_ms, self.payloads = [], [], [], []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def begin(self, slot, prompt, **kwargs):
+        torch_sync()
+        t0 = time.perf_counter()
+        out = self.inner.begin(slot, prompt, **kwargs)
+        torch_sync()
+        self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def extract_blocks(self, block_ids):
+        torch_sync()
+        t0 = time.perf_counter()
+        out = self.inner.extract_blocks(block_ids)
+        torch_sync()
+        self.extract_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def install_blocks(self, payload, block_ids):
+        torch_sync()
+        t0 = time.perf_counter()
+        self.inner.install_blocks(payload, block_ids)
+        torch_sync()
+        self.install_ms.append((time.perf_counter() - t0) * 1e3)
+        self.payloads.append(payload)
+
+
+def _disagg_mix(vocab, n, seed):
+    """The reference's disaggregated mix (``bench_serving.py::
+    make_disagg_requests``, its lengths x 4): a third long prompts (192
+    tokens, 16 new) beside short prompts (32 tokens, 192 new), each with a
+    unique first token so no request prefix-hits another."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        plen, gen = (192, 16) if rng.random() < 1.0 / 3.0 else (32, 192)
+        body = rng.integers(0, vocab - n, size=plen - 1).astype(np.int32)
+        out.append((np.concatenate([np.array([vocab - n + i], np.int32), body]), gen))
+    return out
+
+
+def phase_disagg(results):
+    """Disaggregated serving of llama3_8b at full width and depth (bf16
+    params), one prefill and two decode replicas sharing one params tree,
+    page 32; bf16 KV, then an int8 KV cache.  24 requests of the
+    reference's mix (:func:`_disagg_mix`) are submitted at once: each
+    prefills on the prefill replica, its KV blocks cross to the host,
+    sealed, and install on a decode replica.  Tokens equal a fused engine's
+    of the decode replicas' geometry on the same prompts;
+    ``handoffs_completed`` is 24 and ``disagg_fallbacks`` 0; this run is
+    uninstrumented, as the fused engine's is, and gives the tokens/s and
+    the kernel counts.  A timed run of the same prompts (4 new tokens
+    each) gives the payload bytes and the extract / seal / validate /
+    install ms per handoff (host wall, stream synchronised around each
+    call).  A pass of 6 requests then wraps the prefill replica in
+    ``handoff-drop`` (the retry heals in place: ``serving.handoff_retry``)
+    and decode replica 0 in ``kill-mid-handoff`` (the hop lands in
+    ``handoff_log``, the replica goes down); every request is terminal
+    and none silently dropped."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.core.telemetry import RecordingMetrics
+    from tpu_nexus_torch.models.llama import LlamaConfig, llama_init
+    from tpu_nexus_torch.serving import (ROLE_DECODE, ROLE_PREFILL, DisaggConfig, PagedModelExecutor, RequestState,
+                                         ServingEngine, ServingFleet, validate_payload)
+    from tpu_nexus_torch.serving.handoff import leaf_bytes
+    from tpu_nexus_torch.workload.faults import FaultyExecutor
+
+    torch.cuda.empty_cache()
+    model = dataclasses.replace(LlamaConfig.llama3_8b(), param_dtype=torch.bfloat16)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0), model, device="cuda")
+    mix = _disagg_mix(model.vocab_size, 24, seed=5)
+    page, decode_slots, max_len = 32, 12, 224
+
+    def executor(kv_quant, slots):
+        return PagedModelExecutor(params, model, num_slots=slots, max_len=max_len, page_size=page,
+                                  kv_quant=kv_quant)
+
+    def fleet_of(kv_quant, wrap=None, metrics=None):
+        fleet = ServingFleet(disagg=DisaggConfig(), metrics=metrics)
+        wrap = wrap or {}
+        for name, role, slots in (("pf-0", ROLE_PREFILL, 2), ("dc-0", ROLE_DECODE, decode_slots),
+                                  ("dc-1", ROLE_DECODE, decode_slots)):
+            ex = executor(kv_quant, slots)
+            fleet.add_replica(name, ServingEngine(wrap[name](ex) if name in wrap else ex), step=0, role=role)
+        return fleet
+
+    for kv_quant in ("", "int8"):
+        label = "int8 KV" if kv_quant else "bf16 KV"
+        warm = ServingEngine(executor(kv_quant, decode_slots))
+        for p, _ in (mix[0], mix[1]):
+            warm.submit(p, 2)
+        warm.run_until_drained()
+        fused = ServingEngine(executor(kv_quant, decode_slots))
+        fused_reqs = [fused.submit(p, gen, request_id=f"d{i}") for i, (p, gen) in enumerate(mix)]
+        torch_sync()
+        t0 = time.perf_counter()
+        fused.run_until_drained()
+        torch_sync()
+        fused_wall = time.perf_counter() - t0
+        want = [list(r.output_tokens) for r in fused_reqs]
+        del warm, fused
+        torch.cuda.empty_cache()
+        # the main run, uninstrumented as the fused engine was: tokens,
+        # handoffs, launches and tokens/s
+        fleet = fleet_of(kv_quant)
+        _zero_serving_counts()
+        torch_sync()
+        t0 = time.perf_counter()
+        reqs = [fleet.submit(p, gen, request_id=f"d{i}") for i, (p, gen) in enumerate(mix)]
+        fleet.run_until_drained()
+        torch_sync()
+        wall = time.perf_counter() - t0
+        path = "disagg_int8" if kv_quant else "disagg"
+        counts = _serving_counts(results, path)
+        mismatched = sum(list(r.output_tokens) != want[i] for i, r in enumerate(reqs))
+        finished = sum(r.state == RequestState.FINISHED for r in reqs)
+        tokens = _finished_tokens(reqs)
+        handoffs, fallbacks, log = fleet.handoffs_completed, fleet.disagg_fallbacks, fleet.handoff_log
+        prefill_retired = len(fleet.replicas["pf-0"].engine.retired)
+        del fleet
+        torch.cuda.empty_cache()
+        # the timed run: the same prompts, 4 new tokens each, every executor
+        # timed (the stream synchronised around each prefill and handoff
+        # dispatch); prefill and handoff run inside submit, so the shorter
+        # generation changes none of the timed calls
+        fleet = fleet_of(kv_quant, wrap={name: _TimedSeam for name in ("pf-0", "dc-0", "dc-1")})
+        timed_reqs = [fleet.submit(p, 4, request_id=f"t{i}") for i, (p, _) in enumerate(mix)]
+        fleet.run_until_drained()
+        seams = {name: rep.engine.executor for name, rep in fleet.replicas.items()}
+        extract_ms, prefill_ms = seams["pf-0"].extract_ms, seams["pf-0"].prefill_ms
+        install_ms = seams["dc-0"].install_ms + seams["dc-1"].install_ms
+        payloads = seams["dc-0"].payloads + seams["dc-1"].payloads
+        seal_ms, validate_ms = [], []
+        specs = fleet.replicas["dc-0"].engine.executor.kv_leaf_specs()
+        for payload in payloads:
+            sealed = dict(payload.checksums)
+            t0 = time.perf_counter()
+            payload.seal()
+            seal_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            validate_payload(payload, page_size=page, leaf_specs=specs)
+            validate_ms.append((time.perf_counter() - t0) * 1e3)
+            if payload.checksums != sealed:
+                raise AssertionError(f"{payload.request_id}: the payload changed after its install")
+        nbytes = [sum(leaf_bytes(a).nbytes for a in p.blocks.values()) for p in payloads]
+        # one prefill and one extract a request, in submission order on the
+        # prefill replica; the installs are keyed by their payloads
+        if len(prefill_ms) != len(mix) or len(extract_ms) != len(mix) or len(payloads) != len(mix):
+            raise AssertionError(f"{len(prefill_ms)} prefills, {len(extract_ms)} extracts, {len(payloads)} "
+                                 f"installs for {len(mix)} requests")
+        if fleet.handoffs_completed != len(mix) or any(r.state != RequestState.FINISHED for r in timed_reqs):
+            raise AssertionError(f"timed disagg {label}: {fleet.handoffs_completed} handoffs, "
+                                 f"states {[r.state for r in timed_reqs]}")
+        sent = {r.request_id: (f, e) for r, f, e in zip(timed_reqs, prefill_ms, extract_ms)}
+        by_blocks = {}
+        for p, b, s_, v, i_ in zip(payloads, nbytes, seal_ms, validate_ms, install_ms):
+            row = by_blocks.setdefault(p.n_blocks, {"handoffs": 0, "payload_bytes": b, "prefill_ms": [],
+                                                    "extract_ms": [], "seal_ms": [], "validate_ms": [],
+                                                    "install_ms": []})
+            row["handoffs"] += 1
+            f, e = sent[p.request_id]
+            for key, val in (("prefill_ms", f), ("extract_ms", e), ("seal_ms", s_), ("validate_ms", v),
+                             ("install_ms", i_)):
+                row[key].append(val)
+        for row in by_blocks.values():
+            for key in ("prefill_ms", "extract_ms", "seal_ms", "validate_ms", "install_ms"):
+                row[key] = {"mean": float(np.mean(row[key])), "min": float(np.min(row[key])),
+                            "max": float(np.max(row[key]))}
+        emit("disagg", config=f"llama3_8b full width and depth, bf16 params, {label}, 1 prefill + 2 decode "
+             f"replicas ({decode_slots} slots, page {page}), one params tree", requests=len(mix), finished=finished,
+             token_identical_to_fused=mismatched == 0, mismatched_requests=mismatched,
+             handoffs_completed=handoffs, disagg_fallbacks=fallbacks, handoff_log=log,
+             prefill_replica_retired=prefill_retired, wall_s=wall, decoded_tokens_per_second=tokens / wall,
+             fused_wall_s=fused_wall, fused_decoded_tokens_per_second=_finished_tokens(fused_reqs) / fused_wall,
+             launches=counts, timed_run="the same prompts, 4 new tokens, each seam call synchronised and timed",
+             handoff_by_blocks=by_blocks, payload_bytes_total=sum(nbytes))
+        if finished != len(mix) or mismatched:
+            raise AssertionError(f"disagg {label}: {finished} FINISHED, {mismatched} differ from the fused engine")
+        if handoffs != len(mix) or fallbacks:
+            raise AssertionError(f"disagg {label}: {handoffs} handoffs, {fallbacks} fallbacks")
+        if not counts["flash_attention"] or not counts["decode_attention_paged"] or (
+                kv_quant and counts["decode_attention_int8kv"] != counts["decode_attention_paged"]):
+            raise AssertionError(f"disagg {label}: a kernel of the path was not launched: {counts}")
+        del fleet, seams, payloads
+        torch.cuda.empty_cache()
+
+    # the chaos pass: a dropped transfer heals in place, a decode replica
+    # killed mid-handoff hops the request to the other
+    metrics = RecordingMetrics()
+    fleet = fleet_of("", metrics=metrics, wrap={
+        "pf-0": lambda ex: FaultyExecutor(ex, "handoff-drop", at_step=0, times=1),
+        "dc-0": lambda ex: FaultyExecutor(ex, "kill-mid-handoff", at_step=0, times=1),
+    })
+    _zero_serving_counts()
+    reqs = [fleet.submit(p, 16, request_id=f"c{i}") for i, (p, _) in enumerate(mix[:6])]
+    fleet.run_until_drained()
+    _serving_counts(results, "disagg_chaos")
+    silent = [r.request_id for r in reqs if not r.is_terminal()
+              or (r.state != RequestState.FINISHED and not r.cause.startswith("replica-lost:"))]
+    hops = [e for e in fleet.handoff_log if e["stage"] == "decode"]
+    emit("disagg", run="chaos: handoff-drop on pf-0, kill-mid-handoff on dc-0", requests=len(reqs),
+         finished=sum(r.state == RequestState.FINISHED for r in reqs),
+         handoff_retries=metrics.counters.get("serving.handoff_retry", 0), handoff_log=fleet.handoff_log,
+         dc0_state=fleet.replicas["dc-0"].state, dc0_cause=fleet.replicas["dc-0"].down_cause,
+         handoffs_completed=fleet.handoffs_completed, disagg_fallbacks=fleet.disagg_fallbacks,
+         silently_dropped=len(silent))
+    if silent or not metrics.counters.get("serving.handoff_retry") or not hops:
+        raise AssertionError(f"chaos: silent {silent}, retries {metrics.counters}, hops {fleet.handoff_log}")
+    if fleet.replicas["dc-0"].state != "down" or any(r.state != RequestState.FINISHED for r in reqs):
+        raise AssertionError(f"chaos: dc-0 {fleet.replicas['dc-0'].state}, states {[r.state for r in reqs]}")
+    del fleet, params
+    torch.cuda.empty_cache()
+
+
+def phase_fleet_rollout(results):
+    """A zero-drop rolling update of three replicas of nexus_1b at full
+    width and depth (bf16, paged, page 32, 4 slots): steps 1 and 2 (seeds
+    1 and 2) are committed with ``TensorCheckpointer`` into a temporary
+    directory, the replicas start on step 1's restored params, 24 requests
+    are submitted (12 decoding, 12 queued), step 2 is committed while they
+    are in flight, and the
+    serving loop offers each newer step ``CheckpointWatcher`` verifies to
+    ``start_rollout`` + ``tick``.  The fleet converges to step 2 with every
+    request FINISHED, each on one step's own tokens (an engine over that
+    step's params alone); 8 requests after convergence get step 2's own
+    tokens.  Then step 3 is committed, polled verified, a byte of it
+    flipped before the load, and its rollout aborts with ``rollout_error``
+    while the fleet stays at 2.  Removes the directory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.models.llama import LlamaConfig, llama_init
+    from tpu_nexus_torch.serving import CheckpointWatcher, PagedModelExecutor, RequestState, ServingEngine, ServingFleet
+    from tpu_nexus_torch.workload.faults import flip_committed_leaf
+    from tpu_nexus_torch.workload.tensor_checkpoint import TensorCheckpointer
+
+    torch.cuda.empty_cache()
+    model = LlamaConfig.nexus_1b()
+    prompt_len, new, page, slots = 128, 32, 32, 4
+    directory = tempfile.mkdtemp(prefix="nexus-rollout-")
+    try:
+        ckpt = TensorCheckpointer(directory)
+        seconds = {}
+
+        def commit(step):
+            p = llama_init(torch.Generator(device="cuda").manual_seed(step), model, device="cuda")
+            t0 = time.perf_counter()
+            ckpt.save(step, {"params": p, "step": torch.tensor(step, dtype=torch.int32)})
+            ckpt.commit(step)
+            seconds[f"save_commit_{step}"] = time.perf_counter() - t0
+            return p
+
+        def engine(params):
+            return ServingEngine(PagedModelExecutor(params, model, num_slots=slots, max_len=prompt_len + new,
+                                                    page_size=page))
+
+        def own(params, rows):
+            eng = engine(params)
+            reqs = [eng.submit(p, new) for p in rows]
+            eng.run_until_drained()
+            return [list(r.output_tokens) for r in reqs]
+
+        rng = np.random.default_rng(3)
+        prompts = rng.integers(0, model.vocab_size, size=(32, prompt_len)).astype(np.int32)
+        p1 = commit(1)
+        t0 = time.perf_counter()
+        serving = TensorCheckpointer(directory).restore_params(1)
+        seconds["restore_1"] = time.perf_counter() - t0
+        fleet = ServingFleet()
+        for i in range(3):
+            fleet.add_replica(f"rep-{i}", engine(serving), step=1)
+        watcher = CheckpointWatcher(directory, interval_s=0.5)
+        _zero_serving_counts()
+        torch_sync()
+        t_start = time.perf_counter()
+        reqs = [fleet.submit(p, new, request_id=f"roll-{i}") for i, p in enumerate(prompts[:24])]
+        fleet.tick()
+        fleet.tick()
+        p2 = commit(2)
+        in_flight_at_commit = sum(rep.engine.in_flight for rep in fleet.replicas.values())
+        t_roll = None
+        ticks = 0
+        while fleet.has_work or fleet.rollout_active or not fleet.converged(2):
+            step = watcher.check()
+            if step is not None and step > max(fleet.deployed_steps().values()) and not fleet.rollout_active:
+                fleet.start_rollout(ckpt, step, grace_s=120.0)
+                t_roll = time.perf_counter()
+            fleet.tick()
+            ticks += 1
+            if ticks > 20_000:
+                raise AssertionError(f"rollout did not converge: {fleet.summary()}")
+        torch_sync()
+        roll_wall = time.perf_counter() - t_start
+        seconds["rollout"] = time.perf_counter() - t_roll
+        post = [fleet.submit(p, new, request_id=f"post-{i}") for i, p in enumerate(prompts[24:])]
+        fleet.run_until_drained()
+        counts = _serving_counts(results, "fleet_rollout")
+        own1, own2 = own(p1, prompts[:24]), own(p2, prompts)
+        on_step = [1 if list(r.output_tokens) == own1[i] else 2 if list(r.output_tokens) == own2[i] else None
+                   for i, r in enumerate(reqs)]
+        post_ok = [list(r.output_tokens) for r in post] == own2[24:]
+        states = [r.state for r in reqs + post]
+        converged = fleet.converged(2)
+        # a candidate that rots between the poll and the load
+        commit(3)
+        polled = None
+        while polled is None:
+            polled = watcher.check()
+        flip_committed_leaf(os.path.join(directory, "3"))
+        fleet.start_rollout(ckpt, polled, grace_s=120.0)
+        fleet.run_until_drained()
+        emit("fleet_rollout", config=f"nexus_1b full width and depth, bf16, 3 paged replicas (page {page}, "
+             f"{slots} slots)", requests=len(states), finished=sum(s == RequestState.FINISHED for s in states),
+             in_flight_at_commit=in_flight_at_commit, converged_to_2=converged,
+             deployed_steps=fleet.deployed_steps(), rollouts_completed=fleet.rollouts_completed,
+             requests_on_step={s: on_step.count(s) for s in (1, 2, None)}, post_swap_tokens_are_step2s=post_ok,
+             step3_polled=polled, rollout_error=fleet.rollout_error, seconds=seconds, ticks=ticks,
+             wall_s=roll_wall, decoded_tokens_per_second=_finished_tokens(reqs) / roll_wall,
+             decoded_tokens_per_second_without_the_commit=_finished_tokens(reqs) / (
+                 roll_wall - seconds["save_commit_2"]), launches=counts)
+        if not converged or states != [RequestState.FINISHED] * len(states) or None in on_step or not post_ok:
+            raise AssertionError(f"rollout: converged {converged}, states {set(states)}, on step {on_step}, "
+                                 f"post-swap tokens {post_ok}")
+        if polled != 3 or not fleet.rollout_error or fleet.rollout_error[0] != 3 or not fleet.converged(2):
+            raise AssertionError(f"corrupt candidate: polled {polled}, error {fleet.rollout_error}, "
+                                 f"steps {fleet.deployed_steps()}")
+        del fleet, serving, p1, p2
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -3312,6 +3848,7 @@ def main(argv=None) -> int:
         "profile_int4": lambda r: phase_profile(r, "int4", ""),
         "quant_rms_times": phase_quant_rms_times, "int4_probe": phase_int4_probe, "int8_probe": phase_int8_probe,
         "train_ckpt": phase_train_ckpt, "serve_reload": phase_serve_reload, "ckpt_probe": phase_ckpt_probe,
+        "fleet": phase_fleet, "disagg": phase_disagg, "fleet_rollout": phase_fleet_rollout,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:

@@ -208,13 +208,27 @@ def test_real_tiny_paged_engine_is_token_identical_to_the_jax_engine(case):
 
 
 def test_paged_executor_handoff_seam_names_its_roadmap_item():
+    """The handoff seam works (the JAX package's ``kv_leaf_specs``, a
+    gather of whole blocks in table order, an install into other ids);
+    sharded caches still name their roadmap item."""
     jcfg, pcfg = tiny_configs()
-    _, pparams = carried(jcfg, pcfg)
+    jparams, pparams = carried(jcfg, pcfg)
     ex = port_serving.PagedModelExecutor(pparams, pcfg, num_slots=2, max_len=16, page_size=4)
+    jex = jax_serving.PagedModelExecutor(jparams, jcfg, num_slots=2, max_len=16, page_size=4, decode_kernel="xla")
     assert ex.cache["k"].shape == (pcfg.n_layers, 1 + 2 * 4, 4, pcfg.n_kv_heads, pcfg.head_dim)
-    with pytest.raises(NotImplementedError, match="A1c"):
-        ex.extract_blocks([1, 2])
-    with pytest.raises(NotImplementedError, match="A1c"):
-        ex.install_blocks(None, [1, 2])
+    specs = ex.kv_leaf_specs()
+    assert {k: (s, str(d).removeprefix("torch.")) for k, (s, d) in specs.items()} == {
+        k: (s, str(d)) for k, (s, d) in jex.kv_leaf_specs().items()}
+    gen = torch.Generator().manual_seed(0)
+    for arr in ex.cache.values():
+        arr.copy_(torch.randn(arr.shape, generator=gen))
+    blocks = ex.extract_blocks([2, 1])
+    for name, arr in ex.cache.items():
+        assert torch.equal(blocks[name], arr[:, [2, 1]])
+    payload = port_serving.KVHandoffPayload(
+        request_id="r", prompt=tuple(range(8)), first_token=1, page_size=4, n_blocks=2, blocks=blocks).seal()
+    ex.install_blocks(payload, [5, 6])
+    for name, arr in ex.cache.items():
+        assert torch.equal(arr[:, [5, 6]], arr[:, [2, 1]])
     with pytest.raises(NotImplementedError, match="A6"):
         port_serving.init_paged_cache(pcfg, 4, 4, shardings=object(), device="cpu")

@@ -832,3 +832,88 @@ def test_cuda_run_resumes_to_the_uninterrupted_losses(cuda_device, tmp_path):
     second, tail = run(6, str(tmp_path), 3)
     assert first["final_step"] == 3 and second["resumed_from"] == 3 and second["final_step"] == 6
     assert head + tail == whole and len(whole) == 6
+
+
+def _d128_serve_cfg(dtype):
+    return LlamaConfig(
+        vocab_size=512, hidden=256, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=128,
+        intermediate=512, max_seq_len=256, dtype=dtype, param_dtype=dtype,
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8kv"])
+def test_kv_handoff_between_cuda_pools_is_bit_identical(cuda_device, kv_quant):
+    """A prefill replica's payload (its blocks gathered on the card, copied
+    to the host, sealed) installs into another engine's pool at other
+    block ids; reading those blocks back gives the payload's bytes, bf16
+    KV and int8 KV with its f32 scales alike, and a corrupt copy writes
+    nothing."""
+    from tpu_nexus_torch.serving import PagedModelExecutor, PayloadCorrupt, ServingEngine
+    from tpu_nexus_torch.serving.handoff import leaf_bytes
+
+    cfg = _d128_serve_cfg(torch.bfloat16)
+    params = llama_init(torch.Generator(device=cuda_device).manual_seed(0), cfg, device=cuda_device)
+
+    def engine():
+        return ServingEngine(PagedModelExecutor(params, cfg, num_slots=2, max_len=96, page_size=16,
+                                                kv_quant=kv_quant))
+
+    prompt = np.random.default_rng(0).integers(0, 512, size=70).astype(np.int32)
+    sender, receiver = engine(), engine()
+    payload = sender.prefill_remote(prompt, "r0")
+    leaves = {"k", "v"} | ({"k_s", "v_s"} if kv_quant else set())
+    assert set(payload.blocks) == leaves and payload.n_blocks == 5
+    for name, arr in payload.blocks.items():
+        assert arr.device.type == "cpu" and arr.dtype == sender.executor.cache[name].dtype
+    pool = {k: v.clone() for k, v in receiver.executor.cache.items()}
+    bad = {k: v.clone() for k, v in payload.blocks.items()}
+    leaf_bytes(bad["k"])[7] ^= 0x01
+    from tpu_nexus_torch.serving import KVHandoffPayload
+
+    corrupt = KVHandoffPayload(request_id="r0", prompt=payload.prompt, first_token=payload.first_token,
+                               page_size=16, n_blocks=5, blocks=bad, checksums=dict(payload.checksums))
+    with pytest.raises(PayloadCorrupt, match="crc32"):
+        receiver.executor.install_blocks(corrupt, [9, 3, 4, 1, 2])
+    assert all(torch.equal(receiver.executor.cache[k], pool[k]) for k in pool)
+    ids = [9, 3, 4, 1, 2]
+    receiver.executor.install_blocks(payload, ids)
+    again = receiver.executor.extract_blocks(ids)
+    for name in leaves:
+        assert bytes(leaf_bytes(again[name])) == bytes(leaf_bytes(payload.blocks[name])), name
+
+
+@pytest.mark.gpu
+def test_cuda_disaggregated_fleet_is_token_identical_to_a_fused_engine(cuda_device):
+    """One prefill and two decode replicas on the card (bf16, head_dim 128,
+    kernel #1 on every prefill, #4's paged mode on every decode step) give
+    a fused engine's tokens on the same prompts: every request handed off,
+    none degraded."""
+    from tpu_nexus_torch.ops.decode_attention import reset_launches
+    from tpu_nexus_torch.serving import ROLE_DECODE, ROLE_PREFILL, PagedModelExecutor, ServingEngine, ServingFleet
+
+    cfg = _d128_serve_cfg(torch.bfloat16)
+    params = llama_init(torch.Generator(device=cuda_device).manual_seed(0), cfg, device=cuda_device)
+
+    def engine(slots):
+        return ServingEngine(PagedModelExecutor(params, cfg, num_slots=slots, max_len=96, page_size=16))
+
+    rng = np.random.default_rng(1)
+    prompts = [np.concatenate([[500 + i], rng.integers(0, 500, size=n)]).astype(np.int32)
+               for i, n in enumerate((60, 9, 33, 17, 48, 5))]
+    fused = engine(4)
+    want = [fused.submit(p, 24) for p in prompts]
+    fused.run_until_drained()
+    fleet = ServingFleet()
+    fleet.add_replica("pf-0", engine(2), step=0, role=ROLE_PREFILL)
+    fleet.add_replica("dc-0", engine(4), step=0, role=ROLE_DECODE)
+    fleet.add_replica("dc-1", engine(4), step=0, role=ROLE_DECODE)
+    flash_attention.launches = 0
+    reset_launches()
+    reqs = [fleet.submit(p, 24) for p in prompts]
+    fleet.run_until_drained()
+    torch.cuda.synchronize()
+    assert fleet.handoffs_completed == len(prompts) and fleet.disagg_fallbacks == 0
+    assert [list(r.output_tokens) for r in reqs] == [list(r.output_tokens) for r in want]
+    assert flash_attention.launches >= cfg.n_layers * len(prompts)
+    assert decode_attention.launches_by_mode.get("paged", 0) > 0

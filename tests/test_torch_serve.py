@@ -137,9 +137,9 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 @pytest.mark.parametrize(
     "key,value,item",
     [
-        ("NEXUS_ROUTER_POLICY", "round-robin", "A1c fleet"),
-        ("NEXUS_AUTOSCALE_MAX", "4", "A1c fleet"),
-        ("NEXUS_SCALE_COOLDOWN_S", "5", "A1c fleet"),
+        ("NEXUS_ROUTER_POLICY", "round-robin", "A7 fleet"),
+        ("NEXUS_AUTOSCALE_MAX", "4", "A7 fleet"),
+        ("NEXUS_SCALE_COOLDOWN_S", "5", "A7 fleet"),
         ("NEXUS_SERVE_MESH", "tp=2", "A6 sharded executors"),
     ],
 )

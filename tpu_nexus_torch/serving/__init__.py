@@ -14,19 +14,30 @@ Layering (each module imports only downward), as in the JAX package:
 * ``loadstats``      — the pressure plane: LoadSnapshot/FleetSnapshot and
                        the windowed burn-rate SloMonitor
 * ``speculative``    — drafters and the verify-k acceptance oracle
-* ``handoff``        — the KV handoff payload protocol (the engine imports
-                       it; remote prefill itself is ROADMAP.md A1c)
+* ``router``         — fleet admission + autoscale policy: pressure/
+                       affinity/load candidate ranking, shed-and-retry
+                       elsewhere by the ROUTE_ELIGIBILITY table;
+                       SCALE_DECISIONS and AutoscaleConfig wait for the
+                       fleet supervisor that acts on them (ROADMAP.md A7)
+* ``handoff``        — the KV handoff payload protocol between prefill
+                       and decode replicas (host form: CPU tensors of the
+                       pool's dtype, CRC over their raw bytes)
 * ``recovery``       — taxonomy-classified step-fault retry/retire policy
 * ``tracing``        — per-request span timelines and the flight recorder
 * ``overlap``        — deferred-dispatch bookkeeping
 * ``engine``         — ModelExecutor / PagedModelExecutor (PyTorch, the
-                       CUDA kernels on the card) + ServingEngine (host loop)
+                       CUDA kernels on the card; the paged one also
+                       extracts and installs handed-off KV blocks) +
+                       ServingEngine (host loop)
+* ``fleet``          — ServingFleet: replicas behind the router,
+                       disaggregated prefill/decode with the KV handoff,
+                       zero-drop rolling weight updates; CheckpointWatcher
 
 Every module but ``engine`` and the cache buffers of ``cache_manager`` is
-a copy of the JAX package's host code with its imports changed.
-``fleet`` holds only the checkpoint watcher of the serve-engine hot
-reload.  Not ported (ROADMAP.md): the rest of ``fleet`` and ``router``
-(A1c), ``sharded`` (A6).
+a copy of the JAX package's host code with its imports changed
+(``handoff`` also takes the port's host form of a leaf).  Not ported
+(ROADMAP.md): ``fleet``'s ``FleetSupervisor``, the Kubernetes reconciler
+(A7), and ``sharded`` (A6).
 Comments in the copies that name nxlint rules (NX005, NX014, ...) describe
 the JAX package's static gates: nxlint scans ``tpu_nexus/`` only.
 """
@@ -48,6 +59,13 @@ from tpu_nexus_torch.serving.engine import (
     ModelExecutor,
     PagedModelExecutor,
     ServingEngine,
+)
+from tpu_nexus_torch.serving.fleet import (
+    CAUSE_REPLICA_LOST,
+    CheckpointWatcher,
+    EngineReplica,
+    FleetError,
+    ServingFleet,
 )
 from tpu_nexus_torch.serving.handoff import (
     HANDOFF_CAUSE_ACTIONS,
@@ -87,6 +105,20 @@ from tpu_nexus_torch.serving.loadstats import (
     worst_pressure,
 )
 from tpu_nexus_torch.serving.metrics import RollingQuantile, ServingMetrics, percentile
+from tpu_nexus_torch.serving.router import (
+    ELIGIBILITY_RANK,
+    ROUTE_ELIGIBILITY,
+    ROUTER_POLICIES,
+    ROUTER_PRESSURE,
+    ROUTER_ROUND_ROBIN,
+    SCALE_DECISIONS,
+    SCALE_DOWN_WHEN_IDLE,
+    SCALE_HOLD,
+    SCALE_UP,
+    AutoscaleConfig,
+    FleetRouter,
+    load_score,
+)
 from tpu_nexus_torch.serving.overlap import DispatchPipeline, PendingStep, PipelineError
 from tpu_nexus_torch.serving.speculative import (
     DRAFTERS,
@@ -116,15 +148,22 @@ from tpu_nexus_torch.serving.tracing import (
 __all__ = [
     "ACTIVE_STATES",
     "AdmitPlan",
+    "AutoscaleConfig",
     "BlockError",
+    "CAUSE_REPLICA_LOST",
+    "CheckpointWatcher",
     "DRAFTERS",
     "DeviceProfiler",
     "DeviceStateLost",
     "DisaggConfig",
     "DispatchPipeline",
     "Drafter",
+    "ELIGIBILITY_RANK",
+    "EngineReplica",
     "EngineTracer",
     "FifoScheduler",
+    "FleetError",
+    "FleetRouter",
     "FleetSnapshot",
     "FlightRecorder",
     "HANDOFF_CAUSE_ACTIONS",
@@ -163,13 +202,22 @@ __all__ = [
     "ROLE_DECODE",
     "ROLE_FUSED",
     "ROLE_PREFILL",
+    "ROUTER_POLICIES",
+    "ROUTER_PRESSURE",
+    "ROUTER_ROUND_ROBIN",
+    "ROUTE_ELIGIBILITY",
     "Request",
     "RequestState",
     "RequestTrace",
     "RollingQuantile",
+    "SCALE_DECISIONS",
+    "SCALE_DOWN_WHEN_IDLE",
+    "SCALE_HOLD",
+    "SCALE_UP",
     "SCRATCH_BLOCK",
     "SchedulerConfig",
     "ServingEngine",
+    "ServingFleet",
     "ServingMetrics",
     "SloMonitor",
     "SloTargets",
@@ -186,6 +234,7 @@ __all__ = [
     "handoff_decision",
     "init_cache",
     "init_paged_cache",
+    "load_score",
     "percentile",
     "validate_payload",
     "worst_pressure",

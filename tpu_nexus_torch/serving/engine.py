@@ -25,8 +25,9 @@ that the engine's readback seam copies).  A CUDA out-of-memory error at
 the executor boundary is re-worded into the taxonomy's HBM-OOM wording, so
 the engine's fault policy retires exactly one request; a sticky CUDA
 error reinitializes the cache and raises :class:`DeviceStateLost`.  The KV
-handoff seam (``extract_blocks``/``install_blocks``) and remote prefill
-wait for the fleet slice (ROADMAP.md A1c).
+handoff seam (``extract_blocks``/``install_blocks``) copies a request's
+blocks through the host, as between two processes: remote prefill
+(``prefill_remote``) and its install (``admit_prefilled``) run on it.
 
 Retirement is dispatched through :data:`RETIREMENT_ACTIONS`, total over
 ``request.TERMINAL_STATES``.
@@ -508,9 +509,13 @@ class PagedModelExecutor(_ExecutorCommon):
       ``verify(..., tables)`` — the contiguous executor's entry points
       through the kernel's paged mode.
 
+    * ``extract_blocks(block_ids)`` / ``install_blocks(payload,
+      block_ids)`` — the KV handoff seam of disaggregated serving: a
+      request's blocks gathered to the host, and installed from a validated
+      payload into freshly allocated blocks.
+
     ``prefilled_tokens`` counts the prompt tokens that actually ran
-    through a forward pass (shared-prefix tokens never count).  The KV
-    handoff seam (``extract_blocks``/``install_blocks``) is not ported."""
+    through a forward pass (shared-prefix tokens never count)."""
 
     def __init__(
         self,
@@ -647,19 +652,56 @@ class PagedModelExecutor(_ExecutorCommon):
 
     # -- KV handoff (serving/handoff.py) -----------------------------------------
 
-    def extract_blocks(self, block_ids: Sequence[int]) -> Dict[str, np.ndarray]:
-        """The sender half of a KV handoff: not ported."""
-        raise NotImplementedError(
-            "extract_blocks (KV handoff for remote prefill) is not ported yet "
-            "(ROADMAP.md: A1c fleet, router and remote handoff)"
+    def kv_leaf_specs(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """Per-BLOCK slice geometry of this executor's cache, the receiver
+        side of :func:`~tpu_nexus_torch.serving.handoff.validate_payload`:
+        leaf name -> ``((layers, page_size, *trailing), dtype)``."""
+        return {
+            name: ((int(arr.shape[0]), int(arr.shape[2]), *map(int, arr.shape[3:])), arr.dtype)
+            for name, arr in self.cache.items()
+        }
+
+    def extract_blocks(self, block_ids: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """Gather the physical blocks of one prefilled request to HOST, in
+        block-table order — the sender half of a KV handoff.  Each leaf is
+        one index gather into a NEW device tensor, then one copy to a
+        contiguous CPU tensor of the pool's dtype (the payload's host form,
+        serving/handoff.py).  The pool is only read: the request may be
+        re-extracted after a dropped transfer."""
+        ids = np.asarray(block_ids, np.int64).reshape(-1)
+        if ids.shape[0] < 1:
+            raise ValueError("extract_blocks requires at least one block id")
+        idx = self._tensor(ids, torch.long)
+        return self._guarded(
+            lambda: {name: arr[:, idx].cpu() for name, arr in self.cache.items()}
         )
 
-    def install_blocks(self, payload: "KVHandoffPayload", block_ids: Sequence[int]) -> None:
-        """The receiver half of a KV handoff: not ported."""
-        raise NotImplementedError(
-            "install_blocks (KV handoff for remote prefill) is not ported yet "
-            "(ROADMAP.md: A1c fleet, router and remote handoff)"
+    def install_blocks(
+        self, payload: "KVHandoffPayload", block_ids: Sequence[int]
+    ) -> None:
+        """Scatter a handed-off payload's blocks into freshly-allocated
+        physical ids — the receiver half of a KV handoff.  VALIDATES first
+        (per-block shape/dtype/count against THIS executor's geometry, then
+        the sealed CRCs, then the allocated count): a corrupted payload
+        raises :class:`~tpu_nexus_torch.serving.handoff.PayloadCorrupt`
+        before any device write, so bad bytes never land in the pool, which
+        is written in place."""
+        ids = np.asarray(block_ids, np.int64).reshape(-1)
+        validate_payload(
+            payload, page_size=self.page_size, leaf_specs=self.kv_leaf_specs()
         )
+        if ids.shape[0] != payload.n_blocks:
+            raise PayloadCorrupt(
+                f"kv handoff payload for {payload.request_id}: receiver "
+                f"allocated {ids.shape[0]} blocks != payload n_blocks {payload.n_blocks}"
+            )
+        idx = self._tensor(ids, torch.long)
+
+        def run():
+            for name, arr in self.cache.items():
+                arr[:, idx] = torch.as_tensor(payload.blocks[name]).to(self.device)
+
+        self._guarded(run)
 
 
 class ServingEngine:

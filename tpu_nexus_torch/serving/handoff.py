@@ -41,6 +41,14 @@ act, record the cause):
 
 Knobs (``NEXUS_DISAGG_*``, docs/ENVIRONMENT.md): transfer-retry budget,
 hop budget, backoff shape — parsed once by :meth:`DisaggConfig.from_env`.
+
+The host form of a payload leaf (the port's one change to this module):
+a contiguous CPU ``torch.Tensor`` of the pool's own dtype.  numpy has no
+bfloat16, so a bf16 leaf cannot be a numpy array without widening it; the
+CRC is taken over the tensor's raw bytes (:func:`leaf_bytes`: for bf16 the
+2-byte patterns, the same bytes the JAX package's payload of the same KV
+carries), and dtypes compare by name (:func:`dtype_name`), so a mismatch
+still names the leaf and the field.
 """
 
 from __future__ import annotations
@@ -51,6 +59,9 @@ import time
 import zlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
 
 from tpu_nexus_torch.core.util import backoff_jitter_s
 from tpu_nexus_torch.supervisor.taxonomy import DecisionAction
@@ -261,14 +272,24 @@ class KVHandoffPayload:
         return self
 
 
+def leaf_bytes(arr: Any) -> np.ndarray:
+    """A leaf's raw bytes in C order as a flat uint8 numpy array: a view
+    of a contiguous leaf's own memory (writing it writes the leaf), else
+    of a contiguous copy.  The tensor is reinterpreted, never converted,
+    so a bf16 leaf gives its 2-byte patterns."""
+    return torch.as_tensor(arr).detach().contiguous().reshape(-1).view(torch.uint8).numpy()
+
+
+def dtype_name(dtype: Any) -> str:
+    """A dtype's name (``bfloat16``, ``float32``, ``int8``)."""
+    return str(dtype).removeprefix("torch.")
+
+
 def leaf_checksum(arr: Any) -> int:
     """CRC32 over a block leaf's bytes — cheap enough to run per handoff,
     strong enough that the chaos drill's single-element corruption can
     never slip through as silently-wrong tokens."""
-    import numpy as np
-
-    host = np.ascontiguousarray(np.asarray(arr))
-    return zlib.crc32(host.tobytes())
+    return zlib.crc32(leaf_bytes(arr))
 
 
 def validate_payload(
@@ -306,8 +327,6 @@ def validate_payload(
             f"{sorted(payload.blocks)} != receiver leaf set "
             f"{sorted(leaf_specs)}"
         )
-    import numpy as np
-
     for name, ((layers, leaf_page, *trailing), dtype) in sorted(leaf_specs.items()):
         arr = payload.blocks[name]
         want = (layers, payload.n_blocks, leaf_page, *trailing)
@@ -317,10 +336,10 @@ def validate_payload(
                 f"kv handoff payload for {payload.request_id}: leaf {name!r} "
                 f"shape {got} != expected {want}"
             )
-        if np.dtype(arr.dtype) != np.dtype(dtype):
+        if dtype_name(arr.dtype) != dtype_name(dtype):
             raise PayloadCorrupt(
                 f"kv handoff payload for {payload.request_id}: leaf {name!r} "
-                f"dtype {np.dtype(arr.dtype)} != expected {np.dtype(dtype)}"
+                f"dtype {dtype_name(arr.dtype)} != expected {dtype_name(dtype)}"
             )
     if not payload.checksums:
         raise PayloadCorrupt(

@@ -129,8 +129,11 @@ Both data modes require an adapter with float batch leaves (the mnist
 preset); poisoning an int token batch cannot produce NaN grads, so the
 wrapper raises instead of running a vacuous drill.
 
-The handoff modes keep the reference's executor wrapper; the port's
-executors raise at the handoff seam itself (ROADMAP.md A1c).
+The handoff modes fire on the real dispatches of the paged executor's
+KV handoff seam (``extract_blocks`` on a prefill replica,
+``install_blocks`` on a decode replica); ``handoff-corrupt`` flips a byte
+of the payload's host form (a CPU tensor of the pool's dtype) in the bytes
+its CRC covers.
 """
 
 from __future__ import annotations
@@ -457,12 +460,16 @@ class FaultyExecutor:
                 "corruption drill that can never fire.  Target an install "
                 "dispatch (the decode replica's NEXUS_FAULT_STEP)."
             )
-        import numpy as np
+        import copy
+
+        from tpu_nexus_torch.serving.handoff import leaf_bytes
 
         self.injected += 1
         name = sorted(payload.blocks)[0]
-        arr = np.ascontiguousarray(np.asarray(payload.blocks[name]))
-        flat = arr.view(np.uint8).reshape(-1)
+        # the flip lands in the bytes the CRC covers (for a bf16 leaf, its
+        # 2-byte patterns), in a copy: the sender's leaf stays intact
+        arr = copy.deepcopy(payload.blocks[name])
+        flat = leaf_bytes(arr)
         flat[flat.shape[0] // 2] ^= 0xFF
         payload.blocks[name] = arr
         logger.warning(

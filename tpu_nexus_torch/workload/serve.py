@@ -28,9 +28,13 @@ Engine knobs (``NEXUS_PAGE_SIZE``, ``NEXUS_KV_BLOCKS``, ``NEXUS_SPEC_K``,
 ``NEXUS_STOP_TOKEN``, ``NEXUS_DEADLINE_S``, ``NEXUS_QUEUE_LIMIT``,
 ``NEXUS_DRAIN_GRACE_S``, ``NEXUS_TRACE*``, ``NEXUS_SLO_*``) and the serving
 fault modes (``NEXUS_FAULT_MODE``, workload/faults.py) parse and validate
-with the reference's wording.  Knobs of the reference that the port does
-not have yet raise at parse, naming the ROADMAP.md item that brings them:
-``NEXUS_SERVE_MESH`` (A6), the fleet router and autoscaler (A1c).
+with the reference's wording.  Knobs of the reference that nothing in the
+port reads yet raise at parse, naming the ROADMAP.md item that brings their
+reader: ``NEXUS_SERVE_MESH`` (A6), and the fleet's ``NEXUS_ROUTER_POLICY``,
+``NEXUS_AUTOSCALE_MIN``/``_MAX``, ``NEXUS_SCALE_UP_N``/``_DOWN_N`` and
+``NEXUS_SCALE_COOLDOWN_S`` (A7: the fleet supervisor builds the fleet and
+is the only reader of these knobs in the reference; ``ServingFleet`` takes
+its router policy as an argument).
 
 Checkpoints: ``NEXUS_CHECKPOINT_DIR`` serves the params of the training
 run's newest VERIFIED step (read-only: a torn or corrupt step is skipped,
@@ -75,12 +79,12 @@ logger = logging.getLogger(__name__)
 #: a non-default value is refused at parse
 ENGINE_ONLY_ENV = {
     "NEXUS_SERVE_MESH": (str, "", "A6 sharded executors"),
-    "NEXUS_ROUTER_POLICY": (str, "pressure", "A1c fleet, router and remote handoff"),
-    "NEXUS_AUTOSCALE_MIN": (int, 0, "A1c fleet, router and remote handoff"),
-    "NEXUS_AUTOSCALE_MAX": (int, 0, "A1c fleet, router and remote handoff"),
-    "NEXUS_SCALE_UP_N": (int, 3, "A1c fleet, router and remote handoff"),
-    "NEXUS_SCALE_DOWN_N": (int, 12, "A1c fleet, router and remote handoff"),
-    "NEXUS_SCALE_COOLDOWN_S": (float, 60.0, "A1c fleet, router and remote handoff"),
+    "NEXUS_ROUTER_POLICY": (str, "pressure", "A7 fleet supervisor"),
+    "NEXUS_AUTOSCALE_MIN": (int, 0, "A7 fleet supervisor"),
+    "NEXUS_AUTOSCALE_MAX": (int, 0, "A7 fleet supervisor"),
+    "NEXUS_SCALE_UP_N": (int, 3, "A7 fleet supervisor"),
+    "NEXUS_SCALE_DOWN_N": (int, 12, "A7 fleet supervisor"),
+    "NEXUS_SCALE_COOLDOWN_S": (float, 60.0, "A7 fleet supervisor"),
 }
 
 
