@@ -31,7 +31,8 @@ raises and exits non-zero:
    f32 (the forward also at S 1, 127, 129 and 383, GQA groups 1, 4 and 8,
    D 64, causal and full; each forward case run twice, bit-identical);
    the int8 and int4 dequant-matmul kernels at the Llama-3-8B decode
-   step's (K, N) with M = 8, at M = 1, 40 and 256 and at unaligned shapes,
+   step's (K, N) with M = 8, at nexus_moe's (K 1024, N 1024 and 512), at
+   M = 1, 40 and 256 and at unaligned shapes,
    int4 at groups 64 and 128 (and 2 and K), each run twice bit-identical,
    each case naming the kernel its launch counter saw (int8 bf16: the ring
    kernel, or the first design for N 200 and 71; int4 bf16: the ring
@@ -66,7 +67,8 @@ raises and exits non-zero:
    (``flash_attention_bwd``: dsum, q̃ and both kernels) and at nexus_moe's
    attention shape (Hq8 Hkv4).  For the dequant-matmul kernels the shape is
    the step's largest launch (K4096 x N14336, M8; both also at w_down,
-   wq/wo and wk/wv) and the yardstick is ``torch.matmul`` with the
+   wq/wo and wk/wv, and at nexus_moe's wq/wo and wk/wv) and the yardstick
+   is ``torch.matmul`` with the
    pre-dequantized bf16 weight; for int8-KV
    decode, ``scaled_dot_product_attention`` on a dequantized cache.  For
    the grouped matmul, the nexus_moe train step's four products and
@@ -160,6 +162,26 @@ raises and exits non-zero:
    requests are in flight: converged, every request FINISHED on one step's
    own tokens, post-swap tokens step 2's own; a step 3 flipped between
    poll and load aborts with ``rollout_error``, the fleet stays at 2.
+23. serve_moe_quant — ``run_serving`` on nexus_moe at full width and depth
+   (bf16 params, batch 8, prompt 128, 32 new tokens, 3 rounds) with int8
+   weights + int8 KV and with int4 weights (group 64), then Mixtral-8x7B
+   widths at 4 of its 32 layers with int4 weights (one round): COMPLETED,
+   exactly 4 x layers x decode steps ring launches of #5 or #6 (wq, wk,
+   wv, wo; the expert stacks are dequantized), weight bytes, peak memory;
+   the time of dequantizing one Mixtral expert stack; greedy ``generate``
+   at nexus_moe widths, 2 layers, f32, int8 + int8 KV and int4: kernels
+   against plain, token-identical.
+24. quant_gate   — nexus_moe trained on the gates' corpus (batch 32 x 2048,
+   ``QUANT_GATE_STEPS``), then both gates' measurements
+   (``tpu_nexus_torch/tools``): fails unless the model trained (ppl < 256)
+   and every gate passes.
+25. profile_hook — ``NEXUS_PROFILE_DIR`` through the entry points:
+   ``run_serve_engine`` on nexus_moe (int8 weights, page 32, 8 slots, 24
+   requests, window [4, 12)) and ``run_workload`` training nexus_moe (6
+   steps, window [2, 4)): each window DONE with no failure, one Chrome
+   trace whose kernels name the path's hand-written kernels (#4 and the
+   int8 ring; gmm, tgmm and the flash backward); the card's busy share and
+   device ms by group from each trace.
 
 Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
@@ -204,7 +226,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe",
-          "train_ckpt", "serve_reload", "fleet", "disagg", "fleet_rollout")
+          "train_ckpt", "serve_reload", "fleet", "disagg", "fleet_rollout", "serve_moe_quant", "quant_gate",
+          "profile_hook")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
           "quant_rms_times", "int4_probe", "int8_probe", "ckpt_probe")
@@ -630,6 +653,9 @@ QUANT_F32_MAXABS_REL = 1e-4
 #: the llama3_8b decode step's distinct weight shapes (K, N): wq/wo, wk/wv,
 #: w_gate/w_up, w_down
 LLAMA8B_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+#: nexus_moe's decode-step products on the ring (wq/wo, wk/wv); its expert
+#: stacks keep their lead dim and are dequantized before their einsum
+NEXUS_MOE_KN = ((1024, 1024), (1024, 512))
 
 
 def quant_weight(k, n, mode, group, seed):
@@ -664,6 +690,7 @@ def quant_matmul_parity(results):
     )
 
     cases = [(8, k, n, (64, 128)) for k, n in LLAMA8B_KN]  # (M, K, N, int4 groups)
+    cases += [(8, k, n, (64,)) for k, n in NEXUS_MOE_KN]
     cases += [(1, 4096, 4096, (64,)), (256, 4096, 4096, (64,)), (40, 4096, 14336, (64,)), (256, 4096, 14336, (64,)),
               (8, 4096, 1024, (4096, 2)), (5, 448, 200, (64, 2)), (3, 640, 71, (128, 640))]
     worst = {"quant_matmul_int8": 0.0, "quant_matmul_int4": 0.0}
@@ -911,14 +938,19 @@ def phase_times(results):
 
 #: the timed dequant-matmul launches: (times key, M, K, N, mode, group).  The
 #: first two are the kernels line's rows (the decode step's largest launch,
-#: w_gate/w_up); #5 and #6 also at w_down, wq/wo and wk/wv.
+#: w_gate/w_up); #5 and #6 also at w_down, wq/wo and wk/wv, and at
+#: nexus_moe's wq/wo and wk/wv (its decode step's only ring launches).
 QUANT_TIMED = (("quant_matmul_int8", 8, 4096, 14336, "int8", 0), ("quant_matmul_int4", 8, 4096, 14336, "int4", 64),
                ("quant_matmul_int8_down", 8, 14336, 4096, "int8", 0),
                ("quant_matmul_int8_wq", 8, 4096, 4096, "int8", 0),
                ("quant_matmul_int8_wk", 8, 4096, 1024, "int8", 0),
                ("quant_matmul_int4_down", 8, 14336, 4096, "int4", 64),
                ("quant_matmul_int4_wq", 8, 4096, 4096, "int4", 64),
-               ("quant_matmul_int4_wk", 8, 4096, 1024, "int4", 64))
+               ("quant_matmul_int4_wk", 8, 4096, 1024, "int4", 64),
+               ("quant_matmul_int8_moe_wq", 8, 1024, 1024, "int8", 0),
+               ("quant_matmul_int8_moe_wk", 8, 1024, 512, "int8", 0),
+               ("quant_matmul_int4_moe_wq", 8, 1024, 1024, "int4", 64),
+               ("quant_matmul_int4_moe_wk", 8, 1024, 512, "int4", 64))
 
 
 def quant_times(times):
@@ -1095,30 +1127,7 @@ def phase_e2e(results):
 
     # quantized trees: the dequant-matmul kernels (and the int8-KV decode
     # mode) against the dequantize-then-einsum path and the plain attention
-    from tpu_nexus_torch.models.quant import quantize_params
-    from tpu_nexus_torch.ops.quant_matmul import quant_matmul
-
-    for mode, kv_quant, counter in (("int8", "int8", "launches_int8"), ("int4", "", "launches_int4")):
-        qparams = quantize_params(params, mode=mode)
-        counts = lambda: (getattr(quant_matmul, counter), decode_attention.launches_by_mode["contiguous+int8"])  # noqa: E731
-        before = counts()
-        with_kernels = generate(qparams, prompt, cfg, max_new_tokens=32, kv_quant=kv_quant)
-        launched = tuple(n - b for n, b in zip(counts(), before))
-        os.environ["NEXUS_QUANT_KERNEL"] = "plain"
-        try:
-            plain = generate(qparams, prompt, cfg, max_new_tokens=32, kv_quant=kv_quant, attn_impl="plain",
-                             decode_kernel="plain")
-        finally:
-            del os.environ["NEXUS_QUANT_KERNEL"]
-        torch.cuda.synchronize()
-        same = bool(torch.equal(with_kernels, plain))
-        emit("e2e", config=f"llama3_8b widths, 2 layers, f32, {mode} weights, kv_quant={kv_quant!r}", batch=4,
-             prompt=128, new_tokens=32, token_identical=same, mismatched_tokens=int((with_kernels != plain).sum()),
-             quant_matmul_launches=launched[0], int8kv_decode_launches=launched[1])
-        want_kv = cfg.n_layers * 31 if kv_quant else 0
-        if not same or launched != (7 * cfg.n_layers * 31, want_kv):
-            raise AssertionError(f"{mode} kernel path is not token-identical to the plain path (or skipped a kernel)")
-        del qparams
+    _quantized_generate_parity("e2e", cfg, params, (("int8", "int8"), ("int4", "")), 7)
     del params
     torch.cuda.empty_cache()
 
@@ -1293,86 +1302,145 @@ def phase_serve(results):
     results.setdefault("launches", {})["serve"] = launches
 
 
-def phase_serve_quant(results):
-    """``run_serving`` on llama3_8b at full width and depth with quantized
-    weights: int8 weights + int8 KV cache, then int4 weights (group 64).
-    The counters, zeroed just before each run, must show exactly 7
-    dequant-matmul launches per layer per decode step (wq, wk, wv, wo,
-    w_gate, w_up, w_down; prefill's M = 1024 rows take the dense matmul),
-    all of them of the int8 or int4 ring kernel."""
+class WeightBytes(logging.Handler):
+    """Reads the quantized tree's footprint from the line the serve workload logs."""
+
+    value = None
+
+    def emit(self, record):
+        if "weight bytes" in str(record.msg):
+            self.value = record.args[1]
+
+
+def _serve_quantized(results, name, model, quantize, quantize_kv, ring_per_layer, label, rounds=3):
+    """One ``run_serving`` with quantized weights (bf16 params, batch 8,
+    prompt 128, 32 new tokens): COMPLETED, and the counters, zeroed just
+    before, at exactly ``ring_per_layer`` x layers x decode steps
+    dequant-matmul launches, all of the int8 or int4 ring kernel (prefill's
+    1024 rows take the dense matmul), layers x prefill calls flash launches
+    and, with an int8 cache, layers x decode steps of #4's int8-KV mode.
+    Returns the summary with the weight bytes and the peak memory."""
     import torch
 
     from tpu_nexus_torch.checkpoint.models import LifecycleStage
     from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
-    from tpu_nexus_torch.models.llama import LlamaConfig
     from tpu_nexus_torch.ops.decode_attention import decode_attention, reset_launches
     from tpu_nexus_torch.ops.flash_attention import flash_attention
     from tpu_nexus_torch.ops.quant_matmul import quant_matmul
     from tpu_nexus_torch.parallel.distributed import ProcessContext
     from tpu_nexus_torch.workload.serve import ServeConfig, run_serving
 
-    class WeightBytes(logging.Handler):
-        """Reads the quantized tree's footprint from the line the workload logs."""
-
-        def emit(self, record):
-            if "weight bytes" in str(record.msg):
-                self.value = record.args[1]
-
     serve_log = logging.getLogger("tpu_nexus_torch.workload.serve")
-    model = dataclasses.replace(LlamaConfig.llama3_8b(), param_dtype=torch.bfloat16)
     n_layers = model.n_layers
+    torch.cuda.empty_cache()
+    cfg = ServeConfig(model=model, batch_size=8, prompt_len=128, gen_tokens=32, rounds=rounds, device="cuda",
+                      quantize=quantize, quantize_kv=quantize_kv)
+    store = InMemoryCheckpointStore()
+    ctx = ProcessContext(run_id=name, algorithm="serve", process_id=0, num_processes=1, coordinator=None)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    reset_launches()
+    quant_matmul.launches_int8 = quant_matmul.launches_int4 = 0
+    quant_matmul.launches_by_route.update(dict.fromkeys(quant_matmul.launches_by_route, 0))
+    weight_bytes = WeightBytes(level=logging.INFO)
+    serve_log.addHandler(weight_bytes)
+    level = serve_log.level
+    serve_log.setLevel(logging.INFO)
+    zero_rms_norm_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = run_serving(cfg, store=store, ctx=ctx)
+    finally:
+        serve_log.removeHandler(weight_bytes)
+        serve_log.setLevel(level)
+    wall = time.perf_counter() - t0
+    read_rms_norm_launches(results, name)
+    launches = {
+        "flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches,
+        "decode_attention_int8kv": decode_attention.launches_by_mode["contiguous+int8"],
+        "quant_matmul_int8": quant_matmul.launches_int8, "quant_matmul_int4": quant_matmul.launches_int4,
+        **{f"quant_matmul_{r}": c for r, c in quant_matmul.launches_by_route.items()},
+    }
+    row = store.read_checkpoint("serve", name)
+    stage = row.lifecycle_stage if row else None
+    peak = torch.cuda.max_memory_allocated()
+    emit(label, run=name, config=f"{model.__class__.__name__} {n_layers} layers, hidden {model.hidden}, bf16 params, "
+         f"quantize={quantize!r} quantize_kv={quantize_kv!r}", stage=stage,
+         per_chip_steps=row.per_chip_steps if row else None, wall_s=wall, max_memory_allocated=peak,
+         launches=launches, weight_bytes=weight_bytes.value, **summary)
+    if stage != LifecycleStage.COMPLETED:
+        raise AssertionError(f"{name}: ledger row is {stage}, not COMPLETED")
+    rings = ring_per_layer * n_layers * summary["decode_steps"]
+    want = {
+        "flash_attention": n_layers * summary["prefill_calls"],
+        "decode_attention_int8kv": n_layers * summary["decode_steps"] if quantize_kv else 0,
+        "quant_matmul_int8": rings if quantize == "int8" else 0,
+        "quant_matmul_int4": rings if quantize == "int4" else 0,
+        # every decode-step product of the quantized configurations goes through a ring kernel
+        "quant_matmul_int8_ring": rings if quantize == "int8" else 0,
+        "quant_matmul_int4_ring": rings if quantize == "int4" else 0,
+    }
+    wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if wrong or launches["decode_attention"] < n_layers * summary["decode_steps"]:
+        raise AssertionError(f"{name}: launches (got, want) {wrong or launches}")
+    results.setdefault("launches", {})[name] = launches
+    return dict(summary, weight_bytes=weight_bytes.value, max_memory_allocated=peak)
+
+
+def phase_serve_quant(results):
+    """``run_serving`` on llama3_8b at full width and depth with quantized
+    weights: int8 weights + int8 KV cache, then int4 weights (group 64);
+    exactly 7 dequant-matmul launches per layer per decode step (wq, wk,
+    wv, wo, w_gate, w_up, w_down), all of them of the ring kernel."""
+    import torch
+
+    from tpu_nexus_torch.models.llama import LlamaConfig
+
+    model = dataclasses.replace(LlamaConfig.llama3_8b(), param_dtype=torch.bfloat16)
     for name, quantize, quantize_kv in (("serve_int8", "int8", "int8"), ("serve_int4", "int4", "")):
-        torch.cuda.empty_cache()
-        cfg = ServeConfig(model=model, batch_size=8, prompt_len=128, gen_tokens=32, rounds=3, device="cuda",
-                          quantize=quantize, quantize_kv=quantize_kv)
-        store = InMemoryCheckpointStore()
-        ctx = ProcessContext(run_id=name, algorithm="serve", process_id=0, num_processes=1, coordinator=None)
-        torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0
-        reset_launches()
-        quant_matmul.launches_int8 = quant_matmul.launches_int4 = 0
-        quant_matmul.launches_by_route.update(dict.fromkeys(quant_matmul.launches_by_route, 0))
-        weight_bytes = WeightBytes(level=logging.INFO)
-        serve_log.addHandler(weight_bytes)
-        level = serve_log.level
-        serve_log.setLevel(logging.INFO)
-        zero_rms_norm_launches()
-        t0 = time.perf_counter()
+        _serve_quantized(results, name, model, quantize, quantize_kv, 7, "serve_quant")
+
+
+def _quantized_generate_parity(label, cfg, params, kv_modes, ring_per_layer, prompt_len=128, new_tokens=32):
+    """Greedy ``generate`` of quantized trees (f32) through the kernels
+    against the plain path (dequantize-then-einsum, plain attention):
+    token-identical, with exactly ``ring_per_layer`` x layers x decode
+    steps dequant-matmul launches and, with an int8 cache, layers x
+    decode steps of #4's int8-KV mode."""
+    import torch
+
+    from tpu_nexus_torch.models.generate import generate
+    from tpu_nexus_torch.models.quant import quantize_params
+    from tpu_nexus_torch.ops.decode_attention import decode_attention
+    from tpu_nexus_torch.ops.quant_matmul import quant_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, prompt_len), generator=g, device="cuda", dtype=torch.int32)
+    steps = new_tokens - 1
+    for mode, kv_quant in kv_modes:
+        qparams = quantize_params(params, mode=mode)
+        counter = f"launches_{mode}"
+        counts = lambda: (getattr(quant_matmul, counter), decode_attention.launches_by_mode["contiguous+int8"])  # noqa: E731
+        before = counts()
+        with_kernels = generate(qparams, prompt, cfg, max_new_tokens=new_tokens, kv_quant=kv_quant)
+        launched = tuple(n - b for n, b in zip(counts(), before))
+        os.environ["NEXUS_QUANT_KERNEL"] = "plain"
         try:
-            summary = run_serving(cfg, store=store, ctx=ctx)
+            plain = generate(qparams, prompt, cfg, max_new_tokens=new_tokens, kv_quant=kv_quant, attn_impl="plain",
+                             decode_kernel="plain")
         finally:
-            serve_log.removeHandler(weight_bytes)
-            serve_log.setLevel(level)
-        wall = time.perf_counter() - t0
-        read_rms_norm_launches(results, name)
-        launches = {
-            "flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches,
-            "decode_attention_int8kv": decode_attention.launches_by_mode["contiguous+int8"],
-            "quant_matmul_int8": quant_matmul.launches_int8, "quant_matmul_int4": quant_matmul.launches_int4,
-            **{f"quant_matmul_{r}": c for r, c in quant_matmul.launches_by_route.items()},
-        }
-        row = store.read_checkpoint("serve", name)
-        stage = row.lifecycle_stage if row else None
-        emit("serve_quant", config=f"llama3_8b full width and depth ({n_layers} layers), bf16 params, "
-             f"quantize={quantize!r} quantize_kv={quantize_kv!r}", stage=stage,
-             per_chip_steps=row.per_chip_steps if row else None, wall_s=wall,
-             max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
-             weight_bytes=weight_bytes.value, **summary)
-        if stage != LifecycleStage.COMPLETED:
-            raise AssertionError(f"{name}: ledger row is {stage}, not COMPLETED")
-        want = {
-            "flash_attention": n_layers * summary["prefill_calls"],
-            "decode_attention_int8kv": n_layers * summary["decode_steps"] if quantize_kv else 0,
-            "quant_matmul_int8": 7 * n_layers * summary["decode_steps"] if quantize == "int8" else 0,
-            "quant_matmul_int4": 7 * n_layers * summary["decode_steps"] if quantize == "int4" else 0,
-            # every decode-step product of the quantized configurations goes through a ring kernel
-            "quant_matmul_int8_ring": 7 * n_layers * summary["decode_steps"] if quantize == "int8" else 0,
-            "quant_matmul_int4_ring": 7 * n_layers * summary["decode_steps"] if quantize == "int4" else 0,
-        }
-        wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
-        if wrong or launches["decode_attention"] < n_layers * summary["decode_steps"]:
-            raise AssertionError(f"{name}: launches (got, want) {wrong or launches}")
-        results.setdefault("launches", {})[name] = launches
+            del os.environ["NEXUS_QUANT_KERNEL"]
+        torch.cuda.synchronize()
+        same = bool(torch.equal(with_kernels, plain))
+        emit(label, config=f"{cfg.__class__.__name__} hidden {cfg.hidden}, {cfg.n_layers} layers, f32, {mode} weights, "
+             f"kv_quant={kv_quant!r}", batch=4, prompt=prompt_len, new_tokens=new_tokens, token_identical=same,
+             mismatched_tokens=int((with_kernels != plain).sum()), quant_matmul_launches=launched[0],
+             int8kv_decode_launches=launched[1])
+        want = (ring_per_layer * cfg.n_layers * steps, cfg.n_layers * steps if kv_quant else 0)
+        if not same or launched != want:
+            raise AssertionError(f"{label} {mode}: kernel path is not token-identical to the plain path "
+                                 f"(or launches {launched} != {want})")
+        del qparams
 
 
 def phase_profile(results, quantize="", kv_quant=""):
@@ -1985,6 +2053,270 @@ def phase_serve_moe(results):
     if not same or launched != (small.n_layers, small.n_layers * 31):
         raise AssertionError("MoE kernel decode is not token-identical to the plain path (or skipped a kernel)")
     del params
+
+
+def phase_serve_moe_quant(results):
+    """Quantized MoE serving: ``run_serving`` on nexus_moe at full width
+    and depth (bf16 params, batch 8, prompt 128, 32 new tokens, 3 rounds)
+    with int8 weights + int8 KV, then int4 weights (group 64); Mixtral-8x7B
+    widths at 4 of its 32 layers with int4 weights, one round.  Each run
+    COMPLETED with exactly 4 dequant-matmul launches per layer per decode
+    step (wq, wk, wv, wo on the ring kernel; the expert stacks keep their
+    lead dim and are dequantized before their einsum), its weight bytes and
+    peak memory; the time of dequantizing one Mixtral expert leaf.  Then
+    greedy ``generate`` at nexus_moe widths, 2 layers, f32, int8 weights +
+    int8 KV and int4 weights: kernels against plain, token-identical."""
+    import torch
+
+    from tpu_nexus_torch.models.moe import MoeConfig, moe_init
+    from tpu_nexus_torch.models.quant import quantize_tensor_int4
+
+    nexus = MoeConfig.nexus_moe()
+    mixtral = dataclasses.replace(MoeConfig.mixtral_8x7b(), n_layers=4, param_dtype=torch.bfloat16)
+    runs = (("serve_moe_int8", nexus, "int8", "int8", 3), ("serve_moe_int4", nexus, "int4", "", 3),
+            ("serve_mixtral4_int4", mixtral, "int4", "", 1))
+    for name, model, quantize, quantize_kv, rounds in runs:
+        _serve_quantized(results, name, model, quantize, quantize_kv, 4, "serve_moe_quant", rounds=rounds)
+
+    # what a decode step pays for the reference's dequantize-then-einsum of
+    # one Mixtral expert stack [8, 4096, 14336] (three a layer)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    w = torch.randn((mixtral.n_experts, mixtral.hidden, mixtral.intermediate), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    leaf = quantize_tensor_int4(w, (-2,), 64, name="w_gate")
+    del w
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = cuda_ms([lambda: leaf.to(torch.bfloat16)], iters=5, warmup=1)
+    emit("serve_moe_quant", run="mixtral_expert_dequant", shape=list(leaf.shape), group=64,
+         packed_bytes=leaf.q.numel() + leaf.s.numel() * 4, dequant_ms=ms,
+         dequant_ms_per_decode_step=ms * 3 * mixtral.n_layers,
+         peak_transient_bytes=torch.cuda.max_memory_allocated() - base)
+    del leaf
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(nexus, n_layers=2, dtype=torch.float32, param_dtype=torch.float32)
+    params = moe_init(torch.Generator(device="cuda").manual_seed(0), small, device="cuda")
+    _quantized_generate_parity("serve_moe_quant", small, params, (("int8", "int8"), ("int4", "")), 4)
+    del params
+    torch.cuda.empty_cache()
+
+
+#: the quant_gate phase's training: nexus_moe at the gate's batch (32 x 2048)
+#: for these steps, then both gates' measurements with the decode gate over
+#: QUANT_GATE_DECODE batches of 8 x QUANT_GATE_DECODE_SEQ tokens
+QUANT_GATE_STEPS = 100
+QUANT_GATE_DECODE = 1
+QUANT_GATE_DECODE_SEQ = 256
+
+
+def _gate(line):
+    """A gate's JSON line with its ``phase`` key renamed ``gate_phase``."""
+    return {"gate_phase" if k == "phase" else k: v for k, v in line.items()}
+
+
+def phase_quant_gate(results):
+    """The perplexity gates of quantized serving on the card, at a short
+    training: nexus_moe trained once on the gates' corpus
+    (:data:`QUANT_GATE_STEPS` steps), then the int8 gate's measurements
+    (forward int8 weights < 1 %; decode int8 KV < 1 %, int8 weights + KV
+    < 2 %) and the int4 gate's (int8 < 1 %, int4 group 64 < 2 %, forward and
+    decode).  Fails if the model did not train (ppl >= 256) or any gate
+    does not pass."""
+    import torch
+
+    from tpu_nexus_torch.tools import int4_gate_1b as gate4
+    from tpu_nexus_torch.tools import int8_gate_1b as gate8
+
+    torch.cuda.empty_cache()
+    tier = gate8.gate_tier("nexus_moe")
+    device = torch.device("cuda")
+    path = gate8.write_corpus("chip_smoke_gate_corpus.npy", tier.n_tokens)
+    try:
+        t0 = time.perf_counter()
+        params = gate8.train(tier, QUANT_GATE_STEPS, path, device, log=lambda line: emit("quant_gate", **_gate(line)))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sizes = dict(decode_batches=QUANT_GATE_DECODE, decode_seq=QUANT_GATE_DECODE_SEQ)
+        lines = [dict(line, gate="int8") for line in gate8.measure(params, tier, path, device, QUANT_GATE_STEPS,
+                                                                      **sizes)]
+        lines += [dict(line, gate="int4") for line in gate4.measure(params, tier, path, device, QUANT_GATE_STEPS,
+                                                                       64, **sizes)]
+        measure_s = time.perf_counter() - t0
+    finally:
+        os.remove(path)
+    for line in lines:
+        emit("quant_gate", **_gate(line))
+    emit("quant_gate", model=tier.model, batch=tier.batch, seq=tier.seq, steps=QUANT_GATE_STEPS, train_s=train_s,
+         measure_s=measure_s, max_memory_allocated=torch.cuda.max_memory_allocated())
+    failed = [line for line in lines if not line["pass"]]
+    if failed:
+        raise AssertionError(f"quant_gate: gates failed: {failed}")
+    results["quant_gate"] = lines
+    del params
+    torch.cuda.empty_cache()
+
+
+def trace_breakdown(path, group_of):
+    """A Chrome trace of ``torch.profiler`` read back: the kernels' names,
+    device ms by group, and the card's busy share of the trace's span (the
+    union of its kernel, copy and set intervals over the first to the last
+    event)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    span_us = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    busy_us, end = 0.0, None
+    for e in sorted(device, key=lambda e: e["ts"]):
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        if end is None or lo > end:
+            busy_us += hi - lo
+            end = hi
+        elif hi > end:
+            busy_us += hi - end
+            end = hi
+    groups, names = {}, {}
+    for e in device:
+        group = group_of(e["name"].lower())
+        groups[group] = groups.get(group, 0.0) + e["dur"] / 1e3
+        names[e["name"][:90]] = names.get(e["name"][:90], 0.0) + e["dur"] / 1e3
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
+    return {"span_ms": span_us / 1e3, "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / span_us,
+            "device_events": len(device), "groups_ms": groups, "top_ms": dict(top),
+            "kernel_names": sorted({e["name"] for e in device if e.get("cat") == "kernel"})}
+
+
+def _kernel_group(low):
+    if "flash_fwd" in low:
+        return "flash forward (#1)"
+    if "flash_bwd" in low:
+        return "flash backward (#2, #3)"
+    if "decode_hopper" in low or "decode_partial" in low or "decode_combine" in low:
+        return "decode attention (#4)"
+    if "quant_int8_ring" in low or "quant_int4_ring" in low or "quant_matmul" in low:
+        return "dequant-matmul (#5, #6)"
+    if "tgmm" in low:
+        return "tgmm (#8)"
+    if "gmm" in low:
+        return "gmm (#7)"
+    if any(s in low for s in ("nvjet", "gemm", "xmma", "cutlass", "cublas", "sm90")):
+        return "matmul (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "copies and sets"
+    return "other (elementwise, reductions, gathers)"
+
+
+@contextlib.contextmanager
+def profile_env(directory, start, steps):
+    """``NEXUS_PROFILE_DIR``/``_START``/``_STEPS`` set for one run."""
+    keys = {"NEXUS_PROFILE_DIR": str(directory), "NEXUS_PROFILE_START": str(start), "NEXUS_PROFILE_STEPS": str(steps)}
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(keys)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _check_profile(label, summary_profiler, directory, must_name):
+    """The armed run's window: DONE with no failure, one trace under its
+    directory whose CUDA kernels name each of ``must_name``; its breakdown."""
+    traces = sorted(Path(directory).glob("*.json"))
+    if summary_profiler is None or summary_profiler["state"] != "done" or summary_profiler["failures"] != 0:
+        raise AssertionError(f"{label}: profiler {summary_profiler}")
+    if len(traces) != 1:
+        raise AssertionError(f"{label}: {len(traces)} trace files under {directory}")
+    info = trace_breakdown(traces[0], _kernel_group)
+    missing = [n for n in must_name if not any(n in k for k in info["kernel_names"])]
+    info = dict(info, trace_bytes=traces[0].stat().st_size, kernels_named=must_name)
+    names = info.pop("kernel_names")
+    emit("profile_hook", run=label, profiler=summary_profiler, kernel_count=len(names), **info)
+    if missing:
+        raise AssertionError(f"{label}: the trace's kernels miss {missing} ({names[:20]})")
+    return info
+
+
+def phase_profile_hook(results):
+    """The device profiler hook through the real entry points: (i)
+    ``run_serve_engine`` on nexus_moe at full width and depth, int8
+    weights, paged (page 32), 8 slots, 24 requests, with
+    ``NEXUS_PROFILE_DIR`` set, window [4, 12); (ii) ``run_workload``
+    training nexus_moe (batch 8, seq 2048) for 6 steps, window [2, 4).
+    Each run ends with the profiler DONE and 0 failures and one Chrome
+    trace whose kernels name the hand-written kernels of that path (the
+    decode attention and the int8 ring in (i); gmm, tgmm and the flash
+    backward in (ii)); the card's busy share and device ms by group from
+    each trace."""
+    import tempfile
+
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.core.telemetry import NullMetrics
+    from tpu_nexus_torch.models.moe import MoeConfig
+    from tpu_nexus_torch.models.registry import MoeAdapter
+    from tpu_nexus_torch.ops.quant_matmul import quant_matmul
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.workload.harness import WorkloadConfig, run_workload
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
+    from tpu_nexus_torch.workload.train import TrainConfig
+
+    model = MoeConfig.nexus_moe()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
+        cfg = ServeConfig(model=model, batch_size=8, prompt_len=128, gen_tokens=32, rounds=3, device="cuda",
+                          quantize="int8", page_size=32)
+        store = InMemoryCheckpointStore()
+        ctx = ProcessContext(run_id="profile-serve", algorithm="serve", process_id=0, num_processes=1,
+                             coordinator=None)
+        _zero_serving_counts()
+        quant_matmul.launches_int8 = 0
+        t0 = time.perf_counter()
+        with profile_env(Path(tmp) / "serve", 4, 8):
+            summary = run_serve_engine(cfg, store=store, ctx=ctx)
+        wall = time.perf_counter() - t0
+        counts = _serving_counts(results, "profile_serve_engine")
+        counts["quant_matmul_int8"] = quant_matmul.launches_int8
+        row = store.read_checkpoint("serve", "profile-serve")
+        stage = row.lifecycle_stage if row else None
+        emit("profile_hook", run="serve_engine", config="nexus_moe full width and depth, bf16 params, int8 weights, "
+             "page 32, 8 slots, 24 requests", stage=stage, wall_s=wall, launches=counts,
+             **{k: summary[k] for k in ("requests", "finished", "engine_steps", "elapsed_s",
+                                        "decoded_tokens_per_second", "tpot_p50_s", "ttft_p50_s")})
+        if stage != LifecycleStage.COMPLETED or summary["finished"] != 24:
+            raise AssertionError(f"profile_hook serve: ledger row is {stage}, {summary['finished']} of 24 finished")
+        results["profile_serve_engine"] = _check_profile(
+            "serve_engine", summary["profiler"], Path(tmp) / "serve", ["decode_hopper_kernel", "quant_int8_ring_kernel"])
+
+        torch.cuda.empty_cache()
+        steps = 6
+        wcfg = WorkloadConfig(model=MoeAdapter(config=model),
+                              train=TrainConfig(warmup_steps=2, total_steps=steps, optimizer="adamw"),
+                              batch_size=8, seq_len=2048, steps=steps, heartbeat_every=2, device="cuda")
+        store = InMemoryCheckpointStore()
+        ctx = ProcessContext(run_id="profile-train", algorithm="train", process_id=0, num_processes=1,
+                             coordinator=None)
+        t0 = time.perf_counter()
+        with profile_env(Path(tmp) / "train", 2, 2):
+            summary = run_workload(wcfg, store=store, ctx=ctx, telemetry=NullMetrics())
+        wall = time.perf_counter() - t0
+        row = store.read_checkpoint("train", "profile-train")
+        stage = row.lifecycle_stage if row else None
+        emit("profile_hook", run="train", config="nexus_moe full width and depth, bf16 params, dispatch gmm, "
+             "batch 8 x 2048, 6 steps, window [2, 4)", stage=stage, wall_s=wall,
+             tokens_per_second=summary["tokens_per_second"])
+        if stage != LifecycleStage.COMPLETED:
+            raise AssertionError(f"profile_hook train: ledger row is {stage}")
+        results["profile_train"] = _check_profile(
+            "train", summary.get("profiler"), Path(tmp) / "train",
+            ["gmm_bf16_kernel", "tgmm_bf16_kernel", "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"])
 
 
 def _decode_probe_times():
@@ -3849,6 +4181,7 @@ def main(argv=None) -> int:
         "quant_rms_times": phase_quant_rms_times, "int4_probe": phase_int4_probe, "int8_probe": phase_int8_probe,
         "train_ckpt": phase_train_ckpt, "serve_reload": phase_serve_reload, "ckpt_probe": phase_ckpt_probe,
         "fleet": phase_fleet, "disagg": phase_disagg, "fleet_rollout": phase_fleet_rollout,
+        "serve_moe_quant": phase_serve_moe_quant, "quant_gate": phase_quant_gate, "profile_hook": phase_profile_hook,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:
@@ -3911,7 +4244,8 @@ def main(argv=None) -> int:
                 entry.update(design="stream-K, TMA ring fed by a producer warp, mma.sync, merge in the launch",
                              other_shapes={k: {f: results["times"][k][f] for f in ("shape", "ms", "bound_ms",
                                                                                     "library_ms")}
-                                           for k in (f"{name}_down", f"{name}_wq", f"{name}_wk")})
+                                           for k in (f"{name}_down", f"{name}_wq", f"{name}_wk",
+                                                     f"{name}_moe_wq", f"{name}_moe_wk")})
             if name == "rms_norm":
                 entry.update(design="16-byte vector streams, persistent, next row prefetched",
                              other_shapes={"rms_norm_1024x4096": {f: results["times"]["rms_norm_1024x4096"][f]

@@ -16,7 +16,9 @@ bf16 1e-2 on the worst row, bit-identical run to run) and MoE training
 through them against the plain versions.  Tensor checkpoints on the card:
 a bf16 train state saves and restores bit-identical, and a run resumed
 from a checkpoint ends with the uninterrupted run's per-step losses, bit
-for bit.
+for bit.  Quantized MoE: the attention projections on the dequant-matmul
+kernels, token-identical to the plain path in f32; the device profiler's
+trace names the decode kernel.
 The decode kernel (#4) in every mode runs twice and must be bit-identical:
 kv 4096, q_len 8 x GQA 8 (64 query rows), GQA 1 and 8, pages 4, 16, 32 and
 64, and one row whose launch merges >= 8 splits; its f32 results are held
@@ -356,7 +358,10 @@ QUANT_CASES = [
                     (40, 4096, 14336), (256, 4096, 14336)]
     for mode, group in [("int8", 0), ("int4", 64), ("int4", 128), ("int4", 2)]
 ] + [("int8", 0, m, k, n) for m, k, n in [(8, 4096, 14336), (8, 14336, 4096), (8, 4096, 4096), (1, 4096, 4096),
-                                          (40, 4096, 4096), (256, 4096, 4096)]]
+                                          (40, 4096, 4096), (256, 4096, 4096)]] + [
+    # nexus_moe's decode-step launches: wq/wo (K 1024, N 1024) and wk/wv (N 512)
+    (mode, group, 8, 1024, n) for n in (1024, 512) for mode, group in [("int8", 0), ("int4", 64)]
+]
 
 
 @pytest.mark.gpu
@@ -490,6 +495,60 @@ def test_quantized_kernel_generate_is_token_identical_to_plain_in_f32(cuda_devic
         assert getattr(quant_matmul, counter) - m0 == 7 * 2 * 16
         assert torch.equal(out, ref)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,kv_quant", [("int8", "int8"), ("int4", "")])
+def test_quantized_moe_generate_is_token_identical_to_plain_in_f32(cuda_device, monkeypatch, mode, kv_quant):
+    """Quantized experts on the card: the attention projections take the
+    dequant-matmul kernels (4 a layer a pass), the expert stacks are
+    dequantized before their einsum (never a kernel launch), and the
+    tokens equal the plain path's."""
+    from tpu_nexus_torch.models.moe import MoeConfig, moe_init
+
+    cfg = MoeConfig(
+        vocab_size=512, hidden=256, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=128, intermediate=512,
+        n_experts=4, experts_per_token=2, max_seq_len=256, remat=False, dtype=torch.float32,
+        param_dtype=torch.float32,
+    )
+    params = quantize_params(moe_init(torch.Generator(device=cuda_device).manual_seed(0), cfg, device=cuda_device),
+                             mode=mode)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, 512, size=(3, 40)).astype(np.int32))
+    prompt = prompt.to(cuda_device)
+    counter = "launches_int8" if mode == "int8" else "launches_int4"
+    monkeypatch.delenv("NEXUS_QUANT_KERNEL", raising=False)
+    m0, d0 = getattr(quant_matmul, counter), decode_attention.launches_by_mode["contiguous+int8"]
+    out = generate(params, prompt, cfg, max_new_tokens=16, kv_quant=kv_quant)
+    # wq, wk, wv, wo in the prefill (M 120, under the cap) and 15 decode steps, per layer
+    assert getattr(quant_matmul, counter) - m0 == 4 * 2 * 16
+    assert decode_attention.launches_by_mode["contiguous+int8"] - d0 == (2 * 15 if kv_quant else 0)
+    monkeypatch.setenv("NEXUS_QUANT_KERNEL", "plain")
+    ref = generate(params, prompt, cfg, max_new_tokens=16, kv_quant=kv_quant, attn_impl="plain",
+                   decode_kernel="plain")
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_device_profiler_trace_names_a_hand_written_kernel(cuda_device, tmp_path):
+    import json
+
+    from tpu_nexus_torch.serving.tracing import DeviceProfiler
+
+    b, max_len, hq, hkv, d = 2, 64, 8, 2, 128
+    q = _randn((b, 1, hq, d), 1, cuda_device, torch.bfloat16)
+    k = _randn((b, max_len, hkv, d), 2, cuda_device, torch.bfloat16)
+    v = _randn((b, max_len, hkv, d), 3, cuda_device, torch.bfloat16)
+    decode_attention(q, k, v, 40)  # built and warm before the window
+    prof = DeviceProfiler(str(tmp_path), start_step=1, num_steps=2, cuda=True)
+    for step in range(4):
+        prof.tick(step)
+        decode_attention(q, k, v, 40)
+    prof.stop()
+    assert (prof.state, prof.failures) == (DeviceProfiler.DONE, 0)
+    (trace,) = tmp_path.glob("*.json")
+    with open(trace) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    assert sum("decode_hopper_kernel" in name for name in kernels) == 2, kernels
 
 
 # -- grouped matmul (kernels #7 and #8) -----------------------------------------

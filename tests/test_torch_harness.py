@@ -194,7 +194,6 @@ def test_mnist_preset_trains():
         ("NEXUS_MESH", "fsdp=2", "A6"),
         ("NEXUS_SP_ATTN", "ulysses", "A6"),
         ("NEXUS_PP_MICROBATCHES", "4", "A6"),
-        ("NEXUS_PROFILE_DIR", "/prof", "profiler"),
     ],
 )
 def test_unported_knobs_raise_at_parse(key, value, item):

@@ -254,14 +254,6 @@ def test_run_serving_moe_preset_lands_completed():
     assert set(ref) <= set(summary)
 
 
-@pytest.mark.parametrize("preset", ["moe_tiny", "nexus_moe"])
-@pytest.mark.parametrize("quantize", ["int8", "int4"])
-def test_quantized_moe_serving_raises_naming_the_roadmap_item(preset, quantize):
-    with pytest.raises(NotImplementedError, match="A5b"):
-        ServeConfig.from_env({"NEXUS_MODEL_PRESET": preset, "NEXUS_QUANTIZE": quantize})
-    assert ServeConfig.from_env({"NEXUS_MODEL_PRESET": preset, "NEXUS_QUANTIZE_KV": "int8"}).quantize_kv == "int8"
-
-
 def test_entrypoint_serves_quantized_with_jax_and_the_reference_blocked(tmp_path):
     env = _serve_env(tmp_path, NEXUS_QUANTIZE="int4", NEXUS_QUANT_GROUP="16", NEXUS_QUANTIZE_KV="int8")
     proc = subprocess.run(

@@ -27,12 +27,13 @@ value it records is a host int/float the engine already owned):
   drain/SIGTERM, fleet replica-lost) with the implicated requests' full
   timelines inside.  ``python -m tools.nxtrace dump.json`` converts a dump
   to Chrome trace-event format (perfetto-loadable).
-* :class:`DeviceProfiler` — the JAX package's ``NEXUS_PROFILE_DIR``
-  step-window capture is not ported: arming it raises, naming the ROADMAP
-  item (``chip_smoke.py --phases build,profile`` traces serving on the
-  card meanwhile).
+* :class:`DeviceProfiler` — ``NEXUS_PROFILE_DIR`` arms a
+  ``torch.profiler`` capture over a window of engine or train steps
+  (``NEXUS_PROFILE_START``, ``NEXUS_PROFILE_STEPS``): host activity and,
+  on the card, its kernels, written as one Chrome trace JSON.
 
-A copy of ``tpu_nexus/serving/tracing.py`` apart from the profiler.
+A copy of ``tpu_nexus/serving/tracing.py`` apart from the profiler's
+backend (``torch.profiler`` in place of ``jax.profiler``).
 
 Everything here is best-effort by contract: a full ring, an unwritable
 dump directory, or a broken profiler must never take down the serving loop
@@ -387,17 +388,121 @@ class NullTracer:
 
 # -- on-demand device profiling ------------------------------------------------
 
+class _TorchTrace:
+    """``torch.profiler`` behind the ``start_trace(dir)`` / ``stop_trace()``
+    pair that :class:`DeviceProfiler` drives (the calls of the reference's
+    ``jax.profiler``).  The capture records host activity and, when
+    ``cuda``, the card's kernels and copies; stopping it writes one Chrome
+    trace JSON (perfetto-loadable) under the directory given at start."""
+
+    def __init__(self, cuda: bool) -> None:
+        self.cuda = cuda
+        self._prof: Any = None
+        self._dir = ""
+
+    def start_trace(self, log_dir: str) -> None:
+        from torch import profiler
+
+        activities = [profiler.ProfilerActivity.CPU]
+        if self.cuda:
+            activities.append(profiler.ProfilerActivity.CUDA)
+        prof = profiler.profile(activities=activities)
+        prof.start()
+        self._prof, self._dir = prof, log_dir
+
+    def stop_trace(self) -> None:
+        prof, self._prof = self._prof, None
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(self._dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+
+
 class DeviceProfiler:
-    """The JAX package's step-windowed device profiler: not ported.
-    :meth:`from_env` returns None when ``NEXUS_PROFILE_DIR`` is unset (the
-    caller skips the tick) and raises when it is set."""
+    """Step-windowed ``torch.profiler`` capture (module doc): arm with a
+    directory and a ``[start_step, start_step + num_steps)`` window, call
+    :meth:`tick` once per engine/train step, and the window's host
+    activity (and the card's, when ``cuda``) lands as a Chrome trace JSON
+    under ``profile_dir``.  Strictly best-effort: profiler start/stop
+    failures are counted and disable further attempts — a broken profiler
+    build must never take down the workload it was meant to explain."""
+
+    IDLE, ACTIVE, DONE = "idle", "active", "done"
+
+    def __init__(
+        self, profile_dir: str, start_step: int = 0, num_steps: int = 10, cuda: bool = False
+    ) -> None:
+        if not profile_dir:
+            raise ValueError("profile_dir must be non-empty")
+        if start_step < 0:
+            raise ValueError(f"start_step must be >= 0, got {start_step}")
+        if num_steps < 1:
+            raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+        self.profile_dir = profile_dir
+        self.start_step = start_step
+        self.num_steps = num_steps
+        #: record the card's activity too (the run is on a CUDA device)
+        self.cuda = cuda
+        self.state = self.IDLE
+        self.failures = 0
+        self._trace: Optional[_TorchTrace] = None
 
     @staticmethod
-    def from_env(env: Optional[Dict[str, str]] = None) -> None:
+    def from_env(env: Optional[Dict[str, str]] = None, cuda: bool = False) -> Optional["DeviceProfiler"]:
+        """``NEXUS_PROFILE_DIR`` arms the capture; ``NEXUS_PROFILE_START``
+        (default 0) and ``NEXUS_PROFILE_STEPS`` (default 10) shape the
+        window.  None when unarmed — the caller skips the tick entirely.
+        Malformed window values DISARM with a warning instead of raising:
+        the best-effort contract starts at parse — an observability knob
+        must never take down the workload it was meant to explain."""
         e = os.environ if env is None else env
-        if e.get("NEXUS_PROFILE_DIR", ""):
-            raise NotImplementedError(
-                "NEXUS_PROFILE_DIR: the device profiler hook is not ported yet "
-                "(chip_smoke.py --phases build,profile traces serving on the card)"
+        profile_dir = e.get("NEXUS_PROFILE_DIR", "")
+        if not profile_dir:
+            return None
+        try:
+            return DeviceProfiler(
+                profile_dir,
+                start_step=int(e.get("NEXUS_PROFILE_START", "0")),
+                num_steps=int(e.get("NEXUS_PROFILE_STEPS", "10")),
+                cuda=cuda,
             )
-        return None
+        except ValueError as exc:  # noqa: BLE001 - best-effort contract: a malformed NEXUS_PROFILE_* value disarms profiling (logged), never kills the serving/training run it rides in
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "device profiling disarmed: bad NEXUS_PROFILE_* value (%s)", exc
+            )
+            return None
+
+    def _profiler(self) -> _TorchTrace:
+        if self._trace is None:
+            self._trace = _TorchTrace(self.cuda)
+        return self._trace
+
+    def summary(self) -> Dict[str, Any]:
+        """The window's outcome for a run summary: where, how it ended, and
+        the counted failures."""
+        return {"dir": self.profile_dir, "state": self.state, "failures": self.failures}
+
+    def tick(self, step: int) -> None:
+        """Call once per step with the zero-based step number about to
+        run; starts capture entering the window and stops it leaving."""
+        if self.state == self.IDLE and step >= self.start_step:
+            try:
+                os.makedirs(self.profile_dir, exist_ok=True)
+                self._profiler().start_trace(self.profile_dir)
+                self.state = self.ACTIVE
+            except Exception:  # noqa: BLE001 - best-effort profiling: a profiler that cannot start (no CUPTI, unwritable dir) is counted and disabled, never a serving/training outage
+                self.failures += 1
+                self.state = self.DONE
+        elif self.state == self.ACTIVE and step >= self.start_step + self.num_steps:
+            self.stop()
+
+    def stop(self) -> None:
+        """Close an in-flight capture (window end, or end-of-run cleanup
+        when the loop finished inside the window)."""
+        if self.state != self.ACTIVE:
+            return
+        try:
+            self._profiler().stop_trace()
+        except Exception:  # noqa: BLE001 - best-effort profiling: a stop failure loses the capture, not the workload; counted for the summary line
+            self.failures += 1
+        self.state = self.DONE

@@ -34,11 +34,16 @@ step writes the state (from the step call until the cursor snapshot of
 its end is recorded), and the hang handler saves only if it can take that
 lock — a hang inside the window saves nothing (``emergency_step: null``).
 
+``NEXUS_PROFILE_DIR`` arms the device profiler
+(``serving/tracing.py::DeviceProfiler``, the serving stack's hook) over
+train steps ``[NEXUS_PROFILE_START, NEXUS_PROFILE_START +
+NEXUS_PROFILE_STEPS)``; the first iteration (kernel build, allocator
+warm-up) is never in the window.
+
 Not ported in this slice, refused at parse naming the ROADMAP.md item
 that brings each: multi-device meshes, sequence-parallel attention and
 pipeline microbatches (``NEXUS_MESH``, ``NEXUS_SP_ATTN``,
-``NEXUS_PP_MICROBATCHES``, A6), and the device profiler
-(``NEXUS_PROFILE_DIR``).
+``NEXUS_PP_MICROBATCHES``, A6).
 """
 
 from __future__ import annotations
@@ -294,11 +299,6 @@ class WorkloadConfig:
                     f"{key}={e[key]!r}: sequence/pipeline parallelism is not "
                     "ported yet (ROADMAP.md: A6 multi-GPU)"
                 )
-        if e.get("NEXUS_PROFILE_DIR", ""):
-            raise NotImplementedError(
-                "NEXUS_PROFILE_DIR: the device profiler hook is not ported yet "
-                "(chip_smoke.py --phases build,profile traces serving on the card)"
-            )
         steps = int(e.get("NEXUS_STEPS", "100"))
         return WorkloadConfig(
             model=get_adapter(e.get("NEXUS_MODEL_PRESET", "tiny")),
@@ -754,6 +754,13 @@ def _workload_loop(
         )
         watchdog.start()
 
+    # on-demand device profiling: NEXUS_PROFILE_DIR arms a torch.profiler
+    # capture around train steps [NEXUS_PROFILE_START, NEXUS_PROFILE_START +
+    # NEXUS_PROFILE_STEPS); strictly best-effort, failures counted
+    from tpu_nexus_torch.serving.tracing import DeviceProfiler
+
+    profiler = DeviceProfiler.from_env(cuda=device.type == "cuda")
+
     reporter.running()
     metrics: Dict[str, Any] = {}
     m: Dict[str, Any] = {}
@@ -788,6 +795,10 @@ def _workload_loop(
             armed = watchdog is not None and not warmup_pending
             if armed:
                 watchdog.arm(step)
+            if profiler is not None and not warmup_pending:
+                # profile steady-state steps: the first iteration's kernel
+                # build would drown the window
+                profiler.tick(step)
             maybe_inject(
                 plan,
                 step,
@@ -861,6 +872,8 @@ def _workload_loop(
     finally:
         if watchdog is not None:
             watchdog.stop()
+        if profiler is not None:
+            profiler.stop()  # close a capture the loop exited inside of
     sync(device)
     elapsed = time.perf_counter() - t0
     # draining the queued step chain is train time surfacing late
@@ -933,6 +946,8 @@ def _workload_loop(
         **({"ckpt_rollbacks": rollback_events} if rollback_events else {}),
         **({"health_rollbacks": health_events} if health_events else {}),
         **({"health_skips": monitor.skips_observed} if monitor and monitor.skips_observed else {}),
+        # the profiler window's outcome, as the serve-engine summary gives it
+        **({"profiler": profiler.summary()} if profiler is not None else {}),
         **metrics,
     }
 

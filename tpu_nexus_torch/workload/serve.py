@@ -19,9 +19,14 @@ each decode step's weight products run through the dequant-matmul kernels
 Bad values fail at parse with the reference's wording.
 
 The MoE presets serve through the same loop (``models/generate.py``
-decodes them with scatter dispatch at a dropless capacity);
-``NEXUS_QUANTIZE`` with an MoE preset raises at parse (quantized expert
-stacks are ROADMAP.md item A5b).
+decodes them with scatter dispatch at a dropless capacity), quantized too:
+the expert stacks ``[L, E, K, N]`` keep per-expert scales and are
+dequantized before their einsum, while the attention projections of a
+decode step take the dequant-matmul kernels.
+
+``NEXUS_PROFILE_DIR`` (serve-engine) arms the device profiler over engine
+iterations ``[NEXUS_PROFILE_START, NEXUS_PROFILE_START +
+NEXUS_PROFILE_STEPS)`` (``serving/tracing.py::DeviceProfiler``).
 
 Engine knobs (``NEXUS_PAGE_SIZE``, ``NEXUS_KV_BLOCKS``, ``NEXUS_SPEC_K``,
 ``NEXUS_SPEC_DRAFTER``, ``NEXUS_OVERLAP``, ``NEXUS_DECODE_STEPS``,
@@ -59,7 +64,6 @@ from tpu_nexus_torch.checkpoint.store import CheckpointStore
 from tpu_nexus_torch.core.signals import LifecycleContext, setup_signal_context
 from tpu_nexus_torch.models.generate import DECODE_IMPLS, generate
 from tpu_nexus_torch.models.llama import LlamaConfig
-from tpu_nexus_torch.models.moe import MoeConfig
 from tpu_nexus_torch.models.quant import DEFAULT_INT4_GROUP, quantize_params, quantized_bytes
 from tpu_nexus_torch.models.registry import LlamaAdapter, MoeAdapter, adapter_for, get_adapter
 from tpu_nexus_torch.ops.decode_attention import MAX_DECODE_Q_LEN
@@ -176,11 +180,6 @@ class ServeConfig:
     def __post_init__(self) -> None:
         if self.quantize not in ("", "int8", "int4"):
             raise ValueError(f"unknown quantize mode {self.quantize!r}; use 'int8' or 'int4'")
-        if self.quantize and isinstance(getattr(self.model, "config", self.model), MoeConfig):
-            raise NotImplementedError(
-                f"quantize={self.quantize!r} (NEXUS_QUANTIZE) with an MoE model: quantized "
-                "expert stacks are not ported yet (ROADMAP.md: A5b quantized MoE serving)"
-            )
         if self.quant_group < 0:
             raise ValueError(
                 f"quant_group (NEXUS_QUANT_GROUP) must be >= 0, got {self.quant_group}"
@@ -650,9 +649,6 @@ def _serve_engine_loop(
     from tpu_nexus_torch.serving.tracing import DeviceProfiler
     from tpu_nexus_torch.workload.faults import wrap_executor
 
-    # the device profiler hook is not ported: arming it fails before any
-    # device work starts
-    DeviceProfiler.from_env()
     # live DogStatsD emission, fire-and-forget: an absent agent drops
     # datagrams, never raises into the serving loop
     statsd = StatsdClient(
@@ -740,6 +736,11 @@ def _serve_engine_loop(
     # steps on the same zero base as the iteration counter below
     engine.executor = wrap_executor(plan, executor)
 
+    # on-demand device profiling: NEXUS_PROFILE_DIR arms a torch.profiler
+    # capture around engine steps [NEXUS_PROFILE_START, NEXUS_PROFILE_START
+    # + NEXUS_PROFILE_STEPS): host and (on the card) kernel activity
+    profiler = DeviceProfiler.from_env(cuda=device.type == "cuda")
+
     # the pressure plane (NEXUS_SLO_*): grade this engine as a fleet-of-one
     # every heartbeat interval; observation reads materialized host state
     slo_monitor = None
@@ -805,6 +806,8 @@ def _serve_engine_loop(
                 # verification or did not fit — remember it so the reload
                 # check does not pay a failed load (or a quiesce) per poll
                 bad_reload = (latest, scans)
+        if profiler is not None:
+            profiler.tick(it)
         engine.step()
         it += 1
         if cfg.heartbeat_every and it % cfg.heartbeat_every == 0:
@@ -825,6 +828,8 @@ def _serve_engine_loop(
                     pump()
     while engine.has_work and not lifecycle.cancelled:
         pump()
+    if profiler is not None:
+        profiler.stop()  # close a capture the run finished inside of
     _sync(device)
     elapsed = time.perf_counter() - t0
 
@@ -878,7 +883,9 @@ def _serve_engine_loop(
         "load_snapshot": engine.load_snapshot().to_dict(),
         "pressure": slo_monitor.summary() if slo_monitor is not None else None,
         "flight_recorder": tracer.recorder.summary() if tracer.enabled else None,
-        "profiler": None,
+        # the profiler window's outcome, so a drill can read it from the
+        # summary without walking the trace directory
+        "profiler": profiler.summary() if profiler is not None else None,
         "device": str(device),
         **drain_summary,
         **metrics.summary(),
