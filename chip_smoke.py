@@ -182,6 +182,20 @@ raises and exits non-zero:
    trace whose kernels name the path's hand-written kernels (#4 and the
    int8 ring; gmm, tgmm and the flash backward); the card's busy share and
    device ms by group from each trace.
+26. control_plane — the launch-to-verdict chain (``Launcher`` -> a
+   ``FakeKubeClient`` plane with the real informers -> a supervisor built by
+   ``ApplicationServices`` from ``load_config(SupervisorConfig)`` over an
+   sqlite ledger) around four real containers, ``python -m
+   tpu_nexus_torch.workload`` subprocesses on the card with the composed
+   manifest's command and env, nexus_1b at full width and depth: (d) a clean
+   4-step train run COMPLETED with nothing flagged, and its peak memory; (a)
+   a fault exit 137 at step 3 of 6 -> FAILED (fatal), Job deleted, its trace
+   naming #1-#3; (b) a real CUDA out-of-memory -> ``TO_FAIL_HBM_OOM`` from
+   the pod's termination message and from the raw torch line alone, FAILED
+   with the trace ref, Job deleted; (c) serve-engine, 16 requests,
+   COMPLETED, its trace naming #1 and #4.  Then a line of numbers:
+   launch-to-RUNNING, the supervisor's decision latency, each container's
+   wall seconds and start-up share, tokens/s (reported, not claimed).
 
 Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
@@ -227,7 +241,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe",
           "train_ckpt", "serve_reload", "fleet", "disagg", "fleet_rollout", "serve_moe_quant", "quant_gate",
-          "profile_hook")
+          "profile_hook", "control_plane")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
           "quant_rms_times", "int4_probe", "int8_probe", "ckpt_probe")
@@ -2319,6 +2333,368 @@ def phase_profile_hook(results):
             ["gmm_bf16_kernel", "tgmm_bf16_kernel", "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"])
 
 
+#: the control_plane phase's model and its train runs' shape (the train
+#: phase's: nexus_1b, bf16 params, adamw, batch 8 x seq 2048)
+CP_TRAIN_BATCH, CP_SEQ = 8, 2048
+#: run (b)'s batch: its peak cannot fit the card.  Reckoning, from run (d)'s
+#: peak at batch 8 (printed by the subprocess, ``max_memory_allocated``;
+#: NVIDIA H100 80GB HBM3 at 700.00 W, this phase's first card run):
+#: 12,010,102,784 B, of which the state is 947,972,096 params x 8 B =
+#: 7,583,776,768 B; the other 4,426,326,016 B scale with the batch.  At
+#: batch 512: 7.58 GB + 64 x 4.43 GB = 290.9 GB, 3.4x the card's 85.0 GB
+#: (twice the card needs batch >= 294).  The phase checks the reckoning
+#: again against each run's own measured peak.
+CP_OOM_BATCH = 512
+#: bytes a nexus_1b parameter holds in training with adamw: bf16 params,
+#: grads and both moments (adamw keeps them in the params' dtype)
+CP_STATE_BYTES_PER_PARAM = 8
+CP_NS = "nexus"
+CP_ALGORITHM = "nexus-1b"
+
+
+def _cp_run_subprocess(argv, env, timeout):
+    """Run one workload process; stream its stderr lines with their arrival
+    time (``time.perf_counter``).  Returns (rc, stdout, stderr, [(t, line)],
+    t_spawn, t_exit)."""
+    import threading
+
+    lines, out = [], []
+    t_spawn = time.perf_counter()
+    proc = subprocess.Popen(argv, env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def read_err():
+        for line in proc.stderr:
+            lines.append((time.perf_counter(), line))
+
+    def read_out():
+        out.append(proc.stdout.read())
+
+    readers = [threading.Thread(target=read_err, daemon=True), threading.Thread(target=read_out, daemon=True)]
+    for r in readers:
+        r.start()
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:  # the wait timed out or was interrupted
+            proc.kill()
+            proc.wait()
+    t_exit = time.perf_counter()
+    for r in readers:
+        r.join(timeout=30)
+    return rc, "".join(out), "".join(line for _, line in lines), lines, t_spawn, t_exit
+
+
+def _cp_step_times(lines):
+    """{step: arrival time} of the training loop's "step N loss" lines."""
+    import re
+
+    steps = {}
+    for t, line in lines:
+        m = re.search(r"\bstep (\d+) loss ", line)
+        if m:
+            steps[int(m.group(1))] = t
+    return steps
+
+
+def _cp_summary_number(stderr, key):
+    """A number of the entry point's ``workload done: {...}`` line."""
+    import re
+
+    m = re.search(rf"workload done: .*?'{key}': ([0-9.eE+-]+)", stderr)
+    return float(m.group(1)) if m else None
+
+
+async def _control_plane(results, tmp):
+    import asyncio
+    import math
+    import re
+    import uuid
+    from datetime import timedelta
+
+    import torch
+
+    from tpu_nexus_torch.app.config import SupervisorConfig
+    from tpu_nexus_torch.app.dependencies import ApplicationServices
+    from tpu_nexus_torch.checkpoint.models import POD_JOB_NAME_LABEL, LifecycleStage
+    from tpu_nexus_torch.core.config import load_config
+    from tpu_nexus_torch.core.signals import LifecycleContext
+    from tpu_nexus_torch.k8s.fake import FakeKubeClient
+    from tpu_nexus_torch.launcher.client import Launcher
+    from tpu_nexus_torch.launcher.jobset import LaunchSpec, run_labels
+    from tpu_nexus_torch.supervisor.taxonomy import (
+        MSG_FATAL_ERROR,
+        MSG_HBM_OOM,
+        DecisionAction,
+        classify_tpu_failure,
+    )
+
+    ledger = str(tmp / "ledger.db")
+    # the supervisor's config: appconfig.yaml on the search path (the
+    # repository's, cql-store-type scylla) with NEXUS__* env on top
+    env = dict(os.environ, NEXUS__CQL_STORE_TYPE="sqlite", NEXUS__SQLITE_STORE_PATH=ledger,
+               NEXUS__RESOURCE_NAMESPACE=CP_NS, NEXUS__WORKERS="2", NEXUS__FAILURE_RATE_BASE_DELAY="5ms",
+               NEXUS__FAILURE_RATE_MAX_DELAY="50ms", NEXUS__RATE_LIMIT_ELEMENTS_PER_SECOND="0",
+               # the watchdog stays armed, its stale window longer than any run
+               NEXUS__HEARTBEAT_STALE_AFTER="600s", NEXUS__WATCHDOG_INTERVAL="1s")
+    cfg = load_config(SupervisorConfig, environ=env)
+    client = FakeKubeClient({})
+    services = (ApplicationServices(fatal_exit=False).with_store_for(cfg).with_fake_kube_client(client)
+                .with_supervisor(cfg, resync_period=timedelta(0)))
+    store, supervisor = services.store, services.supervisor
+    ctx = LifecycleContext()
+    task = asyncio.create_task(services.start(ctx, cfg))
+    await asyncio.sleep(0.2)
+    if cfg.cql_store_type != "sqlite" or supervisor.watchdog is None:
+        raise AssertionError(f"control_plane: config {cfg}")
+    out = {"runs": {}}
+
+    async def idle():
+        if not await supervisor.idle(timeout=10):
+            raise AssertionError("control_plane: the supervisor's queues did not drain in 10 s")
+
+    async def launch(label, env_extra):
+        """Launch one run: the BUFFERED row first, the Job, then the pod and
+        its Started event -> RUNNING; returns (rid, manifest, pod, seconds)."""
+        rid = str(uuid.uuid4())
+        spec = LaunchSpec(run_id=rid, algorithm=CP_ALGORITHM, image="tpu-nexus-torch-workload:chip",
+                          command=["python", "-m", "tpu_nexus_torch.workload"], namespace=CP_NS,
+                          resources={"nvidia.com/gpu": "1"}, env=env_extra)
+        t0 = time.perf_counter()
+        cp = await Launcher(client, store, use_jobset=False).launch(spec)
+        if cp.lifecycle_stage != LifecycleStage.BUFFERED or store.read_checkpoint(
+                CP_ALGORITHM, rid).lifecycle_stage != LifecycleStage.BUFFERED:
+            raise AssertionError(f"{label}: the launch did not write BUFFERED first")
+        jobs, _ = await client.list_objects("Job", CP_NS)
+        manifest = next(j for j in jobs if j["metadata"]["name"] == rid)
+        pod = {"kind": "Pod", "metadata": {"name": f"{rid}-0", "namespace": CP_NS, "uid": str(uuid.uuid4()),
+                                            "labels": {POD_JOB_NAME_LABEL: rid, **run_labels(spec)}},
+               "status": {}}
+        client.inject("ADDED", "Pod", pod)
+        client.inject("ADDED", "Event", {
+            "kind": "Event", "metadata": {"name": f"evt-started-{rid[:8]}", "namespace": CP_NS},
+            "reason": "Started", "message": "Started container algorithm", "type": "Normal",
+            "involvedObject": {"kind": "Pod", "name": pod["metadata"]["name"], "namespace": CP_NS}})
+        while store.read_checkpoint(CP_ALGORITHM, rid).lifecycle_stage != LifecycleStage.RUNNING:
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError(f"{label}: no RUNNING within 30 s")
+            await asyncio.sleep(0.002)
+        return rid, manifest, pod, time.perf_counter() - t0
+
+    async def container(manifest, timeout=600):
+        """The container a kubelet would start: the manifest's command and
+        env (NEXUS_PROCESS_ID from the downward API), the ledger pointed at
+        the shared sqlite file, on the card."""
+        box = manifest["spec"]["template"]["spec"]["containers"][0]
+        penv = dict(os.environ, PYTHONPATH=str(ROOT), TMPDIR=str(tmp), NEXUS_PROCESS_ID="0",
+                    NEXUS__CQL_STORE_TYPE="sqlite", NEXUS__SQLITE_STORE_PATH=ledger)
+        penv.update({e["name"]: e["value"] for e in box["env"] if "value" in e})
+        argv = [sys.executable if a == "python" else a for a in box["command"]]
+        return await asyncio.to_thread(_cp_run_subprocess, argv, penv, timeout)
+
+    def run_numbers(label, lines, t_spawn, t_exit, stderr):
+        steps = _cp_step_times(lines)
+        wall = t_exit - t_spawn
+        first = min(steps) if steps else None
+        info = {"wall_s": wall}
+        if first is not None:
+            # spawn to the first step's heartbeat line: imports, the CUDA
+            # context, the weights, the kernels' library and the first step
+            info.update(to_first_step_end_s=steps[first] - t_spawn,
+                        to_first_step_end_share=(steps[first] - t_spawn) / wall)
+        loop_s = _cp_summary_number(stderr, "elapsed_s")
+        if loop_s is not None:
+            # spawn to the loop's first step (train) or to the timed engine
+            # loop after the warm-up request (serve-engine)
+            info.update(before_first_step_s=wall - loop_s, before_first_step_share=(wall - loop_s) / wall)
+        info["step_line_times_s"] = {s: t - t_spawn for s, t in sorted(steps.items())}
+        out["runs"][label] = info
+        return info, steps
+
+    train_env = {"NEXUS_MODEL_PRESET": "nexus_1b", "NEXUS_BATCH": str(CP_TRAIN_BATCH), "NEXUS_SEQ_LEN": str(CP_SEQ),
+                 "NEXUS_OPTIMIZER": "adamw", "NEXUS_HEARTBEAT_EVERY": "1", "NEXUS_DEVICE": "cuda"}
+
+    # (d) a clean training run, first: COMPLETED, nothing flagged, its peak
+    rid, manifest, pod, to_running = await launch("d_train", dict(train_env, NEXUS_STEPS="4"))
+    rc, _, stderr, lines, t_spawn, t_exit = await container(manifest)
+    info, steps = run_numbers("d_train", lines, t_spawn, t_exit, stderr)
+    await asyncio.sleep(1.5)  # one watchdog sweep over the finished row
+    await idle()
+    row = store.read_checkpoint(CP_ALGORITHM, rid)
+    m = re.search(r"peak device memory: (\d+) bytes", stderr)
+    peak8 = int(m.group(1)) if m else None
+    info.update(launch_to_running_s=to_running, rc=rc, stage=row.lifecycle_stage, per_chip_steps=row.per_chip_steps,
+                peak_device_memory_bytes=peak8, tokens_per_second=_cp_summary_number(stderr, "tokens_per_second"))
+    emit("control_plane", run="d_train", **info)
+    if (rc != 0 or row.lifecycle_stage != LifecycleStage.COMPLETED or row.per_chip_steps != {"host0/chip0": 4}
+            or rid in client.deleted("Job") or row.algorithm_failure_cause or supervisor.watchdog.flagged
+            or peak8 is None):
+        raise AssertionError(f"control_plane d_train: rc {rc}, row {row}, flagged {supervisor.watchdog.flagged}, "
+                             f"peak {peak8}\n{stderr[-3000:]}")
+
+    # (a) the fault exit: 137 at step 3 of 6, the profiler's window on step 2
+    prof_a = tmp / "profile_a"
+    rid, manifest, pod, to_running = await launch("a_fault", dict(
+        train_env, NEXUS_STEPS="6", NEXUS_FAULT_MODE="oom", NEXUS_FAULT_STEP="3", NEXUS_PROFILE_DIR=str(prof_a),
+        NEXUS_PROFILE_START="2", NEXUS_PROFILE_STEPS="1"))
+    rc, _, stderr, lines, t_spawn, t_exit = await container(manifest)
+    info, steps = run_numbers("a_fault", lines, t_spawn, t_exit, stderr)
+    row = store.read_checkpoint(CP_ALGORITHM, rid)
+    # step 2's line closes the one unprofiled step after the warm-up step
+    tps = CP_TRAIN_BATCH * CP_SEQ / (steps[2] - steps[1]) if {1, 2} <= set(steps) else None
+    info.update(launch_to_running_s=to_running, rc=rc, heartbeats=row.per_chip_steps, tokens_per_second_before_fault=tps)
+    if rc != 137 or row.per_chip_steps != {"host0/chip0": 3} or row.lifecycle_stage != LifecycleStage.RUNNING:
+        raise AssertionError(f"control_plane a_fault: rc {rc}, row {row}\n{stderr[-3000:]}")
+    client.inject("ADDED", "Event", {
+        "kind": "Event", "metadata": {"name": f"evt-pfp-{rid[:8]}", "namespace": CP_NS},
+        "reason": "PodFailurePolicy",
+        "message": (f"Container algorithm for pod {CP_NS}/{rid}-0 failed with exit code 137 "
+                    "matching FailJob rule at index 0"),
+        "type": "Warning", "involvedObject": {"kind": "Job", "name": rid, "namespace": CP_NS}})
+    await idle()
+    row = store.read_checkpoint(CP_ALGORITHM, rid)
+    traces = sorted(prof_a.glob("*.json"))
+    info.update(stage=row.lifecycle_stage, cause=row.algorithm_failure_cause, job_deleted=rid in client.deleted("Job"),
+                trace_files=len(traces))
+    if (row.lifecycle_stage != LifecycleStage.FAILED or row.algorithm_failure_cause != MSG_FATAL_ERROR
+            or "exit code 137" not in row.algorithm_failure_details or client.deleted("Job").count(rid) != 1
+            or len(traces) != 1):
+        raise AssertionError(f"control_plane a_fault: verdict {row}, traces {traces}")
+    trace = trace_breakdown(traces[0], _kernel_group)
+    names = trace.pop("kernel_names")
+    must = ["flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"]
+    missing = [n for n in must if not any(n in k for k in names)]
+    info.update(trace_kernels_named=must, trace_missing=missing, trace_busy_share=trace["device_busy_share"])
+    emit("control_plane", run="a_fault", **info)
+    if missing:
+        raise AssertionError(f"control_plane a_fault: the subprocess's trace misses {missing} ({names[:20]})")
+
+    # (b) a real CUDA out-of-memory in the launched container: its batch
+    # must need at least twice the card's memory by (d)'s measured peak, the
+    # state fixed and the rest scaled with the batch
+    from tpu_nexus_torch.models.llama import LlamaConfig, param_count
+
+    state = param_count(LlamaConfig.nexus_1b()) * CP_STATE_BYTES_PER_PARAM
+    card = torch.cuda.get_device_properties(0).total_memory
+    reckoned = state + (peak8 - state) * CP_OOM_BATCH / CP_TRAIN_BATCH
+    out["oom_reckoning"] = {"state_bytes": state, "peak8": peak8, "batch": CP_OOM_BATCH,
+                            "reckoned_peak_bytes": reckoned, "card_bytes": card, "ratio": reckoned / card}
+    emit("control_plane", run="b_oom_reckoning", **out["oom_reckoning"])
+    if reckoned < 2 * card:
+        raise AssertionError(f"control_plane: batch {CP_OOM_BATCH} reckons {reckoned} B, under twice {card} B")
+    rid, manifest, pod, to_running = await launch("b_oom", dict(train_env, NEXUS_STEPS="2",
+                                                                 NEXUS_BATCH=str(CP_OOM_BATCH)))
+    rc, _, stderr, lines, t_spawn, t_exit = await container(manifest)
+    info, _ = run_numbers("b_oom", lines, t_spawn, t_exit, stderr)
+    raw = [line.strip() for line in stderr.splitlines()
+           if "OutOfMemoryError: CUDA out of memory" in line and "RESOURCE_EXHAUSTED" not in line]
+    if rc == 0 or "RESOURCE_EXHAUSTED: device memory exhausted (CUDA out of memory)" not in stderr \
+            or "[hlo_trace: file://" not in stderr or not raw:
+        raise AssertionError(f"control_plane b_oom: rc {rc}\n{stderr[-3000:]}")
+    # the kubelet's FallbackToLogsOnError: the log's tail (at most 80 lines
+    # or 2048 bytes) becomes the terminated container's message
+    tail = "\n".join(stderr.strip().splitlines()[-80:])[-2048:]
+    client.inject("MODIFIED", "Pod", dict(pod, status={"phase": "Failed", "containerStatuses": [
+        {"name": "algorithm", "state": {"terminated": {"reason": "Error", "message": tail, "exitCode": rc}}}]}))
+    client.inject("ADDED", "Event", {
+        "kind": "Event", "metadata": {"name": f"evt-failed-{rid[:8]}", "namespace": CP_NS},
+        "reason": "Failed", "message": "Error", "type": "Warning",
+        "involvedObject": {"kind": "Pod", "name": pod["metadata"]["name"], "namespace": CP_NS}})
+    await idle()
+    row = store.read_checkpoint(CP_ALGORITHM, rid)
+    raw_class = classify_tpu_failure(raw[0])
+    info.update(launch_to_running_s=to_running, rc=rc, stage=row.lifecycle_stage, cause=row.algorithm_failure_cause,
+                hlo_trace_ref=row.hlo_trace_ref, job_deleted=rid in client.deleted("Job"),
+                raw_line=raw[0][:200], raw_line_class=raw_class, batch=CP_OOM_BATCH)
+    emit("control_plane", run="b_oom", **info)
+    if (row.lifecycle_stage != LifecycleStage.FAILED or row.algorithm_failure_cause != MSG_HBM_OOM
+            or not row.hlo_trace_ref.startswith("file://") or row.hlo_trace_ref not in tail
+            or client.deleted("Job").count(rid) != 1 or raw_class != DecisionAction.TO_FAIL_HBM_OOM):
+        raise AssertionError(f"control_plane b_oom: verdict {row}, raw line class {raw_class}")
+
+    # (c) a completed serving run through the engine
+    prof_c = tmp / "profile_c"
+    rid, manifest, pod, to_running = await launch("c_serve", {
+        "NEXUS_MODE": "serve-engine", "NEXUS_MODEL_PRESET": "nexus_1b", "NEXUS_BATCH": "8", "NEXUS_STEPS": "2",
+        "NEXUS_PROMPT_LEN": "128", "NEXUS_GEN_TOKENS": "32", "NEXUS_DEVICE": "cuda",
+        "NEXUS_PROFILE_DIR": str(prof_c), "NEXUS_PROFILE_START": "0", "NEXUS_PROFILE_STEPS": "4"})
+    rc, _, stderr, lines, t_spawn, t_exit = await container(manifest)
+    info, _ = run_numbers("c_serve", lines, t_spawn, t_exit, stderr)
+    await idle()
+    row = store.read_checkpoint(CP_ALGORITHM, rid)
+    traces = sorted(prof_c.glob("*.json"))
+    info.update(launch_to_running_s=to_running, rc=rc, stage=row.lifecycle_stage, heartbeats=row.per_chip_steps,
+                job_deleted=rid in client.deleted("Job"), trace_files=len(traces),
+                requests=_cp_summary_number(stderr, "requests"), finished=_cp_summary_number(stderr, "finished"),
+                decoded_tokens_per_second=_cp_summary_number(stderr, "decoded_tokens_per_second"))
+    if (rc != 0 or row.lifecycle_stage != LifecycleStage.COMPLETED or not row.per_chip_steps
+            or rid in client.deleted("Job") or len(traces) != 1 or info["finished"] != 16):
+        raise AssertionError(f"control_plane c_serve: rc {rc}, row {row}, {info}\n{stderr[-3000:]}")
+    trace = trace_breakdown(traces[0], _kernel_group)
+    names = trace.pop("kernel_names")
+    must = ["flash_fwd_bf16_kernel", "decode_hopper_kernel"]
+    missing = [n for n in must if not any(n in k for k in names)]
+    info.update(trace_kernels_named=must, trace_missing=missing, trace_busy_share=trace["device_busy_share"])
+    emit("control_plane", run="c_serve", **info)
+    if missing:
+        raise AssertionError(f"control_plane c_serve: the subprocess's trace misses {missing} ({names[:20]})")
+
+    ctx.cancel()
+    await task
+    lat = sorted(supervisor.commit_latencies)
+    out["decision_latency_s"] = dict(supervisor.latency_summary(),
+                                     p99=lat[max(0, math.ceil(len(lat) * 0.99) - 1)] if lat else 0.0)
+    out["flagged"] = supervisor.watchdog.flagged
+    out["peak8"] = peak8
+    if out["flagged"]:
+        raise AssertionError(f"control_plane: the watchdog flagged {out['flagged']} runs")
+    return out
+
+
+def phase_control_plane(results):
+    """The launch-to-verdict chain on the card: ``Launcher.launch`` writes
+    the BUFFERED row and the Job onto a ``FakeKubeClient`` plane watched by
+    the real informers; a supervisor built through ``ApplicationServices``
+    from ``load_config(SupervisorConfig)`` (``NEXUS__CQL_STORE_TYPE=sqlite``,
+    a ledger in a temporary directory) moves the row to RUNNING on the pod's
+    Started event; then the container runs — ``python -m
+    tpu_nexus_torch.workload`` as a subprocess with the manifest's command
+    and env, on the card, nexus_1b at full width and depth.  (d) 4 clean
+    train steps (batch 8 x 2048): COMPLETED, the Job kept, nothing flagged,
+    the peak device memory.  (a) ``NEXUS_FAULT_MODE=oom`` at step 3 of 6:
+    exit 137, three heartbeats, a PodFailurePolicy event -> FAILED with the
+    fatal-error message and the Job deleted; its Chrome trace names kernels
+    #1-#3.  (b) a batch that cannot fit (``CP_OOM_BATCH``): a real CUDA OOM,
+    the harness's wording and trace ref on stderr, whose tail becomes the
+    pod's termination message -> ``TO_FAIL_HBM_OOM``, FAILED with the ref,
+    the Job deleted; the raw ``torch`` line alone classifies the same.  (c)
+    serve-engine, 16 requests: COMPLETED with heartbeats; its trace names
+    #1 and #4.  Then one line of numbers: launch-to-RUNNING seconds, the
+    supervisor's decision latency (p50, p95 and max of
+    ``latency_summary``, and p99), each subprocess's wall seconds and start-up
+    share, tokens/s of (a) before the fault and of (c), the card's name and
+    power limit."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = asyncio.run(_control_plane(results, Path(tmp)))
+    runs = out["runs"]
+    emit("control_plane_numbers", nvidia_smi=nvidia_smi(),
+         launch_to_running_s={k: v["launch_to_running_s"] for k, v in runs.items()},
+         decision_latency_s=out["decision_latency_s"],
+         wall_s={k: v["wall_s"] for k, v in runs.items()},
+         to_first_step_end_share={k: v.get("to_first_step_end_share") for k, v in runs.items()},
+         before_first_step_share={k: v.get("before_first_step_share") for k, v in runs.items()},
+         tokens_per_second={"a_before_fault": runs["a_fault"]["tokens_per_second_before_fault"],
+                            "c_serve_decoded": runs["c_serve"]["decoded_tokens_per_second"]},
+         peak_device_memory_bytes_batch8=out["peak8"], oom_reckoning=out["oom_reckoning"],
+         flagged=out["flagged"])
+    results["control_plane"] = out
+
+
 def _decode_probe_times():
     """Kernel #4 (bf16) at the serve step's and kv 4096's shapes: contiguous
     and int8-KV at B8 q_len 1, paged (page 32) per-slot decode and the
@@ -4182,6 +4558,7 @@ def main(argv=None) -> int:
         "train_ckpt": phase_train_ckpt, "serve_reload": phase_serve_reload, "ckpt_probe": phase_ckpt_probe,
         "fleet": phase_fleet, "disagg": phase_disagg, "fleet_rollout": phase_fleet_rollout,
         "serve_moe_quant": phase_serve_moe_quant, "quant_gate": phase_quant_gate, "profile_hook": phase_profile_hook,
+        "control_plane": phase_control_plane,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:

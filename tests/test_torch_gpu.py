@@ -976,3 +976,21 @@ def test_cuda_disaggregated_fleet_is_token_identical_to_a_fused_engine(cuda_devi
     assert [list(r.output_tokens) for r in reqs] == [list(r.output_tokens) for r in want]
     assert flash_attention.launches >= cfg.n_layers * len(prompts)
     assert decode_attention.launches_by_mode.get("paged", 0) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_out_of_memory_classifies_as_hbm_oom(cuda_device):
+    """A real CUDA out-of-memory error raised on the card reaches the
+    supervisor's memory class in both forms the chain carries: the harness's
+    rewording (``classified_error_text``) and the raw ``torch`` text alone."""
+    from tpu_nexus_torch.supervisor.taxonomy import DecisionAction, classify_tpu_failure
+    from tpu_nexus_torch.workload.harness import classified_error_text
+
+    total = torch.cuda.get_device_properties(cuda_device).total_memory
+    with pytest.raises(torch.OutOfMemoryError) as caught:
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda_device)
+    raw = f"{type(caught.value).__module__}.{type(caught.value).__name__}: {caught.value}"
+    assert "CUDA out of memory" in raw
+    assert classify_tpu_failure(classified_error_text(caught.value)) == DecisionAction.TO_FAIL_HBM_OOM
+    assert classify_tpu_failure(raw) == DecisionAction.TO_FAIL_HBM_OOM
+    assert classify_tpu_failure(str(caught.value)) == DecisionAction.TO_FAIL_HBM_OOM

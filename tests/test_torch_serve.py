@@ -137,9 +137,9 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 @pytest.mark.parametrize(
     "key,value,item",
     [
-        ("NEXUS_ROUTER_POLICY", "round-robin", "A7 fleet"),
-        ("NEXUS_AUTOSCALE_MAX", "4", "A7 fleet"),
-        ("NEXUS_SCALE_COOLDOWN_S", "5", "A7 fleet"),
+        ("NEXUS_ROUTER_POLICY", "round-robin", "A7b fleet"),
+        ("NEXUS_AUTOSCALE_MAX", "4", "A7b fleet"),
+        ("NEXUS_SCALE_COOLDOWN_S", "5", "A7b fleet"),
         ("NEXUS_SERVE_MESH", "tp=2", "A6 sharded executors"),
     ],
 )
@@ -278,13 +278,38 @@ def test_engine_knobs_at_their_defaults_parse():
         ServeConfig.from_env({"NEXUS_DECODE_KERNEL": "pallas"})
 
 
-def test_store_from_env():
-    assert isinstance(entry.store_from_env({}), InMemoryCheckpointStore)
-    for kind in ("scylla", "astra"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            entry.store_from_env({"NEXUS__CQL_STORE_TYPE": kind})
-    with pytest.raises(ValueError):
-        entry.store_from_env({"NEXUS__CQL_STORE_TYPE": "redis"})
+@pytest.mark.parametrize(
+    "env,want",
+    [
+        ({"NEXUS__CQL_STORE_TYPE": "memory"}, InMemoryCheckpointStore),
+        ({"NEXUS__CQL_STORE_TYPE": "sqlite", "NEXUS__SQLITE_STORE_PATH": "{tmp}/ledger.db"}, SqliteCheckpointStore),
+        ({"NEXUS__CQL_STORE_TYPE": "scylla"}, "A7c CQL ledger"),
+        ({"NEXUS__CQL_STORE_TYPE": "astra"}, "A7c CQL ledger"),
+        ({}, "A7c CQL ledger"),  # SupervisorConfig's default, scylla, as in the reference
+        ({"NEXUS__CQL_STORE_TYPE": "redis"}, "unknown cql-store-type: 'redis'"),
+    ],
+    ids=["memory", "sqlite", "scylla", "astra", "default", "unknown"],
+)
+def test_store_from_env(tmp_path, monkeypatch, env, want):
+    """The entry point's ledger store comes from the supervisor's config
+    mechanism (``load_config(SupervisorConfig)`` + ``ApplicationServices``):
+    memory and sqlite resolve; the CQL kinds, and the dataclass default
+    with no appconfig file found, raise naming the ROADMAP item; an
+    unknown kind raises with the reference's words."""
+    monkeypatch.chdir(tmp_path)  # no appconfig.yaml on the search path
+    monkeypatch.delenv("TPU_NEXUS_CONFIG_DIR", raising=False)
+    env = {k: v.format(tmp=tmp_path) for k, v in env.items()}
+    if isinstance(want, str):
+        with pytest.raises((NotImplementedError, RuntimeError), match=want):
+            entry.store_from_env(env)
+        return
+    store = entry.store_from_env(env)
+    try:
+        assert isinstance(store, want)
+        if want is SqliteCheckpointStore:
+            assert store._path == str(tmp_path / "ledger.db")
+    finally:
+        store.close()
 
 
 def _imports(path: Path):

@@ -7,3 +7,5 @@ hand-written CUDA kernel (``csrc/``), built at first use
 (``ops/_build.py``).  Entry points run on ``cuda`` unless the caller asks
 for the CPU.
 """
+
+__version__ = "0.1.0"

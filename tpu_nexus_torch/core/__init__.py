@@ -1,2 +1,3 @@
-"""Process-level plumbing of the port: signals and telemetry (copies of the
-pieces of ``tpu_nexus/core`` that the training loop needs)."""
+"""Process-level plumbing of the port: copies of ``tpu_nexus/core`` —
+config loading, signals, logging and metrics, the pipeline actor, build
+metadata and small helpers."""

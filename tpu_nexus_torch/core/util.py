@@ -1,9 +1,21 @@
-"""Small helpers: a copy of what the serving engine uses from
-``tpu_nexus/core/util.py``."""
+"""Small helpers: a copy of ``tpu_nexus/core/util.py`` (reference: nexus-core
+pkg/util, used at services/supervisor.go:71)."""
 
 from __future__ import annotations
 
 import random
+from typing import Optional, TypeVar
+
+T = TypeVar("T")
+
+
+def coalesce(*values: Optional[T]) -> Optional[T]:
+    """Return the first non-None value (reference CoalescePointer, 2-arg;
+    generalized to n-ary)."""
+    for v in values:
+        if v is not None:
+            return v
+    return None
 
 
 def backoff_jitter_s(

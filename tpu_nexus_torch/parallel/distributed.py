@@ -4,7 +4,7 @@
 Env contract (set by the launcher): ``NEXUS_RUN_ID`` / ``NEXUS_ALGORITHM``
 (ledger key), ``NEXUS_PROCESS_ID``, ``NEXUS_NUM_PROCESSES``,
 ``NEXUS_COORDINATOR_ADDRESS``.  A world size above 1 raises until the
-multi-GPU slice brings ``torch.distributed`` bring-up (ROADMAP.md).
+multi-GPU slice brings ``torch.distributed`` bring-up (ROADMAP.md: A6).
 """
 
 from __future__ import annotations
@@ -63,6 +63,6 @@ def initialize_distributed(ctx: Optional[ProcessContext] = None) -> ProcessConte
     if ctx.num_processes > 1:
         raise NotImplementedError(
             f"{ENV_NUM_PROCESSES}={ctx.num_processes}: multi-process runs are "
-            "not ported yet (ROADMAP.md: multi-GPU)"
+            "not ported yet (ROADMAP.md: A6 multi-GPU)"
         )
     return ctx

@@ -18,7 +18,7 @@ Layering (each module imports only downward), as in the JAX package:
                        affinity/load candidate ranking, shed-and-retry
                        elsewhere by the ROUTE_ELIGIBILITY table;
                        SCALE_DECISIONS and AutoscaleConfig wait for the
-                       fleet supervisor that acts on them (ROADMAP.md A7)
+                       fleet supervisor that acts on them (ROADMAP.md A7b)
 * ``handoff``        — the KV handoff payload protocol between prefill
                        and decode replicas (host form: CPU tensors of the
                        pool's dtype, CRC over their raw bytes)
@@ -37,7 +37,7 @@ Every module but ``engine`` and the cache buffers of ``cache_manager`` is
 a copy of the JAX package's host code with its imports changed
 (``handoff`` also takes the port's host form of a leaf).  Not ported
 (ROADMAP.md): ``fleet``'s ``FleetSupervisor``, the Kubernetes reconciler
-(A7), and ``sharded`` (A6).
+(A7b), and ``sharded`` (A6).
 Comments in the copies that name nxlint rules (NX005, NX014, ...) describe
 the JAX package's static gates: nxlint scans ``tpu_nexus/`` only.
 """

@@ -33,8 +33,8 @@ each replica the tree its source restores.
 Not here: the reference's ``FleetSupervisor``, the control loop that
 watches the serving JobSet's pods through the Kubernetes informers and
 recreates or scales replicas.  It needs the control plane
-(``k8s/``, ``supervisor/watchdog.py``, ``supervisor/resolvers.py``) and
-comes with it, ROADMAP.md A7.
+(``k8s/``, ``supervisor/watchdog.py``, ``supervisor/resolvers.py``) and is
+ROADMAP.md A7b.
 """
 
 from __future__ import annotations

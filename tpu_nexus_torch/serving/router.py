@@ -35,11 +35,11 @@ compounding layers:
   fleet grade to a capacity verdict.  In the JAX package
   ``FleetSupervisor`` executes it (streaks + cooldown) through the same
   pod create/delete seams as failure recovery; the port has no
-  supervisor yet (ROADMAP.md A7), so here the table and
+  fleet supervisor yet (ROADMAP.md A7b), so here the table and
   :class:`AutoscaleConfig` are defined with their invariants and nothing
   acts on them; the knobs that would build one
   (``NEXUS_AUTOSCALE_*``/``NEXUS_SCALE_*``) are refused at parse until
-  A7 brings their reader.
+  A7b brings their reader.
 
 Both decision tables are TOTAL over ``PRESSURE_STATES``.  In the JAX
 package nxlint NX021 holds them to it; nxlint scans ``tpu_nexus/`` only,
@@ -67,7 +67,7 @@ from tpu_nexus_torch.serving.tracing import EV_ROUTER_RETRY
 logger = logging.getLogger(__name__)
 
 #: router policies (``ServingFleet(policy=...)``; the reference's
-#: NEXUS_ROUTER_POLICY is refused at parse until A7): "pressure" is the full
+#: NEXUS_ROUTER_POLICY is refused at parse until A7b): "pressure" is the full
 #: affinity + least-loaded scorer; "round-robin" keeps the plain
 #: rotation (still with shed-and-retry — retrying elsewhere is a
 #: correctness property, not a policy choice) as the bench baseline

@@ -1,16 +1,20 @@
 """Workload container entrypoint: ``python -m tpu_nexus_torch.workload``.
 
-Reads the launcher's NEXUS_* env contract, opens the ledger store, and runs
-the workload on ``NEXUS_DEVICE`` (default ``cuda``; a CUDA request without
-a card fails): ``NEXUS_MODE=train`` (the default, as in the reference)
-runs the training loop, ``serve`` the lockstep serving loop and
-``serve-engine`` the continuous-batching engine, each under the same ledger
-contract.
+Reads the launcher's NEXUS_* env contract, connects the ledger store from the
+same appconfig/env mechanism the supervisor uses, and runs the workload on
+``NEXUS_DEVICE`` (default ``cuda``; a CUDA request without a card fails):
+``NEXUS_MODE=train`` (the default) runs the training loop, ``serve`` the
+lockstep serving loop and ``serve-engine`` the continuous-batching engine,
+each under the same ledger contract.  Exit codes are the failure-taxonomy
+contract: 137/255 surface via the Job's PodFailurePolicy (see
+launcher.jobset), nonzero generic for uncaught errors.
 
-The ledger store comes from the same keys the supervisor's app config
-reads: ``NEXUS__CQL_STORE_TYPE`` = ``memory`` (the default here) or
-``sqlite`` (with ``NEXUS__SQLITE_STORE_PATH``); ``scylla`` and ``astra``
-are not ported yet.
+The ledger store is the supervisor's: ``load_config(SupervisorConfig)``
+(``appconfig.yaml``, its ``APPLICATION_ENVIRONMENT`` overlay, every
+``NEXUS__*`` key) and ``ApplicationServices().with_store_for``.
+``NEXUS__CQL_STORE_TYPE`` = ``sqlite`` (with ``NEXUS__SQLITE_STORE_PATH``)
+or ``memory``; ``scylla`` (the default, as in the reference) and ``astra``
+raise until the CQL ledger is ported (ROADMAP.md: A7c CQL ledger).
 """
 
 from __future__ import annotations
@@ -18,29 +22,22 @@ from __future__ import annotations
 import logging
 import os
 import sys
-from typing import Dict, Optional
+from typing import Mapping, Optional
 
-from tpu_nexus_torch.checkpoint.store import (
-    CheckpointStore,
-    InMemoryCheckpointStore,
-    SqliteCheckpointStore,
-)
+import torch
 
-def store_from_env(env: Optional[Dict[str, str]] = None) -> CheckpointStore:
-    e = os.environ if env is None else env
-    kind = e.get("NEXUS__CQL_STORE_TYPE", "memory")
-    if kind == "memory":
-        return InMemoryCheckpointStore()
-    if kind == "sqlite":
-        return SqliteCheckpointStore(
-            e.get("NEXUS__SQLITE_STORE_PATH", "/var/lib/tpu-nexus/ledger.db")
-        )
-    if kind in ("scylla", "astra"):
-        raise NotImplementedError(
-            f"NEXUS__CQL_STORE_TYPE={kind!r}: the CQL ledger backends are not "
-            "ported yet (ROADMAP.md: launcher and supervisor copies)"
-        )
-    raise ValueError(f"unknown NEXUS__CQL_STORE_TYPE {kind!r}; use memory or sqlite")
+from tpu_nexus_torch.checkpoint.store import CheckpointStore
+
+
+def store_from_env(env: Optional[Mapping[str, str]] = None) -> CheckpointStore:
+    """The ledger store the supervisor's config names, from ``appconfig``
+    files and ``env`` (default: the process environment)."""
+    from tpu_nexus_torch.app.config import SupervisorConfig
+    from tpu_nexus_torch.app.dependencies import ApplicationServices
+    from tpu_nexus_torch.core.config import load_config
+
+    cfg = load_config(SupervisorConfig, environ=env)
+    return ApplicationServices(fatal_exit=False).with_store_for(cfg).store
 
 
 def main() -> int:
@@ -65,7 +62,10 @@ def main() -> int:
         result = run(cfg, store=store)
     finally:
         store.close()
-    logging.getLogger(__name__).info("workload done: %s", result)
+    log = logging.getLogger(__name__)
+    log.info("workload done: %s", result)
+    if torch.cuda.is_initialized():
+        log.info("peak device memory: %d bytes", torch.cuda.max_memory_allocated())
     return 0
 
 

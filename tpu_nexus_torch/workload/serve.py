@@ -37,7 +37,7 @@ with the reference's wording.  Knobs of the reference that nothing in the
 port reads yet raise at parse, naming the ROADMAP.md item that brings their
 reader: ``NEXUS_SERVE_MESH`` (A6), and the fleet's ``NEXUS_ROUTER_POLICY``,
 ``NEXUS_AUTOSCALE_MIN``/``_MAX``, ``NEXUS_SCALE_UP_N``/``_DOWN_N`` and
-``NEXUS_SCALE_COOLDOWN_S`` (A7: the fleet supervisor builds the fleet and
+``NEXUS_SCALE_COOLDOWN_S`` (A7b: the fleet supervisor builds the fleet and
 is the only reader of these knobs in the reference; ``ServingFleet`` takes
 its router policy as an argument).
 
@@ -83,12 +83,12 @@ logger = logging.getLogger(__name__)
 #: a non-default value is refused at parse
 ENGINE_ONLY_ENV = {
     "NEXUS_SERVE_MESH": (str, "", "A6 sharded executors"),
-    "NEXUS_ROUTER_POLICY": (str, "pressure", "A7 fleet supervisor"),
-    "NEXUS_AUTOSCALE_MIN": (int, 0, "A7 fleet supervisor"),
-    "NEXUS_AUTOSCALE_MAX": (int, 0, "A7 fleet supervisor"),
-    "NEXUS_SCALE_UP_N": (int, 3, "A7 fleet supervisor"),
-    "NEXUS_SCALE_DOWN_N": (int, 12, "A7 fleet supervisor"),
-    "NEXUS_SCALE_COOLDOWN_S": (float, 60.0, "A7 fleet supervisor"),
+    "NEXUS_ROUTER_POLICY": (str, "pressure", "A7b fleet supervisor"),
+    "NEXUS_AUTOSCALE_MIN": (int, 0, "A7b fleet supervisor"),
+    "NEXUS_AUTOSCALE_MAX": (int, 0, "A7b fleet supervisor"),
+    "NEXUS_SCALE_UP_N": (int, 3, "A7b fleet supervisor"),
+    "NEXUS_SCALE_DOWN_N": (int, 12, "A7b fleet supervisor"),
+    "NEXUS_SCALE_COOLDOWN_S": (float, 60.0, "A7b fleet supervisor"),
 }
 
 
