@@ -196,6 +196,27 @@ raises and exits non-zero:
    COMPLETED, its trace naming #1 and #4.  Then a line of numbers:
    launch-to-RUNNING, the supervisor's decision latency, each container's
    wall seconds and start-up share, tokens/s (reported, not claimed).
+27. fleet_supervisor — ``FleetSupervisor`` reconciling three nexus_1b
+   replicas (full width and depth, bf16, page 32, 32 slots) over a
+   ``FakeKubeClient`` plane, fleet and supervisor built from a
+   ``ServeConfig`` env by ``build_fleet_supervisor``, its ledger the port's ``ScyllaCqlStore``
+   against ``CqlResponder`` (a CQL v4 responder on 127.0.0.1): (a) the pod
+   holding the most live requests deleted mid-traffic -> every casualty
+   FAILED with the replica-lost cause, the pod recreated, later requests
+   FINISHED; (b) a real CUDA out-of-memory's text in a pod's termination
+   message -> HBM OOM, the pod recreated with its KV blocks halved, serving
+   through the smaller pool; (c) ``NEXUS_SLO_*`` and
+   ``NEXUS_AUTOSCALE_MIN/MAX`` 3/4: a paused replica's sheds -> SATURATED
+   -> scale up, the new replica serves, idle -> scale down with nothing
+   evicted.  Tokens equal engines given the same requests alone; the
+   ledger rows read back over the wire; one line of numbers (reconcile ms,
+   seconds from the deletion and from the scale-up decision to a routed
+   request's first token on the new pod while the whole fleet ticks, ms a
+   ledger write, launches, peak memory).
+28. cql_ledger   — a serve-engine container (nexus_1b, 16 requests) on the
+   reference's default ``cql-store-type: scylla`` (no
+   ``NEXUS__CQL_STORE_TYPE``), pointed at ``CqlResponder``: exit 0, its row
+   COMPLETED with heartbeats, its wall seconds and ledger round trips.
 
 Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
@@ -232,8 +253,12 @@ import dataclasses
 import json
 import logging
 import os
+import re
+import socket
+import struct
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -241,7 +266,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe",
           "train_ckpt", "serve_reload", "fleet", "disagg", "fleet_rollout", "serve_moe_quant", "quant_gate",
-          "profile_hook", "control_plane")
+          "profile_hook", "control_plane", "fleet_supervisor", "cql_ledger")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
           "quant_rms_times", "int4_probe", "int8_probe", "ckpt_probe")
@@ -4503,6 +4528,644 @@ def phase_fleet_rollout(results):
     torch.cuda.empty_cache()
 
 
+# -- the fleet supervisor and the CQL ledger --------------------------------------
+
+FS_NS = "nexus"
+FS_ALGORITHM = "nexus-1b-serve"
+#: the ledger's timestamp columns (``tpu_nexus_torch/checkpoint/schema.cql``)
+CQL_TIMESTAMP_COLUMNS = ("received_at", "sent_at", "last_modified")
+
+
+def _cql_split(text, sep):
+    """Split a CQL fragment on ``sep`` outside quoted strings ('' escapes)
+    and outside {}/[] nesting: the literal grammar of ``cql.to_literal``."""
+    parts, depth, i, start, quoted, n, w = [], 0, 0, 0, False, len(text), len(sep)
+    while i < n:
+        ch = text[i]
+        if quoted:
+            if ch == "'":
+                if i + 1 < n and text[i + 1] == "'":
+                    i += 2
+                    continue
+                quoted = False
+        elif ch == "'":
+            quoted = True
+        elif ch in "{[":
+            depth += 1
+        elif ch in "}]":
+            depth -= 1
+        elif depth == 0 and text[i:i + w] == sep:
+            parts.append(text[start:i])
+            start = i = i + w
+            continue
+        i += 1
+    parts.append(text[start:])
+    return [p.strip() for p in parts if p.strip()]
+
+
+def _cql_literal(tok):
+    tok = tok.strip()
+    if tok == "null":
+        return None
+    if tok in ("true", "false"):
+        return tok == "true"
+    if tok.startswith("'"):
+        return tok[1:-1].replace("''", "'")
+    if tok.startswith("{"):
+        return {_cql_literal(k): _cql_literal(v)
+                for k, v in (_cql_split(pair, ":") for pair in _cql_split(tok[1:-1], ","))}
+    try:
+        return int(tok)
+    except ValueError:
+        return float(tok)
+
+
+def _cql_pairs(clause, sep):
+    return {k.strip(): _cql_literal(v) for k, v in (_cql_split(part, "=") for part in _cql_split(clause, sep))}
+
+
+class CqlResponder:
+    """A CQL native-protocol v4 responder for the run ledger on 127.0.0.1,
+    one thread a connection, built on the port's frame helpers
+    (``tpu_nexus_torch/checkpoint/cql.py``).  It holds ``nexus.checkpoints``
+    rows in a dict and answers the statements ``CqlCheckpointStore`` sends:
+    SELECT by key or by an indexed column, INSERT (a per-cell upsert),
+    UPDATE with a map append, UPDATE as an upsert, and the lightweight
+    transaction (``IF EXISTS`` / ``IF col = v``) with an honest
+    ``[applied]``, all under one lock.  Rows go back typed as the schema
+    types them (text, int, timestamp, map<text, bigint>).  Counts the frames
+    it answers (``round_trips``)."""
+
+    def __init__(self):
+        from tpu_nexus_torch.checkpoint import cql
+
+        self.cql = cql
+        self.rows = {}
+        self.lock = threading.Lock()
+        self.round_trips = 0
+        self.statements = {}
+        self._listener = socket.socket()
+        self._listener.bind(("127.0.0.1", 0))
+        self._listener.listen(16)
+        self.port = self._listener.getsockname()[1]
+        self._conns, self._threads = [], []
+        self._closed = threading.Event()
+        self._start(self._accept)
+
+    def _start(self, target, *args):
+        thread = threading.Thread(target=target, args=args, daemon=True)
+        self._threads.append(thread)
+        thread.start()
+
+    def close(self):
+        self._closed.set()
+        self._listener.close()
+        for conn in list(self._conns):
+            with contextlib.suppress(OSError):
+                conn.shutdown(socket.SHUT_RDWR)
+            conn.close()
+        for thread in self._threads:
+            thread.join(timeout=5)
+
+    def _accept(self):
+        while not self._closed.is_set():
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return
+            self._conns.append(conn)
+            self._start(self._serve, conn)
+
+    @staticmethod
+    def _recv(conn, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = conn.recv(n - len(buf))
+            if not chunk:
+                return None
+            buf += chunk
+        return buf
+
+    def _serve(self, conn):
+        cql = self.cql
+        with contextlib.suppress(OSError):
+            while True:
+                header = self._recv(conn, 9)
+                if header is None:
+                    return
+                _, _, stream, opcode, length = struct.unpack(">BBhBi", header)
+                body = self._recv(conn, length) if length else b""
+                if opcode == cql.OP_STARTUP:
+                    reply = cql.encode_frame(cql.OP_READY, b"", stream=stream, response=True)
+                elif opcode == cql.OP_QUERY:
+                    text = body[4:4 + struct.unpack(">i", body[:4])[0]].decode()
+                    reply = cql.encode_frame(cql.OP_RESULT, self._handle(text), stream=stream, response=True)
+                else:
+                    reply = cql.encode_frame(cql.OP_ERROR, cql.write_int(0x000A) + cql.write_string(
+                        f"opcode {opcode:#x} not served"), stream=stream, response=True)
+                with self.lock:
+                    self.round_trips += 1
+                conn.sendall(reply)
+
+    def _handle(self, text):
+        kind = text.split(" ", 1)[0]
+        with self.lock:
+            self.statements[kind] = self.statements.get(kind, 0) + 1
+            if kind == "SELECT":
+                m = re.match(r"SELECT (.+) FROM \S+ WHERE (.+)$", text)
+                cols = [c.strip() for c in m.group(1).split(",")]
+                where = _cql_pairs(m.group(2), " AND ")
+                hits = [row for row in self.rows.values() if all(row.get(k) == v for k, v in where.items())]
+                return self._rows(cols, hits)
+            if kind == "INSERT":
+                m = re.match(r"INSERT INTO \S+ \((.+?)\) VALUES \((.+)\)$", text)
+                row = dict(zip([c.strip() for c in m.group(1).split(",")],
+                               [_cql_literal(t) for t in _cql_split(m.group(2), ",")]))
+                self.rows.setdefault((row["algorithm"], row["id"]), {}).update(row)
+                return self.cql.write_int(self.cql.RESULT_VOID)
+            if kind == "UPDATE":
+                return self._update(text)
+            return self.cql.write_int(self.cql.RESULT_VOID)
+
+    def _update(self, text):
+        cql = self.cql
+        m = re.match(r"UPDATE \S+ SET (.+?) WHERE (.+?)(?: IF (.+))?$", text)
+        sets, where, cond = m.group(1), _cql_pairs(m.group(2), " AND "), m.group(3)
+        key = (where["algorithm"], where["id"])
+        row = self.rows.get(key)
+        append = re.match(r"per_chip_steps = per_chip_steps \+ (.+)$", sets)
+        if cond is None:
+            # a CQL UPDATE is an upsert: the row appears if it was missing
+            row = self.rows.setdefault(key, dict(where))
+            if append:
+                row["per_chip_steps"] = {**(row.get("per_chip_steps") or {}), **_cql_literal(append.group(1))}
+            else:
+                row.update(_cql_pairs(sets, ","))
+            return cql.write_int(cql.RESULT_VOID)
+        applies = row is not None and (cond.strip() == "EXISTS" or all(
+            row.get(k) == v for k, v in _cql_pairs(cond, " AND ").items()))
+        if applies:
+            row.update(_cql_pairs(sets, ","))
+        return self._rows(["[applied]"], [{"[applied]": applies}])
+
+    def _rows(self, cols, rows):
+        from datetime import datetime, timezone
+
+        cql = self.cql
+        types = {c: ((cql.TYPE_BOOLEAN, None) if c == "[applied]" else
+                     (cql.TYPE_INT, None) if c in ("restart_count", "max_restarts") else
+                     (cql.TYPE_MAP, (cql.TYPE_VARCHAR, cql.TYPE_BIGINT)) if c == "per_chip_steps" else
+                     (cql.TYPE_TIMESTAMP, None) if c in CQL_TIMESTAMP_COLUMNS else
+                     (cql.TYPE_VARCHAR, None)) for c in cols}
+        body = cql.write_int(cql.RESULT_ROWS) + cql.write_int(0x0001) + cql.write_int(len(cols))
+        body += cql.write_string("nexus") + cql.write_string("checkpoints")
+        for c in cols:
+            type_id, param = types[c]
+            body += cql.write_string(c) + cql.write_short(type_id)
+            if param is not None:
+                body += cql.write_short(param[0]) + cql.write_short(param[1])
+        body += cql.write_int(len(rows))
+        for row in rows:
+            for c in cols:
+                value, (type_id, _) = row.get(c), types[c]
+                if value is None:
+                    cell = None
+                elif type_id == cql.TYPE_BOOLEAN:
+                    cell = b"\x01" if value else b"\x00"
+                elif type_id == cql.TYPE_INT:
+                    cell = struct.pack(">i", int(value))
+                elif type_id == cql.TYPE_MAP:
+                    cell = cql.write_int(len(value)) + b"".join(
+                        cql.write_bytes(str(k).encode()) + cql.write_bytes(struct.pack(">q", int(v)))
+                        for k, v in sorted(value.items()))
+                elif type_id == cql.TYPE_TIMESTAMP:
+                    at = datetime.strptime(value, "%Y-%m-%dT%H:%M:%S.%fZ").replace(tzinfo=timezone.utc)
+                    cell = struct.pack(">q", round(at.timestamp() * 1000))
+                else:
+                    cell = str(value).encode()
+                body += cql.write_bytes(cell)
+        return body
+
+
+def _serving_jobset(name, replicas, kv_blocks):
+    """A serving JobSet manifest (``nexus-component: serving-fleet``) with
+    ``replicas`` one-pod replicated jobs whose container env carries
+    ``NEXUS_KV_BLOCKS``."""
+    from tpu_nexus_torch.checkpoint.models import (
+        JOB_LABEL_SERVING_FLEET,
+        JOB_TEMPLATE_NAME_KEY,
+        NEXUS_COMPONENT_LABEL,
+    )
+
+    env = [{"name": "NEXUS_KV_BLOCKS", "value": str(kv_blocks)}]
+    return {
+        "kind": "JobSet", "apiVersion": "jobset.x-k8s.io/v1alpha2",
+        "metadata": {"name": name, "namespace": FS_NS, "uid": f"js-{name}",
+                     "labels": {NEXUS_COMPONENT_LABEL: JOB_LABEL_SERVING_FLEET,
+                                JOB_TEMPLATE_NAME_KEY: FS_ALGORITHM}},
+        "spec": {"replicatedJobs": [{"name": "replica", "replicas": replicas, "template": {"spec": {
+            "parallelism": 1, "template": {"spec": {"containers": [{"name": "serve", "env": env}]}}}}}]},
+        "status": {},
+    }
+
+
+async def _fleet_supervisor(results, responder):
+    import asyncio
+    import statistics
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.checkpoint.cql import ScyllaCqlStore
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.core.signals import LifecycleContext
+    from tpu_nexus_torch.k8s.fake import FakeKubeClient
+    from tpu_nexus_torch.models.llama import LlamaConfig, llama_init
+    from tpu_nexus_torch.serving import (
+        CAUSE_REPLICA_LOST,
+        PRESSURE_PRESSURED,
+        PRESSURE_SATURATED,
+        AutoscaleConfig,
+        PagedModelExecutor,
+        QueueFull,
+        RequestState,
+        ServingEngine,
+        SloMonitor,
+    )
+    from tpu_nexus_torch.supervisor.taxonomy import MSG_HBM_OOM, MSG_PREEMPTED, DecisionAction, classify_tpu_failure
+    from tpu_nexus_torch.workload.serve import ServeConfig, build_fleet_supervisor
+
+    model = LlamaConfig.nexus_1b()
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0), model, device="cuda")
+    page, slots, prompt_len, new = 32, 32, 128, 32
+    max_len = prompt_len + new
+    full_kv = 1 + slots * -(-max_len // page)
+    rng = np.random.default_rng(16)
+
+    def prompts(n):
+        return list(rng.integers(0, model.vocab_size, size=(n, prompt_len)).astype(np.int32))
+
+    def engine(kv_blocks=None):
+        return ServingEngine(PagedModelExecutor(params, model, num_slots=slots, max_len=max_len, page_size=page,
+                                                num_blocks=kv_blocks or 0))
+
+    made = []
+
+    def factory(name, step, kv_blocks):
+        made.append((name, step, kv_blocks))
+        return engine(kv_blocks)
+
+    # every ledger statement crosses the wire to the responder; each is timed
+    store = ScyllaCqlStore(hosts=["127.0.0.1"], port=responder.port)
+    ledger_ms = []
+    execute = store._execute
+
+    def timed_execute(statement):
+        t0 = time.perf_counter()
+        try:
+            return execute(statement)
+        finally:
+            ledger_ms.append((statement.split(" ", 1)[0], (time.perf_counter() - t0) * 1e3))
+
+    store._execute = timed_execute
+    reconcile_ms = []
+
+    async def reconcile(sup, now):
+        t0 = time.perf_counter()
+        await sup.reconcile(now=now)
+        reconcile_ms.append((time.perf_counter() - t0) * 1e3)
+
+    async def start(jobset, env):
+        """The fleet and its supervisor as a deployment's env configures
+        them (``build_fleet_supervisor`` reads the router policy, SLO
+        targets, autoscale bounds and KV budget from ``ServeConfig``)."""
+        client = FakeKubeClient(jobset_controller=True, emit_pod_events=True)
+        client.inject("ADDED", "JobSet", _serving_jobset(jobset, 3, full_kv))
+        cfg = ServeConfig.from_env({"NEXUS_PAGE_SIZE": str(page), "NEXUS_KV_BLOCKS": str(full_kv), **env})
+        sup = build_fleet_supervisor(cfg, client, store, FS_NS, jobset, FS_ALGORITHM, factory, grace_s=30.0,
+                                     resync_period=timedelta(0))
+        fleet = sup.fleet
+        ctx = LifecycleContext()
+        sup._factory.start(ctx)
+        if not await sup._factory.wait_for_cache_sync(timeout=30.0):
+            raise AssertionError(f"fleet_supervisor {jobset}: the informers did not sync")
+        pods = await sup.adopt_pods(step=0)
+        if len(pods) != 3:
+            raise AssertionError(f"fleet_supervisor {jobset}: adopted {pods}")
+        return client, fleet, sup, ctx, pods
+
+    async def settle(sup):
+        for _ in range(250):
+            if sup._pending:
+                return
+            await asyncio.sleep(0.02)
+        raise AssertionError("fleet_supervisor: no incident reached the supervisor in 5 s")
+
+    def first_token(eng, req):
+        """Step ``eng`` until ``req`` has its first token."""
+        while not req.output_tokens and not req.is_terminal():
+            eng.step()
+        torch_sync()
+        return time.perf_counter()
+
+    def routed_first_token(fleet, name, prompt, request_id):
+        """Submit ``prompt`` through the fleet's router, which must land it on
+        ``name``, and tick the whole fleet (every replica steps) until it has
+        its first token; returns ``(request, seconds on the clock)``."""
+        req = fleet.submit(prompt, new, request_id=request_id)
+        if request_id not in fleet.replicas[name].engine.requests:
+            raise AssertionError(f"fleet_supervisor: the router sent {request_id} past {name}")
+        while not req.output_tokens and not req.is_terminal():
+            fleet.tick()
+        torch_sync()
+        return req, time.perf_counter()
+
+    def row(jobset):
+        return store.read_checkpoint(FS_ALGORITHM, jobset)
+
+    # warm-up outside the counts: one prefill and decode of each engine shape
+    warm = engine()
+    warm.submit(prompts(1)[0], 2, request_id="warm")
+    warm.run_until_drained()
+    del warm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    replays = []  # (label, kv_blocks, [(request, prompt)], probe first) to hold against engines alone
+    out = {}
+    _zero_serving_counts()
+
+    # (a) a pod deleted mid-traffic
+    js = "nexus-1b-serve"
+    client, fleet, sup, ctx, pods = await start(js, {})
+    await reconcile(sup, 1.0)
+    burst = prompts(24)
+    reqs = [fleet.submit(p, new, request_id=f"a-{i}") for i, p in enumerate(burst)]
+    fleet.tick()
+    fleet.tick()
+    victim = max(pods, key=lambda n: len(fleet.replicas[n].engine.requests))
+    held = len(fleet.replicas[victim].engine.requests)
+    t_del = time.perf_counter()
+    await client.delete_object("Pod", FS_NS, victim)
+    await settle(sup)
+    await reconcile(sup, 2.0)
+    uid = client._objects["Pod"][(FS_NS, victim)]["metadata"]["uid"]
+    if sup.recreated != 1 or fleet.replicas[victim].state != "serving" or not uid.startswith("fleet-recreate-"):
+        raise AssertionError(f"fleet_supervisor a: recreated {sup.recreated}, {fleet.replicas[victim].state}, {uid}")
+    probe_prompt = prompts(1)[0]
+    probe, t_first = routed_first_token(fleet, victim, probe_prompt, "a-probe")
+    delete_to_first_token = t_first - t_del
+    fleet.run_until_drained()
+    lost = f"{CAUSE_REPLICA_LOST}:{DecisionAction.TO_PREEMPT_RESTARTABLE}"
+    casualties = [r for r in reqs if r.state != RequestState.FINISHED]
+    silent = [r.request_id for r in reqs if not r.is_terminal() or (r.state != RequestState.FINISHED
+                                                                     and r.cause != lost)]
+    post = prompts(6)
+    post_reqs = [fleet.submit(p, new, request_id=f"a-post-{i}") for i, p in enumerate(post)]
+    fleet.run_until_drained()
+    on = {r.request_id: name for name, rep in fleet.replicas.items() for r in rep.all_retired()}
+    replays.append(("a_probe", full_kv, [(probe, probe_prompt)], False))
+    for name in pods:
+        mine = [(r, p) for r, p in zip(post_reqs, post) if on.get(r.request_id) == name]
+        if mine:
+            replays.append((f"a_post_{name}", full_kv, mine, False))
+    ledger_a = row(js)
+    out["a"] = dict(victim=victim, live_on_victim=held, casualties=len(casualties), silently_dropped=len(silent),
+                    recreated=sup.recreated, replacement_uid=uid, delete_to_first_token_s=delete_to_first_token,
+                    post_landed={n: sum(on.get(r.request_id) == n for r in post_reqs) for n in pods},
+                    ledger_stage=ledger_a.lifecycle_stage, ledger_cause=ledger_a.algorithm_failure_cause)
+    emit("fleet_supervisor", drill="a_pod_deleted", **out["a"])
+    if (not held or len(casualties) != held or silent or probe.state != RequestState.FINISHED
+            or any(r.state != RequestState.FINISHED for r in post_reqs) or not out["a"]["post_landed"][victim]
+            or ledger_a.lifecycle_stage != LifecycleStage.RUNNING or ledger_a.algorithm_failure_cause != MSG_PREEMPTED
+            or victim not in ledger_a.algorithm_failure_details):
+        raise AssertionError(f"fleet_supervisor a: {out['a']}, ledger {ledger_a}")
+
+    # (b) a real CUDA out-of-memory in a pod's termination message
+    total = torch.cuda.get_device_properties(0).total_memory
+    try:
+        torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+    except torch.OutOfMemoryError as exc:
+        oom_text = str(exc)
+    else:
+        raise AssertionError("fleet_supervisor b: twice the card's memory was allocated")
+    target = next(n for n in pods if n != victim)
+    oom_class = classify_tpu_failure(oom_text)
+    client.fail_pod(FS_NS, target, message=oom_text, exit_code=137)
+    await settle(sup)
+    await reconcile(sup, 3.0)
+    rep = fleet.replicas[target]
+    env = client._objects["Pod"][(FS_NS, target)]["spec"]["containers"][0]["env"]
+    halved = full_kv // 2
+    serve_b = prompts(20)
+    reqs_b = [rep.engine.submit(p, new, request_id=f"b-{i}") for i, p in enumerate(serve_b)]
+    most_live = 0
+    while fleet.has_work:
+        fleet.tick()
+        most_live = max(most_live, rep.engine.in_flight)
+    replays.append(("b_halved_pool", halved, list(zip(reqs_b, serve_b)), False))
+    ledger_b = row(js)
+    out["b"] = dict(pod=target, oom_text=oom_text[:160], oom_class=oom_class, recreated=sup.recreated,
+                    factory_call=made[-1], pod_env=env, num_blocks=rep.engine.executor.num_blocks,
+                    most_in_flight=most_live, finished=sum(r.state == RequestState.FINISHED for r in reqs_b),
+                    ledger_cause=ledger_b.algorithm_failure_cause)
+    emit("fleet_supervisor", drill="b_hbm_oom", **out["b"])
+    if (oom_class != DecisionAction.TO_FAIL_HBM_OOM or sup.recreated != 2 or made[-1] != (target, 0, halved)
+            or {"name": "NEXUS_KV_BLOCKS", "value": str(halved)} not in env or rep.engine.executor.num_blocks != halved
+            or out["b"]["finished"] != len(reqs_b) or most_live > (halved - 1) // -(-max_len // page)
+            or ledger_b.algorithm_failure_cause != MSG_HBM_OOM):
+        raise AssertionError(f"fleet_supervisor b: {out['b']}")
+    ctx.cancel()
+    await sup._factory.shutdown()
+    del fleet, sup, rep
+    torch.cuda.empty_cache()
+
+    # (c) autoscale: a paused replica sheds -> SATURATED -> scale up; idle -> down
+    js_c = "nexus-1b-autoscale"
+    client, fleet, sup, ctx, pods = await start(js_c, {
+        "NEXUS_SLO_SHED_RATE": "0.05", "NEXUS_SLO_SHORT_N": "1", "NEXUS_SLO_LONG_N": "3", "NEXUS_AUTOSCALE_MIN": "3",
+        "NEXUS_AUTOSCALE_MAX": "4", "NEXUS_SCALE_UP_N": "1", "NEXUS_SCALE_DOWN_N": "2", "NEXUS_SCALE_COOLDOWN_S": "0"})
+    if sup.autoscale != AutoscaleConfig(3, 4, 1, 2, 0.0) or sup.slo is None or fleet.router.slo is not sup.slo:
+        raise AssertionError(f"fleet_supervisor c: the env did not configure the supervisor: {sup.autoscale}")
+    reqs_c = [fleet.submit(p, new, request_id=f"c-{i}") for i, p in enumerate(prompts(3))]
+    await reconcile(sup, 1.0)
+    overloaded = fleet.replicas[pods[0]].engine
+    overloaded.pause_admission()
+    grades = []
+    for t in (2.0, 3.0):
+        try:
+            overloaded.submit(prompts(1)[0], new)
+        except QueueFull:
+            pass
+        else:
+            raise AssertionError("fleet_supervisor c: a paused replica took a request")
+        t_scale = time.perf_counter()
+        await reconcile(sup, t)
+        grades.append(dict(sup.slo.grades))
+    scaled = f"{js_c}-scale-1"
+    if (sup.scaled_up != 1 or len(fleet.replicas) != 4 or scaled not in fleet.replicas
+            or grades[0].get(pods[0]) != PRESSURE_PRESSURED or grades[1].get(SloMonitor.FLEET) != PRESSURE_SATURATED):
+        raise AssertionError(f"fleet_supervisor c: scaled_up {sup.scaled_up}, replicas {list(fleet.replicas)}, "
+                             f"grades {grades}")
+    up_cause = row(js_c).algorithm_failure_cause
+    grown = fleet.replicas[scaled].engine
+    probe_c_prompt = prompts(1)[0]
+    probe_c, t_first = routed_first_token(fleet, scaled, probe_c_prompt, "c-probe")
+    scale_up_to_first_token = t_first - t_scale
+    serve_c = prompts(6)
+    reqs_new = [grown.submit(p, new, request_id=f"c-new-{i}") for i, p in enumerate(serve_c)]
+    overloaded.resume_admission()
+    fleet.run_until_drained()
+    replays.append(("c_scaled_replica", full_kv, [(probe_c, probe_c_prompt)] + list(zip(reqs_new, serve_c)), True))
+    now = 3.0
+    while sup.scaled_down == 0 and now < 12.0:
+        now += 1.0
+        await reconcile(sup, now)
+    down = sup.scale_events[-1]
+    down_cause = row(js_c).algorithm_failure_cause
+    everything = reqs_c + [probe_c] + reqs_new
+    out["c"] = dict(scaled_up=sup.scaled_up, scaled_down=sup.scaled_down, scaled_pod=scaled,
+                    scale_up_to_first_token_s=scale_up_to_first_token, grades=grades, down=down,
+                    replicas_after=sorted(fleet.replicas), reconciles_to_scale_down=int(now - 3.0),
+                    finished=sum(r.state == RequestState.FINISHED for r in everything), requests=len(everything),
+                    ledger_up_cause=up_cause, ledger_down_cause=down_cause)
+    emit("fleet_supervisor", drill="c_autoscale", **out["c"])
+    if (sup.scaled_down != 1 or len(fleet.replicas) != 3 or down["drain"]["drain_evicted"] != 0
+            or out["c"]["finished"] != len(everything) or "fleet autoscale: scale-up" not in up_cause
+            or "fleet autoscale: scale-down" not in down_cause or sup.recreated != 0):
+        raise AssertionError(f"fleet_supervisor c: {out['c']}")
+    ctx.cancel()
+    await sup._factory.shutdown()
+    del fleet, sup, overloaded, grown
+    counts = _serving_counts(results, "fleet_supervisor")
+    peak = torch.cuda.max_memory_allocated()
+    if not counts["flash_attention"] or not counts["decode_attention_paged"]:
+        raise AssertionError(f"fleet_supervisor: a kernel of the path was not launched: {counts}")
+
+    # every replica's requests against an engine of its geometry given the
+    # same requests in the same order (after the counts: not the main path)
+    mismatched = {}
+    for label, kv_blocks, pairs, probe_first in replays:
+        alone = engine(kv_blocks)
+        got = []
+        for i, (req, prompt) in enumerate(pairs):
+            got.append(alone.submit(prompt, new, request_id=req.request_id))
+            if probe_first and i == 0:
+                first_token(alone, got[0])
+        alone.run_until_drained()
+        bad = [r.request_id for (r, _), g in zip(pairs, got) if list(r.output_tokens) != list(g.output_tokens)]
+        if bad:
+            mismatched[label] = bad
+        del alone
+    store.close()
+    writes = [ms for kind, ms in ledger_ms if kind != "SELECT"]
+    reads = [ms for kind, ms in ledger_ms if kind == "SELECT"]
+    out.update(counts=counts, peak=peak, mismatched=mismatched,
+               reconcile_ms=dict(p50=statistics.median(reconcile_ms), max=max(reconcile_ms), n=len(reconcile_ms)),
+               ledger_write_ms=dict(mean=statistics.fmean(writes), p50=statistics.median(writes), max=max(writes),
+                                    n=len(writes)),
+               ledger_read_ms=dict(mean=statistics.fmean(reads), p50=statistics.median(reads), n=len(reads)),
+               round_trips=responder.round_trips, statements=dict(responder.statements))
+    emit("fleet_supervisor", run="replays", replays=len(replays), token_identical_to_engine_alone=not mismatched,
+         mismatched=mismatched)
+    if mismatched:
+        raise AssertionError(f"fleet_supervisor: tokens differ from an engine alone: {mismatched}")
+    return out
+
+
+def phase_fleet_supervisor(results):
+    """``FleetSupervisor`` reconciling real nexus_1b replicas on the card
+    (full width and depth, bf16, paged: page 32, 32 slots, one seeded
+    params tree shared), over ``FakeKubeClient(jobset_controller=True,
+    emit_pod_events=True)`` seeded with a 3-replica serving JobSet, fleet
+    and supervisor built by ``build_fleet_supervisor`` from a
+    ``ServeConfig`` env, the ledger the port's ``ScyllaCqlStore`` against ``CqlResponder`` (every
+    write crosses the CQL wire).  (a) 24 requests, then the pod holding the
+    most live requests is deleted: each casualty ends FAILED with the
+    replica-lost cause, the pod is recreated under its name, requests after
+    it FINISH, the row carries the preemption cause.  (b) a real
+    ``torch.OutOfMemoryError`` (twice the card's memory) in a pod's
+    termination message: classified HBM OOM, the pod recreated with
+    ``NEXUS_KV_BLOCKS`` halved (161 -> 80), 20 requests served through the
+    smaller pool (at most 15 in flight).  (c) a second fleet whose env
+    sets a shed-rate SLO and autoscale bounds 3 and 4: a paused replica's sheds grade it
+    PRESSURED then the fleet SATURATED, the fleet scales to 4, the new
+    replica serves, and once idle it scales back to 3 with nothing
+    evicted; the row carries both decisions.  Every replica's requests
+    equal an engine of its geometry given them alone.  Then one line of
+    numbers: reconcile ms, seconds from the deletion (and from the scale-up
+    decision) to the first token of a request the router sends to the new
+    pod while every replica of the fleet ticks, ledger ms a write, #1 and #4-paged launches, peak memory, the card."""
+    import asyncio
+
+    import torch
+
+    torch.cuda.empty_cache()
+    responder = CqlResponder()
+    try:
+        out = asyncio.run(_fleet_supervisor(results, responder))
+    finally:
+        responder.close()
+    emit("fleet_supervisor_numbers", nvidia_smi=nvidia_smi(),
+         config="nexus_1b full width and depth, bf16, 3 paged replicas (page 32, 32 slots, 161 KV blocks)",
+         reconcile_ms=out["reconcile_ms"], delete_to_first_token_s=out["a"]["delete_to_first_token_s"],
+         scale_up_to_first_token_s=out["c"]["scale_up_to_first_token_s"], ledger_write_ms=out["ledger_write_ms"],
+         ledger_read_ms=out["ledger_read_ms"], ledger_round_trips=out["round_trips"],
+         ledger_statements=out["statements"], launches=out["counts"], peak_device_memory_bytes=out["peak"])
+    results["fleet_supervisor"] = out
+
+
+def phase_cql_ledger(results):
+    """One workload container on the reference's default ledger: ``python
+    -m tpu_nexus_torch.workload`` as a subprocess, ``NEXUS_MODE=serve-engine``,
+    nexus_1b (bf16, 8 slots, 16 requests), with NO ``NEXUS__CQL_STORE_TYPE``
+    — ``appconfig.yaml``'s ``cql-store-type: scylla`` applies — and
+    ``NEXUS__SCYLLA_CQL_STORE__HOSTS``/``__PORT`` pointed at
+    ``CqlResponder``.  It exits 0; its row, read back through the port's
+    ``ScyllaCqlStore``, is COMPLETED with heartbeats; its wall seconds and
+    the ledger's round trips."""
+    import tempfile
+    import uuid
+
+    import torch
+
+    from tpu_nexus_torch.checkpoint.cql import ScyllaCqlStore
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+
+    torch.cuda.empty_cache()
+    responder = CqlResponder()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rid = str(uuid.uuid4())
+            env = {k: v for k, v in os.environ.items() if not k.startswith("NEXUS")}
+            env.update(PYTHONPATH=str(ROOT), TMPDIR=tmp, NEXUS_MODE="serve-engine", NEXUS_MODEL_PRESET="nexus_1b",
+                       NEXUS_BATCH="8", NEXUS_STEPS="2", NEXUS_PROMPT_LEN="128", NEXUS_GEN_TOKENS="32",
+                       NEXUS_DEVICE="cuda", NEXUS_RUN_ID=rid, NEXUS_ALGORITHM=FS_ALGORITHM,
+                       NEXUS__SCYLLA_CQL_STORE__HOSTS="127.0.0.1",
+                       NEXUS__SCYLLA_CQL_STORE__PORT=str(responder.port))
+            rc, _, stderr, _, t_spawn, t_exit = _cp_run_subprocess(
+                [sys.executable, "-m", "tpu_nexus_torch.workload"], env, 600)
+        round_trips = responder.round_trips
+        statements = dict(responder.statements)
+        store = ScyllaCqlStore(hosts=["127.0.0.1"], port=responder.port)
+        try:
+            row = store.read_checkpoint(FS_ALGORITHM, rid)
+        finally:
+            store.close()
+    finally:
+        responder.close()
+    info = dict(rc=rc, wall_s=t_exit - t_spawn, ledger_round_trips=round_trips, ledger_statements=statements,
+                stage=row.lifecycle_stage if row else None, heartbeats=row.per_chip_steps if row else None,
+                finished=_cp_summary_number(stderr, "finished"),
+                decoded_tokens_per_second=_cp_summary_number(stderr, "decoded_tokens_per_second"),
+                nvidia_smi=nvidia_smi())
+    emit("cql_ledger", **info)
+    if (rc != 0 or row is None or row.lifecycle_stage != LifecycleStage.COMPLETED or not row.per_chip_steps
+            or info["finished"] != 16 or not round_trips):
+        raise AssertionError(f"cql_ledger: {info}, row {row}\n{stderr[-3000:]}")
+    results["cql_ledger"] = info
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -4558,7 +5221,8 @@ def main(argv=None) -> int:
         "train_ckpt": phase_train_ckpt, "serve_reload": phase_serve_reload, "ckpt_probe": phase_ckpt_probe,
         "fleet": phase_fleet, "disagg": phase_disagg, "fleet_rollout": phase_fleet_rollout,
         "serve_moe_quant": phase_serve_moe_quant, "quant_gate": phase_quant_gate, "profile_hook": phase_profile_hook,
-        "control_plane": phase_control_plane,
+        "control_plane": phase_control_plane, "fleet_supervisor": phase_fleet_supervisor,
+        "cql_ledger": phase_cql_ledger,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:

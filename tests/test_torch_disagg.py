@@ -13,10 +13,12 @@ Against the JAX package:
   leaf of the same bf16 values has the same CRC in both packages (the CRC
   covers the raw 2-byte patterns).
 
-The port alone (the cases of ``tests/test_disagg_serving.py`` that need no
-supervisor): payload validation, the transfer retry policy, the fault
-wrapper's step counter on the handoff dispatches, role plumbing, the three
-handoff fault modes and the multi-seed fuzz with zero silent drops; the
+The port alone (the cases of ``tests/test_disagg_serving.py``): payload
+validation, the transfer retry policy, the fault wrapper's step counter on
+the handoff dispatches, role plumbing, the three handoff fault modes, the
+multi-seed fuzz with zero silent drops, and the fleet supervisor's roles
+(adoption reads them from the pod env, a crash-looping prefill pod comes
+back as prefill, scale-down never drains a role's last replica); the
 executor's seam itself: extract is a copy (the pool survives it), install
 round-trips the bytes, a corrupt payload writes nothing to the receiver's
 pool, and a bf16 payload's CRC catches a one-byte flip.
@@ -631,3 +633,97 @@ def test_fuzz_kills_mid_handoff_zero_silent_drops(seed):
             assert list(req.output_tokens) == expect[i], (mode, faulty, at_step, i)
     for entry in fleet.handoff_log:
         assert entry["cause"] in HANDOFF_FAULT_CAUSES or entry["cause"].endswith(("-pool-down", "-pool-full"))
+
+
+# -- the fleet supervisor's roles ------------------------------------------------
+
+
+async def _role_fixture():
+    from datetime import timedelta
+
+    from test_torch_fleet import ALGO, FLEET_JS, NS, _Fixture, _role_jobset
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.core.signals import LifecycleContext
+    from tpu_nexus_torch.k8s.fake import FakeKubeClient
+    from tpu_nexus_torch.serving import FleetSupervisor
+
+    client = FakeKubeClient(jobset_controller=True, emit_pod_events=True)
+    client.inject("ADDED", "JobSet", _role_jobset())
+    store = InMemoryCheckpointStore()
+    fleet = ServingFleet(disagg=DisaggConfig(), handoff_sleep=lambda s: None)
+    made = []
+
+    def factory(name, step, kv_blocks):
+        made.append((name, step, kv_blocks))
+        # real paged engines: the handoff surface is the executor contract
+        return _engine(slots=2)
+
+    sup = FleetSupervisor(client, store, NS, fleet, FLEET_JS, ALGO, factory, grace_s=30.0, kv_blocks=64,
+                          resync_period=timedelta(0))
+    ctx = LifecycleContext()
+    sup._factory.start(ctx)
+    assert await sup._factory.wait_for_cache_sync(timeout=10.0)
+    await sup.adopt_pods(step=1)
+    return _Fixture(client, store, fleet, sup, ctx, made)
+
+
+class TestSupervisorRoles:
+    async def test_adoption_reads_roles_from_pod_env(self):
+        from test_torch_fleet import FLEET_JS
+
+        fx = await _role_fixture()
+        try:
+            roles = {n: r.role for n, r in fx.fleet.replicas.items()}
+            assert roles == {
+                f"{FLEET_JS}-prefill-0-0": ROLE_PREFILL,
+                f"{FLEET_JS}-prefill-1-0": ROLE_PREFILL,
+                f"{FLEET_JS}-decode-0-0": ROLE_DECODE,
+            }
+        finally:
+            await fx.close()
+
+    async def test_segfaulting_prefill_pod_recreated_as_prefill(self):
+        """A segfaulting prefill pod is recreated AS a prefill pod — the
+        pool never silently shrinks to zero while decode replicas idle —
+        and the replacement manifest carries the preserved
+        ``NEXUS_REPLICA_ROLE`` env."""
+        from test_torch_fleet import FLEET_JS, NS, _settle
+
+        fx = await _role_fixture()
+        try:
+            pod = f"{FLEET_JS}-prefill-0-0"
+            fx.client.fail_pod(NS, pod, message="segfault", crash_loop=True)
+            await _settle()
+            await fx.sup.reconcile()
+            assert fx.sup.recreated == 1
+            rep = fx.fleet.replicas[pod]
+            assert rep.state == "serving" and rep.role == ROLE_PREFILL
+            manifest = fx.client._objects["Pod"][(NS, pod)]
+            env = manifest["spec"]["containers"][0]["env"]
+            assert {"name": "NEXUS_REPLICA_ROLE", "value": ROLE_PREFILL} in env
+            assert fx.sup.incidents[-1]["role"] == ROLE_PREFILL
+            # the recovered pool serves disaggregated traffic again
+            reqs = [fx.fleet.submit(np.array([1, 2, i + 3]), 3) for i in range(2)]
+            fx.fleet.run_until_drained()
+            assert all(r.state == RequestState.FINISHED for r in reqs)
+            assert fx.fleet.handoffs_completed == 2
+        finally:
+            await fx.close()
+
+    async def test_scale_down_never_drains_a_roles_last_replica(self):
+        from test_torch_fleet import FLEET_JS
+
+        fx = await _role_fixture()
+        try:
+            sup, fleet = fx.sup, fx.fleet
+            await sup._scale_down(1.0, "healthy", fleet.snapshot())
+            assert sup.scaled_down == 1
+            # the decode pool's LAST replica survived; one prefill drained
+            assert f"{FLEET_JS}-decode-0-0" in fleet.replicas
+            roles = [r.role for r in fleet.replicas.values()]
+            assert roles.count(ROLE_PREFILL) == 1
+            # every surviving role is now at its floor: no further drain
+            await sup._scale_down(2.0, "healthy", fleet.snapshot())
+            assert sup.scaled_down == 1
+        finally:
+            await fx.close()

@@ -994,3 +994,99 @@ def test_cuda_out_of_memory_classifies_as_hbm_oom(cuda_device):
     assert classify_tpu_failure(classified_error_text(caught.value)) == DecisionAction.TO_FAIL_HBM_OOM
     assert classify_tpu_failure(raw) == DecisionAction.TO_FAIL_HBM_OOM
     assert classify_tpu_failure(str(caught.value)) == DecisionAction.TO_FAIL_HBM_OOM
+
+
+@pytest.mark.gpu
+def test_fleet_supervisor_recreates_a_deleted_pod_on_the_card(cuda_device):
+    """``FleetSupervisor`` over two paged replicas on the card (f32, head_dim
+    128, kernel #1 on every prefill and #4's paged mode on every decode
+    step), watching a fake cluster: a deleted pod is recreated under its
+    name, its live requests end FAILED with the replica-lost cause, and the
+    replacement's greedy tokens equal those of an engine over the plain
+    versions given the same prompts."""
+    import asyncio
+    from datetime import timedelta
+
+    from tpu_nexus_torch.checkpoint.models import JOB_LABEL_SERVING_FLEET, JOB_TEMPLATE_NAME_KEY, NEXUS_COMPONENT_LABEL
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.core.signals import LifecycleContext
+    from tpu_nexus_torch.k8s.fake import FakeKubeClient
+    from tpu_nexus_torch.ops.decode_attention import reset_launches
+    from tpu_nexus_torch.serving import (
+        CAUSE_REPLICA_LOST,
+        FleetSupervisor,
+        PagedModelExecutor,
+        RequestState,
+        ServingEngine,
+        ServingFleet,
+    )
+    from tpu_nexus_torch.supervisor.taxonomy import MSG_PREEMPTED, DecisionAction
+
+    cfg = _d128_serve_cfg(torch.float32)
+    params = llama_init(torch.Generator(device=cuda_device).manual_seed(0), cfg, device=cuda_device)
+
+    def engine(kv_blocks=None, impl="auto"):
+        return ServingEngine(PagedModelExecutor(params, cfg, num_slots=3, max_len=96, page_size=16,
+                                                num_blocks=kv_blocks or 0, decode_kernel=impl, attn_impl=impl))
+
+    jobset = {
+        "kind": "JobSet", "apiVersion": "jobset.x-k8s.io/v1alpha2",
+        "metadata": {"name": "svc", "namespace": "nexus", "uid": "js-svc",
+                     "labels": {NEXUS_COMPONENT_LABEL: JOB_LABEL_SERVING_FLEET, JOB_TEMPLATE_NAME_KEY: "svc-algo"}},
+        "spec": {"replicatedJobs": [{"name": "replica", "replicas": 2, "template": {"spec": {
+            "parallelism": 1, "template": {"spec": {"containers": [{"name": "main", "env": []}]}}}}}]},
+        "status": {},
+    }
+    rng = np.random.default_rng(5)
+    burst = [rng.integers(0, 512, size=n).astype(np.int32) for n in (40, 17, 33, 25)]
+    after = [rng.integers(0, 512, size=n).astype(np.int32) for n in (29, 50, 12)]
+
+    async def drill():
+        client = FakeKubeClient(jobset_controller=True, emit_pod_events=True)
+        client.inject("ADDED", "JobSet", jobset)
+        store = InMemoryCheckpointStore()
+        fleet = ServingFleet()
+        sup = FleetSupervisor(client, store, "nexus", fleet, "svc", "svc-algo", lambda n, s, kv: engine(kv),
+                              grace_s=30.0, resync_period=timedelta(0))
+        ctx = LifecycleContext()
+        sup._factory.start(ctx)
+        try:
+            assert await sup._factory.wait_for_cache_sync(timeout=10.0)
+            pods = await sup.adopt_pods(step=0)
+            assert len(pods) == 2
+            reqs = [fleet.submit(p, 16, request_id=f"b{i}") for i, p in enumerate(burst)]
+            fleet.tick()
+            victim = max(pods, key=lambda n: len(fleet.replicas[n].engine.requests))
+            held = len(fleet.replicas[victim].engine.requests)
+            await client.delete_object("Pod", "nexus", victim)
+            for _ in range(50):
+                if sup._pending:
+                    break
+                await asyncio.sleep(0.02)
+            await sup.reconcile(now=1.0)
+            assert sup.recreated == 1 and fleet.replicas[victim].state == "serving"
+            assert client._objects["Pod"][("nexus", victim)]["metadata"]["uid"].startswith("fleet-recreate-")
+            fleet.run_until_drained()
+            lost = f"{CAUSE_REPLICA_LOST}:{DecisionAction.TO_PREEMPT_RESTARTABLE}"
+            assert held and sum(r.cause == lost for r in reqs) == held
+            assert all(r.state == RequestState.FINISHED or r.cause == lost for r in reqs)
+            assert store.read_checkpoint("svc-algo", "svc").algorithm_failure_cause == MSG_PREEMPTED
+            flash_attention.launches = 0
+            reset_launches()
+            replacement = fleet.replicas[victim].engine
+            got = [replacement.submit(p, 16, request_id=f"a{i}") for i, p in enumerate(after)]
+            replacement.run_until_drained()
+            torch.cuda.synchronize()
+            assert flash_attention.launches >= cfg.n_layers * len(after)
+            assert decode_attention.launches_by_mode.get("paged", 0) > 0
+            return [(r.state, list(r.output_tokens)) for r in got]
+        finally:
+            ctx.cancel()
+            await sup._factory.shutdown()
+
+    got = asyncio.run(drill())
+    plain = engine(impl="plain")
+    want = [plain.submit(p, 16, request_id=f"a{i}") for i, p in enumerate(after)]
+    plain.run_until_drained()
+    assert got == [(r.state, list(r.output_tokens)) for r in want]
+    assert all(state == RequestState.FINISHED for state, _ in got)

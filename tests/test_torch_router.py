@@ -1,10 +1,14 @@
 """The port's fleet router (``tpu_nexus_torch/serving/router.py``) on the CPU.
 
-* The cases of ``tests/test_fleet_routing.py`` that need no
-  ``FleetSupervisor``: the decision tables, ranking, shed-and-retry
-  elsewhere, the snapshot-to-submit race, a mid-burst kill, prefix
-  affinity and the multi-seed fuzz, against the port's fleet over fake
-  executors (tokens a pure function of the prompt).
+* The cases of ``tests/test_fleet_routing.py``: the decision tables,
+  ranking, shed-and-retry elsewhere, the snapshot-to-submit race, a
+  mid-burst kill, prefix affinity, the multi-seed fuzz and the
+  supervisor's autoscaling (scale up on a SATURATED fleet, down when
+  idle; cooldown and ``max_replicas`` gates), against the port's fleet
+  over fake executors (tokens a pure function of the prompt).
+* A fleet and supervisor built by ``build_fleet_supervisor`` from a
+  ``ServeConfig`` env route round-robin, grade with the env's SLO
+  targets, scale in its autoscale bounds and recreate with its KV budget.
 * The port's four router tables equal the JAX package's and are total
   over the port's ``loadstats.PRESSURE_STATES`` (nxlint NX021 reads only
   ``tpu_nexus/serving/router.py``; this test stands in for it there).
@@ -42,6 +46,8 @@ from tpu_nexus_torch.serving import (
 from tpu_nexus_torch.serving.fleet import FleetError
 from tpu_nexus_torch.serving.loadstats import (
     PRESSURE_DOWN,
+    PRESSURE_HEALTHY,
+    PRESSURE_PRESSURED,
     PRESSURE_SATURATED,
     PRESSURE_STATES,
     SloMonitor,
@@ -56,7 +62,7 @@ from tpu_nexus_torch.serving.router import (
 )
 from tpu_nexus_torch.serving.scheduler import FifoScheduler, SchedulerConfig
 from tpu_nexus_torch.serving.tracing import EV_ROUTER_RETRY
-from test_torch_fleet import FleetFakeExecutor, fake_engine
+from test_torch_fleet import ALGO, FLEET_JS, NS, FleetFakeExecutor, _Fixture, _settle, fake_engine, pod_name, serving_jobset
 from test_torch_llama import carried, tiny_configs
 
 torch.set_num_threads(1)
@@ -408,6 +414,200 @@ class TestPrefixAffinity:
             assert all(r.state == RequestState.FINISHED for r in reqs)
             outs[policy] = [list(r.output_tokens) for r in reqs]
         assert outs[None] == outs[ROUTER_ROUND_ROBIN]
+
+
+# -- supervisor autoscaling -----------------------------------------------------
+
+
+async def autoscale_fixture(cooldown_s=0.0):
+    from datetime import timedelta
+
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.core.signals import LifecycleContext
+    from tpu_nexus_torch.k8s.fake import FakeKubeClient
+    from tpu_nexus_torch.serving import FleetSupervisor
+
+    client = FakeKubeClient(jobset_controller=True, emit_pod_events=True)
+    client.inject("ADDED", "JobSet", serving_jobset())
+    store = InMemoryCheckpointStore()
+    fleet = ServingFleet()
+    made = []
+
+    def factory(name, step, kv_blocks):
+        made.append((name, step, kv_blocks))
+        return fake_engine(params=f"params@{step}")
+
+    sup = FleetSupervisor(
+        client, store, NS, fleet, FLEET_JS, ALGO, factory,
+        grace_s=30.0, kv_blocks=64, resync_period=timedelta(0),
+        slo=SloMonitor(SloTargets(shed_rate=0.05, short_window=1, long_window=2,
+                                  pressured_burn=1.0, saturated_burn=1.0)),
+        autoscale=AutoscaleConfig(min_replicas=3, max_replicas=4, scale_up_after=1, scale_down_after=2,
+                                  cooldown_s=cooldown_s),
+    )
+    ctx = LifecycleContext()
+    sup._factory.start(ctx)
+    assert await sup._factory.wait_for_cache_sync(timeout=10.0)
+    await sup.adopt_pods(step=1)
+    return _Fixture(client, store, fleet, sup, ctx, made)
+
+
+class TestAutoscale:
+    async def test_up_then_down_converges_with_all_requests_terminal(self):
+        fx = await autoscale_fixture()
+        try:
+            sup, fleet = fx.sup, fx.fleet
+            reqs = [fleet.submit(np.array([1, 2, i + 1]), 3) for i in range(3)]
+            await sup.reconcile(now=1.0)  # obs 1: seeds baselines
+            assert sup.scaled_up == 0
+            # a refusing replica shedding once per observation window —
+            # direct submits, so the burn is independent of routing order
+            overloaded = fleet.replicas[pod_name(0)].engine
+            overloaded.pause_admission()
+            with pytest.raises(QueueFull):
+                overloaded.submit(np.array([9, 9, 1]), 2)
+            await sup.reconcile(now=2.0)  # obs 2: burning -> PRESSURED, hold
+            assert sup.slo.grades[pod_name(0)] == PRESSURE_PRESSURED
+            assert sup.scaled_up == 0
+            with pytest.raises(QueueFull):
+                overloaded.submit(np.array([9, 9, 2]), 2)
+            await sup.reconcile(now=3.0)  # obs 3: SATURATED -> scale up
+            assert sup.slo.grades[SloMonitor.FLEET] == PRESSURE_SATURATED
+            assert sup.scaled_up == 1 and len(fleet.replicas) == 4
+            new = f"{FLEET_JS}-scale-1"
+            assert new in fleet.replicas
+            assert fleet.replicas[new].state == "serving"
+            assert fx.made[-1][0] == new
+            pod = fx.client._objects["Pod"][(NS, new)]
+            assert pod["metadata"]["uid"].startswith("fleet-scale-")
+            row = fx.ledger()
+            assert "fleet autoscale: scale-up" in row.algorithm_failure_cause
+            assert new in row.algorithm_failure_details
+            # traffic drains: every request terminal, zero drops
+            overloaded.resume_admission()
+            fleet.run_until_drained()
+            assert all(r.state == RequestState.FINISHED for r in reqs)
+            # sustained healthy idleness: two reconciles -> scale down once
+            await sup.reconcile(now=4.0)
+            assert sup.scaled_down == 0
+            await sup.reconcile(now=5.0)
+            assert sup.slo.grades[SloMonitor.FLEET] == PRESSURE_HEALTHY
+            assert sup.scaled_down == 1 and len(fleet.replicas) == 3
+            down = sup.scale_events[-1]
+            assert down["decision"] == "scale-down"
+            assert down["drain"]["drain_evicted"] == 0  # zero-drop by idle
+            assert down["pod"] in fx.client.deleted("Pod")
+            assert "fleet autoscale: scale-down" in fx.ledger().algorithm_failure_cause
+            # at min_replicas the fleet holds, and our own deletion never
+            # echoes back as an incident/recreate
+            await _settle()
+            await sup.reconcile(now=6.0)
+            await sup.reconcile(now=7.0)
+            assert len(fleet.replicas) == 3
+            assert sup.scaled_down == 1 and sup.recreated == 0
+        finally:
+            await fx.close()
+
+    async def test_cooldown_and_max_replicas_gate_scale_up(self):
+        fx = await autoscale_fixture(cooldown_s=100.0)
+        try:
+            sup, fleet = fx.sup, fx.fleet
+            for rep in fleet.replicas.values():
+                rep.engine.pause_admission()
+            await sup.reconcile(now=1.0)  # seeds
+            for tick in range(2):
+                # every replica refuses -> a fleet-wide shed, one burn
+                # sample on each replica per observation
+                with pytest.raises(QueueFull, match="no serving replica"):
+                    fleet.submit(np.array([1, 2, tick + 1]), 2)
+                await sup.reconcile(now=2.0 + tick)
+            assert sup.scaled_up == 1  # saturated -> one scale-up
+            # still saturated, but the cooldown holds the next action
+            fleet.replicas[f"{FLEET_JS}-scale-1"].engine.pause_admission()
+            with pytest.raises(QueueFull):
+                fleet.submit(np.array([1, 2, 9]), 2)
+            await sup.reconcile(now=5.0)
+            assert sup.scaled_up == 1
+            # past the cooldown the fleet is at max_replicas: still capped
+            with pytest.raises(QueueFull):
+                fleet.submit(np.array([1, 2, 11]), 2)
+            await sup.reconcile(now=200.0)
+            assert sup.scaled_up == 1 and len(fleet.replicas) == 4
+        finally:
+            await fx.close()
+
+
+#: the fleet knobs as a deployment sets them: round-robin routing, a shed
+#: target graded over windows of 1 and 3 reconciles, autoscaling in [3, 4]
+FLEET_ENV = {
+    "NEXUS_ROUTER_POLICY": "round-robin", "NEXUS_SLO_SHED_RATE": "0.05", "NEXUS_SLO_SHORT_N": "1",
+    "NEXUS_SLO_LONG_N": "3", "NEXUS_AUTOSCALE_MIN": "3", "NEXUS_AUTOSCALE_MAX": "4", "NEXUS_SCALE_UP_N": "1",
+    "NEXUS_SCALE_DOWN_N": "2", "NEXUS_SCALE_COOLDOWN_S": "0", "NEXUS_PAGE_SIZE": "4", "NEXUS_KV_BLOCKS": "64",
+}
+
+
+async def test_fleet_knobs_from_env_route_and_scale_the_fleet():
+    """``build_fleet_supervisor`` reads every fleet knob of ``ServeConfig``:
+    the router rotates (``NEXUS_ROUTER_POLICY``), the supervisor grades with
+    the ``NEXUS_SLO_*`` targets the router shares, scales in the
+    ``NEXUS_AUTOSCALE_*``/``NEXUS_SCALE_*`` bounds, and recreates from the
+    ``NEXUS_KV_BLOCKS`` budget."""
+    from datetime import timedelta
+
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.core.signals import LifecycleContext
+    from tpu_nexus_torch.k8s.fake import FakeKubeClient
+    from tpu_nexus_torch.workload.serve import ServeConfig, build_fleet_supervisor
+
+    cfg = ServeConfig.from_env(FLEET_ENV)
+    client = FakeKubeClient(jobset_controller=True, emit_pod_events=True)
+    client.inject("ADDED", "JobSet", serving_jobset(kv=64))
+    made = []
+
+    def factory(name, step, kv_blocks):
+        made.append((name, step, kv_blocks))
+        return fake_engine(params=f"params@{step}")
+
+    sup = build_fleet_supervisor(cfg, client, InMemoryCheckpointStore(), NS, FLEET_JS, ALGO, factory, grace_s=30.0,
+                                 resync_period=timedelta(0))
+    fleet = sup.fleet
+    assert fleet.router.policy == ROUTER_ROUND_ROBIN and fleet.router.slo is sup.slo
+    assert sup.slo.targets == cfg.slo_targets() and sup.autoscale == cfg.autoscale_config()
+    ctx = LifecycleContext()
+    sup._factory.start(ctx)
+    fx = _Fixture(client, sup._store, fleet, sup, ctx, made)
+    try:
+        assert await sup._factory.wait_for_cache_sync(timeout=10.0)
+        await sup.adopt_pods(step=1)
+        reqs = [fleet.submit(np.array([1, 2, i + 1]), 3) for i in range(3)]
+        assert sorted(len(rep.engine.requests) for rep in fleet.replicas.values()) == [1, 1, 1]
+        await sup.reconcile(now=1.0)  # seeds the shed baselines
+        overloaded = fleet.replicas[pod_name(0)].engine
+        overloaded.pause_admission()
+        grades = []
+        for t in (2.0, 3.0):
+            with pytest.raises(QueueFull):
+                overloaded.submit(np.array([9, 9, int(t)]), 2)
+            await sup.reconcile(now=t)
+            grades.append((sup.slo.grades[pod_name(0)], sup.slo.grades[SloMonitor.FLEET]))
+        # the long window of 3 fills on the second shed: PRESSURED, then
+        # SATURATED and one scale-up (NEXUS_SCALE_UP_N=1) to the max of 4
+        assert grades == [(PRESSURE_PRESSURED, PRESSURE_PRESSURED), (PRESSURE_SATURATED, PRESSURE_SATURATED)]
+        assert sup.scaled_up == 1 and len(fleet.replicas) == 4
+        overloaded.resume_admission()
+        fleet.run_until_drained()
+        assert all(r.state == RequestState.FINISHED for r in reqs)
+        for t in (4.0, 5.0):  # two healthy idle reconciles (NEXUS_SCALE_DOWN_N=2)
+            await sup.reconcile(now=t)
+        assert sup.scaled_down == 1 and len(fleet.replicas) == 3
+        # a lost pod comes back with the NEXUS_KV_BLOCKS budget
+        victim = sorted(fleet.replicas)[0]
+        await client.delete_object("Pod", NS, victim)
+        await _settle()
+        await sup.reconcile(now=6.0)
+        assert sup.recreated == 1 and made[-1] == (victim, 1, 64)
+    finally:
+        await fx.close()
 
 
 # -- multi-seed fuzz ------------------------------------------------------------

@@ -9,8 +9,11 @@
   COMPLETED in a sqlite ledger;
 * ``NEXUS_DEVICE`` defaults to ``cuda`` and raises without a card — the
   workload never carries on on the CPU unasked (lockstep and engine);
-* the knobs of slices still to come raise at parse naming their ROADMAP.md
-  item; the checkpoint knobs parse; ``NEXUS_FAULT_MODE`` fires the reference's process modes in the
+* the fleet knobs parse with the reference's values and words (held
+  against the JAX package's ``ServeConfig``); ``NEXUS_SERVE_MESH`` (A6)
+  raises at parse naming its ROADMAP.md item; the checkpoint knobs parse;
+* the entry point's store: memory, sqlite, lazy Scylla and Astra CQL
+  stores (the default ``scylla`` included), exit 1 on an unknown type; ``NEXUS_FAULT_MODE`` fires the reference's process modes in the
   lockstep loop;
 * no file of the port (nor ``chip_smoke.py``) imports ``jax`` or
   ``tpu_nexus``.
@@ -32,6 +35,7 @@ from tpu_nexus.parallel.distributed import ProcessContext as JaxProcessContext
 from tpu_nexus.workload.serve import ServeConfig as JaxServeConfig
 from tpu_nexus.workload.serve import run_serving as jax_run_serving
 from tpu_nexus_torch.checkpoint.models import LifecycleStage
+from tpu_nexus_torch.checkpoint.cql import AstraCqlStore, ScyllaCqlStore
 from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore, SqliteCheckpointStore
 from tpu_nexus_torch.models.quant import quantized_bytes
 from tpu_nexus_torch.models.registry import get_adapter
@@ -134,18 +138,47 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         run_serving(dataclasses.replace(cfg, **SMALL), store=InMemoryCheckpointStore())
 
 
+_SLO = {"NEXUS_SLO_SHED_RATE": "0.05"}
+
+
 @pytest.mark.parametrize(
-    "key,value,item",
+    "env,field,want",
     [
-        ("NEXUS_ROUTER_POLICY", "round-robin", "A7b fleet"),
-        ("NEXUS_AUTOSCALE_MAX", "4", "A7b fleet"),
-        ("NEXUS_SCALE_COOLDOWN_S", "5", "A7b fleet"),
-        ("NEXUS_SERVE_MESH", "tp=2", "A6 sharded executors"),
+        ({"NEXUS_ROUTER_POLICY": "round-robin"}, "router_policy", "round-robin"),
+        ({"NEXUS_ROUTER_POLICY": "random"}, None, "unknown router_policy"),
+        ({"NEXUS_AUTOSCALE_MAX": "4"}, None, "autoscale bounds come as a pair"),
+        ({"NEXUS_AUTOSCALE_MIN": "2", "NEXUS_AUTOSCALE_MAX": "4"}, None, "requires NEXUS_SLO_"),
+        ({"NEXUS_AUTOSCALE_MIN": "5", "NEXUS_AUTOSCALE_MAX": "4", **_SLO}, None, "max_replicas"),
+        ({"NEXUS_SCALE_COOLDOWN_S": "5"}, "scale_cooldown_s", 5.0),
+        ({"NEXUS_AUTOSCALE_MIN": "2", "NEXUS_AUTOSCALE_MAX": "4", "NEXUS_SCALE_UP_N": "1",
+          "NEXUS_SCALE_DOWN_N": "2", "NEXUS_SCALE_COOLDOWN_S": "5", **_SLO}, "autoscale_config", (2, 4, 1, 2, 5.0)),
+        ({"NEXUS_SERVE_MESH": "tp=2"}, None, "A6 sharded executors"),
     ],
+    ids=["router_policy", "unknown_policy", "autoscale_max_alone", "autoscale_without_slo", "autoscale_min_over_max",
+         "scale_cooldown", "autoscale_config", "serve_mesh"],
 )
-def test_unported_knobs_raise_at_parse(key, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ServeConfig.from_env({key: value})
+def test_unported_knobs_raise_at_parse(env, field, want):
+    """The fleet knobs parse with the reference's checks and words (each
+    case is held against the JAX package's ``ServeConfig.from_env`` on the
+    same env); ``NEXUS_SERVE_MESH`` (A6) is the one knob still refused."""
+    if field is None and "A6" in want:
+        with pytest.raises(NotImplementedError, match=want):
+            ServeConfig.from_env(env)
+        return
+    if field is None:
+        with pytest.raises(ValueError, match=want) as port_exc:
+            ServeConfig.from_env(env)
+        with pytest.raises(ValueError) as jax_exc:
+            JaxServeConfig.from_env(env)
+        assert str(port_exc.value) == str(jax_exc.value)
+        return
+    cfg, ref = ServeConfig.from_env(env), JaxServeConfig.from_env(env)
+    if field == "autoscale_config":
+        got = cfg.autoscale_config()
+        assert (got.min_replicas, got.max_replicas, got.scale_up_after, got.scale_down_after, got.cooldown_s) == want
+        assert dataclasses.asdict(got) == dataclasses.asdict(ref.autoscale_config())
+        return
+    assert getattr(cfg, field) == want == getattr(ref, field)
 
 
 @pytest.mark.parametrize(
@@ -283,10 +316,11 @@ def test_engine_knobs_at_their_defaults_parse():
     [
         ({"NEXUS__CQL_STORE_TYPE": "memory"}, InMemoryCheckpointStore),
         ({"NEXUS__CQL_STORE_TYPE": "sqlite", "NEXUS__SQLITE_STORE_PATH": "{tmp}/ledger.db"}, SqliteCheckpointStore),
-        ({"NEXUS__CQL_STORE_TYPE": "scylla"}, "A7c CQL ledger"),
-        ({"NEXUS__CQL_STORE_TYPE": "astra"}, "A7c CQL ledger"),
-        ({}, "A7c CQL ledger"),  # SupervisorConfig's default, scylla, as in the reference
-        ({"NEXUS__CQL_STORE_TYPE": "redis"}, "unknown cql-store-type: 'redis'"),
+        ({"NEXUS__CQL_STORE_TYPE": "scylla", "NEXUS__SCYLLA_CQL_STORE__HOSTS": "10.0.0.7",
+          "NEXUS__SCYLLA_CQL_STORE__PORT": "19042"}, ScyllaCqlStore),
+        ({"NEXUS__CQL_STORE_TYPE": "astra"}, AstraCqlStore),
+        ({}, ScyllaCqlStore),  # SupervisorConfig's default, scylla, as in the reference
+        ({"NEXUS__CQL_STORE_TYPE": "redis"}, SystemExit),
     ],
     ids=["memory", "sqlite", "scylla", "astra", "default", "unknown"],
 )
@@ -294,20 +328,26 @@ def test_store_from_env(tmp_path, monkeypatch, env, want):
     """The entry point's ledger store comes from the supervisor's config
     mechanism (``load_config(SupervisorConfig)`` + ``ApplicationServices``):
     memory and sqlite resolve; the CQL kinds, and the dataclass default
-    with no appconfig file found, raise naming the ROADMAP item; an
-    unknown kind raises with the reference's words."""
+    with no appconfig file found, build lazy CQL stores (no I/O until the
+    first query: nothing listens on the named host); an unknown kind exits
+    1, as the reference's entry point does."""
     monkeypatch.chdir(tmp_path)  # no appconfig.yaml on the search path
     monkeypatch.delenv("TPU_NEXUS_CONFIG_DIR", raising=False)
     env = {k: v.format(tmp=tmp_path) for k, v in env.items()}
-    if isinstance(want, str):
-        with pytest.raises((NotImplementedError, RuntimeError), match=want):
+    if want is SystemExit:
+        with pytest.raises(SystemExit) as exc:
             entry.store_from_env(env)
+        assert exc.value.code == 1
         return
     store = entry.store_from_env(env)
     try:
-        assert isinstance(store, want)
+        assert type(store) is want
         if want is SqliteCheckpointStore:
             assert store._path == str(tmp_path / "ledger.db")
+        if want is ScyllaCqlStore and env:
+            assert (store.hosts, store.port) == (["10.0.0.7"], 19042)
+        if want is not SqliteCheckpointStore and want is not InMemoryCheckpointStore:
+            assert store._conn is None  # lazy: constructing it opened nothing
     finally:
         store.close()
 

@@ -1,6 +1,5 @@
 """Dependency-injection builder (reference app/app_dependencies.go:12-85):
-a copy of ``tpu_nexus/app/dependencies.py``.  The Scylla and Astra stores
-raise: the CQL ledger is not ported (ROADMAP.md: A7c CQL ledger).
+a copy of ``tpu_nexus/app/dependencies.py``.
 
 Idempotent fluent builder: each `with_*` is a nil-guarded singleton — calling
 it twice, or after an equivalent store was already built, is a no-op
@@ -33,13 +32,6 @@ from tpu_nexus_torch.k8s.client import KubeClient
 from tpu_nexus_torch.supervisor.service import ProcessingConfig, Supervisor
 
 
-#: the CQL ledger backends (``tpu_nexus/checkpoint/cql.py``) are not ported
-_CQL_NOT_PORTED = (
-    "cql-store-type {kind!r}: the CQL ledger backends are not ported yet "
-    "(ROADMAP.md: A7c CQL ledger); use sqlite or memory"
-)
-
-
 class ApplicationServices:
     def __init__(self, logger: Optional[VLogger] = None, metrics: Optional[Metrics] = None,
                  fatal_exit: bool = True) -> None:
@@ -60,12 +52,26 @@ class ApplicationServices:
 
     def with_scylla_cql_store(self, config: SupervisorConfig) -> "ApplicationServices":
         if self._cql_store is None:
-            raise NotImplementedError(_CQL_NOT_PORTED.format(kind=CQL_STORE_SCYLLA))
+            from tpu_nexus_torch.checkpoint.cql import ScyllaCqlStore
+
+            sc = config.scylla_cql_store
+            # lazy store: no network I/O until first query (contract,
+            # SURVEY §2.3 pkg/checkpoint/request row)
+            self._cql_store = ScyllaCqlStore(
+                hosts=sc.hosts, port=sc.port, user=sc.user,
+                password=sc.password, local_dc=sc.local_dc, logger=self._log,
+            )
         return self
 
     def with_astra_cql_store(self, config: SupervisorConfig) -> "ApplicationServices":
         if self._cql_store is None:
-            raise NotImplementedError(_CQL_NOT_PORTED.format(kind=CQL_STORE_ASTRA))
+            from tpu_nexus_torch.checkpoint.cql import AstraCqlStore
+
+            ac = config.astra_cql_store
+            self._cql_store = AstraCqlStore(
+                secure_connection_bundle_base64=ac.secure_connection_bundle_base64,
+                user=ac.gateway_user, password=ac.gateway_password, logger=self._log,
+            )
         return self
 
     def with_sqlite_store(self, config: SupervisorConfig) -> "ApplicationServices":

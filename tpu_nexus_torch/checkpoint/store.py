@@ -18,8 +18,8 @@ reference app/app_dependencies.go:18-34 and services/supervisor.go:264,301
 Backends:
   * InMemoryCheckpointStore — tests and the fake-cluster topology;
   * SqliteCheckpointStore  — durable single-file store for local runs;
-  * the CQL backends (Scylla / Astra) are not ported yet (ROADMAP.md: A7c
-    CQL ledger).
+  * ScyllaCqlStore / AstraCqlStore — real CQL cluster via the pure-python
+    wire client in tpu_nexus_torch.checkpoint.cql (lazy session).
 
 Stores are plain last-write-wins (CQL upsert semantics, reference parity);
 lifecycle-transition guarding (IsFinished + the stage partial order) lives

@@ -17,8 +17,8 @@ Layering (each module imports only downward), as in the JAX package:
 * ``router``         — fleet admission + autoscale policy: pressure/
                        affinity/load candidate ranking, shed-and-retry
                        elsewhere by the ROUTE_ELIGIBILITY table;
-                       SCALE_DECISIONS and AutoscaleConfig wait for the
-                       fleet supervisor that acts on them (ROADMAP.md A7b)
+                       SCALE_DECISIONS and AutoscaleConfig, which the
+                       fleet supervisor acts on
 * ``handoff``        — the KV handoff payload protocol between prefill
                        and decode replicas (host form: CPU tensors of the
                        pool's dtype, CRC over their raw bytes)
@@ -31,13 +31,15 @@ Layering (each module imports only downward), as in the JAX package:
                        ServingEngine (host loop)
 * ``fleet``          — ServingFleet: replicas behind the router,
                        disaggregated prefill/decode with the KV handoff,
-                       zero-drop rolling weight updates; CheckpointWatcher
+                       zero-drop rolling weight updates; CheckpointWatcher;
+                       FleetSupervisor, the Kubernetes reconciler
+                       (taxonomy-classified pod recovery, missing-pod
+                       sweep, checkpoint-driven rollout, autoscaling)
 
 Every module but ``engine`` and the cache buffers of ``cache_manager`` is
 a copy of the JAX package's host code with its imports changed
 (``handoff`` also takes the port's host form of a leaf).  Not ported
-(ROADMAP.md): ``fleet``'s ``FleetSupervisor``, the Kubernetes reconciler
-(A7b), and ``sharded`` (A6).
+(ROADMAP.md): ``sharded`` (A6).
 Comments in the copies that name nxlint rules (NX005, NX014, ...) describe
 the JAX package's static gates: nxlint scans ``tpu_nexus/`` only.
 """
@@ -65,6 +67,7 @@ from tpu_nexus_torch.serving.fleet import (
     CheckpointWatcher,
     EngineReplica,
     FleetError,
+    FleetSupervisor,
     ServingFleet,
 )
 from tpu_nexus_torch.serving.handoff import (
@@ -165,6 +168,7 @@ __all__ = [
     "FleetError",
     "FleetRouter",
     "FleetSnapshot",
+    "FleetSupervisor",
     "FlightRecorder",
     "HANDOFF_CAUSE_ACTIONS",
     "HANDOFF_DECISIONS",

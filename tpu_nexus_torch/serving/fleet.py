@@ -1,7 +1,7 @@
 """The serving fleet: engine replicas behind a router, disaggregated
 prefill/decode with the KV handoff, and zero-drop rolling weight updates.
-The port of ``tpu_nexus/serving/fleet.py`` without its Kubernetes
-reconciler.
+The port of ``tpu_nexus/serving/fleet.py``, its imports changed, with
+the Kubernetes reconciler that recreates and scales the replicas.
 
 * :class:`ServingFleet` — the host-side replica set: N
   :class:`~tpu_nexus_torch.serving.engine.ServingEngine` replicas behind
@@ -26,23 +26,42 @@ reconciler.
   caller: a rollout, or the serve-engine loop's hot reload
   (``NEXUS_RELOAD_CHECK_S``).
 
+* :class:`FleetSupervisor` — the control loop: watches the serving
+  JobSet's pods/events through the SAME informer layer as the run
+  supervisor, classifies failures with the SAME taxonomy
+  (``supervisor.taxonomy.classify_event``), and executes the
+  serving-specific consequences (``SERVING_POD_RECOVERY``, total over
+  ``DecisionAction``): crash-loop → recreate, HBM OOM → recreate with a
+  halved ``NEXUS_KV_BLOCKS`` budget, stuck-pending/compile-abort →
+  escalate to an operator.  A missing-pod sweep
+  (:class:`~tpu_nexus_torch.supervisor.watchdog.StalenessTracker`, the
+  same absence-driven discipline as the ledger watchdog) recreates killed
+  pods that never produced a classifiable event — a killed serving pod is
+  recreated, never silently lost — and every incident lands an honest
+  cause in the ledger row.  It also grades the fleet against its SLO
+  targets and scales it between ``AutoscaleConfig``'s bounds.
+
+Division of labor with the run supervisor (``supervisor/service.py``): a
+serving fleet's JobSet carries ``NEXUS_COMPONENT_LABEL:
+JOB_LABEL_SERVING_FLEET``, the run supervisor delegates those events here
+(``events_delegated``), and this controller never touches algorithm-run
+resources — one pod, one owner.
+
 Replicas of one process share one device and one stream.  Serving never
 writes weights, so replicas may share one params tree; a rollout gives
 each replica the tree its source restores.
-
-Not here: the reference's ``FleetSupervisor``, the control loop that
-watches the serving JobSet's pods through the Kubernetes informers and
-recreates or scales replicas.  It needs the control plane
-(``k8s/``, ``supervisor/watchdog.py``, ``supervisor/resolvers.py``) and is
-ROADMAP.md A7b.
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
+import json
 import logging
 import time
+from collections import deque
 from dataclasses import dataclass, field
+from datetime import datetime, timedelta, timezone
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,10 +80,22 @@ from tpu_nexus_torch.serving.handoff import (
     handoff_cause_action,
     handoff_decision,
 )
-from tpu_nexus_torch.serving.loadstats import FleetSnapshot, LoadSnapshot
+from tpu_nexus_torch.serving.loadstats import (
+    FleetSnapshot,
+    LoadSnapshot,
+    SloMonitor,
+    emit_fleet_snapshot,
+)
 from tpu_nexus_torch.serving.recovery import DeviceStateLost, StepFault
 from tpu_nexus_torch.serving.request import Request
-from tpu_nexus_torch.serving.router import ROUTER_PRESSURE, FleetRouter
+from tpu_nexus_torch.serving.router import (
+    ROUTER_PRESSURE,
+    SCALE_DECISIONS,
+    SCALE_DOWN_WHEN_IDLE,
+    SCALE_UP,
+    AutoscaleConfig,
+    FleetRouter,
+)
 from tpu_nexus_torch.serving.scheduler import QueueFull
 from tpu_nexus_torch.serving.tracing import EV_DISAGG_FALLBACK, EV_HANDOFF_HOP
 from tpu_nexus_torch.workload.durability import CheckpointError, VerifiedStepPoller
@@ -81,6 +112,9 @@ REPLICA_DOWN = "down"
 #: killed / escalated away): the taxonomy action that took the pod down is
 #: appended, so per-request accounting names the same cause the ledger does
 CAUSE_REPLICA_LOST = "replica-lost"
+
+#: the watchdog sweep's trace wording (tests match it)
+MSG_POD_MISSING = "serving pod missing from cluster (watchdog sweep)"
 
 
 class FleetError(RuntimeError):
@@ -797,3 +831,921 @@ class ServingFleet:
             "load": self.snapshot().to_dict(),
         }
 
+
+@dataclass
+class _Incident:
+    """One classified serving-pod failure awaiting execution."""
+
+    action: str
+    recovery: str
+    cause: str
+    trace: str
+    pod: str
+
+
+class FleetSupervisor:
+    """The serving-fleet control loop (see module doc): informers over the
+    serving JobSet's Events/Pods, taxonomy classification, recovery
+    execution, the missing-pod watchdog sweep, and the checkpoint-watcher-
+    driven rolling update — all test-callable via :meth:`reconcile`.
+
+    ``replica_factory(name, step, kv_blocks)`` builds a fresh, already-
+    weighted :class:`ServingEngine` for a recreated pod (``step`` is the
+    newest verified checkpoint step, None for init weights; ``kv_blocks``
+    the possibly-reduced KV budget, None when not paged)."""
+
+    def __init__(
+        self,
+        client: Any,
+        store: Any,
+        namespace: str,
+        fleet: ServingFleet,
+        jobset_name: str,
+        algorithm: str,
+        replica_factory: Callable[[str, Optional[int], Optional[int]], ServingEngine],
+        source: Any = None,
+        watcher: Optional[CheckpointWatcher] = None,
+        transform: Optional[Callable[[Any], Any]] = None,
+        grace_s: float = 5.0,
+        kv_blocks: Optional[int] = None,
+        min_kv_blocks: int = 2,
+        missing_after_s: float = 0.0,
+        resync_period: Optional[timedelta] = None,
+        logger_: Optional[Any] = None,
+        metrics: Optional[Any] = None,
+        slo: Optional[SloMonitor] = None,
+        autoscale: Optional[AutoscaleConfig] = None,
+    ) -> None:
+        from tpu_nexus_torch.core.telemetry import NullMetrics, get_logger
+        from tpu_nexus_torch.k8s.informer import SharedInformerFactory
+        from tpu_nexus_torch.supervisor.watchdog import StalenessTracker
+
+        self._client = client
+        self._store = store
+        self.namespace = namespace
+        self.fleet = fleet
+        self.jobset_name = jobset_name
+        self.algorithm = algorithm
+        self.replica_factory = replica_factory
+        self.source = source
+        self.watcher = watcher
+        self.transform = transform
+        self.grace_s = grace_s
+        self.min_kv_blocks = min_kv_blocks
+        self.missing_after_s = missing_after_s
+        self._log = logger_ or get_logger("tpu_nexus_torch.fleet")
+        self._metrics = metrics or NullMetrics()
+        self._factory = SharedInformerFactory(
+            client, namespace,
+            resync_period=resync_period if resync_period is not None else timedelta(seconds=30),
+        )
+        for kind in ("Event", "Pod", "JobSet"):
+            self._factory.informer_for(kind)
+        self._factory.informer_for("Event").add_event_handler(self._on_k8s_event)
+        self._factory.informer_for("Pod").add_event_handler(self._on_pod)
+        self._pending: "deque[_Incident]" = deque()
+        self._pod_templates: Dict[str, Dict[str, Any]] = {}
+        #: pod deletions WE initiated (crash-loop recreate) — their DELETED
+        #: watch events are not incidents
+        self._expected_deletions: set = set()
+        self._missing = StalenessTracker()
+        #: per-replica KV block budget (reduced on HBM OOM recreates)
+        self._kv_blocks: Dict[str, Optional[int]] = {}
+        self._default_kv_blocks = kv_blocks
+        #: per-pod disaggregation role, read from the pod
+        #: template's ``NEXUS_REPLICA_ROLE`` env at adoption and PRESERVED
+        #: across recreates — a segfaulting prefill pool recreates as
+        #: prefill, never silently shrinking to zero while decode idles
+        self._roles: Dict[str, str] = {}
+        self._uid_counter = itertools.count(1)
+        self._row_ensured = False
+        self._reconciles = 0
+        #: (step, poller scan count) of a shunned rollout candidate — see
+        #: :meth:`_check_rollout`
+        self._shunned: Optional[Tuple[int, int]] = None
+        #: the pressure plane: graded per reconcile when a
+        #: monitor is configured; transitions land on the ledger row +
+        #: tagged metrics, SATURATED dumps the replica's flight recorder
+        self.slo = slo
+        if slo is not None:
+            # the router grades candidates off the SAME monitor the
+            # autoscaler consumes — one pressure truth per fleet
+            fleet.router.slo = slo
+        #: autoscaling: None disables — a fixed fleet
+        self.autoscale = autoscale
+        self._scale_up_streak = 0
+        self._scale_down_streak = 0
+        self._last_scale_t: Optional[float] = None
+        self._scale_counter = itertools.count(1)
+        # observability (tests + dashboards)
+        self.recreated = 0
+        self.escalated = 0
+        self.scaled_up = 0
+        self.scaled_down = 0
+        self.scale_events: List[Dict[str, Any]] = []
+        self.incidents: List[Dict[str, Any]] = []
+        #: bounded transition log (front-trimmed past
+        #: _pressure_events_limit, the SloMonitor.transitions discipline):
+        #: a replica flapping around its SLO target transitions for the
+        #: supervisor's whole lifetime and must not grow this unboundedly
+        self.pressure_events: List[Dict[str, Any]] = []
+        self._pressure_events_limit = 1024
+
+    # -- k8s handlers (sync, informer-dispatched) ------------------------------
+
+    def _on_k8s_event(self, event_type: str, event: Any) -> None:
+        from tpu_nexus_torch.supervisor import resolvers
+        from tpu_nexus_torch.supervisor.taxonomy import (
+            SERVING_POD_RECOVERY,
+            DecisionAction,
+            FleetRecovery,
+            classify_event,
+        )
+
+        if event_type != "ADDED":
+            return
+        informers = self._factory.informers
+        if not resolvers.is_serving_fleet_event(event, self.namespace, informers):
+            return
+        result = classify_event(event, self.namespace, informers)
+        if result is None or result.request_id != self.jobset_name:
+            return
+        action = result.action
+        if result.object_kind != "Pod":
+            # JobSet/Job-level conditions (FailedCreate, FailedJobs, ...)
+            # name no pod — there is nothing to recreate, and treating the
+            # JobSet name as a pod would mint a phantom replica the
+            # missing-pod sweep then recreates forever.  Record + escalate.
+            recovery = FleetRecovery.ESCALATE
+            pod = ""
+        else:
+            if action == DecisionAction.TO_FAIL_STUCK_IN_PENDING:
+                # the reference's Pod-"Failed" quirk maps a DEAD pod to the
+                # stuck-in-pending class for whole-run semantics; for a
+                # stateless serving replica a dead pod is a crash — recreate.
+                # TRUE scheduling failures arrive as Job/JobSet FailedCreate
+                # events (the branch above) and still escalate.
+                action = DecisionAction.TO_FAIL_FATAL_ERROR
+            recovery = SERVING_POD_RECOVERY[action]
+            pod = result.object_name
+        if recovery == FleetRecovery.NONE:
+            return
+        self._metrics.count("fleet_decisions", tags={"action": action})
+        self._pending.append(
+            _Incident(
+                action=action,
+                recovery=recovery,
+                cause=result.run_status_message,
+                trace=result.run_status_trace,
+                pod=pod,
+            )
+        )
+
+    def _on_pod(self, event_type: str, pod: Any) -> None:
+        from tpu_nexus_torch.supervisor.taxonomy import DecisionAction, FleetRecovery, MSG_PREEMPTED
+
+        if pod.jobset_name() != self.jobset_name:
+            return
+        name = pod.meta.name
+        if event_type in ("ADDED", "MODIFIED"):
+            # keep a manifest template per pod so a DELETED pod can be
+            # recreated even after the cluster forgot its spec
+            self._pod_templates[name] = copy.deepcopy(pod.raw)
+            return
+        if event_type != "DELETED":
+            return
+        if name in self._expected_deletions:
+            self._expected_deletions.discard(name)
+            return
+        # a pod deleted out from under the fleet (preemption, node drain,
+        # operator kubectl) — restartable by definition; the taxonomy's
+        # preemption action names the cause
+        self._pending.append(
+            _Incident(
+                action=DecisionAction.TO_PREEMPT_RESTARTABLE,
+                recovery=FleetRecovery.RECREATE,
+                cause=MSG_PREEMPTED,
+                trace=f"pod {name} deleted from the cluster",
+                pod=name,
+            )
+        )
+
+    # -- bootstrap -------------------------------------------------------------
+
+    async def adopt_pods(self, step: Optional[int] = None) -> List[str]:
+        """Bind one fleet replica per existing serving pod of the JobSet
+        (startup / controller restart): builds each replica's engine at
+        ``step`` via the factory.  Returns the adopted pod names."""
+        pods, _ = await self._client.list_objects("Pod", self.namespace)
+        adopted = []
+        for raw in pods:
+            meta = raw.get("metadata") or {}
+            labels = meta.get("labels") or {}
+            from tpu_nexus_torch.checkpoint.models import JOBSET_NAME_LABEL
+
+            if labels.get(JOBSET_NAME_LABEL) != self.jobset_name:
+                continue
+            name = meta.get("name", "")
+            if not name or name in self.fleet.replicas:
+                continue
+            self._pod_templates[name] = copy.deepcopy(raw)
+            self._kv_blocks[name] = self._default_kv_blocks
+            self._roles[name] = self._template_role(raw)
+            engine = self.replica_factory(name, step, self._default_kv_blocks)
+            self.fleet.add_replica(name, engine, step, role=self._roles[name])
+            adopted.append(name)
+        return sorted(adopted)
+
+    @staticmethod
+    def _template_role(manifest: Dict[str, Any]) -> str:
+        """The pod's disaggregation role from its ``NEXUS_REPLICA_ROLE``
+        container env (the same manifest seam as ``NEXUS_KV_BLOCKS``);
+        absent or unrecognized values serve fused — a typo'd role must
+        degrade to the engine that can serve ANY request, not wedge the
+        pod out of both pools."""
+        for container in (manifest.get("spec") or {}).get("containers", []) or []:
+            for entry in container.get("env", []) or []:
+                if entry.get("name") == "NEXUS_REPLICA_ROLE":
+                    value = str(entry.get("value", "")).strip().lower()
+                    if value in (ROLE_PREFILL, ROLE_DECODE, ROLE_FUSED):
+                        return value
+                    return ROLE_FUSED
+        return ROLE_FUSED
+
+    # -- the control loop ------------------------------------------------------
+
+    async def reconcile(self, now: Optional[float] = None) -> None:
+        """One control iteration, test-callable: execute pending classified
+        incidents, sweep for silently-missing pods, check the checkpoint
+        watcher, and advance fleet traffic/rollout one tick."""
+        now = time.monotonic() if now is None else now
+        await self._ensure_row()
+        await self._heartbeat()
+        while self._pending:
+            await self._apply(self._pending.popleft())
+        await self._sweep_missing_pods(now)
+        self._check_rollout(now)
+        self.fleet.tick()
+        snapshot = await self._observe_pressure()
+        await self._autoscale(now, snapshot)
+
+    async def _sweep_missing_pods(self, now: float) -> None:
+        """Absence-driven backstop (the ledger watchdog's discipline): a
+        pod can die without ANY classifiable event reaching us (event
+        dropped, controller down).  A replica whose pod has been missing
+        from the informer cache past ``missing_after_s`` is recreated with
+        the taxonomy's preemption cause."""
+        from tpu_nexus_torch.supervisor.taxonomy import DecisionAction, FleetRecovery, MSG_PREEMPTED
+
+        if not self.missing_after_s:
+            # 0 disables the sweep (repo convention for interval knobs):
+            # a hair-trigger default would recreate a healthy replica —
+            # abandoning its live requests — on any informer/watch lag
+            # longer than one reconcile, including the window right after
+            # our OWN recreate before the ADDED event reaches the cache
+            return
+        informer = self._factory.informers.get("Pod")
+        if informer is None or not informer.has_synced:
+            return
+        present = set()
+        for name in list(self.fleet.replicas):
+            if informer.get(name) is not None:
+                present.add(name)
+                continue
+            missing_for = self._missing.observe(name, ("missing",), now)
+            if missing_for is None or missing_for < self.missing_after_s:
+                continue
+            self._missing.forget(name)
+            self._metrics.count("fleet_watchdog_recreates")
+            await self._apply(
+                _Incident(
+                    action=DecisionAction.TO_PREEMPT_RESTARTABLE,
+                    recovery=FleetRecovery.RECREATE,
+                    cause=MSG_PREEMPTED,
+                    trace=f"{MSG_POD_MISSING}: {name}",
+                    pod=name,
+                )
+            )
+        # keep timers only for replicas STILL missing; a pod that came back
+        # (or a replica removed from the fleet) starts a fresh timer next time
+        self._missing.retain(set(self.fleet.replicas) - present)
+
+    def _check_rollout(self, now: float) -> None:
+        if self.watcher is None or self.source is None:
+            return
+        step = self.watcher.check(now)
+        if step is None or self.fleet.rollout_active:
+            return
+        scans = self.watcher.poller.scans
+        if self.fleet.rollout_error is not None and self.fleet.rollout_error[0] == step:
+            # this exact candidate already failed its load-time
+            # verification/transform — re-attempting it every poll would
+            # pay a failed load per interval forever.  The shun is keyed
+            # by (step, poller scan count): any directory change (e.g. the
+            # step RE-COMMITTED after a quarantine-and-retrain cycle) bumps
+            # the scan count and earns the candidate exactly one more try.
+            if self._shunned is None or self._shunned[0] != step:
+                self._shunned = (step, scans)
+            if self._shunned[1] == scans:
+                return
+            self._shunned = None
+        behind = [
+            rep
+            for rep in self.fleet.replicas.values()
+            if rep.state != REPLICA_DOWN
+            and (rep.deployed_step is None or rep.deployed_step < step)
+        ]
+        if not behind:
+            return
+        self.fleet.start_rollout(
+            self.source, step, self.grace_s, transform=self.transform
+        )
+
+    # -- the pressure plane ----------------------------------------------------
+
+    async def _observe_pressure(self) -> Optional[FleetSnapshot]:
+        """One pressure observation per reconcile (module doc): snapshot
+        the fleet, emit the tagged load gauges, grade through the SLO
+        monitor, and dispatch each transition through the TOTAL
+        ``PRESSURE_ACTIONS`` table — every transition is recorded
+        (cause+details JSON on the fleet's RUNNING ledger row, the
+        ``fleet.pressure_transitions`` metric, ``pressure_events``), and
+        a replica entering SATURATED additionally dumps its flight
+        recorder at the saturation incident seam so the episode gets the
+        same drill-down a fault does.  Returns the snapshot it graded
+        (the autoscaler's idleness input — one snapshot per reconcile,
+        not one per consumer), None when no monitor is wired."""
+        if self.slo is None:
+            return None
+        snapshot = self.fleet.snapshot()
+        emit_fleet_snapshot(self._metrics, snapshot)
+        for transition in self.slo.observe(snapshot):
+            # the monitor already stamped PRESSURE_ACTIONS[to] on the
+            # record — one place the consequence semantics live
+            record = dict(transition)
+            if (
+                "dump" in record["action"]
+                and transition["scope"] in self.fleet.replicas
+            ):
+                rep = self.fleet.replicas[transition["scope"]]
+                if rep.state != REPLICA_DOWN:
+                    dump = rep.engine.dump_pressure(
+                        f"slo-{transition['to']}:{transition['scope']}"
+                    )
+                    if dump is not None:
+                        record["flight_recorder"] = dump
+            self.pressure_events.append(record)
+            if len(self.pressure_events) > self._pressure_events_limit:
+                del self.pressure_events[
+                    : len(self.pressure_events) - self._pressure_events_limit
+                ]
+            self._log.warning(
+                "fleet pressure transition",
+                scope=transition["scope"],
+                from_=transition["from"],
+                to=transition["to"],
+            )
+            await self._record_pressure(record, snapshot)
+        return snapshot
+
+    # -- autoscaling ------------------------------------------------------------
+
+    async def _autoscale(
+        self, now: float, snapshot: Optional[FleetSnapshot]
+    ) -> None:
+        """One autoscale observation per reconcile: map the SLO monitor's
+        FLEET grade through the TOTAL ``SCALE_DECISIONS`` table (NX021 in
+        the JAX package), require the verdict to HOLD for a configured streak of
+        consecutive reconciles (scale-down additionally requires the
+        fleet idle — zero queued AND zero in-flight, which is what makes
+        the ``drain`` path zero-drop by construction), gate on the
+        cooldown, then act through the same pod create/delete seams as
+        failure recovery.  Every decision lands cause+details on the
+        ledger row like any other incident."""
+        if self.autoscale is None or self.slo is None or snapshot is None:
+            return
+        from tpu_nexus_torch.serving.loadstats import PRESSURE_HEALTHY
+
+        grade = self.slo.grades.get(SloMonitor.FLEET, PRESSURE_HEALTHY)
+        decision = SCALE_DECISIONS[grade]
+        idle = snapshot.queue_depth == 0 and snapshot.live_requests == 0
+        if decision == SCALE_UP:
+            self._scale_up_streak += 1
+            self._scale_down_streak = 0
+        elif decision == SCALE_DOWN_WHEN_IDLE and idle:
+            self._scale_down_streak += 1
+            self._scale_up_streak = 0
+        else:
+            self._scale_up_streak = 0
+            self._scale_down_streak = 0
+        if (
+            self._last_scale_t is not None
+            and now - self._last_scale_t < self.autoscale.cooldown_s
+        ):
+            return
+        live = [
+            rep for rep in self.fleet.replicas.values()
+            if rep.state != REPLICA_DOWN
+        ]
+        if (
+            self._scale_up_streak >= self.autoscale.scale_up_after
+            and len(live) < self.autoscale.max_replicas
+        ):
+            await self._scale_up(now, grade, snapshot)
+        elif (
+            self._scale_down_streak >= self.autoscale.scale_down_after
+            and sum(1 for rep in live if rep.state == REPLICA_SERVING)
+            > self.autoscale.min_replicas
+        ):
+            await self._scale_down(now, grade, snapshot)
+
+    async def _scale_up(
+        self, now: float, grade: str, snapshot: FleetSnapshot
+    ) -> None:
+        """Add one replica: clone an existing pod manifest (fresh name +
+        uid, Pending, default KV budget — the recreate path's template
+        discipline), create it in the cluster, build its engine at the
+        newest verified step, and join it to the fleet."""
+        name = f"{self.jobset_name}-scale-{next(self._scale_counter)}"
+        role = self._scale_role(snapshot)
+        template = self._template_for_role(role)
+        if template is None:
+            self._log.warning(
+                "autoscale: no pod manifest template to clone; skipping scale-up"
+            )
+            return
+        manifest = copy.deepcopy(template)
+        meta = manifest.setdefault("metadata", {})
+        meta["name"] = name
+        meta["uid"] = f"fleet-scale-{next(self._uid_counter)}"
+        manifest["status"] = {"phase": "Pending"}
+        await self._client.create_object("Pod", self.namespace, manifest)
+        self._pod_templates[name] = copy.deepcopy(manifest)
+        self._kv_blocks[name] = self._default_kv_blocks
+        self._roles[name] = role
+        step = self._target_step()
+        engine = self.replica_factory(name, step, self._default_kv_blocks)
+        self.fleet.add_replica(name, engine, step, role=role)
+        self.scaled_up += 1
+        self._scale_up_streak = 0
+        self._scale_down_streak = 0
+        self._last_scale_t = now
+        record = {
+            "action": "autoscale",
+            "decision": SCALE_UP,
+            "grade": grade,
+            "pod": name,
+            "role": role,
+            "step": step,
+            "replicas": len(self.fleet.replicas),
+        }
+        self.scale_events.append(record)
+        self._metrics.count("fleet_autoscale", tags={"decision": "up"})
+        self._log.info(
+            "fleet scaled up", pod=name, grade=grade, replicas=record["replicas"]
+        )
+        await self._record_scale(record, snapshot)
+
+    def _scale_role(self, snapshot: FleetSnapshot) -> str:
+        """Which pool should grow: the role whose live replicas carry the
+        highest mean queued+live load.  A fleet with no role-typed
+        replicas scales fused."""
+        loads: Dict[str, List[float]] = {}
+        for name, rep in self.fleet.replicas.items():
+            if rep.state == REPLICA_DOWN:
+                continue
+            snap = snapshot.replicas.get(name)
+            if snap is None:
+                continue
+            loads.setdefault(rep.role, []).append(
+                float(snap.queue_depth + snap.live_requests)
+            )
+        if not loads:
+            return ROLE_FUSED
+        return max(
+            sorted(loads), key=lambda role: sum(loads[role]) / len(loads[role])
+        )
+
+    def _template_for_role(self, role: str) -> Optional[Dict[str, Any]]:
+        """A pod manifest template carrying ``role`` (recorded at adoption
+        or readable from the manifest env); any template as the fallback
+        so a role with no surviving template still scales SOMETHING."""
+        for pod, manifest in self._pod_templates.items():
+            if self._roles.get(pod, self._template_role(manifest)) == role:
+                return manifest
+        return next(iter(self._pod_templates.values()), None)
+
+    async def _scale_down(
+        self, now: float, grade: str, snapshot: FleetSnapshot
+    ) -> None:
+        """Remove one replica, zero-drop: pick the least-loaded SERVING
+        replica, ``drain(grace_s)`` it (the fleet is idle by the streak
+        precondition, so the drain retires nothing — stragglers past
+        grace would carry the drain's honest cause), fold its accounting
+        into the fleet graveyard, and delete its pod (an EXPECTED
+        deletion — the watch event must not classify as an incident)."""
+        from tpu_nexus_torch.k8s.client import NotFoundError
+
+        serving = [
+            (name, rep)
+            for name, rep in self.fleet.replicas.items()
+            if rep.state == REPLICA_SERVING
+        ]
+        # role-pool floor: in a role-typed fleet, never drain a
+        # role's LAST serving replica — scaling the prefill pool to zero
+        # would force every admission through the fused fallback while
+        # decode replicas idle
+        role_counts: Dict[str, int] = {}
+        for _, rep in serving:
+            role_counts[rep.role] = role_counts.get(rep.role, 0) + 1
+        if len(role_counts) > 1:
+            serving = [
+                (name, rep) for name, rep in serving if role_counts[rep.role] > 1
+            ]
+        if not serving:
+            return
+        name, rep = min(
+            serving,
+            key=lambda item: (
+                item[1].engine.scheduler.pending + item[1].engine.in_flight,
+                item[0],
+            ),
+        )
+        drain = rep.engine.drain(self.grace_s)
+        self.fleet.remove_replica(name)
+        self._expected_deletions.add(name)
+        try:
+            await self._client.delete_object("Pod", self.namespace, name)
+        except NotFoundError:  # noqa: BLE001 - pod already gone; membership removal above is the part that matters
+            self._expected_deletions.discard(name)
+        self._pod_templates.pop(name, None)
+        self._kv_blocks.pop(name, None)
+        self._roles.pop(name, None)
+        self._missing.forget(name)
+        self.scaled_down += 1
+        self._scale_up_streak = 0
+        self._scale_down_streak = 0
+        self._last_scale_t = now
+        record = {
+            "action": "autoscale",
+            "decision": "scale-down",
+            "grade": grade,
+            "pod": name,
+            "drain": drain,
+            "replicas": len(self.fleet.replicas),
+        }
+        self.scale_events.append(record)
+        self._metrics.count("fleet_autoscale", tags={"decision": "down"})
+        self._log.info(
+            "fleet scaled down", pod=name, grade=grade, replicas=record["replicas"]
+        )
+        await self._record_scale(record, snapshot)
+
+    async def _record_scale(
+        self, record: Dict[str, Any], snapshot: FleetSnapshot
+    ) -> None:
+        """Scale decisions on the ledger (the ``_record_cause``
+        discipline): the row stays RUNNING, cause names the decision,
+        details embed the record + the graded snapshot that justified
+        it — an operator reading the row sees WHY capacity changed."""
+        if self._store is None:
+            return
+        import asyncio
+
+        cause = (
+            f"fleet autoscale: {record['decision']} -> {record['pod']} "
+            f"(grade {record['grade']})"
+        )
+        details = json.dumps(
+            {"autoscale": record, "fleet": snapshot.to_dict()},
+            sort_keys=True,
+            default=str,
+        )
+
+        def _write():
+            cp = self._store.read_checkpoint(self.algorithm, self.jobset_name)
+            if cp is None or cp.is_finished():
+                return
+            self._store.update_fields(
+                self.algorithm,
+                self.jobset_name,
+                {
+                    "algorithm_failure_cause": cause,
+                    "algorithm_failure_details": details,
+                    "last_modified": datetime.now(timezone.utc),
+                },
+            )
+
+        await asyncio.to_thread(_write)
+
+    async def _record_pressure(
+        self, record: Dict[str, Any], snapshot: FleetSnapshot
+    ) -> None:
+        """Pressure transitions on the ledger (the _record_cause
+        discipline): the fleet row stays RUNNING — pressure is a
+        condition, not a death — but cause/details name the transition
+        and embed the graded snapshot, so an operator reading the row
+        sees WHAT the fleet looked like when it crossed the line.
+
+        Pressure shares the cause/details columns with fault incidents
+        (``_record_cause``) and each write replaces the last, so the
+        details carry the RECENT INCIDENTS alongside the transition —
+        a pod-loss record overwritten one reconcile later by the
+        resulting HEALTHY -> PRESSURED note must not vanish from the
+        row (the inventory-merge discipline)."""
+        if self._store is None:
+            return
+        import asyncio
+
+        cause = (
+            f"fleet pressure: {record['scope']} "
+            f"{record['from']} -> {record['to']}"
+        )
+        details = json.dumps(
+            {
+                "pressure": record,
+                "grades": dict(self.slo.grades) if self.slo is not None else {},
+                "fleet": snapshot.to_dict(),
+                **(
+                    {"incidents": self.incidents[-3:]}
+                    if self.incidents
+                    else {}
+                ),
+            },
+            sort_keys=True,
+            default=str,
+        )
+
+        def _write():
+            cp = self._store.read_checkpoint(self.algorithm, self.jobset_name)
+            if cp is None or cp.is_finished():
+                return
+            self._store.update_fields(
+                self.algorithm,
+                self.jobset_name,
+                {
+                    "algorithm_failure_cause": cause,
+                    "algorithm_failure_details": details,
+                    "last_modified": datetime.now(timezone.utc),
+                },
+            )
+
+        await asyncio.to_thread(_write)
+
+    # -- recovery execution ----------------------------------------------------
+
+    async def _apply(self, incident: _Incident) -> None:
+        from tpu_nexus_torch.supervisor.taxonomy import FleetRecovery
+
+        record = {
+            "action": incident.action,
+            "recovery": incident.recovery,
+            "pod": incident.pod,
+            "cause": incident.cause,
+            "trace": incident.trace,
+        }
+        if incident.recovery == FleetRecovery.ESCALATE:
+            self.escalated += 1
+            if incident.pod in self.fleet.replicas:
+                self.fleet.kill_replica(
+                    incident.pod, f"{CAUSE_REPLICA_LOST}:{incident.action}"
+                )
+                self._attach_dump(record, incident.pod)
+            self.incidents.append(record)
+            self._metrics.count("fleet_escalations", tags={"action": incident.action})
+            self._log.warning(
+                "serving fleet failure escalated to operator",
+                pod=incident.pod,
+                action=incident.action,
+                cause=incident.cause,
+            )
+            await self._record_cause(incident, record)
+            return
+        # RECREATE / RECREATE_REDUCED_KV
+        if (
+            incident.pod not in self.fleet.replicas
+            and incident.pod not in self._pod_templates
+        ):
+            # fail safe: an object name that never was a fleet pod must not
+            # mint a phantom replica (which the missing-pod sweep would then
+            # recreate forever) — record + escalate to an operator instead
+            self.escalated += 1
+            record["recovery"] = FleetRecovery.ESCALATE
+            record["note"] = "recreate requested for unknown pod; escalated"
+            self.incidents.append(record)
+            self._log.warning(
+                "recreate requested for unknown serving pod; escalating",
+                pod=incident.pod,
+                action=incident.action,
+            )
+            await self._record_cause(incident, record)
+            return
+        reduce_kv = incident.recovery == FleetRecovery.RECREATE_REDUCED_KV
+        kv = self._kv_blocks.get(incident.pod, self._default_kv_blocks)
+        if reduce_kv:
+            if kv is None:
+                self._log.warning(
+                    "HBM-OOM recovery asked to reduce NEXUS_KV_BLOCKS but the "
+                    "fleet is not paged; recreating with unchanged config",
+                    pod=incident.pod,
+                )
+            else:
+                kv = max(self.min_kv_blocks, kv // 2)
+        self._kv_blocks[incident.pod] = kv
+        record["kv_blocks"] = kv
+        # recreate PER ROLE: the replacement pod keeps the dead
+        # pod's disaggregation role — a crash-looping prefill replica comes
+        # back as prefill, so a faulting pool recovers instead of shrinking
+        # to zero while the other pool idles
+        role = self._roles.get(incident.pod)
+        if role is None:
+            template = self._pod_templates.get(incident.pod)
+            role = self._template_role(template) if template else ROLE_FUSED
+        self._roles[incident.pod] = role
+        record["role"] = role
+        if incident.pod in self.fleet.replicas:
+            self.fleet.kill_replica(
+                incident.pod, f"{CAUSE_REPLICA_LOST}:{incident.action}"
+            )
+            self._attach_dump(record, incident.pod)
+        step = self._target_step()
+        await self._recreate_pod(incident.pod, kv, role=role)
+        engine = self.replica_factory(incident.pod, step, kv)
+        if incident.pod in self.fleet.replicas:
+            rep = self.fleet.revive_replica(incident.pod, engine, step)
+            rep.role = role
+        else:
+            self.fleet.add_replica(incident.pod, engine, step, role=role)
+        self.recreated += 1
+        record["step"] = step
+        self.incidents.append(record)
+        self._metrics.count("fleet_recreates", tags={"action": incident.action})
+        self._log.info(
+            "serving pod recreated",
+            pod=incident.pod,
+            action=incident.action,
+            step=step,
+            kv_blocks=kv,
+        )
+        await self._record_cause(incident, record)
+
+    def _target_step(self) -> Optional[int]:
+        """The step a revived replica should serve: the in-flight rollout's
+        target, else the newest VERIFIED step (poll bypassing the watcher
+        interval — a recreate must not revive stale weights just because
+        the next poll is seconds away), else the fleet's newest deployed."""
+        if self.fleet._rollout is not None:
+            return self.fleet._rollout.step
+        if self.watcher is not None:
+            step = self.watcher.poller.latest_verified_step()
+            if step is not None:
+                return step
+        deployed = [
+            s for s in self.fleet.deployed_steps().values() if s is not None
+        ]
+        return max(deployed) if deployed else None
+
+    async def _recreate_pod(
+        self, name: str, kv_blocks: Optional[int], role: Optional[str] = None
+    ) -> None:
+        """Replace the pod object in the cluster: delete the dead husk if
+        it still exists (expected deletion — not an incident), then create
+        a fresh-uid replacement from the remembered template with the
+        (possibly reduced) ``NEXUS_KV_BLOCKS`` and the preserved
+        ``NEXUS_REPLICA_ROLE`` envs applied."""
+        from tpu_nexus_torch.k8s.client import NotFoundError
+
+        template = self._pod_templates.get(name)
+        if template is None:
+            self._log.warning("no manifest template for pod; skipping k8s recreate", pod=name)
+            return
+        self._expected_deletions.add(name)
+        try:
+            await self._client.delete_object("Pod", self.namespace, name)
+        except NotFoundError:  # noqa: BLE001 - already gone (the kill WAS the deletion): recreate proceeds
+            self._expected_deletions.discard(name)
+        manifest = copy.deepcopy(template)
+        meta = manifest.setdefault("metadata", {})
+        meta["uid"] = f"fleet-recreate-{next(self._uid_counter)}"
+        manifest["status"] = {"phase": "Pending"}
+        patches = {}
+        if kv_blocks is not None:
+            patches["NEXUS_KV_BLOCKS"] = str(kv_blocks)
+        if role is not None:
+            patches["NEXUS_REPLICA_ROLE"] = role
+        if patches:
+            for container in (manifest.get("spec") or {}).get("containers", []) or []:
+                env = container.setdefault("env", [])
+                for key, value in patches.items():
+                    for entry in env:
+                        if entry.get("name") == key:
+                            entry["value"] = value
+                            break
+                    else:
+                        env.append({"name": key, "value": value})
+        await self._client.create_object("Pod", self.namespace, manifest)
+        self._pod_templates[name] = copy.deepcopy(manifest)
+
+    def _attach_dump(self, record: Dict[str, Any], pod: str) -> None:
+        """Merge the dead replica's flight-recorder artifact pointer into
+        the incident record (``_record_cause`` serializes the record into
+        the ledger details wholesale, so the row names its drill-down)."""
+        rep = self.fleet.replicas.get(pod)
+        if rep is not None and rep.last_incident_dump is not None:
+            record["flight_recorder"] = rep.last_incident_dump
+
+    # -- ledger ----------------------------------------------------------------
+
+    async def _heartbeat(self) -> None:
+        """Per-reconcile liveness write (the serve loop's heartbeat
+        discipline): without it an incident-free fleet's row would look
+        frozen to the run supervisor's RUNNING sweep, which would
+        'rescue' a perfectly healthy fleet by deleting its JobSet.  With
+        it, the sweep covers the fleet CONTROLLER honestly: a hung
+        controller stops heartbeating and gets flagged like any hung
+        run."""
+        if self._store is None:
+            return
+        import asyncio
+
+        self._reconciles += 1
+        n = self._reconciles
+
+        def _beat():
+            cp = self._store.read_checkpoint(self.algorithm, self.jobset_name)
+            if cp is None or cp.is_finished():
+                return
+            self._store.merge_chip_steps(
+                self.algorithm, self.jobset_name, {"fleet/reconciles": n}
+            )
+
+        await asyncio.to_thread(_beat)
+
+    async def _ensure_row(self) -> None:
+        """The fleet's ledger row: RUNNING for the controller's lifetime,
+        heartbeated per reconcile (:meth:`_heartbeat`), causes recorded
+        per incident."""
+        if self._row_ensured or self._store is None:
+            return
+        import asyncio
+
+        from tpu_nexus_torch.checkpoint.models import CheckpointedRequest, LifecycleStage
+
+        def _ensure():
+            cp = self._store.read_checkpoint(self.algorithm, self.jobset_name)
+            if cp is None:
+                self._store.upsert_checkpoint(
+                    CheckpointedRequest(
+                        algorithm=self.algorithm,
+                        id=self.jobset_name,
+                        lifecycle_stage=LifecycleStage.RUNNING,
+                    )
+                )
+
+        await asyncio.to_thread(_ensure)
+        self._row_ensured = True
+
+    async def _record_cause(self, incident: _Incident, record: Dict[str, Any]) -> None:
+        """Honest causes in the ledger: the row keeps RUNNING (the fleet is
+        alive — that is the whole point), but cause/details name the most
+        recent incident and its recovery, so an operator reading the row
+        sees WHAT happened and what the controller did about it."""
+        if self._store is None:
+            return
+        import asyncio
+
+        def _write():
+            cp = self._store.read_checkpoint(self.algorithm, self.jobset_name)
+            if cp is None or cp.is_finished():
+                return
+            self._store.update_fields(
+                self.algorithm,
+                self.jobset_name,
+                {
+                    "algorithm_failure_cause": incident.cause,
+                    "algorithm_failure_details": json.dumps(record, sort_keys=True),
+                    "last_modified": datetime.now(timezone.utc),
+                },
+            )
+
+        await asyncio.to_thread(_write)
+
+    # -- lifecycle -------------------------------------------------------------
+
+    async def run(self, ctx: Any, interval_s: float = 1.0) -> None:
+        """Start informers and reconcile every ``interval_s`` until the
+        lifecycle context cancels (the watchdog.run shape)."""
+        import asyncio
+
+        self._factory.start(ctx)
+        await self._factory.wait_for_cache_sync()
+        while not ctx.cancelled:
+            try:
+                await self.reconcile()
+            except Exception:  # noqa: BLE001 - the control loop must outlive hiccups (a failed reconcile retries next interval; giving up would orphan the fleet)
+                logger.exception("fleet reconcile failed; will retry")
+            try:
+                await asyncio.wait_for(ctx.wait(), timeout=interval_s)
+            except asyncio.TimeoutError:  # noqa: BLE001 - the interval tick: timeout IS the schedule (cancellation exits via ctx.cancelled), identical to watchdog.run
+                continue
+        await self._factory.shutdown()

@@ -32,14 +32,9 @@ compounding layers:
   tried and why each refused; a request that eventually landed carries
   its retry path on the trace timeline (``EV_ROUTER_RETRY``).
 * **Scale decisions** — :data:`SCALE_DECISIONS` maps the SLO monitor's
-  fleet grade to a capacity verdict.  In the JAX package
-  ``FleetSupervisor`` executes it (streaks + cooldown) through the same
-  pod create/delete seams as failure recovery; the port has no
-  fleet supervisor yet (ROADMAP.md A7b), so here the table and
-  :class:`AutoscaleConfig` are defined with their invariants and nothing
-  acts on them; the knobs that would build one
-  (``NEXUS_AUTOSCALE_*``/``NEXUS_SCALE_*``) are refused at parse until
-  A7b brings their reader.
+  fleet grade to a capacity verdict; ``FleetSupervisor`` executes it
+  (streaks + cooldown, serving/fleet.py) through the same pod
+  create/delete seams as failure recovery.
 
 Both decision tables are TOTAL over ``PRESSURE_STATES``.  In the JAX
 package nxlint NX021 holds them to it; nxlint scans ``tpu_nexus/`` only,
@@ -66,8 +61,7 @@ from tpu_nexus_torch.serving.tracing import EV_ROUTER_RETRY
 
 logger = logging.getLogger(__name__)
 
-#: router policies (``ServingFleet(policy=...)``; the reference's
-#: NEXUS_ROUTER_POLICY is refused at parse until A7b): "pressure" is the full
+#: router policies (NEXUS_ROUTER_POLICY): "pressure" is the full
 #: affinity + least-loaded scorer; "round-robin" keeps the plain
 #: rotation (still with shed-and-retry — retrying elsewhere is a
 #: correctness property, not a policy choice) as the bench baseline

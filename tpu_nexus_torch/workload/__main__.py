@@ -11,10 +11,11 @@ launcher.jobset), nonzero generic for uncaught errors.
 
 The ledger store is the supervisor's: ``load_config(SupervisorConfig)``
 (``appconfig.yaml``, its ``APPLICATION_ENVIRONMENT`` overlay, every
-``NEXUS__*`` key) and ``ApplicationServices().with_store_for``.
-``NEXUS__CQL_STORE_TYPE`` = ``sqlite`` (with ``NEXUS__SQLITE_STORE_PATH``)
-or ``memory``; ``scylla`` (the default, as in the reference) and ``astra``
-raise until the CQL ledger is ported (ROADMAP.md: A7c CQL ledger).
+``NEXUS__*`` key) and ``ApplicationServices().with_store_for``, as in the
+reference.  ``NEXUS__CQL_STORE_TYPE`` = ``scylla`` (the default; lazy, no
+I/O until the first query), ``astra``, ``sqlite`` (with
+``NEXUS__SQLITE_STORE_PATH``) or ``memory``; an unknown type logs and exits
+1.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def store_from_env(env: Optional[Mapping[str, str]] = None) -> CheckpointStore:
     from tpu_nexus_torch.core.config import load_config
 
     cfg = load_config(SupervisorConfig, environ=env)
-    return ApplicationServices(fatal_exit=False).with_store_for(cfg).store
+    return ApplicationServices().with_store_for(cfg).store
 
 
 def main() -> int:

@@ -33,13 +33,13 @@ Engine knobs (``NEXUS_PAGE_SIZE``, ``NEXUS_KV_BLOCKS``, ``NEXUS_SPEC_K``,
 ``NEXUS_STOP_TOKEN``, ``NEXUS_DEADLINE_S``, ``NEXUS_QUEUE_LIMIT``,
 ``NEXUS_DRAIN_GRACE_S``, ``NEXUS_TRACE*``, ``NEXUS_SLO_*``) and the serving
 fault modes (``NEXUS_FAULT_MODE``, workload/faults.py) parse and validate
-with the reference's wording.  Knobs of the reference that nothing in the
-port reads yet raise at parse, naming the ROADMAP.md item that brings their
-reader: ``NEXUS_SERVE_MESH`` (A6), and the fleet's ``NEXUS_ROUTER_POLICY``,
+with the reference's wording, as do the fleet's ``NEXUS_ROUTER_POLICY``,
 ``NEXUS_AUTOSCALE_MIN``/``_MAX``, ``NEXUS_SCALE_UP_N``/``_DOWN_N`` and
-``NEXUS_SCALE_COOLDOWN_S`` (A7b: the fleet supervisor builds the fleet and
-is the only reader of these knobs in the reference; ``ServingFleet`` takes
-its router policy as an argument).
+``NEXUS_SCALE_COOLDOWN_S``, which :func:`build_fleet_supervisor` reads
+(with ``NEXUS_SLO_*`` and ``NEXUS_KV_BLOCKS``) into a ``ServingFleet`` and
+the ``FleetSupervisor`` that reconciles it.  A knob of the reference that nothing in the port reads yet raises at parse,
+naming the ROADMAP.md item that brings its reader: ``NEXUS_SERVE_MESH``
+(A6).
 
 Checkpoints: ``NEXUS_CHECKPOINT_DIR`` serves the params of the training
 run's newest VERIFIED step (read-only: a torn or corrupt step is skipped,
@@ -69,6 +69,7 @@ from tpu_nexus_torch.models.registry import LlamaAdapter, MoeAdapter, adapter_fo
 from tpu_nexus_torch.ops.decode_attention import MAX_DECODE_Q_LEN
 from tpu_nexus_torch.parallel.distributed import ProcessContext, initialize_distributed
 from tpu_nexus_torch.serving.loadstats import SloTargets
+from tpu_nexus_torch.serving.router import ROUTER_POLICIES, AutoscaleConfig
 from tpu_nexus_torch.serving.speculative import DRAFTERS
 from tpu_nexus_torch.workload.faults import FaultPlan, maybe_inject
 from tpu_nexus_torch.workload.harness import LedgerReporter, resolve_device
@@ -83,12 +84,6 @@ logger = logging.getLogger(__name__)
 #: a non-default value is refused at parse
 ENGINE_ONLY_ENV = {
     "NEXUS_SERVE_MESH": (str, "", "A6 sharded executors"),
-    "NEXUS_ROUTER_POLICY": (str, "pressure", "A7b fleet supervisor"),
-    "NEXUS_AUTOSCALE_MIN": (int, 0, "A7b fleet supervisor"),
-    "NEXUS_AUTOSCALE_MAX": (int, 0, "A7b fleet supervisor"),
-    "NEXUS_SCALE_UP_N": (int, 3, "A7b fleet supervisor"),
-    "NEXUS_SCALE_DOWN_N": (int, 12, "A7b fleet supervisor"),
-    "NEXUS_SCALE_COOLDOWN_S": (float, 60.0, "A7b fleet supervisor"),
 }
 
 
@@ -168,7 +163,9 @@ class ServeConfig:
     slo_ttft_s: float = 0.0
     slo_tpot_s: float = 0.0
     slo_shed_rate: float = 0.0
-    #: burn windows in heartbeat observations (NEXUS_SLO_SHORT_N / _LONG_N)
+    #: burn windows in OBSERVATIONS (serve loop: heartbeat intervals;
+    #: fleet: reconciles) — short detects, long confirms; validated
+    #: short <= long (NEXUS_SLO_SHORT_N / NEXUS_SLO_LONG_N)
     slo_short_window: int = 4
     slo_long_window: int = 12
     #: engine mode only — train-to-serve continuous deployment: every N
@@ -176,6 +173,28 @@ class ServeConfig:
     #: hot-swap it in (quiesce → swap_params → resume).  0 = off
     #: (NEXUS_RELOAD_CHECK_S; requires NEXUS_CHECKPOINT_DIR)
     reload_check_interval_s: float = 0.0
+    #: fleet mode — how the fleet router ranks candidate replicas
+    #: (serving/router.py): "pressure" (SLO grade tier -> shared-prefix
+    #: affinity -> load score) or "round-robin" (the plain rotation, kept
+    #: as the bench baseline).  Validated against
+    #: serving.router.ROUTER_POLICIES at parse (NEXUS_ROUTER_POLICY)
+    router_policy: str = "pressure"
+    #: fleet mode — supervisor-driven autoscaling bounds: both 0 disables
+    #: (a fixed fleet); both > 0 enables with min <= live replicas <= max.
+    #: Requires NEXUS_SLO_* targets — the scale decisions are SloMonitor
+    #: grades mapped through the SCALE_DECISIONS table, so without a
+    #: monitor the autoscaler would silently never act (an explicitly
+    #: requested feature must run or refuse).
+    #: (NEXUS_AUTOSCALE_MIN / NEXUS_AUTOSCALE_MAX)
+    autoscale_min: int = 0
+    autoscale_max: int = 0
+    #: fleet mode — autoscale hysteresis: consecutive reconciles the
+    #: scale verdict must hold before acting (scale-down additionally
+    #: requires the fleet idle), and the cooldown between actions
+    #: (NEXUS_SCALE_UP_N / NEXUS_SCALE_DOWN_N / NEXUS_SCALE_COOLDOWN_S)
+    scale_up_after: int = 3
+    scale_down_after: int = 12
+    scale_cooldown_s: float = 60.0
 
     def __post_init__(self) -> None:
         if self.quantize not in ("", "int8", "int4"):
@@ -318,7 +337,29 @@ class ServeConfig:
                 "(scratch block 0 + one usable), got 1"
             )
         # SloTargets owns the window/burn/target invariants: building one
-        # at parse is the validation
+        # at parse is the validation, so a bad NEXUS_SLO_* env dies here
+        # in both the serve loop and the fleet controller
+        if self.router_policy not in ROUTER_POLICIES:
+            raise ValueError(
+                f"unknown router_policy (NEXUS_ROUTER_POLICY) "
+                f"{self.router_policy!r}; use one of {ROUTER_POLICIES}"
+            )
+        if (self.autoscale_min > 0) != (self.autoscale_max > 0):
+            raise ValueError(
+                "autoscale bounds come as a pair: set BOTH "
+                "NEXUS_AUTOSCALE_MIN and NEXUS_AUTOSCALE_MAX > 0 (enabled) "
+                f"or neither (disabled), got min={self.autoscale_min} "
+                f"max={self.autoscale_max}"
+            )
+        # AutoscaleConfig owns the bounds/streak/cooldown invariants —
+        # constructing one at parse IS the validation (the SloTargets
+        # discipline), so a bad NEXUS_AUTOSCALE_*/NEXUS_SCALE_* dies here
+        if self.autoscale_config() is not None and self.slo_targets() is None:
+            raise ValueError(
+                "autoscaling (NEXUS_AUTOSCALE_MIN/MAX) requires NEXUS_SLO_* "
+                "targets — scale decisions are SLO-monitor grades, and "
+                "without a monitor the autoscaler would never act"
+            )
         if self.slo_targets() is not None and not self.heartbeat_every:
             raise ValueError(
                 "NEXUS_SLO_* targets require a heartbeat cadence "
@@ -337,6 +378,19 @@ class ServeConfig:
             shed_rate=self.slo_shed_rate,
             short_window=self.slo_short_window,
             long_window=self.slo_long_window,
+        )
+
+    def autoscale_config(self) -> Optional[AutoscaleConfig]:
+        """The validated :class:`AutoscaleConfig`, or None when the bounds
+        are 0 (disabled)."""
+        if not self.autoscale_min and not self.autoscale_max:
+            return None
+        return AutoscaleConfig(
+            min_replicas=self.autoscale_min,
+            max_replicas=self.autoscale_max,
+            scale_up_after=self.scale_up_after,
+            scale_down_after=self.scale_down_after,
+            cooldown_s=self.scale_cooldown_s,
         )
 
     @staticmethod
@@ -385,7 +439,47 @@ class ServeConfig:
             slo_short_window=int(e.get("NEXUS_SLO_SHORT_N", "4")),
             slo_long_window=int(e.get("NEXUS_SLO_LONG_N", "12")),
             reload_check_interval_s=float(e.get("NEXUS_RELOAD_CHECK_S", "0")),
+            router_policy=e.get("NEXUS_ROUTER_POLICY", "pressure"),
+            autoscale_min=int(e.get("NEXUS_AUTOSCALE_MIN", "0")),
+            autoscale_max=int(e.get("NEXUS_AUTOSCALE_MAX", "0")),
+            scale_up_after=int(e.get("NEXUS_SCALE_UP_N", "3")),
+            scale_down_after=int(e.get("NEXUS_SCALE_DOWN_N", "12")),
+            scale_cooldown_s=float(e.get("NEXUS_SCALE_COOLDOWN_S", "60")),
         )
+
+
+def build_fleet_supervisor(
+    cfg: ServeConfig,
+    client: Any,
+    store: CheckpointStore,
+    namespace: str,
+    jobset_name: str,
+    algorithm: str,
+    replica_factory: Any,
+    **supervisor_kwargs: Any,
+):
+    """The serving fleet and its reconciler as ``cfg`` configures them:
+    a ``ServingFleet`` routing by ``cfg.router_policy``, and a
+    ``FleetSupervisor`` over the JobSet ``jobset_name`` whose SLO monitor
+    (``cfg.slo_targets()``; the router grades candidates off the same
+    one), autoscaler (``cfg.autoscale_config()``) and starting KV budget
+    (``cfg.kv_blocks``, None when 0) come from the config.
+    ``supervisor_kwargs`` go to ``FleetSupervisor`` as they are (source,
+    watcher, grace_s, missing_after_s, ...).  The fleet is
+    ``supervisor.fleet``; adopt the JobSet's pods with
+    ``supervisor.adopt_pods`` once its informers have synced."""
+    from tpu_nexus_torch.serving.fleet import FleetSupervisor, ServingFleet
+    from tpu_nexus_torch.serving.loadstats import SloMonitor
+
+    targets = cfg.slo_targets()
+    fleet = ServingFleet(policy=cfg.router_policy)
+    return FleetSupervisor(
+        client, store, namespace, fleet, jobset_name, algorithm, replica_factory,
+        kv_blocks=cfg.kv_blocks or None,
+        slo=SloMonitor(targets) if targets is not None else None,
+        autoscale=cfg.autoscale_config(),
+        **supervisor_kwargs,
+    )
 
 
 def _load_serving_params(cfg: ServeConfig, ctx: ProcessContext, device: torch.device):
