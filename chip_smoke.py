@@ -217,6 +217,29 @@ raises and exits non-zero:
    reference's default ``cql-store-type: scylla`` (no
    ``NEXUS__CQL_STORE_TYPE``), pointed at ``CqlResponder``: exit 0, its row
    COMPLETED with heartbeats, its wall seconds and ledger round trips.
+29. serve_sharded — one serve-engine replica across tensor/expert-parallel
+   ranks (``serving/sharded.py``): three ranks, every one on cuda:0 over
+   gloo under the explicit one-device rehearsal map (``nvidia-smi -L``
+   names the cards; which collectives gloo takes on CUDA tensors is
+   probed first, and the seam's must be among them). (a) llama3_8b at
+   full width and depth, bf16, page 32, 8 slots, 24 requests of 128 + 32
+   through ``run_serve_engine`` with ``serve_mesh="tp=2"``: COMPLETED,
+   per-rank launches of #1 and #4 paged and peak memory, tokens/s and TPOT
+   p50 (two ranks sharing one card through host memory: not a
+   tensor-parallel speed); then the first 8 requests again with the
+   collectives timed (per step: calls, bytes, ms), the share of their
+   greedy tokens equal to the one-device engine's, and their logits
+   teacher-forced along the one-device stream, no farther from the f32
+   evaluation of the weights than the one-device run's; (b) nexus_1b at 4
+   of 14 layers, f32 compute, contiguous and paged with int8 KV: tokens
+   identical to one device; (c) llama3_8b at 8 of 32 layers with int8 +
+   int8 KV and int4: every rank's products on #5/#6's ring kernels,
+   logits as in (a); (d) nexus_moe at ep 2 (logits equal to one device's)
+   and tp 2; (e) nexus_1b at 4 layers: a mid-traffic swap to a committed
+   step by reference, a fleet of two tp-2 replicas rolled 1 -> 2, and a
+   serve-engine container (nexus_1b) whose worker is killed (exit
+   non-zero, row FAILED); then #5/#6 at every rank shape against plain
+   (ring, twice bit-identical) and #1, #4 paged, #5, #6 timed there.
 
 Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
@@ -266,7 +289,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe",
           "train_ckpt", "serve_reload", "fleet", "disagg", "fleet_rollout", "serve_moe_quant", "quant_gate",
-          "profile_hook", "control_plane", "fleet_supervisor", "cql_ledger")
+          "profile_hook", "control_plane", "fleet_supervisor", "cql_ledger", "serve_sharded")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
           "quant_rms_times", "int4_probe", "int8_probe", "ckpt_probe")
@@ -5166,6 +5189,668 @@ def phase_cql_ledger(results):
     results["cql_ledger"] = info
 
 
+# -- serve_sharded: one serve-engine replica across tensor/expert-parallel ranks
+
+#: one rank's decode-step products of llama3_8b at tp 2 (times key, M, K, N):
+#: wq, wk/wv, gate/up column-parallel (N halved), wo and w_down row-parallel
+#: (K halved)
+SHARDED_QUANT_SHAPES = (("wq", 8, 4096, 2048), ("wk", 8, 4096, 512), ("gate", 8, 4096, 7168),
+                        ("wo", 8, 2048, 4096), ("down", 8, 7168, 4096))
+#: the phase's device, models, prompt length and container preset (module
+#: constants, so a dry run of the parts can swap in small ones)
+SHARDED_DEVICE = "cuda:0"
+SHARDED_PROMPT = 128
+SHARDED_CONTAINER_PRESET = "nexus_1b"
+SHARDED_INT4_GROUP = 64
+
+
+def _llama3_8b(n_layers=32):
+    import torch
+
+    from tpu_nexus_torch.models.llama import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.llama3_8b(), param_dtype=torch.bfloat16, n_layers=n_layers)
+
+
+def _nexus_1b_f32():
+    """nexus_1b at full width, 4 of its 14 layers (depth cut for the phase's
+    time), f32 compute over its bf16 params."""
+    import torch
+
+    from tpu_nexus_torch.models.llama import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.nexus_1b(), dtype=torch.float32, n_layers=4)
+
+
+def _nexus_moe():
+    from tpu_nexus_torch.models.moe import MoeConfig
+
+    return MoeConfig.nexus_moe()
+
+
+SHARDED_MODELS = {"llama3_8b": _llama3_8b, "llama3_8b_8_layers": lambda: _llama3_8b(8),
+                  "nexus_1b_f32": _nexus_1b_f32, "nexus_moe": _nexus_moe}
+
+
+def _requests(vocab, n, prompt_len, seed):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, vocab, size=(n, prompt_len)).astype(np.int32)
+
+
+def _engine_tokens(executor, prompts, gen):
+    """Every row of ``prompts`` through a ``ServingEngine`` on ``executor``:
+    ``(tokens [N, gen], engine steps, seconds)``; every request must finish."""
+    import numpy as np
+
+    from tpu_nexus_torch.serving import RequestState, ServingEngine
+
+    eng = ServingEngine(executor)
+    reqs = [eng.submit(p, gen, request_id=f"r{i}") for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch_sync()
+    secs = time.perf_counter() - t0
+    states = sorted({r.state for r in reqs})
+    if states != [RequestState.FINISHED]:
+        raise AssertionError(f"requests ended {states}, not all FINISHED")
+    return np.asarray([list(r.output_tokens) for r in reqs], np.int32), eng.steps, secs
+
+
+def _forced(fn, prompts, tokens, batch=8):
+    """Teacher-forced logits [N, T, V] (f32, host) of ``fn(prompts, tokens)``
+    over batches of ``batch`` rows."""
+    import numpy as np
+
+    return np.concatenate([np.asarray(fn(prompts[i:i + batch], tokens[i:i + batch]), np.float32)
+                           for i in range(0, len(prompts), batch)])
+
+
+def _one_device_forced(params, model, kv_quant=""):
+    import torch
+
+    from tpu_nexus_torch.models.generate import teacher_forced_logits
+
+    def fn(p, t):
+        out = teacher_forced_logits(params, model, torch.from_numpy(p).to(SHARDED_DEVICE), torch.from_numpy(t).to(SHARDED_DEVICE),
+                                    kv_quant=kv_quant)
+        return out.float().cpu().numpy()
+
+    return fn
+
+
+#: how much farther from the f32 evaluation a sharded bf16 run may be than
+#: the one-device bf16 run: two bf16 programs that sum in another order sit
+#: ~2 % apart on llama3_8b's logits (worst row), each ~2 % from the f32
+#: evaluation of the same weights (llama3_8b on an H100, part (a)), so the 1e-2
+#: limit between them cannot hold; what must hold is that sharding adds
+#: no error of its own
+SHARDED_F32_MARGIN = 1.25
+
+
+def _rel_rows(a, b):
+    import numpy as np
+
+    return np.linalg.norm(a - b, axis=-1) / np.maximum(np.linalg.norm(b, axis=-1), 1e-30)
+
+
+def _against_f32(tp, one, truth, worst=True, floor=1e-5) -> dict:
+    """Worst and median row distances (relative L2) of the sharded run to
+    the one-device run and of both to the f32 evaluation; ``ok`` when the
+    sharded run is within :data:`SHARDED_F32_MARGIN` of the one-device
+    run's distance to the f32 evaluation (median, and with ``worst`` the
+    worst row too), or within ``floor`` of it (1e-5: an f32 run; 1e-3 with
+    an int8 KV cache, where a value within 1e-7 of a rounding edge lands
+    one int8 step away when the sums round in another order)."""
+    import numpy as np
+
+    d = {name: _rel_rows(a, b) for name, (a, b) in
+         (("tp_vs_one_device", (tp, one)), ("tp_vs_f32", (tp, truth)), ("one_device_vs_f32", (one, truth)))}
+    row = {name: {"worst": float(v.max()), "median": float(np.median(v))} for name, v in d.items()}
+    keys = ("median", "worst") if worst else ("median",)
+    row["ok"] = all(row["tp_vs_f32"][k] <= max(SHARDED_F32_MARGIN * row["one_device_vs_f32"][k], floor)
+                    for k in keys)
+    return row
+
+
+def _rank_launches(stats, names=("flash_attention", "decode_attention")):
+    """Per rank: the counters named, #4 by mode and #5/#6 by route (non-zero)."""
+    out = []
+    for s in stats:
+        row = {n: s["launches"][n] for n in names}
+        row["decode_attention_by_mode"] = {m: n for m, n in s["launches"]["decode_attention_by_mode"].items() if n}
+        row["quant_matmul_by_route"] = {m: n for m, n in s["launches"]["quant_matmul_by_route"].items() if n}
+        out.append(row)
+    return out
+
+
+def _paged_launches(stats) -> int:
+    return sum(n for s in stats for m, n in s["launches"]["decode_attention_by_mode"].items() if m.startswith("paged"))
+
+
+def sharded_main_path(results, pool, out):
+    """(a) llama3_8b bf16 at full width and depth, page 32, 8 slots, 24
+    requests of prompt 128 and 32 new tokens: the one-device paged engine
+    first (its tokens and teacher-forced logits kept on the host, and the
+    logits of an f32 evaluation of the same weights along that stream), then
+    ``run_serve_engine`` with ``serve_mesh="tp=2"`` on the pool's ranks
+    (COMPLETED, per-rank launches and peak memory), then that replica,
+    kept up by its pool, driven directly over the first 8 requests for 8
+    tokens with the collectives timed: the share of greedy tokens equal to
+    the one-device engine's, and each step's logits of those requests
+    teacher-forced along the one-device stream, no farther from the f32
+    evaluation than the one-device engine's."""
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.models.llama import llama_init
+    from tpu_nexus_torch.parallel import collectives
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.serving import PagedModelExecutor
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
+
+    model = SHARDED_MODELS["llama3_8b"]()
+    prompts, gen = _requests(model.vocab_size, 24, SHARDED_PROMPT, seed=17), 32
+    params = llama_init(torch.Generator(device=SHARDED_DEVICE).manual_seed(0), model, device=SHARDED_DEVICE)
+    one = PagedModelExecutor(params, model, num_slots=8, max_len=SHARDED_PROMPT + 32,
+                             page_size=32)
+    one_tokens, one_steps, one_secs = _engine_tokens(one, prompts, gen)
+    # the first round's logits along the one-device stream, and the f32
+    # evaluation of the same bf16 weights: how far each bf16 run is from
+    # what both round
+    one_logits = _forced(_one_device_forced(params, model), prompts[:8], one_tokens[:8])
+    truth = _forced(_one_device_forced(params, dataclasses.replace(model, dtype=torch.float32)), prompts[:8],
+                    one_tokens[:8])
+    del one, params
+    torch.cuda.empty_cache()
+
+    cfg = ServeConfig(model=model, batch_size=8, prompt_len=SHARDED_PROMPT, gen_tokens=gen, rounds=3, device=SHARDED_DEVICE,
+                      page_size=32, serve_mesh="tp=2", rank_map="shared")
+    store = InMemoryCheckpointStore()
+    ctx = ProcessContext(run_id="serve_sharded", algorithm="serve", process_id=0, num_processes=1, coordinator=None)
+    pool.reset_counts()
+    t0 = time.perf_counter()
+    summary = run_serve_engine(cfg, store=store, ctx=ctx, prompts=iter([prompts[:8], prompts[:8], prompts[8:16],
+                                                                        prompts[16:]]), pool=pool)
+    wall = time.perf_counter() - t0
+    row = store.read_checkpoint("serve", "serve_sharded")
+    stats = summary["shard_stats"]
+    if row is None or row.lifecycle_stage != LifecycleStage.COMPLETED or summary["finished"] != 24:
+        raise AssertionError(f"serve_sharded: row {row and row.lifecycle_stage}, {summary['finished']} of 24 finished")
+    per_rank = _rank_launches(stats)
+    for rank, counts in enumerate(per_rank):
+        if counts["flash_attention"] < model.n_layers * 24 or not _paged_launches([stats[rank]]):
+            raise AssertionError(f"serve_sharded: rank {rank} launched {counts}")
+    results.setdefault("launches", {})["serve_sharded"] = {
+        "flash_attention": sum(c["flash_attention"] for c in per_rank),
+        "decode_attention_paged": _paged_launches(stats),
+    }
+
+    # the served replica (kept up: the pool is ours) over the first round
+    # once more, driven directly for 8 tokens with the collectives timed
+    # (each synchronizes the card first); then its logits teacher-forced
+    # along the one-device stream
+    sx = summary["replica"]
+    collectives.STATS.reset()
+    with collectives.STATS.timing():
+        tp_tokens, timed_steps, tp_secs = _engine_tokens(sx, prompts[:8], 8)
+    coll = collectives.STATS.to_dict()
+    tp_logits = _forced(sx.teacher_forced_logits, prompts[:8], one_tokens[:8])
+    sx.close()
+    logits = _against_f32(tp_logits, one_logits, truth)
+    del one_logits, tp_logits, truth
+    per_step = {name: {"calls": n / timed_steps, "bytes": coll["bytes"][name] / timed_steps,
+                       "ms": 1e3 * coll["seconds"].get(name, 0.0) / timed_steps} for name, n in coll["calls"].items()}
+    out["a"] = dict(
+        config="llama3_8b full width and depth, bf16, page 32, 8 slots, 24 requests x (128 + 32)",
+        stage=row.lifecycle_stage, finished=summary["finished"], wall_s=wall,
+        decoded_tokens_per_second=summary["decoded_tokens_per_second"], tpot_p50_s=summary["tpot_p50_s"],
+        ttft_p50_s=summary["ttft_p50_s"], engine_steps=summary["engine_steps"], launches_per_rank=per_rank,
+        peak_memory_per_rank=[s["peak_memory"] for s in stats], weight_bytes=summary["load_snapshot"]["weight_bytes"],
+        one_device=dict(steps=int(one_steps), seconds=one_secs, decoded_tokens_per_second=one_tokens.size / one_secs),
+        timed_run=dict(requests=8, new_tokens=8, steps=int(timed_steps), seconds=tp_secs),
+        greedy_tokens_equal_share=float((tp_tokens == one_tokens[:8, :8]).mean()),
+        teacher_forced_rel_l2=logits,
+        collectives_per_step=dict(timed_steps=int(timed_steps), **per_step),
+    )
+    emit("serve_sharded", part="a", **out["a"])
+    if not logits["ok"]:
+        raise AssertionError(f"serve_sharded (a): the sharded logits are farther from f32 than one device's: {logits}")
+
+
+def sharded_exact(results, pool, out):
+    """(b) nexus_1b at full width, 4 of 14 layers, f32 compute (bf16
+    params), tp 2, contiguous and paged with int8 KV, 16 requests of prompt
+    64 and 16 new tokens: greedy tokens identical to the one-device
+    engine's."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.models.llama import llama_init
+    from tpu_nexus_torch.serving import ModelExecutor, PagedModelExecutor
+    from tpu_nexus_torch.serving.sharded import SeedParams, ShardedModelExecutor, ShardedPagedModelExecutor
+
+    model = SHARDED_MODELS["nexus_1b_f32"]()
+    prompts = _requests(model.vocab_size, 16, 64, seed=18)
+    out["b"] = {}
+    for kind, kw in (("contiguous", {}), ("paged_int8kv", dict(page_size=32, kv_quant="int8"))):
+        paged = "page_size" in kw
+        params = llama_init(torch.Generator(device=SHARDED_DEVICE).manual_seed(1), model, device=SHARDED_DEVICE)
+        one = (PagedModelExecutor if paged else ModelExecutor)(params, model, num_slots=8, max_len=80, **kw)
+        one_tokens = _engine_tokens(one, prompts, 16)[0]
+        del one, params
+        torch.cuda.empty_cache()
+        sx = (ShardedPagedModelExecutor if paged else ShardedModelExecutor)(
+            SeedParams(1), model, mesh=pool.mesh({"tp": 2}), num_slots=8, max_len=80, **kw)
+        tp_tokens = _engine_tokens(sx, prompts, 16)[0]
+        sx.close()
+        same = float((tp_tokens == one_tokens).mean())
+        out["b"][kind] = dict(tokens_identical=bool(same == 1.0), greedy_tokens_equal_share=same)
+        if kind == "contiguous":
+            out["b_old_tokens"] = one_tokens
+    emit("serve_sharded", part="b", config="nexus_1b full width, 4 of 14 layers, f32 compute, tp 2, 16 x (64 + 16)",
+         **out["b"])
+    bad = [k for k, v in out["b"].items() if not v["tokens_identical"]]
+    if bad:
+        raise AssertionError(f"serve_sharded (b): tokens differ from the one-device engine's in {bad}")
+
+
+def sharded_quantized(results, pool, out):
+    """(c) llama3_8b at full width, 8 of its 32 layers (depth cut for the
+    phase's time), int8 weights + int8 KV and int4 weights (group 64) at tp
+    2: every rank's dequant-matmul launches on the ring kernel; the
+    teacher-forced logits of 8 requests no farther from the f32 evaluation
+    of the quantized weights than the one-device quantized engine's."""
+    import torch
+
+    from tpu_nexus_torch.models.llama import llama_init
+    from tpu_nexus_torch.serving import ModelExecutor
+    from tpu_nexus_torch.serving.sharded import SeedParams, ShardedModelExecutor
+
+    model = SHARDED_MODELS["llama3_8b_8_layers"]()
+    prompts, gen = _requests(model.vocab_size, 8, SHARDED_PROMPT, seed=19), 16
+    out["c"] = {}
+    launches = results.setdefault("launches", {}).setdefault("serve_sharded", {})
+    for mode, kvq, group in (("int8", "int8", 0), ("int4", "", SHARDED_INT4_GROUP)):
+        kw = dict(num_slots=8, max_len=SHARDED_PROMPT + 16, quantize=mode, quant_group=group, kv_quant=kvq)
+        params = llama_init(torch.Generator(device=SHARDED_DEVICE).manual_seed(0), model, device=SHARDED_DEVICE)
+        one = ModelExecutor(params, model, **kw)
+        del params
+        one_tokens = _engine_tokens(one, prompts, gen)[0]
+        one_logits = _forced(_one_device_forced(one.params, model, kvq), prompts, one_tokens)
+        truth = _forced(_one_device_forced(one.params, dataclasses.replace(model, dtype=torch.float32), kvq),
+                        prompts, one_tokens)
+        del one
+        torch.cuda.empty_cache()
+        pool.reset_counts()
+        sx = ShardedModelExecutor(SeedParams(0), model, mesh=pool.mesh({"tp": 2}), **kw)
+        tp_tokens = _engine_tokens(sx, prompts, gen)[0]
+        stats = sx.shard_stats()
+        tp_logits = _forced(sx.teacher_forced_logits, prompts, one_tokens)
+        sx.close()
+        per_rank = _rank_launches(stats, names=(f"quant_matmul_{mode}",))
+        for rank, counts in enumerate(per_rank):
+            routes = counts["quant_matmul_by_route"]
+            if not routes.get(f"{mode}_ring") or routes.get(f"{mode}_first_design"):
+                raise AssertionError(f"serve_sharded (c) {mode}: rank {rank} routes {routes}")
+        launches[f"quant_matmul_{mode}"] = sum(c[f"quant_matmul_{mode}"] for c in per_rank)
+        logits = _against_f32(tp_logits, one_logits, truth, floor=1e-3 if kvq else 1e-5)
+        out["c"][mode] = dict(kv_quant=kvq or None, group=group or None, launches_per_rank=per_rank,
+                              greedy_tokens_equal_share=float((tp_tokens == one_tokens).mean()),
+                              teacher_forced_rel_l2=logits)
+        if not logits["ok"]:
+            raise AssertionError(f"serve_sharded (c) {mode}: the sharded logits are farther from f32: {logits}")
+        del one_logits, tp_logits, truth
+
+    emit("serve_sharded", part="c", config="llama3_8b full width, 8 of 32 layers, tp 2, 8 x (128 + 16)", **out["c"])
+
+
+def sharded_rank_shape_parity(results, out):
+    """(c) #5 and #6 at each rank's shapes (:data:`SHARDED_QUANT_SHAPES`)
+    against their plain versions: the ring kernel, twice, bit-identical."""
+    import torch
+
+    from tpu_nexus_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+
+    parity = {}
+    for key, m, k, n in SHARDED_QUANT_SHAPES:
+        for mode, group in (("int8", 0), ("int4", 64)):
+            w = quant_weight(k, n, mode, group, seed=k + n)
+            x = torch.randn((m, k), generator=torch.Generator(device=SHARDED_DEVICE).manual_seed(5), device=SHARDED_DEVICE).to(
+                torch.bfloat16)
+            before = dict(quant_matmul.launches_by_route)
+            got, again = quant_matmul(x, w), quant_matmul(x, w)
+            torch_sync()
+            grew = {r: c - before[r] for r, c in quant_matmul.launches_by_route.items() if c != before[r]}
+            ref = quant_matmul_plain(x, w)
+            err = row_rel_err(got, ref)
+            parity[f"{mode}_{key}"] = dict(shape=[m, k, n], route=grew, bit_identical=bool(torch.equal(got, again)),
+                                           worst_row_rel_l2=err)
+            if grew != {f"{mode}_ring": 2} or not torch.equal(got, again) or err > ROW_REL_TOL:
+                raise AssertionError(f"serve_sharded (c): {mode} at {[m, k, n]}: {parity[f'{mode}_{key}']}")
+    out.setdefault("c", {})["rank_shape_parity"] = parity
+    emit("serve_sharded", part="c_parity", rank_shape_parity=parity)
+
+
+def sharded_moe(results, pool, out):
+    """(d) nexus_moe at full width and depth, bf16, at ep=2 (4 experts a
+    rank) and at tp=2, against the one-device engine: tokens and the
+    teacher-forced logits of 8 requests, beside the f32 evaluation.  Then
+    tp=2 once more with f32 compute, where no bf16 routing flip can hide a
+    fault: its greedy tokens equal the one-device f32 engine's and its
+    teacher-forced logits the f32 evaluation's within 1e-5 (worst row)."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.models.moe import MoeConfig, moe_init
+    from tpu_nexus_torch.serving import ModelExecutor
+    from tpu_nexus_torch.serving.sharded import SeedParams, ShardedModelExecutor
+
+    model = SHARDED_MODELS["nexus_moe"]()
+    prompts, gen = _requests(model.vocab_size, 8, SHARDED_PROMPT, seed=20), 16
+    params = moe_init(torch.Generator(device=SHARDED_DEVICE).manual_seed(2), model, device=SHARDED_DEVICE)
+    one = ModelExecutor(params, model, num_slots=8, max_len=SHARDED_PROMPT + 16)
+    one_tokens = _engine_tokens(one, prompts, gen)[0]
+    one_logits = _forced(_one_device_forced(params, model), prompts, one_tokens)
+    model32 = dataclasses.replace(model, dtype=torch.float32)
+    truth = _forced(_one_device_forced(params, model32), prompts, one_tokens)
+    one32_tokens = _engine_tokens(ModelExecutor(params, model32, num_slots=8, max_len=SHARDED_PROMPT + 16),
+                                  prompts, gen)[0]
+    del one, params
+    torch.cuda.empty_cache()
+    out["d"] = {}
+    for name, axes in (("ep2", {"ep": 2}), ("tp2", {"tp": 2})):
+        sx = ShardedModelExecutor(SeedParams(2), model, mesh=pool.mesh(axes), num_slots=8,
+                                  max_len=SHARDED_PROMPT + 16)
+        tp_tokens = _engine_tokens(sx, prompts, gen)[0]
+        tp_logits = _forced(sx.teacher_forced_logits, prompts, one_tokens)
+        sx.close()
+        # a bf16 routing flip moves a row's hidden state by tens of percent
+        # in any two programs, so tp 2 is held on the median row; at ep 2
+        # the combine adds exact zeros and the logits equal one device's
+        logits = _against_f32(tp_logits, one_logits, truth, worst=(name == "ep2"))
+        flips = _rel_rows(tp_logits, one_logits) > 0.1
+        out["d"][name] = dict(greedy_tokens_equal_share=float((tp_tokens == one_tokens).mean()),
+                              logits_equal=bool(np.array_equal(tp_logits, one_logits)),
+                              rows_over_10_percent=int(flips.sum()), rows=int(flips.size),
+                              teacher_forced_rel_l2=logits)
+    sx = ShardedModelExecutor(SeedParams(2), model32, mesh=pool.mesh({"tp": 2}), num_slots=8,
+                              max_len=SHARDED_PROMPT + 16)
+    tp32_tokens = _engine_tokens(sx, prompts, gen)[0]
+    tp32_rows = _rel_rows(_forced(sx.teacher_forced_logits, prompts, one_tokens), truth)
+    sx.close()
+    out["d"]["tp2_f32"] = dict(tokens_identical=bool(np.array_equal(tp32_tokens, one32_tokens)),
+                               teacher_forced_rel_l2={"worst": float(tp32_rows.max()),
+                                                      "median": float(np.median(tp32_rows))})
+    emit("serve_sharded", part="d", config="nexus_moe full width and depth, bf16 (and f32 compute at tp2), "
+         "8 x (128 + 16)", **out["d"])
+    bad = {k: v for k, v in out["d"].items() if k != "tp2_f32" and not v["teacher_forced_rel_l2"]["ok"]}
+    f32 = out["d"]["tp2_f32"]
+    if bad or not out["d"]["ep2"]["logits_equal"] or not f32["tokens_identical"] \
+            or f32["teacher_forced_rel_l2"]["worst"] > 1e-5:
+        raise AssertionError(f"serve_sharded (d): {out['d']}")
+
+
+def sharded_swap_and_fleet(results, pool, out, tmp):
+    """(e) nexus_1b (4 layers, f32 compute, bf16 params) at tp 2: a replica swaps to
+    a committed step through ``params_ref`` mid-traffic (in-flight requests
+    finish on the old weights' tokens, a straddler and a later request on
+    the new weights'); then a fleet of two tp-2 replicas (ranks 0+1 and
+    0+2) rolls 1 -> 2 with every request FINISHED."""
+    import torch
+
+    from tpu_nexus_torch.models.llama import llama_init
+    from tpu_nexus_torch.serving import ModelExecutor, RequestState, ServingEngine, ServingFleet
+    from tpu_nexus_torch.serving.sharded import SeedParams, ShardedModelExecutor
+    from tpu_nexus_torch.workload.tensor_checkpoint import TensorCheckpointer
+
+    model = SHARDED_MODELS["nexus_1b_f32"]()
+    prompts = _requests(model.vocab_size, 16, 64, seed=18)
+    old_tokens = out.pop("b_old_tokens")
+    new = llama_init(torch.Generator(device=SHARDED_DEVICE).manual_seed(5), model, device=SHARDED_DEVICE)
+    ck = TensorCheckpointer(str(Path(tmp) / "ckpt"))
+    t0 = time.perf_counter()
+    ck.save(2, {"params": new})
+    ck.commit(2)
+    save_s = time.perf_counter() - t0
+    new_tokens = _engine_tokens(ModelExecutor(new, model, num_slots=8, max_len=80), prompts[:8], 16)[0]
+    del new
+    torch.cuda.empty_cache()
+    try:
+        sx = ShardedModelExecutor(SeedParams(1), model, mesh=pool.mesh({"tp": 2}), num_slots=4, max_len=80)
+        eng = ServingEngine(sx)
+        inflight = [eng.submit(prompts[i], 16, request_id=f"old{i}") for i in range(4)]
+        for _ in range(2):
+            eng.step()
+        straddler = eng.submit(prompts[4], 16, request_id="straddler")
+        eng.quiesce(grace_s=60.0)
+        t0 = time.perf_counter()
+        eng.swap_params(ck.params_ref(2))
+        swap_s = time.perf_counter() - t0
+        eng.resume_admission()
+        post = eng.submit(prompts[5], 16, request_id="post")
+        eng.run_until_drained()
+        sx.close()
+        swap = dict(
+            swap_s=swap_s, checkpoint_save_commit_s=save_s,
+            inflight_old_tokens=all(list(r.output_tokens) == old_tokens[i].tolist() for i, r in enumerate(inflight)),
+            straddler_new_tokens=list(straddler.output_tokens) == new_tokens[4].tolist(),
+            post_new_tokens=list(post.output_tokens) == new_tokens[5].tolist(),
+            states=sorted({r.state for r in inflight + [straddler, post]}),
+        )
+        meshes = pool.meshes([({"tp": 2}, (0, 1)), ({"tp": 2}, (0, 2))])
+        executors = [ShardedModelExecutor(SeedParams(1), model, mesh=m, num_slots=4, max_len=80) for m in meshes]
+        fleet = ServingFleet()
+        for i, ex in enumerate(executors):
+            fleet.add_replica(f"rep-{i}", ServingEngine(ex), step=1)
+        fleet.start_rollout(ck, 2, grace_s=60.0)
+        reqs = []
+        for i in range(8):
+            reqs.append(fleet.submit(prompts[8 + i], 16))
+            fleet.tick()
+        for _ in range(2000):
+            fleet.tick()
+            if not fleet.rollout_active and not fleet.has_work:
+                break
+        fleet.run_until_drained()
+        for ex in executors:
+            ex.close()
+        fleet_row = dict(converged=fleet.converged(2), rollouts_completed=fleet.rollouts_completed,
+                         states=sorted({r.state for r in reqs}))
+    finally:
+        ck.close()
+    out["e"] = dict(swap=swap, fleet=fleet_row)
+    if not (swap["inflight_old_tokens"] and swap["straddler_new_tokens"] and swap["post_new_tokens"]
+            and swap["states"] == [RequestState.FINISHED]):
+        raise AssertionError(f"serve_sharded (e): swap {swap}")
+    if not (fleet_row["converged"] and fleet_row["states"] == [RequestState.FINISHED]):
+        raise AssertionError(f"serve_sharded (e): fleet {fleet_row}")
+
+
+def sharded_lost_worker(out, tmp):
+    """(e) A serve-engine container (``python -m tpu_nexus_torch.workload``,
+    nexus_1b, ``NEXUS_SERVE_MESH=tp=2`` on the one-card map, an sqlite
+    ledger) whose shard worker is killed once the row heartbeats: the
+    container exits non-zero, the row ends FAILED."""
+    import signal as _signal
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import SqliteCheckpointStore
+
+    db = str(Path(tmp) / "ledger.db")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("NEXUS")}
+    env.update(NEXUS_MODE="serve-engine", NEXUS_MODEL_PRESET=SHARDED_CONTAINER_PRESET, NEXUS_DEVICE=SHARDED_DEVICE,
+               NEXUS_SERVE_MESH="tp=2", NEXUS_RANK_DEVICE_MAP="shared", NEXUS_DIST_TIMEOUT_S="60",
+               NEXUS_BATCH="8", NEXUS_PROMPT_LEN="64", NEXUS_GEN_TOKENS="64", NEXUS_STEPS="1000",
+               NEXUS_HEARTBEAT_EVERY="1", NEXUS_TRACE="0", NEXUS_RUN_ID="lost", NEXUS_ALGORITHM="serve",
+               NEXUS__CQL_STORE_TYPE="sqlite", NEXUS__SQLITE_STORE_PATH=db, PYTHONPATH=str(ROOT))
+
+    def row():
+        store = SqliteCheckpointStore(db)
+        try:
+            return store.read_checkpoint("serve", "lost")
+        finally:
+            store.close()
+
+    t_start = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"], env=env, cwd=tmp,
+                            stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True)
+    tail = []
+    try:
+        pid = None
+        deadline = time.monotonic() + 240
+        while pid is None and time.monotonic() < deadline:
+            line = proc.stderr.readline()
+            if not line and proc.poll() is not None:
+                break
+            if "started shard worker rank 1 pid" in line:
+                pid = int(line.split(" pid ")[1].split()[0])
+        if pid is None:
+            raise AssertionError("serve_sharded (e): the container never logged its shard worker")
+        beat = None
+        while time.monotonic() < deadline:
+            r = Path(db).exists() and row()
+            if r and r.per_chip_steps:
+                beat = r
+                break
+            time.sleep(0.2)
+        if beat is None:
+            raise AssertionError("serve_sharded (e): the container never heartbeat")
+        os.kill(pid, _signal.SIGKILL)
+        t_kill = time.monotonic()
+        err = proc.communicate(timeout=180)[1]
+        exit_s = time.monotonic() - t_kill
+        tail = err.strip().splitlines()[-3:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    final = row()
+    out["e"]["lost_worker"] = dict(returncode=proc.returncode, seconds_kill_to_exit=exit_s,
+                                   container_s=time.perf_counter() - t_start,
+                                   stage=final.lifecycle_stage if final else None,
+                                   cause=(final.algorithm_failure_cause or "")[:200] if final else None, tail=tail)
+    emit("serve_sharded", part="e", **out["e"])
+    if proc.returncode == 0 or not final or final.lifecycle_stage != LifecycleStage.FAILED:
+        raise AssertionError(f"serve_sharded (e): lost worker {out['e']['lost_worker']}")
+
+
+def sharded_times(results):
+    """Kernels #1, #4 (paged) and #5/#6 at one rank's shapes of llama3_8b
+    at tp 2, bf16: the prefill's flash (B1, S128, Hq 16, Hkv 4), the paged
+    decode step (B8, kv 144, page 32, Hq 16, Hkv 4) and the five dequant-
+    matmul products (:data:`SHARDED_QUANT_SHAPES`), each with its bound,
+    its plain version's time and the library yardstick, as ``times``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from tpu_nexus_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from tpu_nexus_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+
+    times = results.setdefault("times", {})
+    dt = torch.bfloat16
+    sets = [flash_inputs(1, 128, 16, 4, 128, dt, seed=9100 + i) for i in range(32)]
+    lib_sets = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)) for q, k, v in sets]
+    bound, by = flash_bound(1, 128, 16, 4, 128, dt)
+    ms, enqueue_ms = timed([lambda x=x: flash_attention(*x, causal=True) for x in sets], iters=64)
+    times["flash_attention_tp2"] = dict(
+        shape=[1, 128, 16, 4, 128], dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
+        plain_ms=cuda_ms([lambda x=x: flash_attention_plain(*x, causal=True) for x in sets], iters=16),
+        library_ms=cuda_ms([lambda x=x: F.scaled_dot_product_attention(*x, is_causal=True, enable_gqa=True)
+                            for x in lib_sets], iters=64), bound_ms=bound, bound_by=by)
+    del sets, lib_sets
+
+    b, page, kv_len, hq, hkv, d = 8, 32, 144, 16, 4, 128
+    n_log = -(-(kv_len + 16) // page)
+    live = np.full(b, kv_len, np.int32)
+    layers = []
+    for i in range(32):
+        q, k, v, tables, _ = paged_case(b, 1, page, n_log, live, dt, 9200 + i)
+        layers.append((q[:, :, :hq].contiguous(), k[:, :, :hkv].contiguous(), v[:, :, :hkv].contiguous(), tables))
+    kw = dict(prompt_lengths=torch.from_numpy(live).cuda(), prompt_width=n_log * page)
+    lib_sets = [(x[0].transpose(1, 2), _gather_rows(x[1], x[3])[:, :kv_len].transpose(1, 2),
+                 _gather_rows(x[2], x[3])[:, :kv_len].transpose(1, 2)) for x in layers]
+    nbytes = (b * kv_len * hkv * d * 2 + 2 * b * hq * d) * 2 + b * n_log * 4
+    t_ops, t_bytes = 4 * hq * d * b * kv_len / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    ms, enqueue_ms = timed([lambda x=x: decode_attention(x[0], x[1], x[2], kv_len, block_tables=x[3], **kw)
+                            for x in layers], iters=64)
+    times["decode_attention_paged_tp2"] = dict(
+        shape=[b, 1, page, n_log, kv_len, hq, hkv, d], dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
+        plain_ms=cuda_ms([lambda x=x: decode_attention_plain(x[0], x[1], x[2], kv_len, block_tables=x[3], **kw)
+                          for x in layers], iters=16),
+        library_ms=cuda_ms([lambda x=x: F.scaled_dot_product_attention(*x, enable_gqa=True) for x in lib_sets],
+                           iters=64),
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes")
+    del layers, lib_sets
+
+    for key, m, k, n in SHARDED_QUANT_SHAPES:
+        for mode, group in (("int8", 0), ("int4", 64)):
+            x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(4000), device="cuda").to(dt)
+            first = quant_weight(k, n, mode, group, 4001)
+            copies = max(4, -(-128 * 2**20 // (first.q.numel() + first.s.numel() * 4)))
+            weights = [first] + [quant_weight(k, n, mode, group, 4001 + i) for i in range(1, copies)]
+            dense = [w.to(dt) for w in weights[: max(4, -(-copies // 4))]]
+            bound, by = quant_bound(m, k, n, weights[0], dt)
+            ms, enqueue_ms = timed([lambda w=w: quant_matmul(x, w) for w in weights], iters=64)
+            times[f"quant_matmul_{mode}_tp2_{key}"] = dict(
+                shape=[m, k, n], group=group or None, dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
+                plain_ms=cuda_ms([lambda w=w: quant_matmul_plain(x, w) for w in weights[:4]], iters=8, warmup=2),
+                library_ms=cuda_ms([lambda w=w: torch.matmul(x, w) for w in dense], iters=64),
+                bound_ms=bound, bound_by=by, weight_copies=copies)
+            del weights, dense, first
+            torch.cuda.empty_cache()
+    emit("serve_sharded", part="times", library_ms_is={
+        "flash_attention_tp2": "scaled_dot_product_attention", "decode_attention_paged_tp2":
+        "scaled_dot_product_attention on the pre-gathered cache", "quant_matmul": "torch.matmul, dequantized bf16"},
+        **{k: v for k, v in times.items() if k.endswith("_tp2") or "_tp2_" in k})
+
+
+def phase_serve_sharded(results):
+    """One serve-engine replica across tensor/expert-parallel ranks on this
+    card: the workers of ``serving/sharded.py``'s ``RankPool`` (spawned,
+    three ranks) all on cuda:0 under the explicit one-device rehearsal map,
+    over gloo — which collectives gloo takes on CUDA tensors is probed
+    first (the seam's must be among them).  Its tokens/s is two ranks
+    sharing one card over gloo through host memory, not a tensor-parallel
+    speed.  Parts (a)-(e) (see their functions), then the kernels at each
+    rank's shapes."""
+    import tempfile
+
+    import torch
+
+    from tpu_nexus_torch.serving.sharded import RankPool
+
+    cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # by earlier phases of this process
+    out = {}
+    t0 = time.perf_counter()
+    with RankPool(3, device=SHARDED_DEVICE, rank_map="shared", timeout_s=300.0) as pool:
+        start_s = time.perf_counter() - t0
+        probe = pool.gloo_cuda_probe()
+        emit("serve_sharded", part="ranks", cards=cards, world=3, map="shared (every rank on cuda:0)",
+             leader_bytes_allocated_at_start=held,
+             backend=pool.backend, pool_start_s=start_s, gloo_cuda_probe=probe)
+        if pool.backend == "gloo" and any(v != "ok" for k, v in probe.items() if k.split("/")[0] in
+                                          ("all_reduce", "all_gather")):
+            raise AssertionError(f"serve_sharded: gloo refuses a collective of the seam on CUDA tensors: {probe}")
+        for part in (sharded_main_path, sharded_exact, sharded_quantized, sharded_moe):
+            t1 = time.perf_counter()
+            part(results, pool, out)
+            torch.cuda.empty_cache()
+            emit("serve_sharded_part_done", part=part.__name__, seconds=time.perf_counter() - t1)
+        with tempfile.TemporaryDirectory() as tmp:
+            sharded_swap_and_fleet(results, pool, out, tmp)
+            pool.close()
+            torch.cuda.empty_cache()
+            sharded_lost_worker(out, tmp)
+    sharded_rank_shape_parity(results, out)
+    sharded_times(results)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5222,7 +5907,7 @@ def main(argv=None) -> int:
         "fleet": phase_fleet, "disagg": phase_disagg, "fleet_rollout": phase_fleet_rollout,
         "serve_moe_quant": phase_serve_moe_quant, "quant_gate": phase_quant_gate, "profile_hook": phase_profile_hook,
         "control_plane": phase_control_plane, "fleet_supervisor": phase_fleet_supervisor,
-        "cql_ledger": phase_cql_ledger,
+        "cql_ledger": phase_cql_ledger, "serve_sharded": phase_serve_sharded,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:

@@ -209,8 +209,9 @@ def test_real_tiny_paged_engine_is_token_identical_to_the_jax_engine(case):
 
 def test_paged_executor_handoff_seam_names_its_roadmap_item():
     """The handoff seam works (the JAX package's ``kv_leaf_specs``, a
-    gather of whole blocks in table order, an install into other ids);
-    sharded caches still name their roadmap item."""
+    gather of whole blocks in table order, an install into other ids); a
+    sharded cache takes only a KV cache sharding, and holds the rank's
+    heads."""
     jcfg, pcfg = tiny_configs()
     jparams, pparams = carried(jcfg, pcfg)
     ex = port_serving.PagedModelExecutor(pparams, pcfg, num_slots=2, max_len=16, page_size=4)
@@ -230,5 +231,10 @@ def test_paged_executor_handoff_seam_names_its_roadmap_item():
     ex.install_blocks(payload, [5, 6])
     for name, arr in ex.cache.items():
         assert torch.equal(arr[:, [5, 6]], arr[:, [2, 1]])
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(TypeError, match="KV cache sharding"):
         port_serving.init_paged_cache(pcfg, 4, 4, shardings=object(), device="cpu")
+    from tpu_nexus_torch.serving.sharded import build_serve_mesh, kv_cache_sharding
+
+    sharding = kv_cache_sharding(build_serve_mesh({"tp": 2}, ranks=range(2)))
+    local = port_serving.init_paged_cache(pcfg, 4, 4, shardings=sharding, device="cpu")
+    assert local["k"].shape == (pcfg.n_layers, 4, 4, pcfg.n_kv_heads // 2, pcfg.head_dim)

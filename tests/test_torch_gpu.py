@@ -18,7 +18,9 @@ a bf16 train state saves and restores bit-identical, and a run resumed
 from a checkpoint ends with the uninterrupted run's per-step losses, bit
 for bit.  Quantized MoE: the attention projections on the dequant-matmul
 kernels, token-identical to the plain path in f32; the device profiler's
-trace names the decode kernel.
+trace names the decode kernel.  Sharded serving's per-rank shapes
+(llama3_8b at tp 2): #5 and #6 on each rank's slices take their ring
+kernels, #1 at the rank's 16/4 heads, #4's paged mode at Hkv 4.
 The decode kernel (#4) in every mode runs twice and must be bit-identical:
 kv 4096, q_len 8 x GQA 8 (64 query rows), GQA 1 and 8, pages 4, 16, 32 and
 64, and one row whose launch merges >= 8 splits; its f32 results are held
@@ -1090,3 +1092,86 @@ def test_fleet_supervisor_recreates_a_deleted_pod_on_the_card(cuda_device):
     plain.run_until_drained()
     assert got == [(r.state, list(r.output_tokens)) for r in want]
     assert all(state == RequestState.FINISHED for state, _ in got)
+
+
+# -- the per-rank shapes of sharded serving (llama3_8b at tp 2) ----------------
+
+#: (M, K, N) of one rank's decode-step products at tp 2: wq (N 4096/2),
+#: wk/wv (N 1024/2), gate/up (N 14336/2) column-parallel; wo (K 4096/2) and
+#: w_down (K 14336/2) row-parallel
+TP2_QUANT_SHAPES = [(8, 4096, 2048), (8, 4096, 512), (8, 4096, 7168), (8, 2048, 4096), (8, 7168, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,group", [("int8", 0), ("int4", 64)])
+@pytest.mark.parametrize("m,k,n", TP2_QUANT_SHAPES)
+def test_quant_kernels_take_the_ring_at_the_tp2_rank_shapes(cuda_device, mode, group, m, k, n):
+    """#5 and #6 at each rank's shapes, the weight a contiguous copy of its
+    column (or row) slice as a rank holds it: the ring kernel, not the
+    first design; twice bit-identical; against the plain version."""
+    full_n, full_k = (2 * n, k) if k == 4096 else (n, 2 * k)
+    w = _randn((full_k, full_n), k + n, cuda_device, torch.float32) * full_k**-0.5
+    part = (w[:, :n] if full_n != n else w[:k]).contiguous()
+    q = quantize_tensor(part, (-2,)) if mode == "int8" else quantize_tensor_int4(part, (-2,), group, name="w")
+    x = _randn((m, k), 7, cuda_device, torch.bfloat16)
+    before = dict(quant_matmul.launches_by_route)
+    out, again = quant_matmul(x, q), quant_matmul(x, q)
+    torch.cuda.synchronize()
+    grew = {r: c - before[r] for r, c in quant_matmul.launches_by_route.items() if c != before[r]}
+    assert grew == {f"{mode}_ring": 2}
+    assert torch.equal(out, again)
+    ref = quant_matmul_plain(x, q)
+    rel = (out.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-30)
+    assert float(rel.max()) <= ROW_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_at_the_tp2_prefill_shape(cuda_device, dtype):
+    """#1 on one rank's heads of a llama3_8b prefill at tp 2: Hq 16, Hkv 4,
+    D 128, the 128-token bucket, causal; bit-identical run to run."""
+    q = _randn((1, 128, 16, 128), 1, cuda_device, dtype)
+    k = _randn((1, 128, 4, 128), 2, cuda_device, dtype)
+    v = _randn((1, 128, 4, 128), 3, cuda_device, dtype)
+    out, lse = flash_attention(q, k, v, causal=True)
+    again, lse_again = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal=True)
+    _check(out, ref_out, dtype)
+    assert float((lse - ref_lse).abs().max()) <= TOL[dtype][1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_decode_at_the_tp2_rank_heads(cuda_device, dtype, int8):
+    """#4's paged mode on one rank's heads at tp 2 (8 slots, Hq 16, Hkv 4,
+    page 32, rows at staggered depths up to 160): bit-identical run to run,
+    against the plain version (f32 evaluated in f64)."""
+    rng = np.random.default_rng(5)
+    b, page, n_log = 8, 32, 5
+    nb = 1 + b * n_log
+    tables = rng.permutation(np.arange(1, nb)).reshape(b, n_log).astype(np.int32)
+    pos = np.array([129, 140, 159, 130, 135, 150, 158, 131], dtype=np.int32)
+    q = _randn((b, 1, 16, 128), 1, cuda_device, dtype)
+    k = _randn((nb, page, 4, 128), 2, cuda_device, dtype)
+    v = _randn((nb, page, 4, 128), 3, cuda_device, dtype)
+    scales = {}
+    if int8:
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tables = torch.from_numpy(tables).to(cuda_device)
+    kw = dict(prompt_lengths=torch.from_numpy(pos + 1).to(cuda_device), prompt_width=n_log * page)
+    mode = "paged+int8" if int8 else "paged"
+    before = decode_attention.launches_by_mode[mode]
+    out = decode_attention(q, k, v, int(pos.max()) + 1, block_tables=tables, **scales, **kw)
+    again = decode_attention(q, k, v, int(pos.max()) + 1, block_tables=tables, **scales, **kw)
+    torch.cuda.synchronize()
+    assert decode_attention.launches_by_mode[mode] == before + 2
+    assert torch.equal(out, again)
+    ref = _plain(q, k, v, int(pos.max()) + 1, block_tables=tables, **scales, **kw)
+    if int8 and dtype == torch.float32:
+        assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    else:
+        _check(out, ref, dtype)

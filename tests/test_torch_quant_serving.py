@@ -14,9 +14,17 @@ package: the cases of ``tests/test_quant_serving.py`` that need no mesh.
   exactly the JAX package's ``generate(quantize(params))`` greedy stream,
   int8 and int4 (group 16), f32.
 * ``TestQuantizedRollingUpdate`` — a plain checkpoint onto quantized
-  replicas (unsharded: the reference's sharded version waits for the
-  multi-GPU slice): each swap quantizes at the replica's own width and no
-  request is dropped, for the MoE family.
+  replicas: each swap quantizes at the replica's own width and no request
+  is dropped, for the MoE family.
+* The mesh cases (``serving/sharded.py``, ranks on the CPU over gloo under
+  the rehearsal map, one pool for the module): ``TestValidateServeMeshInt4``
+  refuses what the JAX function refuses, with its words;
+  ``TestShardedCrossModeTokenIdentity`` — a tp-2 sharded engine, Llama and
+  MoE, int8 and int4, emits the JAX package's ``generate(quantize(params))``
+  stream (the int8 scales of the row-parallel leaves are reduced over the
+  ranks); ``TestShardedQuantizedRollingUpdate`` — a plain checkpoint onto
+  sharded quantized replicas, each rank quantizing its own slice, and a
+  fleet of an int8 and an int4 sharded replica rolled 1 -> 2.
 * ``run_serving`` and ``run_serve_engine`` on a quantized MoE preset land
   COMPLETED.
 """
@@ -87,8 +95,18 @@ def _trees(family, seed):
     return _TREES[key]
 
 
+_REFS = {}
+
+
 def _ref(family, mode, prompt, seed=0, n=T):
-    """The JAX package's greedy stream of its own quantized tree."""
+    """The JAX package's greedy stream of its own quantized tree (memoized)."""
+    key = (family, mode, tuple(int(t) for t in prompt), seed, n)
+    if key not in _REFS:
+        _REFS[key] = _jax_ref(family, mode, prompt, seed, n)
+    return _REFS[key]
+
+
+def _jax_ref(family, mode, prompt, seed, n):
     jcfg, _ = _configs(family)
     jparams, _ = _trees(family, seed)
     qp = jax_quant.quantize_params(jparams, mode=mode, group=GROUP)
@@ -360,3 +378,121 @@ def test_run_serve_engine_quantized_moe_lands_completed(page_size):
     assert store.read_checkpoint("serve", "qe").lifecycle_stage == LifecycleStage.COMPLETED
     assert summary["finished"] == summary["requests"] == 4
     assert summary["load_snapshot"]["weight_bytes"] > 0
+
+
+# -- the mesh cases ----------------------------------------------------------------
+
+
+class TestValidateServeMeshInt4:
+    @pytest.mark.parametrize("tp,group", [(2, GROUP), (4, 32), (4, GROUP), (4, 0)])
+    @pytest.mark.parametrize("mode", ["int4", ""])
+    def test_same_as_the_jax_validation(self, tp, group, mode):
+        from tpu_nexus.serving.sharded import validate_serve_mesh as jax_validate
+        from tpu_nexus_torch.serving.sharded import ShardingError, validate_serve_mesh
+
+        jcfg, pcfg = _configs("llama")
+        try:
+            jax_validate({"tp": tp}, jcfg, n_devices=tp, quantize=mode, quant_group=group)
+        except ValueError as exc:
+            with pytest.raises(ShardingError, match=f"tp={tp}.*int4") as got:
+                validate_serve_mesh({"tp": tp}, pcfg, n_devices=tp, quantize=mode, quant_group=group)
+            assert str(got.value) == str(exc)
+            return
+        validate_serve_mesh({"tp": tp}, pcfg, n_devices=tp, quantize=mode, quant_group=group)
+
+
+@pytest.fixture(scope="module")
+def pool():
+    from tpu_nexus_torch.serving.sharded import RankPool
+
+    with RankPool(3, device="cpu", rank_map="shared", timeout_s=30.0, join_timeout_s=20.0) as p:
+        yield p
+
+
+def _sharded(mesh, family, mode, seed=0, **over):
+    from tpu_nexus_torch.serving.sharded import NumpyParams, ShardedModelExecutor
+
+    jcfg, pcfg = _configs(family)
+    tree = jax.tree.map(np.asarray, _trees(family, seed)[0])
+    return ShardedModelExecutor(NumpyParams(tree), pcfg, mesh=mesh, **dict(_kw(mode), **over))
+
+
+class TestShardedCrossModeTokenIdentity:
+    """The sharded engine of the reference's ``TestCrossModeTokenIdentity``:
+    tp 2, quantizing the same plain tree on every rank."""
+
+    @pytest.mark.parametrize("family", FAMILIES)
+    @pytest.mark.parametrize("mode", ["int8", "int4"])
+    def test_matrix(self, pool, family, mode):
+        ex = _sharded(pool.mesh({"tp": 2}), family, mode)
+        try:
+            got = _drain(ServingEngine(ex))
+            width = QTensor if mode == "int8" else QTensor4
+            assert isinstance(ex.params["layers"]["wq"], width)
+        finally:
+            ex.close()
+        assert got == {f"r{i}": _ref(family, mode, p) for i, p in enumerate(PROMPTS)}
+
+
+class TestShardedQuantizedRollingUpdate:
+    """One plain f32 verified checkpoint onto sharded quantized replicas:
+    each rank reads its slice and quantizes it at the swap seam."""
+
+    @pytest.mark.parametrize("mode", ["int8", "int4"])
+    def test_swap_quantizes_per_shard(self, pool, tmp_path, mode):
+        ck = _checkpointed(tmp_path, _trees("llama", 7)[1])
+        ex = _sharded(pool.mesh({"tp": 2}), "llama", mode, num_slots=2)
+        try:
+            eng = ServingEngine(ex)
+            inflight = [eng.submit(PROMPTS[i], T, request_id=f"old{i}") for i in range(2)]
+            for _ in range(2):
+                eng.step()
+            assert any(not r.is_terminal() for r in inflight)
+            eng.quiesce(grace_s=60.0)
+            eng.swap_params(ck.params_ref(2))  # the plain f32 step, by reference
+            eng.resume_admission()
+            wq = eng.executor.params["layers"]["wq"]
+            assert isinstance(wq, QTensor if mode == "int8" else QTensor4)
+            for i, req in enumerate(inflight):
+                assert req.state == RequestState.FINISHED
+                assert list(req.output_tokens) == _ref("llama", mode, PROMPTS[i]), i
+            post = eng.submit(PROMPTS[0], T, request_id="post")
+            eng.run_until_drained(max_steps=2000)
+            assert list(post.output_tokens) == _ref("llama", mode, PROMPTS[0], seed=7)
+            assert eng.weight_swaps == 1
+        finally:
+            ex.close()
+            ck.close()
+
+    def test_fleet_rollout_over_mixed_width_sharded_replicas(self, pool, tmp_path):
+        ck = _checkpointed(tmp_path, _trees("llama", 7)[1])
+        meshes = pool.meshes([({"tp": 2}, (0, 1)), ({"tp": 2}, (0, 2))])
+        executors = {name: _sharded(mesh, "llama", mode, num_slots=2)
+                     for (name, mode), mesh in zip((("rep-int8", "int8"), ("rep-int4", "int4")), meshes)}
+        try:
+            fleet = ServingFleet()
+            for name, ex in executors.items():
+                fleet.add_replica(name, ServingEngine(ex), step=1)
+            assert fleet.start_rollout(ck, 2, grace_s=60.0)
+            reqs = []
+            for i in range(4):
+                reqs.append(fleet.submit(PROMPTS[i % len(PROMPTS)], T))
+                fleet.tick()
+            for _ in range(500):
+                fleet.tick()
+                if not fleet.rollout_active and not fleet.has_work:
+                    break
+            fleet.run_until_drained()
+            assert fleet.converged(2)
+            assert all(r.state == RequestState.FINISHED for r in reqs)
+            widths = {name: type(rep.engine.executor.params["layers"]["wq"]) for name, rep in fleet.replicas.items()}
+            assert widths == {"rep-int8": QTensor, "rep-int4": QTensor4}
+            for name, mode in (("rep-int8", "int8"), ("rep-int4", "int4")):
+                eng = fleet.replicas[name].engine
+                post = eng.submit(PROMPTS[1], T, request_id=f"post-{name}")
+                eng.run_until_drained(max_steps=2000)
+                assert list(post.output_tokens) == _ref("llama", mode, PROMPTS[1], seed=7)
+        finally:
+            for ex in executors.values():
+                ex.close()
+            ck.close()

@@ -41,7 +41,7 @@ from tpu_nexus_torch.models.quant import quantized_bytes
 from tpu_nexus_torch.models.registry import get_adapter
 from tpu_nexus_torch.parallel.distributed import ProcessContext
 from tpu_nexus_torch.workload import __main__ as entry
-from tpu_nexus_torch.workload.serve import ENGINE_ONLY_ENV, ServeConfig, run_serving
+from tpu_nexus_torch.workload.serve import ServeConfig, run_serving
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
@@ -152,15 +152,17 @@ _SLO = {"NEXUS_SLO_SHED_RATE": "0.05"}
         ({"NEXUS_SCALE_COOLDOWN_S": "5"}, "scale_cooldown_s", 5.0),
         ({"NEXUS_AUTOSCALE_MIN": "2", "NEXUS_AUTOSCALE_MAX": "4", "NEXUS_SCALE_UP_N": "1",
           "NEXUS_SCALE_DOWN_N": "2", "NEXUS_SCALE_COOLDOWN_S": "5", **_SLO}, "autoscale_config", (2, 4, 1, 2, 5.0)),
-        ({"NEXUS_SERVE_MESH": "tp=2"}, None, "A6 sharded executors"),
+        ({"NEXUS_SERVE_MESH": "tp=2", "NEXUS_DEVICE": "cpu", "NEXUS_RANK_DEVICE_MAP": "shared"}, "serve_mesh",
+         "tp=2"),
     ],
     ids=["router_policy", "unknown_policy", "autoscale_max_alone", "autoscale_without_slo", "autoscale_min_over_max",
          "scale_cooldown", "autoscale_config", "serve_mesh"],
 )
 def test_unported_knobs_raise_at_parse(env, field, want):
-    """The fleet knobs parse with the reference's checks and words (each
-    case is held against the JAX package's ``ServeConfig.from_env`` on the
-    same env); ``NEXUS_SERVE_MESH`` (A6) is the one knob still refused."""
+    """The fleet knobs and ``NEXUS_SERVE_MESH`` parse with the reference's
+    checks and words (each case is held against the JAX package's
+    ``ServeConfig.from_env`` on the same env; the mesh's two ranks share
+    the CPU under the explicit rehearsal map)."""
     if field is None and "A6" in want:
         with pytest.raises(NotImplementedError, match=want):
             ServeConfig.from_env(env)
@@ -303,8 +305,7 @@ def test_entrypoint_serves_quantized_with_jax_and_the_reference_blocked(tmp_path
 
 
 def test_engine_knobs_at_their_defaults_parse():
-    env = {k: str(int(d) if isinstance(d, bool) else d) for k, (_, d, _) in ENGINE_ONLY_ENV.items()}
-    env["NEXUS_OVERLAP"] = "0"
+    env = {"NEXUS_OVERLAP": "0"}
     cfg = ServeConfig.from_env(dict(env, NEXUS_DECODE_KERNEL="plain", NEXUS_DEVICE="cpu"))
     assert cfg.decode_kernel == "plain" and cfg.device == "cpu"
     with pytest.raises(ValueError, match="decode_kernel"):

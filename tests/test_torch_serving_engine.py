@@ -45,7 +45,7 @@ from tpu_nexus_torch.checkpoint.models import LifecycleStage
 from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore, SqliteCheckpointStore
 from tpu_nexus_torch.core.signals import LifecycleContext
 from tpu_nexus_torch.parallel.distributed import ProcessContext
-from tpu_nexus_torch.workload.serve import ENGINE_ONLY_ENV, ServeConfig, run_serve_engine
+from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
 from test_torch_llama import carried, tiny_configs
 
 torch.set_num_threads(1)
@@ -345,14 +345,16 @@ def test_entrypoint_serve_engine_lands_completed_with_jax_blocked(tmp_path):
     assert row.lifecycle_stage == LifecycleStage.COMPLETED
 
 
-@pytest.mark.parametrize("key", sorted(ENGINE_ONLY_ENV))
+@pytest.mark.parametrize("key", ["NEXUS_SERVE_MESH"])
 def test_unported_engine_knobs_raise_naming_their_roadmap_item(key):
-    parse, default, item = ENGINE_ONLY_ENV[key]
-    value = {str: "tp=2", float: "2.5", int: "7"}.get(parse, "x")
-    if key == "NEXUS_ROUTER_POLICY":
-        value = "round-robin"
-    with pytest.raises(NotImplementedError, match=item.split()[0]):
-        ServeConfig.from_env({key: value})
+    """No engine knob is left unported: the last one, ``NEXUS_SERVE_MESH``,
+    parses, and a mesh that cannot be met — more ranks than devices, the
+    rehearsal map not asked for — raises at parse with the reference's
+    words."""
+    with pytest.raises(ValueError, match="wants 2 devices"):
+        ServeConfig.from_env({key: "tp=2", "NEXUS_DEVICE": "cpu"})
+    cfg = ServeConfig.from_env({key: "tp=2", "NEXUS_DEVICE": "cpu", "NEXUS_RANK_DEVICE_MAP": "shared"})
+    assert (cfg.serve_mesh, cfg.rank_map) == ("tp=2", "shared")
 
 
 def test_reload_check_knob_parses_with_the_reference_wording():

@@ -6,8 +6,8 @@ Multi-host topology: one JobSet with a single replicated job of
 ``num_hosts`` completions; the headless service JobSet creates per job
 gives every worker a stable DNS name, and worker 0's name is the
 coordinator address injected via the ``NEXUS_*`` env contract
-(tpu_nexus_torch.parallel.distributed, which runs one process until the
-multi-GPU slice, ROADMAP.md A6).
+(tpu_nexus_torch.parallel.distributed brings the process group up from
+it).
 
 Labeling contract (what the supervisor filters on, SURVEY.md §2.2):
 ``NEXUS_COMPONENT_LABEL: algorithm-run`` + ``JOB_TEMPLATE_NAME_KEY:

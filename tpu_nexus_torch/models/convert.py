@@ -69,14 +69,16 @@ def _leaf_to_numpy(leaf: Any):
 
 
 def params_from_numpy(
-    tree: Dict[str, Any], cfg: Union[LlamaConfig, MoeConfig], device: Any = "cuda"
+    tree: Dict[str, Any], cfg: Union[LlamaConfig, MoeConfig], device: Any = "cuda", shapes: Any = None,
 ) -> Union[LlamaParams, QuantizedParams]:
     """The JAX package's Llama or MoE tree (numpy leaves) as the port's
     module state on ``device``; shapes are checked against ``cfg`` (an MoE
     tree's layers add the router and the ``[L, n_experts, ...]`` expert
     stacks).  A tree with quantized leaves (see the module docstring) comes
-    back as a ``QuantizedParams``."""
-    shapes = (moe if isinstance(cfg, MoeConfig) else llama)._layer_shapes(cfg)
+    back as a ``QuantizedParams``.  ``shapes`` (layer key -> shape)
+    replaces the config's for a rank's slice."""
+    if shapes is None:
+        shapes = (moe if isinstance(cfg, MoeConfig) else llama)._layer_shapes(cfg)
     missing = set(shapes) ^ set(tree["layers"])
     if missing:
         raise ValueError(f"layer keys differ from the config's: {sorted(missing)}")
@@ -98,6 +100,20 @@ def params_from_numpy(
     if any(isinstance(w, (QTensor, QTensor4)) for w in out["layers"].values()):
         return QuantizedParams(out)
     return LlamaParams(out)
+
+
+def params_from_numpy_shard(
+    tree: Dict[str, Any], cfg: Union[LlamaConfig, MoeConfig], mesh: Any, device: Any = "cuda",
+) -> Union[LlamaParams, QuantizedParams]:
+    """The per-rank form of :func:`params_from_numpy`: the JAX package's
+    tree (numpy leaves, quantized ones included) cut to the part of the
+    rank at ``mesh.coords`` under the serving rules
+    (``serving/sharded.py``), on ``device``; shapes are checked against
+    the rank's share of ``cfg``.  Only that slice is copied."""
+    from tpu_nexus_torch.serving.sharded import local_layer_shapes, shard_serving_params
+
+    return params_from_numpy(shard_serving_params(tree, mesh), cfg, device=device,
+                             shapes=local_layer_shapes(cfg, mesh))
 
 
 def params_to_numpy(params: Union[LlamaParams, QuantizedParams]) -> Dict[str, Any]:

@@ -53,6 +53,7 @@ from tpu_nexus_torch.models.quant import quantize_tensor
 from tpu_nexus_torch.ops.decode_attention import MAX_DECODE_Q_LEN, decode_attention, decode_attention_plain
 from tpu_nexus_torch.ops.quant_matmul import weight_einsum
 from tpu_nexus_torch.ops.rmsnorm import rms_norm
+from tpu_nexus_torch.parallel.collectives import embed_rows, gather_vocab, reduce_tp
 
 ModelConfig = Union[LlamaConfig, MoeConfig]  # the same stacked-layer layout
 _NEG_INF = -1e30
@@ -195,7 +196,7 @@ def prefill(
         # clamp at 0: a (buggy) zero length must not wrap to the last pad
         idx = (prompt_lengths.to(hidden.device).long() - 1).clamp_min(0)
         last = hidden[torch.arange(b, device=hidden.device), idx]
-    logits = torch.einsum("be,ev->bv", last, _head(params, cfg))
+    logits = gather_vocab(torch.einsum("be,ev->bv", last, _head(params, cfg)))
     return cache, logits
 
 
@@ -256,7 +257,7 @@ def _layers(params, cache: Cache, cfg, x: torch.Tensor, cos, sin, write, attend)
         write(cache["k"][li], k)
         write(cache["v"][li], v)
         o = attend(q, cache["k"][li], cache["v"][li], scales)
-        x = x + weight_einsum("bshd,hde->bse", o, layer["wo"], ct)
+        x = x + reduce_tp(weight_einsum("bshd,hde->bse", o, layer["wo"], ct))
         x = _ffn_block(x, layer, cfg)
     return rms_norm(x, params["out_norm"], cfg.norm_eps)
 
@@ -368,9 +369,9 @@ def decode_step(
         )
 
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x = params["embed"]["tokens"][token.to(device).long()].to(ct)[:, None, :]  # [B, 1, E]
+    x = embed_rows(params["embed"]["tokens"], token.to(device).long()).to(ct)[:, None, :]  # [B, 1, E]
     hidden = _layers(params, cache, cfg, x, cos, sin, write, attend)
-    logits = torch.einsum("be,ev->bv", hidden[:, 0], _head(params, cfg))
+    logits = gather_vocab(torch.einsum("be,ev->bv", hidden[:, 0], _head(params, cfg)))
     return logits, cache
 
 
@@ -480,12 +481,12 @@ def extend_step(
         )
 
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x = params["embed"]["tokens"][tokens.to(device).long()].to(cfg.dtype)  # [B, W, E]
+    x = embed_rows(params["embed"]["tokens"], tokens.to(device).long()).to(cfg.dtype)  # [B, W, E]
     hidden = _layers(params, cache, cfg, x, cos, sin, write, attend)
     # each row's last REAL token gives its first output logits (clamp at
     # 0: a buggy zero length must not wrap to the last pad row)
     last = hidden[torch.arange(b, device=device), (length - 1).clamp_min(0)]
-    return torch.einsum("be,ev->bv", last, _head(params, cfg)), cache
+    return gather_vocab(torch.einsum("be,ev->bv", last, _head(params, cfg))), cache
 
 
 @torch.no_grad()
@@ -542,9 +543,9 @@ def verify_step(
         )
 
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x = params["embed"]["tokens"][tokens.to(device).long()].to(cfg.dtype)  # [B, W, E]
+    x = embed_rows(params["embed"]["tokens"], tokens.to(device).long()).to(cfg.dtype)  # [B, W, E]
     hidden = _layers(params, cache, cfg, x, cos, sin, write, attend)
-    return torch.einsum("bse,ev->bsv", hidden, _head(params, cfg)), cache
+    return gather_vocab(torch.einsum("bse,ev->bsv", hidden, _head(params, cfg))), cache
 
 
 @torch.no_grad()
@@ -564,6 +565,26 @@ def teacher_forced_decode_ce(
         ces.append(-torch.gather(lp, -1, tok_next[:, None])[:, 0])
         logits, cache = decode_step(params, cache, tok_next, pos, cfg, decode_kernel=decode_kernel)
     return torch.stack(ces).mean()
+
+
+@torch.no_grad()
+def teacher_forced_logits(
+    params, cfg: ModelConfig, prompts: torch.Tensor, forced: torch.Tensor, kv_quant: str = "",
+    decode_kernel: str = "auto", attn_impl: str = "auto",
+) -> torch.Tensor:
+    """Logits ``[B, T, vocab]`` along a forced continuation: ``prompts``
+    [B, S] through :func:`prefill`, then ``forced`` [B, T] fed one token at
+    a time through :func:`decode_step`; row ``j`` is the distribution that
+    predicts ``forced[:, j]``.  Two runs given the same stream (one device
+    and its shards, kernels and plain) compare step by step this way."""
+    b, s = prompts.shape
+    t = forced.shape[1]
+    cache, logits = prefill(params, prompts, cfg, max_len=s + t, kv_quant=kv_quant, attn_impl=attn_impl)
+    out = [logits]
+    for j in range(t - 1):
+        logits, cache = decode_step(params, cache, forced[:, j], s + j, cfg, decode_kernel=decode_kernel)
+        out.append(logits)
+    return torch.stack(out, dim=1)
 
 
 def sample_logits(

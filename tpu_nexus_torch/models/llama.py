@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from tpu_nexus_torch.ops.attention import attention
+from tpu_nexus_torch.parallel.collectives import embed_rows, gather_vocab, reduce_tp
 from tpu_nexus_torch.ops.quant_matmul import weight_einsum
 from tpu_nexus_torch.ops.rmsnorm import rms_norm
 
@@ -156,35 +157,68 @@ class LlamaParams(nn.Module):
         return ["embed", "layers", "out_norm"] + (["lm_head"] if self.lm_head is not None else [])
 
 
-def llama_init(
-    generator: torch.Generator, cfg: LlamaConfig, device: Any = "cuda"
-) -> LlamaParams:
-    """Random init (plain normal with fan-in scaling, as the reference),
-    drawn on ``device`` from ``generator`` (which must live on the same
-    device type)."""
+def llama_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Logical-axis tree mirroring :func:`llama_init`'s params (the JAX
+    package's ``llama_axes``): the sharding rules' input."""
+    layers = {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+        "mlp_norm": ("layers", "embed"),
+        "w_gate": ("layers", "embed", "mlp"),
+        "w_up": ("layers", "embed", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+    }
+    axes: Dict[str, Any] = {
+        "embed": {"tokens": ("vocab", "embed")},
+        "layers": layers,
+        "out_norm": ("embed",),
+    }
+    if not cfg.tied_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def _init_tree(generator, cfg, device, shapes, leaf_fn) -> Dict[str, Any]:
+    """The random init shared by the Llama and MoE families: each leaf in
+    the JAX tree's order, passed through ``leaf_fn(path, tensor)`` as soon
+    as it is drawn (a sharded executor keeps its rank's slice, so one full
+    leaf at a time is ever alive)."""
     pd = cfg.param_dtype
     e = cfg.hidden
+    keep = leaf_fn or (lambda path, t: t)
 
     def normal(shape, fan_in):
         x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return (x.mul_(fan_in**-0.5)).to(pd)
 
-    shapes = _layer_shapes(cfg)
     layers = {}
     for name, shape in shapes.items():
         if name.endswith("norm"):
-            layers[name] = torch.ones(shape, dtype=pd, device=device)
+            layers[name] = keep(f"layers/{name}", torch.ones(shape, dtype=pd, device=device))
         else:
             fan_in = {"wo": cfg.n_heads * cfg.head_dim, "w_down": cfg.intermediate}.get(name, e)
-            layers[name] = normal(shape, fan_in)
+            layers[name] = keep(f"layers/{name}", normal(shape, fan_in))
     tree: Dict[str, Any] = {
-        "embed": {"tokens": normal((cfg.vocab_size, e), e)},
+        "embed": {"tokens": keep("embed/tokens", normal((cfg.vocab_size, e), e))},
         "layers": layers,
-        "out_norm": torch.ones((e,), dtype=pd, device=device),
+        "out_norm": keep("out_norm", torch.ones((e,), dtype=pd, device=device)),
     }
     if not cfg.tied_embeddings:
-        tree["lm_head"] = normal((e, cfg.vocab_size), e)
-    return LlamaParams(tree)
+        tree["lm_head"] = keep("lm_head", normal((e, cfg.vocab_size), e))
+    return tree
+
+
+def llama_init(
+    generator: torch.Generator, cfg: LlamaConfig, device: Any = "cuda", leaf_fn: Any = None,
+) -> LlamaParams:
+    """Random init (plain normal with fan-in scaling, as the reference),
+    drawn on ``device`` from ``generator`` (which must live on the same
+    device type).  ``leaf_fn(path, tensor)``, when given, maps each leaf
+    as it is drawn (a rank's slice: the same draws, less kept)."""
+    return LlamaParams(_init_tree(generator, cfg, device, _layer_shapes(cfg), leaf_fn))
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
@@ -222,7 +256,7 @@ def qkv_block(x, layer, cfg, cos, sin):
 def attend_block(x, q, k, v, layer, cfg, attn_impl: str = "auto"):
     """Attention → output projection → residual."""
     o = attention(q, k, v, causal=True, impl=attn_impl)
-    return x + weight_einsum("bshd,hde->bse", o, layer["wo"], cfg.dtype)
+    return x + reduce_tp(weight_einsum("bshd,hde->bse", o, layer["wo"], cfg.dtype))
 
 
 def attention_block(x, layer, cfg, cos, sin, attn_impl: str = "auto", *, collect_kv: bool = False):
@@ -243,7 +277,7 @@ def mlp_block(x: torch.Tensor, layer: Dict[str, Any], cfg: LlamaConfig) -> torch
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     gate = weight_einsum("bse,ef->bsf", h, layer["w_gate"], ct)
     up = weight_einsum("bse,ef->bsf", h, layer["w_up"], ct)
-    return x + weight_einsum("bsf,fe->bse", torch.nn.functional.silu(gate) * up, layer["w_down"], ct)
+    return x + reduce_tp(weight_einsum("bsf,fe->bse", torch.nn.functional.silu(gate) * up, layer["w_down"], ct))
 
 
 def llama_head(params, cfg: LlamaConfig) -> torch.Tensor:
@@ -329,7 +363,7 @@ def llama_hidden(
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :].expand(tokens.shape)
     # gather, then cast: the same values as the reference's cast-then-gather
     # without materializing a compute-dtype copy of the whole table
-    x = params["embed"]["tokens"][tokens].to(cfg.dtype)  # [B, S, E]
+    x = embed_rows(params["embed"]["tokens"], tokens).to(cfg.dtype)  # [B, S, E]
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     ks, vs = [], []
     for li in range(params["layers"]["wq"].shape[0]):
@@ -356,7 +390,7 @@ def llama_forward(
 ) -> torch.Tensor:
     """Logits ``[B, S, vocab]`` for token ids ``[B, S]``."""
     x = llama_hidden(params, tokens, cfg, attn_impl=attn_impl)
-    return torch.einsum("bse,ev->bsv", x, llama_head(params, cfg))
+    return gather_vocab(torch.einsum("bse,ev->bsv", x, llama_head(params, cfg)))
 
 
 def param_count(cfg: LlamaConfig) -> int:

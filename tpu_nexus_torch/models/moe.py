@@ -28,9 +28,13 @@
 * Under activation checkpointing the recompute re-runs the router on the
   same input on the same device, so it routes the same way.
 
-Left out, raising where they would be asked for: the expert-parallel gmm
-path (``_moe_ffn_gmm_ep``), the pipeline-parallel stack (``moe_hidden_pp``)
-and ``NEXUS_MOE_FORCE_EP_PATH`` (ROADMAP.md: A6 multi-GPU).
+Under a sharded serve mesh (``parallel/collectives.py`` active) the
+scatter dispatch routes every token with the replicated router, computes
+only this rank's ``n_experts / ep`` experts (under ``tp`` their stacks
+hold an mlp slice) and sums the combine over the replica.  Left out,
+raising where they would be asked for: the expert-parallel gmm path
+(``_moe_ffn_gmm_ep``), gmm and sort under a mesh, the pipeline-parallel
+stack (``moe_hidden_pp``) and ``NEXUS_MOE_FORCE_EP_PATH`` (ROADMAP.md: A6b).
 """
 
 from __future__ import annotations
@@ -44,14 +48,17 @@ import torch.nn.functional as F
 
 from tpu_nexus_torch.models.llama import (
     LlamaParams,
+    _init_tree,
     attention_block,
     layer_params,
+    llama_axes,
     remat_layer,
     rope_tables,
 )
 from tpu_nexus_torch.ops.grouped_matmul import BLOCK_M, gmm
 from tpu_nexus_torch.ops.quant_matmul import weight_einsum
 from tpu_nexus_torch.ops.rmsnorm import rms_norm
+from tpu_nexus_torch.parallel import collectives
 
 
 @dataclass(frozen=True)
@@ -133,31 +140,26 @@ def _layer_shapes(cfg: MoeConfig) -> Dict[str, tuple]:
     }
 
 
-def moe_init(generator: torch.Generator, cfg: MoeConfig, device: Any = "cuda") -> LlamaParams:
+def moe_axes(cfg: MoeConfig) -> Dict[str, Any]:
+    """Logical-axis tree mirroring :func:`moe_init` (the JAX package's
+    ``moe_axes``): expert stacks carry the "expert" axis (``ep``)."""
+    axes = llama_axes(cfg)
+    axes["layers"].update({
+        "router": ("layers", "embed", None),  # [L, e, E]: E is tiny, replicated
+        "w_gate": ("layers", "expert", "embed", "mlp"),
+        "w_up": ("layers", "expert", "embed", "mlp"),
+        "w_down": ("layers", "expert", "mlp", "embed"),
+    })
+    return axes
+
+
+def moe_init(
+    generator: torch.Generator, cfg: MoeConfig, device: Any = "cuda", leaf_fn: Any = None,
+) -> LlamaParams:
     """Random init (plain normal with fan-in scaling, as the reference),
-    drawn on ``device`` from ``generator``; the tree of ``moe_init`` :149."""
-    pd = cfg.param_dtype
-    e = cfg.hidden
-
-    def normal(shape, fan_in):
-        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        return x.mul_(fan_in**-0.5).to(pd)
-
-    layers = {}
-    for name, shape in _layer_shapes(cfg).items():
-        if name.endswith("norm"):
-            layers[name] = torch.ones(shape, dtype=pd, device=device)
-        else:
-            fan_in = {"wo": cfg.n_heads * cfg.head_dim, "w_down": cfg.intermediate}.get(name, e)
-            layers[name] = normal(shape, fan_in)
-    tree: Dict[str, Any] = {
-        "embed": {"tokens": normal((cfg.vocab_size, e), e)},
-        "layers": layers,
-        "out_norm": torch.ones((e,), dtype=pd, device=device),
-    }
-    if not cfg.tied_embeddings:
-        tree["lm_head"] = normal((e, cfg.vocab_size), e)
-    return LlamaParams(tree)
+    drawn on ``device`` from ``generator``; the tree of ``moe_init`` :149.
+    ``leaf_fn`` as in :func:`~tpu_nexus_torch.models.llama.llama_init`."""
+    return LlamaParams(_init_tree(generator, cfg, device, _layer_shapes(cfg), leaf_fn))
 
 
 def expert_capacity(n_tokens: int, cfg: MoeConfig) -> int:
@@ -422,7 +424,7 @@ def _ep_not_ported() -> NotImplementedError:
     return NotImplementedError(
         "expert parallelism (a mesh for moe_ffn: _moe_ffn_gmm_ep, NEXUS_MOE_FORCE_EP_PATH) "
         "and the pipeline-parallel MoE stack (moe_hidden_pp) are not ported yet "
-        "(ROADMAP.md: A6 multi-GPU)"
+        "(ROADMAP.md: A6b parallel training)"
     )
 
 
@@ -432,6 +434,13 @@ def moe_ffn(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig, mesh: Any = 
     (the residual carries those tokens through)."""
     if mesh is not None:
         raise _ep_not_ported()
+    comm = collectives.current()
+    sharded = comm is not None and comm.tp_size * comm.ep_size > 1
+    if sharded and cfg.dispatch != "scatter":
+        raise NotImplementedError(
+            f"dispatch {cfg.dispatch!r} on a sharded serve mesh: the gmm and sort paths under a mesh "
+            "are not ported yet (ROADMAP.md: A6b); serving decodes with scatter"
+        )
     if cfg.dispatch == "sort":
         return _moe_ffn_sorted(x, layer, cfg)
     if cfg.dispatch == "gmm":
@@ -462,12 +471,22 @@ def moe_ffn(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig, mesh: Any = 
     buf = torch.zeros((ne, cap + 1, e), dtype=ct, device=x.device)
     buf = buf.index_put((eidx.reshape(-1), cap_idx.reshape(-1)), updates, accumulate=True)[:, :cap]
 
-    out_buf = _expert_swiglu(buf, layer, ct)
+    if sharded:
+        # this rank's experts (all of them under tp alone, whose stacks
+        # hold an mlp slice): the others' outputs stay zero, and the
+        # combine is summed over the replica below
+        local = comm.expert_range(ne)
+        out_buf = torch.zeros_like(buf)
+        out_buf[local.start:local.stop] = _expert_swiglu(buf[local.start:local.stop], layer, ct)
+    else:
+        out_buf = _expert_swiglu(buf, layer, ct)
     # gather each assignment's output through an in-range index (overflow
     # is zeroed by `keep`)
     gather_idx = torch.clamp_max(cap_idx, cap - 1)
     picked = out_buf[eidx.reshape(-1), gather_idx.reshape(-1)].reshape(t, k, e)
     combined = torch.sum(picked * (gate * keep)[..., None].to(ct), dim=1)
+    if sharded:
+        combined = collectives.reduce_experts(combined)
 
     aux = _aux_losses(logits, probs, eidx, keep, cfg)
     return combined.reshape(b, s, e).to(x.dtype), aux
@@ -502,7 +521,7 @@ def moe_hidden(
             f"max_seq_len {cfg.max_seq_len}"
         )
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :].expand(tokens.shape)
-    x = params["embed"]["tokens"][tokens].to(cfg.dtype)
+    x = collectives.embed_rows(params["embed"]["tokens"], tokens).to(cfg.dtype)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     lb, rz, dropped, ks, vs = [], [], [], [], []
     for li in range(params["layers"]["wq"].shape[0]):

@@ -57,10 +57,15 @@ _CONTRACT_AXES: Dict[str, tuple] = {
 }
 
 
-def quantize_tensor(w: torch.Tensor, axes: tuple) -> QTensor:
-    """Symmetric int8: amax over ``axes`` / 127, round half to even."""
+def quantize_tensor(w: torch.Tensor, axes: tuple, amax_reduce: Any = None) -> QTensor:
+    """Symmetric int8: amax over ``axes`` / 127, round half to even.
+    ``amax_reduce(amax)`` completes the amax where ``w`` is one rank's
+    slice of a contraction dim (a max over the ranks holding the rest)."""
     w32 = w.detach().float()
-    s = torch.amax(torch.abs(w32), dim=axes, keepdim=True) / 127.0
+    amax = torch.amax(torch.abs(w32), dim=axes, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    s = amax / 127.0
     s = torch.clamp_min(s, 1e-12)
     q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
     return QTensor(q, s)
@@ -153,13 +158,17 @@ class QuantizedParams:
     parameters = named_parameters
 
 
-def quantize_params(params, mode: str = "int8", group: int = 0) -> QuantizedParams:
+def quantize_params(params, mode: str = "int8", group: int = 0, amax_reduce: Any = None) -> QuantizedParams:
     """Quantize every matmul weight stack of a Llama params tree (norms and
     embeddings keep their dtype); the result drops into ``generate`` and
     the forward unchanged.  IDEMPOTENT: already-quantized leaves pass
     through.  ``group`` is the int4 group size (0 =
     :data:`DEFAULT_INT4_GROUP`; ignored for int8).  Stacked leaves are
-    quantized a layer at a time (see :func:`_by_layer`)."""
+    quantized a layer at a time (see :func:`_by_layer`).  On one rank of a
+    sharded tree, ``amax_reduce(name)`` gives the int8 amax completion of
+    weight ``name`` (None where the rank holds whole contraction dims), so
+    the scales equal those of the whole tree; int4 groups lie within a
+    rank's rows and need none."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"unknown quantize mode {mode!r}; use 'int8' or 'int4'")
     g = group or DEFAULT_INT4_GROUP
@@ -172,7 +181,8 @@ def quantize_params(params, mode: str = "int8", group: int = 0) -> QuantizedPara
         if w is None or isinstance(w, (QTensor, QTensor4)):
             continue
         if mode == "int8":
-            fn = lambda t, axes=axes: quantize_tensor(t, axes)  # noqa: E731
+            red = amax_reduce(name) if amax_reduce is not None else None
+            fn = lambda t, axes=axes, red=red: quantize_tensor(t, axes, red)  # noqa: E731
         else:
             fn = lambda t, axes=axes, name=name: quantize_tensor_int4(t, axes, g, name=name)  # noqa: E731
         lead, _, _ = _split_shape(w.shape, axes)

@@ -28,7 +28,7 @@ def _single_device_only(train_cfg: Any) -> None:
     if getattr(train_cfg, "sp_attn", "ring") != "ring" or getattr(train_cfg, "pp_microbatches", 0):
         raise NotImplementedError(
             "sequence/pipeline parallelism (sp_attn, pp_microbatches) is not ported "
-            "yet (ROADMAP.md: A6 multi-GPU)"
+            "yet (ROADMAP.md: A6b parallel training)"
         )
 
 

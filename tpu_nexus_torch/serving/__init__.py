@@ -36,10 +36,11 @@ Layering (each module imports only downward), as in the JAX package:
                        (taxonomy-classified pod recovery, missing-pod
                        sweep, checkpoint-driven rollout, autoscaling)
 
-Every module but ``engine`` and the cache buffers of ``cache_manager`` is
-a copy of the JAX package's host code with its imports changed
-(``handoff`` also takes the port's host form of a leaf).  Not ported
-(ROADMAP.md): ``sharded`` (A6).
+Every module but ``engine``, ``sharded`` and the cache buffers of
+``cache_manager`` is a copy of the JAX package's host code with its
+imports changed (``handoff`` also takes the port's host form of a leaf).
+``sharded`` (tensor/expert-parallel executors over ``torch.distributed``
+ranks) is imported from its module, not from this package.
 Comments in the copies that name nxlint rules (NX005, NX014, ...) describe
 the JAX package's static gates: nxlint scans ``tpu_nexus/`` only.
 """

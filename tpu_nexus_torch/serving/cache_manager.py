@@ -31,8 +31,10 @@ buffers on an explicit device, int8-KV aware (int8 values + per-slot f32
 scales, the ``models/generate`` cache contract).
 
 A copy of ``tpu_nexus/serving/cache_manager.py`` (the host allocators
-verbatim); sharded caches are not ported: a ``shardings`` argument raises
-(ROADMAP.md A6).
+verbatim).  A sharded cache (``shardings``, serving/sharded.py's
+``kv_cache_sharding``) is allocated per rank: each rank holds ``Hkv / tp``
+heads of every slot or block, while ``num_blocks`` stays a global count,
+so the admission arithmetic is the same on every mesh.
 """
 
 from __future__ import annotations
@@ -49,15 +51,41 @@ class SlotError(RuntimeError):
     an engine bug surfaced loudly, never a recoverable traffic condition."""
 
 
+def _kv_shard_count(shardings: Any, cfg: Any) -> int:
+    """How many ways ``shardings`` (serving/sharded.py's KV cache sharding:
+    a spec over both cache layouts and the mesh it names) splits the
+    KV-HEAD axis, dim 3 of both layouts; 1 when that dim is unsharded."""
+    spec = getattr(shardings, "spec", None)
+    mesh = getattr(shardings, "mesh", None)
+    if spec is None or mesh is None:
+        raise TypeError(
+            f"shardings must be a KV cache sharding (serving/sharded.py: kv_cache_sharding), "
+            f"got {type(shardings).__name__}"
+        )
+    if len(spec) <= 3 or spec[3] is None:
+        return 1
+    axes = spec[3] if isinstance(spec[3], tuple) else (spec[3],)
+    n = 1
+    for axis in axes:
+        n *= mesh.axis_sizes[axis]
+    return n
+
+
 def _alloc_cache(kv_shape: tuple, cfg: Any, kv_quant: str, shardings: Any, device: Any):
-    """Allocate the zeroed cache dict on ``device``.  Device-sharded
-    caches (``shardings``) are not ported and raise."""
+    """Allocate the zeroed cache dict on ``device``.  Under ``shardings``
+    the dict is this rank's part: ``Hkv / shards`` heads of every slot or
+    block (kv-head divisibility is checked here)."""
     import torch
 
     if shardings is not None:
-        raise NotImplementedError(
-            "sharded KV caches (shardings) are not ported yet (ROADMAP.md: A6 sharded executors)"
-        )
+        shards = _kv_shard_count(shardings, cfg)
+        if cfg.n_kv_heads % shards:
+            raise ValueError(
+                f"KV cache sharding splits the kv-head axis {shards} ways but "
+                f"the model has {cfg.n_kv_heads} KV heads — not divisible; "
+                "shrink the tp axis or pick a head count it divides"
+            )
+        kv_shape = kv_shape[:3] + (kv_shape[3] // shards,) + kv_shape[4:]
     if kv_quant == "int8":
         scale_shape = kv_shape[:-1] + (1,)
         return {
@@ -80,7 +108,7 @@ def init_cache(
     ``[L, num_slots, max_len, Hkv, D]`` (scales ``[..., 1]`` f32), matching
     what :func:`tpu_nexus_torch.models.generate.prefill` emits row-for-row
     so a per-request prefill inserts with one slice copy, on ``device``.
-    ``shardings`` raises (sharded executors are ROADMAP.md A6)."""
+    ``shardings``: this rank's heads only (see :func:`_alloc_cache`)."""
     if kv_quant not in ("", "int8"):
         raise ValueError(f"unknown kv_quant mode {kv_quant!r}; use 'int8' or ''")
     if num_slots < 1:
@@ -101,7 +129,7 @@ def init_paged_cache(
     shaped ``[L, num_blocks, page_size, Hkv, D]`` (scales ``[..., 1]``
     f32).  Block 0 is the reserved scratch block (see module doc); the
     usable token capacity is ``(num_blocks - 1) * page_size``.  On
-    ``device``; ``shardings`` raises, as in :func:`init_cache`."""
+    ``device``; ``shardings`` as in :func:`init_cache`."""
     if kv_quant not in ("", "int8"):
         raise ValueError(f"unknown kv_quant mode {kv_quant!r}; use 'int8' or ''")
     if page_size < 1:

@@ -166,16 +166,27 @@ class EngineReplica:
 class _Rollout:
     """One in-flight rolling update: walk ``order`` one replica at a time.
     ``params`` is loaded lazily on the FIRST swap (one verified restore
-    serves the whole fleet) and cached for the remaining replicas."""
+    serves the whole fleet) and cached for the remaining replicas.
 
-    source: Any  # TensorCheckpointer-shaped: restore_params(step)
+    Sharded replicas (serving/sharded.py) take ``ref`` instead: the
+    verified step's ``params_ref`` (its directory and step), from which
+    each rank of each replica reads only its own slice — the fleet's
+    process never holds a sharded replica's weights whole."""
+
+    source: Any  # TensorCheckpointer-shaped: restore_params(step), params_ref(step)
     step: int
     grace_s: float
     transform: Optional[Callable[[Any], Any]] = None
     order: List[str] = field(default_factory=list)
     idx: int = 0
     params: Any = None
+    ref: Any = None
+    loaded: bool = False
     deadline: Optional[float] = None
+
+
+def _sharded(engine: Any) -> bool:
+    return bool(getattr(engine.executor, "swaps_from_checkpoint", False))
 
 
 class CheckpointWatcher:
@@ -706,7 +717,7 @@ class ServingFleet:
             logger.info("rolling update to step %d complete", ro.step)
             return
 
-        if ro.params is None:
+        if not ro.loaded:
             # load + verify BEFORE any replica is paused: a rotten or
             # wrong-shaped candidate then costs one failed load, never a
             # quiesce (and never grace-expiry evictions of live requests)
@@ -715,10 +726,20 @@ class ServingFleet:
                 # step (manifest + full checksums) at LOAD time — the
                 # watcher's marker-based poll is the cheap gate, this is
                 # the trust boundary no rotten candidate crosses
-                restored = ro.source.restore_params(ro.step)
-                ro.params = (
-                    ro.transform(restored) if ro.transform is not None else restored
-                )
+                kinds = {_sharded(self.replicas[n].engine) for n in ro.order if n in self.replicas}
+                if True in kinds:
+                    if ro.transform is not None:
+                        raise ValueError(
+                            "a rollout transform cannot apply to sharded replicas: each rank "
+                            "quantizes its own slice at its swap seam"
+                        )
+                    ro.ref = ro.source.params_ref(ro.step)
+                if False in kinds:
+                    restored = ro.source.restore_params(ro.step)
+                    ro.params = (
+                        ro.transform(restored) if ro.transform is not None else restored
+                    )
+                ro.loaded = True
             except (CheckpointError, ValueError) as exc:  # noqa: BLE001 - the candidate failed its load-time verification (classified Checkpoint* cause) or its transform (config fact): abort the rollout with the cause recorded; no replica was paused, the fleet keeps serving its OLD verified weights
                 self._abort_rollout(exc)
                 return
@@ -738,7 +759,7 @@ class ServingFleet:
             else:
                 return  # still quiescing; tick() keeps pumping it
         try:
-            eng.swap_params(ro.params)
+            eng.swap_params(ro.ref if _sharded(eng) else ro.params)
         except ValueError as exc:  # noqa: BLE001 - pytree spec mismatch (wrong checkpoint / missing quantization transform — a config fact retrying replays): abort the rollout with the cause recorded, resume THIS replica on its OLD weights; a swallowed raise here would wedge the replica in RELOADING with admission paused forever
             eng.resume_admission()
             rep.state = REPLICA_SERVING

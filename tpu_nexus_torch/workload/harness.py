@@ -43,7 +43,7 @@ warm-up) is never in the window.
 Not ported in this slice, refused at parse naming the ROADMAP.md item
 that brings each: multi-device meshes, sequence-parallel attention and
 pipeline microbatches (``NEXUS_MESH``, ``NEXUS_SP_ATTN``,
-``NEXUS_PP_MICROBATCHES``, A6).
+``NEXUS_PP_MICROBATCHES``, A6b).
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ from tpu_nexus_torch.checkpoint.store import CheckpointStore
 from tpu_nexus_torch.core.signals import LifecycleContext, setup_signal_context
 from tpu_nexus_torch.core.telemetry import Metrics, StatsdClient
 from tpu_nexus_torch.models.llama import LlamaConfig
-from tpu_nexus_torch.parallel.distributed import ProcessContext, initialize_distributed
+from tpu_nexus_torch.parallel.distributed import ProcessContext, single_process
 from tpu_nexus_torch.workload import durability
 from tpu_nexus_torch.workload.faults import (
     FaultPlan,
@@ -291,13 +291,13 @@ class WorkloadConfig:
         if any(size > 1 for size in mesh.values()):
             raise NotImplementedError(
                 f"NEXUS_MESH={e['NEXUS_MESH']!r}: multi-device meshes are not "
-                "ported yet (ROADMAP.md: A6 multi-GPU)"
+                "ported yet (ROADMAP.md: A6b parallel training)"
             )
         for key in ("NEXUS_SP_ATTN", "NEXUS_PP_MICROBATCHES"):
             if e.get(key, "") not in ("", "0"):
                 raise NotImplementedError(
                     f"{key}={e[key]!r}: sequence/pipeline parallelism is not "
-                    "ported yet (ROADMAP.md: A6 multi-GPU)"
+                    "ported yet (ROADMAP.md: A6b parallel training)"
                 )
         steps = int(e.get("NEXUS_STEPS", "100"))
         return WorkloadConfig(
@@ -560,7 +560,7 @@ def _workload_loop(
     from tpu_nexus_torch.workload.train import init_train_state, make_eval_step, make_train_step
 
     device = resolve_device(cfg.device)
-    ctx = initialize_distributed(ctx)
+    ctx = single_process(ctx, "training")
     reporter = LedgerReporter(store, ctx, local_devices=1)
     plan = FaultPlan.from_env()
     if telemetry is None:

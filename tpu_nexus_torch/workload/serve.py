@@ -37,9 +37,18 @@ with the reference's wording, as do the fleet's ``NEXUS_ROUTER_POLICY``,
 ``NEXUS_AUTOSCALE_MIN``/``_MAX``, ``NEXUS_SCALE_UP_N``/``_DOWN_N`` and
 ``NEXUS_SCALE_COOLDOWN_S``, which :func:`build_fleet_supervisor` reads
 (with ``NEXUS_SLO_*`` and ``NEXUS_KV_BLOCKS``) into a ``ServingFleet`` and
-the ``FleetSupervisor`` that reconciles it.  A knob of the reference that nothing in the port reads yet raises at parse,
-naming the ROADMAP.md item that brings its reader: ``NEXUS_SERVE_MESH``
-(A6).
+the ``FleetSupervisor`` that reconciles it.
+
+Sharded serving (serve-engine): ``NEXUS_SERVE_MESH="tp=2"`` (or
+``"ep=2"``, ``"ep=2,tp=2"``) parses and validates with the reference's
+checks and words (``serving/sharded.py``), against the cards torch sees —
+one card a rank — or, with ``NEXUS_RANK_DEVICE_MAP=shared``, every rank on
+``NEXUS_DEVICE`` (the one-device rehearsal over gloo, asked for
+explicitly).  :func:`run_serve_engine` then starts the replica's ``tp x ep
+- 1`` shard workers itself (``spawn``), drives the unchanged engine over a
+sharded executor, and stops them at the end; a lost worker fails the run
+(``ShardLost``: the row FAILED, the container non-zero) within the process
+group's timeout (``NEXUS_DIST_TIMEOUT_S``).
 
 Checkpoints: ``NEXUS_CHECKPOINT_DIR`` serves the params of the training
 run's newest VERIFIED step (read-only: a torn or corrupt step is skipped,
@@ -67,7 +76,7 @@ from tpu_nexus_torch.models.llama import LlamaConfig
 from tpu_nexus_torch.models.quant import DEFAULT_INT4_GROUP, quantize_params, quantized_bytes
 from tpu_nexus_torch.models.registry import LlamaAdapter, MoeAdapter, adapter_for, get_adapter
 from tpu_nexus_torch.ops.decode_attention import MAX_DECODE_Q_LEN
-from tpu_nexus_torch.parallel.distributed import ProcessContext, initialize_distributed
+from tpu_nexus_torch.parallel.distributed import RANK_MAPS, ProcessContext, single_process
 from tpu_nexus_torch.serving.loadstats import SloTargets
 from tpu_nexus_torch.serving.router import ROUTER_POLICIES, AutoscaleConfig
 from tpu_nexus_torch.serving.speculative import DRAFTERS
@@ -77,14 +86,6 @@ from tpu_nexus_torch.workload.harness import sync as _sync
 from tpu_nexus_torch.workload.tensor_checkpoint import CheckpointError, TensorCheckpointer
 
 logger = logging.getLogger(__name__)
-
-
-#: env keys of the reference's serving that the port does not have yet,
-#: with their parsers, defaults and the ROADMAP.md item that brings them:
-#: a non-default value is refused at parse
-ENGINE_ONLY_ENV = {
-    "NEXUS_SERVE_MESH": (str, "", "A6 sharded executors"),
-}
 
 
 @dataclass(frozen=True)
@@ -195,6 +196,14 @@ class ServeConfig:
     scale_up_after: int = 3
     scale_down_after: int = 12
     scale_cooldown_s: float = 60.0
+    #: engine mode only — tensor/expert-parallel serving: comma-separated
+    #: ``axis=size`` pairs over parallel/mesh.py's AXIS_ORDER, e.g. "tp=2"
+    #: ("" = one device).  Validated at parse (NEXUS_SERVE_MESH)
+    serve_mesh: str = ""
+    #: where the mesh's ranks run: "" = one card a rank (nccl); "shared" =
+    #: every rank on ``device`` over gloo, the one-device rehearsal
+    #: (NEXUS_RANK_DEVICE_MAP)
+    rank_map: str = ""
 
     def __post_init__(self) -> None:
         if self.quantize not in ("", "int8", "int4"):
@@ -319,6 +328,28 @@ class ServeConfig:
                     "spec_draft_preset (NEXUS_SPEC_DRAFT_PRESET) only "
                     "applies to spec_drafter='model'"
                 )
+        if self.rank_map not in RANK_MAPS:
+            raise ValueError(
+                f"unknown rank_map (NEXUS_RANK_DEVICE_MAP) {self.rank_map!r}; use 'shared' or leave it unset"
+            )
+        if self.serve_mesh:
+            from tpu_nexus_torch.serving.sharded import check_served_axes, parse_serve_mesh, validate_serve_mesh
+
+            # parse + validate the WHOLE mesh contract here, as the
+            # reference does: axes, sizes, the device count and the
+            # model's divisibility fail before any device work starts
+            # (and, in the port, an axis other than tp/ep: A6b)
+            axes = parse_serve_mesh(self.serve_mesh)
+            check_served_axes(axes)
+            model_cfg = getattr(self.model, "config", self.model)
+            validate_serve_mesh(
+                axes, model_cfg, n_devices=self._mesh_devices(axes),
+                quantize=self.quantize, quant_group=self.quant_group,
+            )
+        if self.rank_map and not self.serve_mesh:
+            raise ValueError(
+                "rank_map (NEXUS_RANK_DEVICE_MAP) places the ranks of a serve mesh: it needs NEXUS_SERVE_MESH"
+            )
         if self.reload_check_interval_s and not self.checkpoint_dir:
             raise ValueError(
                 "reload_check_interval_s (NEXUS_RELOAD_CHECK_S) requires "
@@ -367,6 +398,19 @@ class ServeConfig:
                 "at heartbeat intervals and would otherwise never grade"
             )
 
+    def _mesh_devices(self, axes: Dict[str, int]) -> int:
+        """The devices a serve mesh may take: the cards torch sees (one a
+        rank), one on the CPU — or, under the rehearsal map, as many as
+        the mesh has ranks, all on one device."""
+        if self.rank_map == "shared":
+            size = 1
+            for v in axes.values():
+                size *= v
+            return size
+        if torch.device(self.device).type == "cpu":
+            return 1
+        return torch.cuda.device_count()
+
     def slo_targets(self) -> Optional[SloTargets]:
         """The validated :class:`SloTargets`, or None when every target is
         0 (monitor disabled)."""
@@ -398,11 +442,6 @@ class ServeConfig:
         import os
 
         e = os.environ if env is None else env
-        for key, (parse, default, item) in ENGINE_ONLY_ENV.items():
-            if key in e and parse(e[key]) != default:
-                raise NotImplementedError(
-                    f"{key}={e[key]!r} is not ported yet (ROADMAP.md: {item})"
-                )
         return ServeConfig(
             model=get_adapter(e.get("NEXUS_MODEL_PRESET", "tiny")),
             batch_size=int(e.get("NEXUS_BATCH", "8")),
@@ -445,6 +484,8 @@ class ServeConfig:
             scale_up_after=int(e.get("NEXUS_SCALE_UP_N", "3")),
             scale_down_after=int(e.get("NEXUS_SCALE_DOWN_N", "12")),
             scale_cooldown_s=float(e.get("NEXUS_SCALE_COOLDOWN_S", "60")),
+            serve_mesh=e.get("NEXUS_SERVE_MESH", ""),
+            rank_map=e.get("NEXUS_RANK_DEVICE_MAP", ""),
         )
 
 
@@ -576,7 +617,11 @@ def _reload_if_newer(
     ckpt = TensorCheckpointer(checkpoint_dir)
     try:
         try:
-            new_params = ckpt.restore_params(latest, device=engine.executor.device)
+            if getattr(engine.executor, "swaps_from_checkpoint", False):
+                # a sharded replica: each rank reads its own slice
+                new_params = ckpt.params_ref(latest)
+            else:
+                new_params = ckpt.restore_params(latest, device=engine.executor.device)
         except (CheckpointError, ValueError) as exc:  # noqa: BLE001 - classified Checkpoint* verdict (failed load-time verification): keep serving the OLD verified weights — the honest alternative to serving torn tensors
             logger.warning(
                 "reload check: candidate step %d failed verification/"
@@ -616,8 +661,13 @@ def run_serving(
     metrics (rounds, decoded tokens/s).  ``prompts`` is an injectable
     iterator of int32 ``[B, prompt_len]`` arrays (tests); default is the
     synthetic token stream."""
+    if cfg.serve_mesh:
+        raise NotImplementedError(
+            "NEXUS_SERVE_MESH shards the continuous-batching engine (NEXUS_MODE=serve-engine); "
+            "the lockstep loop serves on one device"
+        )
     device = resolve_device(cfg.device)
-    ctx = initialize_distributed(ctx)
+    ctx = single_process(ctx, "lockstep serving")
     reporter = LedgerReporter(store, ctx, local_devices=1)
     plan = FaultPlan.from_env()
     adapter, mcfg, params, restored_from = _load_serving_params(cfg, ctx, device)
@@ -669,12 +719,42 @@ def run_serving(
     }
 
 
+def _sharded_param_source(cfg: ServeConfig, ctx: ProcessContext):
+    """The sharded counterpart of :func:`_load_serving_params`: the adapter
+    and config, and WHERE each rank reads its slice — the newest verified
+    step of ``cfg.checkpoint_dir`` (``CheckpointParams``) or the init of
+    ``cfg.seed`` (``SeedParams``); the leader loads nothing whole.
+    Returns ``(adapter, model_cfg, source, restored_from)``."""
+    from tpu_nexus_torch.serving.sharded import CheckpointParams, SeedParams
+
+    adapter = adapter_for(cfg.model)
+    if not isinstance(adapter, (LlamaAdapter, MoeAdapter)):
+        raise ValueError(f"serving requires an LM adapter (llama/moe), got {adapter.name!r}")
+    logger.info("serving %s/%s: model %s over %s", ctx.algorithm, ctx.run_id, adapter.name, cfg.serve_mesh)
+    if cfg.checkpoint_dir:
+        ckpt = TensorCheckpointer(cfg.checkpoint_dir)
+        try:
+            latest = ckpt.latest_verified_step(quarantine=False)
+            if latest is not None:
+                return adapter, adapter.config, CheckpointParams(cfg.checkpoint_dir, latest), latest
+            if ckpt.rollbacks:
+                causes = ", ".join(f"step {e['step']}: {e['cause']}" for e in ckpt.rollbacks)
+                raise CheckpointError(
+                    f"{cfg.checkpoint_dir} has checkpoint steps but none verify "
+                    f"({causes}); refusing to serve freshly-initialized weights."
+                )
+        finally:
+            ckpt.close()
+    return adapter, adapter.config, SeedParams(cfg.seed), None
+
+
 def run_serve_engine(
     cfg: ServeConfig,
     store: Optional[CheckpointStore] = None,
     ctx: Optional[ProcessContext] = None,
     prompts: Optional[Any] = None,
     lifecycle: Optional[LifecycleContext] = None,
+    pool: Any = None,
 ) -> Dict[str, Any]:
     """Continuous-batching serving under the SAME ledger protocol as
     :func:`run_serving` (``NEXUS_MODE=serve-engine``): RUNNING →
@@ -694,12 +774,20 @@ def run_serve_engine(
     finish what fits in ``cfg.drain_grace_s``, evict the rest, and land the
     ledger row PREEMPTED with the per-cause retirement counts.
     ``lifecycle`` is injectable for tests; by default signal handlers
-    install when running on the main thread (and are restored on exit)."""
+    install when running on the main thread (and are restored on exit).
+
+    ``cfg.serve_mesh``: the replica's shard workers are started here and
+    stopped on the way out, unless the caller hands in a running
+    ``pool`` (``serving/sharded.py::RankPool``, kept running): then the
+    replica's executor stays up too, returned as ``summary["replica"]``
+    for the caller to drive further and close."""
     import signal as _signal
     import threading
 
     device = resolve_device(cfg.device)
-    ctx = initialize_distributed(ctx)
+    # one container is one replica: a serve mesh's ranks are its own
+    # workers, started below, never the launcher's processes
+    ctx = single_process(ctx, "the serve-engine replica")
     reporter = LedgerReporter(store, ctx, local_devices=1)
     plan = FaultPlan.from_env()
     restore_handlers = {}
@@ -708,9 +796,33 @@ def run_serve_engine(
         if on_main:
             restore_handlers = {s: _signal.getsignal(s) for s in (_signal.SIGINT, _signal.SIGTERM)}
         lifecycle = setup_signal_context(install=on_main)
+    own_pool = None
     try:
-        return _serve_engine_loop(cfg, ctx, prompts, lifecycle, reporter, plan, device)
+        if cfg.serve_mesh and pool is None:
+            from tpu_nexus_torch.serving.sharded import RankPool, parse_serve_mesh
+
+            size = 1
+            for v in parse_serve_mesh(cfg.serve_mesh).values():
+                size *= v
+            # this container is one replica: its shard workers are local
+            # ranks, started here and stopped on the way out
+            pool = own_pool = RankPool(size, device=str(device), rank_map=cfg.rank_map)
+        summary = _serve_engine_loop(cfg, ctx, prompts, lifecycle, reporter, plan, device,
+                                     pool if cfg.serve_mesh else None)
+        if own_pool is not None:
+            summary.pop("replica")  # stopped with its pool below
+        return summary
+    except Exception as exc:
+        from tpu_nexus_torch.serving.sharded import ShardLost
+
+        if isinstance(exc, ShardLost):
+            # never carry on with fewer ranks: the row ends FAILED here and
+            # the container exits non-zero
+            reporter.failed(cause=f"sharded serving lost a rank: {exc}")
+        raise
     finally:
+        if own_pool is not None:
+            own_pool.close()
         for sig, handler in restore_handlers.items():
             _signal.signal(sig, handler)
 
@@ -723,6 +835,7 @@ def _serve_engine_loop(
     reporter: LedgerReporter,
     plan: FaultPlan,
     device: torch.device,
+    pool: Any = None,
 ) -> Dict[str, Any]:
     from tpu_nexus_torch.core.telemetry import StatsdClient
     from tpu_nexus_torch.serving import (
@@ -749,7 +862,10 @@ def _serve_engine_loop(
         "tpu_nexus.workload",  # metric names carry their own serving. prefix
         static_tags={"algorithm": ctx.algorithm, "run_id": ctx.run_id},
     )
-    adapter, mcfg, params, restored_from = _load_serving_params(cfg, ctx, device)
+    if pool is None:
+        adapter, mcfg, params, restored_from = _load_serving_params(cfg, ctx, device)
+    else:
+        adapter, mcfg, params, restored_from = _sharded_param_source(cfg, ctx)
     if prompts is None:
         prompts = adapter.data(cfg.batch_size, cfg.prompt_len, seed=cfg.seed + 101)
 
@@ -769,7 +885,29 @@ def _serve_engine_loop(
         decode_steps=cfg.decode_steps,
         stop_token=cfg.stop_token,
     )
-    if cfg.page_size:
+    if pool is not None:
+        # tensor/expert-parallel serving: the same engine over a sharded
+        # executor whose shard workers each read their own slice
+        from tpu_nexus_torch.serving.sharded import (
+            ShardedModelExecutor,
+            ShardedPagedModelExecutor,
+            parse_serve_mesh,
+        )
+
+        if cfg.spec_k and cfg.spec_drafter == "model":
+            raise NotImplementedError(
+                "the model drafter beside a sharded executor is not ported (use NEXUS_SPEC_DRAFTER=ngram)"
+            )
+        mesh = pool.mesh(parse_serve_mesh(cfg.serve_mesh))
+        device = mesh.device
+        if cfg.page_size:
+            executor = ShardedPagedModelExecutor(
+                params, mcfg, mesh=mesh, page_size=cfg.page_size, num_blocks=cfg.kv_blocks, **executor_kwargs,
+            )
+        else:
+            executor = ShardedModelExecutor(params, mcfg, mesh=mesh, **executor_kwargs)
+        logger.info("serving sharded over %s: %d ranks (%s)", cfg.serve_mesh, mesh.size, pool.backend)
+    elif cfg.page_size:
         # paged KV: block-table decode + ref-counted shared-prefix reuse;
         # NEXUS_KV_BLOCKS caps the physical pool
         executor = PagedModelExecutor(
@@ -963,7 +1101,14 @@ def _serve_engine_loop(
     done = engine.retired[n_warm:]
     finished = [r for r in done if r.state == RequestState.FINISHED]
     tokens_done = sum(len(r.output_tokens) for r in finished)
+    sharded: Dict[str, Any] = {}
+    if pool is not None:
+        # every rank's launches, collectives and peak memory; the replica
+        # stays up until its pool's owner closes it
+        sharded["shard_stats"] = executor.shard_stats()
+        sharded["replica"] = executor
     return {
+        **sharded,
         "requests": len(done),
         "finished": len(finished),
         "spec_k": cfg.spec_k,

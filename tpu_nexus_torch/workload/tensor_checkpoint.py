@@ -163,35 +163,45 @@ class _Writer:
 
 
 class _Reader:
-    """Loads tensor files named by index nodes onto a device."""
+    """Loads tensor files named by index nodes onto a device.  With
+    ``leaf_fn(path, tensor)`` each file is mapped (not read whole) and the
+    function's result — a rank's slice — is what reaches the device."""
 
-    def __init__(self, step_dir: str) -> None:
+    def __init__(self, step_dir: str, leaf_fn: Any = None) -> None:
         self.step_dir = step_dir
+        self.leaf_fn = leaf_fn
 
-    def tensor(self, node: Dict[str, Any], device: Any) -> torch.Tensor:
+    def tensor(self, node: Dict[str, Any], device: Any, path: str = "") -> torch.Tensor:
         rel = os.path.normpath(node["tensor"])
         if os.path.isabs(rel) or rel.startswith(os.pardir):
             raise CheckpointCorrupt(f"{self.step_dir}: the index names a file outside the step: {node['tensor']!r}")
-        path = os.path.join(self.step_dir, rel)
-        t = torch.load(path, weights_only=True, map_location=torch.device(device))
+        file = os.path.join(self.step_dir, rel)
+        if self.leaf_fn is None:
+            t = torch.load(file, weights_only=True, map_location=torch.device(device))
+        else:
+            t = torch.load(file, weights_only=True, map_location="cpu", mmap=True)
         if not isinstance(t, torch.Tensor) or str(t.dtype).removeprefix("torch.") != node["dtype"] or list(
             t.shape
         ) != node["shape"]:
-            raise CheckpointCorrupt(f"{path} does not hold the {node['dtype']} {node['shape']} tensor its index names")
+            raise CheckpointCorrupt(f"{file} does not hold the {node['dtype']} {node['shape']} tensor its index names")
+        if self.leaf_fn is not None:
+            t = self.leaf_fn(path, t).to(device, copy=True)
         return t
 
-    def build(self, node: Dict[str, Any], device: Any) -> Any:
-        """A fresh object from an index node (template-free)."""
+    def build(self, node: Dict[str, Any], device: Any, path: str = "") -> Any:
+        """A fresh object from an index node (template-free); ``path`` is the
+        ``/``-joined key path of the node below the restored subtree."""
         if "tensor" in node:
-            return self.tensor(node, device)
+            return self.tensor(node, device, path)
         if "module" in node:
-            return _module_types()[node["module"]](self.build(node["tree"], device))
+            return _module_types()[node["module"]](self.build(node["tree"], device, path))
         if "dict" in node:
-            return {k: self.build(v, device) for k, v in node["dict"]}
+            return {k: self.build(v, device, f"{path}/{k}" if path else k) for k, v in node["dict"]}
         if "list" in node:
-            return [self.build(v, device) for v in node["list"]]
+            return [self.build(v, device, f"{path}/{i}" if path else str(i)) for i, v in enumerate(node["list"])]
         if "tuple" in node:
-            return tuple(self.build(v, device) for v in node["tuple"])
+            return tuple(self.build(v, device, f"{path}/{i}" if path else str(i))
+                         for i, v in enumerate(node["tuple"]))
         return node["value"]
 
 
@@ -471,7 +481,7 @@ class TensorCheckpointer:
 
         return fill(index["tree"], state_like)
 
-    def restore_params(self, step: Optional[int] = None, device: Any = "cuda") -> Any:
+    def restore_params(self, step: Optional[int] = None, device: Any = "cuda", leaf_fn: Any = None) -> Any:
         """Template-free restore of the ``params`` subtree only, onto
         ``device`` (``cuda`` by default, like every entry point; no card
         raises, never falls back to the CPU).
@@ -480,7 +490,10 @@ class TensorCheckpointer:
         opt-state structure: the saved index names the params' module
         class, and only the params' tensor files are read.  Same
         verify-first contract as :meth:`restore`: every file of the step
-        is checksummed before any is loaded."""
+        is checksummed before any is loaded.  ``leaf_fn(path, tensor)``
+        (one rank of a sharded replica) maps each tensor file and cuts it
+        (``path`` like ``layers/wq``) before its slice is copied to
+        ``device``: the rank reads only its part."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -491,7 +504,16 @@ class TensorCheckpointer:
         params = dict(tree.get("dict", ())).get("params")
         if params is None:
             raise CheckpointCorrupt(f"{self.step_dir(step)}: the saved tree holds no 'params'")
-        return _Reader(self.step_dir(step)).build(params, device)
+        return _Reader(self.step_dir(step), leaf_fn).build(params, device)
+
+    def params_ref(self, step: int) -> Any:
+        """Verify ``step`` and name it for the ranks of a sharded replica
+        (``serving/sharded.py::CheckpointParams``): each reads its own
+        slice, so no process holds the whole tree."""
+        from tpu_nexus_torch.serving.sharded import CheckpointParams
+
+        step = self._resolve_step(step)
+        return CheckpointParams(self.directory, step)
 
     def step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))

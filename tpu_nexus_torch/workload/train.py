@@ -54,7 +54,7 @@ class TrainConfig:
     ce_chunk: int = 256
     #: pipeline microbatches and sequence-parallel attention of the
     #: reference's multi-device step; this slice trains on one device and
-    #: refuses non-defaults (ROADMAP.md A6)
+    #: refuses non-defaults (ROADMAP.md A6b)
     pp_microbatches: int = 0
     sp_attn: str = "ring"
     #: optimizer family / state precision:
