@@ -129,12 +129,12 @@ raises and exits non-zero:
    COMPLETED, tokens/s, TTFT/TPOT p50/p99, prefix hits and kernel #4's
    launches by mode (paged > 0 in (b) and (c), ragged > 0 in (c)).
 18. train_ckpt  — tensor checkpoints through ``run_workload`` on nexus_1b at
-   full width and depth (bf16, adamw, remat attn_out, batch 8, seq 2048) in
+   full width, 4 of its 14 layers (bf16, adamw, remat attn_out, batch 8, seq 2048) in
    a temporary directory: 12 steps uninterrupted; checkpoint_every 4 and
    cancelled after step 6 (PREEMPTED, emergency save at 6); resumed from 6
    to COMPLETED at 12; step 12 bit-flipped and restarted (rolled back to 8,
    ``12.corrupt``).  Resumed per-step losses equal the uninterrupted run's
-   bit for bit; 14 launches a step of each flash kernel; the bytes and
+   bit for bit; a launch a layer and step of each flash kernel; the bytes and
    seconds of every save, commit and verified restore.
 19. serve_reload — ``run_serving`` on nexus_1b from that directory restores
    step 12 (equal to the resumed run's params in memory, and its greedy
@@ -151,13 +151,13 @@ raises and exits non-zero:
    cause.
 21. disagg       — llama3_8b at full width and depth (bf16 params), one
    prefill and two decode replicas on one params tree, bf16 KV and int8
-   KV: 24 requests of the reference's long-prompt / long-generation mix,
+   KV: 8 requests of the reference's long-prompt / long-generation mix,
    each prefilled, handed through the host and installed: tokens equal a
-   fused engine's, 24 handoffs, 0 fallbacks (uninstrumented: tokens/s
+   fused engine's, 8 handoffs, 0 fallbacks (uninstrumented: tokens/s
    and launches); payload bytes and extract / seal / validate / install
    ms per handoff from a separate timed run; then ``handoff-drop`` and
    ``kill-mid-handoff`` drills (the retry, the hop, no silent drop).
-22. fleet_rollout — nexus_1b (bf16), three paged replicas rolled from step
+22. fleet_rollout — nexus_1b (bf16, 4 of 14 layers), three paged replicas rolled from step
    1 to step 2 through ``CheckpointWatcher`` + ``start_rollout`` while 24
    requests are in flight: converged, every request FINISHED on one step's
    own tokens, post-swap tokens step 2's own; a step 3 flipped between
@@ -222,7 +222,7 @@ raises and exits non-zero:
    gloo under the explicit one-device rehearsal map (``nvidia-smi -L``
    names the cards; which collectives gloo takes on CUDA tensors is
    probed first, and the seam's must be among them). (a) llama3_8b at
-   full width and depth, bf16, page 32, 8 slots, 24 requests of 128 + 32
+   full width and depth, bf16, page 32, 8 slots, 8 requests of 128 + 32
    through ``run_serve_engine`` with ``serve_mesh="tp=2"``: COMPLETED,
    per-rank launches of #1 and #4 paged and peak memory, tokens/s and TPOT
    p50 (two ranks sharing one card through host memory: not a
@@ -240,6 +240,24 @@ raises and exits non-zero:
    serve-engine container (nexus_1b) whose worker is killed (exit
    non-zero, row FAILED); then #5/#6 at every rank shape against plain
    (ring, twice bit-identical) and #1, #4 paged, #5, #6 timed there.
+30. train_sharded — parallel training (``parallel/{mesh,collectives,ring,
+   ulysses}.py``, ``workload/train.py``'s ``Layout``): ranks on cuda:0 over
+   gloo under the rehearsal map, the collectives gloo refuses on CUDA
+   tensors probed and staged through host memory (the probe and (b) run
+   while (a)'s containers do). (b) nexus_1b at 4 of 14
+   layers in f32: fsdp 2, tp 2, sp 2 ring, sp 2 Ulysses and fsdp 2 x tp 2
+   each match the one-device step (loss and grad norm within 1e-5
+   relative, the gradients within 1e-5 x max|ref|); (a) the main
+   path: two ``python -m tpu_nexus_torch.workload`` containers
+   (``NEXUS_NUM_PROCESSES=2``, the default mesh: fsdp over both) train
+   nexus_1b at full width and depth, bf16, 6 steps of 8 x 2048 with a save
+   at the last: ledger COMPLETED with ``host0/chip0`` and ``host1/chip0``,
+   #1-#3 launched 14 a step on each rank, step 1's loss against one
+   device's, the collectives and bytes a step, peak memory, tokens/s (a
+   rehearsal), and the saved step restored onto fsdp 2 equal leaf for
+   leaf to its one-device restore; (c) #1-#3 at the rank shapes (fsdp 2
+   B4 S2048, the ring's B8 S1024 diagonal and off-diagonal blocks,
+   Ulysses' B8 S2048 Hq8 Hkv4) against plain, twice bit-identical, timed.
 
 Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
@@ -289,7 +307,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe",
           "train_ckpt", "serve_reload", "fleet", "disagg", "fleet_rollout", "serve_moe_quant", "quant_gate",
-          "profile_hook", "control_plane", "fleet_supervisor", "cql_ledger", "serve_sharded")
+          "profile_hook", "control_plane", "fleet_supervisor", "cql_ledger", "serve_sharded", "train_sharded")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
           "quant_rms_times", "int4_probe", "int8_probe", "ckpt_probe")
@@ -1226,7 +1244,7 @@ def phase_train_e2e(results):
     class DenseAttentionAdapter(LlamaAdapter):
         """LlamaAdapter whose loss runs the model on dense attention."""
 
-        def make_loss(self, train_cfg):
+        def make_loss(self, train_cfg, mesh=None, rules=None):
             def loss_fn(params, tokens):
                 hidden = llama_hidden(params, tokens, self.config, attn_impl="plain")
                 return chunked_next_token_loss(hidden, llama_head(params, self.config), tokens,
@@ -1951,7 +1969,7 @@ def phase_moe_train_e2e(results):
     class PlainMoeAdapter(MoeAdapter):
         """MoeAdapter whose loss runs dense attention."""
 
-        def make_loss(self, train_cfg):
+        def make_loss(self, train_cfg, mesh=None, rules=None):
             cfg = self.config
 
             def loss_fn(params, tokens):
@@ -2169,6 +2187,9 @@ def phase_serve_moe_quant(results):
 #: for these steps, then both gates' measurements with the decode gate over
 #: QUANT_GATE_DECODE batches of 8 x QUANT_GATE_DECODE_SEQ tokens
 QUANT_GATE_STEPS = 100
+#: held-out batches of the forward gates (32 x 2048 tokens each), cut from
+#: the gate tool's 8 for the script's time
+QUANT_GATE_EVAL = 4
 QUANT_GATE_DECODE = 1
 QUANT_GATE_DECODE_SEQ = 256
 
@@ -2201,7 +2222,7 @@ def phase_quant_gate(results):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        sizes = dict(decode_batches=QUANT_GATE_DECODE, decode_seq=QUANT_GATE_DECODE_SEQ)
+        sizes = dict(eval_batches=QUANT_GATE_EVAL, decode_batches=QUANT_GATE_DECODE, decode_seq=QUANT_GATE_DECODE_SEQ)
         lines = [dict(line, gate="int8") for line in gate8.measure(params, tier, path, device, QUANT_GATE_STEPS,
                                                                       **sizes)]
         lines += [dict(line, gate="int4") for line in gate4.measure(params, tier, path, device, QUANT_GATE_STEPS,
@@ -3676,16 +3697,21 @@ def timed_checkpoints(events, label):
             setattr(TensorCheckpointer, name, fn)
 
 
+#: the layers of nexus_1b (of 14) that train_ckpt and serve_reload run
+CKPT_LAYERS = 4
+
+
 def phase_train_ckpt(results):
     """Tensor checkpoints through ``run_workload`` on nexus_1b at full width
-    and depth (bf16, adamw, remat attn_out, batch 8, seq 2048) into a
+    and :data:`CKPT_LAYERS` of its 14 layers (bf16, adamw, remat attn_out,
+    batch 8, seq 2048) into a
     temporary directory: A — 12 steps, no checkpoints; B — checkpoint_every
     4, cancelled after step 6 (PREEMPTED, emergency save at 6); C — the
     same directory, resumed from 6, COMPLETED at 12; D — a byte of step
     12's first tensor file flipped, then a restart: rolled back to 8
     (``ckpt_rollback``, ``12.corrupt``), COMPLETED at 12 again.  Per-step
     losses of B, C and D must equal A's bit for bit, and each run launch
-    the flash forward, dQ and dK/dV kernels 14 times a step.  Prints the
+    the flash forward, dQ and dK/dV kernels once a layer and step.  Prints the
     bytes and host seconds of every save, commit and verified restore.
     C's final params stay in memory for serve_reload, which removes the
     directory."""
@@ -3717,7 +3743,9 @@ def phase_train_ckpt(results):
                 self.losses.append(value)
 
     torch.cuda.empty_cache()
-    model = LlamaConfig.nexus_1b()
+    # full width, CKPT_LAYERS of nexus_1b's 14 layers: the saves and
+    # verified restores are most of the phase's time
+    model = dataclasses.replace(LlamaConfig.nexus_1b(), n_layers=CKPT_LAYERS)
     adapter = LlamaAdapter(config=model)
     steps, batch, seq = 12, 8, 2048
     directory = tempfile.mkdtemp(prefix="nexus-ckpt-")
@@ -3805,7 +3833,7 @@ def phase_train_ckpt(results):
         "D_vs_A_9_12": max((abs(x - y) for x, y in zip(d["losses"], a["losses"][8:])), default=None),
     }
     ckpt_c = c["checkpoint_bucket_s"]
-    emit("train_ckpt", config="nexus_1b full width and depth, bf16 params, adamw, remat attn_out",
+    emit("train_ckpt", config=f"nexus_1b full width, {CKPT_LAYERS} of 14 layers, bf16 params, adamw, remat attn_out",
          batch=batch, seq=seq, steps=steps, runs=runs, losses_max_abs_diff=mismatch,
          flipped=os.path.relpath(flipped, directory), checkpoint_events=events,
          checkpoint_share_of_run_C=ckpt_c / c["goodput_elapsed_s"] if ckpt_c is not None else None,
@@ -3900,7 +3928,8 @@ def phase_ckpt_probe(results):
 
 
 def phase_serve_reload(results):
-    """Serving from train_ckpt's directory on nexus_1b (bf16): (1)
+    """Serving from train_ckpt's directory on nexus_1b (bf16, train_ckpt's
+    :data:`CKPT_LAYERS` layers): (1)
     ``run_serving`` (batch 8, prompt 128, 32 new tokens, 2 rounds) restores
     the newest verified step, 12, whose params equal C's final params in
     memory bit for bit, and each greedy round's tokens equal ``generate``
@@ -4255,15 +4284,19 @@ def _disagg_mix(vocab, n, seed):
     return out
 
 
+#: disagg's requests (the reference's mix, cut from 24 for the script's time)
+DISAGG_REQUESTS = 8
+
+
 def phase_disagg(results):
     """Disaggregated serving of llama3_8b at full width and depth (bf16
     params), one prefill and two decode replicas sharing one params tree,
-    page 32; bf16 KV, then an int8 KV cache.  24 requests of the
-    reference's mix (:func:`_disagg_mix`) are submitted at once: each
+    page 32; bf16 KV, then an int8 KV cache.  :data:`DISAGG_REQUESTS` requests
+    of the reference's mix (:func:`_disagg_mix`) are submitted at once: each
     prefills on the prefill replica, its KV blocks cross to the host,
     sealed, and install on a decode replica.  Tokens equal a fused engine's
     of the decode replicas' geometry on the same prompts;
-    ``handoffs_completed`` is 24 and ``disagg_fallbacks`` 0; this run is
+    ``handoffs_completed`` is one a request and ``disagg_fallbacks`` 0; this run is
     uninstrumented, as the fused engine's is, and gives the tokens/s and
     the kernel counts.  A timed run of the same prompts (4 new tokens
     each) gives the payload bytes and the extract / seal / validate /
@@ -4286,7 +4319,7 @@ def phase_disagg(results):
     torch.cuda.empty_cache()
     model = dataclasses.replace(LlamaConfig.llama3_8b(), param_dtype=torch.bfloat16)
     params = llama_init(torch.Generator(device="cuda").manual_seed(0), model, device="cuda")
-    mix = _disagg_mix(model.vocab_size, 24, seed=5)
+    mix = _disagg_mix(model.vocab_size, DISAGG_REQUESTS, seed=5)
     page, decode_slots, max_len = 32, 12, 224
 
     def executor(kv_quant, slots):
@@ -4432,7 +4465,8 @@ def phase_disagg(results):
 
 def phase_fleet_rollout(results):
     """A zero-drop rolling update of three replicas of nexus_1b at full
-    width and depth (bf16, paged, page 32, 4 slots): steps 1 and 2 (seeds
+    width, :data:`CKPT_LAYERS` of its 14 layers (bf16, paged, page 32, 4
+    slots): steps 1 and 2 (seeds
     1 and 2) are committed with ``TensorCheckpointer`` into a temporary
     directory, the replicas start on step 1's restored params, 24 requests
     are submitted (12 decoding, 12 queued), step 2 is committed while they
@@ -4456,7 +4490,7 @@ def phase_fleet_rollout(results):
     from tpu_nexus_torch.workload.tensor_checkpoint import TensorCheckpointer
 
     torch.cuda.empty_cache()
-    model = LlamaConfig.nexus_1b()
+    model = dataclasses.replace(LlamaConfig.nexus_1b(), n_layers=CKPT_LAYERS)  # its commits and restores: depth
     prompt_len, new, page, slots = 128, 32, 32, 4
     directory = tempfile.mkdtemp(prefix="nexus-rollout-")
     try:
@@ -5329,7 +5363,7 @@ def _paged_launches(stats) -> int:
 
 
 def sharded_main_path(results, pool, out):
-    """(a) llama3_8b bf16 at full width and depth, page 32, 8 slots, 24
+    """(a) llama3_8b bf16 at full width and depth, page 32, 8 slots, 8
     requests of prompt 128 and 32 new tokens: the one-device paged engine
     first (its tokens and teacher-forced logits kept on the host, and the
     logits of an f32 evaluation of the same weights along that stream), then
@@ -5351,7 +5385,7 @@ def sharded_main_path(results, pool, out):
     from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
 
     model = SHARDED_MODELS["llama3_8b"]()
-    prompts, gen = _requests(model.vocab_size, 24, SHARDED_PROMPT, seed=17), 32
+    prompts, gen = _requests(model.vocab_size, 8, SHARDED_PROMPT, seed=17), 32
     params = llama_init(torch.Generator(device=SHARDED_DEVICE).manual_seed(0), model, device=SHARDED_DEVICE)
     one = PagedModelExecutor(params, model, num_slots=8, max_len=SHARDED_PROMPT + 32,
                              page_size=32)
@@ -5365,22 +5399,21 @@ def sharded_main_path(results, pool, out):
     del one, params
     torch.cuda.empty_cache()
 
-    cfg = ServeConfig(model=model, batch_size=8, prompt_len=SHARDED_PROMPT, gen_tokens=gen, rounds=3, device=SHARDED_DEVICE,
+    cfg = ServeConfig(model=model, batch_size=8, prompt_len=SHARDED_PROMPT, gen_tokens=gen, rounds=1, device=SHARDED_DEVICE,
                       page_size=32, serve_mesh="tp=2", rank_map="shared")
     store = InMemoryCheckpointStore()
     ctx = ProcessContext(run_id="serve_sharded", algorithm="serve", process_id=0, num_processes=1, coordinator=None)
     pool.reset_counts()
     t0 = time.perf_counter()
-    summary = run_serve_engine(cfg, store=store, ctx=ctx, prompts=iter([prompts[:8], prompts[:8], prompts[8:16],
-                                                                        prompts[16:]]), pool=pool)
+    summary = run_serve_engine(cfg, store=store, ctx=ctx, prompts=iter([prompts[:8], prompts[:8]]), pool=pool)
     wall = time.perf_counter() - t0
     row = store.read_checkpoint("serve", "serve_sharded")
     stats = summary["shard_stats"]
-    if row is None or row.lifecycle_stage != LifecycleStage.COMPLETED or summary["finished"] != 24:
-        raise AssertionError(f"serve_sharded: row {row and row.lifecycle_stage}, {summary['finished']} of 24 finished")
+    if row is None or row.lifecycle_stage != LifecycleStage.COMPLETED or summary["finished"] != 8:
+        raise AssertionError(f"serve_sharded: row {row and row.lifecycle_stage}, {summary['finished']} of 8 finished")
     per_rank = _rank_launches(stats)
     for rank, counts in enumerate(per_rank):
-        if counts["flash_attention"] < model.n_layers * 24 or not _paged_launches([stats[rank]]):
+        if counts["flash_attention"] < model.n_layers * 8 or not _paged_launches([stats[rank]]):
             raise AssertionError(f"serve_sharded: rank {rank} launched {counts}")
     results.setdefault("launches", {})["serve_sharded"] = {
         "flash_attention": sum(c["flash_attention"] for c in per_rank),
@@ -5403,7 +5436,7 @@ def sharded_main_path(results, pool, out):
     per_step = {name: {"calls": n / timed_steps, "bytes": coll["bytes"][name] / timed_steps,
                        "ms": 1e3 * coll["seconds"].get(name, 0.0) / timed_steps} for name, n in coll["calls"].items()}
     out["a"] = dict(
-        config="llama3_8b full width and depth, bf16, page 32, 8 slots, 24 requests x (128 + 32)",
+        config="llama3_8b full width and depth, bf16, page 32, 8 slots, 8 requests x (128 + 32)",
         stage=row.lifecycle_stage, finished=summary["finished"], wall_s=wall,
         decoded_tokens_per_second=summary["decoded_tokens_per_second"], tpot_p50_s=summary["tpot_p50_s"],
         ttft_p50_s=summary["ttft_p50_s"], engine_steps=summary["engine_steps"], launches_per_rank=per_rank,
@@ -5851,6 +5884,357 @@ def phase_serve_sharded(results):
     sharded_times(results)
 
 
+# -- train_sharded ---------------------------------------------------------------
+
+#: the main path's steps and the exact meshes of part (b)
+TRAIN_SHARDED_STEPS = 6
+TRAIN_SHARDED_EXACT = (({"fsdp": 2}, "ring"), ({"tp": 2}, "ring"), ({"sp": 2}, "ring"), ({"sp": 2}, "ulysses"),
+                       ({"fsdp": 2, "tp": 2}, "ring"))
+#: (b)'s depth and global batch
+TRAIN_SHARDED_EXACT_LAYERS, TRAIN_SHARDED_EXACT_BATCH = 4, (4, 1024)
+#: the rank shapes of part (c): (label, B, S, Hq, Hkv, causal)
+TRAIN_SHARDED_RANK_SHAPES = (("fsdp2", 4, 2048, 16, 8, True), ("ring_sp2_diagonal", 8, 1024, 16, 8, True),
+                             ("ring_sp2_offdiagonal", 8, 1024, 16, 8, False), ("ulysses_sp2", 8, 2048, 8, 4, True))
+
+
+def _summary_of(stderr):
+    """The ``workload done: {...}`` dict a container logs (a Python literal)."""
+    import ast
+
+    m = re.search(r"workload done: (\{.*\})\s*$", stderr, re.M)
+    return ast.literal_eval(m.group(1)) if m else None
+
+
+def _step_losses(stderr):
+    return {int(m.group(1)): float(m.group(2)) for m in re.finditer(r"\bstep (\d+) loss ([0-9.eE+-]+|nan)", stderr)}
+
+
+def sharded_train_main_path(results, tmp, out, beside=None):
+    """(a) Two containers, ``python -m tpu_nexus_torch.workload`` with
+    ``NEXUS_NUM_PROCESSES=2`` and the default mesh (fsdp over both ranks),
+    both on cuda:0 under the rehearsal map over gloo: nexus_1b at full width
+    and depth, bf16, adamw, remat attn_out, global batch 8 x 2048,
+    :data:`TRAIN_SHARDED_STEPS` steps, an sqlite ledger and a save at the
+    last step.  Checks: the row COMPLETED with host0/chip0 and host1/chip0
+    at the last step; #1-#3 launched 14 times a step on each rank; step 1's
+    loss against the one-device step on the same weights and global batch,
+    no farther from the f32 evaluation of those weights than the one-device
+    bf16 step (or 1e-3 of it); a one-device restore of the saved step equal,
+    leaf for leaf, to the state the fsdp-2 ranks restore and gather.  Also:
+    each rank's collectives and bytes a step, peak memory and tokens/s (a
+    rehearsal: two ranks share one card).  ``beside()`` and the one-device
+    step run while the containers do (their traffic is host-bound: the card
+    has room)."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import CheckpointedRequest, LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import SqliteCheckpointStore
+    from tpu_nexus_torch.models.llama import LlamaConfig
+    from tpu_nexus_torch.models.registry import LlamaAdapter
+    from tpu_nexus_torch.parallel.distributed import free_port
+    from tpu_nexus_torch.workload.rehearsal import RankWorld
+    from tpu_nexus_torch.workload.train import TrainConfig, init_train_state, make_eval_step, make_train_step
+
+    steps, batch, seq = TRAIN_SHARDED_STEPS, 8, 2048
+    model = LlamaConfig.nexus_1b()
+    adapter = LlamaAdapter(config=model)
+    tc = TrainConfig(warmup_steps=10, total_steps=steps)
+
+    def one_device_step1():
+        """Step 1's loss on one device (the same seed's weights, the global
+        batch the two processes drew: rows mode, process p its 4 rows with
+        seed p) and the f32 evaluation of those weights on that batch."""
+        global_batch = np.concatenate([next(adapter.data(batch // 2, seq, seed=p)) for p in range(2)])
+        tokens = torch.from_numpy(global_batch).long().cuda()
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0), adapter, tc, "cuda")
+        f32 = make_eval_step(LlamaAdapter(config=dataclasses.replace(model, dtype=torch.float32)), tc)(state, tokens)
+        _, one = make_train_step(adapter, tc)(state, tokens)
+        out = float(one["loss"]), float(f32["loss"])
+        del state, one, f32, tokens
+        torch.cuda.empty_cache()
+        return out
+
+    ledger, ckpt = os.path.join(tmp, "ledger.db"), os.path.join(tmp, "ckpt")
+    env = {**{k: v for k, v in os.environ.items() if not k.startswith("NEXUS")},
+           "NEXUS_MODE": "train", "NEXUS_MODEL_PRESET": "nexus_1b", "NEXUS_BATCH": str(batch),
+           "NEXUS_SEQ_LEN": str(seq), "NEXUS_STEPS": str(steps), "NEXUS_HEARTBEAT_EVERY": "1",
+           "NEXUS_CHECKPOINT_EVERY": str(steps), "NEXUS_CHECKPOINT_DIR": ckpt, "NEXUS_NUM_PROCESSES": "2",
+           "NEXUS_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}", "NEXUS_RANK_DEVICE_MAP": "shared",
+           "NEXUS_RUN_ID": "train-sharded", "NEXUS_ALGORITHM": "nexus-1b", "NEXUS_DIST_TIMEOUT_S": "600",
+           "NEXUS__CQL_STORE_TYPE": "sqlite", "NEXUS__SQLITE_STORE_PATH": ledger}
+    # the launcher's order: the run's row first (BUFFERED), then its
+    # containers (two processes opening a new sqlite ledger at once race on
+    # its journal mode)
+    seed_store = SqliteCheckpointStore(ledger)
+    seed_store.upsert_checkpoint(CheckpointedRequest(algorithm="nexus-1b", id="train-sharded",
+                                                     lifecycle_stage=LifecycleStage.BUFFERED))
+    seed_store.close()
+    t0 = time.perf_counter()
+    logs = [os.path.join(tmp, f"container{i}.err") for i in range(2)]
+    procs = []
+    try:
+        for i in range(2):
+            with open(logs[i], "w") as fh:  # a file: a full pipe would stall a container while beside() runs
+                procs.append(subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"], cwd=ROOT,
+                                              env={**env, "NEXUS_PROCESS_ID": str(i)}, stdout=subprocess.DEVNULL,
+                                              stderr=fh))
+        # the containers' rendezvous port was free when drawn: the work
+        # beside them draws its own ports only once theirs is bound (the
+        # coordinator logs its mesh after joining the group)
+        while "rank 0 of mesh" not in Path(logs[0]).read_text() and time.perf_counter() - t0 < 300:
+            if any(p.poll() is not None for p in procs):
+                break
+            time.sleep(0.5)
+        if beside is not None:
+            beside()
+        one_loss, f32_loss = one_device_step1()
+        beside_s = time.perf_counter() - t0
+        for p in procs:
+            p.wait(timeout=900)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    errs = [Path(log).read_text() for log in logs]
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("train_sharded (a): containers exited " + ", ".join(
+            f"{i}: {p.returncode}\n{err[-3000:]}" for i, (p, err) in enumerate(zip(procs, errs))))
+    summaries = [_summary_of(e) for e in errs]
+    peaks = [int(m.group(1)) if (m := re.search(r"peak device memory: (\d+) bytes", e)) else None for e in errs]
+    row = SqliteCheckpointStore(ledger).read_checkpoint("nexus-1b", "train-sharded")
+    launches = [s["attention_launches"] for s in summaries]
+    n_layers = model.n_layers
+    losses = [_step_losses(e) for e in errs]
+
+    sharded_loss = losses[0].get(1)
+    allowed = max(1.25 * abs(one_loss - f32_loss), 1e-3 * abs(f32_loss))
+
+    # the saved step: restored onto fsdp 2 (each rank its slices, gathered
+    # whole) and onto one device, leaf for leaf
+    with RankWorld(2, device=SHARDED_DEVICE, timeout_s=600) as world:
+        restored = world.run("tpu_nexus_torch.workload.rehearsal:restore_on_mesh", directory=ckpt, step=steps,
+                             spec={"fsdp": 2}, model=adapter, train_cfg=tc, device=SHARDED_DEVICE)[0]
+    torch.cuda.empty_cache()
+    per_step = [{name: {"calls": s["collectives"]["calls"][name] / steps,
+                        "bytes": s["collectives"]["bytes"][name] / steps} for name in s["collectives"]["calls"]}
+                for s in summaries]
+    out["a"] = dict(
+        config=f"nexus_1b full width and depth, bf16, adamw, remat attn_out, global batch {batch} x {seq}, "
+               f"{steps} steps, fsdp 2 over 2 container processes (default mesh)",
+        stage=row.lifecycle_stage if row else None, per_chip_steps=row.per_chip_steps if row else None,
+        tensor_checkpoint_uri=row.tensor_checkpoint_uri if row else None, wall_s=wall,
+        beside_s=beside_s, beside_is="the probe, (b) and the one-device step ran on the card during this much of it",
+        launches_per_rank=launches, staged=summaries[0]["collectives"]["staged"],
+        collectives_per_step_per_rank=per_step, peak_memory_per_rank=peaks,
+        losses_per_rank=[[v for _, v in sorted(x.items())] for x in losses],
+        step1_loss=dict(sharded=sharded_loss, one_device=one_loss, f32_evaluation=f32_loss, allowed=allowed),
+        restore=restored,
+        tokens_per_second_rehearsal=summaries[0]["tokens_per_second"],
+        tokens_per_second_is="two ranks sharing one card over gloo (the rehearsal map), not a data-parallel speed",
+        mfu_rehearsal=summaries[0].get("goodput", {}).get("mfu"),
+    )
+    emit("train_sharded", part="a", **out["a"])
+    if row is None or row.lifecycle_stage != LifecycleStage.COMPLETED or row.per_chip_steps != {
+            "host0/chip0": steps, "host1/chip0": steps}:
+        raise AssertionError(f"train_sharded (a): row {row and row.lifecycle_stage} {row and row.per_chip_steps}")
+    if any(n != n_layers * steps for counts in launches for n in counts.values()):
+        raise AssertionError(f"train_sharded (a): launches {launches} != {n_layers} x {steps} a rank")
+    if sharded_loss is None or losses[0] != losses[1] or abs(sharded_loss - f32_loss) > allowed:
+        raise AssertionError(f"train_sharded (a): step-1 loss {out['a']['step1_loss']}, ranks {losses}")
+    if restored is None or restored["differ"] or restored["leaves"] == 0:
+        raise AssertionError(f"train_sharded (a): restores differ: {restored}")
+    results.setdefault("launches", {})["train_sharded"] = {k: sum(c[k] for c in launches) for k in launches[0]}
+
+
+def sharded_train_exact(results, world, staged, out):
+    """(b) nexus_1b at full width and :data:`TRAIN_SHARDED_EXACT_LAYERS` of
+    14 layers in f32 (global batch :data:`TRAIN_SHARDED_EXACT_BATCH`) at each
+    mesh of :data:`TRAIN_SHARDED_EXACT` against one device: one adamw step
+    from the seed's init with a one-step warmup, so it (lr 0) leaves the
+    weights and fills Adam's first moment with (1 - b1) x the clipped
+    gradient.  Gated: the loss and grad norm within 1e-5 relative, every
+    leaf's first moment (the sharded gradient) within 1e-5 x its max-abs.
+    The parameters after an update are not held to that: Adam divides a
+    gradient element by its own magnitude, so the rounding noise of an
+    element that cancels to ~0 moves it by up to 2·lr in any two programs
+    that sum in another order (ROADMAP.md queue C)."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.models.llama import LlamaConfig
+    from tpu_nexus_torch.workload.train import TrainConfig
+
+    model = dataclasses.replace(LlamaConfig.nexus_1b(), n_layers=TRAIN_SHARDED_EXACT_LAYERS, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    b, s = TRAIN_SHARDED_EXACT_BATCH
+    rng = np.random.default_rng(31)
+    batches = [rng.integers(0, model.vocab_size, (b, s)).astype(np.int32)]
+    job = "tpu_nexus_torch.workload.rehearsal:train_steps"
+    common = dict(model=model, batches=batches, device=SHARDED_DEVICE, stage=staged)
+    t0 = time.perf_counter()
+    ref = world.run(job, spec={}, train_cfg=TrainConfig(warmup_steps=1, total_steps=4), reference="keep",
+                    **common)[0]
+    rows = []
+    for spec, attn in TRAIN_SHARDED_EXACT:
+        t1 = time.perf_counter()
+        got = world.run(job, spec=spec, train_cfg=TrainConfig(warmup_steps=1, total_steps=4, sp_attn=attn),
+                        reference="compare", **common)[0]
+        worst_grad = max(err / scale for err, scale in got["first_moments"].values() if scale)
+        ok = (all(abs(x - y) <= 1e-5 * abs(y) for x, y in zip(got["loss"], ref["loss"]))
+              and all(abs(x - y) <= 1e-5 * abs(y) for x, y in zip(got["grad_norm"], ref["grad_norm"]))
+              and worst_grad <= 1e-5)
+        rows.append(dict(mesh=spec, sp_attn=attn, loss=got["loss"], grad_norm=got["grad_norm"],
+                         worst_gradient_err_over_max=worst_grad, ok=ok, seconds=time.perf_counter() - t1, collectives_calls=got["collectives"]["calls"]))
+        torch.cuda.empty_cache()
+    out["b"] = dict(config=f"nexus_1b full width, {TRAIN_SHARDED_EXACT_LAYERS} of 14 layers, f32, adamw, "
+                           f"global batch {b} x {s}, 1 step (warmup 1: lr 0)",
+                    one_device=dict(loss=ref["loss"], grad_norm=ref["grad_norm"]), meshes=rows,
+                    seconds=time.perf_counter() - t0)
+    emit("train_sharded", part="b", **out["b"])
+    failed = [r for r in rows if not r["ok"]]
+    if failed:
+        raise AssertionError(f"train_sharded (b): meshes differ from one device in f32: {failed}")
+
+
+def sharded_train_rank_shapes(results, out):
+    """(c) Kernels #1-#3 at the rank shapes of the parallel training meshes
+    (:data:`TRAIN_SHARDED_RANK_SHAPES`, bf16, D 128): each against its plain
+    version (the forward at the parity phase's bf16 limits, the backward at
+    train_parity's), each run twice bit-identical, then timed beside its
+    bound, its plain version and ``scaled_dot_product_attention`` (forward;
+    its backward for the backward kernels)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_nexus_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+        flash_bwd_qt,
+        flash_dsum,
+    )
+
+    dt, d = torch.bfloat16, 128
+    rows = {}
+    for label, b, s, hq, hkv, causal in TRAIN_SHARDED_RANK_SHAPES:
+        q, k, v, o, lse, dout = bwd_inputs(b, s, hq, hkv, d, dt, causal, seed=4100)
+        again, lse2 = flash_attention(q, k, v, causal=causal)
+        ref_o, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+        dsum, qt = flash_dsum(o, dout), flash_bwd_qt(q, d**-0.5)
+        dq = flash_attention_bwd_dq(q, k, v, dout, lse, dsum, causal=causal, qt=qt)
+        dq2 = flash_attention_bwd_dq(q, k, v, dout, lse, dsum, causal=causal, qt=qt)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, dsum, causal=causal, qt=qt)
+        dk2, dv2 = flash_attention_bwd_dkv(q, k, v, dout, lse, dsum, causal=causal, qt=qt)
+        torch.cuda.synchronize()
+        rdq, rdk, rdv = flash_attention_bwd_plain(q, k, v, o, lse, dout, causal=causal)
+        fwd_err = max_err(o, ref_o)
+        bwd_errs = {n: (max_err(a, r), float(r.float().abs().max()), row_rel_err(a, r, BWD_ROW_FLOOR))
+                    for n, a, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv))}
+        identical = all(torch.equal(x, y) for x, y in ((o, again), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)))
+        ok = (identical and fwd_err <= TOL["bfloat16"][0] and max_err(lse, ref_lse) <= TOL["bfloat16"][1]
+              and all(e <= BWD_BF16_MAXABS_REL * m and r <= ROW_REL_TOL for e, m, r in bwd_errs.values()))
+        sets = [bwd_inputs(b, s, hq, hkv, d, dt, causal, seed=4200 + i) for i in range(2)]
+        pre = [(flash_dsum(x[3], x[5]), flash_bwd_qt(x[0], d**-0.5)) for x in sets]
+        lib_fwd, lib_bwd = [], []
+        for x in sets:
+            ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in x[:3])
+            lib_fwd.append(lambda x=(ql, kl, vl): F.scaled_dot_product_attention(*x, is_causal=causal,
+                                                                                  enable_gqa=True))
+            lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
+            lib_bwd.append(lambda lo=lo, g=x[5].transpose(1, 2), leaves=(ql, kl, vl): torch.autograd.grad(
+                lo, leaves, g, retain_graph=True))
+        fb, fby = flash_bound(b, s, hq, hkv, d, dt, causal)
+        qb, qby = bwd_bound(b, s, hq, hkv, d, dt, 2, "dq", causal)
+        kb, kby = bwd_bound(b, s, hq, hkv, d, dt, 3, "dkv", causal)
+        fwd_ms, fwd_enq = timed([lambda x=x: flash_attention(*x[:3], causal=causal) for x in sets], iters=20)
+        dq_ms, dq_enq = timed([lambda x=x, p=p: flash_attention_bwd_dq(x[0], x[1], x[2], x[5], x[4], p[0],
+                                                                        causal=causal, qt=p[1])
+                               for x, p in zip(sets, pre)], iters=20)
+        dkv_ms, dkv_enq = timed([lambda x=x, p=p: flash_attention_bwd_dkv(x[0], x[1], x[2], x[5], x[4], p[0],
+                                                                          causal=causal, qt=p[1])
+                                 for x, p in zip(sets, pre)], iters=20)
+        plain_fwd = cuda_ms([lambda x=sets[0]: flash_attention_plain(*x[:3], causal=causal)], iters=3, warmup=1)
+        plain_bwd = cuda_ms([lambda x=sets[0]: flash_attention_bwd_plain(*x, causal=causal)], iters=3, warmup=1)
+        lib_f, lib_b = cuda_ms(lib_fwd, iters=20), cuda_ms(lib_bwd, iters=20)
+        shape = [b, s, hq, hkv, d]
+        rows[label] = {
+            "flash_attention": dict(shape=shape, causal=causal, ms=fwd_ms, enqueue_ms=fwd_enq, bound_ms=fb,
+                                    bound_by=fby, plain_ms=plain_fwd, library_ms=lib_f, max_abs_err=fwd_err),
+            "flash_attention_bwd_dq": dict(shape=shape, causal=causal, ms=dq_ms, enqueue_ms=dq_enq, bound_ms=qb,
+                                           bound_by=qby, plain_ms=plain_bwd, library_ms=lib_b,
+                                           max_abs_err=bwd_errs["dq"][0]),
+            "flash_attention_bwd_dkv": dict(shape=shape, causal=causal, ms=dkv_ms, enqueue_ms=dkv_enq, bound_ms=kb,
+                                            bound_by=kby, plain_ms=plain_bwd, library_ms=lib_b,
+                                            max_abs_err=max(bwd_errs["dk"][0], bwd_errs["dv"][0])),
+            "bit_identical_twice": identical, "ok": ok,
+        }
+        emit("train_sharded", part="c", rank_shape=label, plain_ms_is="plain forward / plain backward (dQ+dK+dV)",
+             library_ms_is="scaled_dot_product_attention forward / its backward", **rows[label])
+        del q, k, v, o, lse, dout, again, lse2, ref_o, ref_lse, dq, dq2, dk, dk2, dv, dv2, rdq, rdk, rdv
+        del sets, pre, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"train_sharded (c): {label} disagrees with plain or is not deterministic: "
+                                 f"fwd {fwd_err}, bwd {bwd_errs}, identical {identical}")
+    out["c"] = rows
+    results["train_sharded_rank_shapes"] = rows
+
+
+def phase_train_sharded(results):
+    """Parallel training on this card: ranks of a training mesh, every one
+    on cuda:0 over gloo under the explicit one-device rehearsal map (the
+    machine has one card; which collectives gloo takes on CUDA tensors is
+    probed first, and the refused ones are staged through host memory).
+    (a) the main path through two containers, and beside it (its traffic
+    is host-bound) the probe and (b) f32 parity of five meshes; then (c)
+    #1-#3 at the rank shapes; see their functions."""
+    import tempfile
+
+    import torch
+
+    from tpu_nexus_torch.workload.rehearsal import RankWorld
+
+    torch.cuda.empty_cache()
+    out = {}
+
+    def probe_and_exact():
+        # gloo's send/recv on a card's tensors may take its ranks down
+        # rather than raise: probed in a world of its own
+        job = "tpu_nexus_torch.parallel.collectives:probe"
+        with RankWorld(2, device=SHARDED_DEVICE, timeout_s=120) as probe_world:
+            try:
+                probe = probe_world.run(job, device=SHARDED_DEVICE, p2p=True)[0]
+            except RuntimeError as exc:
+                probe = {"send_recv": f"the probe's ranks failed: {str(exc).splitlines()[0][:200]}"}
+        with RankWorld(4, device=SHARDED_DEVICE, timeout_s=600) as world:
+            if "all_reduce/float32" not in probe:
+                probe.update(world.run(job, device=SHARDED_DEVICE)[0])
+            staged = sorted({k.split("/")[0] for k, v in probe.items() if v != "ok"})
+            emit("train_sharded", part="ranks", map="shared (every rank on cuda:0)", backend="gloo",
+                 gloo_cuda_probe=probe, staged_through_host=staged,
+                 containers_stage="send_recv always, and what the containers' own probe refuses")
+            if any(name in staged for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")):
+                raise AssertionError(f"train_sharded: gloo refuses an fsdp/tp collective on CUDA tensors: {probe}")
+            t0 = time.perf_counter()
+            sharded_train_exact(results, world, staged, out)
+            emit("train_sharded_part_done", part="b", seconds=time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sharded_train_main_path(results, tmp, out, beside=probe_and_exact)
+        emit("train_sharded_part_done", part="a (with b beside it)", seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded_train_rank_shapes(results, out)
+    emit("train_sharded_part_done", part="c", seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5908,6 +6292,7 @@ def main(argv=None) -> int:
         "serve_moe_quant": phase_serve_moe_quant, "quant_gate": phase_quant_gate, "profile_hook": phase_profile_hook,
         "control_plane": phase_control_plane, "fleet_supervisor": phase_fleet_supervisor,
         "cql_ledger": phase_cql_ledger, "serve_sharded": phase_serve_sharded,
+        "train_sharded": phase_train_sharded,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:
@@ -5962,6 +6347,9 @@ def main(argv=None) -> int:
             }
             if name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
                 entry.update(design="wgmma+tma")
+                if "train_sharded_rank_shapes" in results:  # the parallel training's per-rank shapes
+                    entry.update(rank_shapes={label: row[name]
+                                              for label, row in results["train_sharded_rank_shapes"].items()})
             if name in ("nexus_gmm", "nexus_tgmm"):
                 entry.update(design="wgmma+tma, persistent")
             if name.startswith("decode_attention"):

@@ -191,14 +191,33 @@ def test_mnist_preset_trains():
 @pytest.mark.parametrize(
     "key,value,item",
     [
-        ("NEXUS_MESH", "fsdp=2", "A6"),
-        ("NEXUS_SP_ATTN", "ulysses", "A6"),
-        ("NEXUS_PP_MICROBATCHES", "4", "A6"),
+        ("NEXUS_MESH", "pp=2", "A6b-ii"),
+        ("NEXUS_MESH", "fsdp=2,pp=2", "A6b-ii"),
+        ("NEXUS_PP_MICROBATCHES", "4", "A6b-ii"),
     ],
 )
 def test_unported_knobs_raise_at_parse(key, value, item):
+    """Pipeline parallelism (ROADMAP.md A6b-ii) raises at parse, naming it."""
     with pytest.raises(NotImplementedError, match=item):
         WorkloadConfig.from_env({key: value})
+
+
+@pytest.mark.parametrize(
+    "env,mesh,sp_attn,rank_map",
+    [
+        ({}, dict(fsdp=-1), "ring", ""),
+        ({"NEXUS_MESH": "fsdp=2,tp=2"}, dict(fsdp=2, tp=2), "ring", ""),
+        ({"NEXUS_MESH": "sp=2", "NEXUS_SP_ATTN": "ulysses", "NEXUS_RANK_DEVICE_MAP": "shared"}, dict(fsdp=-1, sp=2),
+         "ulysses", "shared"),
+    ],
+)
+def test_mesh_knobs_parse_as_the_reference(env, mesh, sp_attn, rank_map):
+    """NEXUS_MESH, NEXUS_SP_ATTN and the rank map parse as the reference's
+    harness parses them (default: fsdp over every rank)."""
+    from tpu_nexus_torch.parallel.mesh import MeshSpec
+
+    cfg = WorkloadConfig.from_env(env)
+    assert (cfg.mesh, cfg.train.sp_attn, cfg.rank_map) == (MeshSpec(**mesh), sp_attn, rank_map)
 
 
 @pytest.mark.parametrize(

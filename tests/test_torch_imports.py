@@ -34,7 +34,8 @@ def _imported_roots(path: Path):
 def test_the_walk_sees_the_control_plane():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for module in ("core/config.py", "k8s/rest.py", "supervisor/service.py", "launcher/jobset.py",
-                   "app/dependencies.py", "main.py", "workload/__main__.py"):
+                   "app/dependencies.py", "main.py", "workload/__main__.py", "parallel/ring.py",
+                   "parallel/ulysses.py", "workload/rehearsal.py"):
         assert f"tpu_nexus_torch/{module}" in names
 
 

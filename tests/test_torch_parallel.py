@@ -5,9 +5,9 @@
   is the reference's.
 * Process-group bring-up from the launcher's env contract
   (``NEXUS_COORDINATOR_ADDRESS``, ``NEXUS_PROCESS_ID``,
-  ``NEXUS_NUM_PROCESSES``): two processes that import only
-  ``tpu_nexus_torch`` join a gloo world of 2 on the CPU under the explicit
-  rehearsal map, sum a tensor and lay a ``DeviceMesh`` with the
+  ``NEXUS_NUM_PROCESSES``; the training rank plan): two processes that
+  import only ``tpu_nexus_torch`` join a gloo world of 2 on the CPU under
+  the explicit rehearsal map, sum a tensor and lay a ``DeviceMesh`` with the
   reference's axis names over it; each has a deadline and is killed past
   it.
 * The backend rule: ``nccl`` only with one card a rank — two ranks on one
@@ -81,9 +81,12 @@ def test_shard_leaf_cuts_a_rank_slice():
 _RANK = """
 import json, sys, torch, torch.distributed as dist
 assert "jax" not in sys.modules
-from tpu_nexus_torch.parallel.distributed import initialize_distributed
+from tpu_nexus_torch.parallel.distributed import process_context_from_env, start_process_group, training_ranks
 from tpu_nexus_torch.parallel.mesh import MeshSpec, build_mesh
-ctx = initialize_distributed()
+ctx = process_context_from_env()
+plan = training_ranks(ctx, (1, 1, -1, 1, 1, 1), "cpu", "shared")
+assert (plan.local, plan.world, plan.backend) == (1, 2, "gloo"), plan
+start_process_group(plan.init_method, plan.global_rank(ctx, 0), plan.world, plan.backend, 20.0)
 t = torch.tensor([float(ctx.process_id + 1)])
 dist.all_reduce(t)
 dm = build_mesh(MeshSpec(fsdp=1, tp=2), device_type="cpu")
@@ -124,21 +127,33 @@ def test_process_group_from_the_launcher_env(tmp_path):
 def test_bring_up_refuses_what_it_cannot_meet():
     ctx = distributed.process_context_from_env({"NEXUS_NUM_PROCESSES": "2", "NEXUS_PROCESS_ID": "1"})
     with pytest.raises(ValueError, match="NEXUS_COORDINATOR_ADDRESS is unset"):
-        distributed.initialize_distributed(ctx, env={})
+        distributed.training_ranks(ctx, (1, 1, 2, 1, 1, 1), "cpu", "shared")
     ctx = distributed.ProcessContext("r", "a", 0, 2, "127.0.0.1:1")
     with pytest.raises(ValueError, match="rehearsal map must be asked for"):
-        distributed.initialize_distributed(ctx, env={"NEXUS_DEVICE": "cpu"})
+        distributed.training_ranks(ctx, (1, 1, -1, 1, 1, 1), "cpu")
+    with pytest.raises(ValueError, match="does not split over 2 processes"):
+        distributed.training_ranks(ctx, (1, 1, 3, 1, 1, 1), "cpu", "shared")
+    with pytest.raises(ValueError, match="unknown NEXUS_RANK_DEVICE_MAP"):
+        distributed.training_ranks(ctx, (1, 1, 2, 1, 1, 1), "cpu", "all")
     single = distributed.ProcessContext("r", "a", 0, 1, None)
-    assert distributed.initialize_distributed(single, env={}) is single
+    plan = distributed.training_ranks(single, (1, 1, -1, 1, 1, 1), "cpu")
+    assert (plan.local, plan.world, plan.init_method) == (1, 1, "")
+    # the rehearsal map: mesh size / processes ranks a process, -1 one a process
+    plan = distributed.training_ranks(ctx, (1, 2, 2, 1, 1, 1), "cpu", "shared")
+    assert (plan.local, plan.world, plan.devices, plan.global_rank(ctx, 1)) == (2, 4, (torch.device("cpu"),) * 2, 1)
+    assert distributed.training_ranks(ctx, (1, 1, -1, 1, 1, 1), "cpu", "shared").local == 1
 
 
 @pytest.mark.parametrize("entry", ["training", "lockstep serving", "serve-engine", "serve-engine meshed"])
 def test_a_multi_process_run_raises_at_start(entry):
-    """A world of two launched processes (a multi-host JobSet) is refused
-    before any device work or ledger write: it never runs as two
-    unsynchronised copies (parallel training is ROADMAP A6b)."""
+    """What a world of two launched processes (a multi-host JobSet) cannot
+    run yet is refused before any device work or ledger write, naming
+    ROADMAP A6b-ii: serving in every mode (it never runs as two
+    unsynchronised copies), and training with pipeline parallelism (a
+    training mesh across processes runs: tests/test_torch_multiprocess.py)."""
     from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
     from tpu_nexus_torch.core.signals import LifecycleContext
+    from tpu_nexus_torch.parallel.mesh import MeshSpec
     from tpu_nexus_torch.workload.harness import WorkloadConfig, run_workload
     from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine, run_serving
 
@@ -148,8 +163,8 @@ def test_a_multi_process_run_raises_at_start(entry):
     })
     store = InMemoryCheckpointStore()
     runs = {
-        "training": lambda: run_workload(WorkloadConfig(device="cpu"), store=store, ctx=ctx,
-                                         lifecycle=LifecycleContext()),
+        "training": lambda: run_workload(WorkloadConfig(device="cpu", mesh=MeshSpec(pp=2, fsdp=-1)), store=store,
+                                         ctx=ctx, lifecycle=LifecycleContext()),
         "lockstep serving": lambda: run_serving(ServeConfig(device="cpu"), store=store, ctx=ctx),
         "serve-engine": lambda: run_serve_engine(ServeConfig(device="cpu"), store=store, ctx=ctx,
                                                  lifecycle=LifecycleContext()),
@@ -157,7 +172,8 @@ def test_a_multi_process_run_raises_at_start(entry):
             ServeConfig(device="cpu", serve_mesh="tp=2", rank_map="shared"), store=store, ctx=ctx,
             lifecycle=LifecycleContext()),
     }
-    with pytest.raises(NotImplementedError, match=r"NEXUS_NUM_PROCESSES=2: .* \(ROADMAP.md: A6b"):
+    want = r"pp=2, .* \(ROADMAP.md: A6b-ii\)" if entry == "training" else r"NEXUS_NUM_PROCESSES=2: .* \(ROADMAP.md: A6b-ii\)"
+    with pytest.raises(NotImplementedError, match=want):
         runs[entry]()
     assert store.read_checkpoint("a", "multi") is None
     assert distributed.single_process(distributed.ProcessContext("r", "a", 0, 1, None), "x").num_processes == 1

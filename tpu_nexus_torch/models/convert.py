@@ -146,3 +146,45 @@ def cache_from_numpy(tree: Dict[str, Any], device: Any = "cuda") -> Dict[str, to
 def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of :func:`cache_from_numpy`."""
     return {name: _to_numpy(x) for name, x in cache.items()}
+
+
+def train_params_from_numpy(tree: Dict[str, Any], layout: Any = None, device: Any = "cuda") -> LlamaParams:
+    """A JAX Llama tree (numpy leaves) as training parameters, whole
+    (``layout`` None) or cut to one rank's part of a training mesh
+    (``workload/train.py::Layout``): each leaf is converted, cut, and only
+    the part copied to ``device``."""
+
+    def leaf(path: str, a: Any) -> torch.Tensor:
+        t = _to_torch(a, "cpu")
+        if layout is not None:
+            t = layout.cut(t, layout.specs[path])
+        return t.to(device)
+
+    out = {
+        "embed": {"tokens": leaf("embed/tokens", tree["embed"]["tokens"])},
+        "layers": {k: leaf(f"layers/{k}", v) for k, v in tree["layers"].items()},
+        "out_norm": leaf("out_norm", tree["out_norm"]),
+    }
+    if "lm_head" in tree:
+        out["lm_head"] = leaf("lm_head", tree["lm_head"])
+    return LlamaParams(out)
+
+
+def opt_state_from_numpy(
+    count: int, leaves: Any, names: Any, layout: Any = None, device: Any = "cuda",
+) -> Dict[str, Any]:
+    """An optimizer state of the JAX package (optax's adamw ``mu``/``nu``,
+    or adafactor's ``v_row``/``v_col``/``v`` of each parameter, numpy) as
+    the port's ``{"count", "leaves"}``: ``leaves[i]`` holds the moments of
+    parameter ``names[i]`` (the port's flatten order).  With ``layout``
+    each moment shaped like its parameter is cut to the rank's part; the
+    factored statistics stay whole (replicated)."""
+    out = []
+    for name, moments in zip(names, leaves):
+        spec = layout.param_spec(name) if layout is not None else ()
+        out.append({
+            key: (layout.cut(_to_torch(a, "cpu"), spec) if layout is not None and key in ("mu", "nu", "v")
+                  else _to_torch(a, "cpu")).to(device)
+            for key, a in moments.items()
+        })
+    return {"count": torch.tensor(int(count), dtype=torch.int32, device=device), "leaves": out}

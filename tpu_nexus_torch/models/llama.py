@@ -12,6 +12,14 @@
 * Random init draws from an explicit ``torch.Generator``; it gives other
   numbers than ``jax.random`` for the same seed, so tests carry weights
   across with ``models/convert.py``.
+* Under a training mesh (``workload/train.py``) the same blocks run on a
+  rank's shards: ``gather`` all-gathers a layer's fsdp-cut weights inside
+  the checkpointed layer (so the recompute gathers them again instead of
+  keeping them), the tensor-parallel pair (``copy_to_tp`` before the
+  column-parallel products, ``reduce_tp`` after the row-parallel ones)
+  makes tp-sharded heads and MLP differentiable, and ``attn_impl`` may be
+  the sequence-parallel attention (``parallel/ring.py``,
+  ``parallel/ulysses.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch
 from torch import nn
 
 from tpu_nexus_torch.ops.attention import attention
-from tpu_nexus_torch.parallel.collectives import embed_rows, gather_vocab, reduce_tp
+from tpu_nexus_torch.parallel.collectives import copy_to_tp, embed_rows, gather_vocab, reduce_tp
 from tpu_nexus_torch.ops.quant_matmul import weight_einsum
 from tpu_nexus_torch.ops.rmsnorm import rms_norm
 
@@ -246,7 +254,7 @@ def layer_params(params, li: int) -> Dict[str, Any]:
 def qkv_block(x, layer, cfg, cos, sin):
     """Norm → q/k/v projections → RoPE: the attention's inputs."""
     ct = cfg.dtype
-    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    h = copy_to_tp(rms_norm(x, layer["attn_norm"], cfg.norm_eps))
     q = weight_einsum("bse,ehd->bshd", h, layer["wq"], ct)
     k = weight_einsum("bse,ehd->bshd", h, layer["wk"], ct)
     v = weight_einsum("bse,ehd->bshd", h, layer["wv"], ct)
@@ -254,8 +262,13 @@ def qkv_block(x, layer, cfg, cos, sin):
 
 
 def attend_block(x, q, k, v, layer, cfg, attn_impl: str = "auto"):
-    """Attention → output projection → residual."""
-    o = attention(q, k, v, causal=True, impl=attn_impl)
+    """Attention → output projection → residual.  ``attn_impl`` is an
+    implementation name (``ops/attention.py``) or an attention function
+    ``fn(q, k, v, causal=...)`` (the sequence-parallel ones)."""
+    if callable(attn_impl):
+        o = attn_impl(q, k, v, causal=True)
+    else:
+        o = attention(q, k, v, causal=True, impl=attn_impl)
     return x + reduce_tp(weight_einsum("bshd,hde->bse", o, layer["wo"], cfg.dtype))
 
 
@@ -274,7 +287,7 @@ def attention_block(x, layer, cfg, cos, sin, attn_impl: str = "auto", *, collect
 def mlp_block(x: torch.Tensor, layer: Dict[str, Any], cfg: LlamaConfig) -> torch.Tensor:
     """Pre-norm SwiGLU MLP sub-block with residual."""
     ct = cfg.dtype
-    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    h = copy_to_tp(rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
     gate = weight_einsum("bse,ef->bsf", h, layer["w_gate"], ct)
     up = weight_einsum("bse,ef->bsf", h, layer["w_up"], ct)
     return x + reduce_tp(weight_einsum("bsf,fe->bse", torch.nn.functional.silu(gate) * up, layer["w_down"], ct))
@@ -290,30 +303,57 @@ def llama_head(params, cfg: LlamaConfig) -> torch.Tensor:
 REMAT_POLICIES = ("dots", "attn_out", "qkv", "nothing")
 
 
-def _layer(x, layer, cfg, cos, sin, attn_impl, ffn):
+class _Gathered(dict):
+    """A layer's weights, each gathered on first use by ``gather(name,
+    shard)`` (the fsdp all-gather; the order of first uses is the
+    blocks', the same on every rank)."""
+
+    def __init__(self, layer, gather):
+        super().__init__()
+        self._shards, self._gather = layer, gather
+
+    def __getitem__(self, name):
+        if name not in self:
+            self[name] = self._gather(name, self._shards[name])
+        return super().__getitem__(name)
+
+
+def _full(layer, gather):
+    return layer if gather is None else _Gathered(layer, gather)
+
+
+def _layer(x, layer, cfg, cos, sin, attn_impl, ffn, gather=None):
+    layer = _full(layer, gather)
     return ffn(attention_block(x, layer, cfg, cos, sin, attn_impl), layer, cfg)
 
 
-def _after_qkv(x, q, k, v, layer, cfg, attn_impl, ffn):
+def _qkv(x, layer, cfg, cos, sin, gather=None):
+    return qkv_block(x, _full(layer, gather), cfg, cos, sin)
+
+
+def _after_qkv(x, q, k, v, layer, cfg, attn_impl, ffn, gather=None):
+    layer = _full(layer, gather)
     return ffn(attend_block(x, q, k, v, layer, cfg, attn_impl), layer, cfg)
 
 
 def _keep_flash_outputs():
     """Selective-checkpoint contexts that keep the flash forward op's
-    outputs (out, lse) and recompute everything else."""
+    outputs (out, lse) — and the ring attention's, whose forward is one
+    op too — and recompute everything else."""
     from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
     import tpu_nexus_torch.ops.flash_attention  # noqa: F401 - registers nexus::flash_fwd
+    import tpu_nexus_torch.parallel.ring  # noqa: F401 - registers nexus::ring_fwd
 
     def policy(ctx, op, *args, **kwargs):
-        if op is torch.ops.nexus.flash_fwd.default:
+        if op is torch.ops.nexus.flash_fwd.default or op is torch.ops.nexus.ring_fwd.default:
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
 
     return create_selective_checkpoint_contexts(policy)
 
 
-def remat_layer(x, layer, cfg, cos, sin, attn_impl: str = "auto", ffn=mlp_block):
+def remat_layer(x, layer, cfg, cos, sin, attn_impl: str = "auto", ffn=mlp_block, gather=None):
     """One decoder layer under ``cfg.remat_policy`` (the reference's
     ``jax.checkpoint`` around the layer scan body).  Checkpointing applies
     only while gradients are taken; see :attr:`LlamaConfig.remat_policy`.
@@ -322,24 +362,26 @@ def remat_layer(x, layer, cfg, cos, sin, attn_impl: str = "auto", ffn=mlp_block)
     also returns its router aux losses), recomputed like the rest.
     Unlike XLA, eager recompute cannot drop work whose outputs are saved:
     under "qkv" the backward still re-runs norm and projections for their
-    own gradients, and only the attention inputs are kept."""
+    own gradients, and only the attention inputs are kept.  ``gather``
+    (a sharded train step's fsdp all-gather, ``gather(name, shard)``)
+    runs inside the checkpointed functions: the recompute gathers again."""
     policy = cfg.remat_policy
     if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {policy!r}; use {', '.join(REMAT_POLICIES)}")
     if not (cfg.remat and torch.is_grad_enabled()) or policy == "dots":
-        return _layer(x, layer, cfg, cos, sin, attn_impl, ffn)
+        return _layer(x, layer, cfg, cos, sin, attn_impl, ffn, gather)
     from torch.utils.checkpoint import checkpoint
 
     if policy == "nothing":
-        return checkpoint(_layer, x, layer, cfg, cos, sin, attn_impl, ffn, use_reentrant=False)
+        return checkpoint(_layer, x, layer, cfg, cos, sin, attn_impl, ffn, gather, use_reentrant=False)
     if policy == "attn_out":
         return checkpoint(
-            _layer, x, layer, cfg, cos, sin, attn_impl, ffn, use_reentrant=False,
+            _layer, x, layer, cfg, cos, sin, attn_impl, ffn, gather, use_reentrant=False,
             context_fn=_keep_flash_outputs,
         )
-    q, k, v = checkpoint(qkv_block, x, layer, cfg, cos, sin, use_reentrant=False)
+    q, k, v = checkpoint(_qkv, x, layer, cfg, cos, sin, gather, use_reentrant=False)
     return checkpoint(
-        _after_qkv, x, q, k, v, layer, cfg, attn_impl, ffn, use_reentrant=False,
+        _after_qkv, x, q, k, v, layer, cfg, attn_impl, ffn, gather, use_reentrant=False,
         context_fn=_keep_flash_outputs,
     )
 
@@ -349,33 +391,45 @@ def llama_hidden(
     tokens: torch.Tensor,
     cfg: LlamaConfig,
     *,
-    attn_impl: str = "auto",
+    attn_impl: Any = "auto",
     return_kv: bool = False,
+    seq_offset: int = 0,
+    gather: Any = None,
+    embed_table: Any = None,
 ):
     """Final-norm hidden states ``[B, S, E]``.  ``return_kv=True`` →
     ``(hidden, (k, v))`` with K/V stacked per layer ``[L, B, S, Hkv, D]``
-    (no activation checkpointing then: it is the no-grad prefill path)."""
-    if tokens.shape[1] > cfg.max_seq_len:
+    (no activation checkpointing then: it is the no-grad prefill path).
+
+    On a training mesh's rank: ``tokens`` is this rank's sequence shard,
+    starting at global position ``seq_offset``; ``gather(name, shard)``
+    all-gathers fsdp-cut weights (layer leaves by their layer key, the rest
+    by path), and ``embed_table`` is the gathered embedding the caller also
+    uses as the tied head."""
+    if seq_offset + tokens.shape[1] > cfg.max_seq_len:
         raise ValueError(
-            f"sequence length {tokens.shape[1]} exceeds the config's "
+            f"sequence length {seq_offset + tokens.shape[1]} exceeds the config's "
             f"max_seq_len {cfg.max_seq_len}"
         )
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :].expand(tokens.shape)
+    positions = torch.arange(seq_offset, seq_offset + tokens.shape[1], device=tokens.device)[None, :]
+    positions = positions.expand(tokens.shape)
     # gather, then cast: the same values as the reference's cast-then-gather
     # without materializing a compute-dtype copy of the whole table
-    x = embed_rows(params["embed"]["tokens"], tokens).to(cfg.dtype)  # [B, S, E]
+    table = params["embed"]["tokens"] if embed_table is None else embed_table
+    x = embed_rows(table, tokens).to(cfg.dtype)  # [B, S, E]
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     ks, vs = [], []
     for li in range(params["layers"]["wq"].shape[0]):
         layer = layer_params(params, li)
         if not return_kv:
-            x = remat_layer(x, layer, cfg, cos, sin, attn_impl)
+            x = remat_layer(x, layer, cfg, cos, sin, attn_impl, gather=gather)
             continue
         x, (k, v) = attention_block(x, layer, cfg, cos, sin, attn_impl, collect_kv=True)
         x = mlp_block(x, layer, cfg)
         ks.append(k)
         vs.append(v)
-    hidden = rms_norm(x, params["out_norm"], cfg.norm_eps)
+    out_norm = params["out_norm"] if gather is None else gather("out_norm", params["out_norm"])
+    hidden = rms_norm(x, out_norm, cfg.norm_eps)
     if return_kv:
         return hidden, (torch.stack(ks), torch.stack(vs))
     return hidden

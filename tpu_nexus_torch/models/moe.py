@@ -34,7 +34,7 @@ only this rank's ``n_experts / ep`` experts (under ``tp`` their stacks
 hold an mlp slice) and sums the combine over the replica.  Left out,
 raising where they would be asked for: the expert-parallel gmm path
 (``_moe_ffn_gmm_ep``), gmm and sort under a mesh, the pipeline-parallel
-stack (``moe_hidden_pp``) and ``NEXUS_MOE_FORCE_EP_PATH`` (ROADMAP.md: A6b).
+stack (``moe_hidden_pp``) and ``NEXUS_MOE_FORCE_EP_PATH`` (ROADMAP.md: A6b-ii).
 """
 
 from __future__ import annotations
@@ -424,7 +424,7 @@ def _ep_not_ported() -> NotImplementedError:
     return NotImplementedError(
         "expert parallelism (a mesh for moe_ffn: _moe_ffn_gmm_ep, NEXUS_MOE_FORCE_EP_PATH) "
         "and the pipeline-parallel MoE stack (moe_hidden_pp) are not ported yet "
-        "(ROADMAP.md: A6b parallel training)"
+        "(ROADMAP.md: A6b-ii)"
     )
 
 
@@ -439,7 +439,7 @@ def moe_ffn(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig, mesh: Any = 
     if sharded and cfg.dispatch != "scatter":
         raise NotImplementedError(
             f"dispatch {cfg.dispatch!r} on a sharded serve mesh: the gmm and sort paths under a mesh "
-            "are not ported yet (ROADMAP.md: A6b); serving decodes with scatter"
+            "are not ported yet (ROADMAP.md: A6b-ii); serving decodes with scatter"
         )
     if cfg.dispatch == "sort":
         return _moe_ffn_sorted(x, layer, cfg)

@@ -4,7 +4,11 @@
 :class:`MoeConfig` preset (bare, or ``moe_``-prefixed: ``moe_tiny``,
 ``nexus_moe``, ``mixtral_8x7b``) or ``mnist``; the adapter gives the
 serving and training loops their init, loss, batch layout and synthetic
-data.
+data.  On a training mesh (``parallel/mesh.py::TrainMesh``) the Llama
+adapter's loss runs on a rank's shards with the sequence-parallel
+attention the mesh asks for (:func:`_sp_attn_fn`); what ROADMAP.md A6b-ii
+brings (``pp``, pipeline microbatches, the MoE and MNIST adapters on a
+mesh) raises, naming it.
 """
 
 from __future__ import annotations
@@ -15,21 +19,65 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_nexus_torch.models.llama import LlamaConfig, LlamaParams, llama_head, llama_hidden, llama_init
+from tpu_nexus_torch.models.llama import (
+    LlamaConfig,
+    LlamaParams,
+    llama_axes,
+    llama_head,
+    llama_hidden,
+    llama_init,
+)
 from tpu_nexus_torch.models.mnist import MnistConfig, MnistParams, mnist_forward, mnist_init
 from tpu_nexus_torch.models.moe import MoeConfig, moe_head, moe_hidden, moe_init
 
 LossFn = Callable[[Any, Any], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
-def _single_device_only(train_cfg: Any) -> None:
-    """The slice trains on one device: knobs of sequence or pipeline
-    parallelism raise, naming the ROADMAP.md item that brings them."""
-    if getattr(train_cfg, "sp_attn", "ring") != "ring" or getattr(train_cfg, "pp_microbatches", 0):
+def _sharded(mesh: Any) -> bool:
+    return mesh is not None and mesh.world > 1
+
+
+def _no_pipeline(train_cfg: Any, mesh: Any) -> None:
+    """Pipeline parallelism is ROADMAP.md A6b-ii: ``pp > 1`` (ring under pp
+    included) and pipeline microbatches raise, naming it."""
+    if _sharded(mesh) and mesh.size("pp") > 1:
         raise NotImplementedError(
-            "sequence/pipeline parallelism (sp_attn, pp_microbatches) is not ported "
-            "yet (ROADMAP.md: A6b parallel training)"
+            f"pp={mesh.size('pp')}: pipeline parallelism (llama_hidden_pp; with sp, Ulysses only — "
+            "ring under pp is refused in the reference) is not ported yet (ROADMAP.md: A6b-ii)"
         )
+    if getattr(train_cfg, "pp_microbatches", 0):
+        raise NotImplementedError(
+            f"pp_microbatches={train_cfg.pp_microbatches}: pipeline microbatches are not ported yet "
+            "(ROADMAP.md: A6b-ii)"
+        )
+
+
+def _one_device_only(what: str, mesh: Any) -> None:
+    if _sharded(mesh):
+        raise NotImplementedError(
+            f"{what} training on a mesh of {mesh.world} ranks {mesh.describe()} is not ported yet "
+            "(ROADMAP.md: A6b-ii)"
+        )
+
+
+def _sp_attn_fn(mesh: Any, sp_attn: str = "ring"):
+    """Sequence-parallel attention when the mesh shards the sequence, else
+    None (the model dispatches to flash/plain attention itself): "ring"
+    (``parallel/ring.py``) or "ulysses" (``parallel/ulysses.py``)."""
+    import functools
+
+    if sp_attn not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sp_attn {sp_attn!r}; use 'ring' or 'ulysses'")
+    if not _sharded(mesh) or mesh.size("sp") <= 1:
+        return None
+    if sp_attn == "ulysses":
+        from tpu_nexus_torch.parallel.ulysses import ulysses_attention
+
+        head_axis = "tp" if mesh.size("tp") > 1 else None
+        return functools.partial(ulysses_attention, mesh=mesh, head_axis=head_axis)
+    from tpu_nexus_torch.parallel.ring import ring_attention_sharded
+
+    return functools.partial(ring_attention_sharded, mesh=mesh)
 
 
 def host_to_device(array: Any, device: Any, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -51,16 +99,27 @@ class ModelAdapter:
     name: str = ""
     config: Any = None
 
-    def init(self, generator: torch.Generator, device: Any = "cuda") -> Any:
-        """Model parameters (an ``nn.Module``) on ``device``."""
+    def init(self, generator: torch.Generator, device: Any = "cuda", leaf_fn: Any = None) -> Any:
+        """Model parameters (an ``nn.Module``) on ``device``; ``leaf_fn(path,
+        tensor)``, for a family that trains on a mesh, maps each leaf as it
+        is drawn (a rank's part)."""
         raise NotImplementedError
+
+    def axes(self) -> Any:
+        """Logical-axis tree mirroring the params (the sharding rules' input)."""
+        raise NotImplementedError
+
+    def check_mesh(self, mesh: Any) -> None:
+        """Raise if this adapter does not train on ``mesh``."""
+        _one_device_only(self.name, mesh)
 
     def batch_axes(self) -> Any:
         """Logical axes of one batch (the reference's sharding contract)."""
         raise NotImplementedError
 
-    def make_loss(self, train_cfg: Any) -> LossFn:
-        """(params, batch) -> (scalar loss, metrics dict)."""
+    def make_loss(self, train_cfg: Any, mesh: Any = None, rules: Any = None) -> LossFn:
+        """(params, batch) -> (scalar loss, metrics dict); on a training mesh,
+        over a rank's shards and rows."""
         raise NotImplementedError
 
     def data(self, batch: int, seq_len: int, seed: int) -> Iterator[Any]:
@@ -101,20 +160,54 @@ class LlamaAdapter(_TokenLMAdapter):
     config: LlamaConfig = field(default_factory=LlamaConfig.tiny)
     name: str = "llama"
 
-    def init(self, generator: torch.Generator, device: Any = "cuda") -> LlamaParams:
-        return llama_init(generator, self.config, device=device)
+    def init(self, generator: torch.Generator, device: Any = "cuda", leaf_fn: Any = None) -> LlamaParams:
+        return llama_init(generator, self.config, device=device, leaf_fn=leaf_fn)
 
-    def make_loss(self, train_cfg):
+    def axes(self):
+        return llama_axes(self.config)
+
+    def check_mesh(self, mesh):
+        _no_pipeline(None, mesh)
+
+    def make_loss(self, train_cfg, mesh=None, rules=None):
         from tpu_nexus_torch.workload.train import chunked_next_token_loss
 
-        _single_device_only(train_cfg)
+        _no_pipeline(train_cfg, mesh)
+        attn_fn = _sp_attn_fn(mesh, getattr(train_cfg, "sp_attn", "ring"))
         cfg = self.config
         z_loss = getattr(train_cfg, "z_loss", 0.0)
         ce_chunk = getattr(train_cfg, "ce_chunk", 256)
+        if _sharded(mesh):
+            return self._sharded_loss(mesh, rules, attn_fn, z_loss, ce_chunk)
 
         def loss_fn(params, tokens):
             hidden = llama_hidden(params, tokens, cfg)
             return chunked_next_token_loss(hidden, llama_head(params, cfg), tokens, z_loss, chunk=ce_chunk)
+
+        return loss_fn
+
+    def _sharded_loss(self, mesh, rules, attn_fn, z_loss, ce_chunk):
+        """The loss on a rank: ``tokens`` are its rows, whole sequences; it
+        keeps its ``sp`` chunk and that chunk's next tokens."""
+        from tpu_nexus_torch.workload.train import sharded_next_token_loss, train_layout
+
+        cfg = self.config
+        gather = train_layout(self, mesh, rules).fsdp_gather()
+        sp, part = mesh.size("sp"), mesh.coords["sp"]
+
+        def loss_fn(params, tokens):
+            s = tokens.shape[1]
+            if s % sp:
+                raise ValueError(f"sequence length {s} not divisible by sp={sp}")
+            width = s // sp
+            lo, hi = part * width, (part + 1) * width
+            targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)[:, lo:hi].long()
+            weight = (torch.arange(lo, hi, device=tokens.device) < s - 1).float()[None, :]
+            embed = gather("embed/tokens", params["embed"]["tokens"])
+            hidden = llama_hidden(params, tokens[:, lo:hi], cfg, attn_impl=attn_fn or "auto", seq_offset=lo,
+                                  gather=gather, embed_table=embed)
+            head = embed.to(cfg.dtype).T if cfg.tied_embeddings else gather("lm_head", params["lm_head"]).to(cfg.dtype)
+            return sharded_next_token_loss(hidden, head, targets, weight, mesh, z_loss, chunk=ce_chunk)
 
         return loss_fn
 
@@ -133,10 +226,16 @@ class MoeAdapter(_TokenLMAdapter):
     def init(self, generator: torch.Generator, device: Any = "cuda") -> LlamaParams:
         return moe_init(generator, self.config, device=device)
 
-    def make_loss(self, train_cfg):
+    def axes(self):
+        from tpu_nexus_torch.models.moe import moe_axes
+
+        return moe_axes(self.config)
+
+    def make_loss(self, train_cfg, mesh=None, rules=None):
         from tpu_nexus_torch.workload.train import chunked_next_token_loss
 
-        _single_device_only(train_cfg)
+        _no_pipeline(train_cfg, mesh)
+        _one_device_only("MoE (_moe_ffn_gmm_ep under ep, kernels #7/#8)", mesh)
         cfg = self.config
         z_loss = getattr(train_cfg, "z_loss", 0.0)
         ce_chunk = getattr(train_cfg, "ce_chunk", 256)
@@ -170,8 +269,9 @@ class MnistAdapter(ModelAdapter):
     def batch_axes(self):
         return {"x": ("batch", None), "y": ("batch",)}
 
-    def make_loss(self, train_cfg):
-        _single_device_only(train_cfg)
+    def make_loss(self, train_cfg, mesh=None, rules=None):
+        _no_pipeline(train_cfg, mesh)
+        _one_device_only("MNIST", mesh)
         cfg = self.config
 
         def loss_fn(params, batch):

@@ -1,1 +1,2 @@
-"""Process identity (single process in this slice of the port)."""
+"""Process groups, meshes, sharding rules, the collective seam, and the
+sequence-parallel attentions (ring, Ulysses) of the port."""

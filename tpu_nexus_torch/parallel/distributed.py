@@ -5,7 +5,8 @@ Env contract (set by the launcher): ``NEXUS_RUN_ID`` / ``NEXUS_ALGORITHM``
 (ledger key), ``NEXUS_PROCESS_ID``, ``NEXUS_NUM_PROCESSES``,
 ``NEXUS_COORDINATOR_ADDRESS`` (``host:port`` of rank 0's rendezvous).  A
 world larger than one is brought up with ``init_process_group(init_method=
-"tcp://<coordinator>", rank, world_size, timeout)``.
+"tcp://<coordinator>", rank, world_size, timeout)``
+(:func:`start_process_group`, the ranks planned by :func:`training_ranks`).
 
 Ranks and devices:
 
@@ -20,6 +21,16 @@ Ranks and devices:
   chosen automatically, a rehearsal of the collectives and the per-rank
   shapes, not a tensor-parallel speed.
 * ranks on the CPU without that map: a world of one only.
+
+Training (:func:`training_ranks`) runs one rank a local device in each
+launched process, as the JAX package runs one process a host driving all
+of its chips: process ``NEXUS_PROCESS_ID`` runs ``local`` ranks, the
+global rank of its ``j``-th being ``process_id · local + j`` (its ledger
+key ``host<process_id>/chip<j>``).  ``local`` is the process's cards
+under the default map and ``mesh size / NEXUS_NUM_PROCESSES`` under the
+rehearsal map, where a ``-1`` axis infers one rank a process.  Lockstep
+serving and the serve-engine container stay one process
+(:func:`single_process`).
 """
 
 from __future__ import annotations
@@ -177,46 +188,75 @@ def single_process(ctx: Optional[ProcessContext], what: str) -> ProcessContext:
     ctx = ctx or process_context_from_env()
     if ctx.num_processes > 1:
         raise NotImplementedError(
-            f"{ENV_NUM_PROCESSES}={ctx.num_processes}: {what} runs in one process; a run "
-            "across processes is not ported yet (ROADMAP.md: A6b parallel training)"
+            f"{ENV_NUM_PROCESSES}={ctx.num_processes}: {what} runs in one process; serving "
+            "across processes is not ported yet (ROADMAP.md: A6b-ii)"
         )
     return ctx
 
 
-def initialize_distributed(ctx: Optional[ProcessContext] = None, env: Optional[dict] = None) -> ProcessContext:
-    """Single-process runs pass through.  A world of more processes joins
-    the process group at ``tcp://$NEXUS_COORDINATOR_ADDRESS``, each process
-    on ``NEXUS_DEVICE`` of its own host (``cuda`` by default, backend
-    ``nccl``) or, under the rehearsal map, all on one device over gloo."""
-    e = os.environ if env is None else env
-    ctx = ctx or process_context_from_env(e)
-    if ctx.num_processes <= 1:
-        return ctx
-    import torch
-    import torch.distributed as dist
+@dataclass(frozen=True)
+class RankPlan:
+    """Where one process's training ranks run: ``local`` ranks a process,
+    ``world`` in all, each local rank's device, the backend and the
+    rendezvous."""
 
-    if dist.is_initialized():
-        return ctx
-    if not ctx.coordinator:
-        raise ValueError(
-            f"{ENV_NUM_PROCESSES}={ctx.num_processes} but {ENV_COORDINATOR} is unset; "
-            "the launcher must inject rank 0's address"
-        )
-    rank_map = e.get(ENV_RANK_MAP, "")
+    local: int
+    world: int
+    devices: tuple
+    backend: str
+    init_method: str
+    rank_map: str
+
+    def global_rank(self, ctx: ProcessContext, j: int) -> int:
+        return ctx.process_id * self.local + j
+
+
+def training_ranks(ctx: ProcessContext, sizes: Sequence[int], device: str, rank_map: str = "") -> RankPlan:
+    """The rank plan of a training process for a mesh of axis ``sizes``
+    (one ``-1`` allowed): see the module docstring.  A world of one is the
+    one-device run (no process group).  A world larger than one joins the
+    group at ``tcp://$NEXUS_COORDINATOR_ADDRESS`` (a loopback port when the
+    world is this process's ranks alone)."""
+    import math
+
+    import torch
+
     if rank_map not in RANK_MAPS:
         raise ValueError(f"unknown {ENV_RANK_MAP} {rank_map!r}; use 'shared' or leave it unset")
-    dev = torch.device(e.get("NEXUS_DEVICE", "cuda"))
-    if dev.type == "cpu" and rank_map != "shared":
+    dev = torch.device(device)
+    if rank_map == "shared":
+        fixed = math.prod(sizes)
+        if -1 in sizes:
+            local = 1
+        elif fixed % ctx.num_processes:
+            raise ValueError(
+                f"a mesh of {fixed} ranks does not split over {ctx.num_processes} processes "
+                f"({ENV_NUM_PROCESSES})"
+            )
+        else:
+            local = fixed // ctx.num_processes
+    elif dev.type == "cuda" and dev.index is None:
+        local = max(1, torch.cuda.device_count())
+    else:
+        local = 1
+    world = local * ctx.num_processes
+    if world > 1 and dev.type == "cpu" and rank_map != "shared":
         raise ValueError(
-            f"{ctx.num_processes} processes on the CPU: the one-device rehearsal map "
+            f"{world} ranks on the CPU share one device: the one-device rehearsal map "
             f"must be asked for ({ENV_RANK_MAP}=shared)"
         )
-    backend = "gloo" if dev.type == "cpu" or rank_map == "shared" else "nccl"
-    logger.info(
-        "joining the process group: process %d/%d coordinator=%s backend=%s",
-        ctx.process_id, ctx.num_processes, ctx.coordinator, backend,
-    )
-    start_process_group(
-        f"tcp://{ctx.coordinator}", ctx.process_id, ctx.num_processes, backend, timeout_from_env(e),
-    )
-    return ctx
+    devices = (dev,) if local == 1 and rank_map != "shared" else tuple(rank_devices(local, device, rank_map))
+    # the processes' ranks share one device under the rehearsal map: gloo
+    # (this process alone cannot see that: each holds its own ranks)
+    shared = rank_map == "shared" or backend_for(devices) == "gloo"
+    backend = "gloo" if shared else "cpu:gloo,cuda:nccl"
+    if ctx.num_processes > 1:
+        if not ctx.coordinator:
+            raise ValueError(
+                f"{ENV_NUM_PROCESSES}={ctx.num_processes} but {ENV_COORDINATOR} is unset; "
+                "the launcher must inject rank 0's address"
+            )
+        init = f"tcp://{ctx.coordinator}"
+    else:
+        init = f"tcp://127.0.0.1:{free_port()}" if world > 1 else ""
+    return RankPlan(local, world, devices, backend, init, rank_map)

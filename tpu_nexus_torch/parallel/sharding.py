@@ -126,3 +126,26 @@ def shard_tree(tree: Any, spec_tree: Any, coords: Mapping[str, int], sizes: Mapp
     if isinstance(tree, Mapping):
         return {k: shard_tree(tree[k], spec_tree[k], coords, sizes) for k in tree}
     return shard_leaf(tree, spec_tree, coords, sizes)
+
+
+def effective_spec(spec: Spec, sizes: Mapping[str, int]) -> Spec:
+    """``spec`` with the axes of size 1 dropped (a dim cut over nothing is
+    replicated): what a rank's slicing and the reductions read."""
+    out = []
+    for entry in spec:
+        axes = tuple(a for a in _axes_of(entry) if sizes.get(a, 1) > 1)
+        out.append(None if not axes else axes[0] if len(axes) == 1 else axes)
+    return tuple(out)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every mesh axis that cuts some dim of a leaf under ``spec``."""
+    return tuple(a for entry in spec for a in _axes_of(entry))
+
+
+def spec_tree(axes_tree: Any, rules: RuleTable, sizes: Mapping[str, int]) -> Any:
+    """The effective spec of every leaf of a logical-axes tree (the port's
+    ``sharding_tree``): a nested dict of spec tuples."""
+    if isinstance(axes_tree, Mapping):
+        return {k: spec_tree(v, rules, sizes) for k, v in axes_tree.items()}
+    return effective_spec(spec_for(axes_tree, rules), sizes)

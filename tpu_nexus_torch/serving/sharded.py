@@ -143,7 +143,8 @@ SERVING_PARAM_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
 #: head, so decode attention needs no collective
 KV_CACHE_AXES: Tuple[Optional[str], ...] = ("layers", None, None, "kv_heads", None)
 
-#: the axes this slice serves; the others (pp, dp, fsdp, sp) are A6b
+#: the axes this slice serves; serving over the others (pp, dp, fsdp, sp)
+#: is A6b-ii
 SERVED_AXES = ("ep", "tp")
 
 
@@ -278,7 +279,7 @@ def check_served_axes(axes: Mapping[str, int]) -> None:
     if other:
         raise ShardingError(
             f"serve mesh axes {other} are not served by the port yet (only "
-            f"{', '.join(SERVED_AXES)}; ROADMAP.md: A6b parallel training)"
+            f"{', '.join(SERVED_AXES)}; serving over other axes is ROADMAP.md: A6b-ii)"
         )
 
 

@@ -5,7 +5,9 @@ same appconfig/env mechanism the supervisor uses, and runs the workload on
 ``NEXUS_DEVICE`` (default ``cuda``; a CUDA request without a card fails):
 ``NEXUS_MODE=train`` (the default) runs the training loop, ``serve`` the
 lockstep serving loop and ``serve-engine`` the continuous-batching engine,
-each under the same ledger contract.  Exit codes are the failure-taxonomy
+each under the same ledger contract.  A training run in a launched world
+of processes (``NEXUS_NUM_PROCESSES`` > 1) runs this process's ranks of
+the mesh (``workload/harness.py``); the serving loops run in one process.  Exit codes are the failure-taxonomy
 contract: 137/255 surface via the Job's PodFailurePolicy (see
 launcher.jobset), nonzero generic for uncaught errors.
 

@@ -312,13 +312,17 @@ def build_meter(
     seq_len: int,
     device: Any = "cpu",
     clock: Callable[[], float] = time.perf_counter,
+    cards: int = 1,
 ):
     """The harness's constructor: FLOPs from the model config (0 for
-    non-transformer adapters), peak from the one device the run uses."""
+    non-transformer adapters), peak from the run's device times ``cards``,
+    the distinct cards under the run's ranks (the reference multiplies one
+    chip's peak by the device count; ranks sharing one card under the
+    rehearsal map count it once)."""
     if not enabled:
         return NullGoodputMeter()
     return GoodputMeter(
         clock=clock,
         flops_per_token=model_flops_per_token(model_cfg, seq_len),
-        peak_flops=chip_peak_flops(device),
+        peak_flops=chip_peak_flops(device) * cards,
     )

@@ -1,5 +1,6 @@
-"""The workload run loop: the port of ``tpu_nexus/workload/harness.py`` for
-one process on one device — train, heartbeat, checkpoint, die honestly.
+"""The workload run loop: the port of ``tpu_nexus/workload/harness.py`` —
+train, heartbeat, checkpoint, die honestly — on one device or on a
+training mesh of ranks across launched processes.
 
 Cooperation contract with the supervisor, as the reference's:
 
@@ -40,16 +41,39 @@ train steps ``[NEXUS_PROFILE_START, NEXUS_PROFILE_START +
 NEXUS_PROFILE_STEPS)``; the first iteration (kernel build, allocator
 warm-up) is never in the window.
 
-Not ported in this slice, refused at parse naming the ROADMAP.md item
-that brings each: multi-device meshes, sequence-parallel attention and
-pipeline microbatches (``NEXUS_MESH``, ``NEXUS_SP_ATTN``,
-``NEXUS_PP_MICROBATCHES``, A6b).
+A mesh (``NEXUS_MESH``, default ``fsdp=-1`` over every rank, rules
+``LOGICAL_RULES_FSDP_TP``) of more than one rank trains on ranks: this
+process runs ``local`` of them (``parallel/distributed.py::
+training_ranks``), the first in this process, the others spawned
+(:func:`_local_rank`), all running this loop on their shards
+(``workload/train.py``).  As in the reference:
+
+* data: in the batch-rows mode each process draws its ``B / P`` rows with
+  seed ``seed + process_id``; when a non-batch axis spans processes
+  (:func:`_nonbatch_axis_spans_processes`) every process draws the whole
+  global batch with the base seed.  Each rank keeps its rows (``to_rank``);
+* ``sync_flags``: cancel and anomaly are max-reduced over the world at
+  one loop point, so every rank stops, or rolls back, together;
+* the process's first rank writes the heartbeats of all its ranks
+  (``host<p>/chip<j>``); quarantines, rollback counters and the terminal
+  row are the coordinator's (global rank 0) alone, the terminal row after
+  every process's final heartbeat and a barrier;
+* checkpoints: every rank takes part in a save (its shards gathered
+  whole), the coordinator writes the one-device layout and commits; every
+  rank restores its slice;
+* a local rank that dies fails the container non-zero (the next
+  collective fails, or times out at ``NEXUS_DIST_TIMEOUT_S``).
+
+Pipeline parallelism (``pp > 1``, ``NEXUS_PP_MICROBATCHES``) is refused at
+parse, naming ROADMAP.md A6b-ii.  On a mesh the step-hang watchdog's
+emergency save is skipped: it would need collectives of wedged peers.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import threading
 import time
 from dataclasses import dataclass, field
@@ -63,7 +87,9 @@ from tpu_nexus_torch.checkpoint.store import CheckpointStore
 from tpu_nexus_torch.core.signals import LifecycleContext, setup_signal_context
 from tpu_nexus_torch.core.telemetry import Metrics, StatsdClient
 from tpu_nexus_torch.models.llama import LlamaConfig
-from tpu_nexus_torch.parallel.distributed import ProcessContext, single_process
+from tpu_nexus_torch.parallel.distributed import ProcessContext, RankPlan, process_context_from_env, training_ranks
+from tpu_nexus_torch.parallel.mesh import AXIS_ORDER, MeshSpec, mesh_coords
+from tpu_nexus_torch.parallel.sharding import LOGICAL_RULES_FSDP_TP, RuleTable
 from tpu_nexus_torch.workload import durability
 from tpu_nexus_torch.workload.faults import (
     FaultPlan,
@@ -83,6 +109,7 @@ from tpu_nexus_torch.workload.goodput import (
     build_meter,
 )
 from tpu_nexus_torch.workload.health import (
+    CAUSE_NUMERIC_NAN,
     CAUSE_STEP_HANG,
     STEP_HANG_EXIT_CODE,
     Anomaly,
@@ -231,11 +258,27 @@ class LedgerReporter:
 # -- the training run loop ------------------------------------------------------
 
 
-def _parse_mesh(mesh_env: str) -> Dict[str, int]:
-    return {
-        k.strip(): int(v)
-        for k, v in (pair.split("=") for pair in mesh_env.split(",") if pair.strip())
-    }
+def _nonbatch_axis_spans_processes(sizes: Dict[str, int], rules: RuleTable, local: int) -> bool:
+    """True when a mesh axis other than the batch axes (whatever the rule
+    table maps the logical "batch" axis to) places its ranks in more than
+    one process (``local`` ranks a process, in rank order) — e.g. an sp
+    ring whose hops cross processes.  A process's rows are then not a
+    contiguous row block of the global batch."""
+    batch_axes = rules.get("batch", ("dp", "fsdp"))
+    if isinstance(batch_axes, str):
+        batch_axes = (batch_axes,)
+    batch_axes = set(batch_axes or ())
+    shape = tuple(sizes[a] for a in AXIS_ORDER)
+    coords = [mesh_coords(r, shape) for r in range(math.prod(shape))]
+    for i, name in enumerate(AXIS_ORDER):
+        if name in batch_axes or sizes[name] == 1:
+            continue
+        groups: Dict[tuple, set] = {}
+        for r, c in enumerate(coords):
+            groups.setdefault(c[:i] + c[i + 1:], set()).add(r // local)
+        if any(len(procs) > 1 for procs in groups.values()):
+            return True
+    return False
 
 
 @dataclass(frozen=True)
@@ -244,6 +287,13 @@ class WorkloadConfig:
     #: through the model registry, so any zoo model runs this harness
     model: Any = field(default_factory=LlamaConfig.tiny)
     train: TrainConfig = field(default_factory=TrainConfig)
+    #: the training mesh over every rank of the launched world (one
+    #: ``-1`` axis inferred) and its rule table
+    mesh: MeshSpec = field(default_factory=lambda: MeshSpec(fsdp=-1))
+    rules: RuleTable = field(default_factory=lambda: dict(LOGICAL_RULES_FSDP_TP))
+    #: "" (one card a rank) or "shared" (every rank on one device over
+    #: gloo: the rehearsal map; NEXUS_RANK_DEVICE_MAP)
+    rank_map: str = ""
     batch_size: int = 8
     seq_len: int = 128
     steps: int = 20
@@ -287,26 +337,38 @@ class WorkloadConfig:
         from tpu_nexus_torch.models.registry import get_adapter
 
         e = os.environ if env is None else env
-        mesh = _parse_mesh(e.get("NEXUS_MESH", ""))
-        if any(size > 1 for size in mesh.values()):
-            raise NotImplementedError(
-                f"NEXUS_MESH={e['NEXUS_MESH']!r}: multi-device meshes are not "
-                "ported yet (ROADMAP.md: A6b parallel training)"
+        # NEXUS_MESH: "sp=2,fsdp=2" etc. — axis sizes for MeshSpec
+        # (-1 = infer); absent -> shard everything over fsdp
+        mesh_env = e.get("NEXUS_MESH", "")
+        if mesh_env:
+            mesh = MeshSpec(
+                **{k.strip(): int(v) for k, v in
+                   (pair.split("=") for pair in mesh_env.split(",") if pair.strip())}
             )
-        for key in ("NEXUS_SP_ATTN", "NEXUS_PP_MICROBATCHES"):
-            if e.get(key, "") not in ("", "0"):
-                raise NotImplementedError(
-                    f"{key}={e[key]!r}: sequence/pipeline parallelism is not "
-                    "ported yet (ROADMAP.md: A6b parallel training)"
-                )
+        else:
+            mesh = MeshSpec(fsdp=-1)
+        if mesh.pp > 1:
+            raise NotImplementedError(
+                f"NEXUS_MESH={mesh_env!r}: pipeline parallelism (pp > 1) is not ported yet "
+                "(ROADMAP.md: A6b-ii)"
+            )
+        if int(e.get("NEXUS_PP_MICROBATCHES", "0")):
+            raise NotImplementedError(
+                f"NEXUS_PP_MICROBATCHES={e['NEXUS_PP_MICROBATCHES']!r}: pipeline microbatches are not "
+                "ported yet (ROADMAP.md: A6b-ii)"
+            )
         steps = int(e.get("NEXUS_STEPS", "100"))
         return WorkloadConfig(
             model=get_adapter(e.get("NEXUS_MODEL_PRESET", "tiny")),
             train=TrainConfig(
                 warmup_steps=int(e.get("NEXUS_WARMUP_STEPS", "10")),
                 total_steps=max(steps, 2),
+                # sequence-parallel attention strategy: ring (default) or ulysses
+                sp_attn=e.get("NEXUS_SP_ATTN", "ring"),
                 optimizer=e.get("NEXUS_OPTIMIZER", "adamw"),
             ),
+            mesh=mesh,
+            rank_map=e.get("NEXUS_RANK_DEVICE_MAP", ""),
             batch_size=int(e.get("NEXUS_BATCH", "8")),
             # default inside the default (tiny) preset's max_seq_len window
             seq_len=int(e.get("NEXUS_SEQ_LEN", "256")),
@@ -368,11 +430,13 @@ def _dump_failure_trace(cfg: WorkloadConfig, ctx: ProcessContext, step: int, exc
     return its URI (``file://...hlo``: the suffix the supervisor's trace-ref
     extractor matches).  Best-effort: a failing dump never masks the
     original error."""
+    import os
     import tempfile
     import traceback
 
     try:
         base = cfg.checkpoint_dir or tempfile.gettempdir()
+        os.makedirs(base, exist_ok=True)  # a run that fails before its first save has no directory yet
         path = f"{base}/hlo_trace_{ctx.run_id}_host{ctx.process_id}_step{step}.hlo"
         device = torch.device(cfg.device)
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -538,13 +602,97 @@ def run_workload(
             }
         lifecycle = setup_signal_context(install=on_main)
     try:
-        return _workload_loop(cfg, store, ctx, data, lifecycle, telemetry)
+        ctx = ctx or process_context_from_env()
+        if cfg.mesh.pp > 1 or cfg.train.pp_microbatches:
+            raise NotImplementedError(
+                f"pp={cfg.mesh.pp}, pp_microbatches={cfg.train.pp_microbatches}: pipeline parallelism is not "
+                "ported yet (ROADMAP.md: A6b-ii)"
+            )
+        plan = training_ranks(ctx, cfg.mesh.sizes(), cfg.device, cfg.rank_map)
+        if plan.world == 1:
+            return _workload_loop(cfg, store, ctx, data, lifecycle, telemetry)
+        if data is not None:
+            raise ValueError("an injected data stream trains on one device; a mesh draws its own")
+        return _run_ranks(cfg, store, ctx, plan, lifecycle, telemetry)
     finally:
         if restore_handlers:
             import signal as _signal
 
             for sig, handler in restore_handlers.items():
                 _signal.signal(sig, handler)
+
+
+@dataclass(frozen=True)
+class _Rank:
+    """One training rank of a launched world: its index among this
+    process's ``plan.local`` ranks and its global rank."""
+
+    plan: RankPlan
+    local_index: int
+    rank: int
+
+    @property
+    def device(self) -> str:
+        return str(self.plan.devices[self.local_index])
+
+
+def _run_ranks(
+    cfg: WorkloadConfig,
+    store: Optional[CheckpointStore],
+    ctx: ProcessContext,
+    plan: RankPlan,
+    lifecycle: LifecycleContext,
+    telemetry: Optional[Metrics],
+) -> Dict[str, Any]:
+    """This process's ranks: local ranks ``1..local-1`` spawned (each its
+    own process, running :func:`_local_rank`), rank 0 here.  A local rank
+    that exits non-zero fails the run."""
+    import torch.multiprocessing as mp
+
+    spawn = mp.get_context("spawn")
+    procs = []
+    for j in range(1, plan.local):
+        proc = spawn.Process(target=_local_rank, args=(cfg, ctx, plan, j, logger.getEffectiveLevel()), daemon=True)
+        proc.start()
+        logger.info("started local rank %d (global %d) pid %d on %s", j, plan.global_rank(ctx, j), proc.pid,
+                    plan.devices[j])
+        procs.append(proc)
+    import torch.distributed as dist
+
+    from tpu_nexus_torch.parallel.distributed import timeout_from_env
+
+    ok = False
+    try:
+        summary = _workload_loop(cfg, store, ctx, None, lifecycle, telemetry, rank=_Rank(plan, 0, plan.global_rank(ctx, 0)))
+        ok = True
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        # a failed first rank takes its local ranks down at once (they
+        # would wait in a collective until the timeout)
+        deadline = time.monotonic() + (timeout_from_env() if ok else 0.0)
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+            if proc.is_alive():
+                proc.kill()
+                proc.join(5.0)
+    failed = {j + 1: p.exitcode for j, p in enumerate(procs) if p.exitcode != 0}
+    if failed:
+        raise RuntimeError(f"local training rank(s) exited non-zero: {failed} (local index: exit code)")
+    return summary
+
+
+def _local_rank(cfg: WorkloadConfig, ctx: ProcessContext, plan: RankPlan, j: int, log_level: int) -> None:
+    """A spawned local rank: the training loop on its shards, no ledger
+    writes of its own (the process's first rank heartbeats its key), the
+    preemption signals installed as in the first rank."""
+    import sys
+
+    logging.basicConfig(level=log_level, stream=sys.stderr)
+    lifecycle = setup_signal_context(install=True)
+    from tpu_nexus_torch.core.telemetry import NullMetrics
+
+    _workload_loop(cfg, None, ctx, None, lifecycle, NullMetrics(), rank=_Rank(plan, j, plan.global_rank(ctx, j)))
 
 
 def _workload_loop(
@@ -554,14 +702,50 @@ def _workload_loop(
     data: Optional[Iterator[Any]],
     lifecycle: LifecycleContext,
     telemetry: Optional[Metrics],
+    rank: Optional[_Rank] = None,
 ) -> Dict[str, Any]:
     from tpu_nexus_torch.models.registry import adapter_for
     from tpu_nexus_torch.workload.data import DataCursor
-    from tpu_nexus_torch.workload.train import init_train_state, make_eval_step, make_train_step
+    from tpu_nexus_torch.workload.train import init_train_state, make_eval_step, make_train_step, train_layout
 
-    device = resolve_device(cfg.device)
-    ctx = single_process(ctx, "training")
-    reporter = LedgerReporter(store, ctx, local_devices=1)
+    ctx = ctx or process_context_from_env()
+    mesh = None
+    if rank is None:
+        device = resolve_device(cfg.device)
+    else:
+        from tpu_nexus_torch.parallel import collectives
+        from tpu_nexus_torch.parallel.distributed import start_process_group, timeout_from_env
+        from tpu_nexus_torch.parallel.mesh import TrainMesh
+
+        device = resolve_device(rank.device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        else:  # ranks sharing the host's cores: a share each
+            import os
+
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // rank.plan.local))
+        start_process_group(rank.plan.init_method, rank.rank, rank.plan.world, rank.plan.backend, timeout_from_env())
+        backend = "gloo" if rank.plan.backend == "gloo" else "nccl"
+        mesh = TrainMesh(cfg.mesh, backend=backend)
+        if rank.plan.rank_map == "shared" and device.type == "cuda":
+            # gloo's point-to-point has no device path (it reads the buffer
+            # from the host): the ring's hops go through host memory; the
+            # collectives gloo refuses on the card's tensors too
+            found = collectives.probe(device)
+            refused = sorted({k.split("/")[0] for k, v in found.items() if v != "ok"})
+            if refused:
+                raise RuntimeError(f"gloo refuses collectives of the train step on {device}: "
+                                   f"{ {k: v for k, v in found.items() if v != 'ok'} }")
+            collectives.stage_through_host(["send_recv"])
+            if rank.rank == 0:
+                logger.warning("rehearsal map over gloo on %s: send_recv staged through host memory", device)
+    # the ledger's writers: each process's first rank heartbeats all of its
+    # ranks' keys; the terminal row, quarantines and counters are the
+    # coordinator's (global rank 0)
+    first_local = rank is None or rank.local_index == 0
+    coordinator = ctx.is_coordinator and first_local
+    reporter = LedgerReporter(store if first_local else None, ctx,
+                              local_devices=1 if rank is None else rank.plan.local)
     plan = FaultPlan.from_env()
     if telemetry is None:
         # live DogStatsD emission, fire-and-forget — an absent agent drops
@@ -573,22 +757,32 @@ def _workload_loop(
     adapter = adapter_for(cfg.model)
     # goodput accounting: one stopwatch, every wall second attributed to a
     # named bucket at the phase boundaries below
-    meter = build_meter(cfg.goodput, adapter.config, cfg.seq_len, device)
+    meter = build_meter(cfg.goodput, adapter.config, cfg.seq_len, device, cards=_cards(device, mesh))
     meter.start()
-    logger.info("workload %s/%s: model %s on %s", ctx.algorithm, ctx.run_id, adapter.name, device)
+    logger.info("workload %s/%s: model %s on %s%s", ctx.algorithm, ctx.run_id, adapter.name, device,
+                f", rank {rank.rank} of mesh {mesh.describe()}" if mesh is not None else "")
 
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    state = init_train_state(generator, adapter, cfg.train, device)
+    state = init_train_state(generator, adapter, cfg.train, device, mesh=mesh, rules=cfg.rules)
+    shard = None
+    if mesh is not None:
+        from tpu_nexus_torch.workload.tensor_checkpoint import StateShard
+        from tpu_nexus_torch.workload.train import param_leaves
+
+        shard = StateShard(train_layout(adapter, mesh, cfg.rules),
+                           [n for n, _ in param_leaves(state["params"])], writer=mesh.rank == 0)
     ckpt: Optional[TensorCheckpointer] = None
     start_step = 0
     resumed_from: Optional[int] = None
     rollback_events: list = []
     fault_hook = checkpoint_fault_hook(plan)
     if cfg.checkpoint_every and cfg.checkpoint_dir:
-        ckpt = TensorCheckpointer(cfg.checkpoint_dir, fault_hook=fault_hook)
+        ckpt = TensorCheckpointer(cfg.checkpoint_dir, fault_hook=fault_hook, shard=shard)
         # durability barrier before anything restores or re-publishes: the
         # newest VERIFIED step, quarantining torn/corrupt ones on the way
-        latest = ckpt.latest_verified_step(quarantine=True)
+        # (one quarantine writer per run; every rank lands on the same step)
+        latest = ckpt.latest_verified_step(quarantine=coordinator)
+        _barrier(mesh)
         if latest is not None:
             state = _restore_train_state(ckpt, state, latest)
             start_step = latest
@@ -599,14 +793,15 @@ def _workload_loop(
             # newest on-disk step — metrics tag per cause, ledger details,
             # and the ledger pointer repointed at the step actually restored
             rollback_events = list(ckpt.rollbacks)
-            for event in rollback_events:
-                telemetry.count("train.ckpt_rollback", tags={"cause": event["cause"]})
-            reporter.checkpoint_rollback(
-                ckpt.uri_for(latest) if latest is not None else "",
-                latest or 0,
-                rollback_events,
-            )
-    step_fn = make_train_step(adapter, cfg.train, health=cfg.health)
+            if coordinator:
+                for event in rollback_events:
+                    telemetry.count("train.ckpt_rollback", tags={"cause": event["cause"]})
+                reporter.checkpoint_rollback(
+                    ckpt.uri_for(latest) if latest is not None else "",
+                    latest or 0,
+                    rollback_events,
+                )
+    step_fn = make_train_step(adapter, cfg.train, health=cfg.health, mesh=mesh, rules=cfg.rules)
 
     def make_stream(batch: int, seed: int, part: str = "train"):
         """The corpus file when configured (NEXUS_DATA_PATH), else the
@@ -636,8 +831,30 @@ def _workload_loop(
             )
         return adapter.data(batch, cfg.seq_len, seed=seed)
 
+    # cfg.batch_size is GLOBAL.  Two multi-process data modes, as the
+    # reference's: batch-rows (each process draws its B / P rows, seed +
+    # process_id) and replicated (a non-batch axis spans processes: every
+    # process draws the whole global batch with the base seed)
+    processes = ctx.num_processes if mesh is not None else 1
+    replicated = processes > 1 and _nonbatch_axis_spans_processes(mesh.sizes, cfg.rules, rank.plan.local)
+    stream_batch = cfg.batch_size if processes == 1 or replicated else cfg.batch_size // processes
     if data is None:
-        data = make_stream(cfg.batch_size, seed=cfg.seed)
+        if processes > 1 and not replicated and cfg.batch_size % processes:
+            raise ValueError(f"batch {cfg.batch_size} not divisible by {processes} processes")
+        data = make_stream(stream_batch, seed=cfg.seed + (0 if replicated else ctx.process_id))
+
+    def to_rank(raw: Any) -> Any:
+        """This rank's rows of a drawn batch (the whole batch on one device)."""
+        if mesh is None:
+            return raw
+        rows = cfg.batch_size // mesh.size("dp", "fsdp")
+        if cfg.batch_size % mesh.size("dp", "fsdp"):
+            raise ValueError(f"batch {cfg.batch_size} not divisible by dp·fsdp={mesh.size('dp', 'fsdp')}")
+        offset = mesh.index("dp", "fsdp") * rows
+        if stream_batch != cfg.batch_size:  # the process's rows start at its first rank's
+            offset -= ctx.process_id * stream_batch
+        return raw[offset:offset + rows]  # a token batch: the dense family alone trains on a mesh
+
     # chaos seam: data fault modes (nan-grads/loss-spike) poison batches at
     # the draw boundary, UNDER the cursor so draw indices line up with the
     # cursor's skip-window space
@@ -659,12 +876,27 @@ def _workload_loop(
     eval_data = None
     eval_loss: Optional[float] = None
     if cfg.eval_every:
-        eval_fn = make_eval_step(adapter, cfg.train)
-        # held-out stream: a seed offset no training stream uses
-        eval_data = make_stream(cfg.batch_size, seed=cfg.seed + 7919, part="eval")
+        eval_fn = make_eval_step(adapter, cfg.train, mesh=mesh, rules=cfg.rules)
+        # held-out stream: a seed offset no training stream uses, disjoint
+        # per process in the batch-rows mode
+        eval_seed = cfg.seed + 7919 + (0 if replicated else ctx.process_id)
+        eval_data = make_stream(stream_batch, seed=eval_seed, part="eval")
+
+    def sync_flags(anomaly_local: bool) -> "tuple[bool, bool]":
+        """(cancelled, anomaly), the same on every rank: SIGTERM reaches the
+        ranks milliseconds apart, and a rank that breaks for the emergency
+        save while another enters the next step's collectives would leave
+        both waiting.  Every rank contributes both flags at one loop point."""
+        if mesh is None:
+            return lifecycle.cancelled, bool(anomaly_local)
+        import torch.distributed as dist
+
+        flags = torch.tensor([int(lifecycle.cancelled), int(bool(anomaly_local))], dtype=torch.int32)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+        return bool(flags[0]), bool(flags[1])
 
     def cancel_requested() -> bool:
-        return lifecycle.cancelled
+        return sync_flags(False)[0]
 
     # -- self-healing machinery (workload/health.py) ---------------------------
     health_cfg = cfg.health
@@ -693,16 +925,19 @@ def _workload_loop(
         resume — or raise a classified terminal failure when recovery
         cannot help (no pre-window checkpoint, recurrence, budget)."""
         limit = anomaly.step + 1  # checkpoints <= the flagged step predate the window
-        target = ckpt.latest_verified_step(quarantine=True, before=limit) if ckpt is not None else None
+        target = ckpt.latest_verified_step(quarantine=coordinator, before=limit) if ckpt is not None else None
+        _barrier(mesh)
         # the before-scan may have quarantined steps that rotted SINCE the
         # startup scan — fold the fresh events into the run's evidence
         if ckpt is not None and len(ckpt.rollbacks) > len(rollback_events):
             fresh = ckpt.rollbacks[len(rollback_events):]
             rollback_events.extend(fresh)
-            for event in fresh:
-                telemetry.count("train.ckpt_rollback", tags={"cause": event["cause"]})
+            if coordinator:
+                for event in fresh:
+                    telemetry.count("train.ckpt_rollback", tags={"cause": event["cause"]})
         verdict, why = policy.decide(anomaly, target)
-        telemetry.count("train.anomaly", tags={"cause": anomaly.kind})
+        if coordinator:
+            telemetry.count("train.anomaly", tags={"cause": anomaly.kind})
         if verdict == "fail":
             raise RuntimeError(classified_failure_text(anomaly, why))
         # newer steps are healthy bytes on the ABANDONED trajectory: the
@@ -712,8 +947,9 @@ def _workload_loop(
         abandoned = [
             durability.abandon_step(cfg.checkpoint_dir, s)
             for s in durability.list_steps(cfg.checkpoint_dir)
-            if s > target
+            if s > target and coordinator
         ]
+        _barrier(mesh)
         restored = _restore_train_state(ckpt, current_state, target)
         sidecar = ckpt.load_cursor(target) or {"position": target}
         window = [int(sidecar.get("position", target)), int(cursor.position)]
@@ -734,8 +970,9 @@ def _workload_loop(
             "skipped data window [%d, %d), abandoned %d newer checkpoint(s)",
             anomaly.kind, anomaly.step, target, window[0], window[1], len(abandoned),
         )
-        telemetry.count("train.rollback", tags={"cause": anomaly.kind})
-        reporter.health_rollback(ckpt.uri_for(target), target, _health_details())
+        if coordinator:
+            telemetry.count("train.rollback", tags={"cause": anomaly.kind})
+            reporter.health_rollback(ckpt.uri_for(target), target, _health_details())
         return restored, target
 
     # the hang handler's snapshot: the state and the cursor state of the
@@ -749,7 +986,8 @@ def _workload_loop(
             health_cfg.step_timeout_s,
             _make_hang_handler(
                 cfg, reporter, ctx, telemetry, evidence=_evidence,
-                ckpt=ckpt, latest_ref=latest_ref, state_lock=state_lock,
+                # on a mesh the save would need the wedged peers' collectives
+                ckpt=ckpt if mesh is None else None, latest_ref=latest_ref, state_lock=state_lock,
             ),
         )
         watchdog.start()
@@ -762,6 +1000,11 @@ def _workload_loop(
     profiler = DeviceProfiler.from_env(cuda=device.type == "cuda")
 
     reporter.running()
+    launches_at_start = _attention_launches()
+    if mesh is not None:
+        from tpu_nexus_torch.parallel import collectives
+
+        collectives.STATS.reset()
     metrics: Dict[str, Any] = {}
     m: Dict[str, Any] = {}
     t0 = time.perf_counter()
@@ -778,10 +1021,15 @@ def _workload_loop(
                 # the sentinel reads flags one step delayed — the FINAL
                 # step's verdict is still pending when the loop drains
                 pending_anomaly = monitor.drain()
-            if cancel_requested():
+            cancelled, anomaly_flag = sync_flags(pending_anomaly is not None)
+            if cancelled:
                 break  # preemption: the grace window belongs to the emergency save
-            if pending_anomaly is not None:
-                anomaly, pending_anomaly = pending_anomaly, None
+            if anomaly_flag:
+                # a peer's flag without a local anomaly should be impossible
+                # (the flags derive from the same global scalars): fail safe
+                # to the same window if it ever happens
+                anomaly = pending_anomaly or Anomaly(CAUSE_NUMERIC_NAN, max(step - 1, start_step), "peer rank flagged")
+                pending_anomaly = None
                 with state_lock:
                     state, step = _health_recover(anomaly, state)
                     latest_ref["snap"] = (state, cursor.state())
@@ -808,7 +1056,7 @@ def _workload_loop(
             )
             meter.lap(BUCKET_OTHER)
             raw = next(cursor)
-            batch = adapter.to_device(raw, device)
+            batch = adapter.to_device(to_rank(raw), device)
             meter.lap(BUCKET_DATA)
             with state_lock:
                 state, step_metrics = step_fn(state, batch)
@@ -816,7 +1064,8 @@ def _workload_loop(
                 # after this point reads the state this cursor state matches
                 latest_ref["snap"] = (state, cursor.state())
             m = _HostCopy(step_metrics, device)
-            items = adapter.items_in(raw)
+            # global items: the process's draw times the processes that draw apart
+            items = adapter.items_in(raw) * (processes if stream_batch != cfg.batch_size else 1)
             tokens_done += items
             meter.note_step(items)
             if monitor is not None:
@@ -834,13 +1083,14 @@ def _workload_loop(
                     telemetry.gauge("train.loss", metrics["loss"])
                 if "grad_norm" in metrics:
                     telemetry.gauge("train.grad_norm", metrics["grad_norm"])
-                meter.gauges(telemetry)
+                if coordinator:
+                    meter.gauges(telemetry)
             if watchdog is not None:
                 watchdog.disarm()
             warmup_pending = False
             if eval_fn and (step + 1) % cfg.eval_every == 0:
                 losses = [
-                    eval_fn(state, adapter.to_device(next(eval_data), device))["loss"]
+                    eval_fn(state, adapter.to_device(to_rank(next(eval_data)), device))["loss"]
                     for _ in range(cfg.eval_steps)
                 ]
                 eval_loss = float(sum(losses)) / max(len(losses), 1)
@@ -851,10 +1101,13 @@ def _workload_loop(
                 # cursor sidecar stages before commit() so the manifest
                 # covers it, and only commit()'s URI reaches the ledger
                 # (nxlint NX007)
+                # (nxlint NX007).  Every rank takes part in the save (its
+                # shards gathered whole); one writer, the coordinator, commits
                 ckpt.save(step + 1, state)
-                ckpt.save_cursor(step + 1, cursor.state())
-                uri = ckpt.commit(step + 1)
-                reporter.tensor_checkpoint(uri, step + 1)
+                if coordinator:
+                    ckpt.save_cursor(step + 1, cursor.state())
+                    uri = ckpt.commit(step + 1)
+                    reporter.tensor_checkpoint(uri, step + 1)
                 meter.lap(BUCKET_CKPT)
             step += 1
     except Exception as exc:  # noqa: BLE001 - annotate, record, re-raise
@@ -881,11 +1134,12 @@ def _workload_loop(
     preempted = cancel_requested()
     emergency: Dict[str, Any] = {}
     if preempted:
-        emergency = _emergency_save(cfg, ckpt, state, reporter, lifecycle, telemetry, cursor=cursor)
+        emergency = _emergency_save(cfg, ckpt, state, reporter, lifecycle, telemetry, cursor=cursor,
+                                    coordinator=coordinator)
         meter.lap(BUCKET_EMERGENCY)
     if ckpt:
         ckpt.close()
-    if fault_hook is not None and not preempted and fault_hook.fired["count"] == 0:
+    if coordinator and fault_hook is not None and not preempted and fault_hook.fired["count"] == 0:
         # vacuous-drill guard, commit-protocol flavor: a checkpoint fault
         # was configured but its step never matched a commit boundary, so
         # nothing was injected — exiting 0 would read as a passed drill
@@ -895,7 +1149,7 @@ def _workload_loop(
             f"checkpoint step {plan.step}, but that step never committed "
             f"(checkpoint_every={cfg.checkpoint_every}, steps={cfg.steps})"
         )
-    if data_faults_handled and not preempted and poison.fired["count"] == 0:
+    if coordinator and data_faults_handled and not preempted and poison.fired["count"] == 0:
         # same guard, data-poison flavor: the fault draw index was never
         # reached (or a rollback skip-window swallowed it before it fired)
         raise RuntimeError(
@@ -903,7 +1157,7 @@ def _workload_loop(
             f"batch draw {plan.step}, but only {cursor.position} draws happened "
             f"(steps={cfg.steps})"
         )
-    if plan.mode == "step-hang" and not preempted:
+    if coordinator and plan.mode == "step-hang" and not preempted:
         # reachable only if the fault step was never hit: a fired step-hang
         # exits the process through the watchdog (exit code 70)
         raise RuntimeError(
@@ -914,12 +1168,17 @@ def _workload_loop(
     # close the goodput books: residual host time lands in host_other, so
     # the buckets sum to elapsed exactly
     meter.stop()
-    if meter.enabled:
+    if meter.enabled and coordinator:
         logger.info("%s", meter.table())
     metrics = {k: float(v) for k, v in m.items()} if m else metrics
     final_step = int(state["step"])
+    # completion protocol: every process lands its final heartbeat, THEN a
+    # barrier across the world, THEN only the coordinator commits the
+    # terminal row — a fast process's terminal write would make the
+    # IsFinished guard drop a slower one's last heartbeat
     reporter.heartbeat(final_step)
-    if ctx.is_coordinator:
+    _barrier(mesh)
+    if coordinator:
         goodput = {"goodput": meter.summary()} if meter.enabled else {}
         if preempted:
             # PREEMPTED is non-terminal: the supervisor's restart path
@@ -940,6 +1199,10 @@ def _workload_loop(
         "elapsed_s": elapsed,
         "tokens_per_second": tokens_done / elapsed if elapsed > 0 else 0.0,
         "device": str(device),
+        # this run's launches of the flash kernels (#1-#3) on this rank
+        "attention_launches": {k: v - launches_at_start[k] for k, v in _attention_launches().items()},
+        **({"mesh": mesh.describe(), "rank": rank.rank, "collectives": _collectives_summary()}
+           if mesh is not None else {}),
         **({"goodput": meter.summary()} if meter.enabled else {}),
         **({"eval_loss": eval_loss} if eval_loss is not None else {}),
         **({"preempted": True, **emergency} if preempted else {}),
@@ -952,6 +1215,45 @@ def _workload_loop(
     }
 
 
+def _attention_launches() -> Dict[str, int]:
+    """The flash kernels' launch counters (#1 forward, #2 dQ, #3 dK/dV)."""
+    from tpu_nexus_torch.ops import flash_attention as fa
+
+    return {f.__name__: f.launches for f in (fa.flash_attention, fa.flash_attention_bwd_dq,
+                                             fa.flash_attention_bwd_dkv)}
+
+
+def _collectives_summary() -> Dict[str, Any]:
+    """The run's collectives on this rank: calls and bytes by name."""
+    from tpu_nexus_torch.parallel import collectives
+
+    stats = collectives.STATS.to_dict()
+    return {"calls": stats["calls"], "bytes": stats["bytes"], "staged": sorted(collectives.STAGED)}
+
+
+def _barrier(mesh: Any) -> None:
+    """Every rank of a training world meets here (a no-op on one device)."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _cards(device: torch.device, mesh: Any) -> int:
+    """Distinct cards under the world's ranks (the MFU's peak counts each
+    once: ranks sharing a card under the rehearsal map do not multiply it)."""
+    if device.type != "cuda":
+        return 1
+    name = str(torch.cuda.get_device_properties(device).uuid)
+    if mesh is None:
+        return 1
+    import torch.distributed as dist
+
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names, name)
+    return len(set(names))
+
+
 def _emergency_save(
     cfg: WorkloadConfig,
     ckpt: Optional[TensorCheckpointer],
@@ -960,6 +1262,7 @@ def _emergency_save(
     lifecycle: LifecycleContext,
     telemetry: Metrics,
     cursor: Optional[Any] = None,
+    coordinator: bool = True,
 ) -> Dict[str, Any]:
     """Preemption → saved step: cut a final checkpoint inside the grace
     window, skipping when the interrupted loop already committed this exact
@@ -979,7 +1282,7 @@ def _emergency_save(
     if ckpt.last_saved_step == step:
         # the loop already wrote this exact step; a barrier that somehow
         # did not finish completes here without a fresh save
-        if ckpt.last_committed_step != step:
+        if coordinator and ckpt.last_committed_step != step:
             uri = ckpt.commit(step)
             reporter.tensor_checkpoint(uri, step)
         logger.info("emergency save: step %d already committed; skipping", step)
@@ -988,7 +1291,10 @@ def _emergency_save(
         return info
     t0 = time.perf_counter()
     try:
-        ckpt.save(step, state)
+        ckpt.save(step, state)  # every rank of a mesh: the save gathers the shards
+        if not coordinator:
+            info.update(emergency_step=step, emergency_skipped=False)
+            return info
         if cursor is not None:
             # restart-from-*data*: the emergency step's sidecar carries the
             # cursor (incl. any health-rollback skip windows)

@@ -19,6 +19,14 @@ Restores go the other way: verify first, and when the newest step is torn
 or corrupt, roll back to the newest step that *proves* itself,
 quarantining the bad directory and recording why (``rollbacks``).
 
+Sharded train state (a rank of a training mesh, :class:`StateShard`) is
+saved in the same layout a one-device run writes: every rank takes part
+in the save, each leaf gathered whole across the ranks that cut it, and
+one rank (the coordinator) writes the files; its ``commit`` is the one
+checksum commit.  A restore reads each file mapped and copies only the
+rank's slice, so a run resumes on another mesh, or on one device, from
+the same directory.
+
 Storage (the package imports only torch, numpy and the stdlib): a step
 directory holds one file per tensor leaf, ``tensors/<n>.pt``, each a
 ``torch.save`` of a contiguous CPU tensor with a storage of its own, and
@@ -122,35 +130,69 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-class _Writer:
-    """Flattens a state tree into tensor files plus the index nodes."""
+class StateShard:
+    """How a rank of a training mesh saves and restores its train state:
+    ``layout`` (``workload/train.py::Layout``) gives each leaf's spec by its
+    path, ``names`` the parameters' flatten order (an optimizer leaf's
+    index), and ``writer`` says whether this rank writes the files."""
 
-    def __init__(self, root: str) -> None:
+    def __init__(self, layout: Any, names: List[str], writer: bool) -> None:
+        self.layout, self.names, self.writer = layout, names, writer
+
+    def spec(self, path: str) -> Any:
+        return self.layout.state_spec(path, self.names)
+
+    def whole(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        return self.layout.gather_full(t, self.spec(path))
+
+    def cut(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        return self.layout.cut(t, self.spec(path))
+
+    def global_shape(self, path: str, shape: Any) -> List[int]:
+        return list(self.layout.global_shape(shape, self.spec(path)))
+
+
+def _join(path: str, key: Any) -> str:
+    return f"{path}/{key}" if path else str(key)
+
+
+class _Writer:
+    """Flattens a state tree into tensor files plus the index nodes.  With
+    a ``shard`` each tensor is gathered whole first (every rank walks the
+    tree: the gathers are collective); ``root`` None writes nothing."""
+
+    def __init__(self, root: Optional[str], shard: Optional[StateShard] = None) -> None:
         self.root = root
+        self.shard = shard
         self.count = 0
 
-    def node(self, obj: Any) -> Dict[str, Any]:
+    def node(self, obj: Any, path: str = "") -> Dict[str, Any]:
         if isinstance(obj, torch.nn.Module):
             name = type(obj).__name__
             if name not in _module_types():
                 raise TypeError(f"cannot checkpoint module type {name}")
-            return {"module": name, "tree": self.node(_module_tree(obj))}
+            return {"module": name, "tree": self.node(_module_tree(obj), path)}
         if isinstance(obj, torch.Tensor):
-            return self.tensor(obj)
+            return self.tensor(obj, path)
         if isinstance(obj, dict):
             if not all(isinstance(k, str) for k in obj):
                 raise TypeError("checkpoint trees take string dict keys only")
-            return {"dict": [[k, self.node(v)] for k, v in obj.items()]}
+            return {"dict": [[k, self.node(v, _join(path, k))] for k, v in obj.items()]}
         if isinstance(obj, (list, tuple)):
-            return {"tuple" if isinstance(obj, tuple) else "list": [self.node(v) for v in obj]}
+            return {"tuple" if isinstance(obj, tuple) else "list":
+                    [self.node(v, _join(path, i)) for i, v in enumerate(obj)]}
         if obj is None or isinstance(obj, (bool, int, float, str)):
             return {"value": obj}
         raise TypeError(f"cannot checkpoint a leaf of type {type(obj).__name__}")
 
-    def tensor(self, t: torch.Tensor) -> Dict[str, Any]:
+    def tensor(self, t: torch.Tensor, path: str = "") -> Dict[str, Any]:
         dtype = str(t.dtype).removeprefix("torch.")
         if dtype not in _DTYPES:
             raise TypeError(f"cannot checkpoint a {t.dtype} tensor")
+        if self.shard is not None:
+            t = self.shard.whole(path, t.detach())
+        if self.root is None:
+            return {}
         rel = f"{TENSOR_DIR}/{self.count:05d}.pt"
         self.count += 1
         host = _host_copy(t)
@@ -205,18 +247,21 @@ class _Reader:
         return node["value"]
 
 
-def _template_shape(obj: Any) -> Any:
+def _template_shape(obj: Any, shard: Optional[StateShard] = None, path: str = "") -> Any:
     """The structure of a restore template — containers, module classes,
-    tensor dtypes and shapes, scalars — in the canonical form that
-    :func:`_index_shape` gives a saved index (dict keys unordered)."""
+    tensor dtypes and shapes (a shard's global shapes), scalars — in the
+    canonical form that :func:`_index_shape` gives a saved index (dict
+    keys unordered)."""
     if isinstance(obj, torch.nn.Module):
-        return {"module": type(obj).__name__, "tree": _template_shape(_module_tree(obj))}
+        return {"module": type(obj).__name__, "tree": _template_shape(_module_tree(obj), shard, path)}
     if isinstance(obj, torch.Tensor):
-        return {"dtype": str(obj.dtype).removeprefix("torch."), "shape": list(obj.shape)}
+        shape = list(obj.shape) if shard is None else shard.global_shape(path, obj.shape)
+        return {"dtype": str(obj.dtype).removeprefix("torch."), "shape": shape}
     if isinstance(obj, dict):
-        return {"dict": {k: _template_shape(v) for k, v in obj.items()}}
+        return {"dict": {k: _template_shape(v, shard, _join(path, k)) for k, v in obj.items()}}
     if isinstance(obj, (list, tuple)):
-        return {"tuple" if isinstance(obj, tuple) else "list": [_template_shape(v) for v in obj]}
+        return {"tuple" if isinstance(obj, tuple) else "list":
+                [_template_shape(v, shard, _join(path, i)) for i, v in enumerate(obj)]}
     return {"value": obj}
 
 
@@ -267,10 +312,13 @@ class TensorCheckpointer:
         directory: str,
         max_to_keep: int = 3,
         fault_hook: Optional[Callable[[str, int, str], None]] = None,
+        shard: Optional[StateShard] = None,
     ) -> None:
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         self.directory = directory
+        #: a rank of a training mesh (see the module docstring); None: one device
+        self.shard = shard
         self.max_to_keep = max_to_keep
         self._fault_hook = fault_hook
         #: newest step whose commit barrier completed IN THIS PROCESS —
@@ -303,6 +351,10 @@ class TensorCheckpointer:
         step number is free again, so its re-save is a real save."""
         step = int(step)
         final = self.step_dir(step)
+        if self.shard is not None and not self.shard.writer:
+            _Writer(None, self.shard).node(state)  # this rank's part of the gathers
+            self.last_saved_step = step
+            return self.uri_for(step)
         if os.path.exists(final):
             raise ValueError(f"checkpoint step {step} already exists at {final}")
         os.makedirs(self.directory, exist_ok=True)
@@ -311,7 +363,7 @@ class TensorCheckpointer:
             shutil.rmtree(stale, ignore_errors=True)
         tmp = f"{final}{TMP_INFIX}{os.getpid()}"
         os.makedirs(os.path.join(tmp, TENSOR_DIR))
-        index = {"format": TREE_FORMAT, "step": step, "tree": _Writer(tmp).node(state)}
+        index = {"format": TREE_FORMAT, "step": step, "tree": _Writer(tmp, self.shard).node(state)}
         durability.write_json_sidecar(tmp, TREE_INDEX, index)
         durability._fsync_dir(os.path.join(tmp, TENSOR_DIR))
         durability._fsync_dir(tmp)
@@ -446,17 +498,17 @@ class TensorCheckpointer:
         is verified (manifest + checksums) before anything is read."""
         step = self._resolve_step(step)
         index = self._index(step)
-        saved, wanted = _index_shape(index["tree"]), _template_shape(state_like)
+        saved, wanted = _index_shape(index["tree"]), _template_shape(state_like, self.shard)
         if saved != wanted:
             raise ValueError(
                 f"checkpoint step {step} does not match the restore template at "
                 f"{_first_difference(saved, wanted)}"
             )
-        reader = _Reader(self.step_dir(step))
+        reader = _Reader(self.step_dir(step), self.shard.cut if self.shard is not None else None)
 
-        def fill(node: Dict[str, Any], like: Any) -> Any:
+        def fill(node: Dict[str, Any], like: Any, path: str = "") -> Any:
             if isinstance(like, torch.nn.Module):
-                tree = fill(node["tree"], _module_tree(like))
+                tree = fill(node["tree"], _module_tree(like), path)
                 params = dict(like.named_parameters())
 
                 def rebind(sub: Any, prefix: str) -> None:
@@ -470,12 +522,13 @@ class TensorCheckpointer:
                     rebind(tree, "")
                 return like
             if isinstance(like, torch.Tensor):
-                return reader.tensor(node, like.device)
+                return reader.tensor(node, like.device, path)
             if isinstance(like, dict):
                 saved = dict(node["dict"])
-                return {k: fill(saved[k], v) for k, v in like.items()}
+                return {k: fill(saved[k], v, _join(path, k)) for k, v in like.items()}
             if isinstance(like, (list, tuple)):
-                items = [fill(v, x) for v, x in zip(node["tuple" if isinstance(like, tuple) else "list"], like)]
+                kind = "tuple" if isinstance(like, tuple) else "list"
+                items = [fill(v, x, _join(path, i)) for i, (v, x) in enumerate(zip(node[kind], like))]
                 return tuple(items) if isinstance(like, tuple) else items
             return node["value"]
 
