@@ -307,7 +307,8 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe",
           "train_ckpt", "serve_reload", "fleet", "disagg", "fleet_rollout", "serve_moe_quant", "quant_gate",
-          "profile_hook", "control_plane", "fleet_supervisor", "cql_ledger", "serve_sharded", "train_sharded")
+          "profile_hook", "control_plane", "fleet_supervisor", "cql_ledger", "serve_sharded", "train_sharded",
+          "train_pp_ep")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
           "quant_rms_times", "int4_probe", "int8_probe", "ckpt_probe")
@@ -6099,9 +6100,10 @@ def sharded_train_exact(results, world, staged, out):
         raise AssertionError(f"train_sharded (b): meshes differ from one device in f32: {failed}")
 
 
-def sharded_train_rank_shapes(results, out):
+def sharded_train_rank_shapes(results, out, shapes=TRAIN_SHARDED_RANK_SHAPES, phase="train_sharded", part="c"):
     """(c) Kernels #1-#3 at the rank shapes of the parallel training meshes
-    (:data:`TRAIN_SHARDED_RANK_SHAPES`, bf16, D 128): each against its plain
+    (``shapes``, default :data:`TRAIN_SHARDED_RANK_SHAPES`; bf16, D 128;
+    train_pp_ep's (d) passes the pipeline's microbatch): each against its plain
     version (the forward at the parity phase's bf16 limits, the backward at
     train_parity's), each run twice bit-identical, then timed beside its
     bound, its plain version and ``scaled_dot_product_attention`` (forward;
@@ -6121,7 +6123,7 @@ def sharded_train_rank_shapes(results, out):
 
     dt, d = torch.bfloat16, 128
     rows = {}
-    for label, b, s, hq, hkv, causal in TRAIN_SHARDED_RANK_SHAPES:
+    for label, b, s, hq, hkv, causal in shapes:
         q, k, v, o, lse, dout = bwd_inputs(b, s, hq, hkv, d, dt, causal, seed=4100)
         again, lse2 = flash_attention(q, k, v, causal=causal)
         ref_o, ref_lse = flash_attention_plain(q, k, v, causal=causal)
@@ -6173,16 +6175,16 @@ def sharded_train_rank_shapes(results, out):
                                             max_abs_err=max(bwd_errs["dk"][0], bwd_errs["dv"][0])),
             "bit_identical_twice": identical, "ok": ok,
         }
-        emit("train_sharded", part="c", rank_shape=label, plain_ms_is="plain forward / plain backward (dQ+dK+dV)",
+        emit(phase, part=part, rank_shape=label, plain_ms_is="plain forward / plain backward (dQ+dK+dV)",
              library_ms_is="scaled_dot_product_attention forward / its backward", **rows[label])
         del q, k, v, o, lse, dout, again, lse2, ref_o, ref_lse, dq, dq2, dk, dk2, dv, dv2, rdq, rdk, rdv
         del sets, pre, lib_fwd, lib_bwd
         torch.cuda.empty_cache()
         if not ok:
-            raise AssertionError(f"train_sharded (c): {label} disagrees with plain or is not deterministic: "
+            raise AssertionError(f"{phase} ({part}): {label} disagrees with plain or is not deterministic: "
                                  f"fwd {fwd_err}, bwd {bwd_errs}, identical {identical}")
-    out["c"] = rows
-    results["train_sharded_rank_shapes"] = rows
+    out[part] = rows
+    results.setdefault("train_sharded_rank_shapes", {}).update(rows)
 
 
 def phase_train_sharded(results):
@@ -6232,6 +6234,343 @@ def phase_train_sharded(results):
     t0 = time.perf_counter()
     sharded_train_rank_shapes(results, out)
     emit("train_sharded_part_done", part="c", seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+
+# -- train_pp_ep ----------------------------------------------------------------
+
+#: the main paths' steps
+TRAIN_PP_EP_STEPS = 6
+#: (c): depth, global batch and seed, and the meshes (spec, sp_attn) for
+#: nexus_1b and (spec, dispatch, NEXUS_MOE_FORCE_EP_PATH, pp_microbatches)
+#: for nexus_moe.  Scatter under pp runs ONE microbatch here: a
+#: microbatch's capacity and aux losses are its own (so several would not
+#: be one device's math); the CPU tests hold the port's microbatched MoE
+#: pipeline to the JAX package's
+TRAIN_PP_EP_EXACT_LAYERS, TRAIN_PP_EP_EXACT_BATCH, TRAIN_PP_EP_EXACT_SEED = 2, (8, 512), 37
+TRAIN_PP_EP_EXACT_LLAMA = (({"pp": 2}, "ring"), ({"pp": 2, "fsdp": 2}, "ring"), ({"pp": 2, "sp": 2}, "ulysses"))
+TRAIN_PP_EP_EXACT_MOE = (({"pp": 2}, "scatter", False, 1), ({"ep": 2}, "gmm", False, 0),
+                         ({"ep": 2, "tp": 2}, "gmm", False, 0), ({}, "gmm", True, 0))
+#: (d): #1-#3 at the pipeline's microbatch (nexus_1b, batch 8 over 8
+#: microbatches: B1 S2048 Hq16 Hkv8) and #7/#8 at an ep-2 rank of
+#: nexus_moe (T 16384, A 32768, bm 512: 68 budget tiles + the dumpster,
+#: m_pad 35328; 4 local experts of ~8 tiles, the last one also owning the
+#: unallocated tail and the dumpster; 16384 useful rows)
+TRAIN_PP_EP_FLASH_SHAPES = (("pp2_microbatch", 1, 2048, 16, 8, True),)
+TRAIN_PP_EP_GMM_TILES, TRAIN_PP_EP_GMM_USEFUL_ROWS = (9, 8, 9, 43), 16384
+
+
+def _per_step(summary, steps, names):
+    calls, nbytes = summary["collectives"]["calls"], summary["collectives"]["bytes"]
+    return {n: {"calls": calls.get(n, 0) / steps, "bytes": nbytes.get(n, 0) / steps} for n in names}
+
+
+def _one_device_step1(adapter, tc, batch):
+    """Step 1's loss of ``adapter`` on one card from the seed-0 init on the
+    host batch ``batch``."""
+    import torch
+
+    from tpu_nexus_torch.workload.train import init_train_state, make_train_step
+
+    tokens = torch.from_numpy(batch).long().cuda()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0), adapter, tc, "cuda")
+    _, m = make_train_step(adapter, tc)(state, tokens)
+    loss = float(m["loss"])
+    del state, m, tokens
+    torch.cuda.empty_cache()
+    return loss
+
+
+def pp_ep_exact(results, world, staged, out):
+    """(c) f32 at full width and :data:`TRAIN_PP_EP_EXACT_LAYERS` layers
+    (global batch :data:`TRAIN_PP_EP_EXACT_BATCH`, tokens from seed
+    :data:`TRAIN_PP_EP_EXACT_SEED`): one adamw step with a one-step warmup
+    (lr 0) at each mesh against one device, gated on the loss and grad norm
+    within 1e-5 relative and every leaf's gradient (Adam's first moment)
+    within 1e-5 x its max-abs."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.models.llama import LlamaConfig
+    from tpu_nexus_torch.models.moe import MoeConfig
+    from tpu_nexus_torch.workload.train import TrainConfig
+
+    b, s = TRAIN_PP_EP_EXACT_BATCH
+    job = "tpu_nexus_torch.workload.rehearsal:train_steps"
+    f32 = dict(n_layers=TRAIN_PP_EP_EXACT_LAYERS, dtype=torch.float32, param_dtype=torch.float32)
+    llama = dataclasses.replace(LlamaConfig.nexus_1b(), **f32)
+    cases = [(llama, spec, attn, False, 0) for spec, attn in TRAIN_PP_EP_EXACT_LLAMA]
+    cases += [(dataclasses.replace(MoeConfig.nexus_moe(), dispatch=dispatch, **f32), spec, "ring", force, mb)
+              for spec, dispatch, force, mb in TRAIN_PP_EP_EXACT_MOE]
+    rows, refs = [], {}
+    t0 = time.perf_counter()
+    for model, spec, attn, force, mb in cases:
+        batches = [np.random.default_rng(TRAIN_PP_EP_EXACT_SEED).integers(0, model.vocab_size, (b, s)).astype(
+            np.int32)]
+        common = dict(model=model, batches=batches, device=SHARDED_DEVICE, stage=staged)
+        if refs.get("key") != (type(model).__name__, model.dispatch if isinstance(model, MoeConfig) else ""):
+            refs["key"] = (type(model).__name__, model.dispatch if isinstance(model, MoeConfig) else "")
+            refs["one"] = world.run(job, spec={}, train_cfg=TrainConfig(warmup_steps=1, total_steps=4),
+                                    reference="keep", **common)[0]
+        ref = refs["one"]
+        t1 = time.perf_counter()
+        tc = TrainConfig(warmup_steps=1, total_steps=4, sp_attn=attn, pp_microbatches=mb)
+        got = world.run(job, spec=spec, train_cfg=tc, reference="compare", force_ep=force, **common)[0]
+        worst = max(err / scale for err, scale in got["first_moments"].values() if scale)
+        ok = (all(abs(x - y) <= 1e-5 * abs(y) for x, y in zip(got["loss"], ref["loss"]))
+              and all(abs(x - y) <= 1e-5 * abs(y) for x, y in zip(got["grad_norm"], ref["grad_norm"]))
+              and worst <= 1e-5)
+        rows.append(dict(model=type(model).__name__, dispatch=getattr(model, "dispatch", None), mesh=spec,
+                         sp_attn=attn, force_ep_path=force, pp_microbatches=mb, loss=got["loss"],
+                         one_device_loss=ref["loss"], grad_norm=got["grad_norm"],
+                         one_device_grad_norm=ref["grad_norm"], worst_gradient_err_over_max=worst, ok=ok,
+                         seconds=time.perf_counter() - t1, collectives_calls=got["collectives"]["calls"]))
+        emit("train_pp_ep", part="c", **rows[-1])
+        torch.cuda.empty_cache()
+    out["c"] = dict(config=f"full width, {TRAIN_PP_EP_EXACT_LAYERS} layers, f32, adamw, global batch {b} x {s} "
+                           f"(seed {TRAIN_PP_EP_EXACT_SEED}), 1 step (warmup 1: lr 0)", meshes=rows,
+                    seconds=time.perf_counter() - t0)
+    failed = [r for r in rows if not r["ok"]]
+    if failed:
+        raise AssertionError(f"train_pp_ep (c): meshes differ from one device in f32: {failed}")
+
+
+def pp_ep_main_path(results, tmp, out, beside=None):
+    """(a) nexus_1b at full width and depth, bf16, adamw, remat attn_out,
+    ``NEXUS_MESH=pp=2`` over two containers (one rank each, on cuda:0 over
+    gloo: the rehearsal map), :data:`TRAIN_PP_EP_STEPS` steps of 8 x 2048,
+    a save at the last step; (b) nexus_moe at full size, gmm dispatch,
+    ``NEXUS_MESH=ep=2`` over two containers the same way, the same steps,
+    started once (a) has joined.  ``beside()``
+    runs while they do.  Checks: every row COMPLETED with its keys at the
+    last step; the kernels launched on every rank as the schedule says
+    (per step: (a) 56 of each of #1-#3 a stage, 7 layers x 8 microbatches;
+    (b) 72 of #7, 24 of #8 and 8 of each of #1-#3 a rank); each step-1 loss
+    within 5e-3 of one device's on the same weights and batch; (a)'s saved
+    step restored onto pp 2 and onto one device, leaf for leaf equal."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import CheckpointedRequest, LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import SqliteCheckpointStore
+    from tpu_nexus_torch.models.registry import get_adapter
+    from tpu_nexus_torch.parallel.distributed import free_port
+    from tpu_nexus_torch.workload.rehearsal import RankWorld
+    from tpu_nexus_torch.workload.train import TrainConfig
+
+    steps, batch, seq = TRAIN_PP_EP_STEPS, 8, 2048
+    dense, moe = get_adapter("nexus_1b"), get_adapter("nexus_moe")
+    tc = TrainConfig(warmup_steps=10, total_steps=steps)
+    ckpt = os.path.join(tmp, "ckpt")
+    base = {**{k: v for k, v in os.environ.items() if not k.startswith("NEXUS")},
+            "NEXUS_MODE": "train", "NEXUS_BATCH": str(batch), "NEXUS_SEQ_LEN": str(seq), "NEXUS_STEPS": str(steps),
+            "NEXUS_HEARTBEAT_EVERY": "1", "NEXUS_RANK_DEVICE_MAP": "shared", "NEXUS_DIST_TIMEOUT_S": "600",
+            "NEXUS__CQL_STORE_TYPE": "sqlite"}
+    runs = {
+        "a": dict(run="train-pp", algorithm="nexus-1b", preset="nexus_1b", mesh="pp=2", processes=2,
+                  extra={"NEXUS_CHECKPOINT_EVERY": str(steps), "NEXUS_CHECKPOINT_DIR": ckpt}),
+        "b": dict(run="train-ep", algorithm="nexus-moe", preset="nexus_moe", mesh="ep=2", processes=2, extra={}),
+    }
+    for part, run in runs.items():
+        run["ledger"] = os.path.join(tmp, f"ledger-{part}.db")
+        # the launcher's order: the row first, then the containers
+        store = SqliteCheckpointStore(run["ledger"])
+        store.upsert_checkpoint(CheckpointedRequest(algorithm=run["algorithm"], id=run["run"],
+                                                    lifecycle_stage=LifecycleStage.BUFFERED))
+        store.close()
+    procs, logs = {}, {}
+
+    def start(part):
+        run = runs[part]
+        env = {**base, "NEXUS_MODEL_PRESET": run["preset"], "NEXUS_MESH": run["mesh"],
+               "NEXUS_NUM_PROCESSES": str(run["processes"]), "NEXUS_RUN_ID": run["run"],
+               "NEXUS_ALGORITHM": run["algorithm"], "NEXUS__SQLITE_STORE_PATH": run["ledger"],
+               "NEXUS_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}", **run["extra"]}
+        for i in range(run["processes"]):
+            logs[part, i] = os.path.join(tmp, f"{part}{i}.err")
+            with open(logs[part, i], "w") as fh:
+                procs[part, i] = subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"], cwd=ROOT,
+                                                  env={**env, "NEXUS_PROCESS_ID": str(i)},
+                                                  stdout=subprocess.DEVNULL, stderr=fh)
+
+    def joined(part):
+        # a container's coordinator logs its mesh once the group is up
+        while "rank 0 of mesh" not in Path(logs[part, 0]).read_text() and time.perf_counter() - t0 < 300:
+            if any(p.poll() is not None for p in procs.values()):
+                return
+            time.sleep(0.5)
+
+    t0 = time.perf_counter()
+    one = {}
+    try:
+        start("a")
+        joined("a")
+        start("b")  # its rendezvous port drawn once (a)'s is bound
+        joined("b")
+        if beside is not None:
+            beside()
+        one["a"] = _one_device_step1(dense, tc, next(dense.data(batch, seq, seed=0)))
+        one["b"] = _one_device_step1(moe, tc, next(moe.data(batch, seq, seed=0)))
+        beside_s = time.perf_counter() - t0
+        for p in procs.values():
+            p.wait(timeout=900)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    errs = {key: Path(log).read_text() for key, log in logs.items()}
+    failed = {key: p.returncode for key, p in procs.items() if p.returncode != 0}
+    if failed:
+        raise AssertionError("train_pp_ep: containers exited " + "; ".join(
+            f"{key}: {rc}\n{errs[key][-3000:]}" for key, rc in failed.items()))
+    # per rank: one rank a container
+    ranks = {part: [_summary_of(errs[part, i]) for i in range(2)] for part in runs}
+    if any(r is None for rs in ranks.values() for r in rs):
+        raise AssertionError(f"train_pp_ep: a rank's summary is missing: { {k: [r is None for r in v] for k, v in ranks.items()} }")
+    with RankWorld(2, device=SHARDED_DEVICE, timeout_s=600) as world:
+        restored = world.run("tpu_nexus_torch.workload.rehearsal:restore_on_mesh", directory=ckpt, step=steps,
+                             spec={"pp": 2}, model=dense, train_cfg=tc, device=SHARDED_DEVICE)[0]
+    torch.cuda.empty_cache()
+    rows = {part: SqliteCheckpointStore(run["ledger"]).read_checkpoint(run["algorithm"], run["run"])
+            for part, run in runs.items()}
+    step1 = {part: _step_losses(errs[part, 0]).get(1) for part in runs}
+    want_keys = {"host0/chip0": steps, "host1/chip0": steps}
+    per_step = {"a": (56, 56, 56), "b": (8, 8, 8)}
+    flash = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    for part, config in (("a", "nexus_1b full width and depth, bf16, adamw, remat attn_out, global batch 8 x 2048, "
+                               f"{steps} steps, pp 2 over 2 container processes (auto microbatches: 8 of B1)"),
+                         ("b", "nexus_moe full size (8 layers, 8 experts of 2048, top-2), gmm dispatch, bf16, "
+                               f"adamw, remat attn_out, global batch 8 x 2048, {steps} steps, ep 2 over 2 "
+                               "container processes")):
+        rs, row = ranks[part], rows[part]
+        out[part] = dict(
+            config=config, stage=row.lifecycle_stage if row else None,
+            per_chip_steps=row.per_chip_steps if row else None, wall_s=wall, beside_s=beside_s,
+            attention_launches_per_rank=[r["attention_launches"] for r in rs],
+            grouped_matmul_launches_per_rank=[r["grouped_matmul_launches"] for r in rs],
+            collectives_per_step_per_rank=[_per_step(r, steps, ("pp_send", "pp_recv", "pp_broadcast",
+                                                                   "grad_all_reduce", "region_all_reduce",
+                                                                   "data_all_reduce", "loss_all_reduce"))
+                                           for r in rs],
+            staged=rs[0]["collectives"]["staged"], losses_per_rank=[r["loss"] for r in rs],
+            step1_loss=dict(parallel=step1[part], one_device=one[part], allowed=5e-3),
+            dropped_frac_per_rank=[r.get("dropped_frac") for r in rs],
+            tokens_per_second_rehearsal=rs[0]["tokens_per_second"],
+            tokens_per_second_is="two ranks sharing one card over gloo (the rehearsal map), not a parallel speed",
+            mfu_rehearsal=rs[0].get("goodput", {}).get("mfu"),
+            **({"restore": restored} if part == "a" else {}),
+        )
+        emit("train_pp_ep", part=part, **out[part])
+    for part in runs:
+        rs, row = ranks[part], rows[part]
+        if row is None or row.lifecycle_stage != LifecycleStage.COMPLETED or row.per_chip_steps != want_keys:
+            raise AssertionError(f"train_pp_ep ({part}): row {row and row.lifecycle_stage} {row and row.per_chip_steps}")
+        if any(r["attention_launches"][n] != per_step[part][i] * steps for r in rs for i, n in enumerate(flash)):
+            raise AssertionError(f"train_pp_ep ({part}): flash launches {[r['attention_launches'] for r in rs]}")
+        if step1[part] is None or abs(step1[part] - one[part]) > 5e-3 or len({r["loss"] for r in rs}) != 1:
+            raise AssertionError(f"train_pp_ep ({part}): step-1 loss {step1[part]} vs one device {one[part]}, "
+                                 f"final losses {[r['loss'] for r in rs]}")
+    if any(r["grouped_matmul_launches"] != {"nexus_gmm": 72 * steps, "nexus_tgmm": 24 * steps} for r in ranks["b"]):
+        raise AssertionError(f"train_pp_ep (b): grouped-matmul launches {out['b']['grouped_matmul_launches_per_rank']}")
+    if any(out["a"]["collectives_per_step_per_rank"][i][n]["calls"] != 8 for i, n in ((0, "pp_send"), (1, "pp_recv"))):
+        raise AssertionError(f"train_pp_ep (a): hand-offs {out['a']['collectives_per_step_per_rank']}")
+    if restored is None or restored["differ"] or restored["leaves"] == 0:
+        raise AssertionError(f"train_pp_ep (a): restores differ: {restored}")
+    launches = results.setdefault("launches", {})
+    launches["train_pp"] = {n: sum(r["attention_launches"][n] for r in ranks["a"]) for n in flash}
+    launches["train_ep"] = {**{n: sum(r["attention_launches"][n] for r in ranks["b"]) for n in flash},
+                            **{n: sum(r["grouped_matmul_launches"][n] for r in ranks["b"])
+                               for n in ("nexus_gmm", "nexus_tgmm")}}
+
+
+def pp_ep_gmm_rank_shape(results, out):
+    """(d) #7 (gate/up, down, and the d_lhs call reading rhs transposed) and
+    #8 at an ep-2 rank's padded layout of nexus_moe
+    (:data:`TRAIN_PP_EP_GMM_TILES`), bf16: each against its plain version
+    (the row-relative limit), twice bit-identical, then timed beside its
+    bound over the launched rows and over the useful rows, its plain version
+    and the library call (``torch._grouped_mm``; for #8 the loop of
+    ``torch.matmul`` where ``_grouped_mm`` refuses the layout)."""
+    import torch
+
+    from tpu_nexus_torch.ops.grouped_matmul import gmm_kernel_call, gmm_plain, tgmm_kernel_call, tgmm_plain
+
+    dt, bm, tiles = torch.bfloat16, 512, TRAIN_PP_EP_GMM_TILES
+    te, e, m = tile_map(tiles), len(tiles), bm * sum(tiles)
+    useful = TRAIN_PP_EP_GMM_USEFUL_ROWS
+    rows = {}
+    for key, what, k, n, kind in (("nexus_gmm", "gate/up", 1024, 2048, "gmm"), ("nexus_gmm_down", "down", 2048, 1024, "gmm"),
+                                  ("nexus_gmm_dlhs", "d_lhs of gate/up, rhs read transposed", 2048, 1024, "gmm_t"),
+                                  ("nexus_tgmm", "d_rhs of gate/up", 1024, 2048, "tgmm")):
+        transpose = kind == "gmm_t"
+        if kind == "tgmm":
+            sets = []
+            for i in range(2):
+                g = torch.Generator(device="cuda").manual_seed(7600 + i)
+                sets.append((torch.randn((m, k), generator=g, device="cuda").to(dt),
+                             torch.randn((m, n), generator=g, device="cuda").to(dt)))
+            kern = [lambda x=x: tgmm_kernel_call(x[0], x[1], te, e, bm) for x in sets]
+            ref = tgmm_plain(sets[0][0], sets[0][1], te, e, bm)
+            plain = lambda x=sets[0]: tgmm_plain(x[0], x[1], te, e, bm)  # noqa: E731
+            lib, lib_what = grouped_library(sets[0][0], None, tiles, bm, tgmm_out=sets[0][1])
+        else:
+            sets = [gmm_inputs(m, k, n, e, dt, 7700 + i, transpose) for i in range(2)]
+            kern = [lambda x=x: gmm_kernel_call(x[0], x[1], te, bm, transpose_rhs=transpose) for x in sets]
+            rhs0 = sets[0][1].transpose(1, 2) if transpose else sets[0][1]
+            ref = gmm_plain(sets[0][0], rhs0, te, bm)
+            plain = lambda x=sets[0], r=rhs0: gmm_plain(x[0], r, te, bm)  # noqa: E731
+            lib, lib_what = grouped_library(sets[0][0], rhs0, tiles, bm)
+        got, again = kern[0](), kern[0]()
+        torch.cuda.synchronize()
+        ok, fields = _gmm_check(got, again, ref, dt)
+        bound, by = gmm_bound(m, k, n, e, dt, tgmm=kind == "tgmm")
+        bound_useful, by_useful = gmm_bound(useful, k, n, e, dt, tgmm=kind == "tgmm")
+        ms, enqueue_ms = timed(kern, iters=20)
+        rows[key] = dict(kernel=what, shape=[m, k, n, e], block_m=bm, tiles_per_expert=list(tiles), dtype="bfloat16",
+                         ms=ms, enqueue_ms=enqueue_ms, bound_ms=bound, bound_by=by, bound_useful_rows_ms=bound_useful,
+                         bound_useful_rows_by=by_useful, useful_rows=useful, plain_ms=event_ms(plain),
+                         library_ms=cuda_ms([lib], iters=20), library_ms_is=lib_what, **fields)
+        emit("train_pp_ep", part="d", rank_shape="ep2_rank", **rows[key])
+        del sets, kern, plain, lib, got, again, ref
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"train_pp_ep (d): {what} at the ep-2 rank shape disagrees or is not deterministic")
+    out["d_gmm"] = rows
+    results["train_pp_ep_gmm_rank_shape"] = rows
+
+
+def phase_train_pp_ep(results):
+    """Pipeline- and expert-parallel training on this card, every rank on
+    cuda:0 over gloo (the rehearsal map; the pipeline's hand-offs staged
+    through host memory): (a) nexus_1b over pp 2 in two containers and (b)
+    nexus_moe over ep 2, and beside them (c) f32 gradients of seven meshes
+    against one device; then (d) the kernels at the new shapes."""
+    import tempfile
+
+    import torch
+
+    from tpu_nexus_torch.workload.rehearsal import RankWorld
+
+    torch.cuda.empty_cache()
+    out = {}
+
+    def exact():
+        with RankWorld(4, device=SHARDED_DEVICE, timeout_s=600) as world:
+            t0 = time.perf_counter()
+            pp_ep_exact(results, world, ["send_recv"], out)
+            emit("train_pp_ep_part_done", part="c", seconds=time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pp_ep_main_path(results, tmp, out, beside=exact)
+        emit("train_pp_ep_part_done", part="a and b (with c beside them)", seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded_train_rank_shapes(results, out, TRAIN_PP_EP_FLASH_SHAPES, "train_pp_ep", "d")
+    pp_ep_gmm_rank_shape(results, out)
+    emit("train_pp_ep_part_done", part="d", seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
 
 
@@ -6292,7 +6631,7 @@ def main(argv=None) -> int:
         "serve_moe_quant": phase_serve_moe_quant, "quant_gate": phase_quant_gate, "profile_hook": phase_profile_hook,
         "control_plane": phase_control_plane, "fleet_supervisor": phase_fleet_supervisor,
         "cql_ledger": phase_cql_ledger, "serve_sharded": phase_serve_sharded,
-        "train_sharded": phase_train_sharded,
+        "train_sharded": phase_train_sharded, "train_pp_ep": phase_train_pp_ep,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:
@@ -6352,6 +6691,9 @@ def main(argv=None) -> int:
                                               for label, row in results["train_sharded_rank_shapes"].items()})
             if name in ("nexus_gmm", "nexus_tgmm"):
                 entry.update(design="wgmma+tma, persistent")
+                if "train_pp_ep_gmm_rank_shape" in results:  # an ep-2 rank's padded layout
+                    entry.update(rank_shapes={k: v for k, v in results["train_pp_ep_gmm_rank_shape"].items()
+                                              if k.startswith(name)})
             if name.startswith("decode_attention"):
                 entry.update(design="wgmma+cp.async ring, merge in the launch")
             if name in ("quant_matmul_int8", "quant_matmul_int4"):

@@ -189,17 +189,37 @@ def test_mnist_preset_trains():
 
 
 @pytest.mark.parametrize(
-    "key,value,item",
+    "key,value",
     [
-        ("NEXUS_MESH", "pp=2", "A6b-ii"),
-        ("NEXUS_MESH", "fsdp=2,pp=2", "A6b-ii"),
-        ("NEXUS_PP_MICROBATCHES", "4", "A6b-ii"),
+        ("NEXUS_MESH", "pp=2"),
+        ("NEXUS_MESH", "fsdp=2,pp=2"),
+        ("NEXUS_PP_MICROBATCHES", "4"),
     ],
 )
-def test_unported_knobs_raise_at_parse(key, value, item):
-    """Pipeline parallelism (ROADMAP.md A6b-ii) raises at parse, naming it."""
-    with pytest.raises(NotImplementedError, match=item):
-        WorkloadConfig.from_env({key: value})
+def test_pipeline_knobs_parse_as_the_reference(key, value):
+    """Pipeline parallelism's knobs (ported: ROADMAP.md A6b-ii) parse as the
+    reference's harness parses them."""
+    from tpu_nexus.workload.harness import WorkloadConfig as JaxWorkloadConfig
+
+    cfg, ref = WorkloadConfig.from_env({key: value}), JaxWorkloadConfig.from_env({key: value})
+    assert cfg.mesh.sizes() == ref.mesh.sizes()
+    assert cfg.train.pp_microbatches == ref.train.pp_microbatches == (int(value) if key != "NEXUS_MESH" else 0)
+
+
+def test_a_mesh_larger_than_one_process_rank_is_refused():
+    """``NEXUS_MESH=ep=2`` in one process under the rehearsal map (the
+    ``-1`` fsdp axis: one rank a process) is a world of one: refused before
+    any ledger write, as the reference refuses a mesh its devices cannot
+    hold, instead of training on one device."""
+    from tpu_nexus.parallel.mesh import MeshSpec as JaxMeshSpec
+
+    store = _store()
+    cfg = WorkloadConfig.from_env({"NEXUS_MESH": "ep=2", "NEXUS_RANK_DEVICE_MAP": "shared", "NEXUS_DEVICE": "cpu"})
+    with pytest.raises(ValueError) as got:
+        run_workload(cfg, store=store, ctx=CTX, lifecycle=LifecycleContext())
+    with pytest.raises(ValueError) as want:
+        JaxMeshSpec(ep=2).resolve(1)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize(

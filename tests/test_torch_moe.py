@@ -157,10 +157,17 @@ def test_unknown_dispatch_and_meshes_raise():
     layer = {k: v[0] for k, v in port_moe.moe_init(torch.Generator().manual_seed(0), pcfg, "cpu")["layers"].items()}
     with pytest.raises(ValueError, match="unknown MoeConfig.dispatch"):
         port_moe.moe_ffn(x, layer, pcfg)
-    with pytest.raises(NotImplementedError, match="A6"):
-        port_moe.moe_ffn(x, layer, pcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A6"):
-        port_moe.moe_hidden_pp()
+
+    class _EpMesh:  # a training mesh with experts over ep 2
+        def size(self, *axes):
+            return 2 if axes == ("ep",) else 1
+
+    # on a mesh too (the expert-parallel paths: tests/test_torch_moe_ep.py),
+    # and the pipeline takes scatter alone, as the reference
+    with pytest.raises(ValueError, match="unknown MoeConfig.dispatch"):
+        port_moe.moe_ffn(x, layer, pcfg, mesh=_EpMesh())
+    with pytest.raises(ValueError, match="dispatch='scatter'"):
+        port_moe.moe_hidden_pp({}, torch.zeros((2, 4), dtype=torch.long), pcfg, n_stages=2)
 
 
 @pytest.mark.parametrize("return_kv", [False, True])

@@ -15,8 +15,12 @@ and its harness, on the CPU under the one-device rehearsal map.
   step 3 (the lifecycle's SIGTERM path) lands PREEMPTED with the emergency
   save at 3; resumed under fsdp 2 its losses equal the uninterrupted run's
   bit for bit, and resumed on one device they stay within 1e-5 of them.
+* ``pp=2`` across the two processes (one rank each: every hand-off of
+  the pipeline crosses the process boundary; the data is the replicated
+  global batch): both processes report the same loss, within 2e-3 of a
+  one-process run on the same data.
 * A container whose spawned rank is killed exits non-zero inside the
-  collectives' timeout; pipeline parallelism still raises, naming A6b-ii.
+  collectives' timeout.
 """
 
 import json
@@ -189,13 +193,18 @@ def test_a_preempted_fsdp2_run_resumes_on_fsdp2_and_on_one_device(tmp_path, monk
     assert max(abs(a - b) / abs(b) for a, b in zip(tail, full[3:])) < 1e-5
 
 
-@pytest.mark.parametrize("knob", ["pp", "microbatches"])
-def test_pipeline_training_still_raises_naming_a6b_ii(knob):
-    mesh = MeshSpec(pp=2, fsdp=1) if knob == "pp" else MeshSpec(fsdp=1)
-    train = TrainConfig(pp_microbatches=4 if knob == "microbatches" else 0)
-    with pytest.raises(NotImplementedError, match=r"A6b-ii"):
-        run_workload(WorkloadConfig(mesh=mesh, train=train, device="cpu"), store=InMemoryCheckpointStore(),
-                     lifecycle=LifecycleContext())
+def test_pipeline_handoff_crosses_process_boundary(tmp_path):
+    """pp=2 over two launched processes of one rank each: every microbatch
+    hand-off (and its cotangent's) crosses the process boundary."""
+    pp, db, run_id, algorithm = _run_rehearsal(tmp_path, "pp2", 2, {"NEXUS_MESH": "pp=2,fsdp=1",
+                                                                    "NEXUS_PP_MICROBATCHES": "2"})
+    assert pp[0]["final_step"] == pp[1]["final_step"] == 6
+    assert abs(pp[0]["loss"] - pp[1]["loss"]) < 1e-6
+    cp = SqliteCheckpointStore(db).read_checkpoint(algorithm, run_id)
+    assert cp.lifecycle_stage == LifecycleStage.COMPLETED
+    assert cp.per_chip_steps == {"host0/chip0": 6, "host1/chip0": 6}
+    single, _, _, _ = _run_rehearsal(tmp_path, "pp-single", 1, {"NEXUS_MESH": "fsdp=1"})
+    assert abs(pp[0]["loss"] - single[0]["loss"]) < 2e-3, (pp[0], single[0])
 
 
 def test_a_dead_local_rank_fails_the_container(tmp_path):

@@ -144,17 +144,15 @@ def test_bring_up_refuses_what_it_cannot_meet():
     assert distributed.training_ranks(ctx, (1, 1, -1, 1, 1, 1), "cpu", "shared").local == 1
 
 
-@pytest.mark.parametrize("entry", ["training", "lockstep serving", "serve-engine", "serve-engine meshed"])
+@pytest.mark.parametrize("entry", ["lockstep serving", "serve-engine", "serve-engine meshed"])
 def test_a_multi_process_run_raises_at_start(entry):
     """What a world of two launched processes (a multi-host JobSet) cannot
     run yet is refused before any device work or ledger write, naming
     ROADMAP A6b-ii: serving in every mode (it never runs as two
-    unsynchronised copies), and training with pipeline parallelism (a
-    training mesh across processes runs: tests/test_torch_multiprocess.py)."""
+    unsynchronised copies).  Training across processes runs, pipeline
+    parallelism included: tests/test_torch_multiprocess.py."""
     from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
     from tpu_nexus_torch.core.signals import LifecycleContext
-    from tpu_nexus_torch.parallel.mesh import MeshSpec
-    from tpu_nexus_torch.workload.harness import WorkloadConfig, run_workload
     from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine, run_serving
 
     ctx = distributed.process_context_from_env({
@@ -163,8 +161,6 @@ def test_a_multi_process_run_raises_at_start(entry):
     })
     store = InMemoryCheckpointStore()
     runs = {
-        "training": lambda: run_workload(WorkloadConfig(device="cpu", mesh=MeshSpec(pp=2, fsdp=-1)), store=store,
-                                         ctx=ctx, lifecycle=LifecycleContext()),
         "lockstep serving": lambda: run_serving(ServeConfig(device="cpu"), store=store, ctx=ctx),
         "serve-engine": lambda: run_serve_engine(ServeConfig(device="cpu"), store=store, ctx=ctx,
                                                  lifecycle=LifecycleContext()),
@@ -172,7 +168,7 @@ def test_a_multi_process_run_raises_at_start(entry):
             ServeConfig(device="cpu", serve_mesh="tp=2", rank_map="shared"), store=store, ctx=ctx,
             lifecycle=LifecycleContext()),
     }
-    want = r"pp=2, .* \(ROADMAP.md: A6b-ii\)" if entry == "training" else r"NEXUS_NUM_PROCESSES=2: .* \(ROADMAP.md: A6b-ii\)"
+    want = r"NEXUS_NUM_PROCESSES=2: .* \(ROADMAP.md: A6b-ii\)"
     with pytest.raises(NotImplementedError, match=want):
         runs[entry]()
     assert store.read_checkpoint("a", "multi") is None

@@ -25,8 +25,9 @@ The JAX side runs as its own tests run it, on the virtual 8-device CPU mesh
   causal and full, GQA, with tp), one ring case against the JAX ring's
   Pallas route in interpret mode at local seq 128 and D 128, a bf16 case
   within 2e-2, and the Ulysses head-cap refusal in the reference's words.
-* What ROADMAP.md A6b-ii brings raises from the loss, naming it: ``pp >
-  1`` (the ring under pp too), pipeline microbatches, MoE on a mesh.
+* The ring under ``pp`` is refused from the loss in the reference's words
+  (pipeline and MoE training on a mesh: ``tests/test_torch_pipeline.py``,
+  ``tests/test_torch_moe_ep.py``).
 """
 
 import dataclasses
@@ -257,14 +258,16 @@ class _PipelineMesh:
         return {a: s for a, s in self.sizes.items() if s > 1}
 
 
-@pytest.mark.parametrize("case", ["pp", "ring_under_pp", "microbatches", "moe_ep", "moe_fsdp"])
+@pytest.mark.parametrize("case", ["ring_under_pp"])
 def test_what_a6b_ii_brings_still_raises_naming_it(case):
-    from tpu_nexus_torch.models.moe import MoeConfig
-    from tpu_nexus_torch.models.registry import LlamaAdapter, MoeAdapter
+    """Of what ROADMAP.md A6b-ii brought to training, the reference refuses
+    only the ring under pp: so does the port, in its words."""
+    from tpu_nexus.models.registry import LlamaAdapter as JaxLlama
+    from tpu_nexus_torch.models.registry import LlamaAdapter
 
-    adapter = MoeAdapter(config=MoeConfig.tiny()) if case.startswith("moe") else LlamaAdapter(config=PCFG)
-    mesh = {"pp": _PipelineMesh(pp=2), "ring_under_pp": _PipelineMesh(pp=2, sp=2), "microbatches": None,
-            "moe_ep": _PipelineMesh(ep=2), "moe_fsdp": _PipelineMesh(fsdp=2)}[case]
-    tc = port_train.TrainConfig(pp_microbatches=4 if case == "microbatches" else 0)
-    with pytest.raises(NotImplementedError, match=r"A6b-ii"):
-        adapter.make_loss(tc, mesh)
+    with pytest.raises(ValueError) as want:
+        JaxLlama(config=JCFG).make_loss(jax_train.TrainConfig(),
+                                        build_mesh(MeshSpec(pp=2, sp=2, fsdp=1), devices=jax.devices()[:4]))
+    with pytest.raises(ValueError) as got:
+        LlamaAdapter(config=PCFG).make_loss(port_train.TrainConfig(), _PipelineMesh(pp=2, sp=2))
+    assert str(got.value) == str(want.value)

@@ -149,9 +149,10 @@ def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def train_params_from_numpy(tree: Dict[str, Any], layout: Any = None, device: Any = "cuda") -> LlamaParams:
-    """A JAX Llama tree (numpy leaves) as training parameters, whole
+    """A JAX Llama or MoE tree (numpy leaves) as training parameters, whole
     (``layout`` None) or cut to one rank's part of a training mesh
-    (``workload/train.py::Layout``): each leaf is converted, cut, and only
+    (``workload/train.py::Layout``: a pp stage's layers, an ep shard's
+    experts, the fsdp and tp slices): each leaf is converted, cut, and only
     the part copied to ``device``."""
 
     def leaf(path: str, a: Any) -> torch.Tensor:

@@ -435,6 +435,66 @@ def llama_hidden(
     return hidden
 
 
+def pipeline_input(params, tokens: torch.Tensor, cfg, mesh: Any, seq_offset: int = 0, gather: Any = None,
+                   embed_table: Any = None):
+    """The embedded tokens and RoPE tables a pipeline starts from.  Only the
+    first stage embeds; the others take an empty carry of the same shape
+    (their input arrives from the previous stage).  The RoPE tables are
+    ``[1, S, 1, D/2]``: every row has the same positions, so they stay out
+    of the carry and each stage builds its own."""
+    if seq_offset + tokens.shape[1] > cfg.max_seq_len:
+        raise ValueError(
+            f"sequence length {seq_offset + tokens.shape[1]} exceeds the config's "
+            f"max_seq_len {cfg.max_seq_len}"
+        )
+    positions = torch.arange(seq_offset, seq_offset + tokens.shape[1], device=tokens.device)[None, :]
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    if mesh is None or mesh.stage == 0:
+        table = params["embed"]["tokens"] if embed_table is None else embed_table
+        x = embed_rows(table, tokens).to(cfg.dtype)
+    else:
+        x = torch.empty(tuple(tokens.shape) + (cfg.hidden,), dtype=cfg.dtype, device=tokens.device)
+    return x, cos, sin
+
+
+def llama_hidden_pp(
+    params,
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    *,
+    n_stages: int,
+    microbatches: int = 0,
+    mesh: Any = None,
+    batch_axes: Any = ("dp", "fsdp"),
+    attn_impl: Any = "auto",
+    seq_offset: int = 0,
+    gather: Any = None,
+    embed_table: Any = None,
+):
+    """:func:`llama_hidden` over a pipeline-parallel layer stack
+    (``parallel/pipeline.py::pipeline_apply``).  Embedding, final norm and
+    head stay outside the pipeline, as in the reference.  ``tokens`` are
+    this rank's rows (microbatch-major: ``pipeline.microbatch_rows``); the
+    microbatch count is resolved against the GLOBAL batch.  Without a mesh
+    the stages run one after another in this process.  On a stage other
+    than the last the result is the pipeline's 0-d zero (see
+    ``pipeline.finish_on_last_stage``)."""
+    from tpu_nexus_torch.parallel.pipeline import pipeline_apply, rank_microbatches, stage_layers
+
+    microbatches = rank_microbatches(tokens.shape[0], n_stages, microbatches, mesh, batch_axes)
+    x, cos, sin = pipeline_input(params, tokens, cfg, mesh, seq_offset, gather, embed_table)
+    layers = params["layers"] if mesh is None else stage_layers(dict(params["layers"]), cfg.n_layers, mesh)
+
+    def layer_fn(x, layer):
+        return remat_layer(x, layer, cfg, cos, sin, attn_impl, gather=gather)
+
+    x = pipeline_apply(layer_fn, dict(layers), x, n_stages=n_stages, microbatches=microbatches, mesh=mesh)
+    if mesh is not None and mesh.stage != n_stages - 1:
+        return x
+    out_norm = params["out_norm"] if gather is None else gather("out_norm", params["out_norm"])
+    return rms_norm(x, out_norm, cfg.norm_eps)
+
+
 def llama_forward(
     params,
     tokens: torch.Tensor,

@@ -36,9 +36,20 @@ class MnistParams(nn.Module):
         return self.groups[key]
 
 
-def mnist_init(generator: torch.Generator, cfg: MnistConfig, device: Any = "cuda") -> MnistParams:
+def mnist_axes(cfg: MnistConfig) -> Dict[str, Any]:
+    """Logical-axis tree mirroring :func:`mnist_init` (the reference's)."""
+    return {
+        "in": {"w": (None, "embed"), "b": ("embed",)},
+        "hidden": {"w": (None, "embed", "mlp"), "b": (None, "mlp")},
+        "out": {"w": ("embed", None), "b": (None,)},
+    }
+
+
+def mnist_init(generator: torch.Generator, cfg: MnistConfig, device: Any = "cuda", leaf_fn: Any = None) -> MnistParams:
     """Plain normal init with fan-in scaling, zero biases (as the reference),
-    drawn on ``device`` from ``generator``."""
+    drawn on ``device`` from ``generator``.  ``leaf_fn(path, tensor)`` maps
+    each leaf (paths ``groups/in/w`` ...: a training mesh's rank keeps its
+    part)."""
     pd = cfg.param_dtype
 
     def normal(shape, fan_in):
@@ -48,14 +59,17 @@ def mnist_init(generator: torch.Generator, cfg: MnistConfig, device: Any = "cuda
     def zeros(shape):
         return torch.zeros(shape, dtype=pd, device=device)
 
-    return MnistParams({
+    tree = {
         "in": {"w": normal((cfg.input_dim, cfg.hidden), cfg.input_dim), "b": zeros((cfg.hidden,))},
         "hidden": {
             "w": normal((cfg.n_layers, cfg.hidden, cfg.hidden), cfg.hidden),
             "b": zeros((cfg.n_layers, cfg.hidden)),
         },
         "out": {"w": normal((cfg.hidden, cfg.n_classes), cfg.hidden), "b": zeros((cfg.n_classes,))},
-    })
+    }
+    if leaf_fn is not None:
+        tree = {g: {k: leaf_fn(f"groups/{g}/{k}", v) for k, v in leaves.items()} for g, leaves in tree.items()}
+    return MnistParams(tree)
 
 
 def mnist_forward(params, x: torch.Tensor, cfg: MnistConfig) -> torch.Tensor:

@@ -31,14 +31,19 @@
 Under a sharded serve mesh (``parallel/collectives.py`` active) the
 scatter dispatch routes every token with the replicated router, computes
 only this rank's ``n_experts / ep`` experts (under ``tp`` their stacks
-hold an mlp slice) and sums the combine over the replica.  Left out,
-raising where they would be asked for: the expert-parallel gmm path
-(``_moe_ffn_gmm_ep``), gmm and sort under a mesh, the pipeline-parallel
-stack (``moe_hidden_pp``) and ``NEXUS_MOE_FORCE_EP_PATH`` (ROADMAP.md: A6b-ii).
+hold an mlp slice) and sums the combine over the replica.  On a training
+mesh (:func:`_moe_ffn_mesh`) the same holds for every dispatch: the
+expert-parallel gmm path (``_gmm_ep_combine``, the reference's
+``_moe_ffn_gmm_ep``, over kernels #7 and #8) when ``ep > 1`` or
+``NEXUS_MOE_FORCE_EP_PATH``, the dropless gmm over each rank's tp slice
+otherwise, and the scatter with its capacity over the global tokens; the
+aux losses are over the global tokens too.  :func:`moe_hidden_pp` runs the
+stack through the pipeline (scatter only, as the reference).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict
@@ -337,13 +342,22 @@ def _moe_ffn_gmm(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig):
     expert with no token still gets a defined, zero, weight gradient);
     every row tile then belongs to one expert.  Dispatch and combine are
     bijective gathers (slot <-> row) in the forward and the backward."""
-    ct = cfg.dtype
     b, s, e = x.shape
     t = b * s
-    ne, k = cfg.n_experts, cfg.experts_per_token
-    a = t * k
     flat = x.reshape(t, e)
     logits, probs, gate, eidx = _router(flat, layer, cfg)
+    combined = _gmm_combine(flat, layer, cfg, gate, eidx)
+    aux = _aux_losses(logits, probs, eidx, torch.ones((t, cfg.experts_per_token), device=x.device), cfg)
+    return combined.reshape(b, s, e).to(x.dtype), aux
+
+
+def _gmm_combine(flat: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig, gate, eidx) -> torch.Tensor:
+    """The dropless gmm layout over every expert of ``layer``: the
+    gate-weighted sum of each token's experts, ``[T, e]``."""
+    ct = cfg.dtype
+    t, e = flat.shape
+    ne, k = cfg.n_experts, cfg.experts_per_token
+    a = t * k
     eidx_sorted, perm, counts, starts, local, inv_perm, by_token = _sort_by_expert(eidx, t, k, ne)
 
     bm = BLOCK_M if a >= 8192 else 128  # from the shapes alone
@@ -353,7 +367,7 @@ def _moe_ffn_gmm(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig):
     m_pad = (a + bm - 1) // bm * bm + ne * bm
 
     slot_of_row = padded_starts[eidx_sorted] + local  # [A], in range
-    slot_ids = torch.arange(m_pad, device=x.device)
+    slot_ids = torch.arange(m_pad, device=flat.device)
     slot_expert = torch.searchsorted(padded_starts, slot_ids, right=True) - 1
     slot_local = slot_ids - padded_starts[slot_expert]
     valid = slot_local < counts[slot_expert]
@@ -367,7 +381,14 @@ def _moe_ffn_gmm(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig):
     slot_by_token = slot_of_row[by_token]  # token-major slots
     slot_km = slot_of_row[inv_perm]  # k-major slots
     a_of_slot = perm[row_of_slot]  # slot -> k-major assignment
+    return _gmm_experts(flat, layer, ct, tok_of_slot, valid, slot_by_token, slot_km, a_of_slot, tile_expert, bm,
+                        gate, t, k)
 
+
+def _gmm_experts(flat, layer, ct, tok_of_slot, valid, slot_by_token, slot_km, a_of_slot, tile_expert, bm, gate, t, k):
+    """Dispatch gather, the three grouped matmuls (#7; #8 and #7 again in
+    the backward), combine gather and the gate-weighted sum over k."""
+    e = flat.shape[1]
     x_padded = _DispatchGather.apply(flat.to(ct), tok_of_slot, valid, slot_by_token, t, k)  # [m_pad, e]
     g = gmm(x_padded, layer["w_gate"].to(ct), tile_expert, bm)
     u = gmm(x_padded, layer["w_up"].to(ct), tile_expert, bm)
@@ -375,10 +396,67 @@ def _moe_ffn_gmm(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig):
 
     y_km = _CombineGather.apply(y, slot_km, a_of_slot, valid)  # [A, e], k-major
     picked = y_km.reshape(k, t, e).transpose(0, 1)
-    combined = torch.sum(picked * gate[..., None].to(ct), dim=1)
+    return torch.sum(picked * gate[..., None].to(ct), dim=1)
 
-    aux = _aux_losses(logits, probs, eidx, torch.ones((t, k), device=x.device), cfg)
-    return combined.reshape(b, s, e).to(x.dtype), aux
+
+def _gmm_ep_combine(flat: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig, gate, eidx, n_ep: int, ep_index: int):
+    """The reference's ``_moe_ffn_gmm_ep`` body on one rank: the dropless gmm
+    layout for this rank's ``n_experts / ep`` LOCAL experts under a static
+    per-shard tile budget (``cfg.ep_row_factor`` x the fair share, plus one
+    tile per local expert, plus one never-allocated dumpster tile).
+    Non-local and over-budget assignments point their slots at the
+    dumpster, whose rows are zero forward and whose cotangent rows are zero
+    backward.  Returns (this rank's share of the combine ``[T, e]``, which
+    assignments it kept ``[T, K]``, f32)."""
+    ct = cfg.dtype
+    t, e = flat.shape
+    ne, k = cfg.n_experts, cfg.experts_per_token
+    if ne % n_ep:
+        raise ValueError(f"n_experts {ne} not divisible by ep={n_ep}")
+    el = ne // n_ep
+    a = t * k
+    bm = BLOCK_M if a >= 8192 else 128
+    fair = -(-a // n_ep)
+    n_alloc_tiles = -(-int(fair * cfg.ep_row_factor) // bm) + el
+    m_pad = (n_alloc_tiles + 1) * bm
+    dev = flat.device
+
+    eidx_sorted, perm, counts, starts, local, inv_perm, by_token = _sort_by_expert(eidx, t, k, ne)
+    first = ep_index * el
+    counts_l, starts_l = counts[first:first + el], starts[first:first + el]
+    # tile allocation: each local expert wants ceil(count / bm) tiles (>= 1);
+    # the cumulative allocation is capped so every later expert keeps at
+    # least one tile
+    want = torch.clamp_min((counts_l + bm - 1) // bm, 1)
+    cum_want = torch.cumsum(want, dim=0)
+    cap_cum = n_alloc_tiles - (el - 1 - torch.arange(el, device=dev))
+    cum_alloc = torch.minimum(cum_want, cap_cum)
+    t_alloc = cum_alloc - torch.cat([cum_alloc.new_zeros(1), cum_alloc[:-1]])
+    padded_counts = t_alloc * bm
+    padded_starts = (cum_alloc - t_alloc) * bm
+    kept_counts = torch.minimum(counts_l, padded_counts)
+
+    # slot side (this rank's padded layout)
+    slot_ids = torch.arange(m_pad, device=dev)
+    slot_e = torch.clamp(torch.searchsorted(padded_starts, slot_ids, right=True) - 1, 0, el - 1)
+    slot_local = slot_ids - padded_starts[slot_e]
+    valid = slot_local < kept_counts[slot_e]
+    row_of_slot = torch.clamp_max(starts_l[slot_e] + slot_local, a - 1)
+    tile_expert = slot_e.reshape(-1, bm)[:, 0].to(torch.int32)
+
+    # assignment side: local and kept assignments get their slot, every
+    # other one the dumpster (the always-invalid last slot)
+    e_rel = eidx_sorted - first
+    is_local = (e_rel >= 0) & (e_rel < el)
+    e_rel_c = torch.clamp(e_rel, 0, el - 1)
+    kept_sorted = is_local & (local < kept_counts[e_rel_c])
+    slot_of_row = torch.where(kept_sorted, padded_starts[e_rel_c] + local, torch.full_like(local, m_pad - 1))
+
+    tok_sorted = perm % t
+    combined = _gmm_experts(flat, layer, ct, tok_sorted[row_of_slot], valid, slot_of_row[by_token],
+                            slot_of_row[inv_perm], perm[row_of_slot], tile_expert, bm, gate, t, k)
+    keep_tk = kept_sorted[inv_perm].float().reshape(k, t).T
+    return combined, keep_tk
 
 
 def _moe_ffn_sorted(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig):
@@ -420,26 +498,144 @@ def _moe_ffn_sorted(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig):
     return combined.reshape(b, s, e).to(x.dtype), aux
 
 
-def _ep_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "expert parallelism (a mesh for moe_ffn: _moe_ffn_gmm_ep, NEXUS_MOE_FORCE_EP_PATH) "
-        "and the pipeline-parallel MoE stack (moe_hidden_pp) are not ported yet "
-        "(ROADMAP.md: A6b-ii)"
-    )
+def force_ep_path() -> bool:
+    """``NEXUS_MOE_FORCE_EP_PATH``: run the expert-parallel gmm path even at
+    ep 1 (a mesh needed).  Strict parse: "0"/"false" do not force it."""
+    import os
+
+    return os.environ.get("NEXUS_MOE_FORCE_EP_PATH", "").lower() in ("1", "true", "yes")
+
+
+def _data_axes(mesh: Any):
+    from tpu_nexus_torch.parallel.mesh import DATA_AXES
+
+    return tuple(a for a in DATA_AXES if mesh.size(a) > 1)
+
+
+def _on_mesh(mesh: Any, cfg: MoeConfig) -> bool:
+    """Whether ``moe_ffn`` takes the training mesh's path: any axis but
+    ``pp`` cuts the tokens or the experts, or the ep path is forced."""
+    if mesh is None:
+        return False
+    spread = any(mesh.size(a) > 1 for a in ("dp", "fsdp", "ep", "sp", "tp"))
+    return spread or (cfg.dispatch == "gmm" and force_ep_path())
+
+
+def _positions(eidx: torch.Tensor, ne: int) -> torch.Tensor:
+    """Each (token, k) assignment's slot within its expert's buffer: the
+    cumsum of one-hot assignments in flattened (k-major) order.  ``eidx``
+    and the result are ``[T, K]``."""
+    t, k = eidx.shape
+    flat_oh = _one_hot(eidx.T.reshape(t * k), ne, torch.long)  # [T*K, E], k-major
+    pos_flat = torch.cumsum(flat_oh, dim=0) - flat_oh
+    return (pos_flat * flat_oh).sum(dim=-1).reshape(k, t).T
+
+
+def _global_positions(eidx: torch.Tensor, b: int, s: int, cfg: MoeConfig, mesh: Any):
+    """Each assignment's slot in its expert's buffer over the GLOBAL token
+    population (the reference's scatter runs on the global batch): the
+    ranks' routing gathered over the data axes (``sp`` along the sequence,
+    then ``(dp, fsdp)`` along the rows), the one-device positions over it,
+    and this rank's part.  Returns (positions ``[t, K]``, the capacity)."""
+    k = cfg.experts_per_token
+    grid = eidx.reshape(b, s, k)
+    grid = collectives.gather_dim(grid, 1, mesh.group("sp"), mesh.size("sp"))
+    grid = collectives.gather_dim(grid, 0, mesh.group("dp", "fsdp"), mesh.size("dp", "fsdp"))
+    gb, gs = grid.shape[:2]
+    pos = _positions(grid.reshape(gb * gs, k), cfg.n_experts).reshape(gb, gs, k)
+    r0, s0 = mesh.index("dp", "fsdp") * b, mesh.index("sp") * s
+    return pos[r0:r0 + b, s0:s0 + s].reshape(b * s, k), expert_capacity(gb * gs, cfg)
+
+
+def _scatter_experts(flat: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig, gate, eidx, pos, cap: int,
+                     experts: range):
+    """The scatter dispatch over slots ``pos`` ``[t, K]`` and capacity
+    ``cap``: the tokens into ``[E, C, e]`` buffers (overflow lands, zeroed,
+    in a dumpster row C that is sliced off), the experts in ``experts``
+    computed (the others' outputs zero: a rank's share, which its caller
+    sums), each assignment's output gathered through an in-range index
+    (overflow is zeroed by ``keep``) and gated.  Returns (the combine
+    ``[t, e]``, the kept assignments ``[t, K]``)."""
+    ct = cfg.dtype
+    t, e = flat.shape
+    ne, k = cfg.n_experts, cfg.experts_per_token
+    keep = (pos < cap).float()
+    cap_idx = torch.clamp_max(pos, cap)
+    updates = (flat.to(ct)[:, None, :] * keep[..., None].to(ct)).reshape(t * k, e)
+    buf = torch.zeros((ne, cap + 1, e), dtype=ct, device=flat.device)
+    buf = buf.index_put((eidx.reshape(-1), cap_idx.reshape(-1)), updates, accumulate=True)[:, :cap]
+    out_buf = _expert_swiglu(buf[experts.start:experts.stop], layer, ct)
+    if len(experts) < ne:
+        out_buf = torch.cat([out_buf.new_zeros((experts.start, cap, e)), out_buf,
+                             out_buf.new_zeros((ne - experts.stop, cap, e))])
+    picked = out_buf[eidx.reshape(-1), torch.clamp_max(cap_idx, cap - 1).reshape(-1)].reshape(t, k, e)
+    return torch.sum(picked * (gate * keep)[..., None].to(ct), dim=1), keep
+
+
+def _moe_ffn_mesh(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig, mesh: Any):
+    """The expert layer on a training mesh's rank (the reference's
+    ``_moe_ffn_gmm_ep`` shard_map, and GSPMD's scatter and gmm): the tokens
+    and the router weight enter the expert region ``(ep, tp)`` through
+    :func:`~collectives.region_entry` (their gradients summed over it), the
+    router runs replicated over the region, each rank computes its local
+    experts (the gmm ep path when ``ep > 1`` or forced, the dropless gmm
+    over every expert's tp slice otherwise, or the scatter), and the
+    combine leaves through one sum over the region.  The aux losses are over
+    the global tokens: density and router_prob averaged over the data axes
+    BEFORE their product; every rank of the region computes them alike, so
+    their gradient is counted once (:func:`~collectives.region_replicated`)."""
+    ne, k = cfg.n_experts, cfg.experts_per_token
+    n_ep = mesh.size("ep")
+    n_region = mesh.size("ep", "tp")
+    region = mesh.group("ep", "tp")
+    data_axes = _data_axes(mesh)
+    data, n_data = mesh.group(*data_axes), mesh.size(*data_axes)
+    b, s, e = x.shape
+    t = b * s
+    flat = collectives.region_entry(x, region, n_region).reshape(t, e)
+    router = {"router": collectives.region_entry(layer["router"], region, n_region)}
+    logits, probs, gate, eidx = _router(flat, router, cfg)
+    if cfg.dispatch == "gmm" and (n_ep > 1 or force_ep_path()):
+        combined, keep_tk = _gmm_ep_combine(flat, layer, cfg, gate, eidx, n_ep, mesh.coords["ep"])
+        if n_ep > 1:  # each assignment is kept on the one rank that holds its expert
+            keep_tk = collectives._all_reduce(keep_tk, mesh.group("ep"), collectives.current(),
+                                              name="region_all_reduce")
+    elif cfg.dispatch == "gmm":
+        combined, keep_tk = _gmm_combine(flat, layer, cfg, gate, eidx), torch.ones((t, k), device=x.device)
+    else:  # scatter, and sort (the same assignments kept; refused under ep by the adapter)
+        pos, cap = _global_positions(eidx, b, s, cfg, mesh)
+        el = ne // n_ep
+        experts = range(mesh.coords["ep"] * el, (mesh.coords["ep"] + 1) * el)
+        combined, keep_tk = _scatter_experts(flat, layer, cfg, gate, eidx, pos, cap, experts)
+    combined = collectives.region_exit(combined, region, n_region)
+
+    density = collectives.data_mean(_one_hot(eidx, ne).sum(dim=1).mean(dim=0), data, n_data)
+    router_prob = collectives.data_mean(probs.mean(dim=0), data, n_data)
+    load_balance = ne * torch.sum(density / k * router_prob)
+    z = collectives.data_mean(torch.logsumexp(logits, dim=-1).square().mean(), data, n_data)
+    dropped = 1.0 - collectives.data_mean(keep_tk.mean(), data, n_data)
+    aux = {"load_balance": collectives.region_replicated(load_balance, n_region),
+           "router_z": collectives.region_replicated(z, n_region), "dropped_frac": dropped}
+    return combined.reshape(b, s, e).to(x.dtype), aux
 
 
 def moe_ffn(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig, mesh: Any = None):
     """The expert layer: [B, S, e] -> ([B, S, e], aux dict), dispatched per
     ``cfg.dispatch``.  Capacity-bounded paths drop overflow assignments
-    (the residual carries those tokens through)."""
-    if mesh is not None:
-        raise _ep_not_ported()
+    (the residual carries those tokens through).  On a training mesh
+    (``parallel/mesh.py::TrainMesh``) whose axes other than ``pp`` cut the
+    tokens or the experts, or with ``NEXUS_MOE_FORCE_EP_PATH``, the rank's
+    part (:func:`_moe_ffn_mesh`)."""
+    if _on_mesh(mesh, cfg):
+        if cfg.dispatch not in ("scatter", "sort", "gmm"):
+            raise ValueError(f"unknown MoeConfig.dispatch {cfg.dispatch!r}; use 'scatter', 'sort', or 'gmm'")
+        return _moe_ffn_mesh(x, layer, cfg, mesh)
     comm = collectives.current()
     sharded = comm is not None and comm.tp_size * comm.ep_size > 1
     if sharded and cfg.dispatch != "scatter":
         raise NotImplementedError(
-            f"dispatch {cfg.dispatch!r} on a sharded serve mesh: the gmm and sort paths under a mesh "
-            "are not ported yet (ROADMAP.md: A6b-ii); serving decodes with scatter"
+            f"dispatch {cfg.dispatch!r} on a sharded serve mesh: serving decodes with scatter "
+            "(generate normalizes MoE to it)"
         )
     if cfg.dispatch == "sort":
         return _moe_ffn_sorted(x, layer, cfg)
@@ -449,42 +645,16 @@ def moe_ffn(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig, mesh: Any = 
         raise ValueError(
             f"unknown MoeConfig.dispatch {cfg.dispatch!r}; use 'scatter', 'sort', or 'gmm'"
         )
-    ct = cfg.dtype
     b, s, e = x.shape
     t = b * s
-    ne, k = cfg.n_experts, cfg.experts_per_token
-    cap = expert_capacity(t, cfg)
+    ne = cfg.n_experts
     flat = x.reshape(t, e)
     logits, probs, gate, eidx = _router(flat, layer, cfg)
-
-    # position of each (token, k) assignment within its expert's buffer:
-    # cumsum of one-hot assignments in flattened (k-major) order
-    flat_oh = _one_hot(eidx.T.reshape(t * k), ne, torch.long)  # [T*K, E], k-major
-    pos_flat = torch.cumsum(flat_oh, dim=0) - flat_oh
-    pos = (pos_flat * flat_oh).sum(dim=-1).reshape(k, t).T  # [T, K]
-    keep = (pos < cap).float()
-
-    # scatter tokens into [E, C, e] buffers; overflow lands (zeroed) in a
-    # dumpster row C that is sliced off
-    cap_idx = torch.clamp_max(pos, cap)
-    updates = (flat.to(ct)[:, None, :] * keep[..., None].to(ct)).reshape(t * k, e)
-    buf = torch.zeros((ne, cap + 1, e), dtype=ct, device=x.device)
-    buf = buf.index_put((eidx.reshape(-1), cap_idx.reshape(-1)), updates, accumulate=True)[:, :cap]
-
-    if sharded:
-        # this rank's experts (all of them under tp alone, whose stacks
-        # hold an mlp slice): the others' outputs stay zero, and the
-        # combine is summed over the replica below
-        local = comm.expert_range(ne)
-        out_buf = torch.zeros_like(buf)
-        out_buf[local.start:local.stop] = _expert_swiglu(buf[local.start:local.stop], layer, ct)
-    else:
-        out_buf = _expert_swiglu(buf, layer, ct)
-    # gather each assignment's output through an in-range index (overflow
-    # is zeroed by `keep`)
-    gather_idx = torch.clamp_max(cap_idx, cap - 1)
-    picked = out_buf[eidx.reshape(-1), gather_idx.reshape(-1)].reshape(t, k, e)
-    combined = torch.sum(picked * (gate * keep)[..., None].to(ct), dim=1)
+    # this rank's experts (all of them under tp alone, whose stacks hold an
+    # mlp slice); the combine is summed over the replica
+    experts = comm.expert_range(ne) if sharded else range(ne)
+    combined, keep = _scatter_experts(flat, layer, cfg, gate, eidx, _positions(eidx, ne),
+                                      expert_capacity(t, cfg), experts)
     if sharded:
         combined = collectives.reduce_experts(combined)
 
@@ -492,11 +662,12 @@ def moe_ffn(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig, mesh: Any = 
     return combined.reshape(b, s, e).to(x.dtype), aux
 
 
-def moe_block(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig):
+def moe_block(x: torch.Tensor, layer: Dict[str, Any], cfg: MoeConfig, mesh: Any = None):
     """Post-attention sub-block: pre-norm routed experts plus the residual.
-    Returns ``(x, aux)``; the ``ffn`` of :func:`remat_layer`."""
+    Returns ``(x, aux)``; the ``ffn`` of :func:`remat_layer` (with the
+    training mesh bound, ``functools.partial(moe_block, mesh=mesh)``)."""
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    out, aux = moe_ffn(h, layer, cfg)
+    out, aux = moe_ffn(h, layer, cfg, mesh=mesh)
     return x + out, aux
 
 
@@ -505,24 +676,32 @@ def moe_hidden(
     tokens: torch.Tensor,
     cfg: MoeConfig,
     *,
-    attn_impl: str = "auto",
+    attn_impl: Any = "auto",
     return_kv: bool = False,
     mesh: Any = None,
+    seq_offset: int = 0,
+    gather: Any = None,
+    embed_table: Any = None,
 ):
     """Final-norm hidden states [B, S, e] and the router aux losses
     averaged over layers.  ``return_kv=True`` -> ``(hidden, aux, (k, v))``
     with K/V stacked per layer ``[L, B, S, Hkv, D]`` (the no-grad prefill
-    path, no checkpointing)."""
-    if mesh is not None:
-        raise _ep_not_ported()
-    if tokens.shape[1] > cfg.max_seq_len:
+    path, no checkpointing).  On a training mesh's rank, as
+    ``llama_hidden``: ``tokens`` its rows and sequence chunk from
+    ``seq_offset``, ``gather`` the fsdp all-gather, ``embed_table`` the
+    gathered embedding; each layer's experts take :func:`moe_ffn`'s mesh
+    path."""
+    if seq_offset + tokens.shape[1] > cfg.max_seq_len:
         raise ValueError(
-            f"sequence length {tokens.shape[1]} exceeds the config's "
+            f"sequence length {seq_offset + tokens.shape[1]} exceeds the config's "
             f"max_seq_len {cfg.max_seq_len}"
         )
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :].expand(tokens.shape)
-    x = collectives.embed_rows(params["embed"]["tokens"], tokens).to(cfg.dtype)
+    positions = torch.arange(seq_offset, seq_offset + tokens.shape[1], device=tokens.device)[None, :]
+    positions = positions.expand(tokens.shape)
+    table = params["embed"]["tokens"] if embed_table is None else embed_table
+    x = collectives.embed_rows(table, tokens).to(cfg.dtype)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    ffn = moe_block if mesh is None else functools.partial(moe_block, mesh=mesh)
     lb, rz, dropped, ks, vs = [], [], [], [], []
     for li in range(params["layers"]["wq"].shape[0]):
         layer = layer_params(params, li)
@@ -532,7 +711,7 @@ def moe_hidden(
             ks.append(k)
             vs.append(v)
         else:
-            x, aux = remat_layer(x, layer, cfg, cos, sin, attn_impl, ffn=moe_block)
+            x, aux = remat_layer(x, layer, cfg, cos, sin, attn_impl, ffn=ffn, gather=gather)
         lb.append(aux["load_balance"])
         rz.append(aux["router_z"])
         dropped.append(aux["dropped_frac"])
@@ -541,14 +720,62 @@ def moe_hidden(
         "router_z": torch.stack(rz).sum() / cfg.n_layers,
         "dropped_frac": torch.stack(dropped).mean(),
     }
-    hidden = rms_norm(x, params["out_norm"], cfg.norm_eps)
+    out_norm = params["out_norm"] if gather is None else gather("out_norm", params["out_norm"])
+    hidden = rms_norm(x, out_norm, cfg.norm_eps)
     if return_kv:
         return hidden, aux, (torch.stack(ks), torch.stack(vs))
     return hidden, aux
 
 
-def moe_hidden_pp(*args, **kwargs):
-    raise _ep_not_ported()
+def moe_hidden_pp(
+    params,
+    tokens: torch.Tensor,
+    cfg: MoeConfig,
+    *,
+    n_stages: int,
+    microbatches: int = 0,
+    mesh: Any = None,
+    batch_axes: Any = ("dp", "fsdp"),
+    attn_impl: Any = "auto",
+    seq_offset: int = 0,
+    gather: Any = None,
+    embed_table: Any = None,
+):
+    """:func:`moe_hidden` over a pipeline-parallel layer stack (the MoE
+    counterpart of ``llama_hidden_pp``).  The router aux accumulators ride
+    the pipeline in the carry, one f32 entry per row (a microbatch's aux is
+    added to each of its rows), so the result averages over microbatches and
+    layers.  Requires ``dispatch='scatter'``.  On a stage other than the
+    last, hidden and aux are the pipeline's 0-d zeros."""
+    from tpu_nexus_torch.models.llama import pipeline_input
+    from tpu_nexus_torch.parallel.pipeline import pipeline_apply, rank_microbatches, stage_layers
+
+    if cfg.dispatch != "scatter":
+        raise ValueError(
+            f"pipeline parallelism requires MoeConfig.dispatch='scatter', got {cfg.dispatch!r}"
+        )
+    microbatches = rank_microbatches(tokens.shape[0], n_stages, microbatches, mesh, batch_axes)
+    x, cos, sin = pipeline_input(params, tokens, cfg, mesh, seq_offset, gather, embed_table)
+    layers = params["layers"] if mesh is None else stage_layers(dict(params["layers"]), cfg.n_layers, mesh)
+    ffn = functools.partial(moe_block, mesh=mesh)
+
+    def layer_fn(carry, layer):
+        x, lb, rz, dr = carry
+        x, aux = remat_layer(x, layer, cfg, cos, sin, attn_impl, ffn=ffn, gather=gather)
+        return x, lb + aux["load_balance"], rz + aux["router_z"], dr + aux["dropped_frac"]
+
+    zeros = torch.zeros(tokens.shape[0], dtype=torch.float32, device=tokens.device)
+    x, lb, rz, dr = pipeline_apply(layer_fn, dict(layers), (x, zeros, zeros, zeros), n_stages=n_stages,
+                                   microbatches=microbatches, mesh=mesh)
+    if mesh is not None and mesh.stage != n_stages - 1:
+        return x, {"load_balance": lb, "router_z": rz, "dropped_frac": dr}
+    aux = {
+        "load_balance": lb.mean() / cfg.n_layers,
+        "router_z": rz.mean() / cfg.n_layers,
+        "dropped_frac": dr.mean() / cfg.n_layers,
+    }
+    out_norm = params["out_norm"] if gather is None else gather("out_norm", params["out_norm"])
+    return rms_norm(x, out_norm, cfg.norm_eps), aux
 
 
 def moe_head(params, cfg: MoeConfig) -> torch.Tensor:

@@ -4,11 +4,14 @@
 :class:`MoeConfig` preset (bare, or ``moe_``-prefixed: ``moe_tiny``,
 ``nexus_moe``, ``mixtral_8x7b``) or ``mnist``; the adapter gives the
 serving and training loops their init, loss, batch layout and synthetic
-data.  On a training mesh (``parallel/mesh.py::TrainMesh``) the Llama
-adapter's loss runs on a rank's shards with the sequence-parallel
-attention the mesh asks for (:func:`_sp_attn_fn`); what ROADMAP.md A6b-ii
-brings (``pp``, pipeline microbatches, the MoE and MNIST adapters on a
-mesh) raises, naming it.
+data.  On a training mesh (``parallel/mesh.py::TrainMesh``) each
+adapter's loss runs on a rank's shards: the decoder families with the
+sequence-parallel attention the mesh asks for (:func:`_sp_attn_fn`), the
+pipeline over ``pp`` (``llama_hidden_pp``, ``moe_hidden_pp``), the experts
+over ``ep`` (``models/moe.py``); MNIST over the data axes.  The reference's
+refusals stay, in its words: the ring under ``pp``, MoE under ``pp``
+without scatter, ``sort`` on an ep mesh, ``gmm`` with experts the ep
+extent does not divide.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ from tpu_nexus_torch.models.llama import (
     llama_axes,
     llama_head,
     llama_hidden,
+    llama_hidden_pp,
     llama_init,
 )
-from tpu_nexus_torch.models.mnist import MnistConfig, MnistParams, mnist_forward, mnist_init
-from tpu_nexus_torch.models.moe import MoeConfig, moe_head, moe_hidden, moe_init
+from tpu_nexus_torch.models.mnist import MnistConfig, MnistParams, mnist_axes, mnist_forward, mnist_init
+from tpu_nexus_torch.models.moe import MoeConfig, moe_head, moe_hidden, moe_hidden_pp, moe_init
 
 LossFn = Callable[[Any, Any], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
@@ -37,26 +41,16 @@ def _sharded(mesh: Any) -> bool:
     return mesh is not None and mesh.world > 1
 
 
-def _no_pipeline(train_cfg: Any, mesh: Any) -> None:
-    """Pipeline parallelism is ROADMAP.md A6b-ii: ``pp > 1`` (ring under pp
-    included) and pipeline microbatches raise, naming it."""
-    if _sharded(mesh) and mesh.size("pp") > 1:
-        raise NotImplementedError(
-            f"pp={mesh.size('pp')}: pipeline parallelism (llama_hidden_pp; with sp, Ulysses only — "
-            "ring under pp is refused in the reference) is not ported yet (ROADMAP.md: A6b-ii)"
-        )
-    if getattr(train_cfg, "pp_microbatches", 0):
-        raise NotImplementedError(
-            f"pp_microbatches={train_cfg.pp_microbatches}: pipeline microbatches are not ported yet "
-            "(ROADMAP.md: A6b-ii)"
-        )
+def _pp(mesh: Any) -> int:
+    return mesh.size("pp") if _sharded(mesh) else 1
 
 
-def _one_device_only(what: str, mesh: Any) -> None:
-    if _sharded(mesh):
-        raise NotImplementedError(
-            f"{what} training on a mesh of {mesh.world} ranks {mesh.describe()} is not ported yet "
-            "(ROADMAP.md: A6b-ii)"
+def _no_ring_under_pp(mesh: Any, sp_attn: str, attn_fn: Any) -> None:
+    if _pp(mesh) > 1 and attn_fn is not None and sp_attn == "ring":
+        raise ValueError(
+            "pp > 1 with sp > 1 is not supported for sp_attn='ring' "
+            "(shard_map cannot run inside the pipeline's stage vmap); "
+            "use TrainConfig.sp_attn='ulysses'"
         )
 
 
@@ -111,7 +105,6 @@ class ModelAdapter:
 
     def check_mesh(self, mesh: Any) -> None:
         """Raise if this adapter does not train on ``mesh``."""
-        _one_device_only(self.name, mesh)
 
     def batch_axes(self) -> Any:
         """Logical axes of one batch (the reference's sharding contract)."""
@@ -166,19 +159,17 @@ class LlamaAdapter(_TokenLMAdapter):
     def axes(self):
         return llama_axes(self.config)
 
-    def check_mesh(self, mesh):
-        _no_pipeline(None, mesh)
-
     def make_loss(self, train_cfg, mesh=None, rules=None):
         from tpu_nexus_torch.workload.train import chunked_next_token_loss
 
-        _no_pipeline(train_cfg, mesh)
-        attn_fn = _sp_attn_fn(mesh, getattr(train_cfg, "sp_attn", "ring"))
+        sp_attn = getattr(train_cfg, "sp_attn", "ring")
+        attn_fn = _sp_attn_fn(mesh, sp_attn)
+        _no_ring_under_pp(mesh, sp_attn, attn_fn)
         cfg = self.config
+        if _sharded(mesh):
+            return _sharded_lm_loss(self, train_cfg, mesh, rules, attn_fn, ("ce_loss", "perplexity"))
         z_loss = getattr(train_cfg, "z_loss", 0.0)
         ce_chunk = getattr(train_cfg, "ce_chunk", 256)
-        if _sharded(mesh):
-            return self._sharded_loss(mesh, rules, attn_fn, z_loss, ce_chunk)
 
         def loss_fn(params, tokens):
             hidden = llama_hidden(params, tokens, cfg)
@@ -186,62 +177,125 @@ class LlamaAdapter(_TokenLMAdapter):
 
         return loss_fn
 
-    def _sharded_loss(self, mesh, rules, attn_fn, z_loss, ce_chunk):
-        """The loss on a rank: ``tokens`` are its rows, whole sequences; it
-        keeps its ``sp`` chunk and that chunk's next tokens."""
-        from tpu_nexus_torch.workload.train import sharded_next_token_loss, train_layout
+    def hidden(self, params, tokens, mesh, **kw):
+        """The final-norm hidden states of a rank's rows and sequence chunk
+        and no aux (the MoE family's hook)."""
+        return llama_hidden(params, tokens, self.config, **kw), {}
 
-        cfg = self.config
-        gather = train_layout(self, mesh, rules).fsdp_gather()
-        sp, part = mesh.size("sp"), mesh.coords["sp"]
+    def hidden_pp(self, params, tokens, mesh, **kw):
+        return llama_hidden_pp(params, tokens, self.config, n_stages=mesh.size("pp"), mesh=mesh, **kw), {}
 
-        def loss_fn(params, tokens):
-            s = tokens.shape[1]
-            if s % sp:
-                raise ValueError(f"sequence length {s} not divisible by sp={sp}")
-            width = s // sp
-            lo, hi = part * width, (part + 1) * width
-            targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)[:, lo:hi].long()
-            weight = (torch.arange(lo, hi, device=tokens.device) < s - 1).float()[None, :]
-            embed = gather("embed/tokens", params["embed"]["tokens"])
-            hidden = llama_hidden(params, tokens[:, lo:hi], cfg, attn_impl=attn_fn or "auto", seq_offset=lo,
-                                  gather=gather, embed_table=embed)
-            head = embed.to(cfg.dtype).T if cfg.tied_embeddings else gather("lm_head", params["lm_head"]).to(cfg.dtype)
-            return sharded_next_token_loss(hidden, head, targets, weight, mesh, z_loss, chunk=ce_chunk)
 
-        return loss_fn
+def _sharded_lm_loss(adapter, train_cfg, mesh, rules, attn_fn, keys):
+    """The loss of a decoder family on a training mesh's rank: ``tokens`` are
+    its rows (``workload/train.py::batch_rows``), whole sequences; it keeps
+    its ``sp`` chunk and that chunk's next tokens, embeds with the gathered
+    table, and runs the layers (through the pipeline when ``pp > 1``: the
+    head and the loss on the last stage, the values broadcast).  The MoE
+    family adds its router's aux losses."""
+    from tpu_nexus_torch.parallel.pipeline import finish_on_last_stage
+    from tpu_nexus_torch.parallel.sharding import batch_axes
+    from tpu_nexus_torch.workload.train import sharded_next_token_loss, train_layout
+
+    cfg = adapter.config
+    z_loss = getattr(train_cfg, "z_loss", 0.0)
+    ce_chunk = getattr(train_cfg, "ce_chunk", 256)
+    gather = train_layout(adapter, mesh, rules).fsdp_gather()
+    sp, part = mesh.size("sp"), mesh.coords["sp"]
+    pp = mesh.size("pp")
+    first, last = mesh.stage == 0, mesh.stage == pp - 1
+    moe = isinstance(cfg, MoeConfig)
+
+    def loss_fn(params, tokens):
+        s = tokens.shape[1]
+        if s % sp:
+            raise ValueError(f"sequence length {s} not divisible by sp={sp}")
+        width = s // sp
+        lo, hi = part * width, (part + 1) * width
+        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)[:, lo:hi].long()
+        weight = (torch.arange(lo, hi, device=tokens.device) < s - 1).float()[None, :]
+        # the embedding (and the tied head) only where a stage uses it
+        embed = gather("embed/tokens", params["embed"]["tokens"]) if first or last else None
+
+        def finish(hidden, aux):
+            if cfg.tied_embeddings:
+                head = embed.to(cfg.dtype).T
+            else:
+                head = gather("lm_head", params["lm_head"]).to(cfg.dtype)
+            loss, metrics = sharded_next_token_loss(hidden, head, targets, weight, mesh, z_loss, chunk=ce_chunk)
+            if moe:
+                loss = loss + cfg.load_balance_coef * aux["load_balance"] + cfg.router_z_coef * aux["router_z"]
+                metrics = dict(metrics, load_balance=aux["load_balance"], router_z=aux["router_z"],
+                               dropped_frac=aux["dropped_frac"])
+            return loss, metrics
+
+        kw = dict(attn_impl=attn_fn or "auto", seq_offset=lo, gather=gather, embed_table=embed)
+        if pp == 1:
+            return finish(*adapter.hidden(params, tokens[:, lo:hi], mesh, **kw))
+        hidden, aux = adapter.hidden_pp(params, tokens[:, lo:hi], mesh, batch_axes=batch_axes(rules),
+                                        microbatches=getattr(train_cfg, "pp_microbatches", 0), **kw)
+        return finish_on_last_stage(mesh, (hidden, *aux.values()), keys,
+                                    lambda c: finish(c[0], dict(zip(aux, c[1:]))))
+
+    return loss_fn
 
 
 @dataclass(frozen=True)
 class MoeAdapter(_TokenLMAdapter):
     """Mixture-of-Experts decoder (Mixtral-style).  The router's auxiliary
     losses (load balance + z) join the training loss here and surface in
-    the metrics and heartbeats with the dropped-assignment share.  One
-    device: the reference's refusals of ``sort`` and of an indivisible
-    ``gmm`` on an ep-sharded mesh cannot arise until the multi-GPU slice."""
+    the metrics and heartbeats with the dropped-assignment share.  On a
+    training mesh the experts are cut over ``ep`` (``models/moe.py``)."""
 
     config: MoeConfig = field(default_factory=MoeConfig.tiny)
     name: str = "moe"
 
-    def init(self, generator: torch.Generator, device: Any = "cuda") -> LlamaParams:
-        return moe_init(generator, self.config, device=device)
+    def init(self, generator: torch.Generator, device: Any = "cuda", leaf_fn: Any = None) -> LlamaParams:
+        return moe_init(generator, self.config, device=device, leaf_fn=leaf_fn)
 
     def axes(self):
         from tpu_nexus_torch.models.moe import moe_axes
 
         return moe_axes(self.config)
 
+    def check_mesh(self, mesh):
+        """The reference's refusals of the mesh (``registry.py:182-209``)."""
+        cfg = self.config
+        ep = mesh.size("ep") if _sharded(mesh) else 1
+        if _pp(mesh) > 1 and cfg.dispatch != "scatter":
+            raise ValueError(
+                f"pipeline parallelism requires MoeConfig.dispatch='scatter' "
+                f"(plainly stage-vmappable ops), got {cfg.dispatch!r}"
+            )
+        if cfg.dispatch == "sort" and ep > 1:
+            raise ValueError(
+                f"MoeConfig.dispatch='sort' is a single-chip/replicated-expert "
+                f"optimization and cannot run on an ep-sharded mesh (ep={ep}); "
+                "use dispatch='gmm' (dropless) or 'scatter' for expert parallelism"
+            )
+        if cfg.dispatch == "gmm" and ep > 1 and cfg.n_experts % ep:
+            raise ValueError(
+                f"dispatch='gmm' over ep={ep} needs n_experts ({cfg.n_experts}) "
+                "divisible by the ep extent"
+            )
+
     def make_loss(self, train_cfg, mesh=None, rules=None):
         from tpu_nexus_torch.workload.train import chunked_next_token_loss
 
-        _no_pipeline(train_cfg, mesh)
-        _one_device_only("MoE (_moe_ffn_gmm_ep under ep, kernels #7/#8)", mesh)
+        sp_attn = getattr(train_cfg, "sp_attn", "ring")
+        attn_fn = _sp_attn_fn(mesh, sp_attn)
+        _no_ring_under_pp(mesh, sp_attn, attn_fn)
+        self.check_mesh(mesh)
         cfg = self.config
+        if _sharded(mesh):
+            keys = ("ce_loss", "perplexity", "load_balance", "router_z", "dropped_frac")
+            return _sharded_lm_loss(self, train_cfg, mesh, rules, attn_fn, keys)
         z_loss = getattr(train_cfg, "z_loss", 0.0)
         ce_chunk = getattr(train_cfg, "ce_chunk", 256)
 
         def loss_fn(params, tokens):
-            hidden, aux = moe_hidden(params, tokens, cfg)
+            # a mesh of one rank matters only to NEXUS_MOE_FORCE_EP_PATH
+            hidden, aux = moe_hidden(params, tokens, cfg, mesh=mesh)
             loss, metrics = chunked_next_token_loss(hidden, moe_head(params, cfg), tokens, z_loss, chunk=ce_chunk)
             loss = loss + cfg.load_balance_coef * aux["load_balance"] + cfg.router_z_coef * aux["router_z"]
             metrics = dict(
@@ -254,6 +308,12 @@ class MoeAdapter(_TokenLMAdapter):
 
         return loss_fn
 
+    def hidden(self, params, tokens, mesh, **kw):
+        return moe_hidden(params, tokens, self.config, mesh=mesh, **kw)
+
+    def hidden_pp(self, params, tokens, mesh, **kw):
+        return moe_hidden_pp(params, tokens, self.config, n_stages=mesh.size("pp"), mesh=mesh, **kw)
+
 
 @dataclass(frozen=True)
 class MnistAdapter(ModelAdapter):
@@ -263,24 +323,50 @@ class MnistAdapter(ModelAdapter):
     config: MnistConfig = field(default_factory=MnistConfig)
     name: str = "mnist"
 
-    def init(self, generator: torch.Generator, device: Any = "cuda") -> MnistParams:
-        return mnist_init(generator, self.config, device=device)
+    def init(self, generator: torch.Generator, device: Any = "cuda", leaf_fn: Any = None) -> MnistParams:
+        return mnist_init(generator, self.config, device=device, leaf_fn=leaf_fn)
+
+    def axes(self):
+        """The reference's ``mnist_axes``, under the module's ``groups``."""
+        return {"groups": mnist_axes(self.config)}
 
     def batch_axes(self):
         return {"x": ("batch", None), "y": ("batch",)}
 
+    def check_mesh(self, mesh):
+        if _sharded(mesh) and any(mesh.size(a) > 1 for a in ("pp", "ep", "sp", "tp")):
+            raise ValueError(f"MNIST trains on dp/fsdp meshes; got {mesh.describe()}")
+
     def make_loss(self, train_cfg, mesh=None, rules=None):
-        _no_pipeline(train_cfg, mesh)
-        _one_device_only("MNIST", mesh)
+        """The mean CE over the batch; on a data mesh each rank's rows, the
+        sums over the data ranks (each rank's gradient is its own rows'; the
+        train step sums them), every fsdp-cut leaf gathered first."""
+        from tpu_nexus_torch.parallel import collectives
+
+        self.check_mesh(mesh)
         cfg = self.config
+        gather, data, n_data = None, None, 1
+        if _sharded(mesh):
+            from tpu_nexus_torch.workload.train import train_layout
+
+            gather = train_layout(self, mesh, rules).fsdp_gather()
+            data, n_data = mesh.group("dp", "fsdp"), mesh.size("dp", "fsdp")
 
         def loss_fn(params, batch):
+            if gather is not None:
+                params = {g: {k: gather(f"groups/{g}/{k}", w) for k, w in params[g].items()}
+                          for g in MnistParams.GROUPS}
             logits = mnist_forward(params, batch["x"], cfg).float()
             labels = batch["y"]
             logz = torch.logsumexp(logits, dim=-1)
             true_logit = torch.gather(logits, -1, labels[:, None])[:, 0]
-            loss = (logz - true_logit).mean()
-            accuracy = (logits.argmax(dim=-1) == labels).float().mean()
+            correct = (logits.argmax(dim=-1) == labels).float()
+            if n_data == 1:
+                loss = (logz - true_logit).mean()
+                return loss, {"ce_loss": loss, "accuracy": correct.mean()}
+            n = labels.shape[0] * n_data
+            loss = collectives.reduce_sum((logz - true_logit).sum(), data, n_data) / n
+            accuracy = collectives.reduce_sum(correct.sum(), data, n_data) / n
             return loss, {"ce_loss": loss, "accuracy": accuracy}
 
         return loss_fn

@@ -53,6 +53,7 @@ device first).
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from collections import Counter
 from dataclasses import dataclass
@@ -452,3 +453,138 @@ def probe(device: Any, p2p: bool = False) -> dict:
                 found[key] = (str(exc).splitlines() or [type(exc).__name__])[0][:160]
         dist.barrier()
     return found
+
+
+# -- the expert region and the data mean -----------------------------------------
+
+
+def region_entry(x: torch.Tensor, group: Any, size: int, comm: Any = None) -> torch.Tensor:
+    """Identity forward, gradient summed over ``group`` backward: a tensor
+    replicated over the expert region (``(ep, tp)``) whose every rank uses
+    it for its own experts' share (the tokens, the router weight).  The
+    JAX package's full-manual ``shard_map`` gets this sum from its
+    transpose, over every axis an input is not sharded on."""
+    if size == 1:
+        return x
+    return _CopyTo.apply(x, group, comm or current(), "region_all_reduce")
+
+
+def region_exit(x: torch.Tensor, group: Any, size: int, comm: Any = None) -> torch.Tensor:
+    """All-reduce (sum) forward, identity backward: the experts' partial
+    outputs summed over the region."""
+    return reduce_sum(x, group, size, comm, name="region_all_reduce")
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward, gradient times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def region_replicated(x: torch.Tensor, size: int) -> torch.Tensor:
+    """A value every rank of a region of ``size`` computes alike from the
+    region's entries (the router's aux losses): identity forward, its
+    gradient divided by ``size`` backward, so the entries' sums count it
+    once — as ``shard_map``'s transpose divides the cotangent of an output
+    that is replicated over an axis."""
+    if size == 1:
+        return x
+    return _ScaleGrad.apply(x, 1.0 / size)
+
+
+def data_mean(x: torch.Tensor, group: Any, size: int, comm: Any = None) -> torch.Tensor:
+    """``pmean`` over the data axes: the mean of every rank's ``x``; the
+    gradient of each rank's term is ``g / size`` (each rank's loss holds
+    the replicated mean, and the train step sums its gradients over the
+    data axes)."""
+    if size == 1:
+        return x
+    return reduce_sum(x, group, size, comm, name="data_all_reduce") / size
+
+
+# -- the pipeline's stage hand-off -----------------------------------------------
+
+
+def _pack(tensors) -> torch.Tensor:
+    """Tensors of any dtypes as one byte buffer (one message a hand-off)."""
+    return torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+
+
+def _unpack(buf: torch.Tensor, metas) -> List[torch.Tensor]:
+    out, offset = [], 0
+    for shape, dtype in metas:
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        # a copy of its own: aligned for the dtype, and no view of the buffer
+        out.append(buf[offset:offset + n].clone().view(dtype).reshape(shape))
+        offset += n
+    return out
+
+
+def _metas(tensors):
+    return [(tuple(t.shape), t.dtype) for t in tensors]
+
+
+def _p2p(name: str, buf: torch.Tensor, peer: int, comm: Any) -> torch.Tensor:
+    """Send ``buf`` to global rank ``peer`` (``pp_send``) or receive into it
+    (``pp_recv``); staged through host memory where ``send_recv`` is."""
+    import torch.distributed as dist
+
+    op = dist.send if name == "pp_send" else dist.recv
+
+    def fn(t):
+        _staged("send_recv", [t], lambda ts: op(ts[0], peer))
+        return t
+
+    return _run(name, buf, comm, fn)
+
+
+def _send(tensors, peer: int, comm: Any) -> None:
+    _p2p("pp_send", _pack(tensors), peer, comm)
+
+
+def _recv(metas, device, peer: int, comm: Any) -> List[torch.Tensor]:
+    n = sum(math.prod(shape) * torch.empty((), dtype=dtype).element_size() for shape, dtype in metas)
+    return _unpack(_p2p("pp_recv", torch.empty(n, dtype=torch.uint8, device=device), peer, comm), metas)
+
+
+class SendNext(torch.autograd.Function):
+    """A stage's output carry sent to the next stage (one packed message);
+    returns a 0-d zero for the caller's backward to start from.  Its
+    backward receives the carry's cotangent from the next stage."""
+
+    @staticmethod
+    def forward(ctx, peer, comm, *carry):
+        ctx.peer, ctx.comm, ctx.metas = peer, comm, _metas(carry)
+        ctx.device = carry[0].device
+        _send(carry, peer, comm)
+        return carry[0].new_zeros((), dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, *_recv(ctx.metas, ctx.device, ctx.peer, ctx.comm))
+
+
+class RecvPrev(torch.autograd.Function):
+    """The previous stage's carry received (``metas``: each leaf's shape and
+    dtype); ``anchor`` (a 0-d tensor that requires grad) puts the receive on
+    the graph.  Its backward sends the carry's cotangent (zeros for a leaf
+    without one) back to the previous stage."""
+
+    @staticmethod
+    def forward(ctx, anchor, peer, comm, metas):
+        ctx.peer, ctx.comm, ctx.metas, ctx.device = peer, comm, metas, anchor.device
+        return tuple(_recv(metas, anchor.device, peer, comm))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _send([torch.zeros(shape, dtype=dtype, device=ctx.device) if g is None else g.to(dtype)
+               for g, (shape, dtype) in zip(grads, ctx.metas)], ctx.peer, ctx.comm)
+        return torch.zeros((), device=ctx.device), None, None, None
+

@@ -8,8 +8,10 @@ group is a run of neighbouring ranks).  :class:`MeshSpec` and its
 ``torch.distributed.device_mesh.DeviceMesh`` with those axis names.  The
 collectives are explicit in the port (``parallel/collectives.py``); the
 mesh only names which ranks form each axis.  :class:`TrainMesh` is the
-training path's: the sizes, this rank's coordinates and one plain
-process group per axis and per run of axes the train step reduces over.
+training path's: the sizes, this rank's coordinates, one plain process
+group per set of axes (``group("ep", "tp")`` is the expert region's) and
+the pipeline's stage view (this rank's stage and the global ranks of its
+neighbours at the same coordinate on the other axes).
 """
 
 from __future__ import annotations
@@ -162,6 +164,34 @@ class TrainMesh:
     @property
     def world(self) -> int:
         return len(self.ranks)
+
+    # -- the pipeline's stage view --------------------------------------------
+
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage (its ``pp`` coordinate)."""
+        return self.coords["pp"]
+
+    @property
+    def n_stages(self) -> int:
+        return self.sizes["pp"]
+
+    def _stage_rank(self, stage: int) -> int:
+        stride = math.prod(s for a, s in self.sizes.items() if a != "pp")
+        index = self.ranks.index(self.rank) + (stage - self.stage) * stride
+        return self.ranks[index]
+
+    @property
+    def prev_stage_rank(self) -> Optional[int]:
+        """The global rank of the previous stage at this rank's ``(dp, fsdp,
+        ep, sp, tp)`` coordinate (None on the first stage)."""
+        return self._stage_rank(self.stage - 1) if self.stage > 0 else None
+
+    @property
+    def next_stage_rank(self) -> Optional[int]:
+        """The global rank of the next stage at this rank's coordinate (None
+        on the last stage)."""
+        return self._stage_rank(self.stage + 1) if self.stage < self.n_stages - 1 else None
 
     def comm(self) -> Any:
         """The model's view (``collectives.ShardComm``): its tp group."""

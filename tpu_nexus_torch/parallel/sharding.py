@@ -82,10 +82,18 @@ def spec_for(logical_axes: Sequence[Optional[str]], rules: RuleTable) -> Spec:
     return tuple(rules[name] if name is not None else None for name in logical_axes)
 
 
-def _axes_of(entry: Union[None, str, Tuple[str, ...]]) -> Tuple[str, ...]:
+def axes_of(entry: Union[None, str, Sequence[str]]) -> Tuple[str, ...]:
+    """The mesh axes a rule entry names: ``None`` none, a name one, a
+    sequence each of its names."""
     if entry is None:
         return ()
-    return entry if isinstance(entry, tuple) else (entry,)
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def batch_axes(rules: Optional[RuleTable]) -> Tuple[str, ...]:
+    """The mesh axes that cut the batch under ``rules`` (``("dp", "fsdp")``
+    where the table, or the whole table, is missing)."""
+    return axes_of((rules or {}).get("batch", ("dp", "fsdp")))
 
 
 def shard_index(entry: Union[None, str, Tuple[str, ...]], coords: Mapping[str, int],
@@ -93,7 +101,7 @@ def shard_index(entry: Union[None, str, Tuple[str, ...]], coords: Mapping[str, i
     """``(index, count)`` of one dimension's spec entry for a rank at
     ``coords``: a dim sharded over several axes is cut major-first."""
     index, count = 0, 1
-    for axis in _axes_of(entry):
+    for axis in axes_of(entry):
         index = index * sizes.get(axis, 1) + coords.get(axis, 0)
         count *= sizes.get(axis, 1)
     return index, count
@@ -133,14 +141,14 @@ def effective_spec(spec: Spec, sizes: Mapping[str, int]) -> Spec:
     replicated): what a rank's slicing and the reductions read."""
     out = []
     for entry in spec:
-        axes = tuple(a for a in _axes_of(entry) if sizes.get(a, 1) > 1)
+        axes = tuple(a for a in axes_of(entry) if sizes.get(a, 1) > 1)
         out.append(None if not axes else axes[0] if len(axes) == 1 else axes)
     return tuple(out)
 
 
 def spec_axes(spec: Spec) -> Tuple[str, ...]:
     """Every mesh axis that cuts some dim of a leaf under ``spec``."""
-    return tuple(a for entry in spec for a in _axes_of(entry))
+    return tuple(a for entry in spec for a in axes_of(entry))
 
 
 def spec_tree(axes_tree: Any, rules: RuleTable, sizes: Mapping[str, int]) -> Any:

@@ -64,8 +64,13 @@ training_ranks``), the first in this process, the others spawned
 * a local rank that dies fails the container non-zero (the next
   collective fails, or times out at ``NEXUS_DIST_TIMEOUT_S``).
 
-Pipeline parallelism (``pp > 1``, ``NEXUS_PP_MICROBATCHES``) is refused at
-parse, naming ROADMAP.md A6b-ii.  On a mesh the step-hang watchdog's
+A mesh with ``pp > 1`` trains through the pipeline (``NEXUS_PP_MICROBATCHES``,
+0 = the reference's auto pick); as in the reference its rule table then
+cuts the layer stacks over ``pp``.  Every stage draws the same global
+batch (``pp`` spans the processes, so the replicated mode), a rank keeps
+its share of every microbatch (``train.batch_rows``), and the loss, the
+goodput and the completion barrier are the same on every stage (the last
+stage's loss is broadcast).  On a mesh the step-hang watchdog's
 emergency save is skipped: it would need collectives of wedged peers.
 """
 
@@ -76,7 +81,7 @@ import logging
 import math
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from datetime import datetime, timezone
 from typing import Any, Callable, Dict, Iterator, Optional
 
@@ -89,7 +94,7 @@ from tpu_nexus_torch.core.telemetry import Metrics, StatsdClient
 from tpu_nexus_torch.models.llama import LlamaConfig
 from tpu_nexus_torch.parallel.distributed import ProcessContext, RankPlan, process_context_from_env, training_ranks
 from tpu_nexus_torch.parallel.mesh import AXIS_ORDER, MeshSpec, mesh_coords
-from tpu_nexus_torch.parallel.sharding import LOGICAL_RULES_FSDP_TP, RuleTable
+from tpu_nexus_torch.parallel.sharding import LOGICAL_RULES_FSDP_TP, RuleTable, batch_axes
 from tpu_nexus_torch.workload import durability
 from tpu_nexus_torch.workload.faults import (
     FaultPlan,
@@ -121,7 +126,7 @@ from tpu_nexus_torch.workload.health import (
     hang_cause,
 )
 from tpu_nexus_torch.workload.tensor_checkpoint import CheckpointError, TensorCheckpointer
-from tpu_nexus_torch.workload.train import TrainConfig
+from tpu_nexus_torch.workload.train import TrainConfig, default_rules
 
 logger = logging.getLogger(__name__)
 
@@ -264,14 +269,11 @@ def _nonbatch_axis_spans_processes(sizes: Dict[str, int], rules: RuleTable, loca
     one process (``local`` ranks a process, in rank order) — e.g. an sp
     ring whose hops cross processes.  A process's rows are then not a
     contiguous row block of the global batch."""
-    batch_axes = rules.get("batch", ("dp", "fsdp"))
-    if isinstance(batch_axes, str):
-        batch_axes = (batch_axes,)
-    batch_axes = set(batch_axes or ())
+    batch = set(batch_axes(rules))
     shape = tuple(sizes[a] for a in AXIS_ORDER)
     coords = [mesh_coords(r, shape) for r in range(math.prod(shape))]
     for i, name in enumerate(AXIS_ORDER):
-        if name in batch_axes or sizes[name] == 1:
+        if name in batch or sizes[name] == 1:
             continue
         groups: Dict[tuple, set] = {}
         for r, c in enumerate(coords):
@@ -347,24 +349,16 @@ class WorkloadConfig:
             )
         else:
             mesh = MeshSpec(fsdp=-1)
-        if mesh.pp > 1:
-            raise NotImplementedError(
-                f"NEXUS_MESH={mesh_env!r}: pipeline parallelism (pp > 1) is not ported yet "
-                "(ROADMAP.md: A6b-ii)"
-            )
-        if int(e.get("NEXUS_PP_MICROBATCHES", "0")):
-            raise NotImplementedError(
-                f"NEXUS_PP_MICROBATCHES={e['NEXUS_PP_MICROBATCHES']!r}: pipeline microbatches are not "
-                "ported yet (ROADMAP.md: A6b-ii)"
-            )
         steps = int(e.get("NEXUS_STEPS", "100"))
         return WorkloadConfig(
             model=get_adapter(e.get("NEXUS_MODEL_PRESET", "tiny")),
             train=TrainConfig(
                 warmup_steps=int(e.get("NEXUS_WARMUP_STEPS", "10")),
                 total_steps=max(steps, 2),
-                # sequence-parallel attention strategy: ring (default) or ulysses
+                # sequence-parallel attention strategy: ring (default) or
+                # ulysses (required for pp x sp meshes)
                 sp_attn=e.get("NEXUS_SP_ATTN", "ring"),
+                pp_microbatches=int(e.get("NEXUS_PP_MICROBATCHES", "0")),
                 optimizer=e.get("NEXUS_OPTIMIZER", "adamw"),
             ),
             mesh=mesh,
@@ -603,13 +597,15 @@ def run_workload(
         lifecycle = setup_signal_context(install=on_main)
     try:
         ctx = ctx or process_context_from_env()
-        if cfg.mesh.pp > 1 or cfg.train.pp_microbatches:
-            raise NotImplementedError(
-                f"pp={cfg.mesh.pp}, pp_microbatches={cfg.train.pp_microbatches}: pipeline parallelism is not "
-                "ported yet (ROADMAP.md: A6b-ii)"
-            )
+        # a pp-bearing mesh with layer stacks replicated would waste the pp
+        # axis: the table is upgraded to stage-shard them, as the reference's
+        cfg = replace(cfg, rules=default_rules(cfg.mesh.pp, cfg.rules))
         plan = training_ranks(ctx, cfg.mesh.sizes(), cfg.device, cfg.rank_map)
         if plan.world == 1:
+            # a mesh that wants more ranks than the plan has is refused, as
+            # the reference refuses it against its devices (under the
+            # rehearsal map a -1 axis means one rank a process)
+            cfg.mesh.resolve(plan.world)
             return _workload_loop(cfg, store, ctx, data, lifecycle, telemetry)
         if data is not None:
             raise ValueError("an injected data stream trains on one device; a mesh draws its own")
@@ -843,17 +839,17 @@ def _workload_loop(
             raise ValueError(f"batch {cfg.batch_size} not divisible by {processes} processes")
         data = make_stream(stream_batch, seed=cfg.seed + (0 if replicated else ctx.process_id))
 
+    rows = None
+    if mesh is not None:
+        from tpu_nexus_torch.workload.train import batch_rows, take_rows
+
+        rows = batch_rows(cfg.batch_size, mesh, cfg.train, cfg.rules)
+        if stream_batch != cfg.batch_size:  # the process's rows start at its first rank's
+            rows = rows - ctx.process_id * stream_batch
+
     def to_rank(raw: Any) -> Any:
         """This rank's rows of a drawn batch (the whole batch on one device)."""
-        if mesh is None:
-            return raw
-        rows = cfg.batch_size // mesh.size("dp", "fsdp")
-        if cfg.batch_size % mesh.size("dp", "fsdp"):
-            raise ValueError(f"batch {cfg.batch_size} not divisible by dp·fsdp={mesh.size('dp', 'fsdp')}")
-        offset = mesh.index("dp", "fsdp") * rows
-        if stream_batch != cfg.batch_size:  # the process's rows start at its first rank's
-            offset -= ctx.process_id * stream_batch
-        return raw[offset:offset + rows]  # a token batch: the dense family alone trains on a mesh
+        return raw if rows is None else take_rows(raw, rows)
 
     # chaos seam: data fault modes (nan-grads/loss-spike) poison batches at
     # the draw boundary, UNDER the cursor so draw indices line up with the
@@ -1001,6 +997,7 @@ def _workload_loop(
 
     reporter.running()
     launches_at_start = _attention_launches()
+    gmm_at_start = _grouped_matmul_launches()
     if mesh is not None:
         from tpu_nexus_torch.parallel import collectives
 
@@ -1201,6 +1198,7 @@ def _workload_loop(
         "device": str(device),
         # this run's launches of the flash kernels (#1-#3) on this rank
         "attention_launches": {k: v - launches_at_start[k] for k, v in _attention_launches().items()},
+        "grouped_matmul_launches": {k: v - gmm_at_start[k] for k, v in _grouped_matmul_launches().items()},
         **({"mesh": mesh.describe(), "rank": rank.rank, "collectives": _collectives_summary()}
            if mesh is not None else {}),
         **({"goodput": meter.summary()} if meter.enabled else {}),
@@ -1221,6 +1219,13 @@ def _attention_launches() -> Dict[str, int]:
 
     return {f.__name__: f.launches for f in (fa.flash_attention, fa.flash_attention_bwd_dq,
                                              fa.flash_attention_bwd_dkv)}
+
+
+def _grouped_matmul_launches() -> Dict[str, int]:
+    """The grouped-matmul kernels' launch counters (#7 gmm, #8 tgmm)."""
+    from tpu_nexus_torch.ops import grouped_matmul as gm
+
+    return {"nexus_gmm": gm.gmm_kernel_call.launches, "nexus_tgmm": gm.tgmm_kernel_call.launches}
 
 
 def _collectives_summary() -> Dict[str, Any]:

@@ -25,6 +25,7 @@ all of them.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import logging
@@ -175,13 +176,17 @@ def train_steps(
     device: str = "cpu",
     stage: Optional[List[str]] = None,
     reference: str = "",
+    force_ep: bool = False,
 ) -> Optional[Dict[str, Any]]:
     """Train ``len(batches)`` steps of ``model`` on the mesh ``spec`` (over
     the first ranks of the world; the others only help build its groups)
     from ``params`` (the JAX package's tree, numpy) and ``opt_state``
     (``(count, [moments of each parameter])``, ``models/convert.py::
     opt_state_from_numpy``) or, without them, the init of ``seed``.  Each
-    batch is the GLOBAL ``[B, S]`` token array; a rank trains on its rows.
+    batch is the GLOBAL batch (a ``[B, S]`` token array, or MNIST's dict);
+    a rank trains on its rows (``train.batch_rows``: under ``pp`` its share
+    of every microbatch).  ``spec`` may name any axis, ``pp`` and ``ep``
+    included; ``force_ep`` sets ``NEXUS_MOE_FORCE_EP_PATH`` for the call.
     Returns, on the mesh's first rank, the losses and grad norms and every
     parameter gathered whole (f32 numpy, by path); None elsewhere.  With
     ``reference="keep"`` the first rank keeps Adam's first moments after
@@ -190,19 +195,41 @@ def train_steps(
     ``reference="compare"`` it returns, per path, the max-abs difference
     from the kept ones and their max-abs (the whole trees never cross a
     pipe)."""
+    with _force_ep_path(force_ep):
+        return _train_steps(spec, model, train_cfg, batches, params, opt_state, seed, device, stage, reference)
+
+
+@contextlib.contextmanager
+def _force_ep_path(force: bool):
+    """``NEXUS_MOE_FORCE_EP_PATH`` set to ``force`` within the block."""
+    prior = os.environ.get("NEXUS_MOE_FORCE_EP_PATH")
+    os.environ["NEXUS_MOE_FORCE_EP_PATH"] = "1" if force else "0"
+    try:
+        yield
+    finally:
+        if prior is None:
+            os.environ.pop("NEXUS_MOE_FORCE_EP_PATH")
+        else:
+            os.environ["NEXUS_MOE_FORCE_EP_PATH"] = prior
+
+
+def _train_steps(spec, model, train_cfg, batches, params, opt_state, seed, device, stage, reference):
     import math
 
     import torch
 
     from tpu_nexus_torch.models.convert import opt_state_from_numpy, train_params_from_numpy
+    from tpu_nexus_torch.models.registry import adapter_for
     from tpu_nexus_torch.parallel import collectives
     from tpu_nexus_torch.parallel.mesh import MeshSpec, TrainMesh
     from tpu_nexus_torch.workload.health import health_init
     from tpu_nexus_torch.workload.train import (
+        batch_rows,
         init_train_state,
         make_optimizer,
         make_train_step,
         param_leaves,
+        take_rows,
         train_layout,
     )
 
@@ -227,8 +254,7 @@ def train_steps(
         state = {"params": p, "opt_state": opt, "step": torch.zeros((), dtype=torch.int32, device=dev),
                  "health": health_init(dev)}
     step_fn = make_train_step(model, train_cfg, mesh=mesh)
-    rows_of = mesh.size("dp", "fsdp")
-    part = mesh.index("dp", "fsdp")
+    adapter = adapter_for(model)
     losses, norms = [], []
     collectives.STATS.reset()
     first = mesh.index(*mesh.sizes) == 0
@@ -255,8 +281,8 @@ def train_steps(
     # the same on every rank: which leaves get gathered
     by_moments = bool(reference) and "mu" in state["opt_state"]["leaves"][0]
     for i, batch in enumerate(batches):
-        b = batch.shape[0] // rows_of
-        rows = torch.from_numpy(batch[part * b:(part + 1) * b]).long().to(dev)
+        size = len(batch["y"]) if isinstance(batch, dict) else batch.shape[0]
+        rows = adapter.to_device(take_rows(batch, batch_rows(size, mesh, train_cfg)), dev)
         state, m = step_fn(state, rows)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
@@ -395,6 +421,101 @@ def sp_attention(spec: Dict[str, int], kind: str, q: Any, k: Any, v: Any, g: Any
                                     head_axis="tp" if mesh.size("tp") > 1 else None)
         dq, dk, dv = torch.autograd.grad(out, (ql, kl, vl), gl.detach())
     result = {name: whole(t) for name, t in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv))}
+    return result if mesh.index(*mesh.sizes) == 0 else None
+
+
+def _mesh_of(spec: Dict[str, int]):
+    import math
+
+    from tpu_nexus_torch.parallel.mesh import MeshSpec, TrainMesh
+
+    full = {**dict(pp=1, dp=1, fsdp=1, ep=1, sp=1, tp=1), **spec}
+    return TrainMesh(MeshSpec(**full), ranks=range(math.prod(full.values())))
+
+
+def pipeline_stack(spec: Dict[str, int], ws: Any, bs: Any, x: Any, g: Any, microbatches: int) -> Optional[Dict[str, Any]]:
+    """``parallel/pipeline.py::pipeline_apply`` over the mesh's ``pp`` ranks
+    of the stack ``tanh(x @ w[l] + b[l])`` (numpy ``ws [L, D, D]``, ``bs [L,
+    D]``, ``x [B, D]``): each stage holds its ``L / pp`` layers.  Returns, on
+    the last stage, the output and, for the cotangent ``g``, the gradients
+    of ``x`` (from the first stage) and of the whole ``w`` and ``b`` (f32
+    numpy); None elsewhere."""
+    import torch
+
+    from tpu_nexus_torch.parallel import collectives
+    from tpu_nexus_torch.parallel.pipeline import finish_on_last_stage, pipeline_apply
+
+    mesh = _mesh_of(spec)
+    if not mesh.is_member:
+        return None
+    pp, s = mesh.size("pp"), mesh.stage
+    per = ws.shape[0] // pp
+    layers = {name: torch.from_numpy(a[s * per:(s + 1) * per]).requires_grad_() for name, a in (("w", ws), ("b", bs))}
+    xt = torch.from_numpy(x).requires_grad_()
+    gt = torch.from_numpy(g)
+    with collectives.active(mesh.comm()):
+        out = pipeline_apply(lambda c, layer: torch.tanh(c @ layer["w"] + layer["b"]), layers, xt, n_stages=pp,
+                             microbatches=microbatches, mesh=mesh)
+        loss, _ = finish_on_last_stage(mesh, out, (), lambda o: ((o * gt).sum(), {}))
+        loss.backward()
+    # x's gradient lives on the first stage: summed with zeros over pp
+    dx = collectives._all_reduce(xt.grad if s == 0 else torch.zeros_like(xt), mesh.group("pp"), None)
+    whole = {k: collectives.gather_dim(t.grad, 0, mesh.group("pp"), pp).numpy() for k, t in layers.items()}
+    if s != pp - 1:
+        return None
+    return {"out": out.detach().numpy(), "dx": dx.numpy(), "dw": whole["w"], "db": whole["b"], "loss": float(loss)}
+
+
+def moe_ffn_grads(spec: Dict[str, int], cfg: Any, x: Any, layer: Dict[str, Any],
+                  force_ep: bool = False) -> Optional[Dict[str, Any]]:
+    """``models/moe.py::moe_ffn`` on the training mesh ``spec``: the global
+    numpy ``x [B, S, e]`` cut to the rank (rows over ``(dp, fsdp)``, the
+    sequence over ``sp``), the layer's expert stacks to its experts (``ep``)
+    and mlp slice (``tp``; the router whole, as the layer's fsdp gather
+    leaves it).  The loss is ``sum(out ** 2)``.  Returns, on the mesh's
+    first rank, the output, the aux values and the gradients of ``x`` and
+    of every layer leaf, gathered whole (the weights' summed over the data
+    axes, as the train step does); None elsewhere."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.models.moe import moe_ffn
+    from tpu_nexus_torch.parallel import collectives
+    from tpu_nexus_torch.parallel.mesh import DATA_AXES
+
+    mesh = _mesh_of(spec)
+    if not mesh.is_member:
+        return None
+    cuts = {"x": ((0, ("dp", "fsdp")), (1, ("sp",))), "router": (),
+            "w_gate": ((0, ("ep",)), (2, ("tp",))), "w_up": ((0, ("ep",)), (2, ("tp",))),
+            "w_down": ((0, ("ep",)), (1, ("tp",)))}
+
+    def local(name, a):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(cfg.dtype)
+        for dim, axes in cuts[name]:
+            n = t.shape[dim] // mesh.size(*axes)
+            t = t.narrow(dim, mesh.index(*axes) * n, n)
+        return t.contiguous().requires_grad_()
+
+    def whole(name, t):
+        for dim, axes in cuts[name]:
+            t = collectives.gather_dim(t, dim, mesh.group(*axes), mesh.size(*axes))
+        return t.float().numpy()
+
+    xl = local("x", x)
+    ll = {k: local(k, v) for k, v in layer.items()}
+    with _force_ep_path(force_ep), collectives.active(mesh.comm()):
+        out, aux = moe_ffn(xl, ll, cfg, mesh=mesh)
+        (out.float() ** 2).sum().backward()
+    data = tuple(a for a in DATA_AXES if mesh.size(a) > 1)
+    grads = {}
+    for k, t in ll.items():
+        g = t.grad
+        if data:
+            g = collectives._all_reduce(g, mesh.group(*data), None)
+        grads[k] = whole(k, g)
+    result = {"out": whole("x", out.detach()), "aux": {k: float(v) for k, v in aux.items()},
+              "dx": whole("x", xl.grad), "grads": grads}
     return result if mesh.index(*mesh.sizes) == 0 else None
 
 

@@ -68,9 +68,10 @@ class TrainConfig:
     #: sequence-chunk width of the chunked CE loss: each chunk's [B, chunk,
     #: V] f32 logits are the loss's only vocabulary-sized transient
     ce_chunk: int = 256
-    #: pipeline microbatches (mesh pp > 1; not ported: ROADMAP.md A6b-ii
-    #: refuses a non-zero value) and the sequence-parallel attention when
-    #: the mesh shards sp: "ring" (parallel/ring.py) or "ulysses"
+    #: pipeline microbatches when the mesh has pp > 1 (0: the reference's
+    #: auto pick, parallel/pipeline.py::auto_microbatches) and the
+    #: sequence-parallel attention when the mesh shards sp: "ring"
+    #: (parallel/ring.py; refused under pp, as the reference) or "ulysses"
     #: (parallel/ulysses.py, heads divisible by sp·tp)
     pp_microbatches: int = 0
     sp_attn: str = "ring"
@@ -649,14 +650,54 @@ def _sharded(mesh: Any) -> bool:
     return mesh is not None and mesh.world > 1
 
 
-def train_layout(model: Any, mesh: Any, rules: Any = None) -> Layout:
-    """The :class:`Layout` of ``model``'s train state on ``mesh`` under
-    ``rules`` (default: ``LOGICAL_RULES_FSDP_TP``, the reference's)."""
+def default_rules(n_stages: int = 1, rules: Any = None) -> Dict[str, Any]:
+    """The rule table a training mesh of ``n_stages`` pp stages runs under:
+    ``rules`` (default ``LOGICAL_RULES_FSDP_TP``), with the layer stacks cut
+    over ``pp`` where there is more than one stage and the table leaves
+    them replicated (the reference's harness upgrades its table so; its pp
+    tests run ``LOGICAL_RULES_FSDP_TP_PP``)."""
     from tpu_nexus_torch.parallel.sharding import LOGICAL_RULES_FSDP_TP
 
+    rules = LOGICAL_RULES_FSDP_TP if rules is None else rules
+    if n_stages > 1 and not rules.get("layers"):
+        return {**rules, "layers": "pp"}
+    return rules
+
+
+def train_layout(model: Any, mesh: Any, rules: Any = None) -> Layout:
+    """The :class:`Layout` of ``model``'s train state on ``mesh`` under
+    ``rules`` (default: :func:`default_rules`)."""
     adapter = _as_adapter(model)
     adapter.check_mesh(mesh)
-    return Layout(mesh, adapter.axes(), rules or LOGICAL_RULES_FSDP_TP)
+    return Layout(mesh, adapter.axes(), rules if rules is not None else default_rules(mesh.size("pp")))
+
+
+def batch_rows(batch_size: int, mesh: Any, train_cfg: Any, rules: Any = None) -> Any:
+    """The rows of a global batch this rank trains on (numpy indices): its
+    contiguous block over the batch axes; under ``pp`` its share of every
+    microbatch (``parallel/pipeline.py::microbatch_rows``), so each
+    microbatch is the reference's."""
+    import numpy as np
+
+    from tpu_nexus_torch.parallel.pipeline import microbatch_rows, resolve_microbatches
+    from tpu_nexus_torch.parallel.sharding import batch_axes
+
+    axes = batch_axes(rules)
+    n, index = mesh.size(*axes), mesh.index(*axes)
+    if batch_size % n:
+        raise ValueError(f"batch {batch_size} not divisible by {'·'.join(axes)}={n}")
+    if mesh.size("pp") > 1:
+        m = resolve_microbatches(batch_size, mesh.size("pp"), getattr(train_cfg, "pp_microbatches", 0), mesh, axes)
+        return microbatch_rows(batch_size, n, index, m)
+    rows = batch_size // n
+    return np.arange(index * rows, (index + 1) * rows)
+
+
+def take_rows(batch: Any, rows: Any) -> Any:
+    """``batch`` (an array or a dict of them) at ``rows``."""
+    if isinstance(batch, dict):
+        return {k: v[rows] for k, v in batch.items()}
+    return batch[rows]
 
 
 def init_train_state(
@@ -711,17 +752,38 @@ def _active(mesh: Any):
 def _reduce_grads(grads: List[torch.Tensor], specs: List[Tuple], mesh: Any) -> None:
     """Sum each gradient over the data axes its parameter is not cut on
     (``fsdp`` already summed by the gather's reduce-scatter where it cuts
-    the leaf): one coalesced all-reduce per group and dtype."""
+    the leaf) and over ``pp`` where the stages share it (the embedding and
+    tied head, ``out_norm``: the first and the last stage each hold a part
+    of its gradient): one coalesced all-reduce per group and dtype."""
     from tpu_nexus_torch.parallel import collectives
     from tpu_nexus_torch.parallel.sharding import spec_axes
 
+    over = (("pp",) if mesh.size("pp") > 1 else ()) + _data_axes(mesh)
     by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
     for g, spec in zip(grads, specs):
-        axes = tuple(a for a in _data_axes(mesh) if a not in spec_axes(spec))
+        axes = tuple(a for a in over if a not in spec_axes(spec))
         if axes:
             by_axes.setdefault(axes, []).append(g)
     for axes, same in by_axes.items():
         collectives.all_reduce_grads(same, mesh.group(*axes), mesh.comm())
+
+
+def leaf_grads(loss: torch.Tensor, named: List[Tuple[str, torch.Tensor]], n_stages: int = 1) -> List[torch.Tensor]:
+    """The gradient of ``loss`` for each named leaf.  A pipeline stage
+    (``n_stages > 1``) does not touch every leaf outside the layer stacks
+    (the embedding off the first stage, the head and ``out_norm`` off the
+    last): its gradient there is zero.  Any other leaf the graph does not
+    reach is a wiring fault and raises, as ``autograd.grad`` does."""
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=n_stages > 1)
+    out = []
+    for g, (name, p) in zip(grads, named):
+        if g is None:
+            if name.split(".")[0] == "layers":
+                raise RuntimeError(f"{name}: one of the differentiated Tensors appears to not have been used "
+                                   "in the graph (a layer leaf every pipeline stage uses)")
+            g = torch.zeros_like(p)
+        out.append(g)
+    return out
 
 
 def make_train_step(
@@ -765,7 +827,7 @@ def make_train_step(
             optimizer = make_optimizer(train_cfg, layout, specs)
         with torch.enable_grad(), _active(mesh):
             loss, metrics = loss_fn(state["params"], batch)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = leaf_grads(loss, named, mesh.size("pp") if layout is not None else 1)
         with torch.no_grad():
             if layout is not None:
                 _reduce_grads(grads, specs, mesh)
