@@ -149,7 +149,7 @@ raises and exits non-zero:
    replica, 47 fleet-wide prefix hits on one replica under ``pressure``;
    then ``kill_replica`` mid-burst accounts every live request with its
    cause.
-21. disagg       — llama3_8b at full width and depth (bf16 params), one
+21. disagg       — llama3_8b at full width, 8 of its 32 layers (bf16 params), one
    prefill and two decode replicas on one params tree, bf16 KV and int8
    KV: 8 requests of the reference's long-prompt / long-generation mix,
    each prefilled, handed through the host and installed: tokens equal a
@@ -222,7 +222,8 @@ raises and exits non-zero:
    gloo under the explicit one-device rehearsal map (``nvidia-smi -L``
    names the cards; which collectives gloo takes on CUDA tensors is
    probed first, and the seam's must be among them). (a) llama3_8b at
-   full width and depth, bf16, page 32, 8 slots, 8 requests of 128 + 32
+   full width, 8 of its 32 layers (serve_multiprocess (a) runs the full
+   depth), bf16, page 32, 8 slots, 8 requests of 128 + 32
    through ``run_serve_engine`` with ``serve_mesh="tp=2"``: COMPLETED,
    per-rank launches of #1 and #4 paged and peak memory, tokens/s and TPOT
    p50 (two ranks sharing one card through host memory: not a
@@ -236,9 +237,10 @@ raises and exits non-zero:
    int8 KV and int4: every rank's products on #5/#6's ring kernels,
    logits as in (a); (d) nexus_moe at ep 2 (logits equal to one device's)
    and tp 2; (e) nexus_1b at 4 layers: a mid-traffic swap to a committed
-   step by reference, a fleet of two tp-2 replicas rolled 1 -> 2, and a
-   serve-engine container (nexus_1b) whose worker is killed (exit
-   non-zero, row FAILED); then #5/#6 at every rank shape against plain
+   step by reference and a fleet of two tp-2 replicas rolled 1 -> 2 (the
+   serve-engine container whose spawned worker is killed runs in
+   serve_multiprocess (e), beside that phase's other drills); then #5/#6 at every
+   rank shape against plain
    (ring, twice bit-identical) and #1, #4 paged, #5, #6 timed there.
 30. train_sharded — parallel training (``parallel/{mesh,collectives,ring,
    ulysses}.py``, ``workload/train.py``'s ``Layout``): ranks on cuda:0 over
@@ -250,7 +252,7 @@ raises and exits non-zero:
    relative, the gradients within 1e-5 x max|ref|); (a) the main
    path: two ``python -m tpu_nexus_torch.workload`` containers
    (``NEXUS_NUM_PROCESSES=2``, the default mesh: fsdp over both) train
-   nexus_1b at full width and depth, bf16, 6 steps of 8 x 2048 with a save
+   nexus_1b at full width and depth, bf16, 2 steps of 8 x 2048 with a save
    at the last: ledger COMPLETED with ``host0/chip0`` and ``host1/chip0``,
    #1-#3 launched 14 a step on each rank, step 1's loss against one
    device's, the collectives and bytes a step, peak memory, tokens/s (a
@@ -258,6 +260,32 @@ raises and exits non-zero:
    leaf to its one-device restore; (c) #1-#3 at the rank shapes (fsdp 2
    B4 S2048, the ring's B8 S1024 diagonal and off-diagonal blocks,
    Ulysses' B8 S2048 Hq8 Hkv4) against plain, twice bit-identical, timed.
+31. train_pp_ep — pipeline- and expert-parallel training on cuda:0 over
+   gloo: (a) nexus_1b pp 2 and (b) nexus_moe gmm ep 2, two containers
+   each, (c) seven meshes' f32 gradients against one device beside them,
+   (d) #1-#3 at the pipeline's microbatch and #7/#8 at an ep-2 rank's
+   layout against plain, timed.
+32. serve_multiprocess — serving across launched processes and over a
+   replicate axis, every rank on cuda:0 over gloo: (a) the main path,
+   llama3_8b (bf16 params, full depth) as one tp-2 replica over two
+   containers (``NEXUS_NUM_PROCESSES=2``, one rank each): the row
+   COMPLETED with host0/chip0 and host1/chip0, written once by the
+   coordinator, each rank's #1 and #4 launches and the greedy tokens equal
+   to the in-container tp-2 replica's on the same requests, slots and seed;
+   (b) nexus_moe ``dp=2,ep=2`` in one container: tokens equal ep 2's, the
+   copies' launches equal, each expert sum over its copy's region; (c)
+   nexus_1b f32 (4 layers) tp 2 over two containers and ``pp=2,tp=2`` in
+   one: tokens identical to one device's, and, in a separate step before
+   the leading container's entry point closes its pool, teacher-forced
+   logits within 1e-5 x max|ref|; (d) the lockstep loop over two
+   containers: each process's tokens equal a one-process run's; (e)
+   SIGTERM to both containers of a tp-2 replica lands PREEMPTED, both exit
+   0; a SIGKILLed worker container fails the leader's within
+   ``NEXUS_DIST_TIMEOUT_S``, and a SIGKILLed spawned shard worker of a
+   one-container tp-2 replica fails that container, each row FAILED naming
+   rank 1.  Every container of (a)-(d) runs the workload's own ``main()``
+   (``serve_container``: recording around it), those of (e) ``python -m
+   tpu_nexus_torch.workload``.
 
 Opt-in: ``profile`` — one warm ``generate`` round of the serve shape under
 ``torch.profiler``: device time by kernel group and the device's busy
@@ -308,7 +336,7 @@ PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_par
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe",
           "train_ckpt", "serve_reload", "fleet", "disagg", "fleet_rollout", "serve_moe_quant", "quant_gate",
           "profile_hook", "control_plane", "fleet_supervisor", "cql_ledger", "serve_sharded", "train_sharded",
-          "train_pp_ep")
+          "train_pp_ep", "serve_multiprocess")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
           "quant_rms_times", "int4_probe", "int8_probe", "ckpt_probe")
@@ -2192,7 +2220,7 @@ QUANT_GATE_STEPS = 100
 #: the gate tool's 8 for the script's time
 QUANT_GATE_EVAL = 4
 QUANT_GATE_DECODE = 1
-QUANT_GATE_DECODE_SEQ = 256
+QUANT_GATE_DECODE_SEQ = 128
 
 
 def _gate(line):
@@ -4287,11 +4315,13 @@ def _disagg_mix(vocab, n, seed):
 
 #: disagg's requests (the reference's mix, cut from 24 for the script's time)
 DISAGG_REQUESTS = 8
+#: disagg's depth: 8 of llama3_8b's 32 layers (cut for the script's time)
+DISAGG_LAYERS = 8
 
 
 def phase_disagg(results):
-    """Disaggregated serving of llama3_8b at full width and depth (bf16
-    params), one prefill and two decode replicas sharing one params tree,
+    """Disaggregated serving of llama3_8b at full width, :data:`DISAGG_LAYERS`
+    of its 32 layers (bf16 params), one prefill and two decode replicas sharing one params tree,
     page 32; bf16 KV, then an int8 KV cache.  :data:`DISAGG_REQUESTS` requests
     of the reference's mix (:func:`_disagg_mix`) are submitted at once: each
     prefills on the prefill replica, its KV blocks cross to the host,
@@ -4318,7 +4348,7 @@ def phase_disagg(results):
     from tpu_nexus_torch.workload.faults import FaultyExecutor
 
     torch.cuda.empty_cache()
-    model = dataclasses.replace(LlamaConfig.llama3_8b(), param_dtype=torch.bfloat16)
+    model = dataclasses.replace(LlamaConfig.llama3_8b(), param_dtype=torch.bfloat16, n_layers=DISAGG_LAYERS)
     params = llama_init(torch.Generator(device="cuda").manual_seed(0), model, device="cuda")
     mix = _disagg_mix(model.vocab_size, DISAGG_REQUESTS, seed=5)
     page, decode_slots, max_len = 32, 12, 224
@@ -4418,7 +4448,7 @@ def phase_disagg(results):
             for key in ("prefill_ms", "extract_ms", "seal_ms", "validate_ms", "install_ms"):
                 row[key] = {"mean": float(np.mean(row[key])), "min": float(np.min(row[key])),
                             "max": float(np.max(row[key]))}
-        emit("disagg", config=f"llama3_8b full width and depth, bf16 params, {label}, 1 prefill + 2 decode "
+        emit("disagg", config=f"llama3_8b full width, {model.n_layers} of 32 layers, bf16 params, {label}, 1 prefill + 2 decode "
              f"replicas ({decode_slots} slots, page {page}), one params tree", requests=len(mix), finished=finished,
              token_identical_to_fused=mismatched == 0, mismatched_requests=mismatched,
              handoffs_completed=handoffs, disagg_fallbacks=fallbacks, handoff_log=log,
@@ -5235,7 +5265,6 @@ SHARDED_QUANT_SHAPES = (("wq", 8, 4096, 2048), ("wk", 8, 4096, 512), ("gate", 8,
 #: constants, so a dry run of the parts can swap in small ones)
 SHARDED_DEVICE = "cuda:0"
 SHARDED_PROMPT = 128
-SHARDED_CONTAINER_PRESET = "nexus_1b"
 SHARDED_INT4_GROUP = 64
 
 
@@ -5364,8 +5393,8 @@ def _paged_launches(stats) -> int:
 
 
 def sharded_main_path(results, pool, out):
-    """(a) llama3_8b bf16 at full width and depth, page 32, 8 slots, 8
-    requests of prompt 128 and 32 new tokens: the one-device paged engine
+    """(a) llama3_8b bf16 at full width, 8 of its 32 layers, page 32, 8
+    slots, 8 requests of prompt 128 and 32 new tokens: the one-device paged engine
     first (its tokens and teacher-forced logits kept on the host, and the
     logits of an f32 evaluation of the same weights along that stream), then
     ``run_serve_engine`` with ``serve_mesh="tp=2"`` on the pool's ranks
@@ -5385,7 +5414,7 @@ def sharded_main_path(results, pool, out):
     from tpu_nexus_torch.serving import PagedModelExecutor
     from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
 
-    model = SHARDED_MODELS["llama3_8b"]()
+    model = SHARDED_MODELS["llama3_8b_8_layers"]()
     prompts, gen = _requests(model.vocab_size, 8, SHARDED_PROMPT, seed=17), 32
     params = llama_init(torch.Generator(device=SHARDED_DEVICE).manual_seed(0), model, device=SHARDED_DEVICE)
     one = PagedModelExecutor(params, model, num_slots=8, max_len=SHARDED_PROMPT + 32,
@@ -5437,7 +5466,7 @@ def sharded_main_path(results, pool, out):
     per_step = {name: {"calls": n / timed_steps, "bytes": coll["bytes"][name] / timed_steps,
                        "ms": 1e3 * coll["seconds"].get(name, 0.0) / timed_steps} for name, n in coll["calls"].items()}
     out["a"] = dict(
-        config="llama3_8b full width and depth, bf16, page 32, 8 slots, 8 requests x (128 + 32)",
+        config="llama3_8b full width, 8 of 32 layers, bf16, page 32, 8 slots, 8 requests x (128 + 32)",
         stage=row.lifecycle_stage, finished=summary["finished"], wall_s=wall,
         decoded_tokens_per_second=summary["decoded_tokens_per_second"], tpot_p50_s=summary["tpot_p50_s"],
         ttft_p50_s=summary["ttft_p50_s"], engine_steps=summary["engine_steps"], launches_per_rank=per_rank,
@@ -5695,79 +5724,12 @@ def sharded_swap_and_fleet(results, pool, out, tmp):
     finally:
         ck.close()
     out["e"] = dict(swap=swap, fleet=fleet_row)
+    emit("serve_sharded", part="e", **out["e"])
     if not (swap["inflight_old_tokens"] and swap["straddler_new_tokens"] and swap["post_new_tokens"]
             and swap["states"] == [RequestState.FINISHED]):
         raise AssertionError(f"serve_sharded (e): swap {swap}")
     if not (fleet_row["converged"] and fleet_row["states"] == [RequestState.FINISHED]):
         raise AssertionError(f"serve_sharded (e): fleet {fleet_row}")
-
-
-def sharded_lost_worker(out, tmp):
-    """(e) A serve-engine container (``python -m tpu_nexus_torch.workload``,
-    nexus_1b, ``NEXUS_SERVE_MESH=tp=2`` on the one-card map, an sqlite
-    ledger) whose shard worker is killed once the row heartbeats: the
-    container exits non-zero, the row ends FAILED."""
-    import signal as _signal
-
-    from tpu_nexus_torch.checkpoint.models import LifecycleStage
-    from tpu_nexus_torch.checkpoint.store import SqliteCheckpointStore
-
-    db = str(Path(tmp) / "ledger.db")
-    env = {k: v for k, v in os.environ.items() if not k.startswith("NEXUS")}
-    env.update(NEXUS_MODE="serve-engine", NEXUS_MODEL_PRESET=SHARDED_CONTAINER_PRESET, NEXUS_DEVICE=SHARDED_DEVICE,
-               NEXUS_SERVE_MESH="tp=2", NEXUS_RANK_DEVICE_MAP="shared", NEXUS_DIST_TIMEOUT_S="60",
-               NEXUS_BATCH="8", NEXUS_PROMPT_LEN="64", NEXUS_GEN_TOKENS="64", NEXUS_STEPS="1000",
-               NEXUS_HEARTBEAT_EVERY="1", NEXUS_TRACE="0", NEXUS_RUN_ID="lost", NEXUS_ALGORITHM="serve",
-               NEXUS__CQL_STORE_TYPE="sqlite", NEXUS__SQLITE_STORE_PATH=db, PYTHONPATH=str(ROOT))
-
-    def row():
-        store = SqliteCheckpointStore(db)
-        try:
-            return store.read_checkpoint("serve", "lost")
-        finally:
-            store.close()
-
-    t_start = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"], env=env, cwd=tmp,
-                            stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True)
-    tail = []
-    try:
-        pid = None
-        deadline = time.monotonic() + 240
-        while pid is None and time.monotonic() < deadline:
-            line = proc.stderr.readline()
-            if not line and proc.poll() is not None:
-                break
-            if "started shard worker rank 1 pid" in line:
-                pid = int(line.split(" pid ")[1].split()[0])
-        if pid is None:
-            raise AssertionError("serve_sharded (e): the container never logged its shard worker")
-        beat = None
-        while time.monotonic() < deadline:
-            r = Path(db).exists() and row()
-            if r and r.per_chip_steps:
-                beat = r
-                break
-            time.sleep(0.2)
-        if beat is None:
-            raise AssertionError("serve_sharded (e): the container never heartbeat")
-        os.kill(pid, _signal.SIGKILL)
-        t_kill = time.monotonic()
-        err = proc.communicate(timeout=180)[1]
-        exit_s = time.monotonic() - t_kill
-        tail = err.strip().splitlines()[-3:]
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    final = row()
-    out["e"]["lost_worker"] = dict(returncode=proc.returncode, seconds_kill_to_exit=exit_s,
-                                   container_s=time.perf_counter() - t_start,
-                                   stage=final.lifecycle_stage if final else None,
-                                   cause=(final.algorithm_failure_cause or "")[:200] if final else None, tail=tail)
-    emit("serve_sharded", part="e", **out["e"])
-    if proc.returncode == 0 or not final or final.lifecycle_stage != LifecycleStage.FAILED:
-        raise AssertionError(f"serve_sharded (e): lost worker {out['e']['lost_worker']}")
 
 
 def sharded_times(results):
@@ -5878,9 +5840,7 @@ def phase_serve_sharded(results):
             emit("serve_sharded_part_done", part=part.__name__, seconds=time.perf_counter() - t1)
         with tempfile.TemporaryDirectory() as tmp:
             sharded_swap_and_fleet(results, pool, out, tmp)
-            pool.close()
-            torch.cuda.empty_cache()
-            sharded_lost_worker(out, tmp)
+    torch.cuda.empty_cache()
     sharded_rank_shape_parity(results, out)
     sharded_times(results)
 
@@ -5888,7 +5848,7 @@ def phase_serve_sharded(results):
 # -- train_sharded ---------------------------------------------------------------
 
 #: the main path's steps and the exact meshes of part (b)
-TRAIN_SHARDED_STEPS = 6
+TRAIN_SHARDED_STEPS = 2
 TRAIN_SHARDED_EXACT = (({"fsdp": 2}, "ring"), ({"tp": 2}, "ring"), ({"sp": 2}, "ring"), ({"sp": 2}, "ulysses"),
                        ({"fsdp": 2, "tp": 2}, "ring"))
 #: (b)'s depth and global batch
@@ -6240,7 +6200,7 @@ def phase_train_sharded(results):
 # -- train_pp_ep ----------------------------------------------------------------
 
 #: the main paths' steps
-TRAIN_PP_EP_STEPS = 6
+TRAIN_PP_EP_STEPS = 2
 #: (c): depth, global batch and seed, and the meshes (spec, sp_attn) for
 #: nexus_1b and (spec, dispatch, NEXUS_MOE_FORCE_EP_PATH, pp_microbatches)
 #: for nexus_moe.  Scatter under pp runs ONE microbatch here: a
@@ -6574,6 +6534,644 @@ def phase_train_pp_ep(results):
     torch.cuda.empty_cache()
 
 
+# -- serve_multiprocess ----------------------------------------------------------
+
+#: (a): rounds of 8 requests of 128 + SERVE_MP_GEN, page 32, 8 slots
+SERVE_MP_ROUNDS, SERVE_MP_GEN = 1, 32
+#: each part's model: a preset and the fields replaced in its config
+SERVE_MP_MODELS = {
+    "a": ("llama3_8b", {"param_dtype": "bfloat16"}),
+    "b": ("nexus_moe", {}),
+    "c": ("nexus_1b", {"n_layers": 4, "dtype": "float32"}),
+    "d": ("nexus_1b", {}),
+}
+TERMINAL_STAGES = ("COMPLETED", "PREEMPTED", "FAILED")
+
+
+def smoke_model(preset: str, over: dict):
+    """The config of ``preset`` with the fields of ``over`` replaced
+    (dtypes by name)."""
+    import torch
+
+    from tpu_nexus_torch.models.registry import get_adapter
+
+    cfg = get_adapter(preset).config
+    over = {k: getattr(torch, v) if k.endswith("dtype") else v for k, v in over.items()}
+    return dataclasses.replace(cfg, **over) if over else cfg
+
+
+def _beside(fn, *args):
+    """Run ``fn(*args)`` on a thread; returns a ``join()`` that re-raises
+    its error."""
+    box = {}
+
+    def run():
+        try:
+            fn(*args)
+        except BaseException as exc:  # noqa: BLE001 - handed to join()
+            box["error"] = exc
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+
+    return join
+
+
+@contextlib.contextmanager
+def recorded_serving():
+    """Record what the serving loops compute: every ``ServingEngine`` they
+    build (``engines``) and the greedy tokens of every lockstep
+    ``generate`` call (``calls``)."""
+    import tpu_nexus_torch.serving as serving
+    from tpu_nexus_torch.workload import serve
+
+    seen = {"engines": [], "calls": []}
+    engine_cls, generate = serving.ServingEngine, serve.generate
+
+    class Recording(engine_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen["engines"].append(self)
+
+    def recording(params, prompts, *args, **kwargs):
+        out = generate(params, prompts, *args, **kwargs)
+        seen["calls"].append(out.tolist())
+        return out
+
+    serving.ServingEngine, serve.generate = Recording, recording
+    try:
+        yield seen
+    finally:
+        serving.ServingEngine, serve.generate = engine_cls, generate
+
+
+def engine_tokens(engine) -> dict:
+    """request id -> greedy tokens of every FINISHED request but the
+    warm-up, in submission order."""
+    from tpu_nexus_torch.serving import RequestState
+
+    done = [r for r in engine.retired if r.request_id != "warmup-0" and r.state == RequestState.FINISHED]
+    return {r.request_id: [int(t) for t in r.output_tokens]
+            for r in sorted(done, key=lambda r: int(r.request_id.split("-")[1]))}
+
+
+def serve_container() -> int:
+    """One serving container for the serve_multiprocess phase
+    (``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.serve_container())"``):
+    ``tpu_nexus_torch.workload.__main__.main()`` itself — its
+    ``ServeConfig.from_env``, its ledger store, its entry point by
+    ``NEXUS_MODE`` and, in that, the entry point's own rank plan and pool —
+    with recording around it:
+
+    * ``SMOKE_MODEL`` (JSON) replaces fields of the preset's config
+      (dtypes by name) in what ``ServeConfig.from_env`` returns;
+    * the store counts this process's terminal writes, and holds the
+      coordinator's until every process's key is in the row (at most 60 s:
+      copies without a mesh end independently, and a heartbeat after the
+      terminal write is dropped by the IsFinished guard; the serving loops
+      themselves never wait);
+    * every ``ServingEngine`` and lockstep ``generate`` call is recorded, and
+      the entry point's summary;
+    * ``SMOKE_FORCED`` (an ``.npz`` of ``prompts`` and ``tokens``; the
+      process that leads a meshed engine): a separate step once serving is
+      done, as the entry point closes its pool — the replica's
+      teacher-forced logits along ``tokens``, saved beside the file.
+
+    Printed on one ``SERVE_RESULT`` line: the greedy tokens of every
+    finished request (engine) or ``generate`` call (lockstep), the terminal
+    writes, the summary and the peak device memory."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.serving import sharded
+    from tpu_nexus_torch.workload import __main__ as entry
+    from tpu_nexus_torch.workload import serve
+
+    from_env, store_from_env, close = serve.ServeConfig.from_env, entry.store_from_env, sharded.RankPool.close
+    run_serving, run_serve_engine = serve.run_serving, serve.run_serve_engine
+    forced, n_keys = os.environ.get("SMOKE_FORCED"), int(os.environ.get("NEXUS_NUM_PROCESSES", "1"))
+    terminal, summaries = [], []
+
+    def configured(env=None):
+        cfg = from_env(env)
+        if os.environ.get("SMOKE_MODEL"):
+            cfg = dataclasses.replace(cfg, model=smoke_model(os.environ["NEXUS_MODEL_PRESET"],
+                                                             json.loads(os.environ["SMOKE_MODEL"])))
+        return cfg
+
+    def counting_store(env=None):
+        store = store_from_env(env)
+        update = store.update_fields
+
+        def counted(algorithm, id, fields):
+            if fields.get("lifecycle_stage") in TERMINAL_STAGES:
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline and len(
+                        store.read_checkpoint(algorithm, id).per_chip_steps or {}) < n_keys:
+                    time.sleep(0.05)
+                terminal.append(fields["lifecycle_stage"])
+            return update(algorithm, id, fields)
+
+        store.update_fields = counted
+        return store
+
+    def recorded(run):
+        def call(*args, **kwargs):
+            summaries.append(run(*args, **kwargs))
+            return summaries[-1]
+
+        return call
+
+    def closing(pool):
+        if forced and seen["engines"] and not pool._closed:
+            data = np.load(forced)
+            np.save(forced + ".logits.npy", _forced(seen["engines"][-1].executor.teacher_forced_logits,
+                                                    data["prompts"], data["tokens"]))
+        close(pool)
+
+    serve.ServeConfig.from_env, entry.store_from_env = staticmethod(configured), counting_store
+    serve.run_serving, serve.run_serve_engine = recorded(run_serving), recorded(run_serve_engine)
+    sharded.RankPool.close = closing
+    with recorded_serving() as seen:
+        code = entry.main()
+    summary = summaries[-1]
+    tokens = engine_tokens(seen["engines"][-1]) if seen["engines"] else seen["calls"]
+    keep = ("finished", "requests", "engine_steps", "decoded_tokens_per_second", "tpot_p50_s", "ttft_p50_s",
+            "shard_stats", "engine_iterations", "ranks", "drained", "rounds", "elapsed_s")
+    print("SERVE_RESULT " + json.dumps({"tokens": tokens, "terminal": terminal,
+                                        "summary": {k: v for k, v in summary.items() if k in keep},
+                                        "peak_memory": torch.cuda.max_memory_allocated()
+                                        if torch.cuda.is_initialized() else 0}), flush=True)
+    return code
+
+
+class Containers:
+    """``n`` launched processes of one run (``NEXUS_PROCESS_ID`` 0..n-1,
+    ``NEXUS_NUM_PROCESSES`` n): its sqlite ledger seeded BUFFERED first (the
+    launcher's order), each process's output in files under ``tmp``."""
+
+    def __init__(self, tmp, name, n, argv=None, **env):
+        from tpu_nexus_torch.checkpoint.models import CheckpointedRequest, LifecycleStage
+        from tpu_nexus_torch.checkpoint.store import SqliteCheckpointStore
+        from tpu_nexus_torch.parallel.distributed import free_port
+
+        self.name, self.db = name, os.path.join(tmp, f"{name}.db")
+        store = SqliteCheckpointStore(self.db)
+        store.upsert_checkpoint(CheckpointedRequest(algorithm="serve", id=name,
+                                                    lifecycle_stage=LifecycleStage.BUFFERED))
+        store.close()
+        base = {k: v for k, v in os.environ.items() if not k.startswith(("NEXUS", "SMOKE"))}
+        base.update(NEXUS_RUN_ID=name, NEXUS_ALGORITHM="serve", NEXUS_DEVICE=SHARDED_DEVICE, NEXUS_TRACE="0",
+                    NEXUS__CQL_STORE_TYPE="sqlite", NEXUS__SQLITE_STORE_PATH=self.db, NEXUS_DIST_TIMEOUT_S="300",
+                    NEXUS_NUM_PROCESSES=str(n), PYTHONPATH=str(ROOT))
+        if n > 1:
+            base["NEXUS_COORDINATOR_ADDRESS"] = f"127.0.0.1:{free_port()}"
+        base.update({k: str(v) for k, v in env.items()})
+        argv = argv or ["-c", "import chip_smoke, sys; sys.exit(chip_smoke.serve_container())"]
+        self.logs = [(os.path.join(tmp, f"{name}.{i}.out"), os.path.join(tmp, f"{name}.{i}.err")) for i in range(n)]
+        self.t0 = time.perf_counter()
+        self.procs = []
+        for i, (out, err) in enumerate(self.logs):
+            with open(out, "w") as fo, open(err, "w") as fe:  # files: a full pipe would stall a container
+                self.procs.append(subprocess.Popen([sys.executable, *argv], cwd=ROOT, stdout=fo, stderr=fe,
+                                                   env={**base, "NEXUS_PROCESS_ID": str(i)}))
+
+    def row(self):
+        from tpu_nexus_torch.checkpoint.store import SqliteCheckpointStore
+
+        store = SqliteCheckpointStore(self.db)
+        try:
+            return store.read_checkpoint("serve", self.name)
+        finally:
+            store.close()
+
+    def wait_for_keys(self, n, timeout=300.0):
+        """Until ``n`` heartbeat keys are in the row (or a process ended)."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and all(p.poll() is None for p in self.procs):
+            row = self.row()
+            if row is not None and len(row.per_chip_steps or {}) >= n:
+                return row
+            time.sleep(0.2)
+        raise AssertionError(f"serve_multiprocess {self.name}: {n} heartbeat keys never arrived: "
+                             f"{self.tail()}")
+
+    def wait(self, timeout=600.0):
+        deadline = time.monotonic() + timeout
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        self.wall_s = time.perf_counter() - self.t0
+        return [p.returncode for p in self.procs]
+
+    def results(self):
+        out = []
+        for path, _err in self.logs:
+            lines = [x for x in Path(path).read_text().splitlines() if x.startswith("SERVE_RESULT ")]
+            out.append(json.loads(lines[-1][len("SERVE_RESULT "):]) if lines else None)
+        return out
+
+    def tail(self, n=3000):
+        """Each process's standard error: its last ``n`` characters (all of
+        it for None)."""
+        return {i: Path(err).read_text()[-n:] if n else Path(err).read_text()
+                for i, (_out, err) in enumerate(self.logs)}
+
+    def check(self, codes=None):
+        got = self.wait()
+        if got != (codes or [0] * len(self.procs)):
+            raise AssertionError(f"serve_multiprocess {self.name}: exit codes {got}: {self.tail()}")
+        return self.results()
+
+
+def _collectives_per_step(stats, steps):
+    """Each rank's collectives a step: calls and bytes by name."""
+    return [{name: {"calls": s["collectives"]["calls"][name] / steps, "bytes": s["collectives"]["bytes"][name] / steps}
+             for name in s["collectives"]["calls"]} for s in stats]
+
+
+def mp_main_path(results, tmp, out, pool):
+    """(a) llama3_8b at full width and depth, bf16 params, tp 2 over two
+    launched containers (one rank each, both on cuda:0): page 32, 8 slots,
+    ``SERVE_MP_ROUNDS`` x 8 requests of 128 + 32 from seed 0.  Beside them
+    the in-container tp-2 replica (``pool``: PR 17's path) serves the same
+    requests, slots and seed.  Gates: the row COMPLETED with host0/chip0 and
+    host1/chip0, written once by the coordinator; each rank's #1 and #4
+    launches whole multiples of the 32 layers and equal to the in-container
+    replica's; the greedy tokens equal it request for request."""
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
+
+    preset, over = SERVE_MP_MODELS["a"]
+    model = smoke_model(preset, over)
+    knobs = dict(NEXUS_MODE="serve-engine", NEXUS_MODEL_PRESET=preset, NEXUS_PAGE_SIZE=32, NEXUS_BATCH=8,
+                 NEXUS_PROMPT_LEN=SHARDED_PROMPT, NEXUS_GEN_TOKENS=SERVE_MP_GEN, NEXUS_STEPS=SERVE_MP_ROUNDS,
+                 NEXUS_SERVE_MESH="tp=2", NEXUS_RANK_DEVICE_MAP="shared", SMOKE_MODEL=json.dumps(over))
+    run = Containers(tmp, "mp-a", 2, **knobs)
+    cfg = ServeConfig(model=model, batch_size=8, prompt_len=SHARDED_PROMPT, gen_tokens=SERVE_MP_GEN,
+                      rounds=SERVE_MP_ROUNDS, device=SHARDED_DEVICE, page_size=32, serve_mesh="tp=2",
+                      rank_map="shared")
+    pool.reset_counts()
+    with recorded_serving() as seen:
+        ref = run_serve_engine(cfg, store=InMemoryCheckpointStore(), pool=pool,
+                               ctx=ProcessContext("mp-a", "serve", 0, 1, None))
+    ref.pop("replica").close()
+    want = engine_tokens(seen["engines"][-1])
+    p0, p1 = run.check()
+    row = run.row()
+    stats = p0["summary"]["shard_stats"]
+    per_rank, ref_rank = _rank_launches(stats), _rank_launches(ref["shard_stats"])
+    steps = p0["summary"]["engine_steps"]
+    out["a"] = dict(
+        config=f"{preset} {over} at full width and depth, page 32, 8 slots, {8 * SERVE_MP_ROUNDS} requests x "
+               f"({SHARDED_PROMPT} + {SERVE_MP_GEN}), tp 2 over 2 launched containers",
+        stage=row.lifecycle_stage, per_chip_steps=row.per_chip_steps, terminal_writes=[p0["terminal"], p1["terminal"]],
+        wall_s=run.wall_s, finished=p0["summary"]["finished"], engine_steps=steps,
+        decoded_tokens_per_second=p0["summary"]["decoded_tokens_per_second"],
+        tpot_p50_s=p0["summary"]["tpot_p50_s"], ttft_p50_s=p0["summary"]["ttft_p50_s"],
+        in_container_decoded_tokens_per_second=ref["decoded_tokens_per_second"],
+        tokens_per_second_is="two ranks in two processes sharing one card over gloo (a rehearsal)",
+        launches_per_rank=per_rank, in_container_launches_per_rank=ref_rank,
+        collectives_per_step_per_rank=_collectives_per_step(stats, steps),
+        peak_memory_per_process=[p0["peak_memory"], p1["peak_memory"]],
+        worker_engine_iterations=p1["summary"]["engine_iterations"],
+        tokens_equal_in_container=p0["tokens"] == want, requests=len(want),
+    )
+    emit("serve_multiprocess", part="a", **out["a"])
+    results.setdefault("launches", {})["serve_multiprocess"] = {
+        "flash_attention": sum(c["flash_attention"] for c in per_rank), "decode_attention_paged": _paged_launches(stats)}
+    layers = model.n_layers
+    if row.lifecycle_stage != LifecycleStage.COMPLETED or set(row.per_chip_steps) != {"host0/chip0", "host1/chip0"} \
+            or out["a"]["terminal_writes"] != [["COMPLETED"], []]:
+        raise AssertionError(f"serve_multiprocess (a): row {row.lifecycle_stage} {row.per_chip_steps}, "
+                             f"terminal writes {out['a']['terminal_writes']}")
+    if [s["rank"] for s in stats] != [0, 1] or per_rank != ref_rank or any(
+            not c["flash_attention"] or c["flash_attention"] % layers
+            or not c["decode_attention"] or c["decode_attention"] % layers for c in per_rank):
+        raise AssertionError(f"serve_multiprocess (a): launches {per_rank}, in the container {ref_rank}")
+    if not out["a"]["tokens_equal_in_container"] or len(want) != 8 * SERVE_MP_ROUNDS:
+        raise AssertionError("serve_multiprocess (a): the tokens differ from the in-container tp-2 replica's")
+
+
+def mp_replicate(results, tmp, out, pool):
+    """(b) nexus_moe at full width and depth, bf16, one container over
+    ``dp=2,ep=2`` (four ranks: two copies of an ep-2 region), 8 requests of
+    128 + 16; the in-container ep-2 replica serves the same.  Gates:
+    COMPLETED; the tokens equal ep 2's; the copies' #1 and #4 launches
+    equal; each rank's expert sum runs over its copy's two ranks, with the
+    all-reduce bytes of an ep-2 rank."""
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
+
+    preset, over = SERVE_MP_MODELS["b"]
+    knobs = dict(NEXUS_MODE="serve-engine", NEXUS_MODEL_PRESET=preset, NEXUS_BATCH=8,
+                 NEXUS_PROMPT_LEN=SHARDED_PROMPT, NEXUS_GEN_TOKENS=16, NEXUS_STEPS=1,
+                 NEXUS_SERVE_MESH="dp=2,ep=2", NEXUS_RANK_DEVICE_MAP="shared", SMOKE_MODEL=json.dumps(over))
+    run = Containers(tmp, "mp-b", 1, **knobs)
+    cfg = ServeConfig(model=smoke_model(preset, over), batch_size=8, prompt_len=SHARDED_PROMPT, gen_tokens=16,
+                      rounds=1, device=SHARDED_DEVICE, serve_mesh="ep=2", rank_map="shared")
+    pool.reset_counts()
+    with recorded_serving() as seen:
+        ref = run_serve_engine(cfg, store=InMemoryCheckpointStore(), pool=pool,
+                               ctx=ProcessContext("mp-b", "serve", 0, 1, None))
+    ref.pop("replica").close()
+    want = engine_tokens(seen["engines"][-1])
+    (p0,) = run.check()
+    row = run.row()
+    stats = p0["summary"]["shard_stats"]
+    per_rank = _rank_launches(stats)
+    copies = [(0, 1), (2, 3)]
+    reduce_bytes = [s["collectives"]["bytes"].get("all_reduce", 0) for s in stats]
+    ep2_bytes = [s["collectives"]["bytes"].get("all_reduce", 0) for s in ref["shard_stats"]]
+    out["b"] = dict(
+        config=f"{preset} {over} at full width and depth, dp 2 x ep 2 in one container (4 ranks), 8 x (128 + 16)",
+        stage=row.lifecycle_stage, wall_s=run.wall_s, finished=p0["summary"]["finished"],
+        tokens_equal_ep2=p0["tokens"] == want, launches_per_rank=per_rank,
+        moe_groups=[s["groups"]["moe"] for s in stats], all_reduce_bytes_per_rank=reduce_bytes,
+        ep2_all_reduce_bytes_per_rank=ep2_bytes,
+        decoded_tokens_per_second=p0["summary"]["decoded_tokens_per_second"],
+        ep2_decoded_tokens_per_second=ref["decoded_tokens_per_second"],
+    )
+    emit("serve_multiprocess", part="b", **out["b"])
+    if row.lifecycle_stage != LifecycleStage.COMPLETED or not out["b"]["tokens_equal_ep2"]:
+        raise AssertionError(f"serve_multiprocess (b): row {row.lifecycle_stage}, tokens equal "
+                             f"{out['b']['tokens_equal_ep2']}")
+    if any(per_rank[a] != per_rank[b] for a, b in zip(*copies)) or not per_rank[0]["flash_attention"] \
+            or out["b"]["moe_groups"] != [[0, 1], [0, 1], [2, 3], [2, 3]] \
+            or reduce_bytes != ep2_bytes * 2:
+        raise AssertionError(f"serve_multiprocess (b): {out['b']}")
+
+
+def mp_exact(results, tmp, out):
+    """(c) nexus_1b at full width, 4 of 14 layers, f32 compute (bf16
+    params), 8 requests of 64 + 16: tp 2 over two launched containers
+    (contiguous) and one container at ``pp=2,tp=2`` (paged, page 32), each
+    against the one-device f32 engine through the same entry point
+    (``run_serve_engine``, the same schedule).  Gates: greedy tokens
+    identical; and, in a separate step of the container that leads the
+    replica, once serving is done and before its entry point closes the
+    pool (``serve_container``'s ``SMOKE_FORCED``), the replica's
+    teacher-forced logits of the requests along the one-device stream
+    within 1e-5 x max|ref| of the one-device evaluation."""
+    import numpy as np
+    import torch
+
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.models.llama import llama_init
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
+
+    preset, over = SERVE_MP_MODELS["c"]
+    model = smoke_model(preset, over)
+    runs = {"tp2_two_containers": (2, "tp=2", 0), "pp2xtp2_one_container": (1, "pp=2,tp=2", 32)}
+    started, refs = {}, {}
+    for name, (n, mesh, page) in runs.items():
+        cfg = ServeConfig(model=model, batch_size=8, prompt_len=64, gen_tokens=16, rounds=1, device=SHARDED_DEVICE,
+                          page_size=page)
+        with recorded_serving() as seen:
+            run_serve_engine(cfg, store=InMemoryCheckpointStore(), ctx=ProcessContext("one", "serve", 0, 1, None))
+        want = engine_tokens(seen["engines"][-1])
+        prompt_of = {r.request_id: r.prompt for r in seen["engines"][-1].retired}
+        prompts = np.asarray([prompt_of[rid] for rid in want], np.int32)
+        tokens = np.asarray(list(want.values()), np.int32)
+        params = llama_init(torch.Generator(device=SHARDED_DEVICE).manual_seed(0), model, device=SHARDED_DEVICE)
+        one_logits = _forced(_one_device_forced(params, model), prompts, tokens)
+        del params
+        torch.cuda.empty_cache()
+        forced = os.path.join(tmp, f"forced-{name}.npz")
+        np.savez(forced, prompts=prompts, tokens=tokens)
+        refs[name] = (want, one_logits, forced)
+        started[name] = Containers(tmp, f"mp-c-{name}", n, NEXUS_MODE="serve-engine", NEXUS_MODEL_PRESET=preset,
+                                   NEXUS_BATCH=8, NEXUS_PROMPT_LEN=64, NEXUS_GEN_TOKENS=16, NEXUS_STEPS=1,
+                                   NEXUS_PAGE_SIZE=page, NEXUS_SERVE_MESH=mesh, NEXUS_RANK_DEVICE_MAP="shared",
+                                   SMOKE_MODEL=json.dumps(over), SMOKE_FORCED=forced)
+    out["c"] = {}
+    for name, run in started.items():
+        p0 = run.check()[0]
+        want, one_logits, forced = refs[name]
+        got = np.load(forced + ".logits.npy")
+        err = float(np.abs(got - one_logits).max()) / float(np.abs(one_logits).max())
+        out["c"][name] = dict(tokens_identical=p0["tokens"] == want, requests=len(want),
+                              teacher_forced_max_err_over_max=err, stage=run.row().lifecycle_stage, wall_s=run.wall_s)
+    emit("serve_multiprocess", part="c", config=f"{preset} {over}, 8 x (64 + 16)", **out["c"])
+    bad = {k: v for k, v in out["c"].items() if not v["tokens_identical"] or v["requests"] != 8
+           or v["teacher_forced_max_err_over_max"] > 1e-5}
+    if bad:
+        raise AssertionError(f"serve_multiprocess (c): {bad}")
+
+
+def mp_lockstep(results, tmp, out):
+    """(d) The lockstep loop (``NEXUS_MODE=serve``) on nexus_1b, bf16,
+    two launched containers, no mesh, 2 rounds of 8 x (128 + 32): each
+    process's greedy tokens equal a one-process run's; the row COMPLETED,
+    written once by the coordinator, with both processes' keys (the
+    coordinator's at round 2).  Starts
+    the containers and runs the one-process reference; returns the check,
+    to call once the work beside the containers is done."""
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serving
+
+    preset, over = SERVE_MP_MODELS["d"]
+    run = Containers(tmp, "mp-d", 2, NEXUS_MODE="serve", NEXUS_MODEL_PRESET=preset, NEXUS_BATCH=8,
+                     NEXUS_PROMPT_LEN=SHARDED_PROMPT, NEXUS_GEN_TOKENS=32, NEXUS_STEPS=2, NEXUS_HEARTBEAT_EVERY=1,
+                     SMOKE_MODEL=json.dumps(over))
+    cfg = ServeConfig(model=smoke_model(preset, over), batch_size=8, prompt_len=SHARDED_PROMPT, gen_tokens=32,
+                      rounds=2, heartbeat_every=1, device=SHARDED_DEVICE)
+    with recorded_serving() as seen:
+        run_serving(cfg, store=InMemoryCheckpointStore(), ctx=ProcessContext("one", "serve", 0, 1, None))
+
+    def check():
+        p0, p1 = run.check()
+        row = run.row()
+        out["d"] = dict(stage=row.lifecycle_stage, per_chip_steps=row.per_chip_steps, wall_s=run.wall_s,
+                        terminal_writes=[p0["terminal"], p1["terminal"]],
+                        tokens_equal_one_process=[p0["tokens"] == seen["calls"], p1["tokens"] == seen["calls"]],
+                        generate_calls=len(seen["calls"]))
+        emit("serve_multiprocess", part="d", config=f"{preset} {over} lockstep, 2 containers, 3 x 8 x (128 + 32)",
+             **out["d"])
+        if row.lifecycle_stage != LifecycleStage.COMPLETED or set(row.per_chip_steps) != {
+                "host0/chip0", "host1/chip0"} or row.per_chip_steps["host0/chip0"] != 2 \
+                or out["d"]["terminal_writes"] != [["COMPLETED"], []] \
+                or out["d"]["tokens_equal_one_process"] != [True] * 2:
+            raise AssertionError(f"serve_multiprocess (d): {out['d']}")
+
+    return check
+
+
+def mp_drills(results, tmp, out):
+    """(e) Two tp-2 replicas of nexus_1b (bf16) over two launched
+    ``python -m tpu_nexus_torch.workload`` containers each, 8 x (64 + 64) a
+    round for many rounds; once both rows hold both keys, SIGTERM to both
+    containers of one (PREEMPTED with the retirement counts, both exit 0)
+    and SIGKILL to the worker container of the other (the leader's exits
+    non-zero within ``NEXUS_DIST_TIMEOUT_S`` = 60 s, the row FAILED naming
+    rank 1).  Beside them a third tp-2 replica in one container, whose
+    spawned shard worker (rank 1, a child of the leader's ``RankPool``) is
+    SIGKILLed once its row heartbeats: the container exits non-zero within
+    the timeout, the row FAILED naming rank 1."""
+    import signal as _signal
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+
+    knobs = dict(NEXUS_MODE="serve-engine", NEXUS_MODEL_PRESET=SERVE_MP_MODELS["d"][0], NEXUS_BATCH=8,
+                 NEXUS_PROMPT_LEN=64, NEXUS_GEN_TOKENS=64, NEXUS_STEPS=1000, NEXUS_HEARTBEAT_EVERY=1,
+                 NEXUS_SERVE_MESH="tp=2", NEXUS_RANK_DEVICE_MAP="shared", NEXUS_DIST_TIMEOUT_S=60,
+                 NEXUS_DRAIN_GRACE_S=2)
+    argv = ["-m", "tpu_nexus_torch.workload"]
+    term = Containers(tmp, "mp-e-term", 2, argv=argv, **knobs)
+    kill = Containers(tmp, "mp-e-kill", 2, argv=argv, **knobs)
+    lost = Containers(tmp, "mp-e-lost", 1, argv=argv, **knobs)
+    term.wait_for_keys(2)
+    kill.wait_for_keys(2)
+    lost.wait_for_keys(1)
+    worker = re.search(r"started shard worker rank 1 pid (\d+)", lost.tail(None)[0])
+    if worker is None:
+        raise AssertionError(f"serve_multiprocess (e): the one-container replica logged no shard worker: "
+                             f"{lost.tail()}")
+    for p in term.procs:
+        p.send_signal(_signal.SIGTERM)
+    kill.procs[1].kill()
+    os.kill(int(worker.group(1)), _signal.SIGKILL)
+    t0 = time.monotonic()
+    kill_codes = kill.wait(timeout=180)
+    kill_s = time.monotonic() - t0
+    lost_codes = lost.wait(timeout=180)
+    lost_s = time.monotonic() - t0
+    term_codes = term.wait(timeout=180)
+    term_s = time.monotonic() - t0
+    trow, krow, lrow = term.row(), kill.row(), lost.row()
+    causes = json.loads(trow.algorithm_failure_details or "{}").get("retired_causes")
+    out["e"] = dict(
+        sigterm=dict(exit_codes=term_codes, seconds_signal_to_exit=term_s, stage=trow.lifecycle_stage,
+                     per_chip_steps=trow.per_chip_steps, retired_causes=causes,
+                     worker_served_on="served on through the leader's drain" in term.tail(None)[1]),
+        sigkill=dict(exit_codes=kill_codes, seconds_kill_to_exit=kill_s, stage=krow.lifecycle_stage,
+                     cause=(krow.algorithm_failure_cause or "")[:240]),
+        sigkill_spawned_worker=dict(exit_codes=lost_codes, seconds_kill_to_exit=lost_s, stage=lrow.lifecycle_stage,
+                                    cause=(lrow.algorithm_failure_cause or "")[:240]),
+    )
+    emit("serve_multiprocess", part="e", **out["e"])
+    if term_codes != [0, 0] or trow.lifecycle_stage != LifecycleStage.PREEMPTED or not causes \
+            or not out["e"]["sigterm"]["worker_served_on"]:
+        raise AssertionError(f"serve_multiprocess (e): SIGTERM {out['e']['sigterm']}")
+    for name, codes, secs, row in (("sigkill", kill_codes, kill_s, krow),
+                                   ("sigkill_spawned_worker", lost_codes, lost_s, lrow)):
+        if codes[0] in (0, None) or secs > 60.0 or row.lifecycle_stage != LifecycleStage.FAILED \
+                or "rank(s) [1] stopped answering" not in (row.algorithm_failure_cause or ""):
+            raise AssertionError(f"serve_multiprocess (e): {name} {out['e'][name]}")
+
+
+def mp_rank_shape_kernels(results, out):
+    """#1 and #4 at the shapes part (b)'s ranks meet (nexus_moe keeps its
+    heads whole under ep: Hq 8, Hkv 4, D 128, bf16): the prefill's flash
+    forward (B1 S128, causal) and the contiguous decode step (B8, cache 144
+    = 128 + 16, kv 136), each against its plain version (the parity
+    phase's bf16 limits), twice bit-identical, then timed beside its bound,
+    its plain version and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_nexus_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from tpu_nexus_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    dt, hq, hkv, d = torch.bfloat16, 8, 4, 128
+    rows = {}
+    q, k, v = flash_inputs(1, 128, hq, hkv, d, dt, seed=9300)
+    (o, lse), (o2, lse2) = flash_attention(q, k, v, causal=True), flash_attention(q, k, v, causal=True)
+    ref_o, ref_lse = flash_attention_plain(q, k, v, causal=True)
+    sets = [flash_inputs(1, 128, hq, hkv, d, dt, seed=9310 + i) for i in range(32)]
+    lib_sets = [(x.transpose(1, 2), y.transpose(1, 2), z.transpose(1, 2)) for x, y, z in sets]
+    bound, by = flash_bound(1, 128, hq, hkv, d, dt)
+    ms, enqueue_ms = timed([lambda x=x: flash_attention(*x, causal=True) for x in sets], iters=64)
+    rows["flash_attention"] = dict(
+        shape=[1, 128, hq, hkv, d], causal=True, max_abs_err=max_err(o, ref_o), lse_err=max_err(lse, ref_lse),
+        worst_row_rel_l2=row_rel_err(o, ref_o), bit_identical=bool(torch.equal(o, o2) and torch.equal(lse, lse2)),
+        ms=ms, enqueue_ms=enqueue_ms,
+        plain_ms=cuda_ms([lambda x=x: flash_attention_plain(*x, causal=True) for x in sets], iters=16),
+        library_ms=cuda_ms([lambda x=x: F.scaled_dot_product_attention(*x, is_causal=True, enable_gqa=True)
+                            for x in lib_sets], iters=64), bound_ms=bound, bound_by=by)
+    b, max_len, kv_len = 8, 144, 136
+    q, k, v = decode_inputs(b, 1, max_len, hq, hkv, d, dt, seed=9400)
+    got, again = decode_attention(q, k, v, kv_len), decode_attention(q, k, v, kv_len)
+    ref = decode_attention_plain(q, k, v, kv_len)
+    layers = [decode_inputs(b, 1, max_len, hq, hkv, d, dt, seed=9410 + i) for i in range(32)]
+    lib_sets = [(x.transpose(1, 2), y[:, :kv_len].transpose(1, 2), z[:, :kv_len].transpose(1, 2))
+                for x, y, z in layers]
+    bound, by = decode_bound(b, 1, kv_len, hq, hkv, d, dt)
+    ms, enqueue_ms = timed([lambda x=x: decode_attention(*x, kv_len) for x in layers], iters=64)
+    rows["decode_attention"] = dict(
+        shape=[b, 1, max_len, kv_len, hq, hkv, d], max_abs_err=max_err(got, ref), worst_row_rel_l2=row_rel_err(got, ref),
+        bit_identical=bool(torch.equal(got, again)), ms=ms, enqueue_ms=enqueue_ms,
+        plain_ms=cuda_ms([lambda x=x: decode_attention_plain(*x, kv_len) for x in layers], iters=32),
+        library_ms=cuda_ms([lambda x=x: F.scaled_dot_product_attention(*x, enable_gqa=True) for x in lib_sets],
+                           iters=64), bound_ms=bound, bound_by=by)
+    del sets, lib_sets, layers
+    torch.cuda.empty_cache()
+    out["rank_shapes"] = results["serve_multiprocess_rank_shapes"] = rows
+    emit("serve_multiprocess", part="rank_shapes", config="nexus_moe's ep-2 rank (heads whole), bf16",
+         library_ms_is="scaled_dot_product_attention", **rows)
+    f, dd = rows["flash_attention"], rows["decode_attention"]
+    if not (f["bit_identical"] and dd["bit_identical"] and f["max_abs_err"] <= TOL["bfloat16"][0]
+            and f["lse_err"] <= TOL["bfloat16"][1] and dd["max_abs_err"] <= TOL["bfloat16"][0]
+            and max(f["worst_row_rel_l2"], dd["worst_row_rel_l2"]) <= ROW_REL_TOL):
+        raise AssertionError(f"serve_multiprocess (rank shapes): {rows}")
+
+
+def phase_serve_multiprocess(results):
+    """Serving across launched processes and over a replicate axis, every
+    rank on cuda:0 over gloo (the rehearsal map): (a) llama3_8b tp 2 over
+    two containers beside the in-container tp-2 replica, (b) nexus_moe
+    dp 2 x ep 2 in one container beside the ep-2 replica, (c) nexus_1b f32
+    tp 2 over two containers and pp 2 x tp 2 in one against one device,
+    (d) the lockstep loop over two containers, (e) the SIGTERM and SIGKILL
+    drills; (e)'s containers run beside (b), (c) and (d), (d)'s beside (c).
+    Then #1 and #4 at (b)'s rank shapes."""
+    import tempfile
+
+    import torch
+
+    from tpu_nexus_torch.serving.sharded import RankPool
+
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with RankPool(2, device=SHARDED_DEVICE, rank_map="shared", timeout_s=300.0) as pool:
+            mp_main_path(results, tmp, out, pool)
+            emit("serve_multiprocess_part_done", part="a", seconds=time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            drills = _beside(mp_drills, results, tmp, out)
+            mp_replicate(results, tmp, out, pool)
+            emit("serve_multiprocess_part_done", part="b", seconds=time.perf_counter() - t1)
+        torch.cuda.empty_cache()
+        lockstep = mp_lockstep(results, tmp, out)
+        mp_exact(results, tmp, out)
+        emit("serve_multiprocess_part_done", part="c", seconds=time.perf_counter() - t1)
+        lockstep()
+        emit("serve_multiprocess_part_done", part="d (beside c)", seconds=time.perf_counter() - t1)
+        drills()
+        emit("serve_multiprocess_part_done", part="e (beside b, c and d)", seconds=time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    mp_rank_shape_kernels(results, out)
+    emit("serve_multiprocess_part_done", part="rank shapes", seconds=time.perf_counter() - t1)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -6632,6 +7230,7 @@ def main(argv=None) -> int:
         "control_plane": phase_control_plane, "fleet_supervisor": phase_fleet_supervisor,
         "cql_ledger": phase_cql_ledger, "serve_sharded": phase_serve_sharded,
         "train_sharded": phase_train_sharded, "train_pp_ep": phase_train_pp_ep,
+        "serve_multiprocess": phase_serve_multiprocess,
     }
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:
@@ -6696,6 +7295,11 @@ def main(argv=None) -> int:
                                               if k.startswith(name)})
             if name.startswith("decode_attention"):
                 entry.update(design="wgmma+cp.async ring, merge in the launch")
+            if name in ("flash_attention", "decode_attention") and "serve_multiprocess_rank_shapes" in results:
+                # the rank shapes of serve_multiprocess (b): nexus_moe at ep 2
+                entry.setdefault("rank_shapes", {})["serve_moe_ep2"] = {
+                    k: v for k, v in results["serve_multiprocess_rank_shapes"][name].items()
+                    if k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
             if name in ("quant_matmul_int8", "quant_matmul_int4"):
                 entry.update(design="stream-K, TMA ring fed by a producer warp, mma.sync, merge in the launch",
                              other_shapes={k: {f: results["times"][k][f] for f in ("shape", "ms", "bound_ms",

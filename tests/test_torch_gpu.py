@@ -1175,3 +1175,106 @@ def test_paged_decode_at_the_tp2_rank_heads(cuda_device, dtype, int8):
         assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     else:
         _check(out, ref, dtype)
+
+
+_REPLICA_PROCESS = """
+import json, sys
+import torch
+from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+from tpu_nexus_torch.models.llama import LlamaConfig
+from tpu_nexus_torch.serving import RequestState
+import tpu_nexus_torch.serving as serving
+from tpu_nexus_torch.workload import serve
+
+if __name__ == "__main__":
+    assert "jax" not in sys.modules and "tpu_nexus" not in sys.modules
+    engines = []
+
+    class Recording(serving.ServingEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            engines.append(self)
+
+    serving.ServingEngine = Recording
+    model = LlamaConfig(n_layers=4, param_dtype=torch.bfloat16)
+    cfg = serve.ServeConfig.from_env()
+    import dataclasses
+    summary = serve.run_serve_engine(dataclasses.replace(cfg, model=model), store=InMemoryCheckpointStore())
+    tokens = {r.request_id: [int(t) for t in r.output_tokens] for r in (engines[-1].retired if engines else [])
+              if r.request_id != "warmup-0" and r.state == RequestState.FINISHED}
+    print("RESULT " + json.dumps({"tokens": tokens, "stats": summary.get("shard_stats"),
+                                  "ranks": summary.get("ranks")}))
+"""
+
+
+@pytest.mark.gpu
+def test_serve_engine_replica_across_two_processes_on_the_card(cuda_device, tmp_path):
+    """chip_smoke's serve_multiprocess (a) at 4 of llama3_8b's 32 layers
+    (bf16 params, page 32, 8 requests of 128 + 16): one tp-2 replica over
+    two launched processes (``NEXUS_NUM_PROCESSES=2``, one rank each, both
+    on cuda:0 over gloo) gives the greedy tokens and the per-rank #1 and #4
+    launches of the in-process tp-2 replica on the same requests."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.parallel.distributed import ProcessContext, free_port
+    from tpu_nexus_torch.serving import RequestState
+    from tpu_nexus_torch.serving.sharded import RankPool
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
+
+    root = Path(__file__).resolve().parent.parent
+    script = tmp_path / "replica_process.py"
+    script.write_text(_REPLICA_PROCESS)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("NEXUS")}
+    env.update(NEXUS_MODE="serve-engine", NEXUS_DEVICE="cuda:0", NEXUS_SERVE_MESH="tp=2",
+               NEXUS_RANK_DEVICE_MAP="shared", NEXUS_NUM_PROCESSES="2", NEXUS_PAGE_SIZE="32", NEXUS_BATCH="8",
+               NEXUS_PROMPT_LEN="128", NEXUS_GEN_TOKENS="16", NEXUS_STEPS="1", NEXUS_TRACE="0",
+               NEXUS_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}", NEXUS_DIST_TIMEOUT_S="300",
+               PYTHONPATH=str(root))
+    procs = [subprocess.Popen([sys.executable, str(script)], env={**env, "NEXUS_PROCESS_ID": str(i)},
+                              cwd=str(tmp_path), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], outs[0][1][-3000:] + outs[1][1][-3000:]
+    got = json.loads([x for x in outs[0][0].splitlines() if x.startswith("RESULT ")][-1][len("RESULT "):])
+    worker = json.loads([x for x in outs[1][0].splitlines() if x.startswith("RESULT ")][-1][len("RESULT "):])
+    assert worker["ranks"] == [1]
+
+    import tpu_nexus_torch.serving as serving
+
+    engines = []
+
+    class Recording(serving.ServingEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            engines.append(self)
+
+    cfg = ServeConfig(model=LlamaConfig(n_layers=4, param_dtype=torch.bfloat16), batch_size=8, prompt_len=128,
+                      gen_tokens=16, rounds=1, device="cuda:0", page_size=32, serve_mesh="tp=2", rank_map="shared",
+                      trace_enabled=False)
+    with RankPool(2, device="cuda:0", rank_map="shared", timeout_s=300.0) as pool:
+        pool.reset_counts()
+        original, serving.ServingEngine = serving.ServingEngine, Recording
+        try:
+            ref = run_serve_engine(cfg, store=InMemoryCheckpointStore(), pool=pool,
+                                   ctx=ProcessContext("one", "serve", 0, 1, None))
+        finally:
+            serving.ServingEngine = original
+        ref.pop("replica").close()
+    want = {r.request_id: [int(t) for t in r.output_tokens] for r in engines[-1].retired
+            if r.request_id != "warmup-0" and r.state == RequestState.FINISHED}
+    assert len(want) == 8 and got["tokens"] == want
+    for mine, theirs in zip(got["stats"], ref["shard_stats"]):
+        assert mine["launches"]["flash_attention"] == theirs["launches"]["flash_attention"] > 0
+        assert mine["launches"]["decode_attention_by_mode"] == theirs["launches"]["decode_attention_by_mode"]
+        assert mine["launches"]["flash_attention"] % 4 == 0

@@ -81,10 +81,10 @@ def test_shard_leaf_cuts_a_rank_slice():
 _RANK = """
 import json, sys, torch, torch.distributed as dist
 assert "jax" not in sys.modules
-from tpu_nexus_torch.parallel.distributed import process_context_from_env, start_process_group, training_ranks
+from tpu_nexus_torch.parallel.distributed import process_context_from_env, start_process_group, rank_plan
 from tpu_nexus_torch.parallel.mesh import MeshSpec, build_mesh
 ctx = process_context_from_env()
-plan = training_ranks(ctx, (1, 1, -1, 1, 1, 1), "cpu", "shared")
+plan = rank_plan(ctx, (1, 1, -1, 1, 1, 1), "cpu", "shared")
 assert (plan.local, plan.world, plan.backend) == (1, 2, "gloo"), plan
 start_process_group(plan.init_method, plan.global_rank(ctx, 0), plan.world, plan.backend, 20.0)
 t = torch.tensor([float(ctx.process_id + 1)])
@@ -127,52 +127,71 @@ def test_process_group_from_the_launcher_env(tmp_path):
 def test_bring_up_refuses_what_it_cannot_meet():
     ctx = distributed.process_context_from_env({"NEXUS_NUM_PROCESSES": "2", "NEXUS_PROCESS_ID": "1"})
     with pytest.raises(ValueError, match="NEXUS_COORDINATOR_ADDRESS is unset"):
-        distributed.training_ranks(ctx, (1, 1, 2, 1, 1, 1), "cpu", "shared")
+        distributed.rank_plan(ctx, (1, 1, 2, 1, 1, 1), "cpu", "shared")
     ctx = distributed.ProcessContext("r", "a", 0, 2, "127.0.0.1:1")
     with pytest.raises(ValueError, match="rehearsal map must be asked for"):
-        distributed.training_ranks(ctx, (1, 1, -1, 1, 1, 1), "cpu")
+        distributed.rank_plan(ctx, (1, 1, -1, 1, 1, 1), "cpu")
     with pytest.raises(ValueError, match="does not split over 2 processes"):
-        distributed.training_ranks(ctx, (1, 1, 3, 1, 1, 1), "cpu", "shared")
+        distributed.rank_plan(ctx, (1, 1, 3, 1, 1, 1), "cpu", "shared")
     with pytest.raises(ValueError, match="unknown NEXUS_RANK_DEVICE_MAP"):
-        distributed.training_ranks(ctx, (1, 1, 2, 1, 1, 1), "cpu", "all")
+        distributed.rank_plan(ctx, (1, 1, 2, 1, 1, 1), "cpu", "all")
     single = distributed.ProcessContext("r", "a", 0, 1, None)
-    plan = distributed.training_ranks(single, (1, 1, -1, 1, 1, 1), "cpu")
+    plan = distributed.rank_plan(single, (1, 1, -1, 1, 1, 1), "cpu")
     assert (plan.local, plan.world, plan.init_method) == (1, 1, "")
     # the rehearsal map: mesh size / processes ranks a process, -1 one a process
-    plan = distributed.training_ranks(ctx, (1, 2, 2, 1, 1, 1), "cpu", "shared")
+    plan = distributed.rank_plan(ctx, (1, 2, 2, 1, 1, 1), "cpu", "shared")
     assert (plan.local, plan.world, plan.devices, plan.global_rank(ctx, 1)) == (2, 4, (torch.device("cpu"),) * 2, 1)
-    assert distributed.training_ranks(ctx, (1, 1, -1, 1, 1, 1), "cpu", "shared").local == 1
+    assert distributed.rank_plan(ctx, (1, 1, -1, 1, 1, 1), "cpu", "shared").local == 1
 
 
 @pytest.mark.parametrize("entry", ["lockstep serving", "serve-engine", "serve-engine meshed"])
-def test_a_multi_process_run_raises_at_start(entry):
-    """What a world of two launched processes (a multi-host JobSet) cannot
-    run yet is refused before any device work or ledger write, naming
-    ROADMAP A6b-ii: serving in every mode (it never runs as two
-    unsynchronised copies).  Training across processes runs, pipeline
-    parallelism included: tests/test_torch_multiprocess.py."""
-    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
-    from tpu_nexus_torch.core.signals import LifecycleContext
-    from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine, run_serving
+def test_a_multi_process_run_raises_at_start(tmp_path, entry):
+    """What a world of two launched processes (a multi-host JobSet) was
+    refused at start until ROADMAP A6b-iii now runs, as in the reference:
+    each serving entry point through ``python -m tpu_nexus_torch.workload``
+    in two processes (the meshed engine as one tp-2 replica across them)
+    exits 0, and the row is COMPLETED with the coordinator's key (and
+    process 1's: a replica's worker process heartbeats during the run; a
+    copy of its own may end after the coordinator's terminal write, whose
+    guard then drops its heartbeat, as in the reference).  Nothing is
+    refused on account of the processes (no ``NotImplementedError``)."""
+    from tpu_nexus_torch.checkpoint.models import CheckpointedRequest, LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import SqliteCheckpointStore
 
-    ctx = distributed.process_context_from_env({
-        "NEXUS_NUM_PROCESSES": "2", "NEXUS_PROCESS_ID": "0", "NEXUS_COORDINATOR_ADDRESS": "127.0.0.1:1",
-        "NEXUS_RUN_ID": "multi", "NEXUS_ALGORITHM": "a",
-    })
-    store = InMemoryCheckpointStore()
-    runs = {
-        "lockstep serving": lambda: run_serving(ServeConfig(device="cpu"), store=store, ctx=ctx),
-        "serve-engine": lambda: run_serve_engine(ServeConfig(device="cpu"), store=store, ctx=ctx,
-                                                 lifecycle=LifecycleContext()),
-        "serve-engine meshed": lambda: run_serve_engine(
-            ServeConfig(device="cpu", serve_mesh="tp=2", rank_map="shared"), store=store, ctx=ctx,
-            lifecycle=LifecycleContext()),
-    }
-    want = r"NEXUS_NUM_PROCESSES=2: .* \(ROADMAP.md: A6b-ii\)"
-    with pytest.raises(NotImplementedError, match=want):
-        runs[entry]()
-    assert store.read_checkpoint("a", "multi") is None
-    assert distributed.single_process(distributed.ProcessContext("r", "a", 0, 1, None), "x").num_processes == 1
+    db = str(tmp_path / "ledger.db")
+    store = SqliteCheckpointStore(db)
+    store.upsert_checkpoint(CheckpointedRequest(algorithm="a", id="multi", lifecycle_stage=LifecycleStage.BUFFERED))
+    store.close()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("NEXUS")}
+    env.update(NEXUS_NUM_PROCESSES="2", NEXUS_COORDINATOR_ADDRESS=f"127.0.0.1:{distributed.free_port()}",
+               NEXUS_RUN_ID="multi", NEXUS_ALGORITHM="a", NEXUS_DEVICE="cpu", NEXUS_DIST_TIMEOUT_S="20",
+               NEXUS__CQL_STORE_TYPE="sqlite", NEXUS__SQLITE_STORE_PATH=db, NEXUS_BATCH="2", NEXUS_PROMPT_LEN="8",
+               NEXUS_GEN_TOKENS="3", NEXUS_STEPS="1", NEXUS_HEARTBEAT_EVERY="1", NEXUS_TRACE="0",
+               PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               NEXUS_MODE="serve" if entry == "lockstep serving" else "serve-engine")
+    if entry == "serve-engine meshed":
+        env.update(NEXUS_SERVE_MESH="tp=2", NEXUS_RANK_DEVICE_MAP="shared")
+    procs = []
+    try:
+        for rank in range(2):
+            procs.append(subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"],
+                                          env={**env, "NEXUS_PROCESS_ID": str(rank)}, cwd=str(tmp_path),
+                                          stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+        errs = [proc.communicate(timeout=90)[1] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert [p.returncode for p in procs] == [0, 0], errs[0][-2000:] + errs[1][-2000:]
+    assert not any("NotImplementedError" in e for e in errs)
+    store = SqliteCheckpointStore(db)
+    row = store.read_checkpoint("a", "multi")
+    store.close()
+    assert row.lifecycle_stage == LifecycleStage.COMPLETED
+    assert "host0/chip0" in row.per_chip_steps and set(row.per_chip_steps) <= {"host0/chip0", "host1/chip0"}
+    if entry == "serve-engine meshed":
+        assert set(row.per_chip_steps) == {"host0/chip0", "host1/chip0"}
 
 
 def test_backend_rule():

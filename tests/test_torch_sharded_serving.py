@@ -247,8 +247,17 @@ class TestServeConfigMesh:
             ServeConfig(model=CFG, serve_mesh="tp=2", device="cpu")
 
     def test_axes_the_port_does_not_serve_fail_at_parse(self):
-        with pytest.raises(ValueError, match="not served by the port yet"):
-            ServeConfig(model=CFG, serve_mesh="dp=2", device="cpu", rank_map="shared")
+        """Every axis of AXIS_ORDER is served since ROADMAP A6b-iii: a
+        replicate axis (pp, dp, fsdp, sp) parses and validates as in the
+        reference, and a mesh the reference refuses fails alike."""
+        for spec in ("dp=2", "pp=2,tp=2", "dp=2,tp=2"):
+            want = JaxServeConfig(model=JCFG, serve_mesh=spec).serve_mesh
+            assert ServeConfig(model=CFG, serve_mesh=spec, device="cpu", rank_map="shared").serve_mesh == want
+        with pytest.raises(ValueError) as want:
+            JaxServeConfig(serve_mesh="sp=2,tp=4")
+        with pytest.raises(ValueError, match="KV heads") as got:
+            ServeConfig(serve_mesh="sp=2,tp=4", device="cpu", rank_map="shared")
+        assert str(got.value) == str(want.value)
 
     def test_rank_map_is_explicit_and_checked(self):
         with pytest.raises(ValueError, match="needs NEXUS_SERVE_MESH"):
@@ -689,8 +698,8 @@ class TestServeLoopSharded:
 
     def test_killed_worker_fails_the_container(self, tmp_path):
         """A shard worker killed mid-serve: the leader raises ShardLost, the
-        row ends FAILED, the container exits non-zero — well inside the
-        process group's 20 s timeout."""
+        row ends FAILED naming the dead rank, the container exits non-zero
+        — well inside the process group's 20 s timeout."""
         env = _container_env(tmp_path, NEXUS_BATCH="2", NEXUS_PROMPT_LEN="8", NEXUS_GEN_TOKENS="64",
                              NEXUS_STEPS="400", NEXUS_HEARTBEAT_EVERY="1")
         proc = subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"], env=env, cwd=str(tmp_path),
@@ -721,7 +730,7 @@ class TestServeLoopSharded:
         assert elapsed < 20.0
         row = _row(tmp_path)
         assert row.lifecycle_stage == LifecycleStage.FAILED
-        assert "lost a rank" in (row.algorithm_failure_cause or "")
+        assert "lost a rank: rank(s) [1] stopped answering" in (row.algorithm_failure_cause or "")
 
     @pytest.mark.parametrize("when,words", [("between calls", "header did not reach"),
                                             ("mid-call", "lost during swap")])

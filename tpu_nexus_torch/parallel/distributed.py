@@ -6,7 +6,7 @@ Env contract (set by the launcher): ``NEXUS_RUN_ID`` / ``NEXUS_ALGORITHM``
 ``NEXUS_COORDINATOR_ADDRESS`` (``host:port`` of rank 0's rendezvous).  A
 world larger than one is brought up with ``init_process_group(init_method=
 "tcp://<coordinator>", rank, world_size, timeout)``
-(:func:`start_process_group`, the ranks planned by :func:`training_ranks`).
+(:func:`start_process_group`, the ranks planned by :func:`rank_plan`).
 
 Ranks and devices:
 
@@ -22,15 +22,16 @@ Ranks and devices:
   shapes, not a tensor-parallel speed.
 * ranks on the CPU without that map: a world of one only.
 
-Training (:func:`training_ranks`) runs one rank a local device in each
-launched process, as the JAX package runs one process a host driving all
-of its chips: process ``NEXUS_PROCESS_ID`` runs ``local`` ranks, the
-global rank of its ``j``-th being ``process_id · local + j`` (its ledger
-key ``host<process_id>/chip<j>``).  ``local`` is the process's cards
-under the default map and ``mesh size / NEXUS_NUM_PROCESSES`` under the
-rehearsal map, where a ``-1`` axis infers one rank a process.  Lockstep
-serving and the serve-engine container stay one process
-(:func:`single_process`).
+Training and a serve mesh (:func:`rank_plan`) run one rank a local
+device in each launched process, as the JAX package runs one process a
+host driving all of its chips: process ``NEXUS_PROCESS_ID`` runs ``local``
+ranks, the global rank of its ``j``-th being ``process_id · local + j``
+(its ledger key ``host<process_id>/chip<j>``).  ``local`` is the process's
+cards under the default map and ``mesh size / NEXUS_NUM_PROCESSES`` under
+the rehearsal map, where a ``-1`` axis infers one rank a process.  Serving
+without a mesh runs one copy a process on its own device; the processes
+meet only at start, at :func:`process_rendezvous` (the JAX package's
+``jax.distributed.initialize``).
 """
 
 from __future__ import annotations
@@ -181,22 +182,9 @@ def start_process_group(
     )
 
 
-def single_process(ctx: Optional[ProcessContext], what: str) -> ProcessContext:
-    """The identity of a run that ``what`` runs in ONE process.  A world of
-    more processes (a multi-host JobSet) raises at start: it never runs as
-    that many unsynchronised copies writing one ledger row."""
-    ctx = ctx or process_context_from_env()
-    if ctx.num_processes > 1:
-        raise NotImplementedError(
-            f"{ENV_NUM_PROCESSES}={ctx.num_processes}: {what} runs in one process; serving "
-            "across processes is not ported yet (ROADMAP.md: A6b-ii)"
-        )
-    return ctx
-
-
 @dataclass(frozen=True)
 class RankPlan:
-    """Where one process's training ranks run: ``local`` ranks a process,
+    """Where one process's ranks run: ``local`` ranks a process,
     ``world`` in all, each local rank's device, the backend and the
     rendezvous."""
 
@@ -211,9 +199,9 @@ class RankPlan:
         return ctx.process_id * self.local + j
 
 
-def training_ranks(ctx: ProcessContext, sizes: Sequence[int], device: str, rank_map: str = "") -> RankPlan:
-    """The rank plan of a training process for a mesh of axis ``sizes``
-    (one ``-1`` allowed): see the module docstring.  A world of one is the
+def rank_plan(ctx: ProcessContext, sizes: Sequence[int], device: str, rank_map: str = "") -> RankPlan:
+    """The rank plan of a training or serve-mesh process for a mesh of axis
+    ``sizes`` (one ``-1`` allowed): see the module docstring.  A world of one is the
     one-device run (no process group).  A world larger than one joins the
     group at ``tcp://$NEXUS_COORDINATOR_ADDRESS`` (a loopback port when the
     world is this process's ranks alone)."""
@@ -235,10 +223,8 @@ def training_ranks(ctx: ProcessContext, sizes: Sequence[int], device: str, rank_
             )
         else:
             local = fixed // ctx.num_processes
-    elif dev.type == "cuda" and dev.index is None:
-        local = max(1, torch.cuda.device_count())
     else:
-        local = 1
+        local = local_devices(device)
     world = local * ctx.num_processes
     if world > 1 and dev.type == "cpu" and rank_map != "shared":
         raise ValueError(
@@ -251,12 +237,41 @@ def training_ranks(ctx: ProcessContext, sizes: Sequence[int], device: str, rank_
     shared = rank_map == "shared" or backend_for(devices) == "gloo"
     backend = "gloo" if shared else "cpu:gloo,cuda:nccl"
     if ctx.num_processes > 1:
-        if not ctx.coordinator:
-            raise ValueError(
-                f"{ENV_NUM_PROCESSES}={ctx.num_processes} but {ENV_COORDINATOR} is unset; "
-                "the launcher must inject rank 0's address"
-            )
-        init = f"tcp://{ctx.coordinator}"
+        init = coordinator_init(ctx)
     else:
         init = f"tcp://127.0.0.1:{free_port()}" if world > 1 else ""
     return RankPlan(local, world, devices, backend, init, rank_map)
+
+
+def coordinator_init(ctx: ProcessContext) -> str:
+    """``tcp://$NEXUS_COORDINATOR_ADDRESS``, where the launched processes
+    meet; raises when the launcher did not inject it."""
+    if not ctx.coordinator:
+        raise ValueError(
+            f"{ENV_NUM_PROCESSES}={ctx.num_processes} but {ENV_COORDINATOR} is unset; "
+            "the launcher must inject rank 0's address"
+        )
+    return f"tcp://{ctx.coordinator}"
+
+
+def local_devices(device: str) -> int:
+    """The devices one process drives under the default map: every card
+    torch sees for ``cuda``, one for a named card or the CPU (the reference's
+    ``jax.local_device_count()``: one ledger key each)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return max(1, torch.cuda.device_count())
+    return 1
+
+
+def process_rendezvous(ctx: ProcessContext, timeout_s: float) -> bool:
+    """Join the launched processes' own group (one rank a process, gloo, on
+    the host) at ``tcp://$NEXUS_COORDINATOR_ADDRESS``: the serving loops'
+    rendezvous at start, as ``jax.distributed.initialize`` blocks until
+    every process arrives.  False (and no group) for a world of one."""
+    if ctx.num_processes <= 1:
+        return False
+    start_process_group(coordinator_init(ctx), ctx.process_id, ctx.num_processes, "gloo", timeout_s)
+    return True

@@ -33,6 +33,14 @@ As in the JAX package the ENGINE is untouched: the executor contract is
 identical, so paging, speculation, overlap, multi-step decode and rolling
 updates run sharded without the engine knowing.
 
+**Replicate axes.**  The reference's serving rule table maps only
+``tp`` and ``ep``, so a mesh's ``pp``, ``dp``, ``fsdp`` and ``sp`` axes
+replicate every weight, every KV pool and every call.  Here the ranks that
+differ only on those axes are COPIES: each holds the tp/ep slice its
+coordinates name, every rank runs every broadcast call, the leader reads
+its own copy's outputs, and the ranks' agreement still spans the whole
+replica.  The MoE combine sums over one copy's ``(ep, tp)`` region only.
+
 The pure logic is the reference's: :func:`parse_serve_mesh`,
 :func:`validate_serve_mesh` (its int4 packed checks included),
 :data:`SERVING_PARAM_RULES` with :func:`match_partition_rules` (an
@@ -48,7 +56,11 @@ one-device tree, sliced.
 
 Ranks: :class:`RankPool` starts the workers (``spawn``) and the process
 group: ``nccl`` with one card a rank, ``gloo`` on the CPU and under the
-one-device rehearsal map (``parallel/distributed.py``).
+one-device rehearsal map (``parallel/distributed.py``).  In a launched
+world of processes (``NEXUS_NUM_PROCESSES`` > 1) the pool's world spans
+them: process 0's :class:`RankPool` (``plan=``) holds the leader, and every
+other process runs its ranks' worker loops (:func:`serve_launched_ranks`)
+until the leader's exit.
 """
 
 from __future__ import annotations
@@ -87,6 +99,7 @@ __all__ = [
     "kv_cache_sharding",
     "match_partition_rules",
     "parse_serve_mesh",
+    "serve_launched_ranks",
     "serve_shard",
     "serving_param_shardings",
     "shard_serving_params",
@@ -142,11 +155,6 @@ SERVING_PARAM_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
 #: heads-sharding keeps every token's prefix with the rank that owns the
 #: head, so decode attention needs no collective
 KV_CACHE_AXES: Tuple[Optional[str], ...] = ("layers", None, None, "kv_heads", None)
-
-#: the axes this slice serves; serving over the others (pp, dp, fsdp, sp)
-#: is A6b-ii
-SERVED_AXES = ("ep", "tp")
-
 
 # -- mesh config (NEXUS_SERVE_MESH) --------------------------------------------
 
@@ -272,17 +280,6 @@ def validate_serve_mesh(
             )
 
 
-def check_served_axes(axes: Mapping[str, int]) -> None:
-    """The port serves ``tp`` and ``ep`` meshes; any other axis above 1
-    raises, naming the item that brings it."""
-    other = {k: v for k, v in axes.items() if v > 1 and k not in SERVED_AXES}
-    if other:
-        raise ShardingError(
-            f"serve mesh axes {other} are not served by the port yet (only "
-            f"{', '.join(SERVED_AXES)}; serving over other axes is ROADMAP.md: A6b-ii)"
-        )
-
-
 # -- the mesh: ranks and their groups ------------------------------------------
 
 #: a worker's timeout on the groups that carry the leader's headers (an
@@ -293,6 +290,9 @@ def check_served_axes(axes: Mapping[str, int]) -> None:
 IDLE_TIMEOUT = timedelta(days=7)
 #: how long the leader waits for its spawned workers to join the pool
 STARTUP_TIMEOUT = timedelta(seconds=120)
+#: how often a rank of another launched process bumps its liveness counter
+#: in the pool's store
+ALIVE_EVERY_S = 0.5
 
 
 @dataclasses.dataclass
@@ -300,10 +300,12 @@ class ServeMesh:
     """One replica's mesh: its axis sizes (every axis of AXIS_ORDER), its
     global ranks in mesh order (tp fastest; the first is the leader), this
     process's rank, and — once the process group exists — the groups this
-    rank belongs to: ``tp``, ``data`` (the whole replica, finite timeout:
-    the model's collectives and the ranks' agreement after each call) and
-    ``control`` (the whole replica, always on the host: the leader's
-    headers only, which a worker awaits at the idle timeout)."""
+    rank belongs to: ``tp``, ``moe`` (its copy's ``(ep, tp)`` region: the
+    ranks that share its coordinates on the replicate axes), ``data`` (the
+    whole replica, finite timeout: the ranks' agreement after each call)
+    and ``control`` (the whole replica, always on the host: the leader's
+    headers only, which a worker awaits at the idle timeout).  ``members``
+    names the global ranks of its ``tp`` and ``moe`` groups."""
 
     axis_sizes: Dict[str, int]
     ranks: Tuple[int, ...]
@@ -311,6 +313,7 @@ class ServeMesh:
     device: Any = None
     backend: str = "gloo"
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    members: Dict[str, Tuple[int, ...]] = dataclasses.field(default_factory=dict)
     stopped: bool = False
 
     @property
@@ -345,7 +348,7 @@ class ServeMesh:
         c = self.coords
         return ShardComm(
             tp_size=self.axis_sizes["tp"], tp_rank=c["tp"], tp_group=self.groups["tp"],
-            ep_size=self.axis_sizes["ep"], ep_rank=c["ep"], moe_group=self.groups["data"], backend=self.backend,
+            ep_size=self.axis_sizes["ep"], ep_rank=c["ep"], moe_group=self.groups["moe"], backend=self.backend,
         )
 
     # -- the control channel ----------------------------------------------
@@ -421,7 +424,6 @@ def build_serve_mesh(
     mesh.rank = dist.get_rank()
     mesh.device = torch.device(device) if device is not None else None
     mesh.backend = dist.get_backend()
-    tp = sizes["tp"]
     made: Dict[Tuple[Tuple[int, ...], bool], Any] = {}
 
     def group(members: Sequence[int], idle: bool) -> Any:
@@ -433,16 +435,29 @@ def build_serve_mesh(
             made[key] = dist.new_group(list(members), timeout=wait, backend="gloo" if idle else None)
         return made[key]
 
-    # every rank creates every group, in this order; each keeps its own
-    for e in range(n // tp):
-        g = group(ranks[e * tp:(e + 1) * tp], False)
-        if mesh.rank in ranks[e * tp:(e + 1) * tp]:
-            mesh.groups["tp"] = g
+    # each rank's coordinates; a tp group is the ranks that differ only on
+    # tp, an (ep, tp) region those that differ only on ep and tp (not a
+    # contiguous run of ranks when sp > 1: built from the coordinates).
+    # Every rank creates every group, in this order; each keeps its own
+    coords = [dict(zip(AXIS_ORDER, mesh_coords(i, [sizes[a] for a in AXIS_ORDER]))) for i in range(n)]
+
+    def runs(free: Tuple[str, ...]) -> List[Tuple[int, ...]]:
+        out: Dict[Tuple[int, ...], List[int]] = {}
+        for i, c in enumerate(coords):
+            out.setdefault(tuple(c[a] for a in AXIS_ORDER if a not in free), []).append(ranks[i])
+        return [tuple(v) for v in out.values()]
+
+    for name, free in (("tp", ("tp",)), ("moe", ("ep", "tp"))):
+        for members in runs(free):
+            g = group(members, False)
+            if mesh.rank in members:
+                mesh.groups[name], mesh.members[name] = g, members
     data, control = group(ranks, False), group(ranks, True)
     if mesh.is_member:
         mesh.groups.update(data=data, control=control)
     else:
         mesh.groups.clear()
+        mesh.members.clear()
     return mesh
 
 
@@ -791,11 +806,15 @@ class _ShardedExecutorMixin:
     its own shard and agrees on the outcome; a worker's :func:`serve_shard`
     loop calls :meth:`_serve_op` with the same header.  Every call runs
     with the mesh's :class:`ShardComm` active, so the model's collectives
-    meet."""
+    meet.  Each call's header carries the leader's :attr:`iteration`
+    (its serving loop's engine step), so a worker process heartbeats the
+    same steps as the leader."""
 
     #: the fleet's rollout hands these executors a checkpoint reference
     #: (``CheckpointParams``) instead of a restored tree
     swaps_from_checkpoint = True
+    #: the leader's engine iteration, set by its serving loop
+    iteration = 0
 
     def __init__(
         self,
@@ -811,7 +830,6 @@ class _ShardedExecutorMixin:
                 "a sharded executor reads its weights per rank: pass a ParamSource "
                 "(NumpyParams, SeedParams or CheckpointParams), not a whole tree"
             )
-        check_served_axes(mesh.axis_sizes)
         validate_serve_mesh(
             mesh.active_axes, cfg, n_devices=mesh.size,
             quantize=kwargs.get("quantize", ""), quant_group=kwargs.get("quant_group", 0),
@@ -886,7 +904,7 @@ class _ShardedExecutorMixin:
     def _call(self, name: str, args: tuple, kwargs: dict) -> Any:
         """One entry point on every rank (the leader broadcasts first)."""
         if self.mesh.is_leader:
-            self._send((OP_CALL, name, _encode(args), _encode(kwargs)))
+            self._send((OP_CALL, name, _encode(args), _encode(kwargs), self.iteration))
         err, out = None, None
         try:
             with collectives.active(self.comm):
@@ -1007,6 +1025,7 @@ class _ShardedExecutorMixin:
     def _local_shard_stats(self, reset: bool):
         mine = {
             "rank": self.mesh.rank,
+            "groups": dict(self.mesh.members),
             "launches": launch_counts(),
             "collectives": collectives.STATS.to_dict(),
             "peak_memory": (torch.cuda.max_memory_allocated(self.device)
@@ -1097,11 +1116,11 @@ def reset_launch_counts() -> None:
 # -- the shard workers ----------------------------------------------------------
 
 
-def serve_shard(mesh: ServeMesh) -> None:
+def serve_shard(mesh: ServeMesh, on_call: Optional[Callable[[int], None]] = None) -> None:
     """A shard worker's loop over its replica: build the executor the
-    leader's header names, run every call it broadcasts, return at the
-    stop op.  Errors every rank raised alike were the leader's to report;
-    :class:`ShardLost` ends the worker."""
+    leader's header names, run every call it broadcasts (``on_call`` after
+    each, with the leader's engine iteration), return at the stop op.  Errors every rank raised alike were the
+    leader's to report; :class:`ShardLost` ends the worker."""
     executor = None
     while True:
         msg = mesh.recv()
@@ -1120,6 +1139,8 @@ def serve_shard(mesh: ServeMesh) -> None:
                 if executor is None:
                     raise ShardLost(f"rank {mesh.rank} got a call before its executor was built")
                 executor._serve_op(msg[1], msg[2], msg[3])
+                if on_call is not None:
+                    on_call(msg[4])
             else:
                 raise ShardLost(f"unknown shard op {op!r}")
         except ShardLost:
@@ -1129,42 +1150,55 @@ def serve_shard(mesh: ServeMesh) -> None:
 
 
 class RankPool:
-    """This process as rank 0 (the leader) and ``world - 1`` shard workers
-    started with the ``spawn`` context, joined in one process group:
-    ``nccl`` (CUDA) and ``gloo`` (host) with one card a rank, ``gloo``
-    alone on the CPU and under the one-device rehearsal map
-    (``rank_map="shared"``).  :meth:`meshes` hands the workers replicas
+    """This process as rank 0 (the leader) and shard workers started with
+    the ``spawn`` context, joined in one process group: ``nccl`` (CUDA) and
+    ``gloo`` (host) with one card a rank, ``gloo`` alone on the CPU and
+    under the one-device rehearsal map (``rank_map="shared"``).  With
+    ``plan`` (process 0's ``parallel/distributed.py::RankPlan`` of a
+    launched world) the pool's world is ``plan.world``: this process spawns
+    its ``plan.local - 1`` local workers and the other processes'
+    ranks join at the coordinator's address
+    (:func:`serve_launched_ranks`); the leader neither joins nor kills
+    them, and finds a lost one by the group's timeout and the ranks'
+    agreement after each call (:meth:`lost_ranks` names it).  :meth:`meshes` hands the workers replicas
     (each worker serves at most one at a time); :meth:`close` stops them,
-    killing any that outlive ``join_timeout_s``."""
+    killing a local worker that outlives ``join_timeout_s``."""
 
     def __init__(
         self,
-        world: int,
+        world: int = 0,
         device: Any = "cuda",
         rank_map: str = "",
         timeout_s: Optional[float] = None,
         join_timeout_s: float = 60.0,
+        plan: Any = None,
     ) -> None:
         import torch.multiprocessing as mp
 
         from tpu_nexus_torch.parallel import distributed
 
-        if world < 1:
-            raise ValueError(f"a rank pool needs >= 1 rank, got {world}")
-        self.devices = distributed.rank_devices(world, str(device), rank_map)
-        backend = distributed.backend_for(self.devices)
-        distributed.check_backend(backend, self.devices)
-        self.backend = "gloo" if backend == "gloo" else "cpu:gloo,cuda:nccl"
+        if plan is None:
+            if world < 1:
+                raise ValueError(f"a rank pool needs >= 1 rank, got {world}")
+            self.devices = distributed.rank_devices(world, str(device), rank_map)
+            backend = distributed.backend_for(self.devices)
+            distributed.check_backend(backend, self.devices)
+            self.backend = "gloo" if backend == "gloo" else "cpu:gloo,cuda:nccl"
+            init, local = f"tcp://127.0.0.1:{distributed.free_port()}", world
+        else:
+            if not plan.init_method:
+                raise ValueError("a launched rank pool needs a plan of more than one rank")
+            self.devices, self.backend, rank_map = list(plan.devices), plan.backend, plan.rank_map
+            init, local, world = plan.init_method, plan.local, plan.world
         self.world = world
         self.rank_map = rank_map
         self.timeout_s = float(timeout_s or distributed.timeout_from_env())
         self.join_timeout_s = join_timeout_s
         self.device = self.devices[0]
         self._meshes: List[ServeMesh] = []
-        init = f"tcp://127.0.0.1:{distributed.free_port()}"
         ctx = mp.get_context("spawn")
         self.procs = []
-        for rank in range(1, world):
+        for rank in range(1, local):
             proc = ctx.Process(
                 target=_pool_worker,
                 args=(rank, world, init, str(self.devices[rank]), self.backend, self.timeout_s,
@@ -1185,7 +1219,29 @@ class RankPool:
         except BaseException:
             self._kill()
             raise
+        self._init, self._local = init, local
         self._closed = False
+
+    def lost_ranks(self, window_s: float = 4 * ALIVE_EVERY_S) -> List[int]:
+        """The worker ranks that died or stopped, which the leader names
+        when the replica is lost: a local worker by its exit, a rank of
+        another launched process by its liveness counter in the pool's
+        store standing still over ``window_s``."""
+        import time
+
+        lost = [rank for rank, proc in enumerate(self.procs, 1) if not proc.is_alive()]
+        remote = range(self._local, self.world)
+        if not remote:
+            return lost
+        try:
+            store = _store_client(self._init)
+            keys = [f"nexus/alive/{r}" for r in remote]
+            before = [store.add(k, 0) for k in keys]
+            time.sleep(window_s)
+            return lost + [r for r, k, n in zip(remote, keys, before) if store.add(k, 0) == n]
+        except Exception as exc:  # noqa: BLE001 - the store itself is unreachable: nothing more to name
+            logger.warning("rank pool: liveness counters unreadable (%s)", exc)
+            return lost
 
     def meshes(self, specs: Sequence[Tuple[Dict[str, int], Sequence[int]]]) -> List[ServeMesh]:
         """One :class:`ServeMesh` per ``(axes, ranks)``; rank 0 is every
@@ -1292,27 +1348,58 @@ def _pool_op(msg: Any, device: Any) -> Any:
     return found
 
 
-def _pool_worker(
-    rank: int, world: int, init_method: str, device: str, backend: str, timeout_s: float, log_level: int
-) -> None:
-    """A shard worker process: join the group, then serve each replica the
-    leader assigns until it says exit.  The process imports only this
-    package (``spawn``: nothing of the parent's state) and logs at the
-    leader's level."""
+def _join_pool(rank: int, world: int, init_method: str, device: str, backend: str, alive: bool) -> torch.device:
+    """A worker rank's device and its place in the pool's process group
+    (it waits there for the leader at the idle timeout); ``alive``: a rank
+    of another launched process, which bumps its liveness counter."""
     import os
-    import sys
-
-    import torch.distributed as dist
 
     from tpu_nexus_torch.parallel.distributed import start_process_group
 
-    logging.basicConfig(level=log_level, stream=sys.stderr)
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     else:  # ranks sharing the host's cores: a share each, not all of them each
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     start_process_group(init_method, rank, world, backend, IDLE_TIMEOUT.total_seconds())
+    if alive:
+        _beat_alive(init_method, rank)
+    return dev
+
+
+def _store_client(init_method: str) -> Any:
+    """A client of the pool's rendezvous store (``tcp://host:port``; rank
+    0, the leader, serves it)."""
+    import torch.distributed as dist
+
+    host, port = init_method.removeprefix("tcp://").rsplit(":", 1)
+    return dist.TCPStore(host, int(port), is_master=False, timeout=timedelta(seconds=30))
+
+
+def _beat_alive(init_method: str, rank: int) -> None:
+    """Bump ``nexus/alive/<rank>`` in the pool's store every
+    :data:`ALIVE_EVERY_S` from a daemon thread, so the leader can name a
+    rank of another process that died or stopped
+    (:meth:`RankPool.lost_ranks`); the thread ends with the store."""
+    import threading
+    import time
+
+    def beat() -> None:
+        try:
+            store = _store_client(init_method)
+            while True:
+                store.add(f"nexus/alive/{rank}", 1)
+                time.sleep(ALIVE_EVERY_S)
+        except Exception:  # noqa: BLE001 - the leader's store is gone: so is the pool
+            return
+
+    threading.Thread(target=beat, name=f"alive-{rank}", daemon=True).start()
+
+
+def _worker_loop(dev: torch.device, timeout_s: float, on_call: Optional[Callable[[int], None]] = None) -> None:
+    """Serve each replica the leader assigns until it says exit."""
+    import torch.distributed as dist
+
     while True:
         box = [None]
         dist.broadcast_object_list(box, src=0, device=torch.device("cpu"))
@@ -1325,5 +1412,62 @@ def _pool_worker(
         meshes = [build_serve_mesh(axes, ranks, device=dev, timeout_s=timeout_s) for axes, ranks in box[0][1]]
         for mesh in meshes:
             if mesh.is_member:
-                serve_shard(mesh)
+                serve_shard(mesh, on_call)
     dist.destroy_process_group()
+
+
+def _pool_worker(
+    rank: int, world: int, init_method: str, device: str, backend: str, timeout_s: float, log_level: int,
+    alive: bool = False,
+) -> None:
+    """A spawned shard worker process: join the group, then serve each
+    replica the leader assigns until it says exit.  The process imports
+    only this package (``spawn``: nothing of the parent's state) and logs at
+    the leader's level."""
+    import sys
+
+    logging.basicConfig(level=log_level, stream=sys.stderr)
+    _worker_loop(_join_pool(rank, world, init_method, device, backend, alive), timeout_s)
+
+
+def serve_launched_ranks(
+    plan: Any, process_id: int, timeout_s: float, on_call: Optional[Callable[[int], None]] = None
+) -> None:
+    """Process ``process_id`` > 0 of a launched world: its ``plan.local``
+    ranks of the pool that process 0's :class:`RankPool` leads — local ranks
+    ``1..local-1`` spawned, the first served here (``on_call`` after each
+    executor call it runs, with the leader's engine iteration), each bumping
+    its liveness counter — until the leader's exit.  A spawned rank that
+    exits non-zero fails the process."""
+    import torch.multiprocessing as mp
+
+    if process_id < 1:
+        raise ValueError("process 0 leads the pool (RankPool(plan=...)); the others serve its ranks")
+    first = process_id * plan.local
+    ctx = mp.get_context("spawn")
+    procs = []
+    for j in range(1, plan.local):
+        proc = ctx.Process(
+            target=_pool_worker,
+            args=(first + j, plan.world, plan.init_method, str(plan.devices[j]), plan.backend, timeout_s,
+                  logger.getEffectiveLevel(), True),
+            daemon=True,
+        )
+        proc.start()
+        logger.info("started shard worker rank %d pid %d on %s", first + j, proc.pid, plan.devices[j])
+        procs.append(proc)
+    ok = False
+    try:
+        _worker_loop(_join_pool(first, plan.world, plan.init_method, str(plan.devices[0]), plan.backend, True),
+                     timeout_s, on_call)
+        ok = True
+    finally:
+        # a failed first rank takes its local ranks down at once
+        for proc in procs:
+            proc.join(timeout_s if ok else 0.0)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(5.0)
+    failed = {first + j + 1: p.exitcode for j, p in enumerate(procs) if p.exitcode != 0}
+    if failed:
+        raise ShardLost(f"shard worker rank(s) exited non-zero: {failed} (rank: exit code)")

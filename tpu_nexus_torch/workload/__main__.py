@@ -5,9 +5,11 @@ same appconfig/env mechanism the supervisor uses, and runs the workload on
 ``NEXUS_DEVICE`` (default ``cuda``; a CUDA request without a card fails):
 ``NEXUS_MODE=train`` (the default) runs the training loop, ``serve`` the
 lockstep serving loop and ``serve-engine`` the continuous-batching engine,
-each under the same ledger contract.  A training run in a launched world
-of processes (``NEXUS_NUM_PROCESSES`` > 1) runs this process's ranks of
-the mesh (``workload/harness.py``); the serving loops run in one process.  Exit codes are the failure-taxonomy
+each under the same ledger contract.  In a launched world of processes
+(``NEXUS_NUM_PROCESSES`` > 1) a training run runs this process's ranks of
+the mesh (``workload/harness.py``), and the serving loops serve a copy a
+process or, with ``NEXUS_SERVE_MESH``, this process's ranks of one replica
+(``workload/serve.py``).  Exit codes are the failure-taxonomy
 contract: 137/255 surface via the Job's PodFailurePolicy (see
 launcher.jobset), nonzero generic for uncaught errors.
 

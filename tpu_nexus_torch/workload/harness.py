@@ -44,7 +44,7 @@ warm-up) is never in the window.
 A mesh (``NEXUS_MESH``, default ``fsdp=-1`` over every rank, rules
 ``LOGICAL_RULES_FSDP_TP``) of more than one rank trains on ranks: this
 process runs ``local`` of them (``parallel/distributed.py::
-training_ranks``), the first in this process, the others spawned
+rank_plan``), the first in this process, the others spawned
 (:func:`_local_rank`), all running this loop on their shards
 (``workload/train.py``).  As in the reference:
 
@@ -92,7 +92,7 @@ from tpu_nexus_torch.checkpoint.store import CheckpointStore
 from tpu_nexus_torch.core.signals import LifecycleContext, setup_signal_context
 from tpu_nexus_torch.core.telemetry import Metrics, StatsdClient
 from tpu_nexus_torch.models.llama import LlamaConfig
-from tpu_nexus_torch.parallel.distributed import ProcessContext, RankPlan, process_context_from_env, training_ranks
+from tpu_nexus_torch.parallel.distributed import ProcessContext, RankPlan, process_context_from_env, rank_plan
 from tpu_nexus_torch.parallel.mesh import AXIS_ORDER, MeshSpec, mesh_coords
 from tpu_nexus_torch.parallel.sharding import LOGICAL_RULES_FSDP_TP, RuleTable, batch_axes
 from tpu_nexus_torch.workload import durability
@@ -600,7 +600,7 @@ def run_workload(
         # a pp-bearing mesh with layer stacks replicated would waste the pp
         # axis: the table is upgraded to stage-shard them, as the reference's
         cfg = replace(cfg, rules=default_rules(cfg.mesh.pp, cfg.rules))
-        plan = training_ranks(ctx, cfg.mesh.sizes(), cfg.device, cfg.rank_map)
+        plan = rank_plan(ctx, cfg.mesh.sizes(), cfg.device, cfg.rank_map)
         if plan.world == 1:
             # a mesh that wants more ranks than the plan has is refused, as
             # the reference refuses it against its devices (under the

@@ -39,16 +39,31 @@ with the reference's wording, as do the fleet's ``NEXUS_ROUTER_POLICY``,
 (with ``NEXUS_SLO_*`` and ``NEXUS_KV_BLOCKS``) into a ``ServingFleet`` and
 the ``FleetSupervisor`` that reconciles it.
 
-Sharded serving (serve-engine): ``NEXUS_SERVE_MESH="tp=2"`` (or
-``"ep=2"``, ``"ep=2,tp=2"``) parses and validates with the reference's
-checks and words (``serving/sharded.py``), against the cards torch sees —
-one card a rank — or, with ``NEXUS_RANK_DEVICE_MAP=shared``, every rank on
-``NEXUS_DEVICE`` (the one-device rehearsal over gloo, asked for
-explicitly).  :func:`run_serve_engine` then starts the replica's ``tp x ep
-- 1`` shard workers itself (``spawn``), drives the unchanged engine over a
-sharded executor, and stops them at the end; a lost worker fails the run
+Sharded serving (serve-engine): ``NEXUS_SERVE_MESH="tp=2"`` (or any
+axes of ``parallel/mesh.py``'s AXIS_ORDER: ``"ep=2,tp=2"``,
+``"dp=2,tp=2"``; pp, dp, fsdp and sp replicate, as in the reference)
+parses and validates with the reference's checks and words
+(``serving/sharded.py``), against the cards torch sees times the launched
+processes — one card a rank — or, with ``NEXUS_RANK_DEVICE_MAP=shared``,
+every rank on ``NEXUS_DEVICE`` (the one-device rehearsal over gloo, asked
+for explicitly).  :func:`run_serve_engine` then starts the replica's shard
+workers itself (``spawn``), drives the unchanged engine over a sharded
+executor, and stops them at the end; a lost worker fails the run
 (``ShardLost``: the row FAILED, the container non-zero) within the process
 group's timeout (``NEXUS_DIST_TIMEOUT_S``).
+
+A launched world of processes (``NEXUS_NUM_PROCESSES`` > 1, the JobSet's
+``NEXUS_PROCESS_ID`` and ``NEXUS_COORDINATOR_ADDRESS``): every process
+writes RUNNING and heartbeats its own ``host<p>/chip<i>`` keys, and only
+the coordinator writes the terminal row.  Without a serve mesh each
+process serves its own copy on its own device (the lockstep loop never
+reads the mesh, as the reference's); the processes meet only at a
+rendezvous at start, as the reference's ``jax.distributed.initialize``.
+With a serve mesh the replica spans the processes: process 0 leads it,
+the others run their ranks' worker loops (heartbeating the leader's engine
+iterations, which each call's header carries) until the leader stops
+them; a SIGTERM there is recorded and the worker serves on through the
+leader's drain.
 
 Checkpoints: ``NEXUS_CHECKPOINT_DIR`` serves the params of the training
 run's newest VERIFIED step (read-only: a torn or corrupt step is skipped,
@@ -60,6 +75,7 @@ the quiesce seam — in-flight requests finish on the old weights.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import time
@@ -76,7 +92,8 @@ from tpu_nexus_torch.models.llama import LlamaConfig
 from tpu_nexus_torch.models.quant import DEFAULT_INT4_GROUP, quantize_params, quantized_bytes
 from tpu_nexus_torch.models.registry import LlamaAdapter, MoeAdapter, adapter_for, get_adapter
 from tpu_nexus_torch.ops.decode_attention import MAX_DECODE_Q_LEN
-from tpu_nexus_torch.parallel.distributed import RANK_MAPS, ProcessContext, single_process
+from tpu_nexus_torch.parallel import distributed
+from tpu_nexus_torch.parallel.distributed import RANK_MAPS, ProcessContext
 from tpu_nexus_torch.serving.loadstats import SloTargets
 from tpu_nexus_torch.serving.router import ROUTER_POLICIES, AutoscaleConfig
 from tpu_nexus_torch.serving.speculative import DRAFTERS
@@ -198,7 +215,8 @@ class ServeConfig:
     scale_cooldown_s: float = 60.0
     #: engine mode only — tensor/expert-parallel serving: comma-separated
     #: ``axis=size`` pairs over parallel/mesh.py's AXIS_ORDER, e.g. "tp=2"
-    #: ("" = one device).  Validated at parse (NEXUS_SERVE_MESH)
+    #: ("" = one device; pp/dp/fsdp/sp replicate).  Validated at parse;
+    #: the lockstep loop does not read it (NEXUS_SERVE_MESH)
     serve_mesh: str = ""
     #: where the mesh's ranks run: "" = one card a rank (nccl); "shared" =
     #: every rank on ``device`` over gloo, the one-device rehearsal
@@ -333,14 +351,12 @@ class ServeConfig:
                 f"unknown rank_map (NEXUS_RANK_DEVICE_MAP) {self.rank_map!r}; use 'shared' or leave it unset"
             )
         if self.serve_mesh:
-            from tpu_nexus_torch.serving.sharded import check_served_axes, parse_serve_mesh, validate_serve_mesh
+            from tpu_nexus_torch.serving.sharded import parse_serve_mesh, validate_serve_mesh
 
             # parse + validate the WHOLE mesh contract here, as the
             # reference does: axes, sizes, the device count and the
             # model's divisibility fail before any device work starts
-            # (and, in the port, an axis other than tp/ep: A6b)
             axes = parse_serve_mesh(self.serve_mesh)
-            check_served_axes(axes)
             model_cfg = getattr(self.model, "config", self.model)
             validate_serve_mesh(
                 axes, model_cfg, n_devices=self._mesh_devices(axes),
@@ -399,9 +415,13 @@ class ServeConfig:
             )
 
     def _mesh_devices(self, axes: Dict[str, int]) -> int:
-        """The devices a serve mesh may take: the cards torch sees (one a
-        rank), one on the CPU — or, under the rehearsal map, as many as
-        the mesh has ranks, all on one device."""
+        """The devices a serve mesh may take: the cards torch sees in each
+        launched process (one a rank) times ``NEXUS_NUM_PROCESSES`` (the
+        reference's global ``jax.device_count()``), one on the CPU — or,
+        under the rehearsal map, as many as the mesh has ranks, all on one
+        device."""
+        import os
+
         if self.rank_map == "shared":
             size = 1
             for v in axes.values():
@@ -409,7 +429,7 @@ class ServeConfig:
             return size
         if torch.device(self.device).type == "cpu":
             return 1
-        return torch.cuda.device_count()
+        return torch.cuda.device_count() * int(os.environ.get(distributed.ENV_NUM_PROCESSES, "1"))
 
     def slo_targets(self) -> Optional[SloTargets]:
         """The validated :class:`SloTargets`, or None when every target is
@@ -650,6 +670,21 @@ def _reload_if_newer(
         ckpt.close()
 
 
+@contextlib.contextmanager
+def _launched_processes(ctx: ProcessContext):
+    """The launched processes' rendezvous at the start of a serving loop
+    (``distributed.process_rendezvous``); their group is left on the way
+    out.  Nothing else waits on it: each process's copy ends on its own."""
+    met = distributed.process_rendezvous(ctx, distributed.timeout_from_env())
+    try:
+        yield
+    finally:
+        if met:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
 @torch.inference_mode()
 def run_serving(
     cfg: ServeConfig,
@@ -660,52 +695,52 @@ def run_serving(
     """Run the batch-decode loop under the ledger protocol; returns summary
     metrics (rounds, decoded tokens/s).  ``prompts`` is an injectable
     iterator of int32 ``[B, prompt_len]`` arrays (tests); default is the
-    synthetic token stream."""
-    if cfg.serve_mesh:
-        raise NotImplementedError(
-            "NEXUS_SERVE_MESH shards the continuous-batching engine (NEXUS_MODE=serve-engine); "
-            "the lockstep loop serves on one device"
-        )
+    synthetic token stream.  Each launched process serves on its own
+    device; ``cfg.serve_mesh`` is not read here (the reference's loop
+    never reads it)."""
     device = resolve_device(cfg.device)
-    ctx = single_process(ctx, "lockstep serving")
-    reporter = LedgerReporter(store, ctx, local_devices=1)
+    if cfg.serve_mesh:
+        logger.info("the lockstep loop does not read NEXUS_SERVE_MESH=%s: serving on %s", cfg.serve_mesh, device)
+    ctx = ctx or distributed.process_context_from_env()
+    reporter = LedgerReporter(store, ctx, local_devices=distributed.local_devices(cfg.device))
     plan = FaultPlan.from_env()
-    adapter, mcfg, params, restored_from = _load_serving_params(cfg, ctx, device)
+    with _launched_processes(ctx):
+        adapter, mcfg, params, restored_from = _load_serving_params(cfg, ctx, device)
 
-    if prompts is None:
-        prompts = adapter.data(cfg.batch_size, cfg.prompt_len, seed=cfg.seed + 101)
-    sampler = torch.Generator(device=device).manual_seed(cfg.seed)
+        if prompts is None:
+            prompts = adapter.data(cfg.batch_size, cfg.prompt_len, seed=cfg.seed + 101)
+        sampler = torch.Generator(device=device).manual_seed(cfg.seed)
 
-    def gen_fn(batch):
-        return generate(
-            params, torch.as_tensor(batch, device=device), mcfg,
-            max_new_tokens=cfg.gen_tokens, temperature=cfg.temperature,
-            top_k=cfg.top_k, top_p=cfg.top_p,
-            generator=sampler if cfg.temperature > 0.0 else None,
-            kv_quant=cfg.quantize_kv, decode_kernel=cfg.decode_kernel,
-        )
+        def gen_fn(batch):
+            return generate(
+                params, torch.as_tensor(batch, device=device), mcfg,
+                max_new_tokens=cfg.gen_tokens, temperature=cfg.temperature,
+                top_k=cfg.top_k, top_p=cfg.top_p,
+                generator=sampler if cfg.temperature > 0.0 else None,
+                kv_quant=cfg.quantize_kv, decode_kernel=cfg.decode_kernel,
+            )
 
-    reporter.running()
-    # untimed warmup: the first call builds the CUDA kernels and warms the
-    # allocator, which would otherwise dominate the throughput metric
-    gen_fn(next(prompts))
-    _sync(device)
-    t0 = time.perf_counter()
-    tokens_done = 0
-    last = None
-    for r in range(cfg.rounds):
-        maybe_inject(plan, r)
-        last = gen_fn(next(prompts))
-        tokens_done += last.numel()
-        if cfg.heartbeat_every and (r + 1) % cfg.heartbeat_every == 0:
-            _sync(device)
-            reporter.heartbeat(r + 1)
-            logger.info("round %d: %d tokens decoded", r + 1, tokens_done)
-    _sync(device)
-    elapsed = time.perf_counter() - t0
-    reporter.heartbeat(cfg.rounds)
-    if ctx.is_coordinator:
-        reporter.completed()
+        reporter.running()
+        # untimed warmup: the first call builds the CUDA kernels and warms
+        # the allocator, which would otherwise dominate the throughput metric
+        gen_fn(next(prompts))
+        _sync(device)
+        t0 = time.perf_counter()
+        tokens_done = 0
+        last = None
+        for r in range(cfg.rounds):
+            maybe_inject(plan, r)
+            last = gen_fn(next(prompts))
+            tokens_done += last.numel()
+            if cfg.heartbeat_every and (r + 1) % cfg.heartbeat_every == 0:
+                _sync(device)
+                reporter.heartbeat(r + 1)
+                logger.info("round %d: %d tokens decoded", r + 1, tokens_done)
+        _sync(device)
+        elapsed = time.perf_counter() - t0
+        reporter.heartbeat(cfg.rounds)
+        if ctx.is_coordinator:
+            reporter.completed()
     calls = cfg.rounds + 1  # the warmup included
     return {
         "rounds": cfg.rounds,
@@ -780,16 +815,25 @@ def run_serve_engine(
     stopped on the way out, unless the caller hands in a running
     ``pool`` (``serving/sharded.py::RankPool``, kept running): then the
     replica's executor stays up too, returned as ``summary["replica"]``
-    for the caller to drive further and close."""
+    for the caller to drive further and close.  In a launched world of
+    processes the replica spans them: process 0 leads it (its summary is
+    the engine's), every other process serves its ranks until the leader
+    stops them (:func:`_serve_mesh_worker`).  Without a mesh each process
+    serves its own copy."""
     import signal as _signal
     import threading
 
     device = resolve_device(cfg.device)
-    # one container is one replica: a serve mesh's ranks are its own
-    # workers, started below, never the launcher's processes
-    ctx = single_process(ctx, "the serve-engine replica")
-    reporter = LedgerReporter(store, ctx, local_devices=1)
-    plan = FaultPlan.from_env()
+    ctx = ctx or distributed.process_context_from_env()
+    plan = None
+    if cfg.serve_mesh and pool is None and ctx.num_processes > 1:
+        from tpu_nexus_torch.parallel.mesh import AXIS_ORDER
+        from tpu_nexus_torch.serving.sharded import parse_serve_mesh
+
+        axes = parse_serve_mesh(cfg.serve_mesh)
+        plan = distributed.rank_plan(ctx, [axes.get(a, 1) for a in AXIS_ORDER], str(device), cfg.rank_map)
+    reporter = LedgerReporter(store, ctx, local_devices=plan.local if plan else distributed.local_devices(cfg.device))
+    fault_plan = FaultPlan.from_env()
     restore_handlers = {}
     if lifecycle is None:
         on_main = threading.current_thread() is threading.main_thread()
@@ -798,33 +842,86 @@ def run_serve_engine(
         lifecycle = setup_signal_context(install=on_main)
     own_pool = None
     try:
+        if plan is not None and not ctx.is_coordinator:
+            return _serve_mesh_worker(cfg, ctx, plan, reporter, lifecycle)
         if cfg.serve_mesh and pool is None:
             from tpu_nexus_torch.serving.sharded import RankPool, parse_serve_mesh
 
-            size = 1
-            for v in parse_serve_mesh(cfg.serve_mesh).values():
-                size *= v
-            # this container is one replica: its shard workers are local
-            # ranks, started here and stopped on the way out
-            pool = own_pool = RankPool(size, device=str(device), rank_map=cfg.rank_map)
-        summary = _serve_engine_loop(cfg, ctx, prompts, lifecycle, reporter, plan, device,
-                                     pool if cfg.serve_mesh else None)
+            if plan is not None:
+                # process 0 of a replica across the launched processes: its
+                # local ranks are spawned here, the others' join its group
+                pool = own_pool = RankPool(plan=plan)
+            else:
+                size = 1
+                for v in parse_serve_mesh(cfg.serve_mesh).values():
+                    size *= v
+                # this container is one replica: its shard workers are
+                # local ranks, started here and stopped on the way out
+                pool = own_pool = RankPool(size, device=str(device), rank_map=cfg.rank_map)
+        # a replica's processes meet in its pool; without a mesh, at their own rendezvous
+        with contextlib.nullcontext() if cfg.serve_mesh else _launched_processes(ctx):
+            summary = _serve_engine_loop(cfg, ctx, prompts, lifecycle, reporter, fault_plan, device,
+                                         pool if cfg.serve_mesh else None)
         if own_pool is not None:
             summary.pop("replica")  # stopped with its pool below
         return summary
     except Exception as exc:
         from tpu_nexus_torch.serving.sharded import ShardLost
 
-        if isinstance(exc, ShardLost):
-            # never carry on with fewer ranks: the row ends FAILED here and
-            # the container exits non-zero
-            reporter.failed(cause=f"sharded serving lost a rank: {exc}")
+        if isinstance(exc, ShardLost) and ctx.is_coordinator:
+            # never carry on with fewer ranks: the row ends FAILED here,
+            # naming the ranks that stopped answering, and the container
+            # exits non-zero
+            lost = pool.lost_ranks() if pool is not None else []
+            named = f"rank(s) {lost} stopped answering; " if lost else ""
+            reporter.failed(cause=f"sharded serving lost a rank: {named}{exc}")
         raise
     finally:
         if own_pool is not None:
             own_pool.close()
         for sig, handler in restore_handlers.items():
             _signal.signal(sig, handler)
+
+
+def _serve_mesh_worker(
+    cfg: ServeConfig, ctx: ProcessContext, plan: Any, reporter: LedgerReporter, lifecycle: LifecycleContext
+) -> Dict[str, Any]:
+    """Process ``ctx.process_id`` > 0 of a replica across the launched
+    processes: RUNNING, then its ranks' worker loops
+    (``serving/sharded.py::serve_launched_ranks``) until the leader stops
+    them, heartbeating its keys at the leader's engine iterations (each
+    call's header carries one), every ``cfg.heartbeat_every``, as the
+    leader does.  A SIGTERM (a JobSet preemption signals every pod) is
+    recorded and changes nothing: the
+    ranks keep answering the leader's drain, and the process returns once
+    the leader stops them.  The terminal row is the coordinator's."""
+    from tpu_nexus_torch.serving.sharded import serve_launched_ranks
+
+    reporter.running()
+    seen = 0
+
+    def beat(iteration: int) -> None:
+        nonlocal seen
+        if iteration > seen:
+            seen = iteration
+            if cfg.heartbeat_every and iteration % cfg.heartbeat_every == 0:
+                reporter.heartbeat(iteration)
+
+    first = ctx.process_id * plan.local
+    logger.info("serving ranks %d..%d of a replica over %s led by process 0",
+                first, first + plan.local - 1, cfg.serve_mesh)
+    t0 = time.perf_counter()
+    serve_launched_ranks(plan, ctx.process_id, distributed.timeout_from_env(), on_call=beat)
+    if lifecycle.cancelled:
+        logger.warning("%s: served on through the leader's drain", lifecycle.reason or "shutdown requested")
+    return {
+        "process_id": ctx.process_id,
+        "ranks": list(range(first, first + plan.local)),
+        "engine_iterations": seen,
+        "elapsed_s": time.perf_counter() - t0,
+        "drained": lifecycle.cancelled,
+        "device": str(plan.devices[0]),
+    }
 
 
 def _serve_engine_loop(
@@ -1040,6 +1137,8 @@ def _serve_engine_loop(
                 bad_reload = (latest, scans)
         if profiler is not None:
             profiler.tick(it)
+        if pool is not None:
+            executor.iteration = it + 1  # the shard workers' heartbeats count it too
         engine.step()
         it += 1
         if cfg.heartbeat_every and it % cfg.heartbeat_every == 0:
