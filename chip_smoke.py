@@ -129,7 +129,7 @@ raises and exits non-zero:
    COMPLETED, tokens/s, TTFT/TPOT p50/p99, prefix hits and kernel #4's
    launches by mode (paged > 0 in (b) and (c), ragged > 0 in (c)).
 18. train_ckpt  — tensor checkpoints through ``run_workload`` on nexus_1b at
-   full width, 4 of its 14 layers (bf16, adamw, remat attn_out, batch 8, seq 2048) in
+   full width, 2 of its 14 layers (bf16, adamw, remat attn_out, batch 8, seq 2048) in
    a temporary directory: 12 steps uninterrupted; checkpoint_every 4 and
    cancelled after step 6 (PREEMPTED, emergency save at 6); resumed from 6
    to COMPLETED at 12; step 12 bit-flipped and restarted (rolled back to 8,
@@ -156,8 +156,10 @@ raises and exits non-zero:
    fused engine's, 8 handoffs, 0 fallbacks (uninstrumented: tokens/s
    and launches); payload bytes and extract / seal / validate / install
    ms per handoff from a separate timed run; then ``handoff-drop`` and
-   ``kill-mid-handoff`` drills (the retry, the hop, no silent drop).
-22. fleet_rollout — nexus_1b (bf16, 4 of 14 layers), three paged replicas rolled from step
+   ``kill-mid-handoff`` drills (the retry, the hop, no silent drop).  The
+   handoff of a sharded replica runs in serve_sharded (f), on that
+   phase's ranks.
+22. fleet_rollout — nexus_1b (bf16, 2 of 14 layers), three paged replicas rolled from step
    1 to step 2 through ``CheckpointWatcher`` + ``start_rollout`` while 24
    requests are in flight: converged, every request FINISHED on one step's
    own tokens, post-swap tokens step 2's own; a step 3 flipped between
@@ -174,7 +176,9 @@ raises and exits non-zero:
 24. quant_gate   — nexus_moe trained on the gates' corpus (batch 32 x 2048,
    ``QUANT_GATE_STEPS``), then both gates' measurements
    (``tpu_nexus_torch/tools``): fails unless the model trained (ppl < 256)
-   and every gate passes.
+   and every gate passes.  With control_plane it runs on a thread beside
+   that phase's last three containers and cql_ledger's (the card busy,
+   the host starting them).
 25. profile_hook — ``NEXUS_PROFILE_DIR`` through the entry points:
    ``run_serve_engine`` on nexus_moe (int8 weights, page 32, 8 slots, 24
    requests, window [4, 12)) and ``run_workload`` training nexus_moe (6
@@ -187,16 +191,22 @@ raises and exits non-zero:
    ``ApplicationServices`` from ``load_config(SupervisorConfig)`` over an
    sqlite ledger) around four real containers, ``python -m
    tpu_nexus_torch.workload`` subprocesses on the card with the composed
-   manifest's command and env, nexus_1b at full width and depth: (d) a clean
-   4-step train run COMPLETED with nothing flagged, and its peak memory; (a)
-   a fault exit 137 at step 3 of 6 -> FAILED (fatal), Job deleted, its trace
-   naming #1-#3; (b) a real CUDA out-of-memory -> ``TO_FAIL_HBM_OOM`` from
-   the pod's termination message and from the raw torch line alone, FAILED
-   with the trace ref, Job deleted; (c) serve-engine, 16 requests,
-   COMPLETED, its trace naming #1 and #4.  Then a line of numbers:
+   manifest's command and env, nexus_1b at full width and depth, in this
+   order: (b) a real CUDA out-of-memory -> ``TO_FAIL_HBM_OOM`` from the
+   pod's termination message and from the raw torch line alone, FAILED
+   with the trace ref, Job deleted; (d) a clean 4-step train run COMPLETED
+   with nothing flagged, and its peak memory, by which (b)'s batch needed
+   at least twice the card; (a) a fault exit 137 at step 3 of 6 -> FAILED
+   (fatal), Job deleted, its trace naming #1-#3; (c) serve-engine, 16
+   requests, COMPLETED, its trace naming #1 and #4 ((d), (a) and (c)
+   beside quant_gate).  Then a line of numbers:
    launch-to-RUNNING, the supervisor's decision latency, each container's
    wall seconds and start-up share, tokens/s (reported, not claimed).
-27. fleet_supervisor — ``FleetSupervisor`` reconciling three nexus_1b
+27. cql_ledger   — a serve-engine container (nexus_1b, 16 requests) on the
+   reference's default ``cql-store-type: scylla`` (no
+   ``NEXUS__CQL_STORE_TYPE``), pointed at ``CqlResponder``: exit 0, its row
+   COMPLETED with heartbeats, its wall seconds and ledger round trips.
+28. fleet_supervisor — ``FleetSupervisor`` reconciling three nexus_1b
    replicas (full width and depth, bf16, page 32, 32 slots) over a
    ``FakeKubeClient`` plane, fleet and supervisor built from a
    ``ServeConfig`` env by ``build_fleet_supervisor``, its ledger the port's ``ScyllaCqlStore``
@@ -213,17 +223,12 @@ raises and exits non-zero:
    seconds from the deletion and from the scale-up decision to a routed
    request's first token on the new pod while the whole fleet ticks, ms a
    ledger write, launches, peak memory).
-28. cql_ledger   — a serve-engine container (nexus_1b, 16 requests) on the
-   reference's default ``cql-store-type: scylla`` (no
-   ``NEXUS__CQL_STORE_TYPE``), pointed at ``CqlResponder``: exit 0, its row
-   COMPLETED with heartbeats, its wall seconds and ledger round trips.
 29. serve_sharded — one serve-engine replica across tensor/expert-parallel
    ranks (``serving/sharded.py``): three ranks, every one on cuda:0 over
    gloo under the explicit one-device rehearsal map (``nvidia-smi -L``
    names the cards; which collectives gloo takes on CUDA tensors is
    probed first, and the seam's must be among them). (a) llama3_8b at
-   full width, 8 of its 32 layers (serve_multiprocess (a) runs the full
-   depth), bf16, page 32, 8 slots, 8 requests of 128 + 32
+   full width, 8 of its 32 layers, bf16, page 32, 8 slots, 8 requests of 128 + 32
    through ``run_serve_engine`` with ``serve_mesh="tp=2"``: COMPLETED,
    per-rank launches of #1 and #4 paged and peak memory, tokens/s and TPOT
    p50 (two ranks sharing one card through host memory: not a
@@ -239,9 +244,19 @@ raises and exits non-zero:
    and tp 2; (e) nexus_1b at 4 layers: a mid-traffic swap to a committed
    step by reference and a fleet of two tp-2 replicas rolled 1 -> 2 (the
    serve-engine container whose spawned worker is killed runs in
-   serve_multiprocess (e), beside that phase's other drills); then #5/#6 at every
-   rank shape against plain
-   (ring, twice bit-identical) and #1, #4 paged, #5, #6 timed there.
+   serve_multiprocess (e), beside that phase's other drills); (f) the KV
+   handoff of a sharded pool: llama3_8b (bf16, ``DISAGG_LAYERS`` layers,
+   page 32) from a tp-2 prefill replica to a tp-2 decode replica, tokens
+   equal to the fused tp-2 replica's, one handoff a request, no fallback,
+   each rank's #1 and #4 launches, the payload bytes and the extract /
+   seal / validate / install ms a handoff; nexus_1b f32 (4 layers) from a
+   tp-2 to a one-device replica and back, tokens identical to one device's;
+   (g) ``run_serve_engine`` at tp 2 with the model drafter (self-draft,
+   spec_k 4, page 32): nexus_1b f32 tokens equal to one device's, llama3_8b
+   (8 layers) COMPLETED with its acceptance rate and each rank's #4
+   ``q_starts`` launches; then #5/#6 at every rank shape against plain
+   (ring, twice bit-identical) and #1, #4 paged, #4 ``q_starts`` (the
+   verify, held against plain twice bit-identical), #5, #6 timed there.
 30. train_sharded — parallel training (``parallel/{mesh,collectives,ring,
    ulysses}.py``, ``workload/train.py``'s ``Layout``): ranks on cuda:0 over
    gloo under the rehearsal map, the collectives gloo refuses on CUDA
@@ -267,12 +282,12 @@ raises and exits non-zero:
    layout against plain, timed.
 32. serve_multiprocess — serving across launched processes and over a
    replicate axis, every rank on cuda:0 over gloo: (a) the main path,
-   llama3_8b (bf16 params, full depth) as one tp-2 replica over two
+   llama3_8b (bf16 params, 8 of 32 layers) as one tp-2 replica over two
    containers (``NEXUS_NUM_PROCESSES=2``, one rank each): the row
    COMPLETED with host0/chip0 and host1/chip0, written once by the
    coordinator, each rank's #1 and #4 launches and the greedy tokens equal
    to the in-container tp-2 replica's on the same requests, slots and seed;
-   (b) nexus_moe ``dp=2,ep=2`` in one container: tokens equal ep 2's, the
+   (b) nexus_moe (4 of 8 layers) ``dp=2,ep=2`` in one container: tokens equal ep 2's, the
    copies' launches equal, each expert sum over its copy's region; (c)
    nexus_1b f32 (4 layers) tp 2 over two containers and ``pp=2,tp=2`` in
    one: tokens identical to one device's, and, in a separate step before
@@ -335,8 +350,10 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "parity", "train_parity", "moe_parity", "engine_parity", "times", "e2e", "train_e2e",
           "moe_train_e2e", "engine_e2e", "serve", "serve_quant", "serve_moe", "serve_engine", "train", "train_moe",
           "train_ckpt", "serve_reload", "fleet", "disagg", "fleet_rollout", "serve_moe_quant", "quant_gate",
-          "profile_hook", "control_plane", "fleet_supervisor", "cql_ledger", "serve_sharded", "train_sharded",
+          "profile_hook", "control_plane", "cql_ledger", "fleet_supervisor", "serve_sharded", "train_sharded",
           "train_pp_ep", "serve_multiprocess")
+#: the phases quant_gate runs beside when control_plane runs (see ``main``)
+BESIDE_QUANT_GATE = ("control_plane", "cql_ledger")
 #: phases run only when named in --phases
 OPT_IN = ("profile", "profile_int8", "profile_int4", "train_profile", "train_moe_profile", "decode_probe",
           "quant_rms_times", "int4_probe", "int8_probe", "ckpt_probe")
@@ -2502,7 +2519,7 @@ def _cp_summary_number(stderr, key):
     return float(m.group(1)) if m else None
 
 
-async def _control_plane(results, tmp):
+async def _control_plane(results, tmp, after_oom=None):
     import asyncio
     import math
     import re
@@ -2611,7 +2628,44 @@ async def _control_plane(results, tmp):
     train_env = {"NEXUS_MODEL_PRESET": "nexus_1b", "NEXUS_BATCH": str(CP_TRAIN_BATCH), "NEXUS_SEQ_LEN": str(CP_SEQ),
                  "NEXUS_OPTIMIZER": "adamw", "NEXUS_HEARTBEAT_EVERY": "1", "NEXUS_DEVICE": "cuda"}
 
-    # (d) a clean training run, first: COMPLETED, nothing flagged, its peak
+    # (b) a real CUDA out-of-memory in the launched container, first: no
+    # container after it fills the card (the work beside them starts then)
+    rid, manifest, pod, to_running = await launch("b_oom", dict(train_env, NEXUS_STEPS="2",
+                                                                 NEXUS_BATCH=str(CP_OOM_BATCH)))
+    rc, _, stderr, lines, t_spawn, t_exit = await container(manifest)
+    info, _ = run_numbers("b_oom", lines, t_spawn, t_exit, stderr)
+    raw = [line.strip() for line in stderr.splitlines()
+           if "OutOfMemoryError: CUDA out of memory" in line and "RESOURCE_EXHAUSTED" not in line]
+    if rc == 0 or "RESOURCE_EXHAUSTED: device memory exhausted (CUDA out of memory)" not in stderr \
+            or "[hlo_trace: file://" not in stderr or not raw:
+        raise AssertionError(f"control_plane b_oom: rc {rc}\n{stderr[-3000:]}")
+    # the kubelet's FallbackToLogsOnError: the log's tail (at most 80 lines
+    # or 2048 bytes) becomes the terminated container's message
+    tail = "\n".join(stderr.strip().splitlines()[-80:])[-2048:]
+    client.inject("MODIFIED", "Pod", dict(pod, status={"phase": "Failed", "containerStatuses": [
+        {"name": "algorithm", "state": {"terminated": {"reason": "Error", "message": tail, "exitCode": rc}}}]}))
+    client.inject("ADDED", "Event", {
+        "kind": "Event", "metadata": {"name": f"evt-failed-{rid[:8]}", "namespace": CP_NS},
+        "reason": "Failed", "message": "Error", "type": "Warning",
+        "involvedObject": {"kind": "Pod", "name": pod["metadata"]["name"], "namespace": CP_NS}})
+    await idle()
+    row = store.read_checkpoint(CP_ALGORITHM, rid)
+    raw_class = classify_tpu_failure(raw[0])
+    info.update(launch_to_running_s=to_running, rc=rc, stage=row.lifecycle_stage, cause=row.algorithm_failure_cause,
+                hlo_trace_ref=row.hlo_trace_ref, job_deleted=rid in client.deleted("Job"),
+                raw_line=raw[0][:200], raw_line_class=raw_class, batch=CP_OOM_BATCH)
+    emit("control_plane", run="b_oom", **info)
+    if (row.lifecycle_stage != LifecycleStage.FAILED or row.algorithm_failure_cause != MSG_HBM_OOM
+            or not row.hlo_trace_ref.startswith("file://") or row.hlo_trace_ref not in tail
+            or client.deleted("Job").count(rid) != 1 or raw_class != DecisionAction.TO_FAIL_HBM_OOM):
+        raise AssertionError(f"control_plane b_oom: verdict {row}, raw line class {raw_class}")
+
+    # the work beside the control plane (``after_oom``) starts once no
+    # container of this phase fills the card any more
+    if after_oom is not None:
+        after_oom()
+
+    # (d) a clean training run: COMPLETED, nothing flagged, its peak
     rid, manifest, pod, to_running = await launch("d_train", dict(train_env, NEXUS_STEPS="4"))
     rc, _, stderr, lines, t_spawn, t_exit = await container(manifest)
     info, steps = run_numbers("d_train", lines, t_spawn, t_exit, stderr)
@@ -2628,6 +2682,19 @@ async def _control_plane(results, tmp):
             or peak8 is None):
         raise AssertionError(f"control_plane d_train: rc {rc}, row {row}, flagged {supervisor.watchdog.flagged}, "
                              f"peak {peak8}\n{stderr[-3000:]}")
+
+    # (b)'s batch must have needed at least twice the card's memory by
+    # (d)'s measured peak, the state fixed and the rest scaled with the batch
+    from tpu_nexus_torch.models.llama import LlamaConfig, param_count
+
+    state = param_count(LlamaConfig.nexus_1b()) * CP_STATE_BYTES_PER_PARAM
+    card = torch.cuda.get_device_properties(0).total_memory
+    reckoned = state + (peak8 - state) * CP_OOM_BATCH / CP_TRAIN_BATCH
+    out["oom_reckoning"] = {"state_bytes": state, "peak8": peak8, "batch": CP_OOM_BATCH,
+                            "reckoned_peak_bytes": reckoned, "card_bytes": card, "ratio": reckoned / card}
+    emit("control_plane", run="b_oom_reckoning", **out["oom_reckoning"])
+    if reckoned < 2 * card:
+        raise AssertionError(f"control_plane: batch {CP_OOM_BATCH} reckons {reckoned} B, under twice {card} B")
 
     # (a) the fault exit: 137 at step 3 of 6, the profiler's window on step 2
     prof_a = tmp / "profile_a"
@@ -2665,49 +2732,6 @@ async def _control_plane(results, tmp):
     emit("control_plane", run="a_fault", **info)
     if missing:
         raise AssertionError(f"control_plane a_fault: the subprocess's trace misses {missing} ({names[:20]})")
-
-    # (b) a real CUDA out-of-memory in the launched container: its batch
-    # must need at least twice the card's memory by (d)'s measured peak, the
-    # state fixed and the rest scaled with the batch
-    from tpu_nexus_torch.models.llama import LlamaConfig, param_count
-
-    state = param_count(LlamaConfig.nexus_1b()) * CP_STATE_BYTES_PER_PARAM
-    card = torch.cuda.get_device_properties(0).total_memory
-    reckoned = state + (peak8 - state) * CP_OOM_BATCH / CP_TRAIN_BATCH
-    out["oom_reckoning"] = {"state_bytes": state, "peak8": peak8, "batch": CP_OOM_BATCH,
-                            "reckoned_peak_bytes": reckoned, "card_bytes": card, "ratio": reckoned / card}
-    emit("control_plane", run="b_oom_reckoning", **out["oom_reckoning"])
-    if reckoned < 2 * card:
-        raise AssertionError(f"control_plane: batch {CP_OOM_BATCH} reckons {reckoned} B, under twice {card} B")
-    rid, manifest, pod, to_running = await launch("b_oom", dict(train_env, NEXUS_STEPS="2",
-                                                                 NEXUS_BATCH=str(CP_OOM_BATCH)))
-    rc, _, stderr, lines, t_spawn, t_exit = await container(manifest)
-    info, _ = run_numbers("b_oom", lines, t_spawn, t_exit, stderr)
-    raw = [line.strip() for line in stderr.splitlines()
-           if "OutOfMemoryError: CUDA out of memory" in line and "RESOURCE_EXHAUSTED" not in line]
-    if rc == 0 or "RESOURCE_EXHAUSTED: device memory exhausted (CUDA out of memory)" not in stderr \
-            or "[hlo_trace: file://" not in stderr or not raw:
-        raise AssertionError(f"control_plane b_oom: rc {rc}\n{stderr[-3000:]}")
-    # the kubelet's FallbackToLogsOnError: the log's tail (at most 80 lines
-    # or 2048 bytes) becomes the terminated container's message
-    tail = "\n".join(stderr.strip().splitlines()[-80:])[-2048:]
-    client.inject("MODIFIED", "Pod", dict(pod, status={"phase": "Failed", "containerStatuses": [
-        {"name": "algorithm", "state": {"terminated": {"reason": "Error", "message": tail, "exitCode": rc}}}]}))
-    client.inject("ADDED", "Event", {
-        "kind": "Event", "metadata": {"name": f"evt-failed-{rid[:8]}", "namespace": CP_NS},
-        "reason": "Failed", "message": "Error", "type": "Warning",
-        "involvedObject": {"kind": "Pod", "name": pod["metadata"]["name"], "namespace": CP_NS}})
-    await idle()
-    row = store.read_checkpoint(CP_ALGORITHM, rid)
-    raw_class = classify_tpu_failure(raw[0])
-    info.update(launch_to_running_s=to_running, rc=rc, stage=row.lifecycle_stage, cause=row.algorithm_failure_cause,
-                hlo_trace_ref=row.hlo_trace_ref, job_deleted=rid in client.deleted("Job"),
-                raw_line=raw[0][:200], raw_line_class=raw_class, batch=CP_OOM_BATCH)
-    emit("control_plane", run="b_oom", **info)
-    if (row.lifecycle_stage != LifecycleStage.FAILED or row.algorithm_failure_cause != MSG_HBM_OOM
-            or not row.hlo_trace_ref.startswith("file://") or row.hlo_trace_ref not in tail
-            or client.deleted("Job").count(rid) != 1 or raw_class != DecisionAction.TO_FAIL_HBM_OOM):
-        raise AssertionError(f"control_plane b_oom: verdict {row}, raw line class {raw_class}")
 
     # (c) a completed serving run through the engine
     prof_c = tmp / "profile_c"
@@ -2748,7 +2772,7 @@ async def _control_plane(results, tmp):
     return out
 
 
-def phase_control_plane(results):
+def phase_control_plane(results, after_oom=None):
     """The launch-to-verdict chain on the card: ``Launcher.launch`` writes
     the BUFFERED row and the Job onto a ``FakeKubeClient`` plane watched by
     the real informers; a supervisor built through ``ApplicationServices``
@@ -2756,9 +2780,11 @@ def phase_control_plane(results):
     a ledger in a temporary directory) moves the row to RUNNING on the pod's
     Started event; then the container runs — ``python -m
     tpu_nexus_torch.workload`` as a subprocess with the manifest's command
-    and env, on the card, nexus_1b at full width and depth.  (d) 4 clean
-    train steps (batch 8 x 2048): COMPLETED, the Job kept, nothing flagged,
-    the peak device memory.  (a) ``NEXUS_FAULT_MODE=oom`` at step 3 of 6:
+    and env, on the card, nexus_1b at full width and depth, in the order
+    (b), (d), (a), (c).  (d) 4 clean train steps (batch 8 x 2048):
+    COMPLETED, the Job kept, nothing flagged, the peak device memory, by
+    which (b)'s batch must have needed at least twice the card's memory.
+    (a) ``NEXUS_FAULT_MODE=oom`` at step 3 of 6:
     exit 137, three heartbeats, a PodFailurePolicy event -> FAILED with the
     fatal-error message and the Job deleted; its Chrome trace names kernels
     #1-#3.  (b) a batch that cannot fit (``CP_OOM_BATCH``): a real CUDA OOM,
@@ -2770,7 +2796,9 @@ def phase_control_plane(results):
     supervisor's decision latency (p50, p95 and max of
     ``latency_summary``, and p99), each subprocess's wall seconds and start-up
     share, tokens/s of (a) before the fault and of (c), the card's name and
-    power limit."""
+    power limit.  ``after_oom()`` is called once (b) is done: no container
+    of this phase fills the card after it (``main`` starts quant_gate
+    there, so (d), (a) and (c) run beside it)."""
     import asyncio
     import tempfile
 
@@ -2778,7 +2806,7 @@ def phase_control_plane(results):
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        out = asyncio.run(_control_plane(results, Path(tmp)))
+        out = asyncio.run(_control_plane(results, Path(tmp), after_oom))
     runs = out["runs"]
     emit("control_plane_numbers", nvidia_smi=nvidia_smi(),
          launch_to_running_s={k: v["launch_to_running_s"] for k, v in runs.items()},
@@ -3727,7 +3755,7 @@ def timed_checkpoints(events, label):
 
 
 #: the layers of nexus_1b (of 14) that train_ckpt and serve_reload run
-CKPT_LAYERS = 4
+CKPT_LAYERS = 2
 
 
 def phase_train_ckpt(results):
@@ -4297,6 +4325,60 @@ class _TimedSeam:
         self.payloads.append(payload)
 
 
+def _handoff_timings(fleet, timed_reqs, page):
+    """The timed run's handoffs, by payload size in blocks: the payload
+    bytes and the prefill / extract / seal / validate / install ms of each
+    (``_TimedSeam`` around every replica of ``fleet``; seal and validate
+    re-run here on the installed payloads, which must be unchanged).
+    Returns ``(by_blocks, payload bytes of each handoff)``."""
+    import numpy as np
+
+    from tpu_nexus_torch.serving import ROLE_PREFILL, validate_payload
+    from tpu_nexus_torch.serving.handoff import leaf_bytes
+
+    seams = {name: rep.engine.executor for name, rep in fleet.replicas.items()}
+    (sender,) = [seams[name] for name, rep in fleet.replicas.items() if rep.role == ROLE_PREFILL]
+    receivers = [seams[name] for name, rep in fleet.replicas.items() if rep.role != ROLE_PREFILL]
+    extract_ms, prefill_ms = sender.extract_ms, sender.prefill_ms
+    install_ms = [ms for seam in receivers for ms in seam.install_ms]
+    payloads = [p for seam in receivers for p in seam.payloads]
+    seal_ms, validate_ms = [], []
+    specs = receivers[0].kv_leaf_specs()
+    for payload in payloads:
+        sealed = dict(payload.checksums)
+        t0 = time.perf_counter()
+        payload.seal()
+        seal_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        validate_payload(payload, page_size=page, leaf_specs=specs)
+        validate_ms.append((time.perf_counter() - t0) * 1e3)
+        if payload.checksums != sealed:
+            raise AssertionError(f"{payload.request_id}: the payload changed after its install")
+    nbytes = [sum(leaf_bytes(a).nbytes for a in p.blocks.values()) for p in payloads]
+    # one prefill and one extract a request, in submission order on the
+    # prefill replica; the installs are keyed by their payloads
+    n = len(timed_reqs)
+    if len(prefill_ms) != n or len(extract_ms) != n or len(payloads) != n:
+        raise AssertionError(f"{len(prefill_ms)} prefills, {len(extract_ms)} extracts, {len(payloads)} "
+                             f"installs for {n} requests")
+    sent = {r.request_id: (f, e) for r, f, e in zip(timed_reqs, prefill_ms, extract_ms)}
+    by_blocks = {}
+    for p, b, s_, v, i_ in zip(payloads, nbytes, seal_ms, validate_ms, install_ms):
+        row = by_blocks.setdefault(p.n_blocks, {"handoffs": 0, "payload_bytes": b, "prefill_ms": [],
+                                                "extract_ms": [], "seal_ms": [], "validate_ms": [],
+                                                "install_ms": []})
+        row["handoffs"] += 1
+        f, e = sent[p.request_id]
+        for key, val in (("prefill_ms", f), ("extract_ms", e), ("seal_ms", s_), ("validate_ms", v),
+                         ("install_ms", i_)):
+            row[key].append(val)
+    for row in by_blocks.values():
+        for key in ("prefill_ms", "extract_ms", "seal_ms", "validate_ms", "install_ms"):
+            row[key] = {"mean": float(np.mean(row[key])), "min": float(np.min(row[key])),
+                        "max": float(np.max(row[key]))}
+    return by_blocks, nbytes
+
+
 def _disagg_mix(vocab, n, seed):
     """The reference's disaggregated mix (``bench_serving.py::
     make_disagg_requests``, its lengths x 4): a third long prompts (192
@@ -4337,14 +4419,12 @@ def phase_disagg(results):
     and decode replica 0 in ``kill-mid-handoff`` (the hop lands in
     ``handoff_log``, the replica goes down); every request is terminal
     and none silently dropped."""
-    import numpy as np
     import torch
 
     from tpu_nexus_torch.core.telemetry import RecordingMetrics
     from tpu_nexus_torch.models.llama import LlamaConfig, llama_init
     from tpu_nexus_torch.serving import (ROLE_DECODE, ROLE_PREFILL, DisaggConfig, PagedModelExecutor, RequestState,
-                                         ServingEngine, ServingFleet, validate_payload)
-    from tpu_nexus_torch.serving.handoff import leaf_bytes
+                                         ServingEngine, ServingFleet)
     from tpu_nexus_torch.workload.faults import FaultyExecutor
 
     torch.cuda.empty_cache()
@@ -4408,46 +4488,10 @@ def phase_disagg(results):
         fleet = fleet_of(kv_quant, wrap={name: _TimedSeam for name in ("pf-0", "dc-0", "dc-1")})
         timed_reqs = [fleet.submit(p, 4, request_id=f"t{i}") for i, (p, _) in enumerate(mix)]
         fleet.run_until_drained()
-        seams = {name: rep.engine.executor for name, rep in fleet.replicas.items()}
-        extract_ms, prefill_ms = seams["pf-0"].extract_ms, seams["pf-0"].prefill_ms
-        install_ms = seams["dc-0"].install_ms + seams["dc-1"].install_ms
-        payloads = seams["dc-0"].payloads + seams["dc-1"].payloads
-        seal_ms, validate_ms = [], []
-        specs = fleet.replicas["dc-0"].engine.executor.kv_leaf_specs()
-        for payload in payloads:
-            sealed = dict(payload.checksums)
-            t0 = time.perf_counter()
-            payload.seal()
-            seal_ms.append((time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
-            validate_payload(payload, page_size=page, leaf_specs=specs)
-            validate_ms.append((time.perf_counter() - t0) * 1e3)
-            if payload.checksums != sealed:
-                raise AssertionError(f"{payload.request_id}: the payload changed after its install")
-        nbytes = [sum(leaf_bytes(a).nbytes for a in p.blocks.values()) for p in payloads]
-        # one prefill and one extract a request, in submission order on the
-        # prefill replica; the installs are keyed by their payloads
-        if len(prefill_ms) != len(mix) or len(extract_ms) != len(mix) or len(payloads) != len(mix):
-            raise AssertionError(f"{len(prefill_ms)} prefills, {len(extract_ms)} extracts, {len(payloads)} "
-                                 f"installs for {len(mix)} requests")
         if fleet.handoffs_completed != len(mix) or any(r.state != RequestState.FINISHED for r in timed_reqs):
             raise AssertionError(f"timed disagg {label}: {fleet.handoffs_completed} handoffs, "
                                  f"states {[r.state for r in timed_reqs]}")
-        sent = {r.request_id: (f, e) for r, f, e in zip(timed_reqs, prefill_ms, extract_ms)}
-        by_blocks = {}
-        for p, b, s_, v, i_ in zip(payloads, nbytes, seal_ms, validate_ms, install_ms):
-            row = by_blocks.setdefault(p.n_blocks, {"handoffs": 0, "payload_bytes": b, "prefill_ms": [],
-                                                    "extract_ms": [], "seal_ms": [], "validate_ms": [],
-                                                    "install_ms": []})
-            row["handoffs"] += 1
-            f, e = sent[p.request_id]
-            for key, val in (("prefill_ms", f), ("extract_ms", e), ("seal_ms", s_), ("validate_ms", v),
-                             ("install_ms", i_)):
-                row[key].append(val)
-        for row in by_blocks.values():
-            for key in ("prefill_ms", "extract_ms", "seal_ms", "validate_ms", "install_ms"):
-                row[key] = {"mean": float(np.mean(row[key])), "min": float(np.min(row[key])),
-                            "max": float(np.max(row[key]))}
+        by_blocks, nbytes = _handoff_timings(fleet, timed_reqs, page)
         emit("disagg", config=f"llama3_8b full width, {model.n_layers} of 32 layers, bf16 params, {label}, 1 prefill + 2 decode "
              f"replicas ({decode_slots} slots, page {page}), one params tree", requests=len(mix), finished=finished,
              token_identical_to_fused=mismatched == 0, mismatched_requests=mismatched,
@@ -4463,7 +4507,7 @@ def phase_disagg(results):
         if not counts["flash_attention"] or not counts["decode_attention_paged"] or (
                 kv_quant and counts["decode_attention_int8kv"] != counts["decode_attention_paged"]):
             raise AssertionError(f"disagg {label}: a kernel of the path was not launched: {counts}")
-        del fleet, seams, payloads
+        del fleet
         torch.cuda.empty_cache()
 
     # the chaos pass: a dropped transfer heals in place, a decode replica
@@ -5732,6 +5776,174 @@ def sharded_swap_and_fleet(results, pool, out, tmp):
         raise AssertionError(f"serve_sharded (e): fleet {fleet_row}")
 
 
+#: (f)'s most new tokens a request (the mix's 192 cut for the phase's time)
+SHARDED_DISAGG_GEN = 32
+
+
+def sharded_disagg(results, pool, out):
+    """(f) The KV handoff of a sharded pool.  llama3_8b bf16 at full width,
+    :data:`DISAGG_LAYERS` of its 32 layers, page 32: the fused tp-2 replica
+    (ranks 0+2) serves :data:`DISAGG_REQUESTS` requests of the disagg mix
+    (at most :data:`SHARDED_DISAGG_GEN` new tokens each);
+    then a tp-2 prefill replica (ranks 0+1) hands the same requests off to
+    that replica as a decode replica.  Gates: tokens equal the fused
+    replica's, one ``handoffs_completed`` a request, ``disagg_fallbacks`` 0,
+    #1 launched on both prefill ranks and #4 (paged) on both decode ranks;
+    a timed run (4 new tokens) gives the payload bytes and the extract /
+    seal / validate / install ms a handoff.  Then nexus_1b f32 (4 layers):
+    a tp-2 prefill replica to a one-device decode replica and a one-device
+    prefill replica to a tp-2 decode replica, tokens identical to one fused
+    device's (in bf16 such a mix need not be token-identical)."""
+    import torch
+
+    from tpu_nexus_torch.models.llama import llama_init
+    from tpu_nexus_torch.serving import ROLE_DECODE, ROLE_PREFILL, DisaggConfig, PagedModelExecutor, ServingEngine
+    from tpu_nexus_torch.serving import RequestState, ServingFleet
+    from tpu_nexus_torch.serving.sharded import SeedParams, ShardedPagedModelExecutor
+
+    model = _llama3_8b(DISAGG_LAYERS)
+    # the disagg phase's prompts; generation capped (the phase's time): the
+    # handoffs are the prompts'
+    mix = [(p, min(gen, SHARDED_DISAGG_GEN)) for p, gen in _disagg_mix(model.vocab_size, DISAGG_REQUESTS, seed=5)]
+    page, max_len = 32, 224
+    pf_mesh, dc_mesh, exact_mesh = pool.meshes([({"tp": 2}, (0, 1)), ({"tp": 2}, (0, 2)), ({"tp": 2}, (0, 1))])
+    pf = ShardedPagedModelExecutor(SeedParams(0), model, mesh=pf_mesh, num_slots=2, max_len=max_len, page_size=page)
+    dc = ShardedPagedModelExecutor(SeedParams(0), model, mesh=dc_mesh, num_slots=12, max_len=max_len, page_size=page)
+
+    def fleet_of(wrap=lambda ex: ex):
+        fleet = ServingFleet(disagg=DisaggConfig())
+        fleet.add_replica("pf-0", ServingEngine(wrap(pf)), step=0, role=ROLE_PREFILL)
+        fleet.add_replica("dc-0", ServingEngine(wrap(dc)), step=0, role=ROLE_DECODE)
+        return fleet
+
+    fused = ServingEngine(dc)
+    fused_reqs = [fused.submit(p, gen, request_id=f"d{i}") for i, (p, gen) in enumerate(mix)]
+    fused.run_until_drained()
+    want = [list(r.output_tokens) for r in fused_reqs]
+    # the main run: a fresh engine (and block accounting) over each replica
+    fleet = fleet_of()
+    for ex in (pf, dc):  # zero every rank's counts (rank 0: both leaders)
+        ex.shard_stats(reset=True)
+    torch_sync()
+    t0 = time.perf_counter()
+    reqs = [fleet.submit(p, gen, request_id=f"d{i}") for i, (p, gen) in enumerate(mix)]
+    fleet.run_until_drained()
+    torch_sync()
+    wall = time.perf_counter() - t0
+    by_rank = {s["rank"]: _rank_launches([s])[0] for s in pf.shard_stats() + dc.shard_stats()}
+    paged = {r: sum(n for m, n in c["decode_attention_by_mode"].items() if m.startswith("paged"))
+             for r, c in by_rank.items()}
+    mismatched = sum(list(r.output_tokens) != want[i] for i, r in enumerate(reqs))
+    row = dict(requests=len(mix), finished=sum(r.state == RequestState.FINISHED for r in reqs),
+               token_identical_to_fused_tp2=mismatched == 0, mismatched_requests=mismatched,
+               handoffs_completed=fleet.handoffs_completed, disagg_fallbacks=fleet.disagg_fallbacks,
+               wall_s=wall, decoded_tokens_per_second=_finished_tokens(reqs) / wall,
+               launches_by_rank=by_rank)
+    results.setdefault("launches", {})["serve_sharded_disagg"] = {
+        "flash_attention": sum(c["flash_attention"] for c in by_rank.values()),
+        "decode_attention_paged": sum(paged.values())}
+    # the timed run: every seam call synchronised and timed
+    fleet = fleet_of(_TimedSeam)
+    timed_reqs = [fleet.submit(p, 4, request_id=f"t{i}") for i, (p, _) in enumerate(mix)]
+    fleet.run_until_drained()
+    if fleet.handoffs_completed != len(mix) or any(r.state != RequestState.FINISHED for r in timed_reqs):
+        raise AssertionError(f"serve_sharded (f): timed run {fleet.handoffs_completed} handoffs")
+    row["handoff_by_blocks"], nbytes = _handoff_timings(fleet, timed_reqs, page)
+    row["payload_bytes_total"] = sum(nbytes)
+    pf.close()
+    dc.close()
+    del fleet, fused, pf, dc
+    torch.cuda.empty_cache()
+    out["f"] = {"llama3_8b_tp2_to_tp2": dict(
+        config=f"llama3_8b full width, {model.n_layers} of 32 layers, bf16, page {page}: tp-2 prefill replica "
+               "(ranks 0+1) -> tp-2 decode replica (ranks 0+2; 12 slots), the fused reference that replica",
+        **row)}
+    if row["finished"] != len(mix) or mismatched or row["handoffs_completed"] != len(mix) or row["disagg_fallbacks"]:
+        raise AssertionError(f"serve_sharded (f): {row}")
+    if not (by_rank[0]["flash_attention"] and by_rank[1]["flash_attention"] and paged[0] and paged[2]):
+        raise AssertionError(f"serve_sharded (f): a rank did not launch its kernel: {by_rank}")
+
+    # nexus_1b f32: each mixed direction against one fused device
+    model = SHARDED_MODELS["nexus_1b_f32"]()
+    prompts = _requests(model.vocab_size, 8, 64, seed=21)
+    params = llama_init(torch.Generator(device=SHARDED_DEVICE).manual_seed(1), model, device=SHARDED_DEVICE)
+    one = PagedModelExecutor(params, model, num_slots=8, max_len=80, page_size=page)
+    one_tokens = _engine_tokens(one, prompts, 16)[0].tolist()
+    sx = ShardedPagedModelExecutor(SeedParams(1), model, mesh=exact_mesh, num_slots=8, max_len=80, page_size=page)
+    for name, (pf, dc) in (("tp2_prefill_one_device_decode", (sx, one)), ("one_device_prefill_tp2_decode", (one, sx))):
+        fleet = ServingFleet(disagg=DisaggConfig())
+        fleet.add_replica("pf-0", ServingEngine(pf), step=0, role=ROLE_PREFILL)
+        fleet.add_replica("dc-0", ServingEngine(dc), step=0, role=ROLE_DECODE)
+        reqs = [fleet.submit(p, 16, request_id=f"x{i}") for i, p in enumerate(prompts)]
+        fleet.run_until_drained()
+        out["f"][name] = dict(tokens_identical=[list(r.output_tokens) for r in reqs] == one_tokens,
+                              handoffs_completed=fleet.handoffs_completed, disagg_fallbacks=fleet.disagg_fallbacks)
+    sx.close()
+    del one, params, sx
+    torch.cuda.empty_cache()
+    emit("serve_sharded", part="f", **out["f"])
+    bad = {k: v for k, v in out["f"].items() if k != "llama3_8b_tp2_to_tp2" and not (
+        v["tokens_identical"] and v["handoffs_completed"] == len(prompts) and not v["disagg_fallbacks"])}
+    if bad:
+        raise AssertionError(f"serve_sharded (f): nexus_1b f32 across a tp-2 and a one-device replica: {bad}")
+
+
+def sharded_model_drafter(results, pool, out):
+    """(g) The model drafter beside a sharded executor, through
+    ``run_serve_engine`` with ``serve_mesh="tp=2"``, page 32, spec_k 4 and
+    a self-draft (the draft: one device's executor on the leader's card over
+    the whole tree of the replica's seed).  nexus_1b f32 (4 layers, 8
+    requests of 64 + 16): tokens equal one device's greedy tokens; then
+    llama3_8b bf16 at 8 of its 32 layers (8 requests of 128 + 32):
+    COMPLETED, the acceptance rate, each rank's #4 ``q_starts`` (verify)
+    launches."""
+    import torch
+
+    from tpu_nexus_torch.checkpoint.models import LifecycleStage
+    from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore
+    from tpu_nexus_torch.models.llama import llama_init
+    from tpu_nexus_torch.parallel.distributed import ProcessContext
+    from tpu_nexus_torch.serving import PagedModelExecutor
+    from tpu_nexus_torch.workload.serve import ServeConfig, run_serve_engine
+
+    out["g"] = {}
+    cases = (("nexus_1b_f32", SHARDED_MODELS["nexus_1b_f32"](), 64, 16, 1),
+             ("llama3_8b", SHARDED_MODELS["llama3_8b_8_layers"](), SHARDED_PROMPT, 32, 0))
+    for name, model, prompt_len, gen, seed in cases:
+        prompts = _requests(model.vocab_size, 8, prompt_len, seed=22)
+        cfg = ServeConfig(model=model, batch_size=8, prompt_len=prompt_len, gen_tokens=gen, rounds=1,
+                          device=SHARDED_DEVICE, page_size=32, serve_mesh="tp=2", rank_map="shared", spec_k=4,
+                          spec_drafter="model", seed=seed)
+        store = InMemoryCheckpointStore()
+        pool.reset_counts()
+        with recorded_serving() as seen:
+            summary = run_serve_engine(cfg, store=store, pool=pool, prompts=iter([prompts, prompts]),
+                                       ctx=ProcessContext("serve_sharded_spec", "serve", 0, 1, None))
+        summary.pop("replica").close()
+        got = list(engine_tokens(seen["engines"][-1]).values())
+        per_rank = _rank_launches(summary["shard_stats"])
+        verify = [c["decode_attention_by_mode"].get("paged+ragged", 0) for c in per_rank]
+        row = dict(stage=store.read_checkpoint("serve", "serve_sharded_spec").lifecycle_stage,
+                   finished=summary["finished"], spec_proposed=summary["spec_proposed"],
+                   spec_accepted=summary["spec_accepted"], spec_acceptance_rate=summary["spec_acceptance_rate"],
+                   engine_steps=summary["engine_steps"], decoded_tokens_per_second=summary["decoded_tokens_per_second"],
+                   launches_per_rank=per_rank, verify_launches_per_rank=verify)
+        if name == "nexus_1b_f32":
+            params = llama_init(torch.Generator(device=SHARDED_DEVICE).manual_seed(seed), model, device=SHARDED_DEVICE)
+            one = PagedModelExecutor(params, model, num_slots=8, max_len=prompt_len + gen, page_size=32)
+            row["tokens_identical_to_one_device"] = got == _engine_tokens(one, prompts, gen)[0].tolist()
+            del one, params
+        else:
+            results.setdefault("launches", {})["serve_sharded_spec"] = {"decode_attention_ragged": sum(verify)}
+        out["g"][name] = row
+        torch.cuda.empty_cache()
+        if row["stage"] != LifecycleStage.COMPLETED or row["finished"] != 8 or not all(verify) \
+                or not row["spec_accepted"] or not row.get("tokens_identical_to_one_device", True):
+            raise AssertionError(f"serve_sharded (g) {name}: {row}")
+    emit("serve_sharded", part="g", config="run_serve_engine, tp 2, page 32, spec_k 4, model drafter (self-draft)",
+         **out["g"])
+
+
 def sharded_times(results):
     """Kernels #1, #4 (paged) and #5/#6 at one rank's shapes of llama3_8b
     at tp 2, bf16: the prefill's flash (B1, S128, Hq 16, Hkv 4), the paged
@@ -5782,6 +5994,45 @@ def sharded_times(results):
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes")
     del layers, lib_sets
 
+    # the speculative verify of part (g) at a rank's shape: #4's q_starts
+    # mode, q_len 5 at staggered starts, held against its plain version
+    # (twice, bit-identical), then timed as the paged step above
+    sq = 5
+    starts = (kv_len - sq - np.arange(b) * 7).astype(np.int32)
+    live = starts + sq
+    deepest = int(live.max())
+    layers = []
+    for i in range(32):
+        q, k, v, tables, _ = paged_case(b, sq, page, n_log, live, dt, 9300 + i)
+        layers.append((q[:, :, :hq].contiguous(), k[:, :, :hkv].contiguous(), v[:, :, :hkv].contiguous(), tables))
+    kw = dict(prompt_lengths=torch.zeros(b, dtype=torch.int32, device="cuda"), prompt_width=0,
+              q_starts=torch.from_numpy(starts).cuda())
+    x = layers[0]
+    got, again = (decode_attention(x[0], x[1], x[2], deepest, block_tables=x[3], **kw) for _ in range(2))
+    ref = decode_attention_plain(x[0], x[1], x[2], deepest, block_tables=x[3], **kw)
+    err, row_err = max_err(got, ref), row_rel_err(got, ref)
+    identical = bool(torch.equal(got, again))
+    k_pos = torch.arange(deepest, device="cuda")
+    row_last = torch.from_numpy(starts).cuda()[:, None] + torch.arange(sq, device="cuda")[None, :]
+    mask = (k_pos[None, None, :] <= row_last[:, :, None])[:, None]
+    lib_sets = [(x[0].transpose(1, 2), _gather_rows(x[1], x[3])[:, :deepest].transpose(1, 2),
+                 _gather_rows(x[2], x[3])[:, :deepest].transpose(1, 2)) for x in layers]
+    nbytes = (int(live.sum()) * hkv * d * 2 + 2 * b * sq * hq * d) * 2 + b * n_log * 4
+    t_ops, t_bytes = 4 * hq * d * sq * int(live.sum()) / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    ms, enqueue_ms = timed([lambda x=x: decode_attention(x[0], x[1], x[2], deepest, block_tables=x[3], **kw)
+                            for x in layers], iters=64)
+    times["decode_attention_ragged_tp2"] = dict(
+        shape=[b, sq, page, n_log, kv_len, hq, hkv, d], dtype="bfloat16", ms=ms, enqueue_ms=enqueue_ms,
+        plain_ms=cuda_ms([lambda x=x: decode_attention_plain(x[0], x[1], x[2], deepest, block_tables=x[3], **kw)
+                          for x in layers], iters=16),
+        library_ms=cuda_ms([lambda x=x: F.scaled_dot_product_attention(*x, attn_mask=mask, enable_gqa=True)
+                            for x in lib_sets], iters=64),
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
+        max_abs_err=err, worst_row_rel_l2=row_err, bit_identical=identical, starts=starts.tolist())
+    del layers, lib_sets
+    if err > TOL["bfloat16"][0] or row_err > ROW_REL_TOL or not identical:
+        raise AssertionError(f"serve_sharded: #4 q_starts at a tp-2 rank's shape: {times['decode_attention_ragged_tp2']}")
+
     for key, m, k, n in SHARDED_QUANT_SHAPES:
         for mode, group in (("int8", 0), ("int4", 64)):
             x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(4000), device="cuda").to(dt)
@@ -5800,7 +6051,9 @@ def sharded_times(results):
             torch.cuda.empty_cache()
     emit("serve_sharded", part="times", library_ms_is={
         "flash_attention_tp2": "scaled_dot_product_attention", "decode_attention_paged_tp2":
-        "scaled_dot_product_attention on the pre-gathered cache", "quant_matmul": "torch.matmul, dequantized bf16"},
+        "scaled_dot_product_attention on the pre-gathered cache", "decode_attention_ragged_tp2":
+        "scaled_dot_product_attention on the pre-gathered cache with the mask",
+        "quant_matmul": "torch.matmul, dequantized bf16"},
         **{k: v for k, v in times.items() if k.endswith("_tp2") or "_tp2_" in k})
 
 
@@ -5833,7 +6086,8 @@ def phase_serve_sharded(results):
         if pool.backend == "gloo" and any(v != "ok" for k, v in probe.items() if k.split("/")[0] in
                                           ("all_reduce", "all_gather")):
             raise AssertionError(f"serve_sharded: gloo refuses a collective of the seam on CUDA tensors: {probe}")
-        for part in (sharded_main_path, sharded_exact, sharded_quantized, sharded_moe):
+        for part in (sharded_main_path, sharded_exact, sharded_quantized, sharded_moe, sharded_disagg,
+                     sharded_model_drafter):
             t1 = time.perf_counter()
             part(results, pool, out)
             torch.cuda.empty_cache()
@@ -5883,9 +6137,11 @@ def sharded_train_main_path(results, tmp, out, beside=None):
     bf16 step (or 1e-3 of it); a one-device restore of the saved step equal,
     leaf for leaf, to the state the fsdp-2 ranks restore and gather.  Also:
     each rank's collectives and bytes a step, peak memory and tokens/s (a
-    rehearsal: two ranks share one card).  ``beside()`` and the one-device
-    step run while the containers do (their traffic is host-bound: the card
-    has room)."""
+    rehearsal: two ranks share one card).  ``beside()`` (on a thread) and
+    the one-device step run while the containers do, from their start (the
+    containers' rendezvous port is held for them), and the restore runs
+    while ``beside()`` may still (their traffic is host-bound: the card has
+    room)."""
     import numpy as np
     import torch
 
@@ -5893,7 +6149,7 @@ def sharded_train_main_path(results, tmp, out, beside=None):
     from tpu_nexus_torch.checkpoint.store import SqliteCheckpointStore
     from tpu_nexus_torch.models.llama import LlamaConfig
     from tpu_nexus_torch.models.registry import LlamaAdapter
-    from tpu_nexus_torch.parallel.distributed import free_port
+    from tpu_nexus_torch.parallel.distributed import reserved_port
     from tpu_nexus_torch.workload.rehearsal import RankWorld
     from tpu_nexus_torch.workload.train import TrainConfig, init_train_state, make_eval_step, make_train_step
 
@@ -5917,13 +6173,6 @@ def sharded_train_main_path(results, tmp, out, beside=None):
         return out
 
     ledger, ckpt = os.path.join(tmp, "ledger.db"), os.path.join(tmp, "ckpt")
-    env = {**{k: v for k, v in os.environ.items() if not k.startswith("NEXUS")},
-           "NEXUS_MODE": "train", "NEXUS_MODEL_PRESET": "nexus_1b", "NEXUS_BATCH": str(batch),
-           "NEXUS_SEQ_LEN": str(seq), "NEXUS_STEPS": str(steps), "NEXUS_HEARTBEAT_EVERY": "1",
-           "NEXUS_CHECKPOINT_EVERY": str(steps), "NEXUS_CHECKPOINT_DIR": ckpt, "NEXUS_NUM_PROCESSES": "2",
-           "NEXUS_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}", "NEXUS_RANK_DEVICE_MAP": "shared",
-           "NEXUS_RUN_ID": "train-sharded", "NEXUS_ALGORITHM": "nexus-1b", "NEXUS_DIST_TIMEOUT_S": "600",
-           "NEXUS__CQL_STORE_TYPE": "sqlite", "NEXUS__SQLITE_STORE_PATH": ledger}
     # the launcher's order: the run's row first (BUFFERED), then its
     # containers (two processes opening a new sqlite ledger at once race on
     # its journal mode)
@@ -5934,33 +6183,37 @@ def sharded_train_main_path(results, tmp, out, beside=None):
     t0 = time.perf_counter()
     logs = [os.path.join(tmp, f"container{i}.err") for i in range(2)]
     procs = []
-    try:
-        for i in range(2):
-            with open(logs[i], "w") as fh:  # a file: a full pipe would stall a container while beside() runs
-                procs.append(subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"], cwd=ROOT,
-                                              env={**env, "NEXUS_PROCESS_ID": str(i)}, stdout=subprocess.DEVNULL,
-                                              stderr=fh))
-        # the containers' rendezvous port was free when drawn: the work
-        # beside them draws its own ports only once theirs is bound (the
-        # coordinator logs its mesh after joining the group)
-        while "rank 0 of mesh" not in Path(logs[0]).read_text() and time.perf_counter() - t0 < 300:
-            if any(p.poll() is not None for p in procs):
-                break
-            time.sleep(0.5)
-        if beside is not None:
-            beside()
-        one_loss, f32_loss = one_device_step1()
-        beside_s = time.perf_counter() - t0
-        for p in procs:
-            p.wait(timeout=900)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    # the containers' rendezvous port is held until they end, so the work
+    # beside them (its own ports included) starts at once
+    with reserved_port() as port:
+        env = {**{k: v for k, v in os.environ.items() if not k.startswith("NEXUS")},
+               "NEXUS_MODE": "train", "NEXUS_MODEL_PRESET": "nexus_1b", "NEXUS_BATCH": str(batch),
+               "NEXUS_SEQ_LEN": str(seq), "NEXUS_STEPS": str(steps), "NEXUS_HEARTBEAT_EVERY": "1",
+               "NEXUS_CHECKPOINT_EVERY": str(steps), "NEXUS_CHECKPOINT_DIR": ckpt, "NEXUS_NUM_PROCESSES": "2",
+               "NEXUS_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "NEXUS_RANK_DEVICE_MAP": "shared",
+               "NEXUS_RUN_ID": "train-sharded", "NEXUS_ALGORITHM": "nexus-1b", "NEXUS_DIST_TIMEOUT_S": "600",
+               "NEXUS__CQL_STORE_TYPE": "sqlite", "NEXUS__SQLITE_STORE_PATH": ledger}
+        try:
+            for i in range(2):
+                with open(logs[i], "w") as fh:  # a file: a full pipe would stall a container while beside() runs
+                    procs.append(subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"], cwd=ROOT,
+                                                  env={**env, "NEXUS_PROCESS_ID": str(i)},
+                                                  stdout=subprocess.DEVNULL, stderr=fh))
+            # beside() on a thread: it outlasts the containers, whose saved
+            # step is restored below while it runs
+            beside_done = _beside(beside) if beside is not None else (lambda: None)
+            one_loss, f32_loss = one_device_step1()
+            for p in procs:
+                p.wait(timeout=900)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     wall = time.perf_counter() - t0
     errs = [Path(log).read_text() for log in logs]
     if any(p.returncode != 0 for p in procs):
+        beside_done()
         raise AssertionError("train_sharded (a): containers exited " + ", ".join(
             f"{i}: {p.returncode}\n{err[-3000:]}" for i, (p, err) in enumerate(zip(procs, errs))))
     summaries = [_summary_of(e) for e in errs]
@@ -5978,6 +6231,8 @@ def sharded_train_main_path(results, tmp, out, beside=None):
     with RankWorld(2, device=SHARDED_DEVICE, timeout_s=600) as world:
         restored = world.run("tpu_nexus_torch.workload.rehearsal:restore_on_mesh", directory=ckpt, step=steps,
                              spec={"fsdp": 2}, model=adapter, train_cfg=tc, device=SHARDED_DEVICE)[0]
+    beside_done()
+    beside_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     per_step = [{name: {"calls": s["collectives"]["calls"][name] / steps,
                         "bytes": s["collectives"]["bytes"][name] / steps} for name in s["collectives"]["calls"]}
@@ -5987,7 +6242,8 @@ def sharded_train_main_path(results, tmp, out, beside=None):
                f"{steps} steps, fsdp 2 over 2 container processes (default mesh)",
         stage=row.lifecycle_stage if row else None, per_chip_steps=row.per_chip_steps if row else None,
         tensor_checkpoint_uri=row.tensor_checkpoint_uri if row else None, wall_s=wall,
-        beside_s=beside_s, beside_is="the probe, (b) and the one-device step ran on the card during this much of it",
+        beside_s=beside_s, beside_is="seconds from the containers' start until the probe and (b) (on a thread), "
+        "the one-device step and the restore below had all finished",
         launches_per_rank=launches, staged=summaries[0]["collectives"]["staged"],
         collectives_per_step_per_rank=per_step, peak_memory_per_rank=peaks,
         losses_per_rank=[[v for _, v in sorted(x.items())] for x in losses],
@@ -6301,8 +6557,9 @@ def pp_ep_main_path(results, tmp, out, beside=None):
     gloo: the rehearsal map), :data:`TRAIN_PP_EP_STEPS` steps of 8 x 2048,
     a save at the last step; (b) nexus_moe at full size, gmm dispatch,
     ``NEXUS_MESH=ep=2`` over two containers the same way, the same steps,
-    started once (a) has joined.  ``beside()``
-    runs while they do.  Checks: every row COMPLETED with its keys at the
+    started with (a) (each run's rendezvous port is held for it).
+    ``beside()`` runs on a thread from their start, and (a)'s restore while
+    it may still.  Checks: every row COMPLETED with its keys at the
     last step; the kernels launched on every rank as the schedule says
     (per step: (a) 56 of each of #1-#3 a stage, 7 layers x 8 microbatches;
     (b) 72 of #7, 24 of #8 and 8 of each of #1-#3 a rank); each step-1 loss
@@ -6314,7 +6571,7 @@ def pp_ep_main_path(results, tmp, out, beside=None):
     from tpu_nexus_torch.checkpoint.models import CheckpointedRequest, LifecycleStage
     from tpu_nexus_torch.checkpoint.store import SqliteCheckpointStore
     from tpu_nexus_torch.models.registry import get_adapter
-    from tpu_nexus_torch.parallel.distributed import free_port
+    from tpu_nexus_torch.parallel.distributed import reserved_port
     from tpu_nexus_torch.workload.rehearsal import RankWorld
     from tpu_nexus_torch.workload.train import TrainConfig
 
@@ -6345,7 +6602,7 @@ def pp_ep_main_path(results, tmp, out, beside=None):
         env = {**base, "NEXUS_MODEL_PRESET": run["preset"], "NEXUS_MESH": run["mesh"],
                "NEXUS_NUM_PROCESSES": str(run["processes"]), "NEXUS_RUN_ID": run["run"],
                "NEXUS_ALGORITHM": run["algorithm"], "NEXUS__SQLITE_STORE_PATH": run["ledger"],
-               "NEXUS_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}", **run["extra"]}
+               "NEXUS_COORDINATOR_ADDRESS": f"127.0.0.1:{run['port']}", **run["extra"]}
         for i in range(run["processes"]):
             logs[part, i] = os.path.join(tmp, f"{part}{i}.err")
             with open(logs[part, i], "w") as fh:
@@ -6353,36 +6610,33 @@ def pp_ep_main_path(results, tmp, out, beside=None):
                                                   env={**env, "NEXUS_PROCESS_ID": str(i)},
                                                   stdout=subprocess.DEVNULL, stderr=fh)
 
-    def joined(part):
-        # a container's coordinator logs its mesh once the group is up
-        while "rank 0 of mesh" not in Path(logs[part, 0]).read_text() and time.perf_counter() - t0 < 300:
-            if any(p.poll() is not None for p in procs.values()):
-                return
-            time.sleep(0.5)
-
     t0 = time.perf_counter()
     one = {}
-    try:
-        start("a")
-        joined("a")
-        start("b")  # its rendezvous port drawn once (a)'s is bound
-        joined("b")
-        if beside is not None:
-            beside()
-        one["a"] = _one_device_step1(dense, tc, next(dense.data(batch, seq, seed=0)))
-        one["b"] = _one_device_step1(moe, tc, next(moe.data(batch, seq, seed=0)))
-        beside_s = time.perf_counter() - t0
-        for p in procs.values():
-            p.wait(timeout=900)
-    finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    # both runs' rendezvous ports are held until their containers end, so
+    # both runs and the work beside them start at once
+    with contextlib.ExitStack() as held:
+        for run in runs.values():
+            run["port"] = held.enter_context(reserved_port())
+        try:
+            start("a")
+            start("b")
+            # beside() on a thread: it outlasts the containers, whose saved
+            # step is restored below while it runs
+            beside_done = _beside(beside) if beside is not None else (lambda: None)
+            one["a"] = _one_device_step1(dense, tc, next(dense.data(batch, seq, seed=0)))
+            one["b"] = _one_device_step1(moe, tc, next(moe.data(batch, seq, seed=0)))
+            for p in procs.values():
+                p.wait(timeout=900)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     wall = time.perf_counter() - t0
     errs = {key: Path(log).read_text() for key, log in logs.items()}
     failed = {key: p.returncode for key, p in procs.items() if p.returncode != 0}
     if failed:
+        beside_done()
         raise AssertionError("train_pp_ep: containers exited " + "; ".join(
             f"{key}: {rc}\n{errs[key][-3000:]}" for key, rc in failed.items()))
     # per rank: one rank a container
@@ -6392,6 +6646,8 @@ def pp_ep_main_path(results, tmp, out, beside=None):
     with RankWorld(2, device=SHARDED_DEVICE, timeout_s=600) as world:
         restored = world.run("tpu_nexus_torch.workload.rehearsal:restore_on_mesh", directory=ckpt, step=steps,
                              spec={"pp": 2}, model=dense, train_cfg=tc, device=SHARDED_DEVICE)[0]
+    beside_done()
+    beside_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     rows = {part: SqliteCheckpointStore(run["ledger"]).read_checkpoint(run["algorithm"], run["run"])
             for part, run in runs.items()}
@@ -6408,6 +6664,8 @@ def pp_ep_main_path(results, tmp, out, beside=None):
         out[part] = dict(
             config=config, stage=row.lifecycle_stage if row else None,
             per_chip_steps=row.per_chip_steps if row else None, wall_s=wall, beside_s=beside_s,
+            beside_is="seconds from the containers' start until (c) (on a thread), the one-device steps and "
+                      "the restore had all finished",
             attention_launches_per_rank=[r["attention_launches"] for r in rs],
             grouped_matmul_launches_per_rank=[r["grouped_matmul_launches"] for r in rs],
             collectives_per_step_per_rank=[_per_step(r, steps, ("pp_send", "pp_recv", "pp_broadcast",
@@ -6540,8 +6798,8 @@ def phase_train_pp_ep(results):
 SERVE_MP_ROUNDS, SERVE_MP_GEN = 1, 32
 #: each part's model: a preset and the fields replaced in its config
 SERVE_MP_MODELS = {
-    "a": ("llama3_8b", {"param_dtype": "bfloat16"}),
-    "b": ("nexus_moe", {}),
+    "a": ("llama3_8b", {"param_dtype": "bfloat16", "n_layers": 8}),
+    "b": ("nexus_moe", {"n_layers": 4}),
     "c": ("nexus_1b", {"n_layers": 4, "dtype": "float32"}),
     "d": ("nexus_1b", {}),
 }
@@ -6801,7 +7059,8 @@ def _collectives_per_step(stats, steps):
 
 
 def mp_main_path(results, tmp, out, pool):
-    """(a) llama3_8b at full width and depth, bf16 params, tp 2 over two
+    """(a) llama3_8b at full width, 8 of its 32 layers (depth cut for the
+    script's time), bf16 params, tp 2 over two
     launched containers (one rank each, both on cuda:0): page 32, 8 slots,
     ``SERVE_MP_ROUNDS`` x 8 requests of 128 + 32 from seed 0.  Beside them
     the in-container tp-2 replica (``pool``: PR 17's path) serves the same
@@ -6835,7 +7094,7 @@ def mp_main_path(results, tmp, out, pool):
     per_rank, ref_rank = _rank_launches(stats), _rank_launches(ref["shard_stats"])
     steps = p0["summary"]["engine_steps"]
     out["a"] = dict(
-        config=f"{preset} {over} at full width and depth, page 32, 8 slots, {8 * SERVE_MP_ROUNDS} requests x "
+        config=f"{preset} {over} at full width, page 32, 8 slots, {8 * SERVE_MP_ROUNDS} requests x "
                f"({SHARDED_PROMPT} + {SERVE_MP_GEN}), tp 2 over 2 launched containers",
         stage=row.lifecycle_stage, per_chip_steps=row.per_chip_steps, terminal_writes=[p0["terminal"], p1["terminal"]],
         wall_s=run.wall_s, finished=p0["summary"]["finished"], engine_steps=steps,
@@ -6866,7 +7125,8 @@ def mp_main_path(results, tmp, out, pool):
 
 
 def mp_replicate(results, tmp, out, pool):
-    """(b) nexus_moe at full width and depth, bf16, one container over
+    """(b) nexus_moe at full width, 4 of its 8 layers (depth cut for the
+    script's time), bf16, one container over
     ``dp=2,ep=2`` (four ranks: two copies of an ep-2 region), 8 requests of
     128 + 16; the in-container ep-2 replica serves the same.  Gates:
     COMPLETED; the tokens equal ep 2's; the copies' #1 and #4 launches
@@ -6898,7 +7158,7 @@ def mp_replicate(results, tmp, out, pool):
     reduce_bytes = [s["collectives"]["bytes"].get("all_reduce", 0) for s in stats]
     ep2_bytes = [s["collectives"]["bytes"].get("all_reduce", 0) for s in ref["shard_stats"]]
     out["b"] = dict(
-        config=f"{preset} {over} at full width and depth, dp 2 x ep 2 in one container (4 ranks), 8 x (128 + 16)",
+        config=f"{preset} {over} at full width, dp 2 x ep 2 in one container (4 ranks), 8 x (128 + 16)",
         stage=row.lifecycle_stage, wall_s=run.wall_s, finished=p0["summary"]["finished"],
         tokens_equal_ep2=p0["tokens"] == want, launches_per_rank=per_rank,
         moe_groups=[s["groups"]["moe"] for s in stats], all_reduce_bytes_per_rank=reduce_bytes,
@@ -7232,12 +7492,30 @@ def main(argv=None) -> int:
         "train_sharded": phase_train_sharded, "train_pp_ep": phase_train_pp_ep,
         "serve_multiprocess": phase_serve_multiprocess,
     }
+    # quant_gate (the card busy, the host idle) runs on a thread beside the
+    # phases of BESIDE_QUANT_GATE (the card idle, the host starting their
+    # containers), from the end of control_plane's OOM container on
+    beside = []
+
+    def join_beside():
+        for t0, done in beside:
+            done()
+            emit("quant_gate_done", seconds=time.perf_counter() - t0, beside=BESIDE_QUANT_GATE)
+        beside.clear()
+
+    if {"quant_gate", "control_plane"} <= set(phases):
+        runners["control_plane"] = lambda r: phase_control_plane(r, after_oom=lambda: beside.append(
+            (time.perf_counter(), _beside(phase_quant_gate, r))))
+        del runners["quant_gate"]
     for name in PHASES + OPT_IN:
         if name in runners and name in phases:
+            if name not in BESIDE_QUANT_GATE:
+                join_beside()
             t0 = time.perf_counter()
             runners[name](results)
             emit(name + "_done", seconds=time.perf_counter() - t0)
 
+    join_beside()
     if set(PHASES) <= set(phases):
         # (source, TPU kernel it replaces, the main path whose run counts it)
         meta = {
@@ -7299,6 +7577,11 @@ def main(argv=None) -> int:
                 # the rank shapes of serve_multiprocess (b): nexus_moe at ep 2
                 entry.setdefault("rank_shapes", {})["serve_moe_ep2"] = {
                     k: v for k, v in results["serve_multiprocess_rank_shapes"][name].items()
+                    if k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+            if name == "decode_attention_ragged" and "decode_attention_ragged_tp2" in results["times"]:
+                # the speculative verify at a tp-2 rank's shape (serve_sharded (g))
+                entry.setdefault("rank_shapes", {})["verify_tp2"] = {
+                    k: v for k, v in results["times"]["decode_attention_ragged_tp2"].items()
                     if k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
             if name in ("quant_matmul_int8", "quant_matmul_int4"):
                 entry.update(design="stream-K, TMA ring fed by a producer warp, mma.sync, merge in the launch",

@@ -38,7 +38,7 @@ from tpu_nexus_torch.core.signals import LifecycleContext
 from tpu_nexus_torch.k8s.fake import FakeKubeClient
 from tpu_nexus_torch.launcher.client import Launcher
 from tpu_nexus_torch.launcher.jobset import LaunchSpec, run_labels
-from tpu_nexus_torch.parallel.distributed import free_port
+from tpu_nexus_torch.parallel.distributed import reserved_port
 from tpu_nexus_torch.supervisor.service import ProcessingConfig, Supervisor
 from tpu_nexus_torch.supervisor.taxonomy import MSG_FATAL_ERROR
 
@@ -261,29 +261,30 @@ def _jobset_env(jobsets, ledger):
     return env
 
 
-def _start_hosts(env, extra=None):
-    env = {**env, "NEXUS_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}", **(extra or {})}
-    return [
-        subprocess.Popen(
-            [sys.executable, "-m", "tpu_nexus_torch.workload"],
-            env={**env, "NEXUS_PROCESS_ID": str(i)},
-            stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT,
-            text=True,
-            cwd=_ROOT,
-        )
-        for i in range(2)
-    ]
-
-
-async def _wait_hosts(procs):
-    try:
-        return [await asyncio.to_thread(p.communicate, timeout=240) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+async def _run_hosts(env, extra=None):
+    """Both hosts' processes to their end: ``(procs, (out, err) each)``.
+    The coordinator's port is held until they end (host 0 listens on it
+    beside the hold)."""
+    with reserved_port() as port:
+        env = {**env, "NEXUS_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", **(extra or {})}
+        procs = [
+            subprocess.Popen(
+                [sys.executable, "-m", "tpu_nexus_torch.workload"],
+                env={**env, "NEXUS_PROCESS_ID": str(i)},
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                text=True,
+                cwd=_ROOT,
+            )
+            for i in range(2)
+        ]
+        try:
+            return procs, [await asyncio.to_thread(p.communicate, timeout=240) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
 
 
 def _supervisor(client, store):
@@ -359,8 +360,7 @@ async def test_full_chain_jobset_multihost(tmp_path):
     assert store.read_checkpoint(ALGORITHM, rid).lifecycle_stage == LifecycleStage.RUNNING
     assert store.read_checkpoint(ALGORITHM, f"{rid}-workers-0") is None
 
-    procs = _start_hosts(_jobset_env(jobsets, ledger))
-    outs = await _wait_hosts(procs)
+    procs, outs = await _run_hosts(_jobset_env(jobsets, ledger))
     for i, (p, (out, _)) in enumerate(zip(procs, outs)):
         assert p.returncode == 137, f"host {i}: rc={p.returncode}\n{out[-3000:]}"
     cp = store.read_checkpoint(ALGORITHM, rid)
@@ -441,8 +441,7 @@ async def test_north_star_preempt_recreate_resume_one_piece(tmp_path):
     env = _jobset_env(jobsets, ledger)
 
     # ---- generation 1: both hosts die by the preempt fault (SIGTERM) ------
-    procs = _start_hosts(env, {"NEXUS_FAULT_MODE": "preempt", "NEXUS_FAULT_STEP": "5"})
-    outs = await _wait_hosts(procs)
+    procs, outs = await _run_hosts(env, {"NEXUS_FAULT_MODE": "preempt", "NEXUS_FAULT_STEP": "5"})
     for i, (p, (out, _)) in enumerate(zip(procs, outs)):
         assert p.returncode in (-15, 143), f"host {i}: rc={p.returncode}\n{out[-3000:]}"
     cp = store.read_checkpoint(ALGORITHM, rid)
@@ -482,8 +481,7 @@ async def test_north_star_preempt_recreate_resume_one_piece(tmp_path):
     assert cp.lifecycle_stage == LifecycleStage.PREEMPTED
 
     # ---- generation 2: the restarted workload resumes and completes ------
-    procs = _start_hosts(env)
-    outs = await _wait_hosts(procs)
+    procs, outs = await _run_hosts(env)
     for i, (p, (out, _)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"host {i}: rc={p.returncode}\n{out[-3000:]}"
         # saves are synchronous: the step-4 commit landed before the SIGTERM

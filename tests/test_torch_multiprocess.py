@@ -38,7 +38,7 @@ from tpu_nexus_torch.checkpoint.store import InMemoryCheckpointStore, SqliteChec
 from tpu_nexus_torch.core.signals import LifecycleContext
 from tpu_nexus_torch.core.telemetry import NullMetrics
 from tpu_nexus_torch.models.llama import LlamaConfig
-from tpu_nexus_torch.parallel.distributed import ProcessContext, free_port
+from tpu_nexus_torch.parallel.distributed import ProcessContext, reserved_port
 from tpu_nexus_torch.parallel.mesh import MeshSpec
 from tpu_nexus_torch.workload.harness import WorkloadConfig, run_workload
 from tpu_nexus_torch.workload.train import TrainConfig
@@ -56,41 +56,42 @@ def _run_rehearsal(tmp_path, tag, n_procs, extra_env):
         CheckpointedRequest(algorithm=algorithm, id=run_id, lifecycle_stage=LifecycleStage.BUFFERED)
     )
     store.close()
-    env_base = {
-        **{k: v for k, v in os.environ.items() if not k.startswith("NEXUS")},
-        "PYTHONPATH": str(ROOT),
-        "NEXUS_DEVICE": "cpu",
-        "NEXUS_RANK_DEVICE_MAP": "shared",
-        "NEXUS_DIST_TIMEOUT_S": "120",
-        "NEXUS_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
-        "NEXUS_NUM_PROCESSES": str(n_procs),
-        "NEXUS_RUN_ID": run_id,
-        "NEXUS_ALGORITHM": algorithm,
-        "NEXUS_REHEARSAL_DB": db,
-        "NEXUS_BATCH": "4",
-        "NEXUS_SEQ_LEN": "128",
-        "NEXUS_STEPS": "6",
-        "NEXUS_HEARTBEAT_EVERY": "2",
-        **extra_env,
-    }
-    procs = [
-        subprocess.Popen(
-            [sys.executable, "-m", "tpu_nexus_torch.workload.rehearsal"],
-            env={**env_base, "NEXUS_PROCESS_ID": str(i)},
-            stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT,
-            text=True,
-            cwd=str(tmp_path),
-        )
-        for i in range(n_procs)
-    ]
-    try:
-        outs = [p.communicate(timeout=240)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    with reserved_port() as port:  # held until the processes end: process 0 listens on it beside the hold
+        env_base = {
+            **{k: v for k, v in os.environ.items() if not k.startswith("NEXUS")},
+            "PYTHONPATH": str(ROOT),
+            "NEXUS_DEVICE": "cpu",
+            "NEXUS_RANK_DEVICE_MAP": "shared",
+            "NEXUS_DIST_TIMEOUT_S": "120",
+            "NEXUS_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+            "NEXUS_NUM_PROCESSES": str(n_procs),
+            "NEXUS_RUN_ID": run_id,
+            "NEXUS_ALGORITHM": algorithm,
+            "NEXUS_REHEARSAL_DB": db,
+            "NEXUS_BATCH": "4",
+            "NEXUS_SEQ_LEN": "128",
+            "NEXUS_STEPS": "6",
+            "NEXUS_HEARTBEAT_EVERY": "2",
+            **extra_env,
+        }
+        procs = [
+            subprocess.Popen(
+                [sys.executable, "-m", "tpu_nexus_torch.workload.rehearsal"],
+                env={**env_base, "NEXUS_PROCESS_ID": str(i)},
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                text=True,
+                cwd=str(tmp_path),
+            )
+            for i in range(n_procs)
+        ]
+        try:
+            outs = [p.communicate(timeout=240)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     for i, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"process {i} ({tag}) failed:\n{out[-3000:]}"
     results = []

@@ -98,26 +98,26 @@ dist.destroy_process_group()
 
 
 def test_process_group_from_the_launcher_env(tmp_path):
-    port = distributed.free_port()
     procs = []
-    for rank in range(2):
-        env = {k: v for k, v in os.environ.items() if not k.startswith("NEXUS")}
-        env.update(NEXUS_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NEXUS_PROCESS_ID=str(rank),
-                   NEXUS_NUM_PROCESSES="2", NEXUS_DEVICE="cpu", NEXUS_RANK_DEVICE_MAP="shared",
-                   NEXUS_DIST_TIMEOUT_S="20", PYTHONPATH=str(ROOT))
-        procs.append(subprocess.Popen([sys.executable, "-c", _RANK], env=env, cwd=str(tmp_path),
-                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outs = []
-    try:
-        for proc in procs:
-            out, err = proc.communicate(timeout=60)
-            assert proc.returncode == 0, err[-2000:]
-            outs.append(json.loads(out.strip().splitlines()[-1]))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    with distributed.reserved_port() as port:
+        for rank in range(2):
+            env = {k: v for k, v in os.environ.items() if not k.startswith("NEXUS")}
+            env.update(NEXUS_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NEXUS_PROCESS_ID=str(rank),
+                       NEXUS_NUM_PROCESSES="2", NEXUS_DEVICE="cpu", NEXUS_RANK_DEVICE_MAP="shared",
+                       NEXUS_DIST_TIMEOUT_S="20", PYTHONPATH=str(ROOT))
+            procs.append(subprocess.Popen([sys.executable, "-c", _RANK], env=env, cwd=str(tmp_path),
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        try:
+            for proc in procs:
+                out, err = proc.communicate(timeout=60)
+                assert proc.returncode == 0, err[-2000:]
+                outs.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     assert sorted(o["rank"] for o in outs) == [0, 1]
     for o in outs:
         assert (o["world"], o["sum"], o["backend"], o["tp_size"], o["jax"]) == (2, 3.0, "gloo", 2, False)
@@ -162,27 +162,28 @@ def test_a_multi_process_run_raises_at_start(tmp_path, entry):
     store = SqliteCheckpointStore(db)
     store.upsert_checkpoint(CheckpointedRequest(algorithm="a", id="multi", lifecycle_stage=LifecycleStage.BUFFERED))
     store.close()
-    env = {k: v for k, v in os.environ.items() if not k.startswith("NEXUS")}
-    env.update(NEXUS_NUM_PROCESSES="2", NEXUS_COORDINATOR_ADDRESS=f"127.0.0.1:{distributed.free_port()}",
-               NEXUS_RUN_ID="multi", NEXUS_ALGORITHM="a", NEXUS_DEVICE="cpu", NEXUS_DIST_TIMEOUT_S="20",
-               NEXUS__CQL_STORE_TYPE="sqlite", NEXUS__SQLITE_STORE_PATH=db, NEXUS_BATCH="2", NEXUS_PROMPT_LEN="8",
-               NEXUS_GEN_TOKENS="3", NEXUS_STEPS="1", NEXUS_HEARTBEAT_EVERY="1", NEXUS_TRACE="0",
-               PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
-               NEXUS_MODE="serve" if entry == "lockstep serving" else "serve-engine")
-    if entry == "serve-engine meshed":
-        env.update(NEXUS_SERVE_MESH="tp=2", NEXUS_RANK_DEVICE_MAP="shared")
     procs = []
-    try:
-        for rank in range(2):
-            procs.append(subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"],
-                                          env={**env, "NEXUS_PROCESS_ID": str(rank)}, cwd=str(tmp_path),
-                                          stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
-        errs = [proc.communicate(timeout=90)[1] for proc in procs]
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    with distributed.reserved_port() as port:
+        env = {k: v for k, v in os.environ.items() if not k.startswith("NEXUS")}
+        env.update(NEXUS_NUM_PROCESSES="2", NEXUS_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   NEXUS_RUN_ID="multi", NEXUS_ALGORITHM="a", NEXUS_DEVICE="cpu", NEXUS_DIST_TIMEOUT_S="20",
+                   NEXUS__CQL_STORE_TYPE="sqlite", NEXUS__SQLITE_STORE_PATH=db, NEXUS_BATCH="2",
+                   NEXUS_PROMPT_LEN="8", NEXUS_GEN_TOKENS="3", NEXUS_STEPS="1", NEXUS_HEARTBEAT_EVERY="1",
+                   NEXUS_TRACE="0", PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+                   NEXUS_MODE="serve" if entry == "lockstep serving" else "serve-engine")
+        if entry == "serve-engine meshed":
+            env.update(NEXUS_SERVE_MESH="tp=2", NEXUS_RANK_DEVICE_MAP="shared")
+        try:
+            for rank in range(2):
+                procs.append(subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"],
+                                              env={**env, "NEXUS_PROCESS_ID": str(rank)}, cwd=str(tmp_path),
+                                              stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+            errs = [proc.communicate(timeout=90)[1] for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     assert [p.returncode for p in procs] == [0, 0], errs[0][-2000:] + errs[1][-2000:]
     assert not any("NotImplementedError" in e for e in errs)
     store = SqliteCheckpointStore(db)

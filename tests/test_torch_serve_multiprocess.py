@@ -15,7 +15,9 @@ CPU, all on the one CPU device under the explicit rehearsal map.
   the leader's exit.  A tp-2 replica over ranks (0, 2) spans the two
   processes; over ranks (0, 1) it is the one-process pool's replica.
   f32 greedy tokens equal the JAX package's ``ShardedModelExecutor`` /
-  ``ShardedPagedModelExecutor`` at tp 2, paged and contiguous.
+  ``ShardedPagedModelExecutor`` at tp 2, paged and contiguous.  A
+  disaggregated fleet hands each request's KV from the replica across the
+  processes to process 0's replica, with the same tokens.
 * **Replicate axes** over all four ranks: dense ``dp=2,tp=2`` and
   ``pp=2,tp=2``, MoE ``fsdp=2,ep=2`` and ``ep=2,sp=2`` (whose ``(ep, tp)``
   regions, ranks (0, 2) and (1, 3), are not contiguous).  Tokens equal the
@@ -33,6 +35,10 @@ CPU, all on the one CPU device under the explicit rehearsal map.
   both processes lands PREEMPTED with both exiting 0; a killed process
   fails the replica inside ``NEXUS_DIST_TIMEOUT_S``, the row FAILED with
   the lost rank named.
+
+The coordinator's port of every pair of launched processes is held bound
+(``distributed.reserved_port``) until process 0 listens on it, so no other
+socket of a busy host can take it in between.
 """
 
 import dataclasses
@@ -64,7 +70,7 @@ from tpu_nexus_torch.checkpoint.store import SqliteCheckpointStore
 from tpu_nexus_torch.models.convert import params_from_numpy
 from tpu_nexus_torch.models.llama import LlamaConfig
 from tpu_nexus_torch.models.moe import MoeConfig
-from tpu_nexus_torch.parallel.distributed import ProcessContext, free_port, rank_plan
+from tpu_nexus_torch.parallel.distributed import ProcessContext, rank_plan, reserved_port
 from tpu_nexus_torch.parallel.mesh import AXIS_ORDER, mesh_coords
 from tpu_nexus_torch.serving import RequestState, ServingEngine
 from tpu_nexus_torch.serving.sharded import (
@@ -122,27 +128,27 @@ def _base_env(tmp_path, port, **extra):
 @pytest.fixture(scope="module")
 def pool(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pool")
-    port = free_port()
-    env = _base_env(tmp, port, NEXUS_MODE="serve-engine", NEXUS_MODEL_PRESET="tiny_tp", NEXUS_SERVE_MESH=POOL_MESH,
-                    NEXUS_RANK_DEVICE_MAP="shared", NEXUS_PROCESS_ID="1", NEXUS__CQL_STORE_TYPE="memory",
-                    NEXUS_DIST_TIMEOUT_S=str(TIMEOUT_S))
-    err = tmp / "process1.err"
-    with open(err, "w") as fh:
-        proc = subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"], env=env, cwd=str(tmp),
-                                stdout=subprocess.DEVNULL, stderr=fh)
-    try:
-        plan = rank_plan(ProcessContext("multi", "serve", 0, 2, f"127.0.0.1:{port}"), _sizes(POOL_MESH), "cpu",
-                         "shared")
-        assert (plan.local, plan.world) == (2, 4)
-        with RankPool(plan=plan, timeout_s=TIMEOUT_S, join_timeout_s=20.0) as p:
-            yield p
-        proc.wait(timeout=60)
-        assert proc.returncode == 0, err.read_text()[-3000:]
-        assert "'ranks': [2, 3]" in err.read_text()
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    with reserved_port() as port:  # no other socket takes it before this process's pool listens on it
+        env = _base_env(tmp, port, NEXUS_MODE="serve-engine", NEXUS_MODEL_PRESET="tiny_tp",
+                        NEXUS_SERVE_MESH=POOL_MESH, NEXUS_RANK_DEVICE_MAP="shared", NEXUS_PROCESS_ID="1",
+                        NEXUS__CQL_STORE_TYPE="memory", NEXUS_DIST_TIMEOUT_S=str(TIMEOUT_S))
+        err = tmp / "process1.err"
+        with open(err, "w") as fh:
+            proc = subprocess.Popen([sys.executable, "-m", "tpu_nexus_torch.workload"], env=env, cwd=str(tmp),
+                                    stdout=subprocess.DEVNULL, stderr=fh)
+        try:
+            plan = rank_plan(ProcessContext("multi", "serve", 0, 2, f"127.0.0.1:{port}"), _sizes(POOL_MESH), "cpu",
+                             "shared")
+            assert (plan.local, plan.world) == (2, 4)
+            with RankPool(plan=plan, timeout_s=TIMEOUT_S, join_timeout_s=20.0) as p:
+                yield p
+            proc.wait(timeout=60)
+            assert proc.returncode == 0, err.read_text()[-3000:]
+            assert "'ranks': [2, 3]" in err.read_text()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def _drain(executor, prompts=PROMPTS, n=T):
@@ -194,6 +200,31 @@ def test_tp2_across_two_processes_matches_jax(pool, paged):
         within.close()
     assert [s["rank"] for s in stats] == [0, 2]
     assert got == one_process == _jax_drain({"tp": 2}, "llama", paged)
+
+
+def test_kv_handoff_across_two_processes(pool):
+    """A disaggregated fleet whose tp-2 prefill replica spans the two
+    launched processes (ranks 0 and 2) and whose tp-2 decode replica is
+    process 0's (ranks 0 and 1): one handoff a request, no fallback, and
+    the fused tokens of the JAX package's sharded executor at tp 2."""
+    from tpu_nexus_torch.serving import ROLE_DECODE, ROLE_PREFILL, DisaggConfig, ServingFleet
+
+    across_mesh, within_mesh = pool.meshes([({"tp": 2}, (0, 2)), ({"tp": 2}, (0, 1))])
+    prefill, decode = _executor(across_mesh, "llama", True), _executor(within_mesh, "llama", True)
+    try:
+        fleet = ServingFleet(disagg=DisaggConfig(), handoff_sleep=lambda s: None)
+        fleet.add_replica("pf-0", ServingEngine(prefill), step=1, role=ROLE_PREFILL)
+        fleet.add_replica("dc-0", ServingEngine(decode), step=1, role=ROLE_DECODE)
+        reqs = []
+        for wave in (0, SLOTS):  # no more than the decode replica's slots at once
+            reqs += [fleet.submit(p, T, request_id=f"r{i}") for i, p in enumerate(PROMPTS[wave:wave + SLOTS], wave)]
+            fleet.run_until_drained(max_steps=5000)
+    finally:
+        prefill.close()
+        decode.close()
+    assert all(r.state == RequestState.FINISHED for r in reqs)
+    assert fleet.handoffs_completed == len(PROMPTS) and fleet.disagg_fallbacks == 0
+    assert {r.request_id: [int(t) for t in r.output_tokens] for r in reqs} == _jax_drain({"tp": 2}, "llama", True)
 
 
 def _copies(axes):
@@ -374,9 +405,10 @@ def _result_of(out):
 def _run_pair(tmp_path, **extra):
     script = tmp_path / "serving_process.py"
     script.write_text(_PROCESS_SCRIPT)
-    env = _base_env(tmp_path, free_port(), NEXUS_BATCH="2", NEXUS_PROMPT_LEN="8", NEXUS_GEN_TOKENS="4",
-                    NEXUS_STEPS="2", NEXUS_HEARTBEAT_EVERY="1", **extra)
-    outs = _finish(tmp_path, _start(tmp_path, env, [str(script)]))
+    with reserved_port() as port:
+        env = _base_env(tmp_path, port, NEXUS_BATCH="2", NEXUS_PROMPT_LEN="8", NEXUS_GEN_TOKENS="4",
+                        NEXUS_STEPS="2", NEXUS_HEARTBEAT_EVERY="1", **extra)
+        outs = _finish(tmp_path, _start(tmp_path, env, [str(script)]))
     results = []
     for out, err in outs:
         assert "RESULT " in out, err[-3000:]
@@ -463,19 +495,22 @@ def test_lockstep_across_processes_matches_jax(tmp_path, monkeypatch, mesh):
 
 
 def _container_pair(tmp_path, **extra):
-    env = _base_env(tmp_path, free_port(), NEXUS_MODE="serve-engine", NEXUS_MODEL_PRESET="tiny",
-                    NEXUS_SERVE_MESH="tp=2", NEXUS_RANK_DEVICE_MAP="shared", NEXUS_BATCH="2",
-                    NEXUS_PROMPT_LEN="8", NEXUS_GEN_TOKENS="64", NEXUS_STEPS="400", NEXUS_HEARTBEAT_EVERY="1",
-                    **extra)
-    procs = _start(tmp_path, env, ["-m", "tpu_nexus_torch.workload"])
-    deadline = time.monotonic() + 90
-    while time.monotonic() < deadline:
-        row = _row(tmp_path)
-        if row is not None and len(row.per_chip_steps or {}) == 2:
-            return procs
-        if any(p.poll() is not None for p in procs):
-            break
-        time.sleep(0.2)
+    # the coordinator's port is held until both processes heartbeat: by
+    # then process 0 listens on it and process 1 has joined
+    with reserved_port() as port:
+        env = _base_env(tmp_path, port, NEXUS_MODE="serve-engine", NEXUS_MODEL_PRESET="tiny",
+                        NEXUS_SERVE_MESH="tp=2", NEXUS_RANK_DEVICE_MAP="shared", NEXUS_BATCH="2",
+                        NEXUS_PROMPT_LEN="8", NEXUS_GEN_TOKENS="64", NEXUS_STEPS="400", NEXUS_HEARTBEAT_EVERY="1",
+                        **extra)
+        procs = _start(tmp_path, env, ["-m", "tpu_nexus_torch.workload"])
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline:
+            row = _row(tmp_path)
+            if row is not None and len(row.per_chip_steps or {}) == 2:
+                return procs
+            if any(p.poll() is not None for p in procs):
+                break
+            time.sleep(0.2)
     _finish(tmp_path, procs, timeout=1)
     pytest.fail(f"the two containers never both heartbeat: {(tmp_path / 'p0.err').read_text()[-3000:]}")
 
@@ -496,6 +531,38 @@ def test_sigterm_to_both_processes_lands_preempted(tmp_path):
     details = json.loads(row.algorithm_failure_details)
     assert sum(details["retired_causes"].values()) > 0
     assert "served on through the leader's drain" in outs[1][1]
+
+
+_BEATING = """
+import sys, time
+from tpu_nexus_torch.serving import sharded
+sharded.ALIVE_EVERY_S = 0.0  # the thread is inside the store's add almost always
+stop = sharded._beat_alive(sys.argv[1], 1)
+time.sleep(0.3)
+stop()
+"""
+
+
+def test_a_worker_process_ends_with_no_liveness_bump_in_flight(tmp_path):
+    """A rank of another launched process bumps its liveness counter from a
+    daemon thread; a bump still in the store's call when the interpreter
+    exits aborts the process (SIGABRT: process 1 of the SIGTERM drill
+    exited -6 now and then).  Stopped as the workers stop it, the thread
+    ends first: the process exits 0 even when it bumps without a pause."""
+    import datetime
+
+    import torch.distributed as dist
+
+    with reserved_port() as port:
+        store = dist.TCPStore("127.0.0.1", port, 1, True, timeout=datetime.timedelta(seconds=30))
+        env = {k: v for k, v in os.environ.items() if not k.startswith("NEXUS")}
+        env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+        for _ in range(3):
+            proc = subprocess.run([sys.executable, "-c", _BEATING, f"tcp://127.0.0.1:{port}"], env=env,
+                                  cwd=str(tmp_path), capture_output=True, text=True, timeout=60)
+            assert proc.returncode == 0, proc.stderr[-2000:]
+        assert store.add("nexus/alive/1", 0) > 0
+        del store
 
 
 def test_a_killed_process_fails_the_replica_within_the_timeout(tmp_path):

@@ -36,12 +36,13 @@ meet only at start, at :func:`process_rendezvous` (the JAX package's
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import socket
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 logger = logging.getLogger(__name__)
 
@@ -161,10 +162,27 @@ def timeout_from_env(env: Optional[dict] = None) -> float:
 
 
 def free_port() -> int:
-    """A free TCP port on the loopback interface, for a local rendezvous."""
+    """A free TCP port on the loopback interface, for a rendezvous this
+    process serves at once: the port is free only when it returns, so any
+    socket of the host may take it before it is bound again."""
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def reserved_port() -> Iterator[int]:
+    """A loopback port held for a rendezvous that a process started later
+    serves (``NEXUS_COORDINATOR_ADDRESS`` of launched processes): bound with
+    ``SO_REUSEADDR`` and never listening while the block runs.  The kernel
+    gives a bound port to no other socket — neither as a connection's local
+    port nor to another ``bind`` to port 0 — while the serving process's
+    own bind with ``SO_REUSEADDR`` (the rendezvous store's) and its listen
+    succeed beside it.  Hold it until that process listens."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", 0))
+        yield s.getsockname()[1]
 
 
 def start_process_group(

@@ -686,6 +686,11 @@ class PagedModelExecutor(_ExecutorCommon):
         raises :class:`~tpu_nexus_torch.serving.handoff.PayloadCorrupt`
         before any device write, so bad bytes never land in the pool, which
         is written in place."""
+        self._write_blocks(payload.blocks, self._checked_ids(payload, block_ids))
+
+    def _checked_ids(self, payload: "KVHandoffPayload", block_ids: Sequence[int]) -> np.ndarray:
+        """The install's block ids, once ``payload`` passed validation
+        against this executor's geometry and its count matches theirs."""
         ids = np.asarray(block_ids, np.int64).reshape(-1)
         validate_payload(
             payload, page_size=self.page_size, leaf_specs=self.kv_leaf_specs()
@@ -695,11 +700,14 @@ class PagedModelExecutor(_ExecutorCommon):
                 f"kv handoff payload for {payload.request_id}: receiver "
                 f"allocated {ids.shape[0]} blocks != payload n_blocks {payload.n_blocks}"
             )
+        return ids
+
+    def _write_blocks(self, blocks: Dict[str, Any], ids: np.ndarray) -> None:
         idx = self._tensor(ids, torch.long)
 
         def run():
             for name, arr in self.cache.items():
-                arr[:, idx] = torch.as_tensor(payload.blocks[name]).to(self.device)
+                arr[:, idx] = torch.as_tensor(blocks[name]).to(self.device)
 
         self._guarded(run)
 

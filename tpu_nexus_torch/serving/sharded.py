@@ -14,7 +14,8 @@ the port splits the replica into a leader and shard workers:
 * **Ranks 1..n-1 are shard workers** (:func:`serve_shard`): they run only
   the executor.  Every executor call on the leader — ``begin`` (prefill +
   insert, the COW copies and ``extend_step`` of the paged executor),
-  ``step``, ``step_scan``, ``verify``, the swap — broadcasts one header
+  ``step``, ``step_scan``, ``verify``, the swap, the KV handoff's
+  ``extract_blocks``/``install_blocks`` — broadcasts one header
   over the replica's control group: the op, then the call's host inputs
   (token ids, slots, cursors, block tables, ``q_starts`` sources).  Each
   rank then runs the same call on its shard; the model's collectives
@@ -49,7 +50,12 @@ scale dim replicates) and :data:`KV_CACHE_AXES`.  Where the JAX package
 ``device_put``s a host tree under those shardings, each rank here reads
 its own slice (:class:`NumpyParams`, :class:`SeedParams`,
 :class:`CheckpointParams`); a swap broadcasts only the checkpoint
-directory and step, so the leader never holds another rank's slice.
+directory and step, so the leader never holds another rank's slice.  (A
+model drafter's self-draft beside the replica loads the whole tree onto
+the leader's device, as the JAX package's draft executor holds it:
+:meth:`ParamSource.whole`.)  The KV handoff speaks one device's payload:
+the leader's ``tp`` group gathers every head for an extract, and each
+rank writes its own heads of an install.
 int8 scales reduce their amax over ``tp`` where the contraction dim is
 sharded (``wo``, ``w_down``), so the sharded quantized tree is the
 one-device tree, sliced.
@@ -293,6 +299,8 @@ STARTUP_TIMEOUT = timedelta(seconds=120)
 #: how often a rank of another launched process bumps its liveness counter
 #: in the pool's store
 ALIVE_EVERY_S = 0.5
+#: a client of the pool's store waits this long for an answer
+_STORE_TIMEOUT = timedelta(seconds=30)
 
 
 @dataclasses.dataclass
@@ -677,9 +685,15 @@ def _amax_reducer(params: Any, mesh: ServeMesh, rules) -> Callable[[str], Option
 
 class ParamSource:
     """Where each rank reads its slice of the replica's weights: picklable,
-    broadcast to the workers, loaded on every rank onto its own device."""
+    broadcast to the workers, loaded on every rank onto its own device.
+    :meth:`whole` loads the whole tree onto one device instead: the model
+    drafter's self-draft beside a sharded executor, on the leader's
+    device (the serving slices stay where they are)."""
 
     def load(self, mesh: ServeMesh, cfg: Any, device: Any) -> Any:
+        raise NotImplementedError  # pragma: no cover - subclass contract
+
+    def whole(self, cfg: Any, device: Any) -> Any:
         raise NotImplementedError  # pragma: no cover - subclass contract
 
 
@@ -695,6 +709,11 @@ class NumpyParams(ParamSource):
 
         return params_from_numpy_shard(self.tree, cfg, mesh, device=device)
 
+    def whole(self, cfg, device):
+        from tpu_nexus_torch.models.convert import params_from_numpy
+
+        return params_from_numpy(self.tree, cfg, device=device)
+
 
 @dataclasses.dataclass
 class SeedParams(ParamSource):
@@ -705,13 +724,18 @@ class SeedParams(ParamSource):
     seed: int
 
     def load(self, mesh, cfg, device):
+        return self._init(cfg, device, _slicer(cfg, mesh))
+
+    def whole(self, cfg, device):
+        return self._init(cfg, device, None)
+
+    def _init(self, cfg, device, leaf_fn):
         from tpu_nexus_torch.models.llama import llama_init
         from tpu_nexus_torch.models.moe import MoeConfig, moe_init
 
         generator = torch.Generator(device=device).manual_seed(self.seed)
-        slicer = _slicer(cfg, mesh)
         init = moe_init if isinstance(cfg, MoeConfig) else llama_init
-        return init(generator, cfg, device=device, leaf_fn=slicer)
+        return init(generator, cfg, device=device, leaf_fn=leaf_fn)
 
 
 @dataclasses.dataclass
@@ -724,6 +748,17 @@ class CheckpointParams(ParamSource):
 
     def load(self, mesh, cfg, device):
         return _verified_slice(self, mesh, cfg, device)
+
+    def whole(self, cfg, device):
+        """The whole tree, after the same verification (every file
+        checksummed, ``restore_params``) before any tensor is read."""
+        from tpu_nexus_torch.workload.tensor_checkpoint import TensorCheckpointer
+
+        ckpt = TensorCheckpointer(self.directory)
+        try:
+            return ckpt.restore_params(self.step, device=device)
+        finally:
+            ckpt.close()
 
 
 def _verified_slice(source: ParamSource, mesh: Any, cfg: Any, device: Any) -> Any:
@@ -993,13 +1028,6 @@ class _ShardedExecutorMixin:
         except Exception as exc:  # noqa: BLE001 - any failure of the control channel loses the replica
             raise ShardLost(f"the stop op did not reach the shard workers: {exc}") from exc
 
-    def extract_blocks(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the KV handoff of a sharded pool is not ported (each rank holds its heads only)"
-        )
-
-    install_blocks = extract_blocks
-
     # -- each rank's half ----------------------------------------------------
 
     def _local_begin(self, *args, **kwargs):
@@ -1071,11 +1099,89 @@ class ShardedPagedModelExecutor(_ShardedExecutorMixin, PagedModelExecutor):
     """:class:`~tpu_nexus_torch.serving.engine.PagedModelExecutor` across a
     replica's ranks: the block pool is heads-sharded (``num_blocks`` stays
     global — block tables, prefix index and COW accounting are the
-    leader's, broadcast with each call)."""
+    leader's, broadcast with each call).
+
+    The KV handoff (``extract_blocks``/``install_blocks``) speaks the
+    one-device payload (``serving/handoff.py``): every kv head, in
+    block-table order, sealed with the same CRCs, so a payload crosses
+    between a sharded and a one-device replica in either direction."""
 
     def _fresh_cache(self):
         return init_paged_cache(self.cfg, self.num_blocks, self.page_size, self.kv_quant,
                                 shardings=self._kv_sharding, device=self.device)
+
+    def kv_leaf_specs(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """The per-block geometry of the REPLICA's pool (every kv head, as
+        one device of the same model holds them), not of this rank's
+        slice: what a payload is validated against."""
+        coords, sizes = self.mesh.coords, _axis_sizes(self.mesh)
+        counts = [shard_index(entry, coords, sizes)[1] for entry in self._kv_sharding.spec]
+        return {
+            name: ((int(arr.shape[0]), int(arr.shape[2]),
+                    *(int(d) * n for d, n in zip(arr.shape[3:], counts[3:]))), arr.dtype)
+            for name, arr in self.cache.items()
+        }
+
+    def extract_blocks(self, block_ids: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """The sender half of a KV handoff, one broadcast call: each rank
+        gathers the blocks of its own heads, the leader's ``tp`` group
+        all-gathers them along the heads dim (``collectives.gather_dim``:
+        the seam's own all-gather, counted in its stats, which moves the
+        card's tensors as every other collective of the replica does, and
+        meets only the ranks that hold the leader's other heads), and the
+        leader copies the whole payload to the host.  Under ``ep`` and on
+        the replicate axes the heads are whole on every rank, so the
+        leader's own blocks are the payload.  Only the leader returns the
+        host tensors; the pool is only read."""
+        return self._call("extract_blocks", (block_ids,), {})
+
+    def install_blocks(self, payload: Any, block_ids: Sequence[int]) -> None:
+        """The receiver half: the leader validates ``payload`` against the
+        replica's geometry (:meth:`kv_leaf_specs`), its CRCs and the block
+        count before any rank is told, so a corrupt payload raises
+        ``PayloadCorrupt`` with no pool written; then the payload and the
+        ids go to every rank in the call's header and each rank writes its
+        own slice of the heads (every copy writes).  A rank that fails
+        alone is :class:`ShardLost`."""
+        self._call("install_blocks", (payload, self._checked_ids(payload, block_ids)), {})
+
+    def block_checksums(self, block_ids: Sequence[int]) -> List[Dict[str, int]]:
+        """Every rank's CRC32 of its own slice of each leaf over
+        ``block_ids`` (in block-table order), in mesh order: what a
+        handoff's install wrote on each rank."""
+        return self._call("block_checksums", (block_ids,), {})
+
+    def _local_extract_blocks(self, block_ids):
+        ids = np.asarray(block_ids, np.int64).reshape(-1)
+        if ids.shape[0] < 1:
+            raise ValueError("extract_blocks requires at least one block id")
+        idx = self._tensor(ids, torch.long)
+        comm, dim = self.comm, KV_CACHE_AXES.index("kv_heads")
+        gather = comm.tp_size > 1 and self.mesh.ranks[0] in self.mesh.members["tp"]
+
+        def run():
+            if not (gather or self.mesh.is_leader):
+                return None  # another copy's rank: the leader's copy holds the payload
+            blocks = {name: arr[:, idx] for name, arr in self.cache.items()}
+            if gather:
+                blocks = {name: collectives.gather_dim(b, dim, comm.tp_group, comm.tp_size, comm)
+                          for name, b in blocks.items()}
+            return {name: b.contiguous().cpu() for name, b in blocks.items()} if self.mesh.is_leader else None
+
+        return self._guarded(run)
+
+    def _local_install_blocks(self, payload, ids):
+        coords, sizes = self.mesh.coords, _axis_sizes(self.mesh)
+        spec = self._kv_sharding.spec
+        self._write_blocks({name: shard_leaf(torch.as_tensor(b), spec, coords, sizes)
+                            for name, b in payload.blocks.items()}, ids)
+
+    def _local_block_checksums(self, block_ids):
+        from tpu_nexus_torch.serving.handoff import leaf_checksum
+
+        idx = self._tensor(np.asarray(block_ids, np.int64).reshape(-1), torch.long)
+        mine = {name: leaf_checksum(arr[:, idx].cpu()) for name, arr in self.cache.items()}
+        return self.mesh.gather(mine)
 
 
 _EXECUTORS = {cls.__name__: cls for cls in (ShardedModelExecutor, ShardedPagedModelExecutor)}
@@ -1348,10 +1454,13 @@ def _pool_op(msg: Any, device: Any) -> Any:
     return found
 
 
-def _join_pool(rank: int, world: int, init_method: str, device: str, backend: str, alive: bool) -> torch.device:
+def _join_pool(
+    rank: int, world: int, init_method: str, device: str, backend: str, alive: bool
+) -> Tuple[torch.device, Callable[[], None]]:
     """A worker rank's device and its place in the pool's process group
-    (it waits there for the leader at the idle timeout); ``alive``: a rank
-    of another launched process, which bumps its liveness counter."""
+    (it waits there for the leader at the idle timeout), with the stop of
+    its liveness counter (``alive``: a rank of another launched process
+    bumps one; the caller stops it before the process ends)."""
     import os
 
     from tpu_nexus_torch.parallel.distributed import start_process_group
@@ -1362,9 +1471,7 @@ def _join_pool(rank: int, world: int, init_method: str, device: str, backend: st
     else:  # ranks sharing the host's cores: a share each, not all of them each
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     start_process_group(init_method, rank, world, backend, IDLE_TIMEOUT.total_seconds())
-    if alive:
-        _beat_alive(init_method, rank)
-    return dev
+    return dev, (_beat_alive(init_method, rank) if alive else (lambda: None))
 
 
 def _store_client(init_method: str) -> Any:
@@ -1373,27 +1480,39 @@ def _store_client(init_method: str) -> Any:
     import torch.distributed as dist
 
     host, port = init_method.removeprefix("tcp://").rsplit(":", 1)
-    return dist.TCPStore(host, int(port), is_master=False, timeout=timedelta(seconds=30))
+    return dist.TCPStore(host, int(port), is_master=False, timeout=_STORE_TIMEOUT)
 
 
-def _beat_alive(init_method: str, rank: int) -> None:
+def _beat_alive(init_method: str, rank: int) -> Callable[[], None]:
     """Bump ``nexus/alive/<rank>`` in the pool's store every
     :data:`ALIVE_EVERY_S` from a daemon thread, so the leader can name a
     rank of another process that died or stopped
-    (:meth:`RankPool.lost_ranks`); the thread ends with the store."""
+    (:meth:`RankPool.lost_ranks`); the thread ends with the store.  Returns
+    the stop: it ends the thread and waits for it, so that no bump is in
+    flight when the process exits (a daemon thread inside the store's call
+    at interpreter exit aborts the process: SIGABRT, "terminate called
+    without an active exception")."""
     import threading
-    import time
+
+    stopped = threading.Event()
 
     def beat() -> None:
         try:
             store = _store_client(init_method)
-            while True:
+            while not stopped.is_set():
                 store.add(f"nexus/alive/{rank}", 1)
-                time.sleep(ALIVE_EVERY_S)
+                stopped.wait(ALIVE_EVERY_S)
         except Exception:  # noqa: BLE001 - the leader's store is gone: so is the pool
             return
 
-    threading.Thread(target=beat, name=f"alive-{rank}", daemon=True).start()
+    thread = threading.Thread(target=beat, name=f"alive-{rank}", daemon=True)
+    thread.start()
+
+    def stop() -> None:
+        stopped.set()
+        thread.join(_STORE_TIMEOUT.total_seconds())
+
+    return stop
 
 
 def _worker_loop(dev: torch.device, timeout_s: float, on_call: Optional[Callable[[int], None]] = None) -> None:
@@ -1427,7 +1546,11 @@ def _pool_worker(
     import sys
 
     logging.basicConfig(level=log_level, stream=sys.stderr)
-    _worker_loop(_join_pool(rank, world, init_method, device, backend, alive), timeout_s)
+    dev, stop_beat = _join_pool(rank, world, init_method, device, backend, alive)
+    try:
+        _worker_loop(dev, timeout_s)
+    finally:
+        stop_beat()
 
 
 def serve_launched_ranks(
@@ -1458,8 +1581,11 @@ def serve_launched_ranks(
         procs.append(proc)
     ok = False
     try:
-        _worker_loop(_join_pool(first, plan.world, plan.init_method, str(plan.devices[0]), plan.backend, True),
-                     timeout_s, on_call)
+        dev, stop_beat = _join_pool(first, plan.world, plan.init_method, str(plan.devices[0]), plan.backend, True)
+        try:
+            _worker_loop(dev, timeout_s, on_call)
+        finally:
+            stop_beat()
         ok = True
     finally:
         # a failed first rank takes its local ranks down at once

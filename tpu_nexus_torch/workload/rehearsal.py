@@ -69,13 +69,16 @@ class RankWorld:
                  join_timeout_s: float = 30.0) -> None:
         import torch.multiprocessing as mp
 
-        from tpu_nexus_torch.parallel.distributed import free_port
+        from tpu_nexus_torch.parallel.distributed import reserved_port
 
         ctx = mp.get_context("spawn")
         self.world, self.timeout_s, self.join_timeout_s = world, timeout_s, join_timeout_s
         self._results = ctx.Queue()
         self._jobs = [ctx.Queue() for _ in range(world)]
-        init = f"tcp://127.0.0.1:{free_port()}"
+        # rank 0 serves the rendezvous once it has started: its port is held
+        # for the world's life, so no other socket of the host takes it first
+        self._port = contextlib.ExitStack()
+        init = f"tcp://127.0.0.1:{self._port.enter_context(reserved_port())}"
         self.procs = [
             ctx.Process(target=_rank_main, args=(r, world, init, device, timeout_s, self._jobs[r], self._results,
                                                  logger.getEffectiveLevel()), daemon=True)
@@ -122,6 +125,7 @@ class RankWorld:
             if p.is_alive():
                 p.kill()
                 p.join(5.0)
+        self._port.close()
 
     def __enter__(self) -> "RankWorld":
         return self

@@ -982,6 +982,17 @@ def _serve_engine_loop(
         decode_steps=cfg.decode_steps,
         stop_token=cfg.stop_token,
     )
+    # a draft preset over another vocab is refused before any device work
+    draft_adapter, draft_cfg = None, mcfg
+    if cfg.spec_k and cfg.spec_drafter == "model" and cfg.spec_draft_preset:
+        draft_adapter = adapter_for(get_adapter(cfg.spec_draft_preset))
+        draft_cfg = draft_adapter.config
+        if draft_cfg.vocab_size != mcfg.vocab_size:
+            raise ValueError(
+                f"spec_draft_preset {cfg.spec_draft_preset!r} vocab "
+                f"{draft_cfg.vocab_size} != serving model vocab "
+                f"{mcfg.vocab_size}"
+            )
     if pool is not None:
         # tensor/expert-parallel serving: the same engine over a sharded
         # executor whose shard workers each read their own slice
@@ -991,10 +1002,6 @@ def _serve_engine_loop(
             parse_serve_mesh,
         )
 
-        if cfg.spec_k and cfg.spec_drafter == "model":
-            raise NotImplementedError(
-                "the model drafter beside a sharded executor is not ported (use NEXUS_SPEC_DRAFTER=ngram)"
-            )
         mesh = pool.mesh(parse_serve_mesh(cfg.serve_mesh))
         device = mesh.device
         if cfg.page_size:
@@ -1016,21 +1023,23 @@ def _serve_engine_loop(
     if cfg.spec_k:
         # speculative decoding (greedy-only, validated at parse): ngram needs
         # no weights; the model drafter runs a contiguous executor over the
-        # draft preset's weights (empty preset = self-draft)
+        # draft preset's weights (empty preset = self-draft).  Beside a
+        # sharded executor the draft is a plain one-device executor on the
+        # leader's device, as in the JAX package: a self-draft loads the
+        # whole tree there from the replica's ParamSource (quantized as the
+        # one-device loop serves it), while the serving slices stay on
+        # their ranks
         if cfg.spec_drafter == "ngram":
             drafter = NGramDrafter(cfg.batch_size)
         else:
-            draft_params, draft_cfg = params, mcfg
-            if cfg.spec_draft_preset:
-                draft_adapter = adapter_for(get_adapter(cfg.spec_draft_preset))
-                draft_cfg = draft_adapter.config
-                if draft_cfg.vocab_size != mcfg.vocab_size:
-                    raise ValueError(
-                        f"spec_draft_preset {cfg.spec_draft_preset!r} vocab "
-                        f"{draft_cfg.vocab_size} != serving model vocab "
-                        f"{mcfg.vocab_size}"
-                    )
+            if draft_adapter is not None:
                 draft_params = draft_adapter.init(torch.Generator(device=device).manual_seed(cfg.seed), device)
+            elif pool is not None:
+                draft_params = params.whole(mcfg, device)
+                if cfg.quantize:
+                    draft_params = quantize_params(draft_params, mode=cfg.quantize, group=cfg.quant_group)
+            else:
+                draft_params = params
             draft_executor = ModelExecutor(
                 draft_params, draft_cfg,
                 # the draft runs full precision: its budget is acceptance
